@@ -12,25 +12,32 @@ phase prints one JSON line; any failure raises and exits non-zero.
 
 Phases:
   device          the card (nvidia-smi name and power limit), torch, CUDA
-  build           seconds to build both kernels, ptxas registers/spills
-  waterfill       ``schedule_grouped`` (kernel ``waterfill_scan``) at
-                  1000 nodes x 8 resources x 64 classes x 1,000,000 tasks:
-                  kernel == plain version on the card == numpy host twin,
-                  bit for bit; again at the contract's limit (8192 x 16 x
-                  128, per-class masks, negative avail) for correctness
+  build           seconds to build both kernels, ptxas registers/spills,
+                  and the SASS instructions that show the Hopper paths
+                  (HGMMA and UTMALDG in flash attention, cluster barriers
+                  in the water-fill)
+  waterfill       ``schedule_grouped`` (kernel ``waterfill_scan``, one
+                  launch of a thread-block cluster) at 1000 nodes x 8
+                  resources x 64 classes x 1,000,000 tasks: kernel ==
+                  plain version on the card == numpy host twin, bit for
+                  bit; again at the contract's limit (8192 x 16 x 128,
+                  per-class masks, negative avail), which is also timed,
+                  and at 8192 x 64 x 32, where the rows spill out of
+                  shared memory; the launch each made (cluster size,
+                  threads, columns on chip), per-class cost, bounds
   beat            the main path: ``make_delta_scheduler(crm).beat(...)``
                   on the GPU, bench.py's churn cluster at 1000 nodes x 64
                   classes x 1,000,000 tasks per beat, 12 dirty rows of
                   churn between beats; every beat bit-equal to the host
-                  twin (counts and
-                  lease budgets); beat p50/p99, tasks/s, launches,
-                  readbacks per beat
+                  twin (counts and lease budgets); beat p50/p99,
+                  tasks/s, launches, readbacks per beat
   flash_attention the ops path: ``ops.flash_attention`` at B=2, T=4096,
-                  H=16, D=128 (bf16 causal, bf16, f16) and f32 at T=1024,
-                  D=64, against the plain version within an elementwise
-                  limit (FLASH_TOL) that must also reject the plain version
-                  with its last key tile dropped; kernel/plain/library
-                  times and the bound
+                  H=16, D=128 (bf16 causal, bf16, f16), bf16 causal at
+                  D=64, and f32 at T=1024, D=64, against the plain version
+                  within an elementwise limit (FLASH_TOL) that must also
+                  reject the plain version with its last 64 keys dropped;
+                  kernel/plain/library times, the bound, the share of the
+                  bound reached and the ratio to the library call
 Then the ``kernels`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 
@@ -44,6 +51,7 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -73,7 +81,8 @@ FLASH_TOL = {  # dtype: (atol, rtol, p_u)
     # output: two bf16 ulps (each <= 2**-7 |o|); p to bf16: roundoff 2**-8
     "bfloat16": (1e-5, 2.0**-6, 2.0**-8),
 }
-# the kernel's key tile; the limit must reject a kernel that skips one
+# the limit must reject a kernel that skips the last 64 keys (half of the
+# 16-bit kernel's 128-key tile, the f32 kernel's whole tile)
 FLASH_KEY_TILE = 64
 
 
@@ -135,11 +144,34 @@ def phase_build():
     ptxas = {}
     for name in _build.SOURCES:
         lines = [ln.strip() for ln in _build.build_log(name).splitlines()
-                 if "registers" in ln or "spill" in ln]
-        ptxas[name] = lines[:16]
+                 if "registers" in ln or "spill" in ln or "warning" in ln]
+        ptxas[name] = lines[:40]
     emit({"phase": "build", "seconds": round(total, 3),
           "per_kernel_s": {k: round(v, 3) for k, v in per_kernel.items()},
-          "ptxas": ptxas})
+          "ptxas": ptxas, "sass": sass_evidence(_build)})
+
+
+# SASS opcodes that show each kernel's Hopper path was compiled in: wgmma
+# (HGMMA) and TMA loads (UTMALDG) in flash attention, cluster barriers
+# (UCGABAR) in the water-fill
+SASS_REQUIRED = {"flash_attention": ("HGMMA", "UTMALDG"),
+                 "waterfill": ("UCGABAR",)}
+
+
+def sass_evidence(_build):
+    """Counts of those opcodes in each built library (cuobjdump -sass);
+    raises if one is missing."""
+    tool = str(Path(_build._nvcc()).with_name("cuobjdump"))
+    found = {}
+    for name, opcodes in SASS_REQUIRED.items():
+        sass = subprocess.run([tool, "-sass", str(_build.lib_path(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        found[name] = {op: sass.count(op) for op in opcodes}
+        missing = [op for op, k in found[name].items() if k == 0]
+        if missing:
+            raise AssertionError(f"{name}: no {missing} in its SASS")
+    return found
 
 
 # -- phase: waterfill (schedule_grouped) -------------------------------------
@@ -242,38 +274,59 @@ def phase_waterfill(dev):
                                  counts, masks)
     check("headline require_available", totals, avail, node_mask, reqs,
           counts, masks, True)
-    kernel_ms = cuda_ms(lambda: hk.schedule_grouped(*args, thr))
+    def timing(args, reqs):
+        """Kernel ms, the cost of one class ((G classes - 1 class) / (G -
+        1): the cluster's dependent chain of 6 exchanges per class), the
+        bound, and the same operations at the rate of one SM and of the
+        cluster's SMs."""
+        n, r = args[0].shape
+        g = reqs.shape[0]
+        kernel_ms = cuda_ms(lambda: hk.schedule_grouped(*args, thr))
+        layout = hk.waterfill_scan.last_layout      # the launch just timed
+        one = [args[0], args[1], args[2], args[3][:1], args[4][:1],
+               args[5][:1]]
+        one_class_ms = cuda_ms(lambda: hk.schedule_grouped(*one, thr))
+        n_bytes = (2 * n * r * 4 + n + g * r * 4 + g * 4 + g * n  # inputs
+                   + g * (n + 1) * 4 + n * r * 4)                 # outputs
+        n_ops = waterfill_ops(reqs, n)
+        bound_ms, bound_by = bound(n_bytes, n_ops, PEAK_I32)
+        sm_ms = n_ops / (PEAK_I32 / SM_COUNT) * 1e3
+        return {"shape": [n, r, g], "cluster": layout["cluster"],
+                "layout": layout, "kernel_ms": kernel_ms,
+                "one_class_ms": one_class_ms,
+                "per_class_ms": (kernel_ms - one_class_ms) / (g - 1),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "one_sm_ops_ms": sm_ms,
+                "cluster_sms_ops_ms": sm_ms / layout["cluster"]}
+
+    snap = timing(args, reqs)
     plain_ms = cuda_ms(lambda: hk.waterfill_scan_plain(*args, thr))
-    # one class alone: the per-class cost of the block's dependent chain
-    # of ~20 block reductions (15 bisection steps, capacity, base, level,
-    # scan, argmin) is (G classes - 1 class) / (G - 1)
-    one = [args[0], args[1], args[2], args[3][:1], args[4][:1], args[5][:1]]
-    one_class_ms = cuda_ms(lambda: hk.schedule_grouped(*one, thr))
-    n, r, g = N_NODES, N_RES, N_CLASSES
-    n_bytes = (2 * n * r * 4 + n + g * r * 4 + g * 4 + g * n    # inputs
-               + g * (n + 1) * 4 + n * r * 4)                   # outputs
-    n_ops = waterfill_ops(reqs, n)
-    bound_ms, bound_by = bound(n_bytes, n_ops, PEAK_I32)
-    one_sm_ms = n_ops / (PEAK_I32 / SM_COUNT) * 1e3
 
     lt, la, lm, lr, lc, lmask = limit_problem()
-    check("limit 8192x16x128", lt, la, lm, lr, lc, lmask)
+    largs, _, _ = check("limit 8192x16x128", lt, la, lm, lr, lc, lmask)
     # the autoscaler's first-fit threshold with its fit semantics
     check("limit 8192x16x128 first-fit", lt, la, lm, lr, lc, lmask,
           True, 2 * SCALE + 1)
+    limit = timing(largs, lr)
+    # 64 resource kinds at the node limit: the rows spill past what 16
+    # CTAs' shared memory holds.  Classes ask for kinds among the first
+    # and last 6 columns, the last ones past the columns kept on chip.
+    wt, wa, wm, wr, wc, wmask = limit_problem(seed=2, r=64, g=32)
+    wr[:, 6:58] = 0
+    wargs, wplaced, _ = check("wide 8192x64x32", wt, wa, wm, wr, wc, wmask)
+    wide = timing(wargs, wr)
+    if wide["layout"]["shared_cols"] >= 64 or wplaced == 0:
+        raise AssertionError(f"8192 x 64: spilled nothing or placed "
+                             f"nothing ({wide['layout']}, {wplaced})")
+    wide["placed"] = wplaced
     result = {"phase": "waterfill", "entry": "schedule_grouped",
-              "shape": [n, r, g, N_TASKS], "bit_exact": True,
+              "tasks": N_TASKS, "bit_exact": True,
               "checked": ["headline", "headline require_available",
                           "limit 8192x16x128",
-                          "limit 8192x16x128 first-fit"],
+                          "limit 8192x16x128 first-fit",
+                          "wide 8192x64x32"],
               "placed": placed, "queued_or_infeasible": queued,
-              "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-              "bound_ms": bound_ms, "bound_by": bound_by,
-              # the same operations at one SM's int32 rate: the kernel
-              # runs one block
-              "one_sm_ops_ms": one_sm_ms,
-              "one_class_ms": one_class_ms,
-              "per_class_ms": (kernel_ms - one_class_ms) / (g - 1)}
+              **snap, "plain_ms": plain_ms, "limit": limit, "wide": wide}
     emit(result)
     return result
 
@@ -388,6 +441,7 @@ def phase_beat(dev, warmup=5, beats=50, churn=12):
                                                              want_b)):
             mismatches += 1
     launches = hk.waterfill_scan.launches
+    layout = hk.waterfill_scan.last_layout
     readbacks = eng.readbacks
     # --- end of the main path ---
     n_beats = warmup + beats
@@ -427,6 +481,7 @@ def phase_beat(dev, warmup=5, beats=50, churn=12):
               "tasks_per_s": int(counts.sum()) / (p50 / 1e3),
               "hit_rate": eng.hit_rate(),
               "waterfill_launches": launches,
+              "waterfill_layout": layout,
               "readbacks_per_beat": readbacks / n_beats,
               "phases_ms_per_beat_profiled": {
                   k: v / n_prof for k, v in eng.phase_ms.items()},
@@ -481,6 +536,7 @@ def phase_flash(dev):
     cases = [("bfloat16", True, 2, 4096, 16, 128),
              ("bfloat16", False, 2, 4096, 16, 128),
              ("float16", False, 2, 4096, 16, 128),
+             ("bfloat16", True, 2, 4096, 16, 64),
              ("float32", False, 2, 1024, 16, 64)]
     rows = []
     for dtype_name, causal, b, t, h, d in cases:
@@ -527,6 +583,8 @@ def phase_flash(dev):
                      "kernel_ms": kernel_ms,
                      "plain_ms": plain_ms, "library_ms": library_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bound_share": bound_ms / kernel_ms,
+                     "vs_library": kernel_ms / library_ms,
                      "tflops": flops / (kernel_ms / 1e3) / 1e12})
     result = {"phase": "flash_attention", "entry": "ops.flash_attention",
               "main_path_launches": main_launches, "cases": rows}
@@ -558,6 +616,7 @@ def main() -> int:
          # 0: the waterfill phase raises unless it is bit-exact
          "launches": beat["waterfill_launches"], "max_abs_err": 0,
          "ms": wf["kernel_ms"], "plain_ms": wf["plain_ms"],
+         "cluster": wf["cluster"],
          "bound_ms": wf["bound_ms"], "bound_by": wf["bound_by"],
          "library_ms": None, "checked": True},
         {"name": "flash_attention", "route": "cuda",

@@ -39,7 +39,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "waterfill": ("rt_waterfill_scan",
                   [_P, _P, _P, _P, _P, _P, _P, _P,
-                   _I, _I, _I, _I, _I, _I, _P]),
+                   _I, _I, _I, _I, _I, _P, _P]),
     "flash_attention": ("rt_flash_attention",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          ctypes.c_float, _P]),

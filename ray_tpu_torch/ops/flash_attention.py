@@ -3,9 +3,9 @@
 The port of ``ray_tpu/ops/flash_attention.py`` (a Pallas TPU kernel):
 blocked attention with the online-softmax recurrence, O(T) memory
 instead of the O(T^2) score matrix.  The kernel is
-``csrc/flash_attention.cu`` (WMMA tensor cores for f16/bf16, f32 FMA for
-f32; D in {64, 128}); ``flash_attention_plain`` is the dense PyTorch
-version of the same function, which CPU tensors take.
+``csrc/flash_attention.cu`` (wgmma + TMA on Hopper for f16/bf16, f32
+FMA for f32; D in {64, 128}); ``flash_attention_plain`` is the dense
+PyTorch version of the same function, which CPU tensors take.
 
 Shapes ``(batch, seq, heads, dim)`` at the public function, as in JAX.
 """
@@ -41,7 +41,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
 
     Same checks and messages as the JAX function.  ``block_q``/``block_k``
     are validated for parity with its signature; the CUDA kernel tiles by
-    its own 64x64.  CPU tensors take ``flash_attention_plain``; CUDA
+    its own (128 x 128 for f16/bf16, 64 x 64 for f32).  CPU tensors take
+    ``flash_attention_plain``; CUDA
     tensors launch the kernel (f32/f16/bf16, D in {64, 128}) or raise."""
     b, t, h, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
@@ -69,7 +70,7 @@ def flash_attention(q, k, v, *, causal: bool = False,
                              f"{x.device}, q is {q.dtype} on {q.device}")
     from . import _build
 
-    # the kernel reads rows with 16-byte vector loads
+    # TMA's tensor maps need a 16-byte aligned, row-contiguous base
     q, k, v = (x if x.is_contiguous() and x.data_ptr() % 16 == 0
                else x.clone(memory_format=torch.contiguous_format)
                for x in (q, k, v))

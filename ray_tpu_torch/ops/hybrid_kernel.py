@@ -13,12 +13,13 @@ integer form per (node, resource), so L* is a fixed 15-step bisection.
 Classes run in order, carrying ``avail``.
 
 That class loop — a ``lax.scan`` in the JAX package — is the hand-written
-CUDA kernel ``waterfill_scan`` (``csrc/waterfill.cu``): eagerly, each
-class would cost ~45 small launches.  Its plain PyTorch version
-``waterfill_scan_plain`` repeats the arithmetic as tensor ops; the
-wrapper takes it only for CPU tensors.  The rest of the beat (key
-rescoring, dirty-row scatters, budget pricing, the per-class argmin) is
-a few vectorised tensor ops and stays PyTorch.
+CUDA kernel ``waterfill_scan`` (``csrc/waterfill.cu``, one launch of a
+thread-block cluster): eagerly, each class would cost ~45 small
+launches.  Its plain PyTorch version ``waterfill_scan_plain`` repeats
+the arithmetic as tensor ops; the wrapper takes it only for CPU
+tensors.  The rest of the beat (key rescoring, dirty-row scatters,
+budget pricing, the per-class argmin) is a few vectorised tensor ops
+and stays PyTorch.
 
 All arithmetic is int32 and wraps as XLA's does; ``//`` floors on both.
 torch's ``sum``/``cumsum`` widen int32 to int64, so every such result is
@@ -27,19 +28,19 @@ cast back to int32 (the wrap is the same modulo 2**32).
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..scheduling.contract import AVAIL_SHIFT, BUDGET_CAP, SCALE, SCORE_SHIFT
+from ..scheduling.contract import (AVAIL_SHIFT, BUDGET_CAP, MAX_NODES, SCALE,
+                                   SCORE_SHIFT)
 
 _BIG = 1 << 30
 _INF_KEY = 2**31 - 1
 _BISECT_STEPS = SCALE.bit_length() + 2
 _I32 = torch.int32
-# the kernel's block: at most 1024 threads, 8 rows each
-_MAX_THREADS = 1024
-_MAX_ROWS_PER_THREAD = 8
 
 
 def _floordiv(a, b):
@@ -168,10 +169,6 @@ def waterfill_scan_plain(totals, avail, node_mask, group_reqs, group_counts,
     return counts, av.clone() if av is avail else av
 
 
-def _kernel_threads(n: int) -> int:
-    return min(_MAX_THREADS, max(32, -(-n // 32) * 32))
-
-
 def waterfill_scan(totals, avail, node_mask, group_reqs, group_counts,
                    group_masks, thr_fp, require_available=False):
     """The grouped water-fill: G classes placed in order over N nodes,
@@ -184,7 +181,10 @@ def waterfill_scan(totals, avail, node_mask, group_reqs, group_counts,
     bool or None, thr_fp the spread threshold in score fixed point.
 
     CPU tensors take ``waterfill_scan_plain``; CUDA tensors launch the
-    hand-written kernel (``csrc/waterfill.cu``) or raise."""
+    hand-written kernel (``csrc/waterfill.cu``) or raise.  The kernel
+    picks its launch from (N, R) and the card; ``waterfill_scan.
+    last_layout`` holds the last one (cluster size, threads per CTA,
+    columns of each row in shared memory, used*SCALE + 1 columns kept)."""
     if totals.device.type == "cpu":
         return waterfill_scan_plain(totals, avail, node_mask, group_reqs,
                                     group_counts, group_masks, thr_fp,
@@ -196,9 +196,9 @@ def waterfill_scan(totals, avail, node_mask, group_reqs, group_counts,
 
     n, r = totals.shape
     g = group_reqs.shape[0]
-    if not 1 <= n <= _MAX_THREADS * _MAX_ROWS_PER_THREAD:
+    if not 1 <= n <= MAX_NODES:
         raise ValueError(f"waterfill_scan: {n} nodes outside "
-                         f"[1, {_MAX_THREADS * _MAX_ROWS_PER_THREAD}]")
+                         f"[1, {MAX_NODES}]")
     args = [("totals", totals, _I32, (n, r)), ("avail", avail, _I32, (n, r)),
             ("node_mask", node_mask, torch.bool, (n,)),
             ("group_reqs", group_reqs, _I32, (g, r)),
@@ -214,19 +214,25 @@ def waterfill_scan(totals, avail, node_mask, group_reqs, group_counts,
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
     counts = torch.empty((g, n + 1), dtype=_I32, device=totals.device)
     new_avail = torch.empty((n, r), dtype=_I32, device=totals.device)
+    layout = (ctypes.c_int * 4)()
     fn = _build.load("waterfill")
-    err = fn(totals.data_ptr(), avail.data_ptr(), node_mask.data_ptr(),
-             group_reqs.data_ptr(), group_counts.data_ptr(),
-             None if group_masks is None else group_masks.data_ptr(),
-             counts.data_ptr(), new_avail.data_ptr(), n, r, g, int(thr_fp),
-             int(bool(require_available)), _kernel_threads(n),
-             torch.cuda.current_stream(totals.device).cuda_stream)
+    with torch.cuda.device(totals.device):
+        err = fn(totals.data_ptr(), avail.data_ptr(), node_mask.data_ptr(),
+                 group_reqs.data_ptr(), group_counts.data_ptr(),
+                 None if group_masks is None else group_masks.data_ptr(),
+                 counts.data_ptr(), new_avail.data_ptr(), n, r, g,
+                 int(thr_fp), int(bool(require_available)),
+                 ctypes.addressof(layout),
+                 torch.cuda.current_stream(totals.device).cuda_stream)
     _build.check(err, "waterfill")
     waterfill_scan.launches += 1
+    waterfill_scan.last_layout = dict(zip(
+        ("cluster", "threads", "shared_cols", "u1_cols"), layout))
     return counts, new_avail
 
 
 waterfill_scan.launches = 0
+waterfill_scan.last_layout = None
 
 # the JAX package's name for the snapshot entry
 schedule_grouped = waterfill_scan

@@ -51,12 +51,21 @@ def _problem(seed, n, r, g, neg=True):
 
 
 @pytest.mark.parametrize("n,r,g", [(1, 1, 1), (77, 6, 9), (1000, 8, 64),
-                                   (4097, 16, 20), (8192, 16, 8)])
+                                   (4097, 16, 20), (8192, 16, 8),
+                                   # 16 CTAs: 8 cannot hold the rows
+                                   (8192, 32, 4),
+                                   # 16 cannot either: the rows spill
+                                   (8192, 64, 4), (4096, 128, 3),
+                                   (1024, 512, 3)])
 @pytest.mark.parametrize("thr", [0, SCALE // 2, 2 * SCALE + 1])
 @pytest.mark.parametrize("require_available", [False, True])
 def test_waterfill_kernel_bit_exact(n, r, g, thr, require_available):
     from ray_tpu_torch.ops import hybrid_kernel as hk
     arrays = _problem(n + g, n, r, g)
+    if r > 32:
+        # requests in the first and last 6 columns only: rows stay
+        # feasible, and the last ones lie past what shared memory holds
+        arrays[3][:, 6:r - 6] = 0
     dev = [torch.as_tensor(a, device="cuda") for a in arrays]
     before = hk.waterfill_scan.launches
     kc, ka = hk.waterfill_scan(*dev, thr, require_available)
@@ -69,6 +78,91 @@ def test_waterfill_kernel_bit_exact(n, r, g, thr, require_available):
     nm = hk.waterfill_scan(*dev[:5], None, thr, require_available)
     pm = hk.waterfill_scan_plain(*dev[:5], None, thr, require_available)
     assert torch.equal(nm[0], pm[0]) and torch.equal(nm[1], pm[1])
+
+
+def _limit_case(case):
+    """The contract's limit (8192 nodes x 16 resources), 16 classes."""
+    arrays = list(_problem(8192 + 16, 8192, 16, 16))
+    thr, require_available = SCALE // 2, False
+    if case == "require_available":
+        require_available = True
+    elif case == "first_fit":
+        # the autoscaler's first-fit threshold with its fit semantics
+        thr, require_available = 2 * SCALE + 1, True
+    else:
+        # counts far above capacity with a threshold past 2*SCALE: lp1 * t
+        # wraps below zero on the large rows at every level, so no level
+        # in [0, 2*SCALE] suffices and the search answers 2*SCALE + 1
+        rng = np.random.default_rng(5)
+        totals = rng.integers(110_000, (1 << 17) + 1,
+                              size=(8192, 16)).astype(np.int32)
+        arrays[0], arrays[1] = totals, totals.copy()
+        arrays[4] = np.full(16, 2**30, np.int32)
+        thr = 5 * SCALE
+    return arrays, thr, require_available
+
+
+@pytest.mark.parametrize("case", ["require_available", "first_fit",
+                                  "no_level_suffices"])
+def test_waterfill_kernel_at_the_node_limit(case):
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    arrays, thr, require_available = _limit_case(case)
+    dev = [torch.as_tensor(a, device="cuda") for a in arrays]
+    kc, ka = hk.waterfill_scan(*dev, thr, require_available)
+    assert hk.waterfill_scan.last_layout["cluster"] > 1   # a real cluster
+    pc, pa = hk.waterfill_scan_plain(*dev, thr, require_available)
+    assert torch.equal(kc, pc) and torch.equal(ka, pa)
+    if case == "no_level_suffices":
+        # capacity exists (a threshold below 2*SCALE consumes some), yet
+        # no slot is counted at any level: nothing is consumed
+        assert torch.equal(ka, dev[1])
+        assert not torch.equal(hk.waterfill_scan(*dev, SCALE // 2)[1], dev[1])
+
+
+@pytest.mark.parametrize("n, r, cluster, threads, spills", [
+    (1, 16, 1, 32, False), (100, 8, 1, 128, False),
+    (1000, 8, 8, 128, False), (1024, 16, 8, 128, False),
+    (4000, 16, 8, 512, False), (8192, 16, 8, 1024, False),
+    (8192, 32, 16, 512, False), (8192, 64, 16, 512, True),
+    (1024, 512, 16, 64, True)])
+def test_waterfill_layout_rule(n, r, cluster, threads, spills):
+    """The launch the kernel reports for (N, R) on an H100 (227 KB of
+    shared memory per CTA): one thread per row, 16 CTAs only where 8
+    cannot hold the rows, and past that the rows spill."""
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    arrays = _problem(n, n, r, 2)
+    hk.waterfill_scan(*[torch.as_tensor(a, device="cuda") for a in arrays],
+                      0)
+    lay = hk.waterfill_scan.last_layout
+    assert (lay["cluster"], lay["threads"]) == (cluster, threads)
+    assert (lay["shared_cols"] < r) == spills
+    assert lay["u1_cols"] == (min(r, 8) if spills else r)
+
+
+def test_fused_beat_wide_on_card_equals_cpu():
+    """A beat at the node limit with 64 resource kinds (rows spill)."""
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    rng = np.random.default_rng(4)
+    n, r, c = 8192, 64, 8
+    totals, avail, mask, reqs, _, _ = _problem(4, n, r, c, neg=False)
+    reqs[:, 10:54] = 0                  # columns 54.. lie past shared memory
+    reqs[:, 0] = np.maximum(reqs[:, 0], 1)
+    keys = hk.full_rescore(*[torch.as_tensor(a) for a in (
+        totals, avail, mask, reqs)], SCALE // 2).numpy()
+    slots = np.arange(c, dtype=np.int32)
+    counts = rng.integers(0, 50000, size=c).astype(np.int32)
+    extra = rng.random(n) > 0.1
+    ov_idx = np.array([3, 7000, n, n], np.int32)
+    ov_av = rng.integers(-9000, 9000, size=(4, r)).astype(np.int32)
+    args = (totals, avail, mask, keys, reqs, slots, counts, extra, ov_idx,
+            ov_av)
+    got = hk.fused_beat(*[torch.as_tensor(a, device="cuda") for a in args],
+                        SCALE // 2)
+    assert hk.waterfill_scan.last_layout["shared_cols"] < r
+    want = hk.fused_beat(*[torch.as_tensor(a) for a in args], SCALE // 2)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert int(want[0][:c, :n].sum()) > 0
 
 
 def test_waterfill_rejects_what_the_kernel_does_not_take():
@@ -162,6 +256,11 @@ FLASH_CASES = [
     (torch.float16, True, (2, 320, 4, 128)),
     (torch.bfloat16, False, (1, 192, 3, 64)),
     (torch.bfloat16, True, (2, 1024, 8, 128)),
+    (torch.bfloat16, True, (2, 1024, 4, 64)),
+    (torch.float16, True, (1, 1536, 4, 64)),
+    # ragged: T is a multiple of neither 64 nor 128
+    (torch.bfloat16, False, (1, 1000, 2, 128)),
+    (torch.float16, True, (2, 333, 3, 128)),
 ]
 
 
@@ -210,6 +309,16 @@ def test_flash_limit_rejects_a_dropped_key_tile(dtype, causal, shape):
     p = torch.softmax(s.masked_fill(dead, float("-inf")), dim=-1)
     faulty = torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(dtype)
     assert _flash_err_over_limit(faulty, q, k, v, causal) > 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_takes_more_than_65535_heads(dtype):
+    """B*H = 66560 (query tiles and b*h share gridDim.x)."""
+    from ray_tpu_torch.ops import flash_attention
+    shape = (1024, 64, 65, 64)
+    q, k, v = _flash_inputs(dtype, shape)
+    got = flash_attention(q, k, v)
+    assert _flash_err_over_limit(got, q, k, v, False) <= 1.0
 
 
 def test_flash_kernel_rejects_other_head_dims():
