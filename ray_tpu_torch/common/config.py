@@ -62,6 +62,13 @@ _CONFIG_DEFS: dict[str, tuple[type, Any, str]] = {
         bool, True,
         "Evaluate batched placement on the device kernel; False forces the CPU "
         "oracle everywhere (debugging / parity bisection)."),
+    "scheduler_device": (
+        str, "cuda",
+        "Device of the raylet's placement programs (the delta heartbeat, "
+        "the localized water-fill, the bundle/pull/broadcast programs): "
+        "'cuda' (the GPU; init() raises when there is none) or 'cpu' "
+        "(their plain PyTorch versions).  Resolved once when the Cluster "
+        "is built."),
     "scheduler_device_batch_min": (
         int, 4096,
         "Minimum uniform-strategy backlog routed to the device kernel in "

@@ -38,7 +38,7 @@ _I = ctypes.c_int
 # C signatures of the entry points (restype int = cudaError_t)
 _SIGNATURES = {
     "waterfill": ("rt_waterfill_scan",
-                  [_P, _P, _P, _P, _P, _P, _P, _P,
+                  [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I, _P, _P]),
     "flash_attention": ("rt_flash_attention",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

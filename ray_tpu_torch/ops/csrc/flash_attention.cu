@@ -47,7 +47,14 @@
 //
 // f32 inputs: plain FMA (f32 wgmma would be TF32 and break the f32
 // tolerance).  One block of 4 warps per (b*h, 64-query tile), S and O in
-// shared memory; later work (ROADMAP).
+// shared memory; later work (ROADMAP).  The same kernel takes every
+// dtype at D = 256 (16-bit inputs widened to f32 as they are loaded, as
+// the JAX kernel computes): a wgmma instantiation there needs its own
+// shared-memory and register budget (128 O accumulators a thread), left
+// for a later PR.  At D = 256 a block holds 32 query rows (2 warps), so
+// the f32 tiles stay inside 227 KB.  Head dims other than 64, 128 and
+// 256 are padded with zeros by the wrapper, which passes the original
+// dim's scale.
 //
 // Scaling: the JAX kernel scales Q in f32 before the product.  The f32
 // path does exactly that.  On the 16-bit path Q stays in its 16-bit type
@@ -533,47 +540,74 @@ int launch16(const void* q, const void* k, const void* v, void* o, int b,
 }
 
 // ---------------------------------------------------------------------------
-// f32 path: FMA
+// FMA path: f32 inputs at every head dim, 16-bit inputs at D = 256
 // ---------------------------------------------------------------------------
 
-constexpr int kBQ32 = 64;       // query rows per block
 constexpr int kBK32 = 64;       // keys per tile
-constexpr int kThreads32 = 128; // 4 warps, 16 query rows each
+
+// rows per block: 64 (4 warps of 16 rows) where the f32 tiles fit, 32
+// (2 warps) at D = 256, whose 64-row tiles would pass 227 KB
+template <int D>
+struct Fma {
+  static constexpr int kBQ = D > 128 ? 32 : 64;
+  static constexpr int kThreads = 2 * kBQ;   // two lanes per query row
+};
 
 constexpr size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
 
 template <int D>
 struct Smem32 {
+  static constexpr int BQ = Fma<D>::kBQ;
   // row strides (floats): one float of padding, so the lanes of a warp
   // reading one column of 32 K rows hit 32 banks
   static constexpr int LDT = D + 1;
   static constexpr int LDS = kBK32 + 4;
   static constexpr int LDO = D + 4;
   static constexpr size_t kQ = 0;
-  static constexpr size_t kK = align128(kQ + sizeof(float) * kBQ32 * LDT);
+  static constexpr size_t kK = align128(kQ + sizeof(float) * BQ * LDT);
   static constexpr size_t kV = align128(kK + sizeof(float) * kBK32 * LDT);
   static constexpr size_t kS = align128(kV + sizeof(float) * kBK32 * LDT);
-  static constexpr size_t kO = align128(kS + sizeof(float) * kBQ32 * LDS);
-  static constexpr size_t kBytes = align128(kO + sizeof(float) * kBQ32 * LDO);
+  static constexpr size_t kO = align128(kS + sizeof(float) * BQ * LDS);
+  static constexpr size_t kBytes = align128(kO + sizeof(float) * BQ * LDO);
 };
 
-// rows [t0, t0 + ROWS) of a (T, D) slab with row stride `stride`, times
-// `mul`, zero past T
-template <int D, int ROWS>
-__device__ void load_tile32(float* dst, const float* __restrict__ src,
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// rows [t0, t0 + ROWS) of a (T, D) slab with row stride `stride`, in f32,
+// times `mul`, zero past T
+template <typename T, int D, int ROWS>
+__device__ void load_tile32(float* dst, const T* __restrict__ src,
                             size_t stride, int t0, int tn, float mul) {
-  for (int i = threadIdx.x; i < ROWS * D; i += kThreads32) {
+  for (int i = threadIdx.x; i < ROWS * D; i += Fma<D>::kThreads) {
     const int r = i / D, c = i % D, t = t0 + r;
-    dst[r * Smem32<D>::LDT + c] = t < tn ? src[(size_t)t * stride + c] * mul : 0.f;
+    dst[r * Smem32<D>::LDT + c] =
+        t < tn ? to_f32(src[(size_t)t * stride + c]) * mul : 0.f;
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads32)
-flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int tn,
+template <typename T, int D>
+__global__ void __launch_bounds__(Fma<D>::kThreads)
+flash_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o, int tn,
                  int heads, int bh_count, int causal, float scale) {
   using L = Smem32<D>;
+  constexpr int BQ = Fma<D>::kBQ, NT = Fma<D>::kThreads;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem + L::kQ);
   float* Ks = reinterpret_cast<float*>(smem + L::kK);
@@ -584,13 +618,13 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bh = (int)(blockIdx.x % (unsigned)bh_count);
   const int b = bh / heads, h = bh % heads;
-  const int q0 = (int)(blockIdx.x / (unsigned)bh_count) * kBQ32;
+  const int q0 = (int)(blockIdx.x / (unsigned)bh_count) * BQ;
   const size_t stride = (size_t)heads * D;          // between t and t+1
   const size_t base = ((size_t)b * tn * heads + h) * D;
 
   // Q scaled in f32 before the product, as the JAX kernel
-  load_tile32<D, kBQ32>(Qs, q + base, stride, q0, tn, scale);
-  for (int i = tid; i < kBQ32 * D; i += kThreads32)
+  load_tile32<T, D, BQ>(Qs, q + base, stride, q0, tn, scale);
+  for (int i = tid; i < BQ * D; i += NT)
     Os[(i / D) * L::LDO + i % D] = 0.f;
 
   // two lanes per query row, 32 score columns each
@@ -599,14 +633,13 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float m_i = -INFINITY, l_i = 0.f;
 
   int n_kt = (tn + kBK32 - 1) / kBK32;
-  if (causal) n_kt = min(n_kt, (min(q0 + kBQ32, tn) - 1) / kBK32 + 1);
+  if (causal) n_kt = min(n_kt, (min(q0 + BQ, tn) - 1) / kBK32 + 1);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK32;
     __syncthreads();                    // every warp done with K/V tiles
-    load_tile32<D, kBK32>(Ks, k + base, stride, k0, tn, 1.f);
-    load_tile32<D, kBK32>(Vs, v + base, stride, k0, tn, 1.f);
+    load_tile32<T, D, kBK32>(Ks, k + base, stride, k0, tn, 1.f);
+    load_tile32<T, D, kBK32>(Vs, v + base, stride, k0, tn, 1.f);
     __syncthreads();
-
     {  // S[warp rows] = Q K^T: lane owns keys lane and lane + 32
       float acc[16][2];
 #pragma unroll
@@ -689,46 +722,53 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (qpos < tn) {
     const float denom = fmaxf(l_i, 1e-30f);
     const float* orow = Os + my_row * L::LDO + half * (D / 2);
-    float* out = o + base + (size_t)qpos * stride + half * (D / 2);
-    for (int c = 0; c < D / 2; ++c) out[c] = orow[c] / denom;
+    T* out = o + base + (size_t)qpos * stride + half * (D / 2);
+    for (int c = 0; c < D / 2; ++c) out[c] = from_f32<T>(orow[c] / denom);
   }
 }
 
-template <int D>
+template <typename T, int D>
 int launch32(const void* q, const void* k, const void* v, void* o, int b,
              int tn, int h, int causal, float scale, cudaStream_t stream) {
   using L = Smem32<D>;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_f32_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)L::kBytes);
   if (err != cudaSuccess) return (int)err;
-  const int n_qt = (tn + kBQ32 - 1) / kBQ32;
-  flash_f32_kernel<D><<<n_qt * b * h, kThreads32, L::kBytes, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, tn, h,
-      b * h, causal, scale);
+  const int n_qt = (tn + Fma<D>::kBQ - 1) / Fma<D>::kBQ;
+  flash_f32_kernel<T, D><<<n_qt * b * h, Fma<D>::kThreads, L::kBytes,
+                           stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, tn, h, b * h, causal,
+      scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16.  Both grids put b*h and
-// the query tile on gridDim.x (at most 2**31 - 1 blocks).
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16; d in {64, 128, 256}
+// (the wrapper pads other head dims with zeros and passes the scale of
+// the original one).  Both grids put b*h and the query tile on gridDim.x
+// (at most 2**31 - 1 blocks).
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, int b, int t, int h, int d,
                                   int dtype, int causal, float scale,
                                   void* stream) {
   if (b < 1 || t < 1 || h < 1 ||
-      (long long)b * h * ((t + kBQ32 - 1) / kBQ32) > INT_MAX)
+      (long long)b * h * ((t + 31) / 32) > INT_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (d == 64) {
-    if (dtype == 0) return launch32<64>(q, k, v, o, b, t, h, causal, scale, st);
+    if (dtype == 0) return launch32<float, 64>(q, k, v, o, b, t, h, causal, scale, st);
     if (dtype == 1) return launch16<false, 64>(q, k, v, o, b, t, h, causal, scale, st);
     if (dtype == 2) return launch16<true, 64>(q, k, v, o, b, t, h, causal, scale, st);
   } else if (d == 128) {
-    if (dtype == 0) return launch32<128>(q, k, v, o, b, t, h, causal, scale, st);
+    if (dtype == 0) return launch32<float, 128>(q, k, v, o, b, t, h, causal, scale, st);
     if (dtype == 1) return launch16<false, 128>(q, k, v, o, b, t, h, causal, scale, st);
     if (dtype == 2) return launch16<true, 128>(q, k, v, o, b, t, h, causal, scale, st);
+  } else if (d == 256) {
+    if (dtype == 0) return launch32<float, 256>(q, k, v, o, b, t, h, causal, scale, st);
+    if (dtype == 1) return launch32<__half, 256>(q, k, v, o, b, t, h, causal, scale, st);
+    if (dtype == 2) return launch32<__nv_bfloat16, 256>(q, k, v, o, b, t, h, causal, scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }

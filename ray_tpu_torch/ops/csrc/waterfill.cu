@@ -5,7 +5,9 @@
 //   ray_tpu/ops/hybrid_kernel.py::schedule_grouped (its scan) and
 //   ray_tpu/ops/hybrid_kernel.py::fused_beat (its scan), whose body is
 //   ray_tpu/ops/hybrid_kernel.py::_schedule_group with the 15-step
-//   bisection of _slots_at_or_below.
+//   bisection of _slots_at_or_below; and, given pref_rows, the lax.scan
+//   of ray_tpu/ops/locality_kernel.py::schedule_grouped_localized (the
+//   localized mode below).
 // Semantics: scheduling/contract.py, bit for bit in int32.
 //
 // What bounds it on this card: neither bytes nor operations.  The scan is
@@ -33,8 +35,11 @@
 //     each thread owns row by row; used*SCALE + 1 is then kept for the
 //     class's first 8 requested columns and recomputed beyond them.  Such
 //     a launch runs its own instantiation (kSpill), so the launches that
-//     fit pay nothing for it.  The class arrays (10R + 2 ints) must fit
-//     in any case: R <= 5743 on an H100.
+//     fit pay nothing for it.  Where even the class arrays (10R + 2 ints)
+//     do not fit one CTA's shared memory (R > 5743 on an H100), they live
+//     in a global scratch buffer, one copy per CTA, and each class's
+//     request is read from group_reqs directly (kGlobalCls; row offsets
+//     are 64-bit there, as row * R can pass 2**31).
 //   * Invariants hoisted.  Per class the positive-request columns are
 //     compacted (the loops run over ~2 columns, not R); per (row, column)
 //     used*SCALE + 1 is computed once; per column the class's q*SCALE gets
@@ -63,6 +68,18 @@
 // [0, 2*SCALE] suffices.  tests/test_torch_waterfill_search.py holds a
 // numpy model of this arithmetic to the 15-step bisection.
 //
+// The localized mode (pref_rows given, kPref): a class with a preferred
+// row p >= 0 places its whole count on p when p is feasible for it
+// (totals >= the request on every requested column, p in node_mask and
+// in the class's mask), consuming only what p's avail allows, and the
+// water-fill places the rest (count - m, m = count or 0).  Feasibility
+// reads only constant inputs (totals, masks), so warp 0 decides it while
+// it sets up the class, and every CTA knows m without an exchange: the
+// class costs the same rounds as any other.  The thread that owns p
+// debits p's carried avail before the class's capacity is taken, and
+// adds m to p's count at the end.  Launches without pref_rows run the
+// instantiations without this code.
+//
 // Exactness otherwise: all int32 arithmetic wraps like XLA's (done in
 // uint32 and cast back: signed overflow is undefined in C++), floor
 // division floors like numpy/XLA `//` (CUDA `/` truncates), reductions
@@ -75,6 +92,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -134,6 +152,8 @@ struct Shared {
   unsigned long long slot_min[2][kMaxCluster];
   int woff[32];                        // exclusive scan offsets of the warps
   int npos[2], count[2];               // the class's, by class parity
+  int pref[2], m[2];                   // preferred row (-1: none) and the
+                                       // count it takes (localized mode)
 };
 
 __device__ __forceinline__ unsigned warp_sum(unsigned x) {
@@ -232,14 +252,15 @@ struct Cls {
 // Without kSpill every column is on chip (rs = nu1 = r) and the checks
 // compile away: the launches that fit keep their registers for the
 // search.
-template <bool kSpill>
+template <bool kSpill, typename Off>
 struct Row {
   const int* s_t;          // the kernel's shared arrays, as laid out
   int* s_a;
   const int* s_u1;
   const int* totals;       // the kernel's arguments, as given
   int* new_avail;
-  int base;                // row * r (< 2**31: r <= 5743)
+  Off base;                // row * r: int while the class arrays fit
+                           // (r <= 5743), 64-bit past that
   int nt, tid, rs, nu1;
   __device__ __forceinline__ int t(int c) const {
     return !kSpill || c < rs ? s_t[c * nt + tid] : totals[base + c];
@@ -259,10 +280,10 @@ struct Row {
 
 // m(L) for K levels of this thread's row (_slots_at_or_below): slots with
 // eff-score key <= L, levels below thr_fp collapsing onto the level-0 count
-template <int K, bool kSpill>
+template <int K, bool kSpill, typename Off>
 __device__ __forceinline__ void slots_at(const int (&lv)[K], int m_max,
                                          const Cls& cls,
-                                         const Row<kSpill>& rw,
+                                         const Row<kSpill, Off>& rw,
                                          int thr_fp, int (&out)[K]) {
   int lp1[K], jc[K];
 #pragma unroll
@@ -303,16 +324,38 @@ __device__ __forceinline__ void stage_class(int* s_stage, int gi, int r,
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Warp 0: compact class gi's staged request into the class arrays of
-// parity gi & 1 (positive columns with their reciprocals), then stage
-// class gi + 1.  The arrays are read after the next CTA or cluster barrier.
-__device__ void setup_class(Shared& sh, int* s_stage, int* s_col, int* s_q,
-                            unsigned* s_rm, int* s_rs, int gi, int r, int g,
-                            const int* group_reqs, const int* group_counts) {
-  const int lane = threadIdx.x, cb = gi & 1;
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncwarp();
-  const int* req = s_stage + cb * (r + 1);
+// The kernel's inputs that stay fixed for the whole launch
+struct Inputs {
+  const int* totals;
+  const uint8_t* node_mask;
+  const int* group_reqs;
+  const int* group_counts;
+  const uint8_t* group_masks;
+  const int* pref_rows;
+  int n, r, g;
+};
+
+// Warp 0: compact class gi's request (staged in shared memory, or read
+// from group_reqs with kGlobalCls) into the class arrays of parity gi & 1
+// (positive columns with their reciprocals), decide its preferred row
+// (kPref), then stage class gi + 1.  The arrays are read after the next
+// CTA or cluster barrier.
+template <bool kGlobalCls, bool kPref>
+__device__ __forceinline__ void setup_class(Shared& sh, int* s_stage, int* s_col, int* s_q,
+                            unsigned* s_rm, int* s_rs, int gi,
+                            const Inputs& in) {
+  const int lane = threadIdx.x, cb = gi & 1, r = in.r;
+  const int* req;
+  int count;
+  if constexpr (kGlobalCls) {
+    req = in.group_reqs + (size_t)gi * r;
+    count = in.group_counts[gi];
+  } else {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncwarp();
+    req = s_stage + cb * (r + 1);
+    count = req[r];
+  }
   int npos = 0;
   for (int c0 = 0; c0 < r; c0 += 32) {
     const int c = c0 + lane;
@@ -329,14 +372,39 @@ __device__ void setup_class(Shared& sh, int* s_stage, int* s_col, int* s_q,
     }
     npos += __popc(pos);
   }
+  int pref = -1, m = 0;
+  if constexpr (kPref) {
+    const int pr = in.pref_rows[gi];
+    if (pr >= 0) {                       // p = clip(pref, 0, N - 1)
+      const int p = clip(pr, 0, in.n - 1);
+      const int* tp = in.totals + (size_t)p * r;
+      bool feas = true;
+      for (int c = lane; c < r; c += 32) {
+        const int q = req[c];
+        feas = feas && !(q > 0 && tp[c] < q);
+      }
+      feas = __all_sync(kFull, feas) && in.node_mask[p] != 0 &&
+             (in.group_masks == nullptr ||
+              in.group_masks[(size_t)gi * in.n + p] != 0);
+      m = feas ? count : 0;              // the whole class, or none of it
+      pref = m != 0 ? p : -1;            // m = 0 changes nothing
+    }
+  }
   if (lane == 0) {
     sh.npos[cb] = npos;
-    sh.count[cb] = req[r];
+    sh.count[cb] = count;
+    sh.pref[cb] = pref;
+    sh.m[cb] = m;
   }
-  if (gi + 1 < g) stage_class(s_stage, gi + 1, r, group_reqs, group_counts);
+  if constexpr (!kGlobalCls)
+    if (gi + 1 < in.g)
+      stage_class(s_stage, gi + 1, r, in.group_reqs, in.group_counts);
 }
 
-template <bool kSpill>
+// kSpill: rows partly in global memory; kGlobalCls: the class arrays too
+// (implies kSpill); kPref: the localized mode.  Only the instantiations
+// kernel_for() names are compiled.
+template <bool kSpill, bool kGlobalCls, bool kPref>
 __global__ void __launch_bounds__(kMaxThreads)
 waterfill_cluster_kernel(const int* __restrict__ totals,
                          const int* __restrict__ avail,
@@ -344,10 +412,13 @@ waterfill_cluster_kernel(const int* __restrict__ totals,
                          const int* __restrict__ group_reqs,
                          const int* __restrict__ group_counts,
                          const uint8_t* __restrict__ group_masks,
+                         const int* __restrict__ pref_rows,
                          int* __restrict__ counts, int* __restrict__ new_avail,
+                         int* __restrict__ scratch,
                          int n, int r, int g, int thr_fp,
                          int require_available, int rs_spill,
                          int nu1_spill) {
+  using Off = typename std::conditional<kGlobalCls, size_t, int>::type;
   __shared__ Shared sh;
   extern __shared__ int dyn[];
   cg::cluster_group cl = cg::this_cluster();
@@ -360,26 +431,32 @@ waterfill_cluster_kernel(const int* __restrict__ totals,
   // column-major with stride nt: totals and the carried avail (rs
   // columns each), used*SCALE + 1 of the class's first nu1 positive
   // columns; then the class arrays, by class parity, and two staging
-  // rows of R + 1 (request, count)
+  // rows of R + 1 (request, count) -- or, with kGlobalCls, the class
+  // arrays in this CTA's part of scratch (8R ints) and no staging
   int* s_t = dyn;
   // without kSpill every column is on chip: r (a kernel argument) rather
   // than a value the class loop would keep live
   const int rs = kSpill ? rs_spill : r, nu1 = kSpill ? nu1_spill : r;
   int* s_a = s_t + rs * nt;
   int* s_u1 = s_a + rs * nt;
-  int* s_col = s_u1 + nu1 * nt;          // [2][r]
+  int* s_col = kGlobalCls ? scratch + (size_t)rank * 8 * r
+                          : s_u1 + nu1 * nt;       // [2][r]
   int* s_q = s_col + 2 * r;              // [2][r]
   unsigned* s_rm = (unsigned*)(s_q + 2 * r);
   int* s_rs = (int*)(s_rm + 2 * r);
-  int* s_stage = s_rs + 2 * r;           // [2][r + 1]
+  int* s_stage = s_rs + 2 * r;           // [2][r + 1], unused by kGlobalCls
+  const Inputs in{totals, node_mask, group_reqs, group_counts, group_masks,
+                  pref_rows, n, r, g};
 
   if (warp == 0 && g > 0) {
-    stage_class(s_stage, 0, r, group_reqs, group_counts);
-    setup_class(sh, s_stage, s_col, s_q, s_rm, s_rs, 0, r, g, group_reqs,
-                group_counts);
+    if constexpr (!kGlobalCls)
+      stage_class(s_stage, 0, r, group_reqs, group_counts);
+    setup_class<kGlobalCls, kPref>(sh, s_stage, s_col, s_q, s_rm, s_rs, 0,
+                                   in);
   }
-  const Row<kSpill> rw{s_t, s_a, s_u1, totals, new_avail,
-                       kSpill && live ? row * r : 0, nt, tid, rs, nu1};
+  const Row<kSpill, Off> rw{s_t, s_a, s_u1, totals, new_avail,
+                            kSpill && live ? (Off)row * r : (Off)0, nt, tid,
+                            rs, nu1};
   for (int c = 0; c < rs; ++c) {
     s_t[c * nt + tid] = live ? totals[(size_t)row * r + c] : 0;
     s_a[c * nt + tid] = live ? avail[(size_t)row * r + c] : 0;
@@ -415,7 +492,22 @@ waterfill_cluster_kernel(const int* __restrict__ totals,
     const int cb = gi & 1;
     const Cls cls{sh.npos[cb], s_col + cb * r, s_q + cb * r, s_rm + cb * r,
                   s_rs + cb * r};
-    const int count = sh.count[cb];
+    // localized mode: the preferred row takes m of the count, and its
+    // owner debits what p's avail allows (_schedule_grouped_localized's
+    // step: consumed = min(m, clip(min_c floor(avail[p] / req), 0, BIG)))
+    int count = sh.count[cb];
+    if constexpr (kPref) {
+      count = wsub(count, sh.m[cb]);
+      if (row == sh.pref[cb]) {
+        int cap = kBig;
+        for (int p = 0; p < cls.npos; ++p)
+          cap = min(cap, floordiv(rw.a(cls.col[p]), cls.q[p]));
+        const int consumed = min(sh.m[cb], clip(cap, 0, kBig));
+        for (int p = 0; p < cls.npos; ++p)
+          rw.set_a(cls.col[p],
+                   wsub(rw.a(cls.col[p]), wmul(cls.q[p], consumed)));
+      }
+    }
     const bool pmask = nmask && gmask;
     // the next class's mask, loaded now and used a class later
     if (group_masks != nullptr && live && gi + 1 < g)
@@ -497,8 +589,8 @@ waterfill_cluster_kernel(const int* __restrict__ totals,
           __shfl_sync(kFull, x, 31),
           warp_sum(lane < nw ? (unsigned)sh.warp_vals[1][lane] : 0u)};
       if (gi + 1 < g)
-        setup_class(sh, s_stage, s_col, s_q, s_rm, s_rs, gi + 1, r, g,
-                    group_reqs, group_counts);
+        setup_class<kGlobalCls, kPref>(sh, s_stage, s_col, s_q, s_rm, s_rs,
+                                       gi + 1, in);
       push<2>(sh, parity, tot, kNoKey);
     }
     cl.sync();
@@ -535,8 +627,11 @@ waterfill_cluster_kernel(const int* __restrict__ totals,
     best = live ? (((unsigned long long)((unsigned)k32 ^ 0x80000000u) << 32) |
                    (unsigned)row)
                 : kNoKey;
-    if (live) counts[(size_t)gi * (n + 1) + row] = alloc;
-    prev_alloc = alloc;
+    int placed = alloc;                  // + m on the preferred row
+    if constexpr (kPref)
+      if (row == sh.pref[cb]) placed = wadd(alloc, sh.m[cb]);
+    if (live) counts[(size_t)gi * (n + 1) + row] = placed;
+    prev_alloc = placed;
     prev_over = overflow;
   }
 
@@ -558,8 +653,10 @@ waterfill_cluster_kernel(const int* __restrict__ totals,
 // 8), and again, to 16, while a CTA's rows (3 ints per column: totals,
 // avail, used*SCALE + 1) do not fit the card's shared memory beside the
 // class arrays; at 16 the rows spill past `rs` columns (see the note).
+// Where the class arrays alone do not fit, they go to global scratch
+// (8R ints per CTA) and the rows get all of the shared memory.
 struct Layout {
-  int cluster, threads, rs, nu1;
+  int cluster, threads, rs, nu1, cls_global;
   size_t smem;                           // dynamic shared memory, bytes
 };
 
@@ -570,44 +667,73 @@ cudaError_t plan(int n, int r, Layout* lay) {
     err = cudaDeviceGetAttribute(
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  const long long cls_ints = 10LL * r + 2;
-  const long long room =
-      ((long long)optin - (long long)sizeof(Shared)) / (long long)sizeof(int) -
-      cls_ints;                          // ints left for the rows
-  if (n < 1 || n > kMaxCluster * kMaxThreads || r < 1 || room < 0)
+  if (n < 1 || n > kMaxCluster * kMaxThreads || r < 1)
     return cudaErrorInvalidValue;
+  const long long all =
+      ((long long)optin - (long long)sizeof(Shared)) / (long long)sizeof(int);
+  const long long cls_ints = 10LL * r + 2;
+  const int cls_global = all - cls_ints < 0;
+  const long long room = cls_global ? all : all - cls_ints;  // for the rows
   int c = 1;
   while (c < kPortableCluster && c * kRowsPerCta < n) c *= 2;
   for (;;) {
     const int threads = ((n + c - 1) / c + 31) / 32 * 32;
     const long long per = room / threads;          // ints per row
     if (threads <= kMaxThreads && per >= 3LL * r) {
-      *lay = {c, threads, r, r, 0};
+      *lay = {c, threads, r, r, cls_global, 0};
       break;
     }
     if (c == kMaxCluster) {
       const int nu1 = (int)std::min<long long>(std::min(r, kSpillU1), per);
       *lay = {c, threads, (int)std::min<long long>(r, (per - nu1) / 2), nu1,
-              0};
+              cls_global, 0};
       break;
     }
     c *= 2;
   }
   lay->smem = sizeof(int) * ((size_t)(2 * lay->rs + lay->nu1) * lay->threads +
-                             (size_t)cls_ints);
+                             (cls_global ? 0 : (size_t)cls_ints));
   return cudaSuccess;
+}
+
+typedef void (*KernelFn)(const int*, const int*, const uint8_t*, const int*,
+                         const int*, const uint8_t*, const int*, int*, int*,
+                         int*, int, int, int, int, int, int, int);
+
+// the compiled instantiations: global class arrays imply spilled rows
+KernelFn kernel_for(bool spill, bool cls_global, bool pref) {
+  if (cls_global)
+    return pref ? waterfill_cluster_kernel<true, true, true>
+                : waterfill_cluster_kernel<true, true, false>;
+  if (spill)
+    return pref ? waterfill_cluster_kernel<true, false, true>
+                : waterfill_cluster_kernel<true, false, false>;
+  return pref ? waterfill_cluster_kernel<false, false, true>
+              : waterfill_cluster_kernel<false, false, false>;
+}
+
+void write_layout(const Layout& lay, int r, int* layout) {
+  layout[0] = lay.cluster;
+  layout[1] = lay.threads;
+  layout[2] = lay.rs;
+  layout[3] = lay.nu1;
+  layout[4] = lay.cls_global ? lay.cluster * 8 * r : 0;   // scratch ints
 }
 
 }  // namespace
 
 // One launch for the G classes; writes the launch it made into
-// layout[0..3] (cluster size, threads per CTA, columns in shared memory,
-// used*SCALE + 1 columns kept).  Returns a cudaError_t.
+// layout[0..4] (cluster size, threads per CTA, columns in shared memory,
+// used*SCALE + 1 columns kept, ints of global scratch: 0 unless the class
+// arrays live in global memory, where this call allocates the scratch on
+// the stream and frees it after the launch).  pref_rows (G ints, -1 =
+// none) or null.  Returns a cudaError_t.
 extern "C" int rt_waterfill_scan(const void* totals, const void* avail,
                                  const void* node_mask,
                                  const void* group_reqs,
                                  const void* group_counts,
-                                 const void* group_masks, void* counts,
+                                 const void* group_masks,
+                                 const void* pref_rows, void* counts,
                                  void* new_avail, int n, int r, int g,
                                  int thr_fp, int require_available,
                                  int* layout, void* stream) {
@@ -615,13 +741,9 @@ extern "C" int rt_waterfill_scan(const void* totals, const void* avail,
   Layout lay;
   cudaError_t err = plan(n, r, &lay);
   if (err != cudaSuccess) return (int)err;
-  layout[0] = lay.cluster;
-  layout[1] = lay.threads;
-  layout[2] = lay.rs;
-  layout[3] = lay.nu1;
-  const auto kernel = lay.rs < r || lay.nu1 < r
-                          ? waterfill_cluster_kernel<true>
-                          : waterfill_cluster_kernel<false>;
+  write_layout(lay, r, layout);
+  const KernelFn kernel = kernel_for(lay.rs < r || lay.nu1 < r,
+                                     lay.cls_global != 0, pref_rows != nullptr);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)lay.smem);
@@ -631,11 +753,18 @@ extern "C" int rt_waterfill_scan(const void* totals, const void* avail,
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return (int)err;
   }
+  const cudaStream_t st = (cudaStream_t)stream;
+  int* scratch = nullptr;
+  if (lay.cls_global) {
+    err = cudaMallocAsync((void**)&scratch, sizeof(int) * (size_t)layout[4],
+                          st);
+    if (err != cudaSuccess) return (int)err;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(lay.cluster, 1, 1);
   cfg.blockDim = dim3(lay.threads, 1, 1);
   cfg.dynamicSmemBytes = lay.smem;
-  cfg.stream = (cudaStream_t)stream;
+  cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = lay.cluster;
@@ -646,8 +775,13 @@ extern "C" int rt_waterfill_scan(const void* totals, const void* avail,
   err = cudaLaunchKernelEx(
       &cfg, kernel, (const int*)totals, (const int*)avail,
       (const uint8_t*)node_mask, (const int*)group_reqs,
-      (const int*)group_counts, (const uint8_t*)group_masks, (int*)counts,
-      (int*)new_avail, n, r, g, thr_fp, require_available, lay.rs, lay.nu1);
+      (const int*)group_counts, (const uint8_t*)group_masks,
+      (const int*)pref_rows, (int*)counts, (int*)new_avail, scratch, n, r, g,
+      thr_fp, require_available, lay.rs, lay.nu1);
+  if (scratch != nullptr) {
+    const cudaError_t freed = cudaFreeAsync(scratch, st);
+    if (err == cudaSuccess) err = freed;
+  }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

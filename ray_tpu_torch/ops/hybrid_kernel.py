@@ -152,8 +152,27 @@ def _schedule_group(avail, totals, node_mask, req, count, gmask, thr_fp,
     return counts_row, new_avail.to(_I32)
 
 
+def _localize(avail, totals, node_mask, req, count, gmask, pref):
+    """The soft-locality step of ``schedule_grouped_localized``: a
+    feasible preferred row takes the whole class (``m = count``; m = 0
+    when there is no preference or p is infeasible), consuming only what
+    its avail allows.  Returns (m, p (1,) int64, avail after the debit)."""
+    n = totals.shape[0]
+    p = pref.clamp(0, n - 1).long().reshape(1)
+    req_pos = req > 0
+    feas_p = torch.where(req_pos, totals.index_select(0, p)[0] >= req,
+                         True).all() \
+        & node_mask.index_select(0, p)[0] & gmask.index_select(0, p)[0]
+    m = torch.where((pref >= 0) & feas_p, count, 0).to(_I32)
+    cap_p = torch.where(req_pos, _floordiv(avail.index_select(0, p)[0],
+                                           req.clamp_min(1)), _BIG).amin()
+    consumed = torch.minimum(m, cap_p.clamp(0, _BIG))
+    return m, p, avail.index_add(0, p, (-req * consumed).to(_I32)[None])
+
+
 def waterfill_scan_plain(totals, avail, node_mask, group_reqs, group_counts,
-                         group_masks, thr_fp, require_available=False):
+                         group_masks, thr_fp, require_available=False,
+                         pref_rows=None):
     """Plain PyTorch version of ``waterfill_scan``: the class scan and
     its bisection as Python loops over tensor ops (no ``.item()``)."""
     n = totals.shape[0]
@@ -163,14 +182,22 @@ def waterfill_scan_plain(totals, avail, node_mask, group_reqs, group_counts,
     av = avail
     for gi in range(group_reqs.shape[0]):
         gmask = ones if group_masks is None else group_masks[gi]
+        req, count = group_reqs[gi], group_counts[gi]
+        if pref_rows is not None:
+            m, p, av = _localize(av, totals, node_mask, req, count, gmask,
+                                 pref_rows[gi])
+            count = count - m
         counts[gi], av = _schedule_group(
-            av, totals, node_mask, group_reqs[gi], group_counts[gi], gmask,
-            thr_fp, require_available)
+            av, totals, node_mask, req, count, gmask, thr_fp,
+            require_available)
+        if pref_rows is not None:
+            counts[gi].index_add_(0, p, m.reshape(1))
     return counts, av.clone() if av is avail else av
 
 
 def waterfill_scan(totals, avail, node_mask, group_reqs, group_counts,
-                   group_masks, thr_fp, require_available=False):
+                   group_masks, thr_fp, require_available=False,
+                   pref_rows=None):
     """The grouped water-fill: G classes placed in order over N nodes,
     carrying ``avail``.  Returns (counts (G, N+1) int32, new_avail (N, R)
     int32); column N counts tasks queued nowhere.  Bit-identical to
@@ -179,16 +206,22 @@ def waterfill_scan(totals, avail, node_mask, group_reqs, group_counts,
     totals/avail (N, R) int32, node_mask (N,) bool, group_reqs (G, R)
     int32, group_counts (G,) int32 (0 = padding row), group_masks (G, N)
     bool or None, thr_fp the spread threshold in score fixed point.
+    ``pref_rows`` (G,) int32 (-1 = none) selects the localized mode
+    (``locality_kernel.schedule_grouped_localized``): a feasible
+    preferred row takes its whole class before the water-fill.
 
     CPU tensors take ``waterfill_scan_plain``; CUDA tensors launch the
-    hand-written kernel (``csrc/waterfill.cu``) or raise.  The kernel
-    picks its launch from (N, R) and the card; ``waterfill_scan.
-    last_layout`` holds the last one (cluster size, threads per CTA,
-    columns of each row in shared memory, used*SCALE + 1 columns kept)."""
+    hand-written kernel (``csrc/waterfill.cu``) or raise, and count the
+    launch in ``waterfill_scan.launches`` or, given ``pref_rows``, in
+    ``waterfill_scan.localized_launches``.  The kernel picks its launch
+    from (N, R) and the card; ``waterfill_scan.last_layout`` holds the
+    last one (cluster size, threads per CTA, columns of each row in
+    shared memory, used*SCALE + 1 columns kept, ints of global scratch
+    for the class arrays)."""
     if totals.device.type == "cpu":
         return waterfill_scan_plain(totals, avail, node_mask, group_reqs,
                                     group_counts, group_masks, thr_fp,
-                                    require_available)
+                                    require_available, pref_rows)
     if totals.device.type != "cuda":
         raise ValueError(f"waterfill_scan: unsupported device "
                          f"{totals.device}")
@@ -205,6 +238,8 @@ def waterfill_scan(totals, avail, node_mask, group_reqs, group_counts,
             ("group_counts", group_counts, _I32, (g,))]
     if group_masks is not None:
         args.append(("group_masks", group_masks, torch.bool, (g, n)))
+    if pref_rows is not None:
+        args.append(("pref_rows", pref_rows, _I32, (g,)))
     for name, t, dtype, shape in args:
         if t.device != totals.device or t.dtype != dtype or \
                 tuple(t.shape) != shape or not t.is_contiguous():
@@ -214,24 +249,32 @@ def waterfill_scan(totals, avail, node_mask, group_reqs, group_counts,
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
     counts = torch.empty((g, n + 1), dtype=_I32, device=totals.device)
     new_avail = torch.empty((n, r), dtype=_I32, device=totals.device)
-    layout = (ctypes.c_int * 4)()
+    layout = (ctypes.c_int * 5)()
     fn = _build.load("waterfill")
     with torch.cuda.device(totals.device):
         err = fn(totals.data_ptr(), avail.data_ptr(), node_mask.data_ptr(),
                  group_reqs.data_ptr(), group_counts.data_ptr(),
                  None if group_masks is None else group_masks.data_ptr(),
+                 None if pref_rows is None else pref_rows.data_ptr(),
                  counts.data_ptr(), new_avail.data_ptr(), n, r, g,
                  int(thr_fp), int(bool(require_available)),
                  ctypes.addressof(layout),
                  torch.cuda.current_stream(totals.device).cuda_stream)
     _build.check(err, "waterfill")
-    waterfill_scan.launches += 1
+    if pref_rows is None:
+        waterfill_scan.launches += 1
+    else:
+        waterfill_scan.localized_launches += 1
     waterfill_scan.last_layout = dict(zip(
-        ("cluster", "threads", "shared_cols", "u1_cols"), layout))
+        ("cluster", "threads", "shared_cols", "u1_cols", "scratch_ints"),
+        layout))
     return counts, new_avail
 
 
+# launches without pref_rows (the delta beat's and the snapshot's) and
+# with them (the localized mode), counted apart
 waterfill_scan.launches = 0
+waterfill_scan.localized_launches = 0
 waterfill_scan.last_layout = None
 
 # the JAX package's name for the snapshot entry

@@ -12,6 +12,10 @@ oracle or defer batches to the device kernel — callers cannot tell which.
 Policies are pure functions of (ClusterState snapshot, request, options):
 no hidden state except the documented RNG/round-robin cursors, so parity is a
 property test (SURVEY §4 closing note).
+
+torch is imported inside ``DeltaScheduler``'s methods, not here: the
+runtime's workers import this module (placement-group strategies reach
+``scheduling``) and must not pay for torch or touch the GPU.
 """
 
 from __future__ import annotations
@@ -21,9 +25,7 @@ import time
 from dataclasses import dataclass
 
 import numpy as np
-import torch
 
-from ..device import resolve_device
 from .contract import (AVAIL_SHIFT, INFEASIBLE_KEY, compute_keys,
                        threshold_fp)
 from .oracle import ClusterState
@@ -275,6 +277,7 @@ class DeltaScheduler:
     """
 
     def __init__(self, crm, device=None):
+        from ..device import resolve_device
         self._crm = crm
         self._device = resolve_device(device)
         self._version = -2          # pre-first-sync sentinel (< any epoch)
@@ -473,6 +476,7 @@ class DeltaScheduler:
     # -- host<->device transfers --------------------------------------------
     def _sync(self) -> None:
         if self._device.type == "cuda":
+            import torch
             torch.cuda.synchronize(self._device)
 
     def _d2h(self, t) -> np.ndarray:
@@ -482,6 +486,7 @@ class DeltaScheduler:
 
     def _put(self, arr) -> torch.Tensor:
         """Direct placement of a host array (full syncs, residents)."""
+        import torch
         return torch.as_tensor(np.ascontiguousarray(arr),
                                device=self._device)
 
@@ -491,6 +496,7 @@ class DeltaScheduler:
         ``non_blocking=True``; the slot's event (recorded after those
         copies) is waited on before the slot is rewritten two uploads
         later.  Returns the device tensors."""
+        import torch
         if self._device.type != "cuda":
             return tuple(torch.from_numpy(np.array(a)) for a in arrays)
         slot = self._stage[self._parity]

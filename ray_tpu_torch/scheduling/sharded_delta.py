@@ -8,9 +8,6 @@ more than one shard raises instead of running something else.
 
 from __future__ import annotations
 
-import torch
-
-from ..device import resolve_device
 from .policy import DeltaScheduler
 
 
@@ -34,7 +31,10 @@ def make_delta_scheduler(crm, n_shards: int | None = None,
     ``scheduler_shard_reduce`` knobs.  More than one shard raises
     ``NotImplementedError``: the sharded beat is not ported yet.
     """
+    import torch
+
     from ..common.config import get_config
+    from ..device import resolve_device
     cfg = get_config()
     requested = cfg.scheduler_shards if n_shards is None else n_shards
     mode = cfg.scheduler_shard_reduce if reduce_mode is None \

@@ -124,11 +124,13 @@ def test_waterfill_kernel_at_the_node_limit(case):
     (1000, 8, 8, 128, False), (1024, 16, 8, 128, False),
     (4000, 16, 8, 512, False), (8192, 16, 8, 1024, False),
     (8192, 32, 16, 512, False), (8192, 64, 16, 512, True),
-    (1024, 512, 16, 64, True)])
+    (1024, 512, 16, 64, True), (64, 8192, 16, 32, True),
+    (8192, 6000, 16, 512, True)])
 def test_waterfill_layout_rule(n, r, cluster, threads, spills):
     """The launch the kernel reports for (N, R) on an H100 (227 KB of
     shared memory per CTA): one thread per row, 16 CTAs only where 8
-    cannot hold the rows, and past that the rows spill."""
+    cannot hold the rows, past that the rows spill, and past R = 5743
+    the class arrays go to global scratch (one copy per CTA)."""
     from ray_tpu_torch.ops import hybrid_kernel as hk
     arrays = _problem(n, n, r, 2)
     hk.waterfill_scan(*[torch.as_tensor(a, device="cuda") for a in arrays],
@@ -137,6 +139,37 @@ def test_waterfill_layout_rule(n, r, cluster, threads, spills):
     assert (lay["cluster"], lay["threads"]) == (cluster, threads)
     assert (lay["shared_cols"] < r) == spills
     assert lay["u1_cols"] == (min(r, 8) if spills else r)
+    assert lay["scratch_ints"] == (cluster * 8 * r if r > 5743 else 0)
+
+
+@pytest.mark.parametrize("n,r,g", [(64, 8192, 4), (8192, 6000, 2)])
+def test_waterfill_kernel_past_5743_resources(n, r, g):
+    """More resource kinds than one CTA's shared memory holds class arrays
+    for: bit-exact against the plain version.  Each (N, R) array is made
+    once on the card (8192 x 6000 x 4 B = 197 MB) and shared by both."""
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    rng = np.random.default_rng(r)
+    totals = torch.randint(0, 1 << 17, (n, r), dtype=torch.int32,
+                           device="cuda")
+    avail = (totals.double() * torch.rand((n, r), device="cuda",
+                                          dtype=torch.float64)).int()
+    mask = torch.as_tensor(rng.random(n) > 0.05, device="cuda")
+    reqs = np.zeros((g, r), np.int32)
+    for gi in range(g):         # a few requested kinds, some past 5743
+        cols = rng.choice(r, size=4, replace=False)
+        reqs[gi, cols] = rng.integers(1, 3000, size=4)
+    reqs[-1, r - 1] = 500
+    counts = torch.as_tensor(rng.integers(1, 20000, size=g).astype(np.int32),
+                             device="cuda")
+    masks = torch.as_tensor(rng.random((g, n)) > 0.1, device="cuda")
+    reqs = torch.as_tensor(reqs, device="cuda")
+    thr = SCALE // 2
+    kc, ka = hk.waterfill_scan(totals, avail, mask, reqs, counts, masks, thr)
+    assert hk.waterfill_scan.last_layout["scratch_ints"] > 0
+    pc, pa = hk.waterfill_scan_plain(totals, avail, mask, reqs, counts,
+                                     masks, thr)
+    assert torch.equal(kc, pc) and torch.equal(ka, pa)
+    assert int(kc[:, :n].sum()) > 0
 
 
 def test_fused_beat_wide_on_card_equals_cpu():
@@ -322,7 +355,177 @@ def test_flash_kernel_takes_more_than_65535_heads(dtype):
 
 
 def test_flash_kernel_rejects_other_head_dims():
+    """Head dims up to 256 pad to a kernel width (below); past 256 the
+    kernel has none and the wrapper raises."""
     from ray_tpu_torch.ops import flash_attention
-    q = torch.zeros((1, 64, 2, 96), device="cuda", dtype=torch.bfloat16)
+    q = torch.zeros((1, 64, 2, 320), device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q, q, q)
+
+
+FLASH_HEAD_DIMS = [16, 32, 80, 96, 160, 256]
+
+
+@pytest.mark.parametrize("d", FLASH_HEAD_DIMS)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_every_head_dim(d, causal, dtype):
+    """Every head dim up to 256, against the plain version within the
+    limit, which must still reject a dropped key tile at that dim."""
+    import math
+    from ray_tpu_torch.ops import flash_attention
+    shape = (2, 384, 3, d)
+    q, k, v = _flash_inputs(dtype, shape)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    assert _flash_err_over_limit(got, q, k, v, causal) <= 1.0
+    t = shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() / math.sqrt(d), k.float())
+    dead = torch.zeros((t, t), dtype=torch.bool, device="cuda")
+    dead[:, t - 64:] = True
+    if causal:
+        dead |= torch.ones_like(dead).triu(1)
+    p = torch.softmax(s.masked_fill(dead, float("-inf")), dim=-1)
+    faulty = torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(dtype)
+    assert _flash_err_over_limit(faulty, q, k, v, causal) > 1.0
+
+
+# -- the localized water-fill ------------------------------------------------
+
+def _localized(seed, n, r, g):
+    """_problem's arrays plus preferred rows: half the classes prefer a
+    row; among them an infeasible row, a row masked out by the class's
+    avoid row, and rows with negative avail."""
+    totals, avail, mask, reqs, counts, masks = _problem(seed, n, r, g)
+    rng = np.random.default_rng(seed + 1)
+    prefs = np.where(rng.random(g) < 0.5, rng.integers(0, n, size=g),
+                     -1).astype(np.int32)
+    if g >= 6 and n >= 8:
+        c = int(np.argmax(reqs[3] > 0)) if (reqs[3] > 0).any() else 0
+        reqs[3, c] = max(int(reqs[3, c]), 100)
+        prefs[3], totals[4, c], mask[4] = 4, 1, True   # infeasible
+        prefs[4], masks[4, 5], mask[5] = 5, False, True  # masked out
+        prefs[5], mask[6] = 6, True
+        avail[6] = -(totals[6] // 3)                      # negative avail
+    return totals, avail, mask, reqs, counts, masks, prefs
+
+
+@pytest.mark.parametrize("n,r,g", [(16, 3, 8), (1000, 8, 64),
+                                   # the contract's limit
+                                   (8192, 16, 128),
+                                   # the rows spill out of shared memory
+                                   (8192, 64, 32)])
+def test_localized_kernel_bit_exact(n, r, g):
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    from ray_tpu_torch.ops import locality_kernel as lk
+    arrays = list(_localized(n + r, n, r, g))
+    if r > 32:
+        arrays[3][:, 6:r - 6] = 0
+    dev = [torch.as_tensor(a, device="cuda") for a in arrays]
+    extra = torch.as_tensor(np.random.default_rng(n).random(n) > 0.05,
+                            device="cuda")
+    before = (hk.waterfill_scan.launches, hk.waterfill_scan.localized_launches)
+    kc, ka = lk.schedule_grouped_localized(*dev, SCALE // 2, extra)
+    assert (hk.waterfill_scan.launches,
+            hk.waterfill_scan.localized_launches) == (before[0], before[1] + 1)
+    pc, pa = hk.waterfill_scan_plain(dev[0], dev[1], dev[2] & extra,
+                                     dev[3], dev[4], dev[5], SCALE // 2,
+                                     False, dev[6])
+    assert torch.equal(kc, pc) and torch.equal(ka, pa)
+    # the plain (no preference) launch of the same classes is untouched
+    nc, _ = hk.waterfill_scan(*dev[:6], SCALE // 2)
+    npc, _ = hk.waterfill_scan_plain(*dev[:6], SCALE // 2)
+    assert torch.equal(nc, npc)
+
+
+def test_localized_kernel_matches_the_jax_function():
+    import jax.numpy as jnp
+    from ray_tpu.ops import locality_kernel as ref
+    from ray_tpu_torch.ops import locality_kernel as lk
+    arrays = _localized(7, 257, 8, 33)
+    got = lk.schedule_grouped_localized(
+        *[torch.as_tensor(a, device="cuda") for a in arrays], SCALE // 2)
+    want = ref.schedule_grouped_localized(
+        *[jnp.asarray(a) for a in arrays], jnp.int32(SCALE // 2))
+    np.testing.assert_array_equal(got[0].cpu().numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].cpu().numpy(), np.asarray(want[1]))
+
+
+# -- the data-plane programs on the card --------------------------------------
+
+def test_dataplane_programs_on_card_equal_their_oracles():
+    from ray_tpu_torch.ops import broadcast_kernel as bc
+    from ray_tpu_torch.ops import bundle_kernel as bk
+    from ray_tpu_torch.ops import pull_kernel as pk
+    rng = np.random.default_rng(0)
+    n = 200
+    totals = rng.integers(0, 4000, size=(n, 4)).astype(np.int32)
+    avail = (totals * rng.random(totals.shape)).astype(np.int32)
+    mask = rng.random(n) > 0.05
+    reqs = rng.integers(0, 600, size=(16, 6, 4)).astype(np.int32)
+    valid = rng.random((16, 6)) < 0.8
+    strat = rng.integers(0, 4, size=16)
+    got = bk.schedule_bundle_groups_np(totals, avail, mask, reqs, valid,
+                                       strat)
+    want = bk.schedule_bundle_groups_oracle(totals, avail, mask, reqs, valid,
+                                            strat)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    loc = rng.random((300, n)) < 0.05
+    bw = rng.integers(0, 50_000, size=(n, n)).astype(np.int32)
+    dest = rng.integers(0, n, size=300).astype(np.int32)
+    sizes = rng.integers(1, 1 << 20, size=300).astype(np.int32)
+    infl = rng.integers(0, 100_000, size=n).astype(np.int32)
+    for a, b in zip(pk.choose_sources_np(loc, bw, dest, sizes, infl),
+                    pk.choose_sources_oracle(loc, bw, dest, sizes, infl)):
+        np.testing.assert_array_equal(a, b)
+    member = rng.random(n) < 0.8
+    member[3] = True
+    for a, b in zip(bc.plan_fanout_np(member, bw, 3, 4, infl),
+                    bc.plan_fanout_oracle(member, bw, 3, 4, infl)):
+        np.testing.assert_array_equal(a, b)
+
+
+# -- the runtime on the card ---------------------------------------------------
+
+def test_runtime_places_rounds_on_the_card():
+    """init() with the default scheduler device (the GPU): a burst of
+    tasks and a locality burst go through the delta beat and the
+    localized kernel."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+
+    rt.init(resources={"CPU": 4, "memory": 4}, num_workers=2,
+            system_config={"scheduler_device_batch_min": 2})
+    try:
+        from ray_tpu_torch.api import _get_runtime
+        runtime = _get_runtime()
+        assert runtime.cluster.scheduler_device.type == "cuda"
+        runtime.cluster.add_node(resources={"CPU": 4, "memory": 4},
+                                 num_workers=2)
+
+        @rt.remote
+        def add(a, b):
+            return a + b
+
+        head = runtime.raylet
+        w0, d0 = hk.waterfill_scan.launches, head.delta_rounds
+        assert rt.get([add.remote(i, 1) for i in range(300)]) == \
+            [i + 1 for i in range(300)]
+        # the burst's rounds went through the delta beat (no preference)
+        assert head.delta_rounds > d0
+        assert hk.waterfill_scan.launches > w0
+        l0 = hk.waterfill_scan.localized_launches
+        blob = rt.put(bytes(300_000))
+        @rt.remote
+        def size(b):
+            return len(b)
+
+        assert rt.get([size.remote(blob) for _ in range(40)]) == \
+            [300_000] * 40
+        assert hk.waterfill_scan.localized_launches > l0
+        assert head.device_rounds > head.delta_rounds
+    finally:
+        rt.shutdown()
