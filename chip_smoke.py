@@ -13,7 +13,7 @@ phase prints one JSON line; any failure raises and exits non-zero.
 
 Phases:
   device          the card (nvidia-smi name and power limit), torch, CUDA
-  build           seconds to build both kernels, ptxas registers/spills,
+  build           seconds to build the kernels, ptxas registers/spills,
                   and the SASS instructions that show the Hopper paths
                   (HGMMA and UTMALDG in flash attention, cluster barriers
                   in the water-fill)
@@ -52,6 +52,27 @@ Phases:
   dataplane       bundle (1000 x 64 groups x 8), pull (4096 x 1000) and
                   broadcast (1000 members, fan-out 4) programs on the card
                   == their numpy oracles; ms and kernel launches
+  autoscaler      ``autoscale`` (a first-fit water-fill launch, then the
+                  ``binpack_launch_loop`` kernel) at 1000 nodes x 64
+                  resources x 64 classes x 1,000,000 demands x 16 node
+                  types and the 1M-demand single-class case, == the numpy
+                  oracle bit for bit; the kernel == its plain version on
+                  the card; then the user's path, a StandardAutoscaler
+                  round on a port Cluster (5,000 requested bundles),
+                  launching the oracle's node types; ms, iterations,
+                  bound, the phase-1 scan's ms
+  topk            ``schedule_grouped_topk`` at the beat width (1000 x 8 x
+                  64 x 1M): the card == the CPU bit for bit, an even
+                  spread over each class's k best keys, consumption
+                  capped; ms, launches; then a 2,000-task burst with
+                  scheduler_top_k_fraction = 0.5 through the raylet's
+                  top-k rounds
+  daemon          ``python -m ray_tpu_torch start --head`` on the card,
+                  two ``agent`` subprocesses, a driver subprocess with
+                  ``init(address=...)`` whose 3,000 tasks land on both
+                  agents, ``job submit --wait``, ``status``, ``stop``; the
+                  head's device rounds and water-fill launches; only the
+                  head (and this script) hold a CUDA context
   flash_attention the ops path: ``ops.flash_attention`` at B=2, T=4096,
                   H=16, D=128 (bf16 causal, bf16, f16), bf16 causal at
                   D=64, and f32 at T=1024, D=64, against the plain version
@@ -59,8 +80,9 @@ Phases:
                   reject the plain version with its last 64 keys dropped;
                   kernel/plain/library times, the bound, the share of the
                   bound reached and the ratio to the library call; then
-                  every head dim of FLASH_HEAD_DIMS (zero-padded or the
-                  D=256 FMA kernel), bf16 and f32, causal and not
+                  every head dim of FLASH_HEAD_DIMS (zero-padded, the
+                  D=256 FMA kernel, or past 256 the wide kernel), bf16
+                  and f32, causal and not
 Then the ``kernels`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 
@@ -477,7 +499,7 @@ def device_profile(step, n):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict[str, float] = {}
-    d2h = 0
+    d2h = kernels = 0
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -486,13 +508,17 @@ def device_profile(step, n):
             evt.time_range.elapsed_us() / 1e3
         if "DtoH" in evt.name:
             d2h += 1
+        elif "Memcpy" not in evt.name and "Memset" not in evt.name:
+            kernels += 1
     if not by_name:
         return {"wall_ms": wall_ms / n, "device_busy_ms": None,
-                "idle_share": None, "d2h_copies": None, "by_name_ms": None}
+                "idle_share": None, "d2h_copies": None,
+                "kernels_per_call": None, "by_name_ms": None}
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return {"wall_ms": wall_ms / n, "device_busy_ms": busy / n,
             "idle_share": 1.0 - busy / wall_ms, "d2h_copies": d2h / n,
+            "kernels_per_call": kernels / n,
             "by_name_ms": {k: v / n for k, v in top}}
 
 
@@ -594,6 +620,22 @@ def phase_beat(dev, warmup=2, beats=50, churn=12):
         mutate()
         eng.beat(vecs, counts)
     p50 = float(np.percentile(times, 50))
+    # the rest of a delta beat (apply_dirty_rows on the dirty rows, the
+    # budgets, the per-class argmin; plain PyTorch): its launches are the
+    # beat's kernels less the water-fill, its bound the bytes and int32
+    # operations those ops need at these shapes (every input read once,
+    # every output written once; ~12 ops per (class, dirty row, resource)
+    # for a key, ~4 per (class, node, resource) for a budget, 1 per
+    # (class, node) for the argmin)
+    n_cls, r_w = vecs.shape
+    d = churn
+    rest_bytes = (2 * N_NODES * r_w * 4 + N_NODES + n_cls * r_w * 4
+                  + 2 * d * r_w * 4 + n_cls * N_NODES * 4
+                  + n_cls * d * 4 + n_cls * N_NODES * 4 + n_cls * 4)
+    rest_ops = (n_cls * d * r_w * 12 + n_cls * N_NODES * r_w * 4
+                + n_cls * N_NODES)
+    rest_bound_ms, rest_bound_by = bound(rest_bytes, rest_ops, PEAK_I32)
+    kpc = trace["kernels_per_call"]
     result = {"phase": "beat", "entry": "make_delta_scheduler(crm).beat",
               "nodes": N_NODES, "classes": N_CLASSES,
               "tasks_per_beat": int(counts.sum()),
@@ -610,7 +652,10 @@ def phase_beat(dev, warmup=2, beats=50, churn=12):
               "readbacks_per_beat": readbacks / n_beats,
               "phases_ms_per_beat_profiled": {
                   k: v / n_prof for k, v in eng.phase_ms.items()},
-              "device_profile": trace, "stats": eng.stats}
+              "device_profile": trace, "stats": eng.stats,
+              "rest_of_beat": {
+                  "launches_per_beat": None if kpc is None else kpc - 1,
+                  "bound_ms": rest_bound_ms, "bound_by": rest_bound_by}}
     emit(result)
     return result
 
@@ -1087,6 +1132,650 @@ def phase_dataplane(dev):
     return result
 
 
+# -- phase: autoscaler (binpack: the water-fill, then the launch loop) -------
+
+AUTOSCALE_NODES, AUTOSCALE_RES, AUTOSCALE_CLASSES = 1000, 64, 64
+AUTOSCALE_TYPES, AUTOSCALE_DEMAND = 16, 1_000_000
+
+
+def autoscale_problem(seed=0, n_nodes=AUTOSCALE_NODES, n_res=AUTOSCALE_RES,
+                      n_groups=AUTOSCALE_CLASSES, n_types=AUTOSCALE_TYPES,
+                      n_demand=AUTOSCALE_DEMAND):
+    """tests/test_autoscaler.py's random_autoscale_problem at full width:
+    its value ranges and its zero densities of totals and caps; each
+    class asks for 3 of the 64 kinds (the test's classes ask for half of
+    4: at half of 64 no node type could hold any class, and the loop
+    would stop after one iteration); counts a multinomial summing to
+    ``n_demand``; launch quotas (max_workers) scaled to that demand
+    (0-2000 nodes a type, where the test draws 0-8 for 0-50 demands a
+    class)."""
+    rng = np.random.default_rng(seed)
+    totals = rng.integers(0, 2000, size=(n_nodes, n_res)).astype(np.int32)
+    totals[rng.random(totals.shape) < 0.3] = 0
+    avail = (totals * rng.random(totals.shape)).astype(np.int32)
+    mask = rng.random(n_nodes) > 0.2
+    reqs = np.zeros((n_groups, n_res), np.int32)
+    for row in reqs:
+        kinds = rng.choice(n_res, size=min(3, n_res), replace=False)
+        row[kinds] = rng.integers(1, 500, size=kinds.size)
+    counts = rng.multinomial(n_demand, np.full(n_groups, 1 / n_groups))
+    caps = rng.integers(0, 3000, size=(n_types, n_res)).astype(np.int32)
+    caps[rng.random(caps.shape) < 0.2] = 0
+    quotas = rng.integers(0, 2000, size=n_types).astype(np.int32)
+    return (totals, avail, mask, reqs, counts.astype(np.int32), caps,
+            quotas)
+
+
+def oracle_autoscale(totals, avail, mask, reqs, counts, caps, quotas):
+    """The port's numpy oracle (autoscaler.demand): (launches, fit
+    counts, unmet, new avail)."""
+    from ray_tpu_torch.autoscaler.demand import get_nodes_to_launch
+    from ray_tpu_torch.scheduling.oracle import ClusterState
+    st = ClusterState(totals.copy(), avail.copy(), mask.copy())
+    launches, fit, unmet = get_nodes_to_launch(st, reqs, counts, caps,
+                                               quotas)
+    return launches, fit, unmet, st.avail
+
+
+def phase_autoscaler(dev):
+    """``autoscale`` on the card (one first-fit water-fill launch, then
+    one ``binpack_launch_loop`` launch) at 1000 nodes x 64 resources x 64
+    demand classes x 1,000,000 pending demands x 16 node types, and the
+    1M-demand single-class case: bit-exact against the numpy oracle; the
+    launch loop against its plain version on the card; then the user's
+    path, a ``StandardAutoscaler`` round on a port Cluster on the card
+    (``autoscaler_round``)."""
+    import torch
+
+    from ray_tpu_torch.ops import binpack_kernel as bp
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+
+    problems = {
+        "full": autoscale_problem(),
+        # tests/test_autoscaler.py:121-130: 1M demands, an empty cluster
+        "1M one class": (np.zeros((1, 1), np.int32),
+                         np.zeros((1, 1), np.int32), np.zeros(1, bool),
+                         np.array([[100]], np.int32),
+                         np.array([1_000_000], np.int32),
+                         np.array([[12800]], np.int32),
+                         np.array([10_000], np.int32))}
+    out = {}
+    for name, p in problems.items():
+        got = bp.autoscale_np(*p, device=dev)
+        t0 = time.perf_counter()
+        want = oracle_autoscale(*p)
+        oracle_ms = (time.perf_counter() - t0) * 1e3
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"autoscaler {name}: the card disagrees "
+                                 "with the numpy oracle")
+        out[name] = {"launches_by_type": got[0].tolist(),
+                     "nodes_launched": int(got[0].sum()),
+                     "fit_on_existing": int(got[1][:, :-1].sum()),
+                     "unmet": int(got[2].sum()), "oracle_ms": oracle_ms,
+                     "bit_exact": True}
+    if out["1M one class"]["launches_by_type"] != [7813]:
+        raise AssertionError(f"1M demands: {out['1M one class']}")
+
+    # the two launches of the full problem, each timed alone
+    totals, avail, mask, reqs, counts, caps, quotas = (
+        torch.tensor(np.ascontiguousarray(a), device=dev)
+        for a in problems["full"])
+    g, n = reqs.shape[0], totals.shape[0]
+    k, r = caps.shape
+    max_iters = g * k + g + k + 2
+
+    def scan():
+        return hk.waterfill_scan(totals, avail, mask, reqs, counts, None,
+                                 bp.FIRST_FIT_THR_FP, True)
+
+    fit, _ = scan()
+    zero = ~(reqs > 0).any(dim=1)
+    remaining = torch.where(zero, 0, fit[:, -1]).to(torch.int32).contiguous()
+    loop_args = (caps, quotas, reqs, remaining, max_iters)
+    kern = bp.binpack_launch_loop(*loop_args)
+    plain = bp.launch_loop_plain(*loop_args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(kern, plain)):
+        raise AssertionError("binpack_launch_loop disagrees with "
+                             "launch_loop_plain on the card")
+    iters = int(kern[2])
+    kernel_ms = cuda_ms(lambda: bp.binpack_launch_loop(*loop_args))
+    kernel_layout = bp.binpack_launch_loop.last_layout   # the launch timed
+    plain_ms = cuda_ms(lambda: bp.launch_loop_plain(*loop_args), reps=3,
+                       warmup=1)
+    scan_ms = cuda_ms(scan)
+    spill = spilled_launch_loop(dev)
+    # the launch loop's work for this run: per iteration, per (type,
+    # class) a pass over the R resources (sub, floordiv, min for the fit;
+    # mul, add for used: 5 ops) and per type the score (mul, div, max);
+    # the inputs read once, the outputs written once
+    loop_ops = iters * (k * g * r * 5 + k * r * 3 + k * g * 2)
+    loop_bytes = 4 * (2 * k * r + g * r + g + 2 * k + g) + 4
+    bound_ms, bound_by = bound(loop_bytes, loop_ops, PEAK_I32)
+    scan_bytes = (2 * n * r * 4 + n + g * r * 4 + g * 4
+                  + g * (n + 1) * 4 + n * r * 4)
+    scan_bound_ms, scan_bound_by = bound(
+        scan_bytes, waterfill_ops(problems["full"][3], n), PEAK_I32)
+
+    main = autoscaler_round(dev)
+    result = {"phase": "autoscaler", "entry": "StandardAutoscaler.update",
+              "problem": [n, r, g, int(problems["full"][4].sum()), k],
+              "problems": out, "iterations": iters, "max_iters": max_iters,
+              "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "kernel_layout": kernel_layout, "spilled": spill,
+              "scan_ms": scan_ms, "scan_bound_ms": scan_bound_ms,
+              "scan_bound_by": scan_bound_by, "main_path": main,
+              "main_path_launches": main["kernel_launches"]}
+    emit(result)
+    return result
+
+
+def spilled_launch_loop(dev, k=16, g=1024, r=64, max_iters=8):
+    """The launch loop past one CTA's shared memory (at K=16, R=64 the
+    requests of more than ~680 classes go to global memory): the first
+    ``max_iters`` iterations, bit-exact against the plain version on the
+    card, with the kernel's ms and the arrays it kept in global
+    memory."""
+    import torch
+
+    from ray_tpu_torch.ops import binpack_kernel as bp
+    problem = autoscale_problem(seed=1, n_nodes=1, n_res=r, n_groups=g,
+                                n_types=k)
+    reqs, counts, caps, quotas = (
+        torch.tensor(np.ascontiguousarray(a), device=dev)
+        for a in problem[3:])
+    args = (caps, quotas, reqs, counts, max_iters)
+    kern = bp.binpack_launch_loop(*args)
+    layout = bp.binpack_launch_loop.last_layout
+    plain = bp.launch_loop_plain(*args)
+    if not all(torch.equal(a, b) for a, b in zip(kern, plain)) or \
+            not layout["global"]:
+        raise AssertionError(f"spilled launch loop ({k}, {g}, {r}): "
+                             f"layout {layout}, kernel == plain "
+                             f"{[torch.equal(a, b) for a, b in zip(kern, plain)]}")
+    return {"shape": [k, g, r], "iterations": int(kern[2]),
+            "layout": layout, "ms": cuda_ms(lambda: bp.binpack_launch_loop(
+                *args)), "bit_exact": True}
+
+
+# the main path's node types and demand: cpu8's quota binds, cpu1024's
+# and gpu4's do not (the oracle launches 2, 4 and 10 of 2, 10 and 40),
+# so a wrong type pick or repeat factor shows in the launches, and the
+# "accel" class no type holds stays unmet
+ROUND_TYPES = (("cpu8", {"CPU": 8}, 2), ("cpu1024", {"CPU": 1024}, 10),
+               ("gpu4", {"CPU": 16, "GPU": 4}, 40))
+ROUND_BUNDLES = ([{"GPU": 1, "CPU": 2}] * 40 + [{"CPU": 1}] * 4150
+                 + [{"accel": 1}] * 5)
+
+
+def autoscaler_round(dev):
+    """The user's path: one ``StandardAutoscaler.update`` on a port
+    Cluster whose ``scheduler_device`` is ``dev``, with the demand
+    (4,195 bundles) above ``autoscaler_device_batch_min``.  The round's
+    ``autoscale`` call is recorded (inputs and outputs, on the card) and
+    held, after the kernel counts are read, to the numpy oracle on the
+    same inputs (launches, fit counts, unmet, new avail), and the launch
+    loop is rerun on the round's own card tensors, kernel against plain,
+    bit for bit.  Raises on any mismatch; returns the round's report."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler import NodeTypeSpec
+    from ray_tpu_torch.autoscaler.autoscaler import (NODE_TYPE_LABEL,
+                                                     StandardAutoscaler)
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.common.config import Config
+    from ray_tpu_torch.common.resources import ResourceRequest
+    from ray_tpu_torch.ops import binpack_kernel as bp
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+
+    types = [NodeTypeSpec(name, res, max_workers=m)
+             for name, res, m in ROUND_TYPES]
+    quotas = np.array([t.max_workers for t in types], np.int32)
+    Config.reset({"scheduler_device": str(dev)})
+    cluster = Cluster()
+    rounds, real = [], bp.autoscale
+
+    def recording(*args):
+        out = real(*args)
+        rounds.append((args, out))
+        return out
+
+    try:
+        cluster.add_node(resources={"CPU": 2, "memory": 2}, num_workers=1)
+        rt.init(cluster=cluster)
+        asc = StandardAutoscaler(cluster, types, workers_per_node=0)
+        reqs_o = [ResourceRequest(b) for b in ROUND_BUNDLES]
+        for q in reqs_o + [ResourceRequest(t.resources) for t in types]:
+            cluster.crm.intern_request(q)
+        snap = cluster.crm.snapshot()
+        width = snap.totals.shape[1]
+        classes = {}
+        for q in reqs_o:
+            classes.setdefault(q.key(), [q, 0])[1] += 1
+        want = oracle_autoscale(
+            snap.totals, snap.avail, snap.node_mask,
+            np.stack([v[0].dense(cluster.crm.resource_index, width)
+                      for v in classes.values()]),
+            np.array([v[1] for v in classes.values()], np.int32),
+            np.stack([ResourceRequest(t.resources).dense(
+                cluster.crm.resource_index, width) for t in types]),
+            quotas)
+        bp.autoscale = recording
+        bp.binpack_launch_loop.launches = 0
+        hk.waterfill_scan.launches = 0
+        asc.request_resources(ROUND_BUNDLES)
+        summary = asc.update()
+        launches = {"binpack_launch_loop": bp.binpack_launch_loop.launches,
+                    "waterfill_scan": hk.waterfill_scan.launches}
+        # --- end of the main path ---
+        bp.autoscale = real
+        expect = {t.name: int(m) for t, m in zip(types, want[0]) if m}
+        labels = sorted(cluster.crm.labels_of(row).get(NODE_TYPE_LABEL, "")
+                        for row in cluster.raylets)
+        if asc.device_rounds != 1 or len(rounds) != 1 or \
+                summary["launches"] != expect or \
+                summary["unmet"] != int(want[2].sum()) or \
+                launches["binpack_launch_loop"] < 1 or \
+                launches["waterfill_scan"] < 1:
+            raise AssertionError(
+                f"StandardAutoscaler: {asc.device_rounds} device rounds, "
+                f"launched {summary['launches']} (oracle {expect}), unmet "
+                f"{summary['unmet']} (oracle {int(want[2].sum())}), kernel "
+                f"launches {launches}")
+        if not (want[0] < quotas).any() or not want[2].any():
+            raise AssertionError(f"the round's demand no longer tells type "
+                                 f"picks apart: oracle {want}")
+        # the round's own device call: its four outputs against the
+        # oracle on the inputs it was given
+        (args, outs), = rounds
+        host = [a.cpu().numpy() for a in args[:7]]
+        if args[7] is not None:
+            host[2] = host[2] & args[7].cpu().numpy()
+        ref = oracle_autoscale(*host)
+        if not all(np.array_equal(o.cpu().numpy(), w)
+                   for o, w in zip(outs, ref)):
+            raise AssertionError("the round's autoscale disagrees with "
+                                 "the oracle on its own inputs")
+        # the launch loop on the round's card tensors: kernel == plain ==
+        # what the round returned
+        caps, quotas_t, reqs = args[5], args[6], args[3]
+        g, k = reqs.shape[0], caps.shape[0]
+        remaining = torch.where(~(reqs > 0).any(dim=1), 0,
+                                outs[1][:, -1]).to(torch.int32).contiguous()
+        loop_args = (caps, quotas_t, reqs, remaining, g * k + g + k + 2)
+        kern = bp.binpack_launch_loop(*loop_args)
+        plain = bp.launch_loop_plain(*loop_args)
+        if not all(torch.equal(a, b) for a, b in zip(kern, plain)) or \
+                not torch.equal(kern[0], outs[0]) or \
+                not torch.equal(kern[1], outs[2]):
+            raise AssertionError("binpack_launch_loop disagrees with "
+                                 "launch_loop_plain on the round's tensors")
+        asc.shutdown()
+    finally:
+        bp.autoscale = real
+        rt.shutdown()
+        cluster.stop()
+        Config.reset()
+    return {"launched": summary["launches"], "oracle": expect,
+            "quotas": quotas.tolist(), "unmet": summary["unmet"],
+            "oracle_unmet": int(want[2].sum()),
+            "fit_on_existing": int(outs[1][:, :-1].sum()),
+            "loop_iterations": int(kern[2]), "loop_shape": list(caps.shape[:1]) + [g, caps.shape[1]],
+            "device_rounds": asc.device_rounds, "node_types": labels,
+            "kernel_launches": launches, "loop_vs_plain": "bit-exact",
+            "outputs_vs_oracle": "bit-exact"}
+
+
+# -- phase: topk (the contention-spread rounds) ------------------------------
+
+def topk_check(totals, avail, mask, reqs, counts, counts_out, new_avail,
+               k_abs, k_frac):
+    """Hold a top-k round to its properties class by class, in numpy:
+    each class's allocation lies on its k best keys (a numpy stable sort
+    of the host twin's keys on the running avail), in {base, base + 1}
+    there; an infeasible class overflows whole; consumption is capped at
+    availability; the final avail is the card's."""
+    from fractions import Fraction
+
+    from ray_tpu_torch.ops.hybrid_kernel import (_INF_KEY,
+                                                 _keys_one_req_host)
+    from ray_tpu_torch.scheduling.contract import threshold_fp
+    frac = Fraction(k_frac).limit_denominator(1 << 16)
+    thr = threshold_fp(None)
+    av = avail.astype(np.int64)
+    n = totals.shape[0]
+    for g in range(reqs.shape[0]):
+        keys = _keys_one_req_host(totals, av, reqs[g], thr, mask)
+        nf = int((keys != _INF_KEY).sum())
+        k = min(max(k_abs, -((-nf * frac.numerator) // frac.denominator),
+                    1), max(nf, 1))
+        alloc, c = counts_out[g, :n].astype(np.int64), int(counts[g])
+        if nf == 0:
+            if alloc.any() or counts_out[g, n] != c:
+                raise AssertionError(f"top-k class {g}: infeasible but "
+                                     "placed")
+            continue
+        top = np.argsort(keys, kind="stable")[:k]
+        base = c // k
+        off = np.ones(n, bool)
+        off[top] = False
+        spread = np.isin(alloc[top], (base, base + 1)).all()
+        if alloc[off].any() or not spread or alloc.sum() != c or \
+                counts_out[g, n] != 0:
+            raise AssertionError(f"top-k class {g}: not an even spread "
+                                 f"over its {k} best keys")
+        req = reqs[g].astype(np.int64)
+        cap = np.where(req[None, :] > 0, av // np.maximum(req, 1)[None, :],
+                       1 << 30).min(axis=1).clip(0, 1 << 30)
+        av = av - np.minimum(alloc, cap)[:, None] * req[None, :]
+    if not np.array_equal(av, new_avail):
+        raise AssertionError("top-k: consumption past availability")
+
+
+def phase_topk(dev):
+    """Top-k rounds at the beat width (1000 nodes x 8 resources x 64
+    classes x 1,000,000 tasks): the card's result equals the CPU run bit
+    for bit (the draws are made on the host), and holds the top-k
+    properties; ms, kernel launches, bound.  Then a runtime burst with
+    ``scheduler_top_k_fraction`` = 0.5 places through the raylet's top-k
+    rounds."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.api import _get_runtime
+    from ray_tpu_torch.ops import locality_kernel as lk
+
+    totals, avail, mask, reqs, counts = build_problem(seed=3)
+    k_abs, k_frac = 1, 0.25
+    kw = dict(k_abs=k_abs, k_frac=k_frac)
+    got = lk.schedule_grouped_topk_np(totals, avail, mask, reqs, counts, 7,
+                                      1, device=dev, **kw)
+    want = lk.schedule_grouped_topk_np(totals, avail, mask, reqs, counts,
+                                       7, 1, device="cpu", **kw)
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("top-k: the card disagrees with the CPU")
+    topk_check(totals, avail, mask, reqs, counts, *got, **kw)
+    run = (lambda: lk.schedule_grouped_topk_np(
+        totals, avail, mask, reqs, counts, 7, 1, device=dev, **kw))
+    ms = cuda_ms(run, reps=5, warmup=1)
+    t0 = time.perf_counter()
+    lk.schedule_grouped_topk_np(totals, avail, mask, reqs, counts, 7, 1,
+                                device="cpu", **kw)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    launches = kernel_launches(run)
+    n, r = totals.shape
+    g = reqs.shape[0]
+    # per class: keys (~12 ops per (node, resource)), a sort of N keys
+    # (N log2 N compares), the spread and cap (~8 per node)
+    n_ops = g * (n * r * 12 + n * math.log2(n) + n * 8)
+    n_bytes = 2 * n * r * 4 + n + g * r * 4 + g * 4 + g * 4 \
+        + g * (n + 1) * 4 + n * r * 4
+    bound_ms, bound_by = bound(n_bytes, n_ops, PEAK_I32)
+
+    # --- the main path: a burst through init/remote/get with top-k on ---
+    rt.init(resources={"CPU": 8, "memory": 8}, num_workers=2,
+            system_config={"scheduler_top_k_fraction": 0.5,
+                           "scheduler_device_batch_min": 64})
+    try:
+        cluster = _get_runtime().cluster
+        for _ in range(3):
+            cluster.add_node(num_workers=2)
+        raylets = list(cluster.raylets.values())
+        before = sum(x.topk_rounds for x in raylets)
+        noop = rt.remote(_noop)
+        t0 = time.perf_counter()
+        res = rt.get([noop.remote(i) for i in range(2000)], timeout=300)
+        burst_s = time.perf_counter() - t0
+        topk_rounds = sum(x.topk_rounds for x in raylets) - before
+        # --- end of the main path ---
+        if res != list(range(2000)) or topk_rounds < 1:
+            raise AssertionError(f"top-k burst: {topk_rounds} top-k rounds")
+    finally:
+        rt.shutdown()
+    result = {"phase": "topk", "entry": "schedule_grouped_topk_np",
+              "problem": [n, r, g, int(counts.sum())], "k_abs": k_abs,
+              "k_frac": k_frac, "card_equals_cpu": True,
+              "properties_hold": True, "ms": ms, "cpu_ms": cpu_ms,
+              "launches": launches, "bound_ms": bound_ms,
+              "bound_by": bound_by, "burst_tasks": 2000,
+              "burst_s": burst_s, "topk_rounds": topk_rounds}
+    emit(result)
+    return result
+
+
+# -- phase: daemon (head, agents, client, CLI) -------------------------------
+
+def _children(pid):
+    """Pids whose parent is ``pid`` (from /proc)."""
+    kids = []
+    for entry in Path("/proc").iterdir():
+        if entry.name.isdigit():
+            try:
+                stat = (entry / "stat").read_text()
+            except OSError:
+                continue
+            if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+                kids.append(int(entry.name))
+    return kids
+
+
+def _alive(pid):
+    """Whether ``pid`` runs (a zombie does not)."""
+    try:
+        stat = Path(f"/proc/{pid}/stat").read_text()
+    except OSError:
+        return False
+    return stat.rsplit(")", 1)[1].split()[0] != "Z"
+
+
+def _holds_cuda(pid):
+    try:
+        maps = Path(f"/proc/{pid}/maps").read_text()
+    except OSError:
+        return None
+    return "libcuda" in maps
+
+
+DAEMON_TASKS = 3000
+# the head daemon's environment on top of this script's (RT_* knobs are
+# the port's Config overrides): a client submits one task per RPC, so
+# the head's rounds hold one or two tasks each, far below the default
+# device batch floor of 4096; with the floor at 1 every round of
+# all-default tasks runs on the card
+DAEMON_HEAD_ENV = {"RT_SCHEDULER_DEVICE_BATCH_MIN": "1"}
+
+DAEMON_DRIVER = """
+import json, os, sys, ray_tpu_torch as rt
+rt.init(address=os.environ["ADDR"])
+N = int(os.environ["TASKS"])
+
+@rt.remote
+def where(i):
+    return i, os.getppid()
+
+shapes = [{"resources": {"CPU": 0.01, "agent_a": 1}},
+          {"resources": {"CPU": 0.01, "agent_b": 1}}, {"num_cpus": 0.01}]
+refs = [where.options(**shapes[i % 3]).remote(i) for i in range(N)]
+out = rt.get(refs, timeout=300)
+assert [i for i, _ in out] == list(range(N)), "wrong results"
+hosts = {}
+for i, ppid in out:
+    hosts.setdefault(str(i % 3), set()).add(ppid)
+print("RESULT " + json.dumps({
+    "hosts": {k: sorted(v) for k, v in hosts.items()},
+    "libcuda": "libcuda" in open("/proc/self/maps").read(),
+    "torch": "torch" in sys.modules}))
+rt.shutdown()
+"""
+
+
+def phase_daemon(dev):
+    """The daemon half on the card: ``python -m ray_tpu_torch start
+    --head`` (its raylet on the GPU), two ``agent`` subprocesses, a
+    driver subprocess with ``init(address=...)`` whose burst lands on
+    both agents, ``job submit --wait``, ``status``, ``stop``.  Only the
+    head holds a CUDA context.  The head runs with DAEMON_HEAD_ENV in its
+    environment (``RT_SCHEDULER_DEVICE_BATCH_MIN=1``: the client path's
+    rounds hold a task or two, the default floor is 4096)."""
+    import os
+    import signal
+    import tempfile
+
+    from ray_tpu_torch.rpc import transport
+
+    state = tempfile.mkdtemp(prefix="chip_smoke_daemon_")
+    env = {k: v for k, v in os.environ.items()
+           if k != "RAY_TPU_TORCH_ADDRESS" and not k.startswith("RT_")}
+    repo = str(Path(__file__).resolve().parent)
+    env.update(RAY_TPU_TORCH_STATE_DIR=state,
+               PYTHONPATH=repo + os.pathsep + env.get("PYTHONPATH", ""))
+    head_env = dict(env, **DAEMON_HEAD_ENV)
+    py = [sys.executable, "-m", "ray_tpu_torch"]
+
+    def cli(*args, timeout=120, env=env):
+        r = subprocess.run(py + list(args), capture_output=True, text=True,
+                           env=env, cwd=repo, timeout=timeout)
+        if r.returncode != 0:
+            raise AssertionError(f"ray_tpu_torch {' '.join(args)}: rc "
+                                 f"{r.returncode}\n{r.stdout[-2000:]}\n"
+                                 f"{r.stderr[-2000:]}")
+        return r.stdout
+
+    t_start = time.perf_counter()
+    agents, head_pid, stopped = [], None, False
+    try:
+        started = cli("start", "--head", "--resources",
+                      '{"CPU": 4, "memory": 4}', "--num-workers", "2",
+                      env=head_env)
+        head_pid = int(started.split("(pid ")[1].split(")")[0])
+        addr = (Path(state) / "ray_current_cluster").read_text().strip()
+        for name in ("agent_a", "agent_b"):
+            agents.append(subprocess.Popen(
+                py + ["agent", "--address", addr, "--resources",
+                      json.dumps({"CPU": 2, "memory": 2, name: 1000}),
+                      "--num-workers", "2"],
+                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+                env=env, cwd=repo))
+        client = transport.connect(addr)
+        try:
+            deadline = time.monotonic() + 90
+            while len(client.call("nodes", timeout=30)) < 3:
+                if time.monotonic() > deadline:
+                    raise AssertionError("the agents did not join")
+                time.sleep(0.2)
+            sched0 = client.call("status", timeout=60)["scheduler"]
+            t0 = time.perf_counter()
+            drv = subprocess.run(
+                [sys.executable, "-c", DAEMON_DRIVER], capture_output=True,
+                text=True, cwd=repo, timeout=600,
+                env=dict(env, ADDR=addr, TASKS=str(DAEMON_TASKS)))
+            burst_s = time.perf_counter() - t0
+            if drv.returncode != 0 or "RESULT" not in drv.stdout:
+                raise AssertionError(f"driver: rc {drv.returncode}\n"
+                                     f"{drv.stderr[-3000:]}")
+            drv_out = json.loads(drv.stdout.split("RESULT ", 1)[1]
+                                 .splitlines()[0])
+            hosts = drv_out["hosts"]
+            agent_pids = [a.pid for a in agents]
+            if hosts["0"] != [agent_pids[0]] or \
+                    hosts["1"] != [agent_pids[1]] or drv_out["libcuda"]:
+                raise AssertionError(f"burst: tasks ran under {hosts}, "
+                                     f"agents {agent_pids}; driver "
+                                     f"libcuda {drv_out['libcuda']}")
+            sched = client.call("status", timeout=60)["scheduler"]
+            rounds = {key: sched[key] - sched0[key]
+                      for key in ("device_rounds", "delta_rounds",
+                                  "host_rounds", "topk_rounds")}
+            launches = {key: n - sched0["launches"].get(key, 0)
+                        for key, n in sched["launches"].items()}
+            if rounds["device_rounds"] < 1 or \
+                    launches.get("waterfill_scan", 0) < 1:
+                raise AssertionError(f"the head's raylet: {rounds}, "
+                                     f"launches {launches}")
+            # who holds the card: the head, and this script (earlier
+            # phases); no agent or agent worker (the driver checked
+            # itself).  nvidia-smi may print pids of another pid
+            # namespace: its list is judged only where it shows the head
+            smi = subprocess.run(
+                ["nvidia-smi", "--query-compute-apps=pid",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                check=True).stdout.split()
+            smi_pids = sorted(int(p) for p in smi if p.strip().isdigit())
+            others = agent_pids + [w for a in agent_pids
+                                   for w in _children(a)]
+            maps = {pid: _holds_cuda(pid) for pid in others}
+            head_in_smi = head_pid in smi_pids
+            if any(maps.values()) or not _holds_cuda(head_pid) or \
+                    set(others) & set(smi_pids) or \
+                    (head_in_smi and
+                     set(smi_pids) - {head_pid, os.getpid()}):
+                raise AssertionError(f"CUDA contexts: nvidia-smi "
+                                     f"{smi_pids}, libcuda maps {maps}")
+        finally:
+            client.close()
+        script = Path(state) / "job.py"
+        script.write_text(
+            "import os, ray_tpu_torch as rt\n"
+            "rt.init(address='auto')\n"
+            "f = rt.remote(lambda x: x + 1)\n"
+            "assert rt.get([f.remote(i) for i in range(50)], timeout=120)"
+            " == list(range(1, 51))\n"
+            "print('job-ok')\n"
+            "rt.shutdown()\n")
+        job = cli("job", "submit", "--wait", "--", sys.executable,
+                  str(script), timeout=300)
+        if "job-ok" not in job or "SUCCEEDED" not in job:
+            raise AssertionError(f"job submit: {job[-2000:]}")
+        status = cli("status")
+        if "nodes (3)" not in status or \
+                f"scheduler: device={dev.type}" not in status:
+            raise AssertionError(f"status: {status[-2000:]}")
+        cli("stop")
+        stopped = True
+    finally:
+        for a in agents:
+            if a.poll() is None:
+                a.send_signal(signal.SIGINT)        # agent.stop(): reaps
+        for a in agents:
+            try:
+                a.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                a.kill()
+                a.wait()
+        if head_pid is not None:
+            deadline = time.monotonic() + 30
+            while _alive(head_pid) and time.monotonic() < deadline:
+                try:                # reap if it is our child; else poll
+                    os.waitpid(head_pid, os.WNOHANG)
+                except ChildProcessError:
+                    pass
+                if not stopped:
+                    os.kill(head_pid, signal.SIGTERM)
+                time.sleep(0.2)
+            if _alive(head_pid):
+                os.kill(head_pid, signal.SIGKILL)
+    result = {"phase": "daemon", "entry": "python -m ray_tpu_torch",
+              "head_env": DAEMON_HEAD_ENV,
+              "agents": 2, "tasks": DAEMON_TASKS, "burst_s": burst_s,
+              "tasks_per_s": DAEMON_TASKS / burst_s,
+              "task_parents": {"agent_a": hosts["0"], "agent_b": hosts["1"],
+                               "unpinned": hosts["2"]},
+              "head_rounds": rounds, "head_launches": launches,
+              "nvidia_smi_pids": smi_pids, "head_pid": head_pid,
+              "nvidia_smi_gate": ("passed" if head_in_smi else
+                                  "skipped (pid namespace: nvidia-smi "
+                                  "does not list the head's pid)"),
+              "agent_processes_with_libcuda": sum(bool(v) for v in
+                                                  maps.values()),
+              "driver_imported_torch": drv_out["torch"],
+              "job": "SUCCEEDED",
+              "seconds": time.perf_counter() - t_start}
+    emit(result)
+    return result
+
+
 # -- phase: flash attention --------------------------------------------------
 
 def drop_last_key_tile(q, k, v, causal, tile=FLASH_KEY_TILE):
@@ -1190,14 +1879,16 @@ def phase_flash(dev):
     return result
 
 
-# head dims the kernel reaches by zero padding (64, 128) or at 256 (FMA)
-FLASH_HEAD_DIMS = (16, 32, 80, 96, 160, 256)
+# head dims the kernel reaches by zero padding (64, 128), at 256 (FMA)
+# and past 256 (the wide kernel, the head dim in chunks of 64)
+FLASH_HEAD_DIMS = (16, 32, 80, 96, 160, 256, 320, 512)
 
 
 def flash_head_dims(qkv, b=2, t=1024, h=4):
-    """Every head dim up to 256, causal and not, bf16 and f32, at (b, t,
-    h, d): the kernel within FLASH_TOL of the plain version, and the limit
-    still rejecting the plain version with its last key tile dropped."""
+    """Every head dim of FLASH_HEAD_DIMS, causal and not, bf16 and f32,
+    at (b, t, h, d): the kernel within FLASH_TOL of the plain version, and
+    the limit still rejecting the plain version with its last key tile
+    dropped."""
     import torch
 
     from ray_tpu_torch import ops
@@ -1254,6 +1945,9 @@ def main() -> int:
     loc = timed("locality", phase_locality, dev)
     run = timed("runtime", phase_runtime, dev)
     timed("dataplane", phase_dataplane, dev)
+    asc = timed("autoscaler", phase_autoscaler, dev)
+    timed("topk", phase_topk, dev)
+    dmn = timed("daemon", phase_daemon, dev)
     fl = timed("flash_attention", phase_flash, dev)
     head = fl["cases"][0]
     lw = loc["problems"]["beat 1000x8x64"]
@@ -1270,7 +1964,13 @@ def main() -> int:
          # it.  max_abs_err 0: the phases raise unless bit-exact
          "launches": run["launches"]["waterfill_scan"],
          "launches_by_path": {"runtime": run["launches"]["waterfill_scan"],
-                              "beat": beat["waterfill_launches"]},
+                              "beat": beat["waterfill_launches"],
+                              "autoscaler": asc["main_path_launches"][
+                                  "waterfill_scan"],
+                              "daemon_head": dmn["head_launches"].get(
+                                  "waterfill_scan", 0)},
+         # the autoscaler's phase 1: the same kernel in first-fit mode
+         "first_fit_ms": asc["scan_ms"],
          "max_abs_err": 0,
          "ms": wf["kernel_ms"], "plain_ms": wf["plain_ms"],
          "cluster": wf["cluster"],
@@ -1285,6 +1985,18 @@ def main() -> int:
          "ms": lw["kernel_ms"], "plain_ms": lw["plain_ms"],
          "bound_ms": lw["bound_ms"], "bound_by": lw["bound_by"],
          "library_ms": None, "checked": True},
+        {"name": "binpack_launch_loop", "route": "cuda",
+         "source": "ray_tpu_torch/ops/csrc/binpack.cu",
+         "replaces": "ray_tpu/ops/binpack_kernel.py:53 (_launch_loop "
+                     "lax.while_loop; _pack_all_types lax.scan :33)",
+         # launches on the autoscaler's path (StandardAutoscaler.update)
+         "launches": asc["main_path_launches"]["binpack_launch_loop"],
+         "max_abs_err": 0, "ms": asc["kernel_ms"],
+         "plain_ms": asc["plain_ms"], "bound_ms": asc["bound_ms"],
+         "bound_by": asc["bound_by"], "library_ms": None,
+         "iterations": asc["iterations"], "checked": True,
+         # and against the plain version on the main path's own tensors
+         "checked_on_main_path": asc["main_path"]["loop_vs_plain"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
          "replaces": "ray_tpu/ops/flash_attention.py:25",

@@ -5,11 +5,14 @@ mirrors its module tree and names.  It carries the scheduling data plane
 (the int32 scheduling contract, the cluster resource manager, the
 delta-scheduling heartbeat on torch residents with a hand-written CUDA
 water-fill kernel, its localized mode for locality rounds, and the
-bundle/pull/broadcast programs), the ops library's flash attention as a
-hand-written CUDA kernel, and the runtime on one host:
-``init/remote/get/put/wait``, actors and placement groups.  The daemon
-and client side (``init(address=...)``, the CLI) and the libraries come
-with later slices (ROADMAP.md).
+bundle/pull/broadcast programs, the top-k spread and the autoscaler's
+demand packing with a hand-written CUDA launch-loop kernel), the ops
+library's flash attention as a hand-written CUDA kernel, the runtime
+(``init/remote/get/put/wait``, actors, placement groups, the autoscaler
+loop) and its daemon half: a head daemon with worker-node agents,
+client mode (``init(address=...)``), job submission and the CLI
+(``python -m ray_tpu_torch``).  The metrics exporter, the dashboard and
+the libraries come with later slices (ROADMAP.md).
 
 The package imports ``torch`` and numpy, never JAX and nothing of
 ``ray_tpu``.  Entry points run on the GPU unless the caller asks for the
@@ -35,7 +38,8 @@ def __getattr__(name):
     if name in _API_NAMES:
         from . import api
         return getattr(api, name)
-    if name in ("ops", "scheduling", "convert", "device", "util", "serve"):
+    if name in ("ops", "scheduling", "convert", "device", "util", "serve",
+                "experimental", "cross_language", "autoscaler"):
         # NOT `from . import ops`: that re-enters __getattr__ via the
         # fromlist hasattr probe before the submodule import finishes.
         # Only submodules that EXIST belong here.

@@ -415,9 +415,10 @@ def init(resources: dict[str, float] | None = None,
     """Start the runtime.  ``cluster=`` adopts an existing simulated
     multi-node ``cluster_utils.Cluster`` (the reference's
     ``ray.init(address=cluster.address)`` pattern); ``runtime_env=`` is
-    the job-level default environment for every task; ``address=``
-    (attaching to a running head daemon as a client) is not ported yet
-    and raises ``NotImplementedError``; ``namespace=`` scopes named-actor
+    the job-level default environment for every task; ``address=`` (or
+    ``"auto"`` with ``RAY_TPU_TORCH_ADDRESS`` set) attaches to a running
+    head daemon as a CLIENT instead of starting a local cluster
+    (reference: ``ray.init("ray://…")``); ``namespace=`` scopes named-actor
     lookup/registration (divergence from upstream, documented: the
     default is the SHARED "" namespace rather than an anonymous
     per-job one — explicit namespaces give the isolation)."""
@@ -425,11 +426,27 @@ def init(resources: dict[str, float] | None = None,
     with _lock:
         if _runtime is not None:
             raise RuntimeError("ray_tpu_torch already initialized")
+        if address == "auto":
+            address = os.environ.get("RAY_TPU_TORCH_ADDRESS")
+            if not address:
+                raise RuntimeError(
+                    "init(address='auto') but RAY_TPU_TORCH_ADDRESS is "
+                    "unset and no head daemon address was given")
         if address is not None:
-            raise NotImplementedError(
-                "init(address=...) attaches to a head daemon as a client; "
-                "the daemon and client side is not ported yet: ROADMAP.md, "
-                "section A, item 5 (daemon, client and CLI)")
+            conflicting = {"resources": resources,
+                           "num_workers": num_workers,
+                           "system_config": system_config,
+                           "cluster": cluster}
+            bad = [k for k, v in conflicting.items() if v is not None]
+            if bad:
+                raise ValueError(
+                    f"init(address=...) attaches to an existing cluster; "
+                    f"{bad} configure a LOCAL cluster and would be "
+                    "silently ignored — drop them or drop address")
+            from .util.client import ClientRuntime
+            _runtime = ClientRuntime(address, runtime_env=runtime_env,
+                                     namespace=namespace)
+            return
         if system_config is not None:
             Config.reset(system_config)
         cfg = get_config()

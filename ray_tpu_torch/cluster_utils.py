@@ -567,9 +567,10 @@ class Cluster:
     def start_autoscaler(self, node_types, **kwargs) -> "StandardAutoscaler":
         """Attach + start the autoscaler runtime loop (reference:
         the monitor process running StandardAutoscaler.update)."""
-        raise NotImplementedError(
-            "the autoscaler is not ported yet: ROADMAP.md, section A, "
-            "item 8")
+        from .autoscaler.autoscaler import StandardAutoscaler
+        self.autoscaler = StandardAutoscaler(self, node_types, **kwargs)
+        self.autoscaler.start()
+        return self.autoscaler
 
     def head(self) -> Raylet:
         return self.raylets[self._head_row]

@@ -31,7 +31,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ray_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = {"waterfill": "waterfill.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu",
+           "binpack": "binpack.cu"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +44,8 @@ _SIGNATURES = {
     "flash_attention": ("rt_flash_attention",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          ctypes.c_float, _P]),
+    "binpack": ("rt_binpack_launch_loop",
+                [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -52,9 +52,11 @@
 // the JAX kernel computes): a wgmma instantiation there needs its own
 // shared-memory and register budget (128 O accumulators a thread), left
 // for a later PR.  At D = 256 a block holds 32 query rows (2 warps), so
-// the f32 tiles stay inside 227 KB.  Head dims other than 64, 128 and
-// 256 are padded with zeros by the wrapper, which passes the original
-// dim's scale.
+// the f32 tiles stay inside 227 KB.  Past D = 256 the wide kernel
+// (further down) streams the head dim in chunks of 64 columns, one CTA
+// per output chunk.  Head dims other than 64, 128, 256 and the
+// multiples of 64 past 256 are padded with zeros by the wrapper, which
+// passes the original dim's scale.
 //
 // Scaling: the JAX kernel scales Q in f32 before the product.  The f32
 // path does exactly that.  On the 16-bit path Q stays in its 16-bit type
@@ -743,11 +745,200 @@ int launch32(const void* q, const void* k, const void* v, void* o, int b,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Wide path: every dtype at head dims past 256 (a multiple of 64; the
+// wrapper pads others with zeros)
+// ---------------------------------------------------------------------------
+//
+// At D > 256 no tiling of the whole head dim fits shared memory (the FMA
+// kernel's f32 tiles at 32 query rows already take 206 KB at D = 256), so
+// the head dim is streamed in chunks of 64 columns:
+//   * one CTA per (b*h, 64-query tile, 64-column output chunk): blockIdx.x
+//     is the query tile times b*h, blockIdx.y the output chunk;
+//   * per key tile of 64, S = sum_c Q_c K_c^T builds up in registers as
+//     the 64-column chunks of Q (scaled in f32, as the JAX kernel) and K
+//     pass through shared memory, then the online softmax runs on S as in
+//     the FMA kernel and only the CTA's own chunk of V is multiplied in;
+//   * so S is computed once per output chunk (D/64 times in all): the
+//     price of holding 84 KB of shared memory at any D.  The sum over the
+//     head dim runs in column order, as in the other paths.
+
+constexpr int kWBQ = 64;        // query rows per CTA (4 warps x 16)
+constexpr int kWBK = 64;        // keys per tile
+constexpr int kWC = 64;         // head-dim columns per chunk
+constexpr int kWThreads = 128;  // two lanes per query row
+
+struct SmemWide {
+  static constexpr int LDT = kWC + 1;   // Q/K/V chunk rows (floats)
+  static constexpr int LDS = kWBK + 4;
+  static constexpr int LDO = kWC + 4;
+  static constexpr size_t kQ = 0;
+  static constexpr size_t kK = align128(kQ + sizeof(float) * kWBQ * LDT);
+  static constexpr size_t kV = align128(kK + sizeof(float) * kWBK * LDT);
+  static constexpr size_t kS = align128(kV + sizeof(float) * kWBK * LDT);
+  static constexpr size_t kO = align128(kS + sizeof(float) * kWBQ * LDS);
+  static constexpr size_t kBytes = align128(kO + sizeof(float) * kWBQ * LDO);
+};
+
+// rows [t0, t0 + 64) x columns [c0, c0 + 64) of a (T, stride) slab, in
+// f32, times `mul`, zero past T
+template <typename T>
+__device__ void load_chunk(float* dst, const T* __restrict__ src,
+                           size_t stride, int t0, int tn, int c0, float mul) {
+  for (int i = threadIdx.x; i < 64 * kWC; i += kWThreads) {
+    const int r = i / kWC, c = i % kWC, t = t0 + r;
+    dst[r * SmemWide::LDT + c] =
+        t < tn ? to_f32(src[(size_t)t * stride + c0 + c]) * mul : 0.f;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWThreads)
+flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, T* __restrict__ o, int tn,
+                  int heads, int d, int bh_count, int causal, float scale) {
+  using L = SmemWide;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem + L::kQ);
+  float* Ks = reinterpret_cast<float*>(smem + L::kK);
+  float* Vs = reinterpret_cast<float*>(smem + L::kV);
+  float* Ss = reinterpret_cast<float*>(smem + L::kS);
+  float* Os = reinterpret_cast<float*>(smem + L::kO);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bh = (int)(blockIdx.x % (unsigned)bh_count);
+  const int b = bh / heads, h = bh % heads;
+  const int q0 = (int)(blockIdx.x / (unsigned)bh_count) * kWBQ;
+  const int oc = (int)blockIdx.y * kWC;            // this CTA's columns
+  const int n_chunks = d / kWC;
+  const size_t stride = (size_t)heads * d;         // between t and t+1
+  const size_t base = ((size_t)b * tn * heads + h) * d;
+
+  for (int i = tid; i < kWBQ * kWC; i += kWThreads)
+    Os[(i / kWC) * L::LDO + i % kWC] = 0.f;
+
+  const int my_row = warp * 16 + (lane >> 1), half = lane & 1;
+  const int qpos = q0 + my_row;
+  float m_i = -INFINITY, l_i = 0.f;
+
+  int n_kt = (tn + kWBK - 1) / kWBK;
+  if (causal) n_kt = min(n_kt, (min(q0 + kWBQ, tn) - 1) / kWBK + 1);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kWBK;
+    // S[warp rows] = sum over chunks of Q_c K_c^T: lane owns keys lane
+    // and lane + 32
+    float acc[16][2];
+#pragma unroll
+    for (int r = 0; r < 16; ++r) acc[r][0] = acc[r][1] = 0.f;
+    for (int c = 0; c < n_chunks; ++c) {
+      __syncthreads();                  // every warp done with the tiles
+      load_chunk<T>(Qs, q + base, stride, q0, tn, c * kWC, scale);
+      load_chunk<T>(Ks, k + base, stride, k0, tn, c * kWC, 1.f);
+      if (c == 0) load_chunk<T>(Vs, v + base, stride, k0, tn, oc, 1.f);
+      __syncthreads();
+      const float* qrows = Qs + warp * 16 * L::LDT;
+      for (int dd = 0; dd < kWC; ++dd) {
+        const float k0v = Ks[lane * L::LDT + dd];
+        const float k1v = Ks[(lane + 32) * L::LDT + dd];
+#pragma unroll
+        for (int r = 0; r < 16; ++r) {
+          const float qv = qrows[r * L::LDT + dd];
+          acc[r][0] = fmaf(qv, k0v, acc[r][0]);
+          acc[r][1] = fmaf(qv, k1v, acc[r][1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      Ss[(warp * 16 + r) * L::LDS + lane] = acc[r][0];
+      Ss[(warp * 16 + r) * L::LDS + lane + 32] = acc[r][1];
+    }
+    __syncwarp();
+
+    float* srow = Ss + my_row * L::LDS + half * 32;
+    float sv[32];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int kpos = k0 + half * 32 + j;
+      const bool dead = kpos >= tn || (causal && kpos > qpos);
+      sv[j] = dead ? -INFINITY : srow[j];
+      mx = fmaxf(mx, sv[j]);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+    const float m_new = fmaxf(m_i, mx);
+    const float corr = m_i == -INFINITY ? 0.f : expf(m_i - m_new);
+    float psum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const float p = isfinite(sv[j]) ? expf(sv[j] - m_new) : 0.f;
+      psum += p;
+      srow[j] = p;
+    }
+    psum += __shfl_xor_sync(kFull, psum, 1);
+    l_i = l_i * corr + psum;
+    m_i = m_new;
+    float* orow = Os + my_row * L::LDO + half * (kWC / 2);
+#pragma unroll 8
+    for (int c = 0; c < kWC / 2; ++c) orow[c] *= corr;
+    __syncwarp();
+
+    {  // O[warp rows, this chunk] += P V_chunk: lane owns columns lane
+       // and lane + 32
+      float oacc[16][2];
+#pragma unroll
+      for (int r = 0; r < 16; ++r)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          oacc[r][i] = Os[(warp * 16 + r) * L::LDO + lane + 32 * i];
+      for (int j = 0; j < kWBK; ++j) {
+        const float v0 = Vs[j * L::LDT + lane];
+        const float v1 = Vs[j * L::LDT + lane + 32];
+#pragma unroll
+        for (int r = 0; r < 16; ++r) {
+          const float p = Ss[(warp * 16 + r) * L::LDS + j];
+          oacc[r][0] = fmaf(p, v0, oacc[r][0]);
+          oacc[r][1] = fmaf(p, v1, oacc[r][1]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 16; ++r)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          Os[(warp * 16 + r) * L::LDO + lane + 32 * i] = oacc[r][i];
+    }
+    __syncwarp();
+  }
+
+  if (qpos < tn) {
+    const float denom = fmaxf(l_i, 1e-30f);
+    const float* orow = Os + my_row * L::LDO + half * (kWC / 2);
+    T* out = o + base + (size_t)qpos * stride + oc + half * (kWC / 2);
+    for (int c = 0; c < kWC / 2; ++c) out[c] = from_f32<T>(orow[c] / denom);
+  }
+}
+
+template <typename T>
+int launch_wide(const void* q, const void* k, const void* v, void* o, int b,
+                int tn, int h, int d, int causal, float scale,
+                cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SmemWide::kBytes);
+  if (err != cudaSuccess) return (int)err;
+  const int n_qt = (tn + kWBQ - 1) / kWBQ;
+  const dim3 grid((unsigned)(n_qt * b * h), (unsigned)(d / kWC));
+  flash_wide_kernel<T><<<grid, kWThreads, SmemWide::kBytes, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, tn, h, d, b * h, causal,
+      scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16; d in {64, 128, 256}
-// (the wrapper pads other head dims with zeros and passes the scale of
-// the original one).  Both grids put b*h and the query tile on gridDim.x
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16; d in {64, 128, 256} or
+// a multiple of 64 past 256 (the wrapper pads other head dims with zeros
+// and passes the scale of the original one).  Both grids put b*h and the query tile on gridDim.x
 // (at most 2**31 - 1 blocks).
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, int b, int t, int h, int d,
@@ -769,6 +960,10 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
     if (dtype == 0) return launch32<float, 256>(q, k, v, o, b, t, h, causal, scale, st);
     if (dtype == 1) return launch32<__half, 256>(q, k, v, o, b, t, h, causal, scale, st);
     if (dtype == 2) return launch32<__nv_bfloat16, 256>(q, k, v, o, b, t, h, causal, scale, st);
+  } else if (d > 256 && d % kWC == 0 && d / kWC <= 65535) {
+    if (dtype == 0) return launch_wide<float>(q, k, v, o, b, t, h, d, causal, scale, st);
+    if (dtype == 1) return launch_wide<__half>(q, k, v, o, b, t, h, d, causal, scale, st);
+    if (dtype == 2) return launch_wide<__nv_bfloat16>(q, k, v, o, b, t, h, d, causal, scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }

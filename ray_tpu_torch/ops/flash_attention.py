@@ -4,15 +4,17 @@ The port of ``ray_tpu/ops/flash_attention.py`` (a Pallas TPU kernel):
 blocked attention with the online-softmax recurrence, O(T) memory
 instead of the O(T^2) score matrix.  The kernel is
 ``csrc/flash_attention.cu`` (wgmma + TMA on Hopper for f16/bf16 at
-D = 64 and 128, FMA for f32 and for every dtype at D = 256);
-``flash_attention_plain`` is the dense PyTorch version of the same
-function, which CPU tensors take.
+D = 64 and 128, FMA for f32 and for every dtype at D = 256, and past 256
+a wide FMA kernel that streams the head dim in chunks of 64 columns, one
+CTA per output chunk); ``flash_attention_plain`` is the dense PyTorch
+version of the same function, which CPU tensors take.
 
-Other head dims up to 256 are padded with zeros to the next kernel width
-(64, 128 or 256) and the output cut back: exact, since zero columns add
-nothing to QK^T and the extra output columns are P 0.  The softmax scale
-stays 1/sqrt(D) of the original D, passed to the kernel as an argument
-(the 16-bit path multiplies the f32 product by it, never a 16-bit Q).
+Other head dims are padded with zeros to the next kernel width (64, 128
+or 256, and past 256 the next multiple of 64) and the output cut back:
+exact, since zero columns add nothing to QK^T and the extra output
+columns are P 0.  The softmax scale stays 1/sqrt(D) of the original D,
+passed to the kernel as an argument (the 16-bit path multiplies the f32
+product by it, never a 16-bit Q).
 
 Shapes ``(batch, seq, heads, dim)`` at the public function, as in JAX.
 """
@@ -25,6 +27,13 @@ import torch
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _KERNEL_DIMS = (64, 128, 256)        # the kernel's widths; others pad up
+_WIDE_CHUNK = 64                     # past 256: the next multiple of 64
+
+
+def kernel_width(d: int) -> int:
+    """The head dim the CUDA kernel runs a head dim ``d`` at."""
+    return next((w for w in _KERNEL_DIMS if d <= w), None) or \
+        -(-d // _WIDE_CHUNK) * _WIDE_CHUNK
 
 
 def flash_attention_plain(q, k, v, causal: bool = False):
@@ -50,7 +59,7 @@ def flash_attention(q, k, v, *, causal: bool = False,
     are validated for parity with its signature; the CUDA kernel tiles by
     its own (128 x 128 for f16/bf16, 64 x 64 for f32).  CPU tensors take
     ``flash_attention_plain``; CUDA
-    tensors launch the kernel (f32/f16/bf16, D <= 256) or raise."""
+    tensors launch the kernel (f32/f16/bf16, any D) or raise."""
     b, t, h, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("q/k/v must share shape (batch, seq, heads, "
@@ -65,10 +74,7 @@ def flash_attention(q, k, v, *, causal: bool = False,
         return flash_attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    width = next((w for w in _KERNEL_DIMS if d <= w), None)
-    if width is None:
-        raise ValueError(f"flash_attention: the CUDA kernel takes head dim "
-                         f"up to {_KERNEL_DIMS[-1]}; got {d}")
+    width = kernel_width(d)
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"flash_attention: the CUDA kernel takes float32, "
                          f"float16 or bfloat16; got {q.dtype}")

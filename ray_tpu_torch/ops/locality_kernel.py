@@ -19,9 +19,21 @@ one warp's reads of the preferred row while the class is set up).  The
 plain PyTorch version is ``waterfill_scan_plain(..., pref_rows=...)``;
 CPU tensors take it.
 
-``schedule_grouped_topk`` (the ``scheduler_top_k_fraction`` > 0 mode) is
-not ported yet (ROADMAP.md A.4): its JAX draws cannot be reproduced, and
-the default fraction is 0.
+``schedule_grouped_topk`` is the contention-spread mode
+(``scheduler_top_k_fraction`` > 0): each class's tasks spread EVENLY over
+its k best-keyed feasible nodes, the remainder rotated by one draw per
+(seed, round, group).  Plain PyTorch: a host loop over the classes of a
+few tensor ops each (keys, a stable argsort, the even split, the cap at
+availability), no host sync inside.  The JAX function draws its rotation
+with ``jax.random`` on the device; those bits cannot be reproduced, so
+the port draws on the host (``topk_draws``: Philox keyed by (seed,
+round), one raw output per group) and takes each group's offset as the
+draw modulo k on the device.  CPU and GPU therefore get the same offsets
+and the same placements, bit for bit.  Against the JAX function the port
+differs only in where the remainder lands: the same top-k node set per
+class, ``alloc`` in {base, base + 1} on it, the same overflow column and
+the same consumption cap (the reference does not bit-compare top-k
+across backends either, ``ray_tpu/ops/locality_kernel.py:17-25``).
 """
 
 from __future__ import annotations
@@ -30,7 +42,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .hybrid_kernel import waterfill_scan
+from .hybrid_kernel import (_BIG, _I32, _INF_KEY, _floordiv, _keys_one_req,
+                            waterfill_scan)
 
 
 def schedule_grouped_localized(totals, avail, node_mask, group_reqs,
@@ -73,5 +86,93 @@ def schedule_grouped_localized_np(totals, avail, node_mask, group_reqs,
         put(totals, np.int32), put(avail, np.int32), put(node_mask, bool),
         put(group_reqs, np.int32), put(group_counts, np.int32),
         put(group_masks, bool), put(pref_rows, np.int32), int(thr_fp),
+        None if extra_mask is None else put(extra_mask, bool))
+    return counts.cpu().numpy(), new_avail.cpu().numpy()
+
+
+def topk_draws(seed, round_index, n_groups) -> np.ndarray:
+    """The rotation draws of one top-k round: (n_groups,) int32 in [0,
+    2**31), the g-th raw output of Philox keyed by (seed, round_index),
+    so a group's draw depends only on (seed, round, group)."""
+    key = (int(seed) % (1 << 64)) | ((int(round_index) % (1 << 64)) << 64)
+    raw = np.random.Philox(key=key).random_raw(int(n_groups))
+    return (raw >> np.uint64(33)).astype(np.int32)
+
+
+def schedule_grouped_topk(totals, avail, node_mask, group_reqs,
+                          group_counts, group_masks, thr_fp, k_abs,
+                          k_frac_num, k_frac_den, draws, extra_mask=None):
+    """Top-k contention spread (see the module docstring).
+
+    k per group = min(feasible, max(k_abs,
+    ceil(feasible * k_frac_num / k_frac_den))).  Each group's tasks
+    spread evenly over its k best keys, the remainder rotated by
+    ``draws[g] % k`` (``draws``: (G,) int32 from ``topk_draws``);
+    consuming placements are capped by per-node availability (tasks
+    beyond capacity queue without consuming).  Returns (counts (G, N+1),
+    new_avail) on the inputs' device; plain PyTorch on either device."""
+    if extra_mask is not None:
+        node_mask = node_mask & extra_mask
+    n, dev = totals.shape[0], totals.device
+    pos = torch.arange(n, dtype=_I32, device=dev)
+    counts = torch.zeros((group_reqs.shape[0], n + 1), dtype=_I32,
+                         device=dev)
+    av = avail
+    for gi in range(group_reqs.shape[0]):
+        req, count = group_reqs[gi], group_counts[gi]
+        mask = node_mask if group_masks is None \
+            else node_mask & group_masks[gi]
+        keys = _keys_one_req(totals, av, req, thr_fp, mask)
+        nf = (keys != _INF_KEY).sum().to(_I32)
+        # ceil(nf * num / den): the brackets matter, -(-x) // d floors
+        k = torch.clamp(-_floordiv(-nf * k_frac_num, k_frac_den),
+                        min=k_abs)
+        k = torch.minimum(k.clamp_min(1), nf.clamp_min(1))
+        order = torch.argsort(keys, stable=True)            # best first
+        offset = torch.remainder(draws[gi], k)
+        base = _floordiv(count, k)
+        extra_n = count - base * k
+        gets_extra = torch.remainder(pos - offset, k) < extra_n
+        per_slot = torch.where(pos < k, base + gets_extra.to(_I32), 0)
+        per_slot = torch.where(nf > 0, per_slot, 0).to(_I32)
+        alloc = torch.zeros(n, dtype=_I32, device=dev).scatter(
+            0, order, per_slot)
+        # consume only up to availability (queued tasks don't subtract)
+        caps = torch.where((req > 0)[None, :],
+                           _floordiv(av, req.clamp_min(1)[None, :]), _BIG)
+        consumed = torch.minimum(alloc, caps.amin(dim=1).clamp(0, _BIG))
+        av = (av - consumed[:, None] * req[None, :]).to(_I32)
+        # no feasible node: the whole class overflows to column n
+        counts[gi, :n] = torch.where(nf > 0, alloc, 0)
+        counts[gi, n] = torch.where(nf > 0, 0, count)
+    return counts, av.clone() if av is avail else av
+
+
+def schedule_grouped_topk_np(totals, avail, node_mask, group_reqs,
+                             group_counts, seed, round_index,
+                             group_masks=None, thr_fp=None,
+                             spread_threshold=None, k_abs=1,
+                             k_frac=0.0, extra_mask=None, device=None):
+    """Host wrapper: numpy in/out, compute on ``device`` (the GPU unless
+    the caller asks for the CPU); the draws are made here, on the host."""
+    from fractions import Fraction
+
+    from ..scheduling.contract import threshold_fp
+    if thr_fp is None:
+        thr_fp = threshold_fp(spread_threshold)
+    dev = resolve_device(device)
+    g = group_reqs.shape[0]
+    frac = Fraction(k_frac).limit_denominator(1 << 16)
+
+    def put(x, dtype):
+        return torch.tensor(np.ascontiguousarray(x, dtype), device=dev)
+
+    counts, new_avail = schedule_grouped_topk(
+        put(totals, np.int32), put(avail, np.int32), put(node_mask, bool),
+        put(group_reqs, np.int32), put(group_counts, np.int32),
+        None if group_masks is None else put(group_masks, bool),
+        int(thr_fp), max(int(k_abs), 1), int(frac.numerator),
+        max(int(frac.denominator), 1),
+        put(topk_draws(seed, round_index, g), np.int32),
         None if extra_mask is None else put(extra_mask, bool))
     return counts.cpu().numpy(), new_avail.cpu().numpy()

@@ -150,10 +150,12 @@ class Raylet:
         # placement rounds of all-default batches, by route: the device
         # programs (_schedule_rows_device) or their host twin; of the
         # device rounds, those the delta beat placed (the rest upload a
-        # snapshot: a locality row or an avoid flag in the batch)
+        # snapshot: a locality row or an avoid flag in the batch) and
+        # those that spread over top-k keys (scheduler_top_k_fraction)
         self.device_rounds = 0
         self.host_rounds = 0
         self.delta_rounds = 0
+        self.topk_rounds = 0
         self._stopped = False
         # DRAINING: no new leases commit here, running tasks finish;
         # the pool and event loop stay alive (unlike _stopped) so the
@@ -814,12 +816,36 @@ class Raylet:
     def _schedule_device_topk(self, totals, avail, mask, req_arr,
                               cnt_arr, gmask, pref_arr,
                               cfg) -> "np.ndarray":
-        """Top-k rounds on device (``scheduler_top_k_fraction`` > 0; the
-        default is 0).  Not ported yet."""
-        raise NotImplementedError(
-            "scheduler_top_k_fraction > 0: the top-k device spread "
-            "(locality_kernel.schedule_grouped_topk) is not ported yet: "
-            "ROADMAP.md, section A, item 4 (top-k)")
+        """Top-k rounds on device: locality groups pre-place via the
+        localized kernel (affinity is deterministic, no sampling), then
+        the remaining groups spread over their top-k keys with a pinned
+        (row, round) draw — deterministic replay, documented divergence
+        from the host sampler's per-task draws.  Both run on the
+        cluster's ``scheduler_device``."""
+        from ..ops.locality_kernel import (schedule_grouped_localized_np,
+                                          schedule_grouped_topk_np)
+        dev = self.cluster.scheduler_device
+        self.topk_rounds += 1              # also the draws' round index
+        has_pref = pref_arr >= 0
+        counts_out = np.zeros((req_arr.shape[0], totals.shape[0] + 1),
+                              dtype=np.int32)
+        avail_now = avail
+        if has_pref.any():
+            loc_cnt = np.where(has_pref, cnt_arr, 0).astype(np.int32)
+            c_loc, avail_now = schedule_grouped_localized_np(
+                totals, avail_now, mask, req_arr, loc_cnt, pref_arr,
+                group_masks=gmask, spread_threshold=None, device=dev)
+            counts_out += c_loc
+        topk_cnt = np.where(has_pref, 0, cnt_arr).astype(np.int32)
+        if topk_cnt.any():
+            c_topk, _ = schedule_grouped_topk_np(
+                totals, avail_now, mask, req_arr, topk_cnt,
+                seed=self.row, round_index=self.topk_rounds,
+                group_masks=gmask,
+                k_abs=cfg.scheduler_top_k_absolute,
+                k_frac=cfg.scheduler_top_k_fraction, device=dev)
+            counts_out += c_topk
+        return counts_out
 
     def _schedule_sharded(self, totals, avail, mask, req_arr, cnt_arr,
                           gmask) -> "np.ndarray":

@@ -355,12 +355,24 @@ def test_flash_kernel_takes_more_than_65535_heads(dtype):
 
 
 def test_flash_kernel_rejects_other_head_dims():
-    """Head dims up to 256 pad to a kernel width (below); past 256 the
-    kernel has none and the wrapper raises."""
-    from ray_tpu_torch.ops import flash_attention
+    """The kernel takes D in {64, 128, 256} and the multiples of 64 past
+    256; its entry point refuses any other D (the wrapper pads those with
+    zeros first: D = 300 runs at 320)."""
+    import ctypes
+    from ray_tpu_torch.ops import _build, flash_attention
+    from ray_tpu_torch.ops.flash_attention import kernel_width
+    assert [kernel_width(d) for d in (16, 100, 200, 256, 257, 300, 320,
+                                      513)] == [64, 128, 256, 256, 320,
+                                                320, 320, 576]
     q = torch.zeros((1, 64, 2, 320), device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention(q, q, q)
+    fn = _build.load("flash_attention")
+    for d in (32, 96, 300):
+        err = fn(q.data_ptr(), q.data_ptr(), q.data_ptr(), q.data_ptr(),
+                 1, 64, 2, d, 2, 0, ctypes.c_float(1.0),
+                 torch.cuda.current_stream().cuda_stream)
+        assert err != 0, d
+    x = torch.randn((1, 64, 2, 300), device="cuda", dtype=torch.bfloat16)
+    assert flash_attention(x, x, x).shape == x.shape
 
 
 FLASH_HEAD_DIMS = [16, 32, 80, 96, 160, 256]
@@ -390,6 +402,134 @@ def test_flash_kernel_every_head_dim(d, causal, dtype):
     p = torch.softmax(s.masked_fill(dead, float("-inf")), dim=-1)
     faulty = torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(dtype)
     assert _flash_err_over_limit(faulty, q, k, v, causal) > 1.0
+
+
+# head dims past 256: the wide kernel (the head dim in chunks of 64)
+FLASH_WIDE_DIMS = [288, 320, 384, 512]
+
+
+@pytest.mark.parametrize("d", FLASH_WIDE_DIMS)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_wide_head_dims(d, causal, dtype):
+    """Head dims past 256 on the wide kernel, against the plain version
+    within the limit, which must still reject a dropped key tile."""
+    test_flash_kernel_every_head_dim(d, causal, dtype)
+
+
+# -- the autoscaler: phase 1 on the water-fill, the launch-loop kernel -------
+
+def _launch_loop_problem(seed, k, g, r):
+    rng = np.random.default_rng(seed)
+    caps = rng.integers(0, 3000, size=(k, r)).astype(np.int32)
+    caps[rng.random(caps.shape) < 0.2] = 0
+    quotas = rng.integers(0, 60, size=k).astype(np.int32)
+    reqs = rng.integers(0, 500, size=(g, r)).astype(np.int32)
+    reqs[rng.random(reqs.shape) < 0.6] = 0
+    reqs[0] = 0                                 # a class with no request
+    rem = rng.integers(0, 4000, size=g).astype(np.int32)
+    return caps, quotas, reqs, rem
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("k,g,r", [(1, 1, 1), (5, 10, 4), (16, 64, 64),
+                                   (32, 128, 128), (40, 33, 7)])
+def test_binpack_launch_loop_bit_exact(seed, k, g, r):
+    from ray_tpu_torch.ops.binpack_kernel import (binpack_launch_loop,
+                                                  launch_loop_plain)
+    arrays = _launch_loop_problem(seed, k, g, r)
+    cpu = [torch.tensor(a) for a in arrays]
+    max_iters = g * k + g + k + 2
+    before = binpack_launch_loop.launches
+    got = binpack_launch_loop(*[a.cuda() for a in cpu], max_iters)
+    assert binpack_launch_loop.launches == before + 1
+    want = launch_loop_plain(*cpu, max_iters)
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y), (seed, k, g, r)
+    # the plain version on the card equals its CPU run too
+    plain_card = launch_loop_plain(*[a.cuda() for a in cpu], max_iters)
+    for x, y in zip(plain_card, want):
+        assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_autoscale_on_card_equals_oracle(seed):
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).parent))
+    from test_autoscaler import random_autoscale_problem
+
+    from ray_tpu_torch.autoscaler.demand import get_nodes_to_launch
+    from ray_tpu_torch.ops.binpack_kernel import autoscale_np
+    from ray_tpu_torch.scheduling.oracle import ClusterState
+    rng = np.random.default_rng(seed + 100)
+    p = random_autoscale_problem(rng, n_nodes=300, n_res=16, n_groups=48,
+                                 n_types=12)
+    got = autoscale_np(*p)
+    st = ClusterState(p[0].copy(), p[1].copy(), p[2].copy())
+    launches, fit, unmet = get_nodes_to_launch(st, *p[3:])
+    for x, y in zip(got, (launches, fit, unmet, st.avail)):
+        assert np.array_equal(x, y), seed
+
+
+def test_binpack_rejects_what_the_kernel_does_not_take():
+    from ray_tpu_torch.ops.binpack_kernel import binpack_launch_loop
+    caps, quotas, reqs, rem = (torch.tensor(a).cuda() for a in
+                               _launch_loop_problem(0, 4, 8, 4))
+    with pytest.raises(ValueError, match="int32"):
+        binpack_launch_loop(caps.long(), quotas, reqs, rem, 10)
+    with pytest.raises(ValueError, match="shape"):
+        binpack_launch_loop(caps, quotas, reqs[:, :2].contiguous(), rem, 10)
+    with pytest.raises(ValueError, match="empty"):
+        binpack_launch_loop(caps[:0], quotas[:0], reqs, rem, 10)
+
+
+# the arrays in global memory on an H100 (227 KB of shared memory a CTA),
+# placed in the .cu's order: state, classes, used, caps, reqs, packed
+@pytest.mark.parametrize("k,g,r,spilled", [
+    (64, 8, 512, ["caps"]),
+    (16, 1024, 64, ["reqs"]),               # past ~680 classes at R=64
+    (32, 2048, 128, ["reqs", "packed"]),
+    (2, 30000, 2, ["classes", "reqs", "packed"]),
+    (2, 8, 40000, ["used", "caps", "reqs"]),
+])
+def test_binpack_spills_what_shared_memory_cannot_hold(k, g, r, spilled):
+    # every shape the reference takes runs: the arrays that do not fit
+    # go to global memory, bit-exact against the plain loop (a few
+    # iterations: the plain loop is a host loop over the classes)
+    from ray_tpu_torch.ops.binpack_kernel import (binpack_launch_loop,
+                                                  launch_loop_plain)
+    cpu = [torch.tensor(a) for a in _launch_loop_problem(3, k, g, r)]
+    iters = 2 if g > 4096 else 12
+    got = binpack_launch_loop(*[a.cuda() for a in cpu], iters)
+    layout = binpack_launch_loop.last_layout
+    assert layout["global"] == spilled, layout
+    assert layout["scratch_ints"] > 0 or \
+        set(spilled) <= {"caps", "reqs"}
+    want = launch_loop_plain(*cpu, iters)
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y), (k, g, r)
+    # and the fitting shape keeps everything on chip
+    binpack_launch_loop(*[a.cuda() for a in
+                          map(torch.tensor, _launch_loop_problem(0, 16, 64,
+                                                                 64))], 4)
+    assert binpack_launch_loop.last_layout["global"] == []
+
+
+# -- top-k rounds ------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", range(3))
+def test_topk_card_equals_cpu(seed):
+    from ray_tpu_torch.ops.locality_kernel import schedule_grouped_topk_np
+    totals, avail, mask, reqs, counts, masks = _problem(seed, 500, 8, 24,
+                                                        neg=False)
+    kw = dict(group_masks=masks, k_frac=0.3, k_abs=2)
+    got = schedule_grouped_topk_np(totals, avail, mask, reqs, counts,
+                                   seed, 7, **kw)
+    want = schedule_grouped_topk_np(totals, avail, mask, reqs, counts,
+                                    seed, 7, device="cpu", **kw)
+    for x, y in zip(got, want):
+        assert np.array_equal(x, y)
 
 
 # -- the localized water-fill ------------------------------------------------

@@ -52,6 +52,30 @@ def test_matches_jax_kernel(name, t, seed, causal, bq, bk):
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
 
 
+@pytest.mark.parametrize("d", [320, 512])
+@pytest.mark.parametrize("causal", [False, True])
+def test_head_dims_past_256_match_jax_kernel(d, causal):
+    """Past 256 the CUDA kernel streams the head dim in chunks of 64; the
+    function is the JAX kernel's at any D."""
+    q, k, v = _qkv(b=1, t=64, h=2, d=d, seed=d)
+    want = np.asarray(ref_flash(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=causal, block_q=32,
+                                block_k=32, interpret=True))
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), causal=causal, block_q=32,
+                          block_k=32)
+    assert got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+
+
+def test_kernel_widths():
+    """The widths the CUDA kernel runs a head dim at (zero padding)."""
+    from ray_tpu_torch.ops.flash_attention import kernel_width
+    assert [kernel_width(d) for d in (1, 64, 65, 129, 256, 257, 320, 321,
+                                      512, 1000)] == \
+        [64, 64, 128, 256, 256, 320, 320, 384, 512, 1024]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_low_precision_keeps_dtype_and_f32_math(dtype):
     q, k, v = (torch.from_numpy(x).to(dtype) for x in _qkv(t=64, seed=4))

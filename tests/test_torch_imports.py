@@ -136,3 +136,40 @@ def test_walk_covers_the_port():
                  "ops/locality_kernel.py", "serve/gossip.py",
                  "native/__init__.py"):
         assert must in names, must
+
+
+# the modules of the autoscaler, top-k and daemon slice
+SLICE_MODULES = ("ops/binpack_kernel.py", "autoscaler/__init__.py",
+                 "autoscaler/demand.py", "autoscaler/autoscaler.py",
+                 "autoscaler/sdk.py", "runtime/head.py",
+                 "runtime/node_agent.py", "runtime/standby.py",
+                 "runtime/job_manager.py", "rpc/xlang.py",
+                 "rpc/xlang_gateway.py", "cross_language.py",
+                 "util/client.py", "util/state.py",
+                 "experimental/__init__.py", "experimental/internal_kv.py",
+                 "scripts/__init__.py", "scripts/cli.py", "__main__.py")
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_slice_modules_are_walked(module):
+    assert PORT / module in FILES
+
+
+def test_daemon_side_imports_neither_jax_nor_torch():
+    """Importing the daemon, agent, client and CLI modules pulls in no
+    JAX, nothing of the JAX package, and no torch (an agent process must
+    never load it)."""
+    import subprocess
+    import sys
+    mods = [f"ray_tpu_torch.{m[:-3].replace('/', '.')}"
+            for m in SLICE_MODULES
+            if m.split("/")[0] in ("runtime", "rpc", "util", "scripts",
+                                   "experimental", "cross_language.py")]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'ray_tpu', 'torch'))\n"
+            "print(bad)\nassert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr[-2000:]
