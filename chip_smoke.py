@@ -57,9 +57,12 @@ Phases:
                   resources x 64 classes x 1,000,000 demands x 16 node
                   types and the 1M-demand single-class case, == the numpy
                   oracle bit for bit; the kernel == its plain version on
-                  the card; then the user's path, a StandardAutoscaler
-                  round on a port Cluster (5,000 requested bundles),
-                  launching the oracle's node types; ms, iterations,
+                  the card, there and at 16 x 1024 x 64 with the class
+                  rows streamed; then the user's path, a
+                  StandardAutoscaler round on a port Cluster (5,000
+                  requested bundles), launching the oracle's node types;
+                  ms, iterations, class steps (all, and in a chain) and
+                  ns a step, layout,
                   bound, the phase-1 scan's ms
   topk            ``schedule_grouped_topk`` at the beat width (1000 x 8 x
                   64 x 1M): the card == the CPU bit for bit, an even
@@ -82,7 +85,8 @@ Phases:
                   bound reached and the ratio to the library call; then
                   every head dim of FLASH_HEAD_DIMS (zero-padded, the
                   D=256 FMA kernel, or past 256 the wide kernel), bf16
-                  and f32, causal and not
+                  and f32, causal and not, each beside the library
+                  call's time and the SDPA backend that ran
 Then the ``kernels`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 
@@ -1241,6 +1245,15 @@ def phase_autoscaler(dev):
     iters = int(kern[2])
     kernel_ms = cuda_ms(lambda: bp.binpack_launch_loop(*loop_args))
     kernel_layout = bp.binpack_launch_loop.last_layout   # the launch timed
+    # the class steps of one launch (the same in every timed launch),
+    # and how many ran one after another: fewer steps and cheaper steps
+    # are the kernel's two levers
+    class_steps = int(bp.binpack_launch_loop.last_class_steps)
+    chain_steps = int(bp.binpack_launch_loop.last_chain_steps)
+    if not 0 < chain_steps <= class_steps <= iters * k * g:
+        raise AssertionError(f"launch loop: {class_steps} class steps, "
+                             f"{chain_steps} in a chain, in {iters} "
+                             f"iterations of {k} x {g}")
     plain_ms = cuda_ms(lambda: bp.launch_loop_plain(*loop_args), reps=3,
                        warmup=1)
     scan_ms = cuda_ms(scan)
@@ -1263,6 +1276,11 @@ def phase_autoscaler(dev):
               "problems": out, "iterations": iters, "max_iters": max_iters,
               "kernel_ms": kernel_ms, "plain_ms": plain_ms,
               "bound_ms": bound_ms, "bound_by": bound_by,
+              "class_steps": class_steps,
+              "dense_class_steps": iters * k * g,
+              "ns_per_class_step": kernel_ms * 1e6 / class_steps,
+              "chain_steps": chain_steps, "dense_chain_steps": iters * g,
+              "ns_per_chain_step": kernel_ms * 1e6 / chain_steps,
               "kernel_layout": kernel_layout, "spilled": spill,
               "scan_ms": scan_ms, "scan_bound_ms": scan_bound_ms,
               "scan_bound_by": scan_bound_by, "main_path": main,
@@ -1272,10 +1290,11 @@ def phase_autoscaler(dev):
 
 
 def spilled_launch_loop(dev, k=16, g=1024, r=64, max_iters=8):
-    """The launch loop past one CTA's shared memory (at K=16, R=64 the
-    requests of more than ~680 classes go to global memory): the first
-    ``max_iters`` iterations, bit-exact against the plain version on the
-    card, with the kernel's ms and the arrays it kept in global
+    """The launch loop past one CTA's shared memory (at K=16, R=64 a
+    dense table of more than ~225 classes' rows does not fit, so the
+    compact rows are streamed through the ring): the first ``max_iters``
+    iterations, bit-exact against the plain version on the card, with
+    the kernel's ms, its class steps and the arrays it kept in global
     memory."""
     import torch
 
@@ -1288,15 +1307,20 @@ def spilled_launch_loop(dev, k=16, g=1024, r=64, max_iters=8):
     args = (caps, quotas, reqs, counts, max_iters)
     kern = bp.binpack_launch_loop(*args)
     layout = bp.binpack_launch_loop.last_layout
+    steps = int(bp.binpack_launch_loop.last_class_steps)
+    chain = int(bp.binpack_launch_loop.last_chain_steps)
     plain = bp.launch_loop_plain(*args)
     if not all(torch.equal(a, b) for a, b in zip(kern, plain)) or \
-            not layout["global"]:
+            not layout["global"] or not layout["ring_slots"] or \
+            not 0 < chain <= steps <= int(kern[2]) * k * g:
         raise AssertionError(f"spilled launch loop ({k}, {g}, {r}): "
-                             f"layout {layout}, kernel == plain "
-                             f"{[torch.equal(a, b) for a, b in zip(kern, plain)]}")
+                             f"layout {layout}, {steps} class steps, kernel "
+                             f"== plain {[torch.equal(a, b) for a, b in zip(kern, plain)]}")
+    ms = cuda_ms(lambda: bp.binpack_launch_loop(*args))
     return {"shape": [k, g, r], "iterations": int(kern[2]),
-            "layout": layout, "ms": cuda_ms(lambda: bp.binpack_launch_loop(
-                *args)), "bit_exact": True}
+            "layout": layout, "ms": ms, "class_steps": steps,
+            "ns_per_class_step": ms * 1e6 / steps, "chain_steps": chain,
+            "ns_per_chain_step": ms * 1e6 / chain, "bit_exact": True}
 
 
 # the main path's node types and demand: cpu8's quota binds, cpu1024's
@@ -1857,6 +1881,7 @@ def phase_flash(dev):
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal))
+        backend = sdpa_backend(qt, kt, vt, causal)
         flops = 4.0 * b * h * t * t * d * (0.5 if causal else 1.0)
         n_bytes = 4.0 * b * t * h * d * q.element_size()
         peak = PEAK_F32 if dtype == torch.float32 else PEAK_TC_16BIT
@@ -1868,6 +1893,7 @@ def phase_flash(dev):
                      "dropped_tile_err_over_limit": fault_ratio,
                      "kernel_ms": kernel_ms,
                      "plain_ms": plain_ms, "library_ms": library_ms,
+                     "library_backend": backend,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "bound_share": bound_ms / kernel_ms,
                      "vs_library": kernel_ms / library_ms,
@@ -1884,12 +1910,25 @@ def phase_flash(dev):
 FLASH_HEAD_DIMS = (16, 32, 80, 96, 160, 256, 320, 512)
 
 
+def sdpa_backend(q, k, v, causal):
+    """The backend ``scaled_dot_product_attention`` dispatches these
+    (B, H, T, D) inputs to (``torch._fused_sdp_choice``, the choice the
+    call itself makes), as a ``SDPBackend`` name."""
+    import torch
+    from torch.nn.attention import SDPBackend
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, None, 0.0,
+                                              causal)).name
+
+
 def flash_head_dims(qkv, b=2, t=1024, h=4):
     """Every head dim of FLASH_HEAD_DIMS, causal and not, bf16 and f32,
     at (b, t, h, d): the kernel within FLASH_TOL of the plain version, and
     the limit still rejecting the plain version with its last key tile
-    dropped."""
+    dropped; beside each kernel time the library call's
+    (``scaled_dot_product_attention``, timed here and used nowhere in the
+    port) and the backend it ran on."""
     import torch
+    import torch.nn.functional as F
 
     from ray_tpu_torch import ops
     rows = []
@@ -1911,12 +1950,20 @@ def flash_head_dims(qkv, b=2, t=1024, h=4):
                     raise AssertionError(
                         f"flash attention D={d} {dtype_name} causal={causal}"
                         f": error {ratio} x its limit, dropped tile {fault} x")
+                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal)
                 rows.append({"d": d, "dtype": dtype_name, "causal": causal,
                              "max_abs_err": float((got - want).abs().max()),
                              "max_err_over_limit": ratio,
                              "dropped_tile_err_over_limit": fault,
                              "kernel_ms": cuda_ms(lambda: ops.flash_attention(
-                                 q, k, v, causal=causal), reps=5, warmup=1)})
+                                 q, k, v, causal=causal), reps=5, warmup=1),
+                             "library_ms": cuda_ms(sdpa, reps=5, warmup=1),
+                             "library_backend": sdpa_backend(qt, kt, vt,
+                                                             causal)})
     return {"shape": [b, t, h], "cases": rows}
 
 
@@ -1994,7 +2041,10 @@ def main() -> int:
          "max_abs_err": 0, "ms": asc["kernel_ms"],
          "plain_ms": asc["plain_ms"], "bound_ms": asc["bound_ms"],
          "bound_by": asc["bound_by"], "library_ms": None,
-         "iterations": asc["iterations"], "checked": True,
+         "iterations": asc["iterations"], "class_steps": asc["class_steps"],
+         "ns_per_class_step": asc["ns_per_class_step"],
+         "chain_steps": asc["chain_steps"],
+         "ns_per_chain_step": asc["ns_per_chain_step"], "checked": True,
          # and against the plain version on the main path's own tensors
          "checked_on_main_path": asc["main_path"]["loop_vs_plain"]},
         {"name": "flash_attention", "route": "cuda",

@@ -45,8 +45,11 @@ _SIGNATURES = {
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          ctypes.c_float, _P]),
     "binpack": ("rt_binpack_launch_loop",
-                [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
+                [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                 ctypes.c_longlong, _P]),
 }
+# further C entry points of a library: {name: {function: argtypes}}
+_EXTRA = {"binpack": {"rt_binpack_plan": [_I, _I, _I, _P]}}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -127,15 +130,19 @@ def _lib(name: str) -> ctypes.CDLL:
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        for extra, extra_types in _EXTRA.get(name, {}).items():
+            getattr(lib, extra).argtypes = extra_types
+            getattr(lib, extra).restype = ctypes.c_int
         lib.rt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.rt_cuda_error_string.restype = ctypes.c_char_p
         _LOADED[name] = lib
     return lib
 
 
-def load(name: str):
-    """The C entry point of kernel ``name`` (built on first use)."""
-    return getattr(_lib(name), _SIGNATURES[name][0])
+def load(name: str, entry: str | None = None):
+    """The C entry point of kernel ``name`` (built on first use), or its
+    further entry point ``entry``."""
+    return getattr(_lib(name), entry or _SIGNATURES[name][0])
 
 
 def check(err: int, name: str) -> None:

@@ -14,10 +14,11 @@ once; it is bounded by G*K + G + K + 2 iterations, independent of the
 demand counts.
 
 The launch loop is the hand-written CUDA kernel ``binpack_launch_loop``
-(``csrc/binpack.cu``, one launch of one CTA; its source note says what
-bounds it).  Eagerly it would be a host sync per iteration and ~8
-launches per class step.  ``launch_loop_plain`` is the same loop in
-plain PyTorch; CPU tensors take it.
+(``csrc/binpack.cu``, one launch of one CTA over compact class rows,
+stepping only the classes and types that can still move; its source
+note says what bounds it).  Eagerly it would be a host sync per
+iteration and ~8 launches per class step.  ``launch_loop_plain`` is the
+same loop in plain PyTorch; CPU tensors take it.
 
 All arithmetic is int32 and wraps as XLA's does; ``//`` floors.
 """
@@ -40,7 +41,7 @@ FIRST_FIT_THR_FP = 2 * SCALE + 1
 
 _I32 = torch.int32
 # the .cu's enum Array, in its placement order
-_ARRAYS = ("state", "classes", "used", "caps", "reqs", "packed")
+_ARRAYS = ("table", "state", "classes", "used", "caps", "packed", "capdiv")
 
 
 def launch_loop_plain(type_caps, type_quotas, demand_reqs, remaining,
@@ -100,9 +101,15 @@ def binpack_launch_loop(type_caps, type_quotas, demand_reqs, remaining,
 
     CPU tensors take ``launch_loop_plain``; CUDA tensors launch the
     hand-written kernel (``csrc/binpack.cu``) or raise, and count the
-    launch in ``binpack_launch_loop.launches``.  The .cu places the state
-    in shared memory where it fits and in global memory past that;
-    ``binpack_launch_loop.last_layout`` holds the launch it made."""
+    launch in ``binpack_launch_loop.launches``.  The .cu places the
+    compact class rows and the state in shared memory where they fit and
+    in global memory past that (the rows then streamed through a ring);
+    ``binpack_launch_loop.last_layout`` holds the launch it made, and
+    ``binpack_launch_loop.last_class_steps`` (a 0-d int64 tensor on the
+    device, read after a sync) the class steps it ran, summed over
+    iterations and types, and ``last_chain_steps`` how many of them ran
+    one after another (per iteration, the active classes of each round
+    of types)."""
     if type_caps.device.type == "cpu":
         return launch_loop_plain(type_caps, type_quotas, demand_reqs,
                                  remaining, max_iters)
@@ -130,25 +137,35 @@ def binpack_launch_loop(type_caps, type_quotas, demand_reqs, remaining,
     launches = torch.empty(k, dtype=_I32, device=dev)
     unmet = torch.empty(g, dtype=_I32, device=dev)
     iters = torch.empty((), dtype=_I32, device=dev)
-    layout = (ctypes.c_int * 3)()
-    fn = _build.load("binpack")
+    steps = torch.empty(2, dtype=torch.int64, device=dev)
+    layout = (ctypes.c_longlong * 4)()
     with torch.cuda.device(dev):
-        err = fn(type_caps.data_ptr(), type_quotas.data_ptr(),
-                 demand_reqs.data_ptr(), remaining.data_ptr(), k, g, r,
-                 int(max_iters), launches.data_ptr(), unmet.data_ptr(),
-                 iters.data_ptr(), ctypes.addressof(layout),
-                 torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(_build.load("binpack", "rt_binpack_plan")(
+            k, g, r, ctypes.addressof(layout)), "binpack")
+        # the arrays the plan keeps in global memory, from PyTorch's
+        # caching allocator
+        scratch = torch.empty(max(layout[2], 1), dtype=_I32, device=dev)
+        err = _build.load("binpack")(
+            type_caps.data_ptr(), type_quotas.data_ptr(),
+            demand_reqs.data_ptr(), remaining.data_ptr(), k, g, r,
+            int(max_iters), launches.data_ptr(), unmet.data_ptr(),
+            iters.data_ptr(), steps.data_ptr(), scratch.data_ptr(),
+            layout[2], torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "binpack")
     binpack_launch_loop.launches += 1
     binpack_launch_loop.last_layout = {
         "shared_bytes": layout[0],
         "global": [a for i, a in enumerate(_ARRAYS) if layout[1] >> i & 1],
-        "scratch_ints": layout[2]}
+        "scratch_ints": layout[2], "ring_slots": layout[3]}
+    binpack_launch_loop.last_class_steps = steps[0]
+    binpack_launch_loop.last_chain_steps = steps[1]
     return launches, unmet, iters
 
 
 binpack_launch_loop.launches = 0
 binpack_launch_loop.last_layout = None
+binpack_launch_loop.last_class_steps = None
+binpack_launch_loop.last_chain_steps = None
 
 
 def autoscale(totals, avail, node_mask, demand_reqs, demand_counts,

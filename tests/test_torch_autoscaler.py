@@ -25,6 +25,7 @@ from ray_tpu_torch.common.config import Config as PortConfig
 from ray_tpu_torch.ops import binpack_kernel as bp
 from ray_tpu_torch.scheduling.oracle import ClusterState
 from test_autoscaler import random_autoscale_problem
+from test_torch_cuda import EDGE_DIVISORS, LAUNCH_LOOP_CASES, launch_loop_case
 
 
 @pytest.fixture(autouse=True)
@@ -78,6 +79,63 @@ def test_launch_loop_plain_equals_jax_launch_loop(seed):
         torch.tensor(caps), torch.tensor(quotas), torch.tensor(reqs),
         torch.tensor(rem), 1)
     assert int(n) == 1 and int(one.sum()) >= 1
+
+
+@pytest.mark.parametrize("case", LAUNCH_LOOP_CASES)
+def test_launch_loop_plain_equals_jax_on_the_kernel_traps(case):
+    # the cases the card tests hold the kernel to, held here between the
+    # plain loop and the JAX _launch_loop (on-chip sizes)
+    (caps, quotas, reqs, rem), max_iters = launch_loop_case(case, "on_chip")
+    j_launch, j_rem = jax_bp._launch_loop(
+        jnp.asarray(caps), jnp.asarray(quotas), jnp.asarray(reqs),
+        jnp.asarray(rem), max_iters)
+    launches, unmet, iters = bp.launch_loop_plain(
+        torch.tensor(caps), torch.tensor(quotas), torch.tensor(reqs),
+        torch.tensor(rem), max_iters)
+    assert np.array_equal(launches.numpy(), np.asarray(j_launch)), case
+    assert np.array_equal(unmet.numpy(), np.asarray(j_rem)), case
+    assert 1 <= int(iters) <= max_iters
+
+
+# A model of csrc/binpack.cu's division (magic() and fdiv()): floor(a / d)
+# for int32 a and d in 1..2**31-1 as x = a ^ (a >> 31), q = (x * m) >> s
+# with s = 31 + ceil(log2 d), m = ceil(2**s / d), then q ^ (a >> 31).
+def _magic(d):
+    d = d.astype(np.uint64)
+    s = 31 + np.array([int(v - 1).bit_length() for v in d], np.uint64)
+    m = ((np.uint64(1) << s) + d - np.uint64(1)) // d
+    return m, s
+
+
+def _fdiv(a, m, s):
+    neg = (a.astype(np.int32) >> 31).astype(np.uint32)
+    x = (a.astype(np.int32).view(np.uint32) ^ neg).astype(np.uint64)
+    q = ((x * m) >> s).astype(np.uint32)
+    return (q ^ neg).view(np.int32)
+
+
+@pytest.mark.parametrize("divisors", ["edges", "random"])
+def test_kernel_division_is_floor_division(divisors):
+    rng = np.random.default_rng(7)
+    int_min, int_max = -(1 << 31), (1 << 31) - 1
+    if divisors == "edges":
+        d = np.array(sorted({*EDGE_DIVISORS, int_max, int_max - 1,
+                             *[(1 << j) + e for j in range(31)
+                               for e in (-1, 0, 1)]} - {0}), np.int64)
+        d = d[(d >= 1) & (d <= int_max)]
+    else:
+        d = rng.integers(1, int_max, size=400, endpoint=True)
+    m, s = _magic(d)
+    assert (m < (1 << 32)).all() and (s <= 62).all()
+    for di, mi, si in zip(d, m, s):
+        a = np.concatenate([
+            [int_min, int_min + 1, -1, 0, 1, int_max, int_max - 1],
+            [q * di + e for q in (-3, -2, -1, 1, 2, 3) for e in (-1, 0, 1)],
+            [int_max - int_max % di, int_min + (-int_min) % di],
+            rng.integers(int_min, int_max, size=200, endpoint=True)])
+        a = a[(a >= int_min) & (a <= int_max)]
+        got = _fdiv(a, mi, si)
+        assert np.array_equal(got.astype(np.int64), a // di), int(di)
 
 
 def test_million_demands_cost_a_few_iterations():

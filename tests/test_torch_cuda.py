@@ -431,6 +431,110 @@ def _launch_loop_problem(seed, k, g, r):
     return caps, quotas, reqs, rem
 
 
+INT_MIN, INT_MAX = -(1 << 31), (1 << 31) - 1
+# divisors at the edges of the kernel's division (MAX_TOTAL_CU = 2**17)
+EDGE_DIVISORS = (1, 2, 3, 7, 499, 1 << 17)
+LAUNCH_LOOP_CASES = ("sparse", "negative", "dense128", "inactive",
+                     "division", "all_positive")
+
+
+def launch_loop_case(case, route, seed=0):
+    """(caps, quotas, reqs, rem) int32 and max_iters for one of the
+    launch loop's traps: "sparse" (3 of 64 kinds a class, as
+    chip_smoke.autoscale_problem), "negative" (negative request
+    entries), "dense128" (every one of R = 128 columns nonzero: more than
+    32 entries a class), "inactive" (all-zero classes, rem <= 0, zero
+    quotas), "division" (dividends at the edges: negative, multiples of
+    the divisor +- 1, INT_MIN/INT_MAX, over EDGE_DIVISORS), "all_positive"
+    (every column positive, caps and rem past 2**30: no _BIG in the
+    min).  ``route`` "on_chip" keeps G*R small enough for the class rows
+    to fit one CTA's shared memory, "streamed" takes G past that and runs
+    a few iterations (the plain loop is a host loop over the classes)."""
+    rng = np.random.default_rng(seed)
+    streamed = route == "streamed"
+    if case == "sparse":
+        k, r, g = 16, 64, (256 if streamed else 64)
+        reqs = np.zeros((g, r), np.int32)
+        for row in reqs:
+            kinds = rng.choice(r, size=3, replace=False)
+            row[kinds] = rng.integers(1, 500, size=3)
+        caps = rng.integers(0, 3000, size=(k, r)).astype(np.int32)
+        caps[rng.random(caps.shape) < 0.2] = 0
+        quotas = rng.integers(0, 60, size=k).astype(np.int32)
+        rem = rng.integers(0, 4000, size=g).astype(np.int32)
+    elif case == "negative":
+        k, r, g = 12, 16, (1024 if streamed else 48)
+        reqs = rng.integers(-300, 500, size=(g, r)).astype(np.int32)
+        reqs[rng.random(reqs.shape) < 0.6] = 0
+        caps = rng.integers(-200, 3000, size=(k, r)).astype(np.int32)
+        quotas = rng.integers(0, 40, size=k).astype(np.int32)
+        rem = rng.integers(-50, 4000, size=g).astype(np.int32)
+    elif case == "dense128":
+        k, r, g = 8, 128, (128 if streamed else 24)
+        reqs = rng.integers(1, 300, size=(g, r)).astype(np.int32)
+        reqs[rng.random(reqs.shape) < 0.1] *= -1
+        caps = rng.integers(1000, 60000, size=(k, r)).astype(np.int32)
+        quotas = rng.integers(0, 40, size=k).astype(np.int32)
+        rem = rng.integers(0, 400, size=g).astype(np.int32)
+    elif case == "inactive":
+        k, r, g = 10, 16, (1024 if streamed else 40)
+        reqs = rng.integers(0, 500, size=(g, r)).astype(np.int32)
+        reqs[rng.random(reqs.shape) < 0.6] = 0
+        reqs[::3] = 0                                   # no request
+        reqs[1::5] = -np.abs(reqs[1::5])                # no positive entry
+        caps = rng.integers(0, 3000, size=(k, r)).astype(np.int32)
+        quotas = rng.integers(0, 40, size=k).astype(np.int32)
+        quotas[::2] = 0
+        quotas[1] = -3
+        rem = rng.integers(0, 4000, size=g).astype(np.int32)
+        rem[rng.random(g) < 0.3] = 0
+        rem[rng.random(g) < 0.2] = -rng.integers(1, 1000)
+    elif case == "division":
+        k, r, g = 24, 8, (2048 if streamed else 40)
+        d = np.array(EDGE_DIVISORS, np.int64)
+        edges = np.unique(np.concatenate([
+            [0, 1, -1, INT_MIN, INT_MIN + 1, INT_MAX, INT_MAX - 1],
+            d - 1, d, d + 1, 2 * d - 1, 2 * d + 1, -d, -d - 1, -d + 1,
+            7 * d, 7 * d - 1, -7 * d - 1, INT_MAX - INT_MAX % d,
+            INT_MIN + (-INT_MIN) % d]))
+        caps = rng.choice(edges, size=(k, r)).astype(np.int32)
+        reqs = np.zeros((g, r), np.int32)
+        for row in reqs:
+            kinds = rng.choice(r, size=rng.integers(1, 4), replace=False)
+            row[kinds] = rng.choice(d, size=kinds.size)
+            if rng.random() < 0.3:
+                row[rng.integers(r)] = -rng.choice(d)
+        quotas = rng.integers(0, 8, size=k).astype(np.int32)
+        # INT_MAX among 40 classes wraps the loop's int32 sum, as XLA's
+        # does; among 2048 it would end the loop before it starts
+        big = 1 << 16 if streamed else INT_MAX
+        rem = rng.choice(np.array([1, 2, 3, 500, 1 << 20, big, -1, 0]),
+                         size=g).astype(np.int32)
+    elif case == "all_positive":
+        k, r, g = 3, 2, (8192 if streamed else 6)
+        reqs = rng.integers(1, 4, size=(g, r)).astype(np.int32)
+        caps = np.full((k, r), INT_MAX, np.int32)
+        caps[1] = 1 << 30
+        caps[2, 1] = 5
+        quotas = np.array([1, 2, 1], np.int32)
+        # one class past 2**30, the loop's int32 sum still positive,
+        # asking 1 of each kind: its fit on type 0 is rem, past _BIG
+        rem = rng.integers(1, 100, size=g).astype(np.int32)
+        rem[1] = INT_MAX - (1 << 20)
+        reqs[1] = 1
+    else:
+        raise ValueError(case)
+    max_iters = (2 if g > 4096 else 6) if streamed else g * k + g + k + 2
+    return (caps, quotas, reqs, rem), max_iters
+
+
+def _steps_bound(iters, quotas, reqs):
+    # class steps the kernel may run: iterations x types with quota x
+    # classes with a positive entry (<= iterations x K x G)
+    return int(iters) * int((quotas > 0).sum()) * \
+        int((reqs > 0).any(axis=1).sum())
+
+
 @pytest.mark.parametrize("seed", range(4))
 @pytest.mark.parametrize("k,g,r", [(1, 1, 1), (5, 10, 4), (16, 64, 64),
                                    (32, 128, 128), (40, 33, 7)])
@@ -443,13 +547,40 @@ def test_binpack_launch_loop_bit_exact(seed, k, g, r):
     before = binpack_launch_loop.launches
     got = binpack_launch_loop(*[a.cuda() for a in cpu], max_iters)
     assert binpack_launch_loop.launches == before + 1
+    steps = int(binpack_launch_loop.last_class_steps)
     want = launch_loop_plain(*cpu, max_iters)
     for x, y in zip(got, want):
         assert torch.equal(x.cpu(), y), (seed, k, g, r)
+    chain = int(binpack_launch_loop.last_chain_steps)
+    assert 0 <= chain <= steps <= int(got[2]) * k * g
+    assert steps <= _steps_bound(got[2].cpu(), arrays[1], arrays[2])
     # the plain version on the card equals its CPU run too
     plain_card = launch_loop_plain(*[a.cuda() for a in cpu], max_iters)
     for x, y in zip(plain_card, want):
         assert torch.equal(x.cpu(), y)
+
+
+# the kernel's traps, each on chip and with the class rows streamed
+# through the ring (G*R*4 ints past one CTA's shared memory)
+@pytest.mark.parametrize("route", ["on_chip", "streamed"])
+@pytest.mark.parametrize("case", LAUNCH_LOOP_CASES)
+def test_binpack_launch_loop_edge_cases(case, route):
+    from ray_tpu_torch.ops.binpack_kernel import (binpack_launch_loop,
+                                                  launch_loop_plain)
+    arrays, max_iters = launch_loop_case(case, route)
+    k, g = arrays[0].shape[0], arrays[2].shape[0]
+    cpu = [torch.tensor(a) for a in arrays]
+    got = binpack_launch_loop(*[a.cuda() for a in cpu], max_iters)
+    layout = binpack_launch_loop.last_layout
+    steps = int(binpack_launch_loop.last_class_steps)
+    assert ("table" in layout["global"]) == (route == "streamed"), layout
+    assert (layout["ring_slots"] > 0) == (route == "streamed"), layout
+    want = launch_loop_plain(*cpu, max_iters)
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y), (case, route)
+    chain = int(binpack_launch_loop.last_chain_steps)
+    assert 0 <= chain <= steps <= int(got[2]) * k * g
+    assert steps <= _steps_bound(got[2].cpu(), arrays[1], arrays[2])
 
 
 @pytest.mark.parametrize("seed", range(6))
@@ -485,13 +616,14 @@ def test_binpack_rejects_what_the_kernel_does_not_take():
 
 
 # the arrays in global memory on an H100 (227 KB of shared memory a CTA),
-# placed in the .cu's order: state, classes, used, caps, reqs, packed
+# placed in the .cu's order: table (sized for dense requests), state,
+# classes, used, caps, packed, capdiv; one shape for each route
 @pytest.mark.parametrize("k,g,r,spilled", [
-    (64, 8, 512, ["caps"]),
-    (16, 1024, 64, ["reqs"]),               # past ~680 classes at R=64
-    (32, 2048, 128, ["reqs", "packed"]),
-    (2, 30000, 2, ["classes", "reqs", "packed"]),
-    (2, 8, 40000, ["used", "caps", "reqs"]),
+    (64, 8, 512, ["caps", "capdiv"]),       # the rows on chip
+    (16, 1024, 64, ["table"]),              # the rows streamed
+    (32, 2048, 128, ["table", "packed"]),
+    (2, 30000, 2, ["table", "classes", "packed"]),
+    (2, 8, 40000, ["table", "used", "caps", "capdiv"]),
 ])
 def test_binpack_spills_what_shared_memory_cannot_hold(k, g, r, spilled):
     # every shape the reference takes runs: the arrays that do not fit
@@ -499,21 +631,25 @@ def test_binpack_spills_what_shared_memory_cannot_hold(k, g, r, spilled):
     # iterations: the plain loop is a host loop over the classes)
     from ray_tpu_torch.ops.binpack_kernel import (binpack_launch_loop,
                                                   launch_loop_plain)
-    cpu = [torch.tensor(a) for a in _launch_loop_problem(3, k, g, r)]
+    arrays = _launch_loop_problem(3, k, g, r)
+    cpu = [torch.tensor(a) for a in arrays]
     iters = 2 if g > 4096 else 12
     got = binpack_launch_loop(*[a.cuda() for a in cpu], iters)
     layout = binpack_launch_loop.last_layout
     assert layout["global"] == spilled, layout
-    assert layout["scratch_ints"] > 0 or \
-        set(spilled) <= {"caps", "reqs"}
+    assert layout["scratch_ints"] > 0 or set(spilled) <= {"caps"}
+    assert (layout["ring_slots"] > 0) == ("table" in spilled)
     want = launch_loop_plain(*cpu, iters)
     for x, y in zip(got, want):
         assert torch.equal(x.cpu(), y), (k, g, r)
+    steps = int(binpack_launch_loop.last_class_steps)
+    assert steps <= _steps_bound(got[2].cpu(), arrays[1], arrays[2])
     # and the fitting shape keeps everything on chip
     binpack_launch_loop(*[a.cuda() for a in
                           map(torch.tensor, _launch_loop_problem(0, 16, 64,
                                                                  64))], 4)
     assert binpack_launch_loop.last_layout["global"] == []
+    assert binpack_launch_loop.last_layout["ring_slots"] == 0
 
 
 # -- top-k rounds ------------------------------------------------------------
