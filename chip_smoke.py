@@ -7,8 +7,9 @@ Runs from the root of a checkout: builds every kernel of the slice from
 ``ray_tpu_torch/ops/csrc`` (one nvcc per source, all at once), holds each
 kernel against its plain PyTorch version (and the scheduler against its
 numpy host twin) at the shapes the main paths give it, drives the main
-paths (the heartbeat, the runtime through ``init/remote/get``, flash
-attention) through the entry points a user calls, and times them.  Each
+paths (the heartbeat, the runtime through ``init/remote/get``, serve
+beside a task burst, flash attention) through the entry points a user
+calls, and times them.  Each
 phase prints one JSON line; any failure raises and exits non-zero.
 
 Phases:
@@ -49,6 +50,19 @@ Phases:
                   batch, an actor, put/get/wait; then the head raylet at
                   1000 rows: 100,000 specs over 64 classes with locality
                   rows and avoid flags, rows == the host twin's
+  serve           serve on the runtime: ``init`` on the GPU with 8
+                  nodes and the metrics and dashboard ports set, a
+                  deployment of 8 replicas (``@serve.batch``, batches up
+                  to 16, 8 ongoing requests a replica), 2,000 requests
+                  through handles from 32 threads and 400 through the
+                  HTTP ingress, AT THE SAME TIME a 10,000-task burst over
+                  4 classes placed through the delta beat, and a v1 -> v2
+                  rollout in the middle of the traffic: every response
+                  right and from v1 or v2, the rollout sealed on all 8
+                  replicas, delta rounds and water-fill launches within
+                  the phase, /metrics == serve.status()'s request plane,
+                  the dashboard's JSON APIs; requests/s, p50/p99, batch
+                  sizes, the burst's tasks/s beside the runtime phase's
   dataplane       bundle (1000 x 64 groups x 8), pull (4096 x 1000) and
                   broadcast (1000 members, fan-out 4) programs on the card
                   == their numpy oracles; ms and kernel launches
@@ -67,14 +81,20 @@ Phases:
   topk            ``schedule_grouped_topk`` at the beat width (1000 x 8 x
                   64 x 1M): the card == the CPU bit for bit, an even
                   spread over each class's k best keys, consumption
-                  capped; ms, launches; then a 2,000-task burst with
+                  capped; the rotation offsets on the card == the CPU ==
+                  a pinned table of the JAX function's
+                  (TOPK_JAX_OFFSETS); ms, launches; then a 2,000-task
+                  burst with
                   scheduler_top_k_fraction = 0.5 through the raylet's
                   top-k rounds
   daemon          ``python -m ray_tpu_torch start --head`` on the card,
                   two ``agent`` subprocesses, a driver subprocess with
                   ``init(address=...)`` whose 3,000 tasks land on both
-                  agents, ``job submit --wait``, ``status``, ``stop``; the
-                  head's device rounds and water-fill launches; only the
+                  agents, ``job submit --wait``, ``rollout``,
+                  ``status``, ``stop``; the head's device rounds and
+                  water-fill launches; its /metrics and dashboard
+                  (started by RT_METRICS_EXPORT_PORT/RT_DASHBOARD_PORT)
+                  scraped over HTTP against its status RPC; only the
                   head (and this script) hold a CUDA context
   flash_attention the ops path: ``ops.flash_attention`` at B=2, T=4096,
                   H=16, D=128 (bf16 causal, bf16, f16), bf16 causal at
@@ -1041,6 +1061,352 @@ def phase_runtime(dev):
     return result
 
 
+# -- phase: serve (deployments, HTTP ingress, a rollout, beside a burst) -----
+
+SERVE_NODES = 8
+SERVE_REPLICAS = 8
+SERVE_BATCH = 16
+SERVE_ONGOING = 8
+SERVE_HANDLE_REQUESTS = 2000
+SERVE_CLIENTS = 32
+SERVE_HTTP_REQUESTS = 400
+SERVE_HTTP_CLIENTS = 8
+SERVE_BURST_TASKS = RUNTIME_TASKS
+# the serve gauges /metrics must report as serve.status()["request_plane"]
+SERVE_GAUGES = {"replicas": "serve_replicas",
+                "queued": "serve_queued_requests",
+                "inflight": "serve_inflight_requests",
+                "shed": "serve_shed_requests_total",
+                "expired": "serve_expired_requests_total",
+                "completed": "serve_completed_requests_total",
+                "batches": "serve_batches_total",
+                "batch_size_mean": "serve_batch_size_mean",
+                "shards": "serve_router_shards"}
+DASHBOARD_APIS = ("summary", "nodes", "actors", "tasks", "objects",
+                  "placement_groups", "serve", "versions", "leases",
+                  "broadcasts", "health", "timeline", "jobs")
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http_get(url, timeout=60):
+    """(status, headers, body) of a GET, HTTP errors included."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _scrape(port):
+    """{metric{labels}: value} from an exporter's /metrics."""
+    status, _, body = _http_get(f"http://127.0.0.1:{port}/metrics")
+    if status != 200:
+        raise AssertionError(f"/metrics answered {status}")
+    out = {}
+    for line in body.decode().splitlines():
+        if line and not line.startswith("#"):
+            key, value = line.rsplit(" ", 1)
+            out[key] = float(value)
+    return out
+
+
+def _quantile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(len(xs) * q))] if xs else None
+
+
+def phase_serve(dev, runtime_tasks_per_s=None):
+    """Serve on the card's runtime: ``init`` on the GPU with 8 nodes and
+    the exporter and dashboard ports set, a deployment of 8 replicas
+    (``@serve.batch(max_batch_size=16)``, ``max_ongoing_requests=8``),
+    2,000 requests through handles from 32 client threads and 400
+    through the HTTP ingress, and AT THE SAME TIME a 10,000-task burst
+    over 4 classes that the raylet places through the delta beat; a
+    v1 -> v2 rollout of the deployment in the middle of the traffic.
+    Gates: every response right and from v1 or v2; no request fails
+    (none is shed either: the callers never outnumber the replicas'
+    slots); the rollout seals with all 8 replicas flipped; delta rounds
+    and water-fill launches within the phase; /metrics reads
+    serve.status()'s request plane; the dashboard's JSON APIs answer;
+    no replica worker maps libcuda."""
+    import threading
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve, versioning
+    from ray_tpu_torch.api import _get_runtime
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+
+    t_start = time.perf_counter()
+    metrics_port, dash_port = _free_port(), _free_port()
+    rt.init(resources={"CPU": 8, "memory": 8}, num_workers=2,
+            system_config={"scheduler_device_batch_min": 256,
+                           "metrics_export_port": metrics_port,
+                           "dashboard_port": dash_port})
+    try:
+        cluster = _get_runtime().cluster
+        if cluster.scheduler_device.type != dev.type:
+            raise AssertionError(f"the scheduler resolved to "
+                                 f"{cluster.scheduler_device}")
+        for _ in range(SERVE_NODES - 1):
+            cluster.add_node(num_workers=2)
+        noop = rt.remote(_noop)
+        rt.get([noop.remote(i) for i in range(SERVE_NODES * 2)])
+
+        @serve.deployment(num_replicas=SERVE_REPLICAS,
+                          max_ongoing_requests=SERVE_ONGOING)
+        class Model:
+            def __init__(self):
+                self.weights = "v1"
+
+            @serve.batch(max_batch_size=SERVE_BATCH,
+                         batch_wait_timeout_s=0.005)
+            def __call__(self, items):
+                xs = [int(x.query["x"]) if hasattr(x, "query") else x
+                      for x in items]
+                return [[self.weights, 2 * x + 1] for x in xs]
+
+            def reload(self, artifact):
+                self.weights = bytes(artifact).decode()
+
+        handle = serve.run(Model.bind(), route_prefix="/model")
+        base = serve.http_address()
+        rt.get([handle.remote(i) for i in range(SERVE_REPLICAS * 2)],
+               timeout=120)                              # warm every path
+
+        raylets = list(cluster.raylets.values())
+        shapes = [{"num_cpus": 1}, {"num_cpus": 0.5},
+                  {"resources": {"CPU": 1, "memory": 0.5}},
+                  {"num_cpus": 0.25}]
+        wrong, failures, lock = [], [], threading.Lock()
+        client_cpu = []                 # each client thread's CPU seconds
+        handle_lat, http_lat, http_codes = [], [], []
+        done = [0]
+        half = threading.Event()
+        rollout_out = {}
+
+        def check(x, got):
+            if not (isinstance(got, (list, tuple)) and len(got) == 2 and
+                    got[0] in ("v1", "v2") and got[1] == 2 * x + 1):
+                with lock:
+                    wrong.append((x, got))
+
+        def handle_client(k):
+            for i in range(k, SERVE_HANDLE_REQUESTS, SERVE_CLIENTS):
+                t0 = time.perf_counter()
+                try:
+                    got = rt.get(handle.remote(i), timeout=120)
+                except Exception as e:      # noqa: BLE001 — a gate
+                    with lock:
+                        failures.append(f"handle {i}: {e!r}")
+                    continue
+                dt = time.perf_counter() - t0
+                check(i, got)
+                with lock:
+                    handle_lat.append(dt)
+                    done[0] += 1
+                    if done[0] == SERVE_HANDLE_REQUESTS // 2:
+                        half.set()
+            client_cpu.append(time.thread_time())
+
+        def http_client(k):
+            for i in range(k, SERVE_HTTP_REQUESTS, SERVE_HTTP_CLIENTS):
+                t0 = time.perf_counter()
+                status, headers, body = _http_get(f"{base}/model?x={i}")
+                dt = time.perf_counter() - t0
+                with lock:
+                    http_codes.append(status)
+                if status != 200:
+                    with lock:
+                        failures.append(f"http {i}: {status} {body[:200]}")
+                    continue
+                check(i, json.loads(body))
+                with lock:
+                    http_lat.append(dt)
+            client_cpu.append(time.thread_time())
+
+        def roll():
+            half.wait(timeout=600)
+            rollout_out["t"] = time.perf_counter()
+            try:
+                rollout_out["summary"] = versioning.rollout(
+                    b"v2", artifact_label="v2")
+            except Exception as e:          # noqa: BLE001 — a gate
+                rollout_out["error"] = repr(e)
+            rollout_out["t_end"] = time.perf_counter()
+
+        burst = {}
+
+        def burst_run():
+            t0 = time.perf_counter()
+            refs = [noop.options(**shapes[i % 4]).remote(i)
+                    for i in range(SERVE_BURST_TASKS)]
+            burst["ok"] = rt.get(refs, timeout=900) == \
+                list(range(SERVE_BURST_TASKS))
+            burst["s"] = time.perf_counter() - t0
+
+        def rounds():
+            return np.array([[r.device_rounds, r.delta_rounds,
+                              r.host_rounds] for r in raylets]).sum(axis=0)
+
+        # --- the main path: counts start at 0 here and are read after ---
+        hk.waterfill_scan.launches = 0
+        hk.waterfill_scan.localized_launches = 0
+        rounds0 = rounds()
+        threads = [threading.Thread(target=handle_client, args=(k,),
+                                    name=f"handle-client-{k}")
+                   for k in range(SERVE_CLIENTS)]
+        h_threads = [threading.Thread(target=http_client, args=(k,),
+                                      name=f"http-client-{k}")
+                     for k in range(SERVE_HTTP_CLIENTS)]
+        r_thread = threading.Thread(target=roll, name="rollout")
+        b_thread = threading.Thread(target=burst_run, name="burst")
+        cpu0, workers_cpu0 = host_cpu(cluster)
+        driver_cpu0 = _cpu_s("/proc/self/stat")
+        t0 = time.perf_counter()
+        for t in [b_thread, r_thread] + threads + h_threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        handle_s = time.perf_counter() - t0
+        for t in h_threads:
+            t.join(600)
+        http_s = time.perf_counter() - t0
+        traffic_end = time.perf_counter()
+        # the driver's CPU over the traffic: the client threads (gone
+        # by now, so each read its own), then the live threads by name
+        # (the routers, the raylets, the worker-pipe readers, the burst)
+        cpu1, workers_cpu1 = host_cpu(cluster)
+        traffic_host = {
+            "driver_cpu_per_wall_s":
+                (_cpu_s("/proc/self/stat") - driver_cpu0) / http_s,
+            "client_threads_cpu_s": sum(client_cpu),
+            "driver_threads_cpu_s": dict(sorted(
+                ((k, round(v - cpu0.get(k, 0.0), 2))
+                 for k, v in cpu1.items()), key=lambda kv: -kv[1])[:8]),
+            "workers_cpu_s": workers_cpu1 - workers_cpu0}
+        half.set()
+        for t in (r_thread, b_thread):
+            t.join(900)
+        if any(t.is_alive() for t in
+               threads + h_threads + [r_thread, b_thread]):
+            raise AssertionError("serve: a client, the rollout or the "
+                                 "burst did not finish")
+        launches = {"waterfill_scan": hk.waterfill_scan.launches,
+                    "localized": hk.waterfill_scan.localized_launches}
+        device_rounds, delta_rounds, host_rounds = \
+            (int(x) for x in rounds() - rounds0)
+        # --- end of the main path ---
+
+        after = [rt.get(handle.remote(i), timeout=120)
+                 for i in range(SERVE_BATCH)]
+        summary = rollout_out.get("summary") or {}
+        if wrong or failures:
+            raise AssertionError(f"serve: {len(wrong)} wrong responses "
+                                 f"{wrong[:3]}, {len(failures)} failed "
+                                 f"{failures[:3]}")
+        if len(handle_lat) != SERVE_HANDLE_REQUESTS or \
+                len(http_lat) != SERVE_HTTP_REQUESTS:
+            raise AssertionError("serve: responses missing")
+        if summary.get("phase") != "SEALED" or \
+                summary.get("flipped") != SERVE_REPLICAS or \
+                summary.get("replicas") != SERVE_REPLICAS or \
+                rollout_out["t"] >= traffic_end:
+            raise AssertionError(f"serve: rollout {rollout_out}")
+        if after != [["v2", 2 * i + 1] for i in range(SERVE_BATCH)]:
+            raise AssertionError(f"serve: after the rollout {after[:4]}")
+        if not burst.get("ok"):
+            raise AssertionError("serve: the burst returned wrong results")
+        if delta_rounds < 1 or launches["waterfill_scan"] < 1:
+            raise AssertionError(
+                f"serve: {device_rounds} device rounds, {delta_rounds} "
+                f"through the delta beat, launches {launches}")
+
+        # /metrics against serve.status(), once the plane is quiet
+        deadline = time.monotonic() + 60
+        while True:
+            plane = serve.status()["request_plane"]
+            if plane["inflight"] == 0 and plane["queued"] == 0:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"serve: the plane stays busy {plane}")
+            time.sleep(0.1)
+        scraped = _scrape(metrics_port)
+        plane = serve.status()["request_plane"]
+        lbl = f'{{deployment="{plane["deployment"]}"}}'
+        metrics_vs_status = {
+            key: [scraped.get(f"ray_tpu_{name}{lbl}"), plane.get(key)]
+            for key, name in SERVE_GAUGES.items()}
+        bad = {k: v for k, v in metrics_vs_status.items()
+               if v[0] is None or v[1] is None or float(v[0]) != v[1]}
+        if bad:
+            raise AssertionError(f"serve: /metrics vs serve.status(): "
+                                 f"{bad}")
+        version_gauge = scraped.get(f"ray_tpu_serve_model_version{lbl}")
+        apis = {}
+        for name in DASHBOARD_APIS:
+            status, _, body = _http_get(
+                f"http://127.0.0.1:{dash_port}/api/{name}")
+            json.loads(body)
+            apis[name] = status
+        if any(code != 200 for code in apis.values()):
+            raise AssertionError(f"serve: dashboard APIs {apis}")
+
+        # replicas are CPU worker processes: none maps libcuda
+        worker_pids = []
+        for r in raylets:
+            with r.pool._lock:
+                worker_pids += [h.proc.pid for h in r.pool._workers
+                                if h.proc is not None]
+        with_cuda = [pid for pid in worker_pids if _holds_cuda(pid)]
+        if with_cuda:
+            raise AssertionError(f"serve: workers with libcuda {with_cuda}")
+        serve.shutdown()
+    finally:
+        rt.shutdown()
+    result = {
+        "phase": "serve", "entry": "ray_tpu_torch.serve.run/handle/HTTP",
+        "nodes": SERVE_NODES, "replicas": SERVE_REPLICAS,
+        "max_batch_size": SERVE_BATCH,
+        "max_ongoing_requests": SERVE_ONGOING,
+        "handle_requests": SERVE_HANDLE_REQUESTS,
+        "handle_clients": SERVE_CLIENTS,
+        "handle_requests_per_s": SERVE_HANDLE_REQUESTS / handle_s,
+        "handle_p50_ms": _quantile(handle_lat, 0.5) * 1e3,
+        "handle_p99_ms": _quantile(handle_lat, 0.99) * 1e3,
+        "http_requests": SERVE_HTTP_REQUESTS,
+        "http_clients": SERVE_HTTP_CLIENTS,
+        "http_requests_per_s": SERVE_HTTP_REQUESTS / http_s,
+        "http_p50_ms": _quantile(http_lat, 0.5) * 1e3,
+        "http_p99_ms": _quantile(http_lat, 0.99) * 1e3,
+        "shed": plane["shed"], "batches": plane.get("batches"),
+        "batch_size_mean": plane.get("batch_size_mean"),
+        "batch_size_buckets": plane.get("batch_size_buckets"),
+        "rollout": {k: summary.get(k) for k in
+                    ("from", "to", "phase", "flipped", "replicas",
+                     "max_flip_downtime_s", "seconds")},
+        "rollout_started_after_s": rollout_out["t"] - t0,
+        "model_version_gauge": version_gauge,
+        "burst_tasks": SERVE_BURST_TASKS, "burst_s": burst["s"],
+        "burst_tasks_per_s": SERVE_BURST_TASKS / burst["s"],
+        "runtime_phase_tasks_per_s": runtime_tasks_per_s,
+        "device_rounds": device_rounds, "delta_rounds": delta_rounds,
+        "host_rounds": host_rounds, "launches": launches,
+        "traffic_host": traffic_host,
+        "metrics_vs_status": metrics_vs_status, "dashboard_apis": apis,
+        "workers_checked_for_libcuda": len(worker_pids),
+        "seconds": time.perf_counter() - t_start}
+    emit(result)
+    return result
+
+
 # -- phase: dataplane (bundle, pull and broadcast programs) ------------------
 
 def kernel_launches(fn):
@@ -1498,6 +1864,31 @@ def topk_check(totals, avail, mask, reqs, counts, counts_out, new_avail,
         raise AssertionError("top-k: consumption past availability")
 
 
+# (seed, round, group, k) -> the rotation offset the JAX function draws,
+# randint(fold_in(fold_in(PRNGKey(seed), round), group), (), 0, k), read
+# from JAX 0.9.0 (jax_threefry_partitionable) when this table was written
+TOPK_JAX_OFFSETS = [
+    (0, 1, 0, 1, 0), (0, 1, 0, 7, 2), (3, 1, 5, 48, 5), (7, 1, 63, 250, 50),
+    (7, 2, 0, 1000, 120), (11, 977, 3, 3, 0), (123456789, 42, 17, 65535,
+    31143), (2147483647, 10000, 9, 65536, 12237), (5, 4294967295, 2, 65537,
+    46878), (4294967301, 3, 1, 100003, 19032), (-1, 7, 4, 2147483647,
+    714088930), (8, 99, 31, 997, 250)]
+
+
+def topk_offsets(dev):
+    """The rotation offsets of TOPK_JAX_OFFSETS as ``device`` computes
+    them: the host's threefry words, randint's span arithmetic there."""
+    import torch
+
+    from ray_tpu_torch.ops import locality_kernel as lk
+    out = []
+    for seed, rnd, g, k, _ in TOPK_JAX_OFFSETS:
+        words = torch.tensor(lk.topk_draws(seed, rnd, g + 1)[g], device=dev)
+        out.append(int(lk._randint_offset(
+            words, torch.tensor(k, dtype=torch.int32, device=dev))))
+    return out
+
+
 def phase_topk(dev):
     """Top-k rounds at the beat width (1000 nodes x 8 resources x 64
     classes x 1,000,000 tasks): the card's result equals the CPU run bit
@@ -1520,6 +1911,11 @@ def phase_topk(dev):
                                        7, 1, device="cpu", **kw)
     if not all(np.array_equal(a, b) for a, b in zip(got, want)):
         raise AssertionError("top-k: the card disagrees with the CPU")
+    jax_offsets = [row[-1] for row in TOPK_JAX_OFFSETS]
+    card_offsets, cpu_offsets = topk_offsets(dev), topk_offsets("cpu")
+    if not card_offsets == cpu_offsets == jax_offsets:
+        raise AssertionError(f"top-k offsets: card {card_offsets}, cpu "
+                             f"{cpu_offsets}, JAX {jax_offsets}")
     topk_check(totals, avail, mask, reqs, counts, *got, **kw)
     run = (lambda: lk.schedule_grouped_topk_np(
         totals, avail, mask, reqs, counts, 7, 1, device=dev, **kw))
@@ -1561,6 +1957,7 @@ def phase_topk(dev):
     result = {"phase": "topk", "entry": "schedule_grouped_topk_np",
               "problem": [n, r, g, int(counts.sum())], "k_abs": k_abs,
               "k_frac": k_frac, "card_equals_cpu": True,
+              "offsets_equal_jax": len(jax_offsets),
               "properties_hold": True, "ms": ms, "cpu_ms": cpu_ms,
               "launches": launches, "bound_ms": bound_ms,
               "bound_by": bound_by, "burst_tasks": 2000,
@@ -1655,7 +2052,10 @@ def phase_daemon(dev):
     repo = str(Path(__file__).resolve().parent)
     env.update(RAY_TPU_TORCH_STATE_DIR=state,
                PYTHONPATH=repo + os.pathsep + env.get("PYTHONPATH", ""))
-    head_env = dict(env, **DAEMON_HEAD_ENV)
+    metrics_port, dash_port = _free_port(), _free_port()
+    head_env = dict(env, **DAEMON_HEAD_ENV,
+                    RT_METRICS_EXPORT_PORT=str(metrics_port),
+                    RT_DASHBOARD_PORT=str(dash_port))
     py = [sys.executable, "-m", "ray_tpu_torch"]
 
     def cli(*args, timeout=120, env=env):
@@ -1718,6 +2118,21 @@ def phase_daemon(dev):
                     launches.get("waterfill_scan", 0) < 1:
                 raise AssertionError(f"the head's raylet: {rounds}, "
                                      f"launches {launches}")
+            # the head's exporter and dashboard, scraped over HTTP and
+            # held against its status RPC
+            scraped = _scrape(metrics_port)
+            head_status = client.call("status", timeout=60)
+            alive = sum(1 for n in head_status["nodes"] if n["Alive"])
+            summary = json.loads(_http_get(
+                f"http://127.0.0.1:{dash_port}/api/summary")[2])
+            observed = {
+                "num_nodes": [scraped.get("ray_tpu_num_nodes"), alive],
+                "dashboard_nodes": [summary["nodes"], alive],
+                "dashboard_url": [head_status["dashboard_url"],
+                                  f"http://127.0.0.1:{dash_port}"]}
+            if any(a != b for a, b in observed.values()) or alive != 3:
+                raise AssertionError(f"the head's /metrics and dashboard "
+                                     f"against its status: {observed}")
             # who holds the card: the head, and this script (earlier
             # phases); no agent or agent worker (the driver checked
             # itself).  nvidia-smi may print pids of another pid
@@ -1752,6 +2167,7 @@ def phase_daemon(dev):
                   str(script), timeout=300)
         if "job-ok" not in job or "SUCCEEDED" not in job:
             raise AssertionError(f"job submit: {job[-2000:]}")
+        rollout = json.loads(cli("rollout"))    # the version journal
         status = cli("status")
         if "nodes (3)" not in status or \
                 f"scheduler: device={dev.type}" not in status:
@@ -1795,6 +2211,8 @@ def phase_daemon(dev):
                                                   maps.values()),
               "driver_imported_torch": drv_out["torch"],
               "job": "SUCCEEDED",
+              "head_metrics_vs_status": observed,
+              "rollout_cli": {"rc": 0, "deployments": len(rollout)},
               "seconds": time.perf_counter() - t_start}
     emit(result)
     return result
@@ -1991,6 +2409,7 @@ def main() -> int:
     beat = timed("beat", phase_beat, dev)
     loc = timed("locality", phase_locality, dev)
     run = timed("runtime", phase_runtime, dev)
+    srv = timed("serve", phase_serve, dev, run["tasks_per_s"])
     timed("dataplane", phase_dataplane, dev)
     asc = timed("autoscaler", phase_autoscaler, dev)
     timed("topk", phase_topk, dev)
@@ -2011,6 +2430,7 @@ def main() -> int:
          # it.  max_abs_err 0: the phases raise unless bit-exact
          "launches": run["launches"]["waterfill_scan"],
          "launches_by_path": {"runtime": run["launches"]["waterfill_scan"],
+                              "serve": srv["launches"]["waterfill_scan"],
                               "beat": beat["waterfill_launches"],
                               "autoscaler": asc["main_path_launches"][
                                   "waterfill_scan"],

@@ -11,8 +11,11 @@ library's flash attention as a hand-written CUDA kernel, the runtime
 (``init/remote/get/put/wait``, actors, placement groups, the autoscaler
 loop) and its daemon half: a head daemon with worker-node agents,
 client mode (``init(address=...)``), job submission and the CLI
-(``python -m ray_tpu_torch``).  The metrics exporter, the dashboard and
-the libraries come with later slices (ROADMAP.md).
+(``python -m ray_tpu_torch``).  Above the runtime: serve, the
+model-version plane (``versioning``), workflows, the metrics exporter
+and the dashboard, user metrics, the actor-backed queue and the runtime
+lock-order recorder.  Data, train, tune, RLlib and the simulator come
+with later slices (ROADMAP.md).
 
 The package imports ``torch`` and numpy, never JAX and nothing of
 ``ray_tpu``.  Entry points run on the GPU unless the caller asks for the
@@ -39,7 +42,8 @@ def __getattr__(name):
         from . import api
         return getattr(api, name)
     if name in ("ops", "scheduling", "convert", "device", "util", "serve",
-                "experimental", "cross_language", "autoscaler"):
+                "experimental", "cross_language", "autoscaler",
+                "versioning", "workflow"):
         # NOT `from . import ops`: that re-enters __getattr__ via the
         # fromlist hasattr probe before the submodule import finishes.
         # Only submodules that EXIST belong here.

@@ -155,16 +155,17 @@ class Cluster:
         # CRM); ticked from the autoscaler round and the health round
         from .serve.loaning import CapacityLoanManager
         self.loans = CapacityLoanManager(self)
-        # the metrics exporter and the dashboard are not ported yet
-        # (ROADMAP.md A.5, daemon side); their ports default to 0 (off)
+        port = get_config().metrics_export_port
         self.metrics = None
+        if port:
+            from .runtime.metrics import MetricsExporter
+            self.metrics = MetricsExporter(self, port)
+        dash_port = get_config().dashboard_port
         self.dashboard = None
-        for knob in ("metrics_export_port", "dashboard_port"):
-            if getattr(get_config(), knob):
-                raise NotImplementedError(
-                    f"{knob}: the metrics exporter and the dashboard are "
-                    "not ported yet: ROADMAP.md, section A, item 5 "
-                    "(daemon side)")
+        if dash_port:
+            from .runtime.dashboard import Dashboard
+            self.dashboard = Dashboard(self, dash_port,
+                                       host=get_config().dashboard_host)
         self._head_row: int | None = None
         self._stack_waits: dict[str, tuple] = {}    # live stack dumps
         # node drain lifecycle (ALIVE -> DRAINING -> removed/dead):

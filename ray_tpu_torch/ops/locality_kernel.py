@@ -25,15 +25,15 @@ its k best-keyed feasible nodes, the remainder rotated by one draw per
 (seed, round, group).  Plain PyTorch: a host loop over the classes of a
 few tensor ops each (keys, a stable argsort, the even split, the cap at
 availability), no host sync inside.  The JAX function draws its rotation
-with ``jax.random`` on the device; those bits cannot be reproduced, so
-the port draws on the host (``topk_draws``: Philox keyed by (seed,
-round), one raw output per group) and takes each group's offset as the
-draw modulo k on the device.  CPU and GPU therefore get the same offsets
-and the same placements, bit for bit.  Against the JAX function the port
-differs only in where the remainder lands: the same top-k node set per
-class, ``alloc`` in {base, base + 1} on it, the same overflow column and
-the same consumption cap (the reference does not bit-compare top-k
-across backends either, ``ray_tpu/ops/locality_kernel.py:17-25``).
+as ``randint(fold_in(fold_in(PRNGKey(seed), round), g), (), 0, k)``;
+``jax.random`` is threefry2x32, a pure uint32 function, so the host
+computes the same bits in numpy (``topk_draws``: randint's two words per
+group, which do not depend on k, under ``jax_threefry_partitionable``,
+the default since JAX 0.5) and the device finishes randint's span
+arithmetic once k is known (``_randint_offset``), without a sync.  The
+port is therefore bit-exact against the JAX function: the same
+``counts`` and ``new_avail`` on the same (seed, round), on the CPU and on
+the GPU.
 """
 
 from __future__ import annotations
@@ -90,13 +90,60 @@ def schedule_grouped_localized_np(totals, avail, node_mask, group_reqs,
     return counts.cpu().numpy(), new_avail.cpu().numpy()
 
 
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_U32 = 0xFFFFFFFF
+
+
+def _threefry2x32(k0, k1, x0, x1):
+    """``jax._src.prng._threefry2x32_lowering`` in numpy: the threefry
+    2x32 hash (20 rounds) of the counter words (x0, x1) under the key
+    (k0, k1), elementwise over uint32 arrays."""
+    ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
+    x0, x1 = x0 + ks[0], x1 + ks[1]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = x0 + x1
+            x1 = ((x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))) ^ x0
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x0, x1
+
+
 def topk_draws(seed, round_index, n_groups) -> np.ndarray:
-    """The rotation draws of one top-k round: (n_groups,) int32 in [0,
-    2**31), the g-th raw output of Philox keyed by (seed, round_index),
-    so a group's draw depends only on (seed, round, group)."""
-    key = (int(seed) % (1 << 64)) | ((int(round_index) % (1 << 64)) << 64)
-    raw = np.random.Philox(key=key).random_raw(int(n_groups))
-    return (raw >> np.uint64(33)).astype(np.int32)
+    """The rotation draws of one top-k round: (n_groups, 2) int64, the two
+    uint32 words (high, low) that ``jax.random.randint`` reduces to each
+    group's offset, for the key ``fold_in(fold_in(PRNGKey(seed),
+    round_index), g)``.  With ``jax_threefry_partitionable`` (JAX's
+    default): ``PRNGKey(s)`` is (0, s mod 2**32) without x64;
+    ``fold_in(key, d)`` hashes the counter (0, d); ``split`` hashes (0, 0)
+    and (0, 1); ``random_bits`` of a scalar is the xor of the hash of
+    (0, 0).  A group's words depend only on (seed, round, group)."""
+    u = np.uint32
+    g = np.arange(int(n_groups), dtype=u)
+    zero = np.zeros_like(g)
+    one = np.zeros(1, dtype=u)                    # arrays wrap silently
+    k = _threefry2x32(one, one + u(int(seed) & _U32), one,
+                      one + u(int(round_index) & _U32))
+    k = _threefry2x32(k[0], k[1], zero, g)                # fold_in(., g)
+    words = []
+    for half in (0, 1):                                   # split(key)
+        sub = _threefry2x32(k[0], k[1], zero, zero + u(half))
+        bits = _threefry2x32(sub[0], sub[1], zero, zero)  # random_bits
+        words.append(bits[0] ^ bits[1])
+    return np.stack(words, axis=1).astype(np.int64)
+
+
+def _randint_offset(words, k):
+    """``jax.random._randint``'s reduction of its two words to [0, k) for
+    int32 (``span`` = k >= 1): ``(hi % span) * m + lo % span`` modulo
+    span, where ``m = (2**16 % span)**2 % span``, each product and sum
+    wrapped to uint32 as JAX does (past span 2**16 the square wraps to
+    0); the int64 tensors hold every intermediate before the mask."""
+    span = k.to(torch.int64)
+    mult = ((65536 % span) * (65536 % span) & _U32) % span
+    t = (words[0] % span) * mult & _U32
+    t = (t + words[1] % span) & _U32
+    return (t % span).to(_I32)
 
 
 def schedule_grouped_topk(totals, avail, node_mask, group_reqs,
@@ -107,7 +154,8 @@ def schedule_grouped_topk(totals, avail, node_mask, group_reqs,
     k per group = min(feasible, max(k_abs,
     ceil(feasible * k_frac_num / k_frac_den))).  Each group's tasks
     spread evenly over its k best keys, the remainder rotated by
-    ``draws[g] % k`` (``draws``: (G,) int32 from ``topk_draws``);
+    ``_randint_offset(draws[g], k)`` (``draws``: (G, 2) int64 from
+    ``topk_draws``);
     consuming placements are capped by per-node availability (tasks
     beyond capacity queue without consuming).  Returns (counts (G, N+1),
     new_avail) on the inputs' device; plain PyTorch on either device."""
@@ -129,7 +177,7 @@ def schedule_grouped_topk(totals, avail, node_mask, group_reqs,
                         min=k_abs)
         k = torch.minimum(k.clamp_min(1), nf.clamp_min(1))
         order = torch.argsort(keys, stable=True)            # best first
-        offset = torch.remainder(draws[gi], k)
+        offset = _randint_offset(draws[gi], k)
         base = _floordiv(count, k)
         extra_n = count - base * k
         gets_extra = torch.remainder(pos - offset, k) < extra_n
@@ -173,6 +221,6 @@ def schedule_grouped_topk_np(totals, avail, node_mask, group_reqs,
         None if group_masks is None else put(group_masks, bool),
         int(thr_fp), max(int(k_abs), 1), int(frac.numerator),
         max(int(frac.denominator), 1),
-        put(topk_draws(seed, round_index, g), np.int32),
+        put(topk_draws(seed, round_index, g), np.int64),
         None if extra_mask is None else put(extra_mask, bool))
     return counts.cpu().numpy(), new_avail.cpu().numpy()

@@ -178,12 +178,29 @@ class HeadNode:
 
     def _rollout(self, op: str, deployment: str = "",
                  **kwargs) -> dict:
-        """Model-version plane control/observe channel (the reference's
-        KV-journaled registry and its pause/resume/abort flags); the
-        port has no versioning plane yet."""
-        raise NotImplementedError(
-            f"rollout {op!r}: the model-version plane is not ported yet: "
-            "ROADMAP.md, section A, item 16 (versioning)")
+        """Model-version plane control/observe channel.  The rollout
+        controller itself runs driver-side (it owns the serve app);
+        the head exposes the KV-journaled registry — ``status`` — and
+        the operator control flags — ``pause``/``resume``/``abort`` —
+        that the driver-side controller polls between flips.  Because
+        the journal lives in the GCS-snapshotted KV, a promoted
+        standby serves the same view."""
+        from ..versioning import VersionRegistry
+        reg = VersionRegistry()
+        if op == "status":
+            if deployment:
+                rec = reg.record(deployment)
+                return {deployment: rec} if rec is not None else {}
+            return reg.all()
+        if op in ("pause", "abort"):
+            reg.set_control(deployment, op)
+            return {"deployment": deployment, "control": op}
+        if op == "resume":
+            reg.set_control(deployment, "")
+            return {"deployment": deployment, "control": ""}
+        raise ValueError(
+            f"unknown rollout op {op!r} "
+            f"(one of: status, pause, resume, abort)")
 
     def _chaos(self, op: str, **kwargs) -> dict:
         """Runtime control of the seeded network-chaos plane (shared
@@ -406,7 +423,7 @@ class HeadNode:
     def _train_stats(cluster) -> dict:
         # the loan manager's two-directional lending counters; the
         # elastic training plane's run gauges come with its port
-        # (ROADMAP.md A.13)
+        # (ROADMAP.md A.7)
         out: dict = {}
         loans = getattr(cluster, "loans", None)
         if loans is not None:
@@ -432,15 +449,36 @@ class HeadNode:
 
     @staticmethod
     def _version_stats() -> dict:
-        # per-deployment model-version journal: empty until versioning
-        # is ported (ROADMAP.md A.16)
-        return {}
+        # per-deployment model-version journal (current version plus
+        # any in-flight rollout's phase/progress); empty when the
+        # version registry has never been written
+        try:
+            from ..versioning import VersionRegistry
+            out = {}
+            for name, rec in VersionRegistry().all().items():
+                row = {"current": rec["current"],
+                       "previous": rec["previous"]}
+                ro = rec.get("rollout")
+                if ro is not None:
+                    row["rollout"] = {
+                        "to": ro["to"], "phase": ro["phase"],
+                        "flipped": ro["flipped"],
+                        "replicas": ro["replicas"],
+                        "error": ro["error"]}
+                out[name] = row
+            return out
+        except Exception:   # noqa: BLE001 — versioning absent/unused
+            return {}
 
     @staticmethod
     def _serve_stats() -> dict:
-        # per-deployment request-plane stats: empty until serve's router
-        # is ported (ROADMAP.md A.16)
-        return {}
+        # per-deployment request-plane stats; only populated when serve
+        # apps run in this process (the router registry is local)
+        try:
+            from ..serve.router import request_plane_stats
+            return request_plane_stats()
+        except Exception:   # noqa: BLE001 — serve absent/unused
+            return {}
 
     def _scheduler_stats(self) -> dict:
         """Where the head's placement rounds ran: its raylets' rounds by

@@ -382,6 +382,42 @@ def cmd_drain(args) -> int:
     return 0
 
 
+def cmd_rollout(args) -> int:
+    """``ray_tpu_torch rollout <deployment> [artifact]`` — model-version
+    plane.  Without an artifact: print the deployment's KV-journaled
+    version record (or every deployment's, with no name).
+    ``--pause/--resume/--abort`` write the operator control flag the
+    driver-side controller polls between flips — routed through the
+    head so the flag lands in the GCS-snapshotted KV and survives a
+    standby promotion.  With an artifact path: run the rolling update
+    from THIS process; the serve control plane is driver-hosted, so
+    starting a rollout only works where the app was deployed (scripts
+    embedding ``cli.main`` or an interactive driver) — elsewhere use
+    ``ray_tpu_torch.versioning.rollout`` on the driver."""
+    op = ("pause" if args.pause else "resume" if args.resume
+          else "abort" if args.abort else None)
+    if op is not None or args.artifact is None:
+        client = _client(args.address)
+        try:
+            out = client.call("rollout", op or "status",
+                              deployment=args.deployment or "",
+                              timeout=30.0)
+        finally:
+            client.close()
+        print(json.dumps(out, indent=2, default=str))
+        return 0
+    if not args.deployment:
+        raise SystemExit("rollout start needs a deployment (app) name")
+    from .. import versioning
+    with open(args.artifact, "rb") as f:
+        artifact = f.read()
+    summary = versioning.rollout(
+        artifact, app_name=args.deployment,
+        artifact_label=os.path.basename(args.artifact))
+    print(json.dumps(summary, indent=2, default=str))
+    return 0 if summary.get("phase") == "SEALED" else 1
+
+
 def cmd_chaos(args) -> int:
     """``ray_tpu_torch chaos`` — control the head's seeded network-chaos
     plane (``rpc/chaos.py``): inject drops/dups/delays, partition and
@@ -536,21 +572,22 @@ def cmd_job(args) -> int:
     return 0
 
 
-def _unported(name: str, item: str):
-    """A subcommand whose modules the port has not copied yet: it exits
-    non-zero and names the ROADMAP item that brings them."""
+def _unported(name: str, why: str):
+    """A subcommand the port does not run: it exits non-zero and names
+    the ROADMAP entry that says why."""
     def run(args) -> int:
-        print(f"ray_tpu_torch {name}: not ported yet: ROADMAP.md, {item}",
-              file=sys.stderr)
+        print(f"ray_tpu_torch {name}: {why}", file=sys.stderr)
         return 2
     return run
 
 
-cmd_rollout = _unported("rollout", "section A, item 16 (versioning)")
-cmd_simulate = _unported("simulate", "section A, item 16 (the simulator)")
-cmd_hunt = _unported("hunt", "section A, item 16 (the simulator)")
-cmd_lint = _unported("lint", "section A, item 5 (rtlint's rules are "
-                     "scoped to the JAX package's paths)")
+cmd_simulate = _unported("simulate", "not ported yet: ROADMAP.md, "
+                         "section A, item 5 (the simulator)")
+cmd_hunt = _unported("hunt", "not ported yet: ROADMAP.md, section A, "
+                     "item 5 (the simulator)")
+cmd_lint = _unported("lint", "not ported: ROADMAP.md, section A, \"Not "
+                     "to port\" (rtlint's rules are scoped to the JAX "
+                     "package's paths)")
 
 
 def cmd_microbenchmark(args) -> int:

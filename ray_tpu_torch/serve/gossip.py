@@ -159,6 +159,12 @@ def fold_all() -> int:
     """Fold every router group in this process — the health manager's
     probe round calls this (gossip piggybacks on the liveness beat).
     Returns the number of deployments folded."""
-    # serve's router is not ported yet (ROADMAP.md A.16): no router
-    # group exists in this process, so there is nothing to fold
-    return 0
+    from .router import RouterGroup
+    n = 0
+    for group in RouterGroup._groups():
+        try:
+            group.fold()
+            n += 1
+        except Exception:   # noqa: BLE001 — gossip is best-effort
+            pass
+    return n

@@ -463,9 +463,8 @@ class CapacityLoanManager:
 
     # -- introspection ---------------------------------------------------------
     def _groups(self) -> list:
-        # serve's router is not ported yet (ROADMAP.md A.16): no router
-        # group exists in this process
-        return []
+        from .router import RouterGroup
+        return RouterGroup._groups()
 
     def active_loans(self) -> list[dict]:
         with self._lock:

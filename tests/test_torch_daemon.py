@@ -231,8 +231,7 @@ class TestStateListCli:
         finally:
             rt.kill(a)
 
-    @pytest.mark.parametrize("cmd", [["simulate"], ["hunt"], ["lint"],
-                                     ["rollout", "app"]])
+    @pytest.mark.parametrize("cmd", [["simulate"], ["hunt"], ["lint"]])
     def test_unported_subcommands_name_their_item(self, cmd, capsys):
         from ray_tpu_torch.scripts.cli import main
         assert main(cmd) == 2

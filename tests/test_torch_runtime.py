@@ -346,3 +346,44 @@ def test_raylet_rows_equal_the_reference_raylet():
         RefConfig.reset()
     assert got == want
     assert all(r >= 0 for r in got[0]) and all(r >= 0 for r in got[1])
+
+
+def test_topk_raylet_rows_equal_the_reference_raylet():
+    """Top-k rounds (``scheduler_top_k_fraction`` > 0): three seeded
+    batches, the last with locality rows, through each package's head
+    raylet give the same rows; each round advances the draws' round
+    index in both."""
+    import ray_tpu
+    import ray_tpu.cluster_utils as ref_cluster
+    import ray_tpu_torch.cluster_utils as port_cluster
+    from ray_tpu.common.config import Config as RefConfig
+
+    rng = np.random.default_rng(3)
+    node_res = [{"CPU": int(rng.integers(2, 16)),
+                 "memory": int(rng.integers(2, 16))} for _ in range(12)]
+    n_specs = 500
+    topk = {"scheduler_top_k_fraction": 0.3, "scheduler_top_k_absolute": 2}
+
+    def batches_of(pkg):
+        brng = np.random.default_rng(4)
+        out = [(_specs(pkg, brng, n_specs, 5), [None] * n_specs,
+                [False] * n_specs) for _ in range(2)]
+        loc = _specs(pkg, brng, n_specs, 5)
+        prefs = [int(p) if p >= 0 else None
+                 for p in brng.integers(-6, 12, size=n_specs)]
+        return out + [(loc, prefs, [False] * n_specs)]
+
+    PortConfig.reset(dict(CPU_CONFIG, **topk))
+    try:
+        got, head = _raylet_rows(rt, port_cluster, node_res, batches_of)
+    finally:
+        PortConfig.reset()
+    assert head.topk_rounds == 3 and head.delta_rounds == 0
+
+    RefConfig.reset({"scheduler_device_batch_min": 1, **topk})
+    try:
+        want, _ = _raylet_rows(ray_tpu, ref_cluster, node_res, batches_of)
+    finally:
+        RefConfig.reset()
+    assert got == want
+    assert len(set(got[0])) > 2          # the rounds spread

@@ -1,19 +1,20 @@
-"""The port's top-k rounds vs the JAX function.
+"""The port's top-k rounds vs the JAX function, bit for bit.
 
 ``schedule_grouped_topk`` spreads each class evenly over its k best keys
-and rotates the remainder by a seeded draw.  The JAX function draws with
-``jax.random`` on the device; the port draws on the host (Philox keyed by
-(seed, round)), so the two agree on everything except where the
-remainder lands (``ray_tpu/ops/locality_kernel.py:17-25``).  Held here,
-class by class on the port's own running ``avail``: the same top-k node
-set (from a numpy sort of the keys), ``alloc`` in {base, base + 1} on it
-with the same multiset of values as the JAX function's, the same
-overflow column, consumption capped at availability; bit for bit where
-no class has a remainder; determinism per (seed, round).  Then a
-runtime burst with ``scheduler_top_k_fraction`` > 0 places through the
-raylet's top-k rounds.
+and rotates the remainder by ``randint(fold_in(fold_in(PRNGKey(seed),
+round), g), (), 0, k)``.  The port computes randint's threefry words on
+the host in numpy and finishes its span arithmetic on the device, so
+``counts`` and ``new_avail`` equal the JAX function's on every seed,
+round and k, including k = 1, k = every feasible node and a class that
+fits nowhere; each class is also held on its own, on the running
+``avail``.  The words themselves are held to ``jax.random`` over wide
+seeds, rounds and spans.  Then a runtime burst with
+``scheduler_top_k_fraction`` > 0 places through the raylet's top-k
+rounds (the raylet-level parity is in ``test_torch_runtime.py``).
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -21,10 +22,12 @@ import torch
 from ray_tpu.ops.locality_kernel import \
     schedule_grouped_topk_np as jax_topk_np
 from ray_tpu_torch.common.config import Config as PortConfig
-from ray_tpu_torch.ops.hybrid_kernel import _INF_KEY, _keys_one_req
-from ray_tpu_torch.ops.locality_kernel import (schedule_grouped_topk_np,
+from ray_tpu_torch.ops.locality_kernel import (_randint_offset,
+                                               schedule_grouped_topk_np,
                                                topk_draws)
-from ray_tpu_torch.scheduling.contract import threshold_fp
+
+# the draws follow JAX's partitionable threefry (its default since 0.5)
+jax.config.update("jax_threefry_partitionable", True)
 
 
 @pytest.fixture(autouse=True)
@@ -48,60 +51,36 @@ def _problem(seed, n=48, r=4, g=8):
     return totals, avail, mask, reqs, counts, masks
 
 
-def _topk_set(totals, avail, req, mask, k):
-    keys = _keys_one_req(torch.tensor(totals), torch.tensor(avail),
-                         torch.tensor(req), threshold_fp(None),
-                         torch.tensor(mask)).numpy()
-    order = np.argsort(keys, kind="stable")
-    return set(order[:k].tolist()), int((keys != _INF_KEY).sum())
+# (k_abs, k_frac): k = 1 always, fractions of the feasible nodes, and
+# k = every feasible node
+K_CASES = [(1, 0.0), (1, 0.25), (3, 0.0), (2, 0.5), (1, 1.0)]
 
 
 @pytest.mark.parametrize("seed", range(8))
-@pytest.mark.parametrize("k_abs,k_frac", [(1, 0.25), (3, 0.0), (2, 0.5)])
+@pytest.mark.parametrize("k_abs,k_frac", K_CASES)
 def test_class_by_class_against_jax(seed, k_abs, k_frac):
     totals, avail, mask, reqs, counts, masks = _problem(seed)
-    n = totals.shape[0]
     kw = dict(k_abs=k_abs, k_frac=k_frac)
-    got, new_avail = schedule_grouped_topk_np(
-        totals, avail, mask, reqs, counts, seed, 3, group_masks=masks,
-        device="cpu", **kw)
+    rnd = 3 + 977 * seed
+    got = schedule_grouped_topk_np(totals, avail, mask, reqs, counts,
+                                   seed, rnd, group_masks=masks,
+                                   device="cpu", **kw)
+    want = jax_topk_np(totals, avail, mask, reqs, counts, seed=seed,
+                       round_index=rnd, group_masks=masks, **kw)
+    for x, y in zip(got, want):
+        assert np.array_equal(x, np.asarray(y))
+    assert got[0][-1, -1] == counts[-1]          # the class fits nowhere
+    # each class alone on the running avail (as group 0 of its call)
     av = avail.copy()
     for g in range(reqs.shape[0]):
         one = (totals, av, mask, reqs[g:g + 1], counts[g:g + 1])
-        want, _ = jax_topk_np(*one, seed=seed, round_index=3,
-                              group_masks=masks[g:g + 1], **kw)
-        mine, av_next = schedule_grouped_topk_np(
-            *one, seed, 3, group_masks=masks[g:g + 1], device="cpu", **kw)
-        # k depends only on feasibility (totals, masks), so the G-class
-        # call's row holds the same values as well (its avail, and so its
-        # support, may differ where earlier remainders landed elsewhere)
-        alloc, w = mine[0, :n], want[0, :n]
-        assert mine[0, n] == want[0, n] == got[g, n]        # overflow
-        assert sorted(alloc.tolist()) == sorted(w.tolist())
-        assert sorted(got[g, :n].tolist()) == sorted(w.tolist())
-        c = int(counts[g])
-        if want[0, n] == 0 and c:
-            from fractions import Fraction
-            frac = Fraction(k_frac).limit_denominator(1 << 16)
-            topk, nf = _topk_set(totals, av, reqs[g],
-                                 mask & masks[g], 1)
-            k = min(max(k_abs, -((-nf * frac.numerator)
-                                 // frac.denominator)), max(nf, 1))
-            k = max(k, 1)
-            topk, _ = _topk_set(totals, av, reqs[g], mask & masks[g], k)
-            base = c // k
-            for a in (alloc, w):
-                assert set(np.flatnonzero(a).tolist()) <= topk
-                assert all(a[i] in (base, base + 1) for i in topk)
-        # consumption capped at availability
-        req = reqs[g].astype(np.int64)
-        pos = req > 0
-        cap = np.where(pos[None, :], av // np.maximum(req, 1)[None, :],
-                       1 << 30).min(axis=1).clip(0, 1 << 30)
-        consumed = np.minimum(alloc, cap)
-        assert np.array_equal(av - consumed[:, None] * req[None, :],
-                              av_next)
-        av = av_next
+        w_row, w_av = jax_topk_np(*one, seed=seed, round_index=rnd,
+                                  group_masks=masks[g:g + 1], **kw)
+        m_row, m_av = schedule_grouped_topk_np(
+            *one, seed, rnd, group_masks=masks[g:g + 1], device="cpu", **kw)
+        assert np.array_equal(m_row, np.asarray(w_row))
+        assert np.array_equal(m_av, np.asarray(w_av))
+        av = m_av
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -139,7 +118,29 @@ def test_deterministic_per_seed_and_round():
     # groups the round has
     assert np.array_equal(topk_draws(5, 2, 3), topk_draws(5, 2, 8)[:3])
     d = topk_draws(5, 2, 1000)
-    assert d.dtype == np.int32 and d.min() >= 0
+    assert d.shape == (1000, 2) and d.dtype == np.int64
+    assert d.min() >= 0 and d.max() < 1 << 32
+
+
+@pytest.mark.parametrize("part", range(2))
+def test_offsets_equal_jax_randint(part):
+    """The host words and the device span arithmetic against
+    ``jax.random.randint`` itself: seeds past 2**32 and negative, rounds
+    to 2**32, spans 1 to 2**31 - 1 (past 2**16 the multiplier wraps)."""
+    rng = np.random.default_rng(100 + part)
+    spans = [1, 2, 3, 7, 48, 1000, 65535, 65536, 65537, 100003,
+             2 ** 31 - 1]
+    for _ in range(12):
+        seed = int(rng.integers(-2 ** 31, 2 ** 33))
+        rnd = int(rng.integers(0, 2 ** 32))
+        words = torch.tensor(topk_draws(seed, rnd, 3))
+        key = jax.random.fold_in(jax.random.PRNGKey(seed), rnd)
+        for g in range(3):
+            gk = jax.random.fold_in(key, jnp.int32(g))
+            for k in spans + [int(rng.integers(1, 2 ** 31))]:
+                want = jax.random.randint(gk, (), 0, jnp.int32(k))
+                got = _randint_offset(words[g], torch.tensor(k, dtype=torch.int32))
+                assert int(got) == int(want), (seed, rnd, g, k)
 
 
 def test_runtime_burst_takes_topk_rounds():
