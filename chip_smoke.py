@@ -107,6 +107,21 @@ Phases:
                   D=256 FMA kernel, or past 256 the wide kernel), bf16
                   and f32, causal and not, each beside the library
                   call's time and the SDPA backend that ran
+  data            ``ray_tpu_torch.data`` feeding the card: ``init`` with a
+                  4096 MB object store (bytes spilled: 0), ``from_numpy``
+                  of 2**20 rows x 128 float32 features (512 MiB, seed 0)
+                  in 64 blocks, a ``map_batches`` scale and shift in the
+                  workers, ``iter_torch_batches(batch_size=8192)`` with
+                  no device: every batch on the GPU, the column sums and
+                  row count on the card == numpy's (exact in float64);
+                  rows/s, GB/s, the seconds of the driver's gets, row
+                  pivot and copies, the device's idle share; then a .rtb
+                  round trip (``write_blocks``, ``stream_block_files``)
+                  of the 64 blocks, rows and column sums == the source's
+  sim             ``python -m ray_tpu_torch simulate`` at 1000 nodes,
+                  seed 7, 50 faults: ``serve_diurnal``, ``train_diurnal``
+                  and ``mixed`` (``--verify-replay``), each trace hash ==
+                  the reference's (SIM_PINNED); events, seconds, events/s
 Then the ``kernels`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 
@@ -2385,6 +2400,241 @@ def flash_head_dims(qkv, b=2, t=1024, h=4):
     return {"shape": [b, t, h], "cases": rows}
 
 
+# -- phase: data (ingest onto the card) --------------------------------------
+
+DATA_ROWS = 1 << 20              # one epoch's shard for a card: 512 MiB
+DATA_COLS = 128                  # float32 features
+DATA_BLOCKS = 64                 # 8 MiB blocks
+DATA_BATCH = 8192
+DATA_STORE_MB = 4096             # the default 512 spills past 0.8 of it
+DATA_SCALE, DATA_SHIFT = np.float32(0.5), np.float32(3.0)
+
+
+def _scale_shift(block):
+    return block * DATA_SCALE + DATA_SHIFT
+
+
+def data_source(rows=DATA_ROWS):
+    """Features on a grid of 2**-8 below 8 in magnitude: after the
+    scale and shift every value is a multiple of 2**-9 below 2**3, so a
+    float64 sum over 2**20 rows needs at most 32 bits and is exact in
+    any order; the column sums are held with a tolerance of 0."""
+    rng = np.random.default_rng(0)
+    return (rng.integers(-2048, 2048, size=(rows, DATA_COLS), dtype=np.int32)
+            .astype(np.float32) / np.float32(256))
+
+
+def phase_data(dev, rows=DATA_ROWS):
+    """``ray_tpu_torch.data`` feeding the card through the entry points
+    a user calls: ``from_numpy`` of a seeded epoch shard, a
+    ``map_batches`` in the workers, ``iter_torch_batches`` with no
+    device (the batches land on the GPU), column sums and the row count
+    on the card == numpy's over the same transform; then a ``.rtb``
+    round trip through ``write_blocks`` and ``stream_block_files``.
+    Splits the ingest's seconds between the driver's gets, its row
+    pivot (``Dataset.iter_batches``) and the rest (tensor, copy, sum),
+    with the device's busy time and idle share from the profiler."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data
+    from ray_tpu_torch.api import _get_runtime
+
+    t_start = time.perf_counter()
+    src = data_source(rows)
+    want = _scale_shift(src).astype(np.float64).sum(axis=0)
+    src_sums = src.astype(np.float64).sum(axis=0)
+    nbytes = src.nbytes
+    rt.init(resources={"CPU": 8, "memory": 8}, num_workers=8,
+            system_config={"object_store_memory_mb": DATA_STORE_MB})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rtb_")
+    try:
+        store = _get_runtime().cluster.store
+        t0 = time.perf_counter()
+        ds = data.from_numpy(src, parallelism=DATA_BLOCKS)
+        put_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mapped = ds.map_batches(_scale_shift)
+        rt.wait(list(mapped._blocks), num_returns=len(mapped._blocks),
+                timeout=600)
+        map_s = time.perf_counter() - t0
+
+        spent = {"get": 0.0, "iter_batches": 0.0}
+        materialize, iter_batches = mapped._materialize, mapped.iter_batches
+
+        def timed_materialize():
+            t = time.perf_counter()
+            out = materialize()
+            spent["get"] += time.perf_counter() - t
+            return out
+
+        def timed_iter_batches(**kw):
+            it = iter_batches(**kw)
+            while True:
+                t = time.perf_counter()
+                try:
+                    b = next(it)
+                except StopIteration:
+                    return
+                finally:
+                    spent["iter_batches"] += time.perf_counter() - t
+                yield b
+
+        mapped._materialize = timed_materialize
+        mapped.iter_batches = timed_iter_batches
+        acc = torch.zeros(DATA_COLS, dtype=torch.float64, device=dev)
+        n_rows = n_batches = 0
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for b in mapped.iter_torch_batches(batch_size=DATA_BATCH):
+                if b.device.type != dev.type or b.dtype != torch.float32:
+                    raise AssertionError(f"a batch landed on {b.device} "
+                                         f"as {b.dtype}")
+                acc += b.sum(dim=0, dtype=torch.float64)
+                n_rows += b.shape[0]
+                n_batches += 1
+            got = acc.cpu().numpy()
+            ingest_s = time.perf_counter() - t0
+        busy = {"h2d": 0.0, "kernels": 0.0}
+        for evt in prof.events():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            key = "h2d" if "HtoD" in evt.name else "kernels"
+            busy[key] += evt.time_range.elapsed_us() / 1e3
+        busy_ms = busy["h2d"] + busy["kernels"]
+        if n_rows != rows or not np.array_equal(got, want):
+            raise AssertionError(
+                f"ingest: {n_rows} rows (want {rows}), column sums off "
+                f"by up to {float(np.abs(got - want).max())} (tolerance "
+                f"0: the sums are exact in float64)")
+        spilled = store.stats()["spilled_bytes"]
+
+        # the .rtb round trip of the source, one file a block
+        cblocks = [data.ColumnBlock({"x": c})
+                   for c in np.array_split(src, DATA_BLOCKS)]
+        t0 = time.perf_counter()
+        paths = data.write_blocks(cblocks, tmp)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rtb_rows, rtb_sums = 0, np.zeros(DATA_COLS, np.float64)
+        for cb in data.stream_block_files(tmp).iter_blocks():
+            x = cb.column("x")
+            rtb_rows += x.shape[0]
+            rtb_sums += x.astype(np.float64).sum(axis=0)
+        stream_s = time.perf_counter() - t0
+        if len(paths) != DATA_BLOCKS or rtb_rows != rows or \
+                not np.array_equal(rtb_sums, src_sums):
+            raise AssertionError(
+                f".rtb round trip: {len(paths)} files, {rtb_rows} rows, "
+                f"column sums off by up to "
+                f"{float(np.abs(rtb_sums - src_sums).max())}")
+        file_bytes = sum(os.path.getsize(p) for p in paths)
+    finally:
+        rt.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if spilled:
+        raise AssertionError(f"the object store spilled {spilled} bytes "
+                             f"at {DATA_STORE_MB} MB")
+    pivot_s = spent["iter_batches"] - spent["get"]
+    result = {"phase": "data", "entry": "ray_tpu_torch.data.from_numpy/"
+              "map_batches/iter_torch_batches",
+              "rows": rows, "cols": DATA_COLS, "blocks": DATA_BLOCKS,
+              "batch_size": DATA_BATCH, "batches": n_batches, "bytes": nbytes,
+              "object_store_mb": DATA_STORE_MB, "spilled_bytes": spilled,
+              "put_s": put_s, "map_s": map_s,
+              "ingest_s": ingest_s, "rows_per_s": rows / ingest_s,
+              "gb_per_s": nbytes / ingest_s / 1e9,
+              # the ingest's host seconds: the driver's gets of the
+              # mapped blocks, its row pivot, and the rest (tensor from
+              # numpy, the host-to-device copy, the column sums)
+              "driver_get_s": spent["get"], "pivot_s": pivot_s,
+              "copy_and_sum_s": ingest_s - spent["iter_batches"],
+              "device_busy_ms": busy_ms, "h2d_device_ms": busy["h2d"],
+              "kernel_device_ms": busy["kernels"],
+              "idle_share": (1.0 - busy_ms / (ingest_s * 1e3)
+                             if busy_ms else None),
+              "sums_check": "exact (tolerance 0; float64 over a 2**-9 "
+                            "grid)",
+              "rtb": {"files": len(paths), "file_bytes": file_bytes,
+                      "write_s": write_s, "stream_s": stream_s,
+                      "write_gb_per_s": file_bytes / write_s / 1e9,
+                      "stream_gb_per_s": file_bytes / stream_s / 1e9},
+              "seconds": time.perf_counter() - t_start}
+    emit(result)
+    return result
+
+
+# -- phase: sim (the simulator reproduces the reference's traces) -------------
+
+SIM_NODES, SIM_SEED, SIM_FAULTS = 1000, 7, 50
+# the reference's trace hashes (``ray_tpu.sim.run_campaign`` at 1000 nodes,
+# seed 7, faults=50, default duration and autoscale), pinned here since
+# this script imports nothing of the JAX package
+SIM_PINNED = {
+    "serve_diurnal":
+        "9b3d469124a15dcd29f17ddf4601bb6bcff72b21ceaf857eab1e422be9381f19",
+    "train_diurnal":
+        "3bb2db6f16a9c61f0cbadd68866c28f36fed4d16bd2bc63ed8a7c3c379c651c5",
+    "mixed":
+        "6d571aec4560072e29a0fdc9b9f371eae44f3b95ec15afffc8f5fc8e5a0c0c51",
+}
+
+
+def phase_sim():
+    """``python -m ray_tpu_torch simulate`` for three campaigns, one
+    after the other, each in its own process: every run exits 0 and its
+    trace hash equals the reference's; ``mixed`` runs twice
+    (``--verify-replay``) and must replay to the same hash."""
+    import os
+    repo = str(Path(__file__).resolve().parent)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    t_start = time.perf_counter()
+    runs = {}
+    for campaign, want in SIM_PINNED.items():
+        cmd = [sys.executable, "-m", "ray_tpu_torch", "simulate",
+               "--nodes", str(SIM_NODES), "--seed", str(SIM_SEED),
+               "--faults", str(SIM_FAULTS), "--campaign", campaign]
+        if campaign == "mixed":
+            cmd.append("--verify-replay")
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd, capture_output=True, text=True, cwd=repo,
+                           env=env, timeout=600)
+        wall = time.perf_counter() - t0
+        if p.returncode != 0:
+            raise AssertionError(f"simulate {campaign} exited "
+                                 f"{p.returncode}: {p.stderr[-2000:]}")
+        out = json.loads(p.stdout)
+        if out["trace_hash"] != want:
+            raise AssertionError(f"simulate {campaign}: trace hash "
+                                 f"{out['trace_hash']}, the reference's "
+                                 f"{want}")
+        if campaign == "mixed" and out.get("replay_matches") is not True:
+            raise AssertionError(f"simulate mixed: the replay's hash "
+                                 f"{out.get('replay_hash')} differs")
+        runs[campaign] = {
+            "events": out["events_fired"], "seconds": out["wall_s"],
+            "events_per_s": out["events_fired"] / out["wall_s"],
+            "process_s": wall, "trace_hash": out["trace_hash"],
+            "hash_equals_reference": True, "ok": out["ok"],
+            "invariant_checks": out["invariant_checks"],
+            "faults_injected": out["faults_injected"],
+            "replay_matches": out.get("replay_matches")}
+    result = {"phase": "sim", "entry": "python -m ray_tpu_torch simulate",
+              "nodes": SIM_NODES, "seed": SIM_SEED, "faults": SIM_FAULTS,
+              "campaigns": runs,
+              "seconds": time.perf_counter() - t_start}
+    emit(result)
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2415,6 +2665,8 @@ def main() -> int:
     timed("topk", phase_topk, dev)
     dmn = timed("daemon", phase_daemon, dev)
     fl = timed("flash_attention", phase_flash, dev)
+    timed("data", phase_data, dev)
+    timed("sim", phase_sim)
     head = fl["cases"][0]
     lw = loc["problems"]["beat 1000x8x64"]
     emit({"phase": "summary", "phase_seconds": seconds,

@@ -13,9 +13,13 @@ loop) and its daemon half: a head daemon with worker-node agents,
 client mode (``init(address=...)``), job submission and the CLI
 (``python -m ray_tpu_torch``).  Above the runtime: serve, the
 model-version plane (``versioning``), workflows, the metrics exporter
-and the dashboard, user metrics, the actor-backed queue and the runtime
-lock-order recorder.  Data, train, tune, RLlib and the simulator come
-with later slices (ROADMAP.md).
+and the dashboard, user metrics, the actor-backed queue, the runtime
+lock-order recorder and datasets (``data``: block-parallel transforms
+whose ``iter_torch_batches`` feeds the GPU).  Beside it, the in-process
+cluster simulator (``sim``: chaos campaigns on a virtual clock, whose
+trace hashes equal the reference's, and the ``hunt`` search), behind
+the CLI's ``simulate`` and ``hunt``.  Collectives, train, tune and
+RLlib come with later slices (ROADMAP.md).
 
 The package imports ``torch`` and numpy, never JAX and nothing of
 ``ray_tpu``.  Entry points run on the GPU unless the caller asks for the
@@ -43,7 +47,7 @@ def __getattr__(name):
         return getattr(api, name)
     if name in ("ops", "scheduling", "convert", "device", "util", "serve",
                 "experimental", "cross_language", "autoscaler",
-                "versioning", "workflow"):
+                "versioning", "workflow", "data"):
         # NOT `from . import ops`: that re-enters __getattr__ via the
         # fromlist hasattr probe before the submodule import finishes.
         # Only submodules that EXIST belong here.

@@ -572,22 +572,143 @@ def cmd_job(args) -> int:
     return 0
 
 
-def _unported(name: str, why: str):
-    """A subcommand the port does not run: it exits non-zero and names
-    the ROADMAP entry that says why."""
-    def run(args) -> int:
-        print(f"ray_tpu_torch {name}: {why}", file=sys.stderr)
-        return 2
-    return run
+def cmd_simulate(args) -> int:
+    """``ray_tpu_torch simulate`` — run a scripted chaos campaign on the
+    in-process cluster simulator (``ray_tpu_torch/sim/``): N simulated nodes'
+    control planes on a virtual clock, faults injected from seeded
+    Philox streams, invariants checked after every event.  Same seed ⇒
+    identical trace hash; ``--verify-replay`` proves it inline."""
+    from ..sim import run_campaign
+
+    def _run(out=None):
+        return run_campaign(
+            args.nodes, seed=args.seed, campaign=args.campaign,
+            faults=args.faults, duration=args.duration,
+            autoscale=not args.no_autoscale, out=out,
+            progress=lambda msg: print(f"  {msg}", file=sys.stderr))
+
+    result = _run(out=args.out)
+    summary = result.to_dict()
+    if args.out:
+        print(f"trace artifact: {args.out}", file=sys.stderr)
+    if args.verify_replay:
+        replay = _run()
+        summary["replay_hash"] = replay.trace_hash
+        summary["replay_matches"] = \
+            replay.trace_hash == result.trace_hash
+        if not summary["replay_matches"]:
+            print(f"replay hash mismatch:\n  first:  "
+                  f"{result.trace_hash}\n  replay: "
+                  f"{replay.trace_hash}", file=sys.stderr)
+            summary["violations"].append(
+                "replay hash mismatch: the campaign is not "
+                "deterministic")
+    if result.violations:
+        # every invariant violation self-describes as
+        # [inv:<name> @t=<virtual s>]; surface them (and where the
+        # trace went) instead of burying them in the JSON blob
+        names = ", ".join(sorted(_violation_names(result.violations)))
+        print(f"{len(result.violations)} invariant violation(s) — "
+              f"names: {names or 'unstructured'}", file=sys.stderr)
+        for v in result.violations[:20]:
+            print(f"  {v}", file=sys.stderr)
+        if len(result.violations) > 20:
+            print(f"  ... {len(result.violations) - 20} more",
+                  file=sys.stderr)
+        print(f"trace artifact: {args.out}" if args.out else
+              "re-run with --out PATH to keep the replayable trace",
+              file=sys.stderr)
+    print(json.dumps(summary, indent=2))
+    return 0 if summary.get("ok") and \
+        summary.get("replay_matches", True) else 1
 
 
-cmd_simulate = _unported("simulate", "not ported yet: ROADMAP.md, "
-                         "section A, item 5 (the simulator)")
-cmd_hunt = _unported("hunt", "not ported yet: ROADMAP.md, section A, "
-                     "item 5 (the simulator)")
-cmd_lint = _unported("lint", "not ported: ROADMAP.md, section A, \"Not "
-                     "to port\" (rtlint's rules are scoped to the JAX "
-                     "package's paths)")
+def _violation_names(violations):
+    from ..sim.invariants import violation_names
+    return violation_names(violations)
+
+
+def cmd_hunt(args) -> int:
+    """``ray_tpu_torch hunt`` — coverage-guided adversarial campaign search
+    (``ray_tpu_torch/sim/hunt.py``): mutate fault-schedule genomes from the
+    campaign archetypes under a seeded Philox stream, chase coverage,
+    and ddmin-minimize every invariant violation to a 1-minimal
+    replayable genome.  ``--repro ARTIFACT`` replays a committed
+    finding under the artifact's own knobs/params and exits 0 iff it
+    still reproduces (hash match + signature refires)."""
+    from dataclasses import replace as _dc_replace
+
+    from ..sim.cluster import SimParams
+    from ..sim.hunt import hunt, load_finding, replay_finding
+
+    if args.repro:
+        doc = load_finding(args.repro)
+        res, reproduced = replay_finding(doc)
+        print(json.dumps({
+            "artifact": args.repro,
+            "signature": doc["signature"],
+            "expected_hash": doc["trace_hash"],
+            "replayed_hash": res.trace_hash,
+            "hash_matches": res.trace_hash == doc["trace_hash"],
+            "violations": res.violations,
+            "reproduced": reproduced,
+        }, indent=2))
+        if reproduced:
+            print(f"reproduced: {'+'.join(doc['signature'])} refired, "
+                  f"trace hash matched", file=sys.stderr)
+            return 0
+        print(f"NOT reproduced (bug fixed, or artifact drifted):\n"
+              f"  expected {doc['trace_hash']}\n"
+              f"  got      {res.trace_hash}", file=sys.stderr)
+        return 1
+
+    params = None
+    if args.canary:
+        params = _dc_replace(SimParams.from_config(), canary=True)
+    campaigns = tuple(args.campaigns.split(",")) if args.campaigns \
+        else None
+    t0 = time.perf_counter()
+    r = hunt(
+        budget=args.budget, nodes=args.nodes, seed=args.seed,
+        faults=args.faults, duration=args.duration,
+        campaigns=campaigns, params=params, out_dir=args.out,
+        minimize=not args.no_minimize,
+        progress=lambda msg: print(f"  {msg}", file=sys.stderr))
+    wall = time.perf_counter() - t0
+    report = r.to_dict()
+    report["wall_s"] = round(wall, 3)
+    report["runs_per_sec"] = round(r.runs / max(wall, 1e-9), 2)
+    if args.out:
+        report_path = os.path.join(args.out, "hunt-report.json")
+        os.makedirs(args.out, exist_ok=True)
+        with open(report_path, "w", encoding="utf-8") as f:
+            json.dump(report, f, indent=1)
+            f.write("\n")
+        print(f"hunt report: {report_path}", file=sys.stderr)
+    for f in r.findings:
+        where = f.artifact or "(re-run with --out DIR for the artifact)"
+        print(f"finding {'+'.join(f.signature)}: "
+              f"{len(f.genome.ops)} -> {len(f.minimized.ops)} ops "
+              f"({f.ddmin_probes} ddmin probes, found after "
+              f"{f.found_after_runs} runs) — repro: "
+              f"ray_tpu_torch hunt --repro {where}", file=sys.stderr)
+    # stdout JSON stays light: full genomes live in the artifacts
+    for f in report["findings"]:
+        f.pop("genome", None)
+        f.pop("minimized", None)
+        f.pop("knobs", None)
+        f.pop("params", None)
+    print(json.dumps(report, indent=2))
+    return 0
+
+
+def cmd_lint(args) -> int:
+    """Not ported: exits non-zero and names the ROADMAP entry that says
+    why."""
+    print("ray_tpu_torch lint: not ported: ROADMAP.md, section A, \"Not "
+          "to port\" (rtlint's rules are scoped to the JAX package's "
+          "paths)", file=sys.stderr)
+    return 2
 
 
 def cmd_microbenchmark(args) -> int:
@@ -838,7 +959,7 @@ def build_parser() -> argparse.ArgumentParser:
                            "(default max(180, 4*faults))")
     psim.add_argument("--out", default=None, metavar="PATH",
                       help="write the replayable trace artifact "
-                           "(ray_tpu_torch-sim-trace/1 JSON)")
+                           "(ray_tpu-sim-trace/1 JSON)")
     psim.add_argument("--verify-replay", action="store_true",
                       help="run the campaign twice and fail unless the "
                            "trace hashes match")
@@ -871,7 +992,7 @@ def build_parser() -> argparse.ArgumentParser:
                             "(default: all campaigns)")
     phunt.add_argument("--out", default=None, metavar="DIR",
                        help="write finding artifacts "
-                            "(ray_tpu_torch-hunt-finding/1) and the hunt "
+                            "(ray_tpu-hunt-finding/1) and the hunt "
                             "report here")
     phunt.add_argument("--repro", default=None, metavar="ARTIFACT",
                        help="replay a finding artifact under its own "

@@ -231,7 +231,7 @@ class TestStateListCli:
         finally:
             rt.kill(a)
 
-    @pytest.mark.parametrize("cmd", [["simulate"], ["hunt"], ["lint"]])
+    @pytest.mark.parametrize("cmd", [["lint"]])
     def test_unported_subcommands_name_their_item(self, cmd, capsys):
         from ray_tpu_torch.scripts.cli import main
         assert main(cmd) == 2
@@ -269,6 +269,25 @@ class TestCli:
         finally:
             r = cli("stop")
             assert r.returncode == 0, r.stderr
+
+    # in their own processes: a campaign installs the port's virtual
+    # clock process-wide, which the module's head must never see
+    @pytest.mark.parametrize("args,key", [
+        (["simulate", "--nodes", "16", "--faults", "4",
+          "--verify-replay"], "replay_matches"),
+        (["hunt", "--budget", "1"], "coverage_keys"),
+    ], ids=["simulate", "hunt"])
+    def test_simulator_subcommands_run(self, args, key):
+        r = subprocess.run([sys.executable, "-m", "ray_tpu_torch", *args],
+                           capture_output=True, text=True, env=_env(),
+                           cwd=REPO, timeout=120.0)
+        assert r.returncode == 0, r.stderr
+        out = json.loads(r.stdout)
+        assert out[key]
+        if args[0] == "simulate":
+            assert out["ok"] and out["trace_hash"] == out["replay_hash"]
+        else:
+            assert out["runs"] == 1 and out["findings"] == []
 
 
 @pytest.fixture
