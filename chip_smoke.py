@@ -8,8 +8,9 @@ Runs from the root of a checkout: builds every kernel of the slice from
 kernel against its plain PyTorch version (and the scheduler against its
 numpy host twin) at the shapes the main paths give it, drives the main
 paths (the heartbeat, the runtime through ``init/remote/get``, serve
-beside a task burst, flash attention) through the entry points a user
-calls, and times them.  Each
+beside a task burst, flash attention, data, the simulator and the
+training libraries) through the entry points a user calls, and times
+them.  Each
 phase prints one JSON line; any failure raises and exits non-zero.
 
 Phases:
@@ -122,6 +123,28 @@ Phases:
                   seed 7, 50 faults: ``serve_diurnal``, ``train_diurnal``
                   and ``mixed`` (``--verify-replay``), each trace hash ==
                   the reference's (SIM_PINNED); events, seconds, events/s
+  train           the training libraries: every ``DeviceCollectiveGroup``
+                  op (NCCL) on every visible card, a 256 MiB float32
+                  slice a rank, == its plain version on CPU ranks (exact,
+                  float sum and product past one card within
+                  COLL_RTOL_PER_RANK x W); W, ms, GB/s; then on one head
+                  node in this process: ``MeshTrainer`` at 128 -> 4096 x
+                  3 -> 1 (34.1 M parameters, Adam 1e-3, float32 without
+                  TF32), its first step on the card == the CPU's
+                  (TRAIN_STEP_RTOL), one epoch of 2**20 seeded rows in
+                  batches of 8192 through ``from_numpy`` and ``fit``,
+                  whose last 16 losses average below the first; ms a
+                  step, samples/s, the bound, host seconds by part, the
+                  idle share over 16 steps, peak memory; a 2-worker gang
+                  trainer == the serial fit (1e-6); the live elastic
+                  stage of bench_train.py (a member SIGKILLed
+                  mid-allreduce beside a control: a typed gang loss, no
+                  failure burned, monotone epochs, the run's gauges in
+                  the head's status and on /metrics; re-form seconds);
+                  ASHA over 16 trials (best lr 0.4; trials/s); PG and PPO
+                  on the bandit and corridor to the reference tests'
+                  bars with the update on the card, the first update ==
+                  the CPU's (1e-6); ms an iteration on each
 Then the ``kernels`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 
@@ -2635,6 +2658,662 @@ def phase_sim():
     return result
 
 
+# -- phase: train (the training libraries on the card) ------------------------
+
+# collectives: one rank's slice, 2**26 float32 (256 MiB)
+COLL_ELEMS = 1 << 26
+# a float32 sum or product of W values in another order: each adds at
+# most (W - 1) roundings of 2**-24 (the values are in [0.5, 1.5))
+COLL_RTOL_PER_RANK = 2.0 ** -23
+# MeshTrainer: the data phase's epoch shard, an MLP of 34.1 M parameters
+TRAIN_ROWS = 1 << 20
+TRAIN_WIDTHS = (DATA_COLS, 4096, 4096, 4096, 1)
+TRAIN_BATCH = 8192
+TRAIN_LR = 1e-3
+TRAIN_CHECK_ROWS = 1024
+# the first step on the card against the CPU, per parameter tensor in the
+# norm.  Adam's first update is lr * g / (|g| + eps), a step of lr in the
+# sign of each gradient larger than eps: a gradient element whose sign
+# the order of the products decides moves by up to 2 lr, far in relative
+# terms, while the tensor moves by a few float32 roundings (7.6e-6 at
+# full width on an NVIDIA H100 80GB HBM3 at 700 W).  The activation is
+# tanh: under ReLU a pre-activation within rounding of 0 switches a whole
+# sample's contribution to a unit on or off, and that moved w1 by 1.9e-3
+# in the norm between the card and the CPU (same card)
+TRAIN_STEP_RTOL = 1e-4
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_PROFILE_STEPS = 16
+# bench_train.py's live elastic stage
+LIVE_EPOCHS, LIVE_EPOCH_S = 3, 0.8
+# the rllib scenarios of tests/test_rllib.py, each at its bar
+RL_CPU_ITERS = 3
+RL_UPDATE_TOL = 1e-6
+
+
+def collective_ms(fn, devices, reps=10, warmup=2):
+    """p50 over ``reps`` calls of ``fn``, each timed with CUDA events on
+    every rank's device (the slowest rank's time)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    for d in devices:
+        torch.cuda.synchronize(d)
+    times = []
+    for _ in range(reps):
+        starts = []
+        for d in devices:
+            with torch.cuda.device(d):
+                starts.append(torch.cuda.Event(enable_timing=True))
+                starts[-1].record()
+        fn()
+        elapsed = []
+        for d, start in zip(devices, starts):
+            with torch.cuda.device(d):
+                stop = torch.cuda.Event(enable_timing=True)
+                stop.record()
+                stop.synchronize()
+                elapsed.append(start.elapsed_time(stop))
+        times.append(max(elapsed))
+    return float(np.percentile(times, 50))
+
+
+def train_collectives(devices, elems=COLL_ELEMS):
+    """Every ``DeviceCollectiveGroup`` op on every visible card (one
+    256 MiB slice a rank) against the plain stack-and-reduce on CPU
+    ranks: exact, except float sum and product past one card."""
+    import torch
+
+    from ray_tpu_torch.util.collective import DeviceCollectiveGroup
+    grp = DeviceCollectiveGroup(devices)
+    w = grp.world_size
+    plain = DeviceCollectiveGroup(["cpu"] * w)
+    parts = [torch.rand(elems, device=d,
+                        generator=torch.Generator(device=d).manual_seed(r))
+             + 0.5 for r, d in enumerate(grp.devices)]
+    host = [p.cpu() for p in parts]
+    ops = [("allreduce_sum", "allreduce", ("sum",)),
+           ("allreduce_max", "allreduce", ("max",)),
+           ("allreduce_min", "allreduce", ("min",)),
+           ("allreduce_prod", "allreduce", ("prod",)),
+           ("allgather", "allgather", ()),
+           ("reducescatter_sum", "reducescatter", ("sum",)),
+           ("reducescatter_max", "reducescatter", ("max",)),
+           ("broadcast", "broadcast", (0,)),
+           ("ring_shift", "ring_shift", (1,))]
+    out = {}
+    for label, name, args in ops:
+        if name == "reducescatter":
+            ins = [p.view(w, elems // w) for p in parts]
+            hins = [h.view(w, elems // w) for h in host]
+        else:
+            ins, hins = parts, host
+        got = getattr(grp, name)(ins, *args)
+        on_ranks = [g.device for g in got] == grp.devices
+        got = [g.cpu() for g in got]
+        t0 = time.perf_counter()
+        want = getattr(plain, name)(hins, *args)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(float((g - h).abs().max()) for g, h in zip(got, want))
+        inexact = w > 1 and args and args[0] in ("sum", "prod")
+        rtol = COLL_RTOL_PER_RANK * w if inexact else 0.0
+        ok = all(torch.allclose(g, h, rtol=rtol, atol=0.0) if inexact
+                 else torch.equal(g, h) for g, h in zip(got, want))
+        if not ok or not on_ranks:
+            raise AssertionError(f"collective {label} on {w} card(s): "
+                                 f"max |card - plain| {err}, rtol {rtol}, "
+                                 f"results on their ranks: {on_ranks}")
+        # a rank reads its slice once and writes its result once
+        moved = elems * 4 + got[0].numel() * 4
+        del got, want
+        ms = collective_ms(lambda: getattr(grp, name)(ins, *args),
+                           grp.devices)
+        out[label] = {"ms": ms, "max_abs_err": err,
+                      "tolerance": f"rtol {rtol}" if inexact else "exact",
+                      "alg_gb_per_s": elems * 4 / ms / 1e6,
+                      "bound_ms": moved / PEAK_BYTES * 1e3,
+                      "bound_by": "bytes", "plain_ms": plain_ms,
+                      "plain_on": f"{w} CPU rank(s), one call"}
+    return {"world": w, "route": "torch.cuda.nccl", "bytes_per_rank":
+            elems * 4, "ops": out,
+            "multi_card": "exercised" if w > 1 else
+            "not exercised: one card (W = 1)"}
+
+
+def teacher_rows(rows=TRAIN_ROWS):
+    """The data phase's features (``default_rng(0)``, a 2**-8 grid) and a
+    target column from a seeded teacher, tanh(x A) b."""
+    x = data_source(rows)
+    rng = np.random.default_rng(1)
+    a = (rng.standard_normal((DATA_COLS, 64)) / np.sqrt(DATA_COLS)
+         ).astype(np.float32)
+    b = (rng.standard_normal(64) / 8).astype(np.float32)
+    y = np.tanh(x @ a) @ b
+    return np.concatenate([x, y[:, None]], axis=1)
+
+
+def mlp_init(widths=TRAIN_WIDTHS, seed=2):
+    """LeCun-uniform weights and biases from a seed (numpy)."""
+    rng = np.random.default_rng(seed)
+    params = {}
+    for i, (fan_in, fan_out) in enumerate(zip(widths[:-1], widths[1:])):
+        lim = 1.0 / np.sqrt(fan_in)
+        params[f"w{i}"] = rng.uniform(-lim, lim, (fan_in, fan_out)
+                                      ).astype(np.float32)
+        params[f"b{i}"] = rng.uniform(-lim, lim, fan_out).astype(np.float32)
+    return params
+
+
+def mlp_loss(params, batch):
+    """Mean squared error of a tanh MLP; the batch's last column is the
+    target."""
+    import torch
+    n = len(params) // 2
+    h = batch[:, :-1]
+    for i in range(n):
+        h = h @ params[f"w{i}"] + params[f"b{i}"]
+        if i < n - 1:
+            h = torch.tanh(h)
+    return torch.mean((h[:, 0] - batch[:, -1]) ** 2)
+
+
+def _adam(ps):
+    import torch
+    return torch.optim.Adam(ps, lr=TRAIN_LR)
+
+
+def train_mesh(dev, devices, rows=TRAIN_ROWS, widths=TRAIN_WIDTHS):
+    """``MeshTrainer`` at full width: the first step on the card against
+    the same step on the CPU, then one epoch through ``fit`` over a
+    ``from_numpy`` dataset; per-step times, host seconds by part, the
+    device's idle share and peak memory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch import data
+    from ray_tpu_torch.train import MeshTrainer
+
+    t_start = time.perf_counter()
+    src = teacher_rows(rows)
+    init = mlp_init(widths)
+    n_params = sum(v.size for v in init.values())
+
+    # the first step: card == CPU
+    check = src[:TRAIN_CHECK_ROWS]
+    card = MeshTrainer(mlp_loss, init, optimizer=_adam, devices=devices)
+    cpu = MeshTrainer(mlp_loss, init, optimizer=_adam, devices=["cpu"])
+    t0 = time.perf_counter()
+    loss_card = card.step(check)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_cpu = cpu.step(check)
+    cpu_s = time.perf_counter() - t0
+    rel = {k: float((card.params[k].cpu() - cpu.params[k]).norm()
+                    / cpu.params[k].norm()) for k in init}
+    max_abs = max(float((card.params[k].cpu() - cpu.params[k]).abs().max())
+                  for k in init)
+    # elements whose first update differs by more than lr (a sign flip)
+    flipped = sum(int(((card.params[k].cpu() - cpu.params[k]).abs()
+                       > TRAIN_LR).sum()) for k in init)
+    if max(rel.values()) > TRAIN_STEP_RTOL or \
+            abs(loss_card - loss_cpu) > TRAIN_LOSS_RTOL * abs(loss_cpu):
+        raise AssertionError(
+            f"first step: card loss {loss_card} against the CPU's "
+            f"{loss_cpu}; params off by {rel} (tolerance "
+            f"{TRAIN_STEP_RTOL} in the norm)")
+    del card, cpu
+
+    # one epoch through fit(), from the same init
+    ds = data.from_numpy(src, parallelism=DATA_BLOCKS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer = MeshTrainer(mlp_loss, init, optimizer=_adam, devices=devices)
+    spent = {"pivot": 0.0, "h2d": 0.0, "step": 0.0}
+    events, losses = [], []
+    iter_batches, shards, step = ds.iter_batches, trainer._shards, \
+        trainer.step
+
+    def timed_iter_batches(**kw):
+        it = iter_batches(**kw)
+        while True:
+            t = time.perf_counter()
+            try:
+                b = next(it)
+            except StopIteration:
+                return
+            finally:
+                spent["pivot"] += time.perf_counter() - t
+            yield b
+
+    def timed_shards(batch):
+        t = time.perf_counter()
+        out = shards(batch)
+        spent["h2d"] += time.perf_counter() - t
+        return out
+
+    def timed_step(batch):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        loss = step(batch)
+        stop.record()
+        spent["step"] += time.perf_counter() - t
+        events.append((start, stop))
+        losses.append(loss)
+        return loss
+
+    ds.iter_batches = timed_iter_batches
+    trainer._shards = timed_shards
+    trainer.step = timed_step
+    t0 = time.perf_counter()
+    result = trainer.fit(ds, epochs=1, global_batch_size=TRAIN_BATCH)
+    fit_s = time.perf_counter() - t0
+    host_s = {"pivot": spent["pivot"], "h2d": spent["h2d"],
+              "step_without_h2d": spent["step"] - spent["h2d"],
+              "epoch": fit_s}
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    steps = len(losses)
+    if steps != rows // TRAIN_BATCH or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"fit: {steps} steps, losses {losses[:4]}..")
+    late = float(np.mean(losses[-16:]))
+    if not late < losses[0]:
+        raise AssertionError(f"fit: the last 16 losses average {late}, "
+                             f"not below the first step's {losses[0]}")
+    ckpt = result.checkpoint.to_dict()
+    if sorted(ckpt["params"]) != sorted(init) or not all(
+            v.device.type == "cpu" and bool(torch.isfinite(v).all())
+            for v in ckpt["params"].values()):
+        raise AssertionError("fit: the checkpoint's params are not "
+                             "finite CPU tensors of every parameter")
+
+    # the device's idle share over steady steps (each step, then the
+    # pivot of the next batch, as in fit)
+    it = trainer._batches(ds, TRAIN_BATCH)
+    batch = next(it)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_PROFILE_STEPS):
+            step(batch)
+            batch = next(it)
+        torch.cuda.synchronize(dev)
+        window_s = time.perf_counter() - t0
+    busy_ms = sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    flops = 6 * n_params * TRAIN_BATCH
+    ms = float(np.median(step_ms[7:]))
+    return {
+        "entry": "ray_tpu_torch.train.MeshTrainer.fit",
+        "ranks": trainer.n_devices, "rows": rows,
+        "widths": list(widths), "params": int(n_params),
+        "batch": TRAIN_BATCH, "steps": steps, "optimizer": "Adam(lr=1e-3)",
+        "first_step": {"rows": TRAIN_CHECK_ROWS, "loss_card": loss_card,
+                       "loss_cpu": loss_cpu,
+                       "max_rel_norm_err": max(rel.values()),
+                       "max_abs_err": max_abs,
+                       "elements_off_by_more_than_lr": flipped,
+                       "tolerance": f"||card - cpu|| <= {TRAIN_STEP_RTOL}"
+                                    f" ||cpu|| per parameter; loss rtol "
+                                    f"{TRAIN_LOSS_RTOL}",
+                       "card_s": card_s, "cpu_s": cpu_s},
+        "loss_first": losses[0], "loss_last16_mean": late,
+        "ms_per_step": ms, "ms_per_step_p90": float(
+            np.percentile(step_ms[7:], 90)),
+        "samples_per_s": TRAIN_BATCH / ms * 1e3,
+        "epoch_s": fit_s, "epoch_samples_per_s": rows / fit_s,
+        "flops_per_step": flops,
+        "bound_ms": flops / PEAK_F32 * 1e3, "bound_by": "operations",
+        "share_of_bound": flops / PEAK_F32 * 1e3 / ms,
+        "host_s": host_s,
+        "profile_steps": TRAIN_PROFILE_STEPS,
+        "device_busy_ms": busy_ms,
+        "idle_share": 1.0 - busy_ms / (window_s * 1e3),
+        "peak_memory_bytes": peak,
+        "seconds": time.perf_counter() - t_start}
+
+
+def _sgd_loop(config):
+    """``tests/test_train.py::_sgd_loop`` (a copy: this script imports no
+    test file): each worker's grads on its shard, allreduced."""
+    import numpy as np
+
+    from ray_tpu_torch import train as rtrain
+    ctx = rtrain.get_context()
+    rows = np.asarray(ctx.get_dataset_shard(), dtype=np.float64)
+    x, y = rows[:, :-1], rows[:, -1]
+    w = np.zeros(x.shape[1])
+    lr = config["lr"]
+    for _ in range(config["steps"]):
+        grad = 2.0 * x.T @ (x @ w - y) / max(len(x), 1)
+        grad = ctx.allreduce(grad, op="mean")
+        w = w - lr * grad
+        loss = float(np.mean((x @ w - y) ** 2))
+        rtrain.report({"loss": loss, "rank": ctx.get_world_rank()})
+    rtrain.report({"loss": loss, "final": True},
+                  checkpoint=rtrain.Checkpoint({"w": w}))
+
+
+def _live_epoch_loop(config):
+    """bench_train.py's live stage loop: an allreduce and a sleep an
+    epoch, a checkpoint a report."""
+    import time as _time
+
+    import numpy as np
+
+    from ray_tpu_torch import train as rtrain
+    ctx = rtrain.get_context()
+    ck = rtrain.get_checkpoint()
+    start = ck.to_dict()["epoch"] + 1 if ck is not None else 0
+    for epoch in range(start, config["last_epoch"] + 1):
+        ctx.allreduce({"g": np.ones(64)})
+        _time.sleep(config["epoch_s"])
+        rtrain.report({"epoch": epoch},
+                      checkpoint=rtrain.Checkpoint({"epoch": epoch}))
+
+
+def _live_fit(head, metrics_port, run_name, kill):
+    """One ElasticTrainer run of the live stage; with ``kill`` a gang
+    member is SIGKILLed mid-epoch.  While the run is in progress its
+    gauges are read from the head's status and from /metrics."""
+    import os
+    import signal
+    import threading
+
+    from ray_tpu_torch.api import _get_runtime
+    from ray_tpu_torch.train import (ElasticTrainer, FailureConfig,
+                                     ScalingConfig)
+    killed = threading.Event()
+    seen = {"status": False, "metrics": False}
+    done = threading.Event()
+
+    def killer():
+        pool = _get_runtime().raylet.pool
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            with pool._lock:
+                busy = [h for h in pool._workers
+                        if not h.dead and h.dedicated]
+            if len(busy) >= 2:
+                time.sleep(1.0)     # let the gang get into an epoch
+                try:
+                    os.kill(busy[0].proc.pid, signal.SIGKILL)
+                    killed.set()
+                except OSError:     # won the race with completion
+                    pass
+                return
+            time.sleep(0.1)
+
+    def watch():
+        key = f'ray_tpu_train_epoch{{run="{run_name}"}}'
+        while not done.is_set() and not all(seen.values()):
+            runs = head._status()["train"].get("runs", [])
+            seen["status"] |= any(r.get("run") == run_name and
+                                  r.get("state") == "running"
+                                  for r in runs)
+            seen["metrics"] |= key in _scrape(metrics_port)
+            time.sleep(0.05)
+
+    threads = [threading.Thread(target=watch, daemon=True)]
+    if kill:
+        threads.append(threading.Thread(target=killer, daemon=True))
+    for th in threads:
+        th.start()
+    t = ElasticTrainer(
+        _live_epoch_loop,
+        train_loop_config={"last_epoch": LIVE_EPOCHS,
+                           "epoch_s": LIVE_EPOCH_S},
+        scaling_config=ScalingConfig(num_workers=2, min_workers=1),
+        failure_config=FailureConfig(max_failures=0), run_name=run_name)
+    t0 = time.perf_counter()
+    try:
+        res = t.fit(timeout=180)
+    finally:
+        done.set()
+        for th in threads:
+            th.join(timeout=30)
+    wall = time.perf_counter() - t0
+    st = t.stats()
+    epochs = [r["epoch"] for r in res.history]
+    return {"wall_s": wall, "final_epoch": res.metrics["epoch"],
+            "gang_losses": st["gang_losses"], "failures": st["failures"],
+            "attempts": st["attempts"],
+            "epochs_monotone": epochs == sorted(epochs),
+            "kill_landed": killed.is_set(),
+            "gauges_in_status": seen["status"],
+            "gauges_on_metrics": seen["metrics"]}
+
+
+def train_gangs(head, metrics_port):
+    """A 2-worker gang trainer against the serial fit, then the live
+    elastic stage: a run with a member SIGKILLed mid-allreduce beside an
+    unkilled control."""
+    from ray_tpu_torch import data, train
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(64, 3))
+    y = x @ np.array([2.0, -3.0, 0.5])
+    ds = data.from_numpy(np.concatenate([x, y[:, None]], axis=1),
+                         parallelism=4)
+    t0 = time.perf_counter()
+    res = train.TorchTrainer(
+        _sgd_loop, train_loop_config={"lr": 0.1, "steps": 40},
+        scaling_config=train.ScalingConfig(num_workers=2),
+        datasets={"train": ds}).fit()
+    gang_s = time.perf_counter() - t0
+    w_serial = np.zeros(3)
+    for _ in range(40):
+        w_serial -= 0.1 * 2.0 * x.T @ (x @ w_serial - y) / len(x)
+    err = float(np.abs(res.checkpoint.to_dict()["w"] - w_serial).max())
+    if err > 1e-6 or len(res.history) != 41:
+        raise AssertionError(f"gang trainer: weights off the serial fit "
+                             f"by {err} (tolerance 1e-6), "
+                             f"{len(res.history)} reports")
+    control = _live_fit(head, metrics_port, "chip-train-control",
+                        kill=False)
+    chaos = _live_fit(head, metrics_port, "chip-train-sigkill", kill=True)
+    gates = {
+        "kill_landed": chaos["kill_landed"],
+        "completed": chaos["final_epoch"] == LIVE_EPOCHS
+        and control["final_epoch"] == LIVE_EPOCHS,
+        "gang_loss_typed": chaos["gang_losses"] >= 1,
+        "zero_failure_burn": chaos["failures"] == 0,
+        "epochs_monotone": chaos["epochs_monotone"],
+        "gauges_in_status": chaos["gauges_in_status"]
+        and control["gauges_in_status"],
+        "gauges_on_metrics": chaos["gauges_on_metrics"]
+        and control["gauges_on_metrics"],
+    }
+    if not all(gates.values()):
+        raise AssertionError(f"live elastic stage: {gates}, "
+                             f"control {control}, sigkill {chaos}")
+    return {"gang": {"workers": 2, "max_abs_err_vs_serial": err,
+                     "seconds": gang_s},
+            "elastic": {"epochs": LIVE_EPOCHS, "epoch_s": LIVE_EPOCH_S,
+                        "control": control, "sigkill": chaos,
+                        "reform_s": chaos["wall_s"] - control["wall_s"],
+                        "gates": gates}}
+
+
+def _asha_trainable(config):
+    """``tests/test_tune.py::_iterative`` (a copy): SGD on x**2,
+    resumable from a checkpoint."""
+    from ray_tpu_torch import tune
+    ckpt = tune.get_checkpoint()
+    state = ckpt.to_dict() if ckpt is not None else {"x": 10.0, "iter": 0}
+    x, start = state["x"], state["iter"]
+    for i in range(start, config["tune_iterations"]):
+        x = x - config["lr"] * 2.0 * x
+        tune.report({"loss": x * x, "iteration": i + 1})
+    tune.report({"loss": x * x, "iteration": config["tune_iterations"]},
+                checkpoint=tune.Checkpoint(
+                    {"x": x, "iter": config["tune_iterations"]}))
+
+
+def train_tune():
+    """The reference test's ASHA scenario over 16 trials (its four
+    learning rates, four samples each): the best is lr 0.4, run to
+    max_t."""
+    from ray_tpu_torch import tune
+    t0 = time.perf_counter()
+    grid = tune.Tuner(
+        _asha_trainable,
+        param_space={"lr": tune.grid_search([0.001, 0.01, 0.1, 0.4])},
+        tune_config=tune.TuneConfig(
+            metric="loss", mode="min", num_samples=4,
+            scheduler=tune.ASHAScheduler(max_t=16, grace_period=2,
+                                         reduction_factor=4))).fit()
+    wall = time.perf_counter() - t0
+    best = grid.get_best_result()
+    budgets = sorted(r.metrics.get("iteration", 0) for r in grid)
+    if len(grid) != 16 or best.config["lr"] != 0.4 or \
+            best.metrics["iteration"] != 16:
+        raise AssertionError(f"ASHA: {len(grid)} trials, best "
+                             f"{best.config} at {best.metrics}")
+    return {"trials": len(grid), "best_lr": best.config["lr"],
+            "iterations_by_trial": budgets, "seconds": wall,
+            "trials_per_s": len(grid) / wall}
+
+
+class TwoArmBandit:
+    """``tests/test_rllib.py``'s bandit (a copy): arm 1 pays 1.0, arm 0
+    pays 0.1; one-step episodes."""
+
+    def reset(self):
+        return np.array([1.0], dtype=np.float32)
+
+    def step(self, action):
+        reward = 1.0 if action == 1 else 0.1
+        return np.array([1.0], dtype=np.float32), reward, True
+
+
+class Corridor:
+    """``tests/test_rllib.py``'s corridor (a copy): walk right to the goal
+    at x=4; -0.05 a step, +1 at the goal."""
+
+    def reset(self):
+        self.x = 0
+        return self._obs()
+
+    def _obs(self):
+        return np.array([self.x / 4.0, 1.0], dtype=np.float32)
+
+    def step(self, action):
+        self.x += 1 if action == 1 else -1
+        self.x = max(self.x, 0)
+        if self.x >= 4:
+            return self._obs(), 1.0, True
+        return self._obs(), -0.05, False
+
+
+def _bar_bandit(rewards, algo):
+    picks = [algo.compute_single_action(np.array([1.0]),
+                                        np.random.default_rng(i))
+             for i in range(20)]
+    return rewards[-1] > 0.9 and sum(picks) >= 18
+
+
+# (algorithm, config, its keywords, iterations, the reference test's bar)
+RL_CASES = {
+    "pg_bandit": ("Algorithm", "PGConfig", dict(
+        env_creator=TwoArmBandit, obs_dim=1, num_actions=2, num_workers=2,
+        episodes_per_worker=16, horizon=1, lr=0.5, seed=0), 15,
+        _bar_bandit),
+    "pg_corridor": ("Algorithm", "PGConfig", dict(
+        env_creator=Corridor, obs_dim=2, num_actions=2, num_workers=2,
+        episodes_per_worker=8, horizon=30, lr=0.2, gamma=0.95, seed=1), 20,
+        lambda r, a: np.mean(r[-5:]) > np.mean(r[:5])
+        and np.mean(r[-5:]) > 0.5),
+    "ppo_bandit": ("PPO", "PPOConfig", dict(
+        env_creator=TwoArmBandit, obs_dim=1, num_actions=2, num_workers=2,
+        episodes_per_worker=16, horizon=1, lr=0.05, minibatch_size=16,
+        num_epochs=4, seed=3), 15,
+        lambda r, a: r[-1] > 0.9 and a.compute_single_action([1.0]) == 1),
+    "ppo_corridor": ("PPO", "PPOConfig", dict(
+        env_creator=Corridor, obs_dim=2, num_actions=2, num_workers=2,
+        episodes_per_worker=8, horizon=16, lr=0.03, minibatch_size=64,
+        num_epochs=4, gae_lambda=0.9, seed=0), 18,
+        lambda r, a: np.mean(r[-3:]) > np.mean(r[:3])),
+}
+
+
+def _rl_run(cls, cfg, iters, device):
+    """(the params after the first update, rewards, ms an iteration past
+    the first, the algorithm's device, the algorithm) of ``iters``
+    iterations; the caller stops the algorithm."""
+    algo = cls(cfg, device=device)
+    rewards, times = [], []
+    first = None
+    for _ in range(iters):
+        t = time.perf_counter()
+        rewards.append(algo.train()["episode_reward_mean"])
+        times.append(time.perf_counter() - t)
+        if first is None:
+            first = algo.get_policy_params()
+    return first, rewards, float(np.mean(times[1:])) * 1e3, algo
+
+
+def train_rllib(device):
+    """PG and PPO on the reference test's bandit and corridor with the
+    driver's update on the card, each to its bar; the first update on
+    the card against the CPU's; ms an iteration on each."""
+    from ray_tpu_torch import rllib
+    out = {}
+    for name, (cls, cfg_cls, kw, iters, bar) in RL_CASES.items():
+        cls, cfg = getattr(rllib, cls), getattr(rllib, cfg_cls)(**kw)
+        first, rewards, ms, algo = _rl_run(cls, cfg, iters, device)
+        try:
+            on = algo.device.type
+            learned = bool(bar(rewards, algo))
+        finally:
+            algo.stop()
+        first_cpu, _r, ms_cpu, algo = _rl_run(cls, cfg, RL_CPU_ITERS,
+                                              "cpu")
+        algo.stop()
+        err = max(float(np.abs(first[k] - first_cpu[k]).max())
+                  for k in first)
+        if not learned or err > RL_UPDATE_TOL:
+            raise AssertionError(f"rllib {name}: rewards {rewards}, first "
+                                 f"update off the CPU's by {err} "
+                                 f"(tolerance {RL_UPDATE_TOL})")
+        out[name] = {"device": on, "iterations": iters,
+                     "reward_first": rewards[0], "reward_last": rewards[-1],
+                     "first_update_max_abs_err": err,
+                     "ms_per_iteration": ms, "cpu_ms_per_iteration": ms_cpu}
+    return out
+
+
+def phase_train(dev, devices=None, rows=TRAIN_ROWS, widths=TRAIN_WIDTHS,
+                coll_elems=COLL_ELEMS):
+    """The training libraries through the entry points a user calls:
+    collectives on every visible card, ``MeshTrainer`` at full width,
+    the gang and elastic trainers, tune and rllib, all on one head node
+    started in this process (``devices``: the trainer's and the
+    collectives' ranks, every card by default)."""
+    from ray_tpu_torch.runtime.head import HeadNode
+    t_start = time.perf_counter()
+    coll = train_collectives(devices, coll_elems)
+    metrics_port = _free_port()
+    head = HeadNode(resources={"CPU": 8, "memory": 8}, num_workers=8,
+                    system_config={
+                        "object_store_memory_mb": DATA_STORE_MB,
+                        "train_collective_timeout_s": 4.0,
+                        "metrics_export_port": metrics_port},
+                    xlang_port=None)
+    try:
+        mesh = train_mesh(dev, devices, rows, widths)
+        gangs = train_gangs(head, metrics_port)
+        tune_out = train_tune()
+        rl = train_rllib(None if devices is None else devices[0])
+    finally:
+        head.stop()
+    result = {"phase": "train", "collectives": coll, "mesh": mesh,
+              "gangs": gangs, "tune": tune_out, "rllib": rl,
+              "seconds": time.perf_counter() - t_start}
+    emit(result)
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2667,6 +3346,7 @@ def main() -> int:
     fl = timed("flash_attention", phase_flash, dev)
     timed("data", phase_data, dev)
     timed("sim", phase_sim)
+    timed("train", phase_train, dev)
     head = fl["cases"][0]
     lw = loc["problems"]["beat 1000x8x64"]
     emit({"phase": "summary", "phase_seconds": seconds,

@@ -18,13 +18,18 @@ lock-order recorder and datasets (``data``: block-parallel transforms
 whose ``iter_torch_batches`` feeds the GPU).  Beside it, the in-process
 cluster simulator (``sim``: chaos campaigns on a virtual clock, whose
 trace hashes equal the reference's, and the ``hunt`` search), behind
-the CLI's ``simulate`` and ``hunt``.  Collectives, train, tune and
-RLlib come with later slices (ROADMAP.md).
+the CLI's ``simulate`` and ``hunt``.  The training libraries:
+collectives over NCCL (``util.collective``), ``train`` (the gang and
+elastic trainers, whose workers compute on the CPU, and ``MeshTrainer``,
+data-parallel over the GPUs from one process), ``tune`` and ``rllib``
+(rollouts in workers, the policy update on the GPU).
 
 The package imports ``torch`` and numpy, never JAX and nothing of
 ``ray_tpu``.  Entry points run on the GPU unless the caller asks for the
 CPU (``ray_tpu_torch.device.resolve_device``; for the runtime, the
-``scheduler_device`` knob).  Workers never import torch and see no GPU.
+``scheduler_device`` knob).  Workers see no GPU; the runtime's own
+task code never imports torch in them (an RLlib learner computes its
+gradients there on the CPU).
 """
 
 __version__ = "0.1.0"
@@ -47,7 +52,8 @@ def __getattr__(name):
         return getattr(api, name)
     if name in ("ops", "scheduling", "convert", "device", "util", "serve",
                 "experimental", "cross_language", "autoscaler",
-                "versioning", "workflow", "data"):
+                "versioning", "workflow", "data", "train", "tune",
+                "rllib"):
         # NOT `from . import ops`: that re-enters __getattr__ via the
         # fromlist hasattr probe before the submodule import finishes.
         # Only submodules that EXIST belong here.

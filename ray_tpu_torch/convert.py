@@ -1,11 +1,17 @@
-"""Carry cluster state from the JAX package into the port.
+"""Carry state from the JAX package into the port.
 
-The system has no weights; what it carries between the two packages is
-the cluster resource table.  ``crm_from_arrays`` rebuilds a port
+What the scheduler carries between the two packages is the cluster
+resource table: ``crm_from_arrays`` rebuilds a port
 ``ClusterResourceManager`` from the dense arrays a reference CRM hands
 out (``ClusterResourceManager.arrays()``) and its resource names in
 column order (``resource_index.names()``), so both packages schedule
 the same cluster row for row and column for column.
+
+What training carries is parameters and optimizer state:
+``params_from_arrays`` turns the reference's parameter pytree into the
+same dict of tensors, and ``adam_state_from_optax`` turns optax's Adam
+state into a ``torch.optim.Adam`` state_dict for the same parameters,
+so a reference ``MeshTrainer`` run resumes in the port.
 """
 
 from __future__ import annotations
@@ -54,3 +60,64 @@ def crm_from_arrays(totals, avail, node_mask, resource_names
     for row in np.flatnonzero(~node_mask):
         crm.remove_node(crm.id_of(int(row)))
     return crm
+
+
+def params_from_arrays(tree, device) -> dict:
+    """The same dict of tensors on ``device``, each a fresh copy.
+
+    ``tree``: a dict (nested dicts allowed) whose leaves are arrays
+    (numpy, or ``np.asarray`` of jax arrays), numpy scalars or tensors.
+    """
+    import torch
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = params_from_arrays(v, device)
+        elif isinstance(v, torch.Tensor):
+            out[k] = v.detach().to(device, copy=True)
+        else:
+            out[k] = torch.tensor(np.asarray(v), device=device)
+    return out
+
+
+def adam_state_from_optax(opt_state, names, *, lr: float = 1e-3,
+                          betas=(0.9, 0.999), eps: float = 1e-8) -> dict:
+    """A ``torch.optim.Adam`` state_dict from optax's Adam state.
+
+    ``opt_state``: what ``optax.adam(...).init``/``update`` return (a
+    tuple holding a state with ``count``, ``mu`` and ``nu``); ``names``:
+    the parameters in the order the port's optimizer holds them
+    (``MeshTrainer`` keeps JAX's order, the sorted keys).  optax's
+    ``mu``/``nu`` are torch's ``exp_avg``/``exp_avg_sq`` and its
+    ``count`` torch's ``step``; both correct the bias by the same
+    ``1 - beta ** step``.  ``lr``, ``betas`` and ``eps`` fill the param
+    group and must be those of the optimizer that loads it.
+    """
+    import torch
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the optax "
+                         "state")
+    count, mu, nu = adam
+    step = torch.tensor(float(np.asarray(count)))
+    state = {i: {"step": step.clone(),
+                 "exp_avg": torch.tensor(np.asarray(mu[name])),
+                 "exp_avg_sq": torch.tensor(np.asarray(nu[name]))}
+             for i, name in enumerate(names)}
+    # the param group's keys are this torch version's Adam defaults
+    group = torch.optim.Adam([torch.zeros(1)], lr=lr, betas=betas,
+                             eps=eps).state_dict()["param_groups"][0]
+    group["params"] = list(range(len(names)))
+    return {"state": state, "param_groups": [group]}
+
+
+def _find_adam_state(node):
+    """(count, mu, nu) of the first state in ``node`` that has them."""
+    if all(hasattr(node, f) for f in ("count", "mu", "nu")):
+        return node.count, node.mu, node.nu
+    if isinstance(node, (list, tuple)):
+        for child in node:
+            found = _find_adam_state(child)
+            if found is not None:
+                return found
+    return None

@@ -421,10 +421,16 @@ class HeadNode:
 
     @staticmethod
     def _train_stats(cluster) -> dict:
-        # the loan manager's two-directional lending counters; the
-        # elastic training plane's run gauges come with its port
-        # (ROADMAP.md A.7)
+        # elastic training plane: driver-local run gauges plus the
+        # loan manager's two-directional lending counters
         out: dict = {}
+        try:
+            from ..train.elastic import active_train_stats
+            runs = active_train_stats()
+            if runs:
+                out["runs"] = runs
+        except Exception:   # noqa: BLE001 — train plane unused
+            pass
         loans = getattr(cluster, "loans", None)
         if loans is not None:
             try:

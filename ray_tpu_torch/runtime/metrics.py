@@ -15,8 +15,6 @@ to ``MetricsExporter`` directly binds an ephemeral port (tests).
 
 from __future__ import annotations
 
-import sys
-
 from .http_server import BackgroundHTTPServer
 
 
@@ -292,12 +290,10 @@ def render_metrics(cluster) -> str:
              "Lent nodes lost to failure, booked once (cumulative)",
              out=out)
 
-    # elastic training plane (driver-local ElasticTrainer runs): a run
-    # exists only once its module was imported, so read the module from
-    # sys.modules (train is not ported yet, ROADMAP.md A.7)
-    elastic = sys.modules.get("ray_tpu_torch.train.elastic")
+    # elastic training plane (driver-local ElasticTrainer runs)
     try:
-        runs = elastic.active_train_stats() if elastic is not None else []
+        from ..train.elastic import active_train_stats
+        runs = active_train_stats()
     except Exception:   # noqa: BLE001 — train plane unused
         runs = []
     for ts in runs:

@@ -1,7 +1,7 @@
 """Simulated elastic training plane: a gang of workers sharing the
 pool with serve, surviving worker SIGKILL, head SIGKILL and drains.
 
-The live plane (``train/elastic.py``, ROADMAP A.7) journals epoch state
+The live plane (``ray_tpu_torch/train/elastic.py``) journals epoch state
 through the GCS-snapshotted KV, syncs weights over the broadcast tree
 and replicates checkpoints off the writing node.  The simulator models
 the SAME control decisions as discrete events on the virtual clock:

@@ -805,3 +805,102 @@ def test_runtime_places_rounds_on_the_card():
         assert head.device_rounds > head.delta_rounds
     finally:
         rt.shutdown()
+
+
+# -- the training libraries on the card ---------------------------------------
+
+COLLECTIVE_OPS = [("allreduce", "sum"), ("allreduce", "max"),
+                  ("allreduce", "min"), ("allreduce", "prod"),
+                  ("allgather", None), ("reducescatter", "sum"),
+                  ("reducescatter", "max"), ("reducescatter", "min"),
+                  ("broadcast", 0), ("ring_shift", 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("name,arg", COLLECTIVE_OPS)
+def test_collectives_on_the_cards_equal_the_plain_version(name, arg, dtype):
+    """Every op over every visible card (NCCL) against the plain
+    stack-and-reduce on CPU ranks: exact, except float sum and product
+    past one card (another order of accumulation)."""
+    from ray_tpu_torch.util.collective import DeviceCollectiveGroup
+    cards = DeviceCollectiveGroup()
+    w = cards.world_size
+    plain = DeviceCollectiveGroup(["cpu"] * w)
+    g = torch.Generator().manual_seed(0)
+    shape = (w, w, 33) if name == "reducescatter" else (w, 1000)
+    x = (torch.randint(-5000, 5000, shape, generator=g, dtype=dtype)
+         if dtype == torch.int32 else
+         torch.rand(shape, generator=g) + 0.5)
+    args = () if arg is None else (arg,)
+    got = getattr(cards, name)(x.cuda(), *args)
+    want = getattr(plain, name)(x, *args)
+    assert got.device.type == "cuda" and got.dtype == want.dtype
+    if arg in ("sum", "prod") and dtype == torch.float32 and w > 1:
+        torch.testing.assert_close(got.cpu(), want, rtol=4e-7 * w,
+                                   atol=1e-6)
+    else:
+        assert torch.equal(got.cpu(), want)
+    parts = [x[r].cuda(r) for r in range(w)]
+    listed = getattr(cards, name)(parts, *args)
+    assert [p.device.index for p in listed] == list(range(w))
+    assert torch.equal(torch.stack([p.cpu() for p in listed]), got.cpu())
+
+
+def test_nccl_takes_each_card_once():
+    from ray_tpu_torch.util.collective import DeviceCollectiveGroup
+    with pytest.raises(ValueError, match="each device once"):
+        DeviceCollectiveGroup(["cuda:0", "cuda:0"])
+
+
+@pytest.mark.parametrize("opt", ["sgd", "adam"])
+def test_mesh_step_on_the_card_equals_the_cpu(opt):
+    """Three MeshTrainer steps of a small tanh MLP on the card against
+    the same steps on the CPU (one rank each; f32, no TF32)."""
+    from ray_tpu_torch.train import MeshTrainer
+    rng = np.random.default_rng(0)
+    params = {"w1": (0.3 * rng.normal(size=(16, 64))).astype(np.float32),
+              "b1": np.zeros(64, np.float32),
+              "w2": (0.3 * rng.normal(size=(64, 1))).astype(np.float32)}
+    data = rng.normal(size=(3, 256, 17)).astype(np.float32)
+
+    def loss(p, b):
+        h = torch.tanh(b[:, :-1] @ p["w1"] + p["b1"])
+        return torch.mean(((h @ p["w2"])[:, 0] - b[:, -1]) ** 2)
+
+    make = (lambda ps: torch.optim.SGD(ps, lr=0.05)) if opt == "sgd" \
+        else (lambda ps: torch.optim.Adam(ps, lr=1e-3))
+    card = MeshTrainer(loss, params, optimizer=make)
+    cpu = MeshTrainer(loss, params, optimizer=make, devices=["cpu"])
+    assert card.devices[0].type == "cuda"
+    for batch in data:
+        np.testing.assert_allclose(card.step(batch), cpu.step(batch),
+                                   rtol=1e-5, atol=1e-6)
+    for k in params:
+        assert card.params[k].device.type == "cuda"
+        np.testing.assert_allclose(card.params[k].cpu().numpy(),
+                                   cpu.params[k].numpy(), rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_pg_update_on_the_card_equals_the_cpu():
+    from ray_tpu_torch.rllib import Algorithm, PGConfig
+    rng = np.random.default_rng(1)
+    params = {"w": (0.3 * rng.normal(size=(3, 4))).astype(np.float32),
+              "b": np.zeros(4, np.float32)}
+    obs = rng.normal(size=(200, 3)).astype(np.float32)
+    batch = [torch.from_numpy(obs),
+             torch.from_numpy(rng.integers(0, 4, size=200)),
+             torch.from_numpy(rng.normal(size=200).astype(np.float32)),
+             torch.ones(200)]
+    out = []
+    for dev in ("cuda", "cpu"):
+        algo = Algorithm.__new__(Algorithm)
+        algo.config = PGConfig(lr=0.3)
+        update = algo._make_update()
+        new = update({k: torch.from_numpy(v).to(dev)
+                      for k, v in params.items()},
+                     *(t.to(dev) for t in batch))
+        out.append({k: v.cpu().numpy() for k, v in new.items()})
+    for k in params:
+        np.testing.assert_allclose(out[0][k], out[1][k], rtol=1e-6,
+                                   atol=1e-6)

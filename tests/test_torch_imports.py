@@ -102,7 +102,7 @@ def test_no_jax_and_no_reference_import(path):
         if absolute is None:
             continue
         top = absolute.split(".")[0]
-        if top in ("jax", "jaxlib") or top == "ray_tpu":
+        if top in ("jax", "jaxlib", "optax") or top == "ray_tpu":
             bad.append(f"{path.name}:{lineno}: import {absolute}")
     assert not bad, bad
 
@@ -169,6 +169,38 @@ def test_daemon_side_imports_neither_jax_nor_torch():
             f"for m in {mods!r}:\n    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ray_tpu', 'torch'))\n"
+            "print(bad)\nassert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr[-2000:]
+
+
+# the modules of the training slice: collectives, train, tune, rllib
+TRAIN_MODULES = ("util/collective.py", "train/__init__.py",
+                 "train/checkpoint.py", "train/trainer.py",
+                 "train/elastic.py", "train/mesh.py", "tune/__init__.py",
+                 "tune/search.py", "tune/tuner.py", "rllib/__init__.py",
+                 "rllib/algorithm.py")
+
+
+@pytest.mark.parametrize("module", TRAIN_MODULES)
+def test_train_modules_are_walked(module):
+    assert PORT / module in FILES
+
+
+def test_training_modules_import_no_torch_until_used():
+    """A worker unpickles gang loops, trials and rollout workers from
+    these modules: importing them pulls in no JAX, nothing of the JAX
+    package, no optax and no torch (torch loads only where a function
+    that computes with it runs)."""
+    import subprocess
+    import sys
+    mods = [f"ray_tpu_torch.{m[:-3].replace('/', '.')}"
+            .replace(".__init__", "") for m in TRAIN_MODULES]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'optax', 'ray_tpu', 'torch'))\n"
             "print(bad)\nassert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
