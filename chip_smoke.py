@@ -8,9 +8,9 @@ Runs from the root of a checkout: builds every kernel of the slice from
 kernel against its plain PyTorch version (and the scheduler against its
 numpy host twin) at the shapes the main paths give it, drives the main
 paths (the heartbeat, the runtime through ``init/remote/get``, serve
-beside a task burst, flash attention, data, the simulator and the
-training libraries) through the entry points a user calls, and times
-them.  Each
+beside a task burst, flash attention, data, the simulator, the
+training libraries and the sharded paths) through the entry points a
+user calls, and times them.  Each
 phase prints one JSON line; any failure raises and exits non-zero.
 
 Phases:
@@ -145,6 +145,22 @@ Phases:
                   on the bandit and corridor to the reference tests'
                   bars with the update on the card, the first update ==
                   the CPU's (1e-6); ms an iteration on each
+  shard           the sharded paths on ranks of the card (``["cuda:0"]
+                  * S``): ``make_delta_scheduler(crm, n_shards=S,
+                  reduce_mode=mode, devices=...)`` for (2, flat) and (4,
+                  two_level) at the beat cell's width beside the
+                  single-device engine, every beat's counts and budgets
+                  == it and the host twin (2 warm-up, 8 timed beats; p50,
+                  p99, collectives, kernels and idle share a beat); the
+                  four ``*_sharded_np`` wrappers at S = 4 == the
+                  single-device calls (ms, launches); ring and Ulysses
+                  attention at B=2 T=4096 H=16 D=128 float32 on 4 and 8
+                  ranks, causal and not, within RING_ATOL of
+                  ``full_attention``, a limit that must reject the ring
+                  missing its last fold (ms beside ``ops.flash_attention``
+                  f32 and SDPA); ``entry()`` == the host twin;
+                  ``dryrun_multichip(4 and 8, device="cuda:0")``; over
+                  distinct cards through NCCL when there are two or more
 Then the ``kernels`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 
@@ -350,6 +366,54 @@ def waterfill_ops(reqs, n_nodes):
     (class, node, requested resource) 17 slot counts (15 bisection steps,
     base, level) of ~6 ops, ~10 for feasibility/capacity and the key."""
     return float((reqs > 0).sum()) * n_nodes * (17 * 6 + 10)
+
+
+def scan_work(reqs, n_nodes, masks=True, prefs=False):
+    """(bytes, int32 operations) of one water-fill over these inputs:
+    totals, avail, node mask, requests, counts (and the (G, N) class
+    masks, the (G,) preferred rows) read once, counts and avail written
+    once."""
+    g, r = reqs.shape
+    n = n_nodes
+    n_bytes = (2 * n * r * 4 + n + g * r * 4 + g * 4
+               + (g * n if masks else 0) + (g * 4 if prefs else 0)
+               + g * (n + 1) * 4 + n * r * 4)
+    return n_bytes, waterfill_ops(reqs, n)
+
+
+def beat_rest_work(n_cls, r_w, n_nodes, dirty):
+    """(bytes, int32 operations) of a delta beat less its water-fill
+    (apply_dirty_rows on the dirty rows, the budgets, the per-class
+    argmin): every input read once, every output written once; ~12 ops
+    per (class, dirty row, resource) for a key, ~4 per (class, node,
+    resource) for a budget, 1 per (class, node) for the argmin."""
+    n_bytes = (2 * n_nodes * r_w * 4 + n_nodes + n_cls * r_w * 4
+               + 2 * dirty * r_w * 4 + n_cls * n_nodes * 4
+               + n_cls * dirty * 4 + n_cls * n_nodes * 4 + n_cls * 4)
+    n_ops = (n_cls * dirty * r_w * 12 + n_cls * n_nodes * r_w * 4
+             + n_cls * n_nodes)
+    return n_bytes, n_ops
+
+
+def topk_work(n, r, g):
+    """(bytes, int32 operations) of a top-k round: per class the keys
+    (~12 ops per (node, resource)), a sort of N keys (N log2 N compares),
+    the spread and cap (~8 per node)."""
+    n_ops = g * (n * r * 12 + n * math.log2(n) + n * 8)
+    n_bytes = 2 * n * r * 4 + n + g * r * 4 + g * 4 + g * 4 \
+        + g * (n + 1) * 4 + n * r * 4
+    return n_bytes, n_ops
+
+
+def loop_work(k, g, r, iters):
+    """(bytes, int32 operations) of the launch loop for ``iters``
+    iterations: per iteration, per (type, class) a pass over the R
+    resources (sub, floordiv, min for the fit; mul, add for used: 5 ops)
+    and per type the score (mul, div, max); the inputs read once, the
+    outputs written once."""
+    n_ops = iters * (k * g * r * 5 + k * r * 3 + k * g * 2)
+    n_bytes = 4 * (2 * k * r + g * r + g + 2 * k + g) + 4
+    return n_bytes, n_ops
 
 
 def phase_waterfill(dev):
@@ -682,21 +746,11 @@ def phase_beat(dev, warmup=2, beats=50, churn=12):
         mutate()
         eng.beat(vecs, counts)
     p50 = float(np.percentile(times, 50))
-    # the rest of a delta beat (apply_dirty_rows on the dirty rows, the
-    # budgets, the per-class argmin; plain PyTorch): its launches are the
+    # the rest of a delta beat (plain PyTorch): its launches are the
     # beat's kernels less the water-fill, its bound the bytes and int32
-    # operations those ops need at these shapes (every input read once,
-    # every output written once; ~12 ops per (class, dirty row, resource)
-    # for a key, ~4 per (class, node, resource) for a budget, 1 per
-    # (class, node) for the argmin)
-    n_cls, r_w = vecs.shape
-    d = churn
-    rest_bytes = (2 * N_NODES * r_w * 4 + N_NODES + n_cls * r_w * 4
-                  + 2 * d * r_w * 4 + n_cls * N_NODES * 4
-                  + n_cls * d * 4 + n_cls * N_NODES * 4 + n_cls * 4)
-    rest_ops = (n_cls * d * r_w * 12 + n_cls * N_NODES * r_w * 4
-                + n_cls * N_NODES)
-    rest_bound_ms, rest_bound_by = bound(rest_bytes, rest_ops, PEAK_I32)
+    # operations those ops need at these shapes
+    rest_bound_ms, rest_bound_by = bound(
+        *beat_rest_work(*vecs.shape, N_NODES, churn), PEAK_I32)
     kpc = trace["kernels_per_call"]
     result = {"phase": "beat", "entry": "make_delta_scheduler(crm).beat",
               "nodes": N_NODES, "classes": N_CLASSES,
@@ -1662,13 +1716,8 @@ def phase_autoscaler(dev):
                        warmup=1)
     scan_ms = cuda_ms(scan)
     spill = spilled_launch_loop(dev)
-    # the launch loop's work for this run: per iteration, per (type,
-    # class) a pass over the R resources (sub, floordiv, min for the fit;
-    # mul, add for used: 5 ops) and per type the score (mul, div, max);
-    # the inputs read once, the outputs written once
-    loop_ops = iters * (k * g * r * 5 + k * r * 3 + k * g * 2)
-    loop_bytes = 4 * (2 * k * r + g * r + g + 2 * k + g) + 4
-    bound_ms, bound_by = bound(loop_bytes, loop_ops, PEAK_I32)
+    # the launch loop's work for this run's iterations
+    bound_ms, bound_by = bound(*loop_work(k, g, r, iters), PEAK_I32)
     scan_bytes = (2 * n * r * 4 + n + g * r * 4 + g * 4
                   + g * (n + 1) * 4 + n * r * 4)
     scan_bound_ms, scan_bound_by = bound(
@@ -1965,12 +2014,7 @@ def phase_topk(dev):
     launches = kernel_launches(run)
     n, r = totals.shape
     g = reqs.shape[0]
-    # per class: keys (~12 ops per (node, resource)), a sort of N keys
-    # (N log2 N compares), the spread and cap (~8 per node)
-    n_ops = g * (n * r * 12 + n * math.log2(n) + n * 8)
-    n_bytes = 2 * n * r * 4 + n + g * r * 4 + g * 4 + g * 4 \
-        + g * (n + 1) * 4 + n * r * 4
-    bound_ms, bound_by = bound(n_bytes, n_ops, PEAK_I32)
+    bound_ms, bound_by = bound(*topk_work(n, r, g), PEAK_I32)
 
     # --- the main path: a burst through init/remote/get with top-k on ---
     rt.init(resources={"CPU": 8, "memory": 8}, num_workers=2,
@@ -3314,6 +3358,383 @@ def phase_train(dev, devices=None, rows=TRAIN_ROWS, widths=TRAIN_WIDTHS,
     return result
 
 
+# -- phase: shard (the sharded paths on the card's ranks) --------------------
+
+SHARD_BEATS = ((2, "flat"), (4, "two_level"))
+SHARD_WRAPPER_RANKS = 4
+RING_SHAPE = (2, 4096, 16, 128)         # the flash cell's headline shape
+RING_RANKS = (4, 8)
+# tests/test_ring_attention.py's bar, elementwise against full_attention
+RING_ATOL = 2e-5
+
+
+def device_busy(step, n):
+    """``torch.profiler`` (CUDA activity only) over ``n`` calls of
+    ``step``, read from the raw trace events (a sharded beat launches tens
+    of thousands of kernels; ``device_profile``'s per-event objects would
+    take minutes): per call, the wall time, the device busy time (the sum
+    of kernel and copy durations), the idle share (an upper bound: the
+    profiler's overhead is in the wall time) and the kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ns = kernels = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        busy_ns += e.duration_ns()
+        if "Memcpy" not in e.name() and "Memset" not in e.name():
+            kernels += 1
+    if not busy_ns:
+        return {"wall_ms": wall_ms / n, "device_busy_ms": None,
+                "idle_share": None, "kernels_per_call": None}
+    return {"wall_ms": wall_ms / n, "device_busy_ms": busy_ns / 1e6 / n,
+            "idle_share": 1.0 - busy_ns / 1e6 / wall_ms,
+            "kernels_per_call": kernels / n}
+
+
+def shard_beat(ranks, mode, warmup=2, beats=8, churn=12):
+    """``make_delta_scheduler(crm, n_shards=S, reduce_mode=mode,
+    devices=ranks)`` beside the single-device engine on the same CRM
+    journal (the beat cell): every beat's counts and lease budgets equal
+    to the single-device engine's and the host twin's, bit for bit."""
+    import torch
+
+    from ray_tpu_torch.common.resources import ResourceRequest
+    from ray_tpu_torch.scheduling import (ShardedDeltaScheduler,
+                                          make_delta_scheduler)
+    from ray_tpu_torch.scheduling.contract import (compute_budgets,
+                                                   threshold_fp)
+
+    s = len(ranks)
+    rng, crm, vecs, counts = build_cluster()
+    thr = threshold_fp(None)
+    churn_req = ResourceRequest({"CPU": 1})
+    debts: list[int] = []
+
+    def mutate():
+        for _ in range(churn):
+            if debts and rng.random() < 0.5:
+                crm.add_back(debts.pop(), churn_req)
+            else:
+                row = int(rng.integers(0, N_NODES))
+                crm.force_subtract(row, churn_req)
+                debts.append(row)
+
+    kind = torch.device(ranks[0]).type
+    eng = make_delta_scheduler(crm, n_shards=s, reduce_mode=mode,
+                               devices=ranks)
+    single = make_delta_scheduler(crm, device=kind)
+    if not isinstance(eng, ShardedDeltaScheduler) or \
+            eng.stats["shards"] != s or eng.device.type != kind:
+        raise AssertionError(f"make_delta_scheduler gave {type(eng)} on "
+                             f"{eng.device} for {s} ranks")
+    tp = eng._plane.transport
+    times, calls = [], []
+    for i in range(warmup + beats):
+        mutate()
+        c0 = tp.calls
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = eng.beat(vecs, counts)
+        dt = (time.perf_counter() - t0) * 1e3
+        if i >= warmup:
+            times.append(dt)
+            calls.append(tp.calls - c0)
+        one = single.beat(vecs, counts)
+        st = crm.snapshot()
+        want, post = host_twin(st.totals, st.avail, st.node_mask, vecs,
+                               counts, None, thr)
+        budgets = np.stack([eng.budget_row_host(v) for v in vecs])
+        want_b = compute_budgets(st.totals, post, vecs, st.node_mask)
+        if not (np.array_equal(got, one) and np.array_equal(got, want)
+                and np.array_equal(eng.last_budgets(),
+                                   single.last_budgets())
+                and np.array_equal(budgets, want_b)):
+            raise AssertionError(f"sharded beat {i} ({s} ranks, {mode}) "
+                                 "disagrees with the single-device engine "
+                                 "or the host twin")
+    n_beats = warmup + beats
+    if eng.readbacks != n_beats:
+        raise AssertionError(f"{eng.readbacks} readbacks in {n_beats} "
+                             "sharded beats")
+
+    def step():
+        mutate()
+        eng.beat(vecs, counts)
+
+    trace = device_busy(step, 2)
+    # the beat's work at these inputs, as the single-device beat does it:
+    # the water-fill over the classes and the rest of a delta beat
+    scan_b, scan_o = scan_work(vecs, N_NODES, masks=False)
+    rest_b, rest_o = beat_rest_work(*vecs.shape, N_NODES, churn)
+    bound_ms, bound_by = bound(scan_b + rest_b, scan_o + rest_o, PEAK_I32)
+    return {"ranks": [str(d) for d in ranks], "reduce_mode": mode,
+            "grid": list(eng._plane.mesh.devices.shape),
+            "transport": "nccl" if tp.nccl else "one device",
+            "beats": n_beats, "timed_beats": beats,
+            "bit_exact_beats": n_beats,
+            "beat_p50_ms": float(np.percentile(times, 50)),
+            "beat_p99_ms": float(np.percentile(times, 99)),
+            "collectives_per_beat": float(np.mean(calls)),
+            "kernels_per_beat": trace["kernels_per_call"],
+            "idle_share": trace["idle_share"],
+            "device_busy_ms_per_beat": trace["device_busy_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "stats": eng.stats}
+
+
+def autoscale_work(problem, fit_counts):
+    """(bytes, int32 operations) of ``autoscale`` on ``problem``: the
+    first-fit water-fill and the launch loop for the iterations its
+    plain version runs on the CPU over the first fit's leftovers."""
+    import torch
+
+    from ray_tpu_torch.ops import binpack_kernel as bk
+    totals, _, _, reqs, _, caps, quotas = problem
+    g, r = reqs.shape
+    k = caps.shape[0]
+    remaining = np.where((reqs > 0).any(axis=1), fit_counts[:, -1], 0)
+    _, _, iters = bk.launch_loop_plain(
+        *(torch.as_tensor(np.ascontiguousarray(a, np.int32))
+          for a in (caps, quotas, reqs, remaining)), g * k + g + k + 2)
+    scan_b, scan_o = scan_work(reqs, totals.shape[0], masks=False)
+    loop_b, loop_o = loop_work(k, g, r, int(iters))
+    return scan_b + loop_b, scan_o + loop_o
+
+
+def shard_wrappers(dev, ranks):
+    """The four ``*_sharded_np`` wrappers at the beat width on ``ranks``,
+    each equal to the single-device call bit for bit; ms (host clock
+    around a synchronised call), kernel launches a call, and the bound
+    of the single-device function's work at these inputs."""
+    import torch
+
+    from ray_tpu_torch.ops import binpack_kernel as bk
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    from ray_tpu_torch.ops import locality_kernel as lk
+
+    s = len(ranks)
+    totals, avail, mask, reqs, counts = build_problem()
+    ltotals, lavail, lmask, lmasks, prefs = with_prefs(
+        5, totals, avail, mask, reqs, None)
+    ttotals, tavail, tmask, treqs, tcounts = build_problem(seed=3)
+    auto = autoscale_problem()
+    work = {
+        "schedule_grouped_sharded_np": scan_work(reqs, totals.shape[0]),
+        "schedule_grouped_localized_sharded_np": scan_work(
+            reqs, ltotals.shape[0], prefs=True),
+        "schedule_grouped_topk_sharded_np": topk_work(
+            *ttotals.shape, treqs.shape[0])}
+    cases = {
+        "schedule_grouped_sharded_np": (
+            lambda: hk.schedule_grouped_np(totals, avail, mask, reqs,
+                                           counts, device=dev),
+            lambda: hk.schedule_grouped_sharded_np(
+                totals, avail, mask, reqs, counts, n_shards=s,
+                devices=ranks)),
+        "schedule_grouped_localized_sharded_np": (
+            lambda: lk.schedule_grouped_localized_np(
+                ltotals, lavail, lmask, reqs, counts, prefs, lmasks,
+                device=dev),
+            lambda: lk.schedule_grouped_localized_sharded_np(
+                ltotals, lavail, lmask, reqs, counts, prefs, lmasks,
+                n_shards=s, devices=ranks)),
+        "schedule_grouped_topk_sharded_np": (
+            lambda: lk.schedule_grouped_topk_np(
+                ttotals, tavail, tmask, treqs, tcounts, 7, 1, k_frac=0.25,
+                device=dev),
+            lambda: lk.schedule_grouped_topk_sharded_np(
+                ttotals, tavail, tmask, treqs, tcounts, 7, 1, k_frac=0.25,
+                n_shards=s, devices=ranks)),
+        "autoscale_sharded_np": (
+            lambda: bk.autoscale_np(*auto, device=dev),
+            lambda: bk.autoscale_sharded_np(*auto, n_shards=s,
+                                            devices=ranks)),
+    }
+    out = {}
+    for name, (single, sharded) in cases.items():
+        want = single()
+        # the sharded call: counts set to 0 just before, read just after
+        hk.waterfill_scan.launches = hk.waterfill_scan.localized_launches = 0
+        bk.binpack_launch_loop.launches = 0
+        got = sharded()
+        wf = hk.waterfill_scan.launches + hk.waterfill_scan.localized_launches
+        bp = bk.binpack_launch_loop.launches
+        if len(got) != len(want) or \
+                not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name} on {s} ranks disagrees with the "
+                                 "single-device call")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharded()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        single()
+        torch.cuda.synchronize()
+        single_ms = (time.perf_counter() - t0) * 1e3
+        if name == "autoscale_sharded_np":
+            work[name] = autoscale_work(auto, want[1])
+        bound_ms, bound_by = bound(*work[name], PEAK_I32)
+        out[name] = {"ms": ms, "single_device_ms": single_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "kernels_per_call": kernel_launches(sharded),
+                     "waterfill_scan_launches": wf,
+                     "binpack_launch_loop_launches": bp}
+    return out
+
+
+def ring_skip_last_fold(q, k, v, ranks, causal):
+    """``ring_attention`` with its last fold left out: what a ring that
+    stopped one block short would return."""
+    import importlib
+    ra = importlib.import_module("ray_tpu_torch.ops.ring_attention")
+    fold = ra._fold
+    world = len(ranks)
+
+    def short(s, my, w, q_, k_, v_, acc, denom, m, c):
+        if s == world - 1:
+            return acc, denom, m
+        return fold(s, my, w, q_, k_, v_, acc, denom, m, c)
+
+    ra._fold = short
+    try:
+        return ra.ring_attention(q, k, v, mesh=ranks, causal=causal,
+                                 precision="highest")
+    finally:
+        ra._fold = fold
+
+
+def shard_attention(dev, rank_sets):
+    """Ring and Ulysses attention at B=2 T=4096 H=16 D=128 float32 on
+    each rank set, causal and not: within RING_ATOL of ``full_attention``
+    on the card, a limit that must reject the ring missing its last
+    fold; ms beside ``ops.flash_attention``'s f32 time and SDPA's."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch import ops
+
+    b, t, h, d = RING_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((b, t, h, d), generator=gen, device=dev)
+               for _ in range(3))
+    out = {}
+    for causal in (False, True):
+        want = ops.full_attention(q, k, v, causal=causal, precision="highest")
+        full_ms = cuda_ms(lambda: ops.full_attention(
+            q, k, v, causal=causal, precision="highest"), reps=3, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal), reps=3, warmup=1)
+        flash_ms = cuda_ms(lambda: ops.flash_attention(q, k, v,
+                                                       causal=causal),
+                           reps=3, warmup=1)
+        # operations: QK^T and PV, 2 flops a multiply-add, half causal
+        n_ops = 4.0 * b * h * t * t * d * (0.5 if causal else 1.0)
+        bound_ms, bound_by = bound(4 * b * t * h * d * 4, n_ops, PEAK_F32)
+        case = {"full_attention_ms": full_ms, "sdpa_ms": sdpa_ms,
+                "sdpa_backend": sdpa_backend(qt, kt, vt, causal),
+                "flash_attention_f32_ms": flash_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by}
+        for ranks in rank_sets:
+            tag = f"{len(ranks)}x{ranks[0]}" if len(set(ranks)) == 1 \
+                else f"{len(ranks)} cards"
+            for name in ("ring_attention", "ulysses_attention"):
+                fn = getattr(ops, name)
+                got = fn(q, k, v, mesh=ranks, causal=causal,
+                         precision="highest")
+                err = float((got - want).abs().max())
+                if not err <= RING_ATOL:
+                    raise AssertionError(f"{name} on {tag}, causal={causal}"
+                                         f": max |err| {err} > {RING_ATOL}")
+                ms = cuda_ms(lambda: fn(q, k, v, mesh=ranks, causal=causal,
+                                        precision="highest"),
+                             reps=3, warmup=1)
+                case[f"{name} {tag}"] = {"max_abs_err": err, "ms": ms}
+            short = ring_skip_last_fold(q, k, v, ranks, causal)
+            short_err = float((short - want).abs().max())
+            if short_err <= RING_ATOL:
+                raise AssertionError(f"the limit {RING_ATOL} does not reject "
+                                     f"a ring missing its last fold "
+                                     f"({short_err})")
+            case[f"ring missing its last fold {tag}"] = short_err
+        out["causal" if causal else "full"] = case
+        del want
+    return out
+
+
+def phase_shard(dev, smi):
+    """The sharded paths on ranks of the card (``["cuda:0"] * S``): the
+    sharded beat at the beat cell's width, the four sharded wrappers,
+    ring and Ulysses attention, ``entry()`` and ``dryrun_multichip``; over
+    distinct cards through NCCL when there are two or more."""
+    import torch
+
+    from ray_tpu_torch import entry
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    from ray_tpu_torch.scheduling.contract import threshold_fp
+
+    t_start = time.perf_counter()
+    card = f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda" \
+        else str(dev)
+    beats = {f"{s}x{card} {mode}": shard_beat([card] * s, mode)
+             for s, mode in SHARD_BEATS}
+    wrappers = shard_wrappers(dev, [card] * SHARD_WRAPPER_RANKS)
+    rank_sets = [[card] * s for s in RING_RANKS]
+    n_cards = torch.cuda.device_count()
+    cards = [f"cuda:{i}" for i in range(4 if n_cards >= 4 else 2)] \
+        if n_cards >= 2 else None
+    if cards:
+        beats[f"{len(cards)} cards"] = shard_beat(
+            cards, "two_level" if len(cards) == 4 else "flat")
+        rank_sets.append(cards)
+    attention = shard_attention(dev, rank_sets)
+
+    fn, args = entry.entry(dev)
+    # --- the entry point's step: counts start at 0 here and are read after
+    hk.waterfill_scan.launches = hk.waterfill_scan.localized_launches = 0
+    counts, new_avail = fn(*args)
+    torch.cuda.synchronize()
+    entry_launches = hk.waterfill_scan.launches
+    # --- end of the step ---
+    if entry_launches != 1:
+        raise AssertionError(f"entry()'s step launched waterfill_scan "
+                             f"{entry_launches} times")
+    host = [a.cpu().numpy() for a in args[:-1]]
+    want, post = host_twin(*host, thr=threshold_fp(0.5))
+    if not (np.array_equal(counts.cpu().numpy(), want)
+            and np.array_equal(new_avail.cpu().numpy(), post)):
+        raise AssertionError("entry(): the step disagrees with the host "
+                             "twin")
+    dryruns = {n: entry.dryrun_multichip(n, device=card) for n in (4, 8)}
+    result = {"phase": "shard", "nvidia_smi": smi, "beats": beats,
+              "wrappers": wrappers, "attention": attention,
+              "entry": {"counts_equal_host_twin": True,
+                        "shape": list(counts.shape)},
+              "dryrun_multichip": dryruns,
+              "nccl_route": "ran over " + ", ".join(cards) if cards else
+              "not run: one card (ranks on one card only)",
+              # launches of the sharded calls and the entry step (not of
+              # the single-device calls they are compared with)
+              "waterfill_scan_launches": entry_launches + sum(
+                  w["waterfill_scan_launches"] for w in wrappers.values()),
+              "binpack_launch_loop_launches": sum(
+                  w["binpack_launch_loop_launches"]
+                  for w in wrappers.values()),
+              "seconds": time.perf_counter() - t_start}
+    emit(result)
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3347,6 +3768,7 @@ def main() -> int:
     timed("data", phase_data, dev)
     timed("sim", phase_sim)
     timed("train", phase_train, dev)
+    shd = timed("shard", phase_shard, dev, smi)
     head = fl["cases"][0]
     lw = loc["problems"]["beat 1000x8x64"]
     emit({"phase": "summary", "phase_seconds": seconds,
@@ -3367,7 +3789,8 @@ def main() -> int:
                               "autoscaler": asc["main_path_launches"][
                                   "waterfill_scan"],
                               "daemon_head": dmn["head_launches"].get(
-                                  "waterfill_scan", 0)},
+                                  "waterfill_scan", 0),
+                              "shard": shd["waterfill_scan_launches"]},
          # the autoscaler's phase 1: the same kernel in first-fit mode
          "first_fit_ms": asc["scan_ms"],
          "max_abs_err": 0,
@@ -3390,6 +3813,9 @@ def main() -> int:
                      "lax.while_loop; _pack_all_types lax.scan :33)",
          # launches on the autoscaler's path (StandardAutoscaler.update)
          "launches": asc["main_path_launches"]["binpack_launch_loop"],
+         "launches_by_path": {
+             "autoscaler": asc["main_path_launches"]["binpack_launch_loop"],
+             "shard": shd["binpack_launch_loop_launches"]},
          "max_abs_err": 0, "ms": asc["kernel_ms"],
          "plain_ms": asc["plain_ms"], "bound_ms": asc["bound_ms"],
          "bound_by": asc["bound_by"], "library_ms": None,

@@ -22,7 +22,11 @@ the CLI's ``simulate`` and ``hunt``.  The training libraries:
 collectives over NCCL (``util.collective``), ``train`` (the gang and
 elastic trainers, whose workers compute on the CPU, and ``MeshTrainer``,
 data-parallel over the GPUs from one process), ``tune`` and ``rllib``
-(rollouts in workers, the policy update on the GPU).
+(rollouts in workers, the policy update on the GPU).  The sharded paths:
+the scheduler's node rows split over ranks (``ops.shard_reduce``, the
+sharded heartbeat ``scheduling.ShardedDeltaScheduler`` and the
+``*_sharded_np`` wrappers), ring and Ulysses attention, and ``entry``
+(one heartbeat step, and a multi-rank dry run).
 
 The package imports ``torch`` and numpy, never JAX and nothing of
 ``ray_tpu``.  Entry points run on the GPU unless the caller asks for the
@@ -53,7 +57,7 @@ def __getattr__(name):
     if name in ("ops", "scheduling", "convert", "device", "util", "serve",
                 "experimental", "cross_language", "autoscaler",
                 "versioning", "workflow", "data", "train", "tune",
-                "rllib"):
+                "rllib", "entry"):
         # NOT `from . import ops`: that re-enters __getattr__ via the
         # fromlist hasattr probe before the submodule import finishes.
         # Only submodules that EXIST belong here.

@@ -226,9 +226,38 @@ def autoscale_np(totals, avail, node_mask, demand_reqs, demand_counts,
 def autoscale_sharded_np(totals, avail, node_mask, demand_reqs,
                          demand_counts, type_caps, type_quotas,
                          extra_mask=None, n_shards: int = 0,
-                         reduce_mode: str = "auto"):
-    """The row-sharded twin of ``autoscale_np`` (existing-node rows over
-    several devices).  Not ported yet."""
-    raise NotImplementedError(
-        "autoscale_sharded_np: the row-sharded autoscaler pass is not "
-        "ported yet: ROADMAP.md, section A, item 11 (sharded beat)")
+                         reduce_mode: str = "auto", devices=None):
+    """Row-sharded twin of ``autoscale_np``: existing-node rows over the
+    ranks of ``ops.shard_reduce`` (``devices=None``: the local CUDA
+    cards).  ``autoscale`` runs on the first rank over every row (on a
+    card: the first-fit water-fill and ``binpack_launch_loop``), and
+    new_avail goes back to the ranks; the launch loop's (K, R) state is
+    tiny and stays there.  A shard-local first-fit pass is later work.
+    Bit-identical to the single-device call."""
+    from .shard_reduce import gspmd_plane, pad_node_rows
+    if (np.asarray(type_caps) > MAX_TOTAL_CU).any():
+        raise ValueError(
+            f"type_caps exceed MAX_TOTAL_CU={MAX_TOTAL_CU} cu "
+            "(int32 score-arithmetic contract)")
+    n = totals.shape[0]
+    pl = gspmd_plane(n_shards, reduce_mode, devices)
+    pad = pad_node_rows(n, pl.n_shards)
+    if pad:
+        totals = np.pad(totals, ((0, pad), (0, 0)))
+        avail = np.pad(avail, ((0, pad), (0, 0)))
+        node_mask = np.pad(node_mask, (0, pad))
+        if extra_mask is not None:
+            extra_mask = np.pad(extra_mask, (0, pad))
+    (launches, fit_counts, unmet), new_avail = pl.call_gathered(
+        autoscale, (totals, np.int32), (avail, np.int32),
+        (node_mask, bool), (demand_reqs, np.int32),
+        (demand_counts, np.int32), (type_caps, np.int32),
+        (type_quotas, np.int32), (extra_mask, bool))
+    fit_counts = fit_counts.cpu().numpy()
+    new_avail = np.concatenate([a.cpu().numpy() for a in new_avail])
+    if pad:
+        fit_counts = np.concatenate([fit_counts[:, :n],
+                                     fit_counts[:, -1:]], axis=1)
+        new_avail = new_avail[:n]
+    return (launches.cpu().numpy(), fit_counts, unmet.cpu().numpy(),
+            new_avail)

@@ -530,3 +530,27 @@ def schedule_grouped_np(totals, avail, node_mask, group_reqs, group_counts,
         put(group_reqs, np.int32), put(group_counts, np.int32),
         put(group_masks, bool), int(thr_fp))
     return counts.cpu().numpy(), new_avail.cpu().numpy()
+
+
+def schedule_grouped_sharded_np(totals, avail, node_mask, group_reqs,
+                                group_counts, group_masks=None,
+                                thr_fp=None, spread_threshold=None,
+                                n_shards: int = 0,
+                                reduce_mode: str = "auto", devices=None):
+    """Row-sharded twin of ``schedule_grouped_np``: node rows partition
+    over the ranks' two-level ("dcn", "ici") grid (``ops.shard_reduce``;
+    ``devices=None`` means the local CUDA cards) and the water-fill runs
+    shard-local, its global sums and argmin as collectives
+    (``ShardPlane.schedule_grouped``).  Bit-identical to the
+    single-device call; node rows pad to a shard multiple with
+    mask-False rows (no-ops)."""
+    from ..scheduling.contract import threshold_fp
+    from .shard_reduce import gspmd_plane
+    if thr_fp is None:
+        thr_fp = threshold_fp(spread_threshold)
+    g, n = group_reqs.shape[0], totals.shape[0]
+    if group_masks is None:
+        group_masks = np.ones((g, n), dtype=bool)
+    return gspmd_plane(n_shards, reduce_mode, devices).schedule_grouped_np(
+        totals, avail, node_mask, group_reqs, group_counts, group_masks,
+        thr_fp)

@@ -224,3 +224,98 @@ def schedule_grouped_topk_np(totals, avail, node_mask, group_reqs,
         put(topk_draws(seed, round_index, g), np.int64),
         None if extra_mask is None else put(extra_mask, bool))
     return counts.cpu().numpy(), new_avail.cpu().numpy()
+
+
+def _sharded_call(fn, pl, pad, args, n):
+    """``fn`` over every node row on the first of ``pl``'s ranks
+    (``ShardPlane.call_gathered``), as GSPMD runs an op it cannot
+    partition (top-k's argsort); on a card that is the water-fill
+    kernel's localized mode.  ``args`` as ``call_gathered`` takes them,
+    their node axes padded by ``pad`` mask-False rows; the padding is
+    cut from the host results."""
+    (counts,), new_avail = pl.call_gathered(fn, *args)
+    counts = counts.cpu().numpy()
+    new_avail = np.concatenate([a.cpu().numpy() for a in new_avail])
+    if pad:
+        counts = np.concatenate([counts[:, :n], counts[:, -1:]], axis=1)
+        new_avail = new_avail[:n]
+    return counts, new_avail
+
+
+def _pad_rows(pad, totals, avail, node_mask, group_masks, extra_mask):
+    if not pad:
+        return totals, avail, node_mask, group_masks, extra_mask
+    return (np.pad(totals, ((0, pad), (0, 0))),
+            np.pad(avail, ((0, pad), (0, 0))), np.pad(node_mask, (0, pad)),
+            np.pad(group_masks, ((0, 0), (0, pad))),
+            None if extra_mask is None else np.pad(extra_mask, (0, pad)))
+
+
+def schedule_grouped_localized_sharded_np(totals, avail, node_mask,
+                                          group_reqs, group_counts,
+                                          pref_rows, group_masks=None,
+                                          thr_fp=None,
+                                          spread_threshold=None,
+                                          extra_mask=None,
+                                          n_shards: int = 0,
+                                          reduce_mode: str = "auto",
+                                          devices=None):
+    """Row-sharded twin of ``schedule_grouped_localized_np`` (node rows
+    over the ranks of ``ops.shard_reduce``).  The single-device
+    function runs on the first rank over every row, and new_avail goes
+    back to the ranks; a shard-local localized water-fill is later
+    work.  Bit-identical."""
+    from ..scheduling.contract import threshold_fp
+    from .shard_reduce import gspmd_plane, pad_node_rows
+    if thr_fp is None:
+        thr_fp = threshold_fp(spread_threshold)
+    g, n = group_reqs.shape[0], totals.shape[0]
+    if group_masks is None:
+        group_masks = np.ones((g, n), dtype=bool)
+    pl = gspmd_plane(n_shards, reduce_mode, devices)
+    pad = pad_node_rows(n, pl.n_shards)
+    totals, avail, node_mask, group_masks, extra_mask = _pad_rows(
+        pad, totals, avail, node_mask, group_masks, extra_mask)
+    return _sharded_call(
+        schedule_grouped_localized, pl, pad,
+        ((totals, np.int32), (avail, np.int32),
+         (node_mask, bool), (group_reqs, np.int32),
+         (group_counts, np.int32), (group_masks, bool),
+         (pref_rows, np.int32), int(thr_fp),
+         (extra_mask, bool)), n)
+
+
+def schedule_grouped_topk_sharded_np(totals, avail, node_mask, group_reqs,
+                                     group_counts, seed, round_index,
+                                     group_masks=None, thr_fp=None,
+                                     spread_threshold=None, k_abs=1,
+                                     k_frac=0.0, extra_mask=None,
+                                     n_shards: int = 0,
+                                     reduce_mode: str = "auto",
+                                     devices=None):
+    """Row-sharded twin of ``schedule_grouped_topk_np`` (the same
+    first-rank route and padding as the localized variant; a shard-local
+    top-k is later work).  Bit-identical."""
+    from fractions import Fraction
+
+    from ..scheduling.contract import threshold_fp
+    from .shard_reduce import gspmd_plane, pad_node_rows
+    if thr_fp is None:
+        thr_fp = threshold_fp(spread_threshold)
+    g, n = group_reqs.shape[0], totals.shape[0]
+    if group_masks is None:
+        group_masks = np.ones((g, n), dtype=bool)
+    pl = gspmd_plane(n_shards, reduce_mode, devices)
+    pad = pad_node_rows(n, pl.n_shards)
+    totals, avail, node_mask, group_masks, extra_mask = _pad_rows(
+        pad, totals, avail, node_mask, group_masks, extra_mask)
+    frac = Fraction(k_frac).limit_denominator(1 << 16)
+    return _sharded_call(
+        schedule_grouped_topk, pl, pad,
+        ((totals, np.int32), (avail, np.int32),
+         (node_mask, bool), (group_reqs, np.int32),
+         (group_counts, np.int32), (group_masks, bool),
+         int(thr_fp), max(int(k_abs), 1), int(frac.numerator),
+         max(int(frac.denominator), 1),
+         (topk_draws(seed, round_index, g), np.int64),
+         (extra_mask, bool)), n)

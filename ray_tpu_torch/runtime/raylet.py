@@ -754,8 +754,10 @@ class Raylet:
         beat.  Returns (G, N+1) int32 counts.
 
         The engine comes from ``make_delta_scheduler`` on the cluster's
-        ``scheduler_device``: the single-device DeltaScheduler (a shard
-        count past one GPU raises until the sharded beat is ported)."""
+        ``scheduler_device``: with ``scheduler_shards`` resolving past
+        one rank (the local CUDA cards) the mirror and the beat shard
+        over them (ShardedDeltaScheduler), else the single-device
+        DeltaScheduler; placements are bit-identical either way."""
         from ..scheduling.sharded_delta import make_delta_scheduler
         eng = self._delta_engine
         if eng is None:
@@ -849,12 +851,24 @@ class Raylet:
 
     def _schedule_sharded(self, totals, avail, mask, req_arr, cnt_arr,
                           gmask) -> "np.ndarray":
-        """The placement call with cluster-state rows sharded over every
-        local device (``scheduler_sharded_state``; off by default).  Not
-        ported yet."""
-        raise NotImplementedError(
-            "scheduler_sharded_state: the row-sharded placement call is "
-            "not ported yet: ROADMAP.md, section A, item 11 (sharded beat)")
+        """The device placement call with cluster-state rows SHARDED
+        over every rank (``scheduler_sharded_state``; the ranks of
+        ``make_delta_scheduler``'s resolver, ``shard_reduce.local_ranks``:
+        the local CUDA cards): each rank owns N/n node rows and the
+        water-fill's global sums and argmin are collectives
+        (``ShardPlane.schedule_grouped``); on one rank it is the
+        single-device call.  Node rows pad to a multiple of the rank
+        count with mask-False rows (no-ops); ``plane_for`` caches the
+        plane.  Returns host counts of shape (Gp, N+1): real node
+        columns plus the infeasible column."""
+        from ..ops import shard_reduce as sr
+        from ..scheduling.contract import threshold_fp
+        ranks = sr.local_ranks(self.cluster.scheduler_device)
+        plane = sr.plane_for(len(ranks), "flat", ranks)
+        counts, _ = plane.schedule_grouped_np(
+            totals, avail, mask, req_arr, cnt_arr, gmask,
+            threshold_fp(None))
+        return counts
 
     def _effective_snapshot(self, avoid_suspect: bool = True):
         """CRM snapshot minus every node's planned-but-undispatched load

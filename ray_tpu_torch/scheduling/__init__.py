@@ -10,7 +10,7 @@ from .policy import (CompositeSchedulingPolicy, DeltaScheduler,
                      NodeAffinitySchedulingPolicy, RandomSchedulingPolicy,
                      SchedulingOptions, SchedulingType,
                      SpreadSchedulingPolicy)
-from .sharded_delta import make_delta_scheduler, resolve_shards
+from .sharded_delta import ShardedDeltaScheduler, make_delta_scheduler
 
 __all__ = [
     "PlacementStrategy", "schedule_bundles",
@@ -19,7 +19,7 @@ __all__ = [
     "HybridSchedulingPolicy", "ISchedulingPolicy", "INFEASIBLE_KEY",
     "MAX_NODES", "NodeAffinitySchedulingPolicy", "RandomSchedulingPolicy",
     "SCALE", "AVAIL_SHIFT", "SchedulingOptions", "SchedulingType",
-    "make_delta_scheduler", "resolve_shards",
+    "make_delta_scheduler", "ShardedDeltaScheduler",
     "SpreadSchedulingPolicy", "compute_keys", "compute_keys_batch",
     "expand_group_counts",
     "group_requests", "schedule_grouped_oracle", "schedule_one",

@@ -225,14 +225,15 @@ def _bucket(n: int, floor: int = 8) -> int:
 
 class _StageSlot:
     """One of the two host staging slots of the double buffer: pinned
-    buffers (grown on demand) plus the CUDA event recorded after the
-    last host->device copy out of them."""
+    buffers (grown on demand) plus the CUDA events recorded, one a
+    destination device, after the last host->device copies out of
+    them."""
 
-    __slots__ = ("bufs", "event")
+    __slots__ = ("bufs", "events")
 
     def __init__(self):
         self.bufs: dict[int, torch.Tensor] = {}
-        self.event = None
+        self.events: list = []
 
 
 class DeltaScheduler:
@@ -490,20 +491,24 @@ class DeltaScheduler:
         return torch.as_tensor(np.ascontiguousarray(arr),
                                device=self._device)
 
-    def _h2d(self, *arrays):
-        """Per-beat uploads through the free staging slot.  On CUDA each
+    def _h2d(self, *arrays, devices=None):
+        """Per-beat uploads through the free staging slot, array ``i``
+        to ``devices[i]`` (default: the engine's device).  On CUDA each
         array is written into the slot's pinned buffer and copied with
-        ``non_blocking=True``; the slot's event (recorded after those
-        copies) is waited on before the slot is rewritten two uploads
-        later.  Returns the device tensors."""
+        ``non_blocking=True``; the slot's events (recorded on each
+        destination's stream after those copies) are waited on before
+        the slot is rewritten two uploads later.  Returns the device
+        tensors."""
         import torch
         if self._device.type != "cuda":
             return tuple(torch.from_numpy(np.array(a)) for a in arrays)
+        if devices is None:
+            devices = [self._device] * len(arrays)
         slot = self._stage[self._parity]
-        if slot.event is not None:
-            slot.event.synchronize()
+        for ev in slot.events:
+            ev.synchronize()
         out = []
-        for i, a in enumerate(arrays):
+        for i, (a, dev) in enumerate(zip(arrays, devices)):
             a = np.ascontiguousarray(a)
             dtype = torch.from_numpy(a[:0]).dtype
             buf = slot.bufs.get(i)
@@ -513,13 +518,16 @@ class DeltaScheduler:
                 slot.bufs[i] = buf
             host = buf[:a.size].view(a.shape)
             host.numpy()[...] = a
-            out.append(host.to(self._device, non_blocking=True))
-        slot.event = torch.cuda.Event()
-        slot.event.record()
+            out.append(host.to(dev, non_blocking=True))
+        slot.events = []
+        for dev in dict.fromkeys(devices):
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev))
+            slot.events.append(ev)
         self._parity ^= 1
         return tuple(out)
 
-    # -- device-layout hooks (the sharded engine will override these) -------
+    # -- device-layout hooks (the sharded engine overrides these) -----------
     def _put_extra_mask(self, emp):
         """Device placement of a padded per-beat soft mask."""
         return self._h2d(emp)[0]

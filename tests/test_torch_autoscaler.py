@@ -169,13 +169,19 @@ def test_oracle_packs_first_fit_and_prefers_utilization():
 
 
 def test_width_contract_and_unported_sharded_twin():
+    """The width contract on both entries; the row-sharded twin (ported
+    since, on CPU ranks here) equals the single-device call."""
     p = random_autoscale_problem(np.random.default_rng(0))
     caps = p[5].copy()
     caps[0, 0] = (1 << 17) + 1
     with pytest.raises(ValueError, match="MAX_TOTAL_CU"):
         bp.autoscale_np(*p[:5], caps, p[6], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        bp.autoscale_sharded_np(*p)
+    with pytest.raises(ValueError, match="MAX_TOTAL_CU"):
+        bp.autoscale_sharded_np(*p[:5], caps, p[6], devices=["cpu"] * 2)
+    for a, b in zip(bp.autoscale_np(*p, device="cpu"),
+                    bp.autoscale_sharded_np(*p, n_shards=2,
+                                            devices=["cpu"] * 2)):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_cuda_tensors_never_take_the_plain_loop():

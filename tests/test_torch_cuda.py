@@ -904,3 +904,166 @@ def test_pg_update_on_the_card_equals_the_cpu():
     for k in params:
         np.testing.assert_allclose(out[0][k], out[1][k], rtol=1e-6,
                                    atol=1e-6)
+
+
+# -- the sharded paths on the card's ranks --------------------------------------
+
+ONE_CARD_RANKS = ["cuda:0"] * 4
+
+
+def _sharded_beat_case(ranks, mode, seed=13):
+    """A port CRM of 300 nodes under churn, beat by a ShardedDeltaScheduler
+    on ``ranks``, the single-device engine on the card and the CPU
+    oracle: counts and budgets bit for bit every beat."""
+    from ray_tpu_torch.common.ids import NodeID
+    from ray_tpu_torch.common.resources import NodeResources, ResourceRequest
+    from ray_tpu_torch.scheduling import (ClusterResourceManager,
+                                          DeltaScheduler,
+                                          ShardedDeltaScheduler,
+                                          schedule_grouped_oracle)
+    rng = np.random.default_rng(seed)
+    crm = ClusterResourceManager(capacity=300)
+    for _ in range(300):
+        crm.add_node(NodeID.from_random(), NodeResources(
+            {"CPU": int(rng.integers(2, 64)),
+             "memory": int(rng.integers(1, 256))}))
+    vecs = np.stack([crm.intern_request(ResourceRequest(
+        {"CPU": int(rng.integers(1, 4)),
+         "memory": float(rng.integers(0, 6))})) for _ in range(12)])
+    counts = rng.integers(1, 400, size=12).astype(np.int32)
+    eng = ShardedDeltaScheduler(crm, len(ranks), mode, devices=ranks)
+    single = DeltaScheduler(crm)
+    assert eng.device.type == "cuda" and eng.stats["shards"] == len(ranks)
+    for beat in range(6):
+        for _ in range(12):
+            crm.force_subtract(int(rng.integers(0, 300)),
+                               ResourceRequest({"CPU": 1}))
+        ov = {5: np.array([-300, 40], np.int32)} if beat % 2 else None
+        got = eng.beat(vecs, counts, overrides=ov)
+        np.testing.assert_array_equal(got, single.beat(vecs, counts,
+                                                       overrides=ov))
+        np.testing.assert_array_equal(eng.last_budgets(),
+                                      single.last_budgets())
+        if ov is None:
+            np.testing.assert_array_equal(
+                got, schedule_grouped_oracle(crm.snapshot(), vecs, counts))
+    assert eng.readbacks == 6 and eng.stats["delta_beats"] == 5
+
+
+@pytest.mark.parametrize("mode", ["flat", "two_level"])
+def test_sharded_beat_on_one_card_ranks(mode):
+    _sharded_beat_case(ONE_CARD_RANKS, mode)
+
+
+def _ring_case(ranks, causal):
+    from ray_tpu_torch.ops.ring_attention import (full_attention,
+                                                  ring_attention,
+                                                  ulysses_attention)
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn((2, 256, 8, 64), generator=g).cuda()
+               for _ in range(3))
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")      # TF32 on outside
+    try:
+        want = full_attention(q, k, v, causal, precision="highest")
+        for fn in (ring_attention, ulysses_attention):
+            got = fn(q, k, v, mesh=ranks, causal=causal,
+                     precision="highest")
+            assert got.device == q.device
+            torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_and_ulysses_on_one_card_ranks(causal):
+    _ring_case(ONE_CARD_RANKS, causal)
+
+
+def test_sharded_wrappers_on_one_card_ranks():
+    from ray_tpu_torch.ops import binpack_kernel as bk
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    from ray_tpu_torch.ops import locality_kernel as lk
+    totals, avail, mask, reqs, counts, masks = _problem(5, 333, 6, 9,
+                                                        neg=False)
+    rng = np.random.default_rng(5)
+    pref = rng.integers(-1, 333, size=9).astype(np.int32)
+    ranks = ONE_CARD_RANKS
+    for a, b in zip(hk.schedule_grouped_np(totals, avail, mask, reqs,
+                                           counts, masks),
+                    hk.schedule_grouped_sharded_np(
+                        totals, avail, mask, reqs, counts, masks,
+                        n_shards=4, devices=ranks)):
+        np.testing.assert_array_equal(a, b)
+    before = hk.waterfill_scan.localized_launches
+    for a, b in zip(lk.schedule_grouped_localized_np(
+            totals, avail, mask, reqs, counts, pref, masks),
+            lk.schedule_grouped_localized_sharded_np(
+                totals, avail, mask, reqs, counts, pref, masks,
+                n_shards=4, devices=ranks)):
+        np.testing.assert_array_equal(a, b)
+    assert hk.waterfill_scan.localized_launches == before + 2
+    for a, b in zip(lk.schedule_grouped_topk_np(
+            totals, avail, mask, reqs, counts, 3, 1, masks, k_frac=0.25),
+            lk.schedule_grouped_topk_sharded_np(
+                totals, avail, mask, reqs, counts, 3, 1, masks,
+                k_frac=0.25, n_shards=4, devices=ranks)):
+        np.testing.assert_array_equal(a, b)
+    caps = rng.integers(3000, 20000, size=(4, 6)).astype(np.int32)
+    quotas = np.array([50, 0, 200, 7], np.int32)
+    for a, b in zip(bk.autoscale_np(totals, avail, mask, reqs, counts, caps,
+                                    quotas),
+                    bk.autoscale_sharded_np(totals, avail, mask, reqs,
+                                            counts, caps, quotas,
+                                            n_shards=4, devices=ranks)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_raylet_sharded_state_on_one_card_launches_the_kernel(monkeypatch):
+    """``scheduler_sharded_state`` with one rank on the card: the one-rank
+    plane is the single-device call, so every round launches
+    ``waterfill_scan``, and the rows equal the unsharded path's."""
+    import ray_tpu_torch
+    import ray_tpu_torch.cluster_utils as port_cluster
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    from ray_tpu_torch.ops import shard_reduce as sr
+    from test_torch_runtime import _raylet_rows, _specs
+    monkeypatch.setattr(sr, "local_ranks",
+                        lambda device=None: [torch.device("cuda", 0)])
+    rng = np.random.default_rng(5)
+    node_res = [{"CPU": int(rng.integers(2, 16)),
+                 "memory": int(rng.integers(2, 16))} for _ in range(13)]
+
+    def batches_of(pkg):
+        brng = np.random.default_rng(6)
+        return [(_specs(pkg, brng, 300, 5), [None] * 300, [False] * 300)
+                for _ in range(2)]
+
+    rows = {}
+    for sharded in (False, True):
+        PortConfig.reset({"scheduler_device_batch_min": 1,
+                          "scheduler_sharded_state": sharded})
+        before = hk.waterfill_scan.launches
+        rows[sharded], head = _raylet_rows(ray_tpu_torch, port_cluster,
+                                           node_res, batches_of)
+    assert head.device_rounds == 2 and head.delta_rounds == 0
+    assert hk.waterfill_scan.launches >= before + 2
+    assert rows[True] == rows[False]
+    assert len(set(rows[True][0])) > 2          # the rounds spread
+
+
+def test_sharded_paths_over_distinct_cards():
+    """The NCCL route: the sharded beat and the ring over the first 2 or
+    4 cards."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards (the NCCL route)")
+    ranks = [f"cuda:{i}" for i in range(4 if n >= 4 else 2)]
+    _sharded_beat_case(ranks, "two_level" if len(ranks) == 4 else "flat")
+    _ring_case(ranks, True)
+
+
+def test_dryrun_multichip_on_one_card():
+    from ray_tpu_torch import entry
+    info = entry.dryrun_multichip(4, device="cuda:0")
+    assert info["platform"] == "cuda" and info["cards"] == 1
