@@ -48,7 +48,9 @@ Phases:
                   threads are), a 2,000-consumer locality burst
                   over 8 blobs (localized launches, every consumer on its
                   data node by pid), two placement groups in one device
-                  batch, an actor, put/get/wait; then the head raylet at
+                  batch (the bundle kernel's launches), a batch of 161
+                  pulls through the PullManager (the pull kernel's
+                  launches), an actor, put/get/wait; then the head raylet at
                   1000 rows: 100,000 specs over 64 classes with locality
                   rows and avoid flags, rows == the host twin's
   serve           serve on the runtime: ``init`` on the GPU with 8
@@ -64,9 +66,14 @@ Phases:
                   the phase, /metrics == serve.status()'s request plane,
                   the dashboard's JSON APIs; requests/s, p50/p99, batch
                   sizes, the burst's tasks/s beside the runtime phase's
-  dataplane       bundle (1000 x 64 groups x 8), pull (4096 x 1000) and
-                  broadcast (1000 members, fan-out 4) programs on the card
-                  == their numpy oracles; ms and kernel launches
+  dataplane       the bundle and pull kernels (``csrc/bundle.cu``,
+                  ``csrc/pull.cu``) == their plain versions on the card ==
+                  their numpy oracles, exact, at 1000 x 64 groups x 8
+                  bundles and 4096 pulls x 1000 nodes, and at 8192 nodes;
+                  kernel, plain and oracle ms, CUDA kernels a call, bound;
+                  kernel and oracle ms at the runtime thresholds' sizes (2
+                  groups of 8, 128 pulls); the broadcast program (plain
+                  PyTorch, 1000 members, fan-out 4) == its oracle
   autoscaler      ``autoscale`` (a first-fit water-fill launch, then the
                   ``binpack_launch_loop`` kernel) at 1000 nodes x 64
                   resources x 64 classes x 1,000,000 demands x 16 node
@@ -79,15 +86,17 @@ Phases:
                   ms, iterations, class steps (all, and in a chain) and
                   ns a step, layout,
                   bound, the phase-1 scan's ms
-  topk            ``schedule_grouped_topk`` at the beat width (1000 x 8 x
-                  64 x 1M): the card == the CPU bit for bit, an even
+  topk            the top-k kernel (``csrc/topk.cu``) == its plain
+                  version on the card, bit for bit, at the beat width
+                  (1000 x 8 x 64 x 1M) and the contract's limit (8192 x
+                  16 x 128); the card == the CPU bit for bit, an even
                   spread over each class's k best keys, consumption
                   capped; the rotation offsets on the card == the CPU ==
                   a pinned table of the JAX function's
-                  (TOPK_JAX_OFFSETS); ms, launches; then a 2,000-task
-                  burst with
+                  (TOPK_JAX_OFFSETS); kernel, plain and CPU ms, launches,
+                  bound; then a 2,000-task burst with
                   scheduler_top_k_fraction = 0.5 through the raylet's
-                  top-k rounds
+                  top-k rounds, which launch the kernel
   daemon          ``python -m ray_tpu_torch start --head`` on the card,
                   two ``agent`` subprocesses, a driver subprocess with
                   ``init(address=...)`` whose 3,000 tasks land on both
@@ -395,11 +404,14 @@ def beat_rest_work(n_cls, r_w, n_nodes, dirty):
     return n_bytes, n_ops
 
 
-def topk_work(n, r, g):
-    """(bytes, int32 operations) of a top-k round: per class the keys
-    (~12 ops per (node, resource)), a sort of N keys (N log2 N compares),
-    the spread and cap (~8 per node)."""
-    n_ops = g * (n * r * 12 + n * math.log2(n) + n * 8)
+def topk_work(n, reqs):
+    """(bytes, int32 operations) of a top-k round over these requests:
+    per class the keys over the request's positive columns (~12 ops per
+    (node, positive column); a zero column leaves a key as it is), a sort
+    of N keys (N log2 N compares), the spread and cap (~8 per node)."""
+    g, r = reqs.shape
+    n_ops = (float((np.asarray(reqs) > 0).sum()) * n * 12
+             + g * (n * math.log2(n) + n * 8))
     n_bytes = 2 * n * r * 4 + n + g * r * 4 + g * 4 + g * 4 \
         + g * (n + 1) * 4 + n * r * 4
     return n_bytes, n_ops
@@ -995,6 +1007,48 @@ def raylet_full_width(cluster, seed=0):
             "host_twin_ms": host_ms}
 
 
+PULL_BATCH = 160                 # past pull_device_batch_min (128)
+PULL_OBJECT_F64 = 25_000         # 200 KB a put: sealed in the arena
+
+
+def pull_batch(cluster, n_pulls=PULL_BATCH):
+    """One activation batch of ``n_pulls`` pulls through
+    ``PullManager.request_pull``: a first pull claiming the whole
+    in-flight quota is queued with the others behind it while the
+    manager's lock is held, so when it lands the rest activate together
+    and ``_choose_sources`` picks their sources in one device call.
+    Returns (pulls done, the manager's device batches, every pull ok)."""
+    import threading
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.api import _get_runtime
+    from ray_tpu_torch.runtime.pull_manager import PullPriority
+    pm = cluster.pull_manager
+    src_row = _get_runtime().raylet.row          # where rt.put seals
+    dests = [r for r in sorted(cluster.raylets) if r != src_row]
+    refs = [rt.put(np.full(PULL_OBJECT_F64, i, np.float64))
+            for i in range(n_pulls + 1)]
+    done = threading.Semaphore(0)
+    oks = []
+
+    def landed(ok):
+        oks.append(ok)
+        done.release()
+
+    batches0 = pm.device_batches
+    with pm._cv:                          # activation waits for the queue
+        pm.request_pull(refs[0].id, pm._quota, dests[0], PullPriority.GET,
+                        callback=landed)
+        for i, ref in enumerate(refs[1:]):
+            pm.request_pull(ref.id, PULL_OBJECT_F64 * 8,
+                            dests[i % len(dests)], PullPriority.TASK_ARG,
+                            callback=landed)
+    for _ in refs:
+        if not done.acquire(timeout=120):
+            raise AssertionError("pull batch: a pull did not land")
+    return len(refs), pm.device_batches - batches0, all(oks)
+
+
 def phase_runtime(dev):
     """The runtime on the card through the entry points a user calls:
     ``init`` on the GPU, 7 more nodes, a 10,000-task burst over 4
@@ -1004,7 +1058,9 @@ def phase_runtime(dev):
     the head raylet at 1000 rows (rows == host twin); then shutdown."""
     import ray_tpu_torch as rt
     from ray_tpu_torch.api import _get_runtime
+    from ray_tpu_torch.ops import bundle_kernel as bdk
     from ray_tpu_torch.ops import hybrid_kernel as hk
+    from ray_tpu_torch.ops import pull_kernel as pk
     from ray_tpu_torch.util.placement_group import (placement_group,
                                                     placement_group_table,
                                                     remove_placement_group)
@@ -1041,6 +1097,8 @@ def phase_runtime(dev):
         # --- the main path: counts start at 0 here and are read after ---
         hk.waterfill_scan.launches = 0
         hk.waterfill_scan.localized_launches = 0
+        bdk.schedule_bundle_groups.launches = 0
+        pk.choose_sources.launches = 0
         rounds0 = rounds()
         cpu0, workers_cpu0 = host_cpu(cluster)
         driver_cpu0 = _cpu_s("/proc/self/stat")
@@ -1091,7 +1149,9 @@ def phase_runtime(dev):
                                  f"launches, {misplaced} consumers off "
                                  "their data node")
 
-        # two placement groups pending together, placed in one pass
+        # two placement groups pending together, placed in one pass (the
+        # bundle kernel's count set to 0 just before, read just after)
+        bdk.schedule_bundle_groups.launches = 0
         pg_dev0 = getattr(cluster.pg_manager, "device_batches", 0)
         hog = placement_group([{"CPU": 1}] * 22, strategy="PACK")
         if not hog.wait(timeout_seconds=60):
@@ -1107,11 +1167,24 @@ def phase_runtime(dev):
         p_rows = table[pack.id.hex()]["node_rows"]
         pg_batches = getattr(cluster.pg_manager, "device_batches", 0) - \
             pg_dev0
-        if len(set(s_rows)) != 3 or len(set(p_rows)) != 1 or pg_batches < 1:
+        pg_launches = bdk.schedule_bundle_groups.launches
+        if len(set(s_rows)) != 3 or len(set(p_rows)) != 1 or \
+                pg_batches < 1 or pg_launches < 1:
             raise AssertionError(f"placement groups: spread {s_rows}, pack "
-                                 f"{p_rows}, {pg_batches} device batches")
+                                 f"{p_rows}, {pg_batches} device batches, "
+                                 f"{pg_launches} bundle kernel launches")
         remove_placement_group(spread)
         remove_placement_group(pack)
+
+        # a pull activation batch past pull_device_batch_min (the pull
+        # kernel's count set to 0 just before, read just after)
+        pk.choose_sources.launches = 0
+        n_pulls, pull_batches, pulls_ok = pull_batch(cluster)
+        pull_launches = pk.choose_sources.launches
+        if not pulls_ok or pull_batches < 1 or pull_launches < 1:
+            raise AssertionError(f"pull batch: ok {pulls_ok}, "
+                                 f"{pull_batches} device batches, "
+                                 f"{pull_launches} pull kernel launches")
 
         counter = rt.remote(_Counter).remote()
         calls = rt.get([counter.incr.remote() for _ in range(100)])
@@ -1124,7 +1197,10 @@ def phase_runtime(dev):
             raise AssertionError("actor / put-get / wait returned wrong "
                                  "results")
         launches = {"waterfill_scan": hk.waterfill_scan.launches,
-                    "localized": hk.waterfill_scan.localized_launches}
+                    "localized": hk.waterfill_scan.localized_launches,
+                    "schedule_bundle_groups":
+                        bdk.schedule_bundle_groups.launches,
+                    "choose_sources": pk.choose_sources.launches}
         # --- end of the main path ---
         # the burst's uniform rounds went through the delta beat
         if burst_launches["waterfill_scan"] < 1 or delta_rounds < 1:
@@ -1147,6 +1223,9 @@ def phase_runtime(dev):
               "consumers": RUNTIME_CONSUMERS, "locality_s": locality_s,
               "consumers_on_data_node": RUNTIME_CONSUMERS - misplaced,
               "placement_group_device_batches": pg_batches,
+              "placement_group_kernel_launches": pg_launches,
+              "pulls": n_pulls, "pull_device_batches": pull_batches,
+              "pull_kernel_launches": pull_launches,
               "launches": launches, "raylet_full_width": full,
               "seconds": time.perf_counter() - t_start}
     emit(result)
@@ -1164,6 +1243,17 @@ SERVE_CLIENTS = 32
 SERVE_HTTP_REQUESTS = 400
 SERVE_HTTP_CLIENTS = 8
 SERVE_BURST_TASKS = RUNTIME_TASKS
+# The rollout's SLO guard compares the router's request-latency EWMA after
+# each flip with one reading taken as flipping starts, and rolls back past
+# a factor of it.  Beside the burst, on the host's shared cores, the
+# replicas' latencies are heavy-tailed (the client p99 is 3-6x its p50)
+# and their mean drifts with the burst: at the default alpha of 0.2 (an
+# EWMA of about 5 requests) an unchanged model read 7.1 ms and then
+# 14.9 ms on the H100 host and tripped the default factor of 2, and at
+# alpha 0.02 (about 50 requests) its largest reading was 2.28x its first
+# within one 4.7 s rollout.  The guard stays armed above that drift.
+SERVE_EWMA_ALPHA = 0.02
+SERVE_SLO_FACTOR = 5.0
 # the serve gauges /metrics must report as serve.status()["request_plane"]
 SERVE_GAUGES = {"replicas": "serve_replicas",
                 "queued": "serve_queued_requests",
@@ -1222,8 +1312,8 @@ def phase_serve(dev, runtime_tasks_per_s=None):
     2,000 requests through handles from 32 client threads and 400
     through the HTTP ingress, and AT THE SAME TIME a 10,000-task burst
     over 4 classes that the raylet places through the delta beat; a
-    v1 -> v2 rollout of the deployment in the middle of the traffic.
-    Gates: every response right and from v1 or v2; no request fails
+    v1 -> v2 rollout of the deployment in the middle of the traffic, its
+    SLO guard armed as ``SERVE_SLO_FACTOR`` says.  Gates: every response right and from v1 or v2; no request fails
     (none is shed either: the callers never outnumber the replicas'
     slots); the rollout seals with all 8 replicas flipped; delta rounds
     and water-fill launches within the phase; /metrics reads
@@ -1235,11 +1325,15 @@ def phase_serve(dev, runtime_tasks_per_s=None):
     from ray_tpu_torch import serve, versioning
     from ray_tpu_torch.api import _get_runtime
     from ray_tpu_torch.ops import hybrid_kernel as hk
+    from ray_tpu_torch.serve.deployment import _apps
+    from ray_tpu_torch.serve.router import RequestRouter
 
     t_start = time.perf_counter()
     metrics_port, dash_port = _free_port(), _free_port()
     rt.init(resources={"CPU": 8, "memory": 8}, num_workers=2,
             system_config={"scheduler_device_batch_min": 256,
+                           "serve_latency_ewma_alpha": SERVE_EWMA_ALPHA,
+                           "rollout_slo_factor": SERVE_SLO_FACTOR,
                            "metrics_export_port": metrics_port,
                            "dashboard_port": dash_port})
     try:
@@ -1324,15 +1418,31 @@ def phase_serve(dev, runtime_tasks_per_s=None):
                     http_lat.append(dt)
             client_cpu.append(time.thread_time())
 
+        # the latency EWMA the SLO guard reads, from this process's router
+        router = RequestRouter.for_controller(_apps["default"].controller)
+        ewma_ms = []
+
+        def read_ewma():
+            ewma_ms.append(router.backlog()[2])
+
+        def watch_ewma():
+            while "t_end" not in rollout_out:
+                time.sleep(0.1)
+                read_ewma()
+
         def roll():
             half.wait(timeout=600)
             rollout_out["t"] = time.perf_counter()
+            read_ewma()
+            watch = threading.Thread(target=watch_ewma, name="ewma-watch")
+            watch.start()
             try:
                 rollout_out["summary"] = versioning.rollout(
                     b"v2", artifact_label="v2")
             except Exception as e:          # noqa: BLE001 — a gate
                 rollout_out["error"] = repr(e)
             rollout_out["t_end"] = time.perf_counter()
+            watch.join(10)
 
         burst = {}
 
@@ -1411,7 +1521,8 @@ def phase_serve(dev, runtime_tasks_per_s=None):
                 summary.get("flipped") != SERVE_REPLICAS or \
                 summary.get("replicas") != SERVE_REPLICAS or \
                 rollout_out["t"] >= traffic_end:
-            raise AssertionError(f"serve: rollout {rollout_out}")
+            raise AssertionError(f"serve: rollout {rollout_out}, latency "
+                                 f"EWMA readings {ewma_ms}")
         if after != [["v2", 2 * i + 1] for i in range(SERVE_BATCH)]:
             raise AssertionError(f"serve: after the rollout {after[:4]}")
         if not burst.get("ok"):
@@ -1485,6 +1596,11 @@ def phase_serve(dev, runtime_tasks_per_s=None):
                     ("from", "to", "phase", "flipped", "replicas",
                      "max_flip_downtime_s", "seconds")},
         "rollout_started_after_s": rollout_out["t"] - t0,
+        # the EWMA the SLO guard reads, every 0.1 s while the rollout ran
+        "rollout_latency_ewma": {
+            "alpha": SERVE_EWMA_ALPHA, "slo_factor": SERVE_SLO_FACTOR,
+            "max_over_first": max(ewma_ms) / ewma_ms[0] if ewma_ms[0] else
+            None, "readings_ms": ewma_ms},
         "model_version_gauge": version_gauge,
         "burst_tasks": SERVE_BURST_TASKS, "burst_s": burst["s"],
         "burst_tasks_per_s": SERVE_BURST_TASKS / burst["s"],
@@ -1503,7 +1619,9 @@ def phase_serve(dev, runtime_tasks_per_s=None):
 
 def kernel_launches(fn):
     """CUDA kernels one call of ``fn`` launches (torch.profiler), or None
-    where the trace holds no device events."""
+    where the trace holds no device events (as it often does for a call
+    that launches only a ctypes-loaded kernel: the wrappers' launch
+    counters are the count there)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1518,78 +1636,218 @@ def kernel_launches(fn):
     return n or None
 
 
-def phase_dataplane(dev):
-    """The bundle, pull and broadcast programs on the card (plain
-    PyTorch loops) against their numpy oracles, exact: 1000 nodes x 64
-    placement groups x 8 bundles of every strategy, 4096 pulls over 1000
-    nodes, a 1000-member broadcast tree of fan-out 4."""
-    from ray_tpu_torch.ops import broadcast_kernel as bc
-    from ray_tpu_torch.ops import bundle_kernel as bk
-    from ray_tpu_torch.ops import pull_kernel as pk
-    rng = np.random.default_rng(0)
-    n = 1000
+# the data-plane programs' shapes: the dataplane cell's, the contract's
+# MAX_NODES, and the runtime thresholds' own sizes (pg_device_batch_min
+# groups of 8 bundles; pull_device_batch_min pulls), timed beside the
+# numpy oracles so the thresholds can be set from data
+DP_NODES, DP_GROUPS, DP_BUNDLES, DP_PULLS = 1000, 64, 8, 4096
+DP_LIMIT_NODES = 8192
+DP_THRESHOLD_GROUPS, DP_THRESHOLD_PULLS = 2, 128
+
+
+def dataplane_problem(n=DP_NODES, groups=DP_GROUPS, bundles=DP_BUNDLES,
+                      pulls=DP_PULLS, seed=0):
+    """Seeded inputs of the three programs (at the defaults, the
+    dataplane cell's draws): (N, 8) totals, a quarter of the cells 0,
+    avail below them, 2% of rows masked out; P groups of B bundles (half
+    the cells 0, 85% of slots valid, the four strategies in turn); an
+    (N, N) bandwidth matrix (5% dead links), in-flight KB, R pulls of
+    objects held by 1% of the rows; broadcast members (90%, the root 0
+    among them)."""
+    rng = np.random.default_rng(seed)
     totals = rng.integers(0, 6400, size=(n, 8)).astype(np.int32)
     totals[rng.random(totals.shape) < 0.25] = 0
     avail = (totals * rng.random(totals.shape)).astype(np.int32)
     mask = rng.random(n) > 0.02
-    reqs = rng.integers(0, 800, size=(64, 8, 8)).astype(np.int32)
+    reqs = rng.integers(0, 800, size=(groups, bundles, 8)).astype(np.int32)
     reqs[rng.random(reqs.shape) < 0.5] = 0
-    valid = rng.random((64, 8)) < 0.85
-    strat = np.arange(64) % 4
+    valid = rng.random((groups, bundles)) < 0.85
+    strat = (np.arange(groups) % 4).astype(np.int32)
     bw = rng.integers(0, 50_000, size=(n, n)).astype(np.int32)
     bw[rng.random((n, n)) < 0.05] = 0
     np.fill_diagonal(bw, 0)
     infl = rng.integers(0, 1 << 20, size=n).astype(np.int32)
-    loc = rng.random((4096, n)) < 0.01
-    dest = rng.integers(0, n, size=4096).astype(np.int32)
-    sizes = rng.integers(1, 1 << 20, size=4096).astype(np.int32)
+    loc = rng.random((pulls, n)) < 0.01
+    dest = rng.integers(0, n, size=pulls).astype(np.int32)
+    sizes = rng.integers(1, 1 << 20, size=pulls).astype(np.int32)
     member = rng.random(n) < 0.9
     member[0] = True
-    # (bytes, int32 operations) each program needs for these inputs: every
-    # input read once, every output written once; the operations of the
-    # JAX formulation (per bundle two masked key passes of ~16 ops per
-    # (node, resource); per pull ~6 per node; per attach step ~8 per
-    # (parent, child) pair)
-    r_w, n_b = totals.shape[1], int(valid.sum())
-    work = {"bundles": (2 * n * r_w * 4 + n + reqs.size * 4 + valid.size
-                        + 64 * 8 * 4 + 64 + n * r_w * 4,
-                        n_b * 2 * n * r_w * 16),
-            "pulls": (loc.size + bw.size * 4 + 4096 * 8 + n * 4 + 4096 * 8,
-                      4096 * n * 6),
-            "broadcast": (n + bw.size * 4 + n * 4 + n * 8, n * n * n * 8)}
-    programs = {
-        "bundles": (lambda: bk.schedule_bundle_groups_np(
-            totals, avail, mask, reqs, valid, strat, device=dev),
-            lambda: bk.schedule_bundle_groups_oracle(
-                totals, avail, mask, reqs, valid, strat)),
-        "pulls": (lambda: pk.choose_sources_np(loc, bw, dest, sizes, infl,
-                                               device=dev),
-                  lambda: pk.choose_sources_oracle(loc, bw, dest, sizes,
-                                                   infl)),
-        "broadcast": (lambda: bc.plan_fanout_np(member, bw, 0, 4, infl,
-                                                device=dev),
-                      lambda: bc.plan_fanout_oracle(member, bw, 0, 4, infl)),
-    }
-    out = {}
-    for name, (run, oracle) in programs.items():
-        t0 = time.perf_counter()
-        got = run()                 # numpy out: the call ends in a sync
-        ms = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        want = oracle()
-        oracle_ms = (time.perf_counter() - t0) * 1e3
-        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError(f"dataplane {name}: the card disagrees "
-                                 "with the numpy oracle")
-        bound_ms, bound_by = bound(*work[name], PEAK_I32)
-        out[name] = {"ms": ms, "oracle_ms": oracle_ms,
-                     "launches": kernel_launches(run), "bound_ms": bound_ms,
-                     "bound_by": bound_by, "exact": True}
+    return {"bundles": (totals, avail, mask, reqs, valid, strat),
+            "pulls": (loc, bw, dest, sizes, infl),
+            "broadcast": (member, bw, infl)}
+
+
+def bundle_key_passes(totals, avail, mask, reqs, valid, strat):
+    """The positive-column counts of the key passes that gang placement
+    needs on these inputs, replayed on the numpy oracle: one pass per
+    STRICT_PACK group (its summed demand), and in a soft group one per
+    valid bundle (both argmins read the same keys) up to its first that
+    fails, since a failed group's result is discarded whole."""
+    from ray_tpu_torch.scheduling.bundles import (PlacementStrategy,
+                                                  schedule_bundles)
+    from ray_tpu_torch.scheduling.oracle import ClusterState
+    st = ClusterState(totals.copy(), avail.copy(), mask.copy())
+    passes = []
+    for p in range(valid.shape[0]):
+        breqs = reqs[p, np.flatnonzero(valid[p])]
+        s = PlacementStrategy(int(strat[p]))
+        if s is PlacementStrategy.STRICT_PACK:
+            passes.append(int((breqs.sum(0, dtype=np.int64) > 0).sum()))
+            schedule_bundles(st, breqs, s)
+            continue
+        m = len(breqs)
+        if schedule_bundles(st, breqs, s, commit=False) is None:
+            m = next(j for j in range(1, m + 1) if schedule_bundles(
+                st, breqs[:j], s, commit=False) is None)
+        else:
+            schedule_bundles(st, breqs, s)
+        passes += [int((q > 0).sum()) for q in breqs[:m]]
+    return passes
+
+
+def dataplane_work(name, arrays):
+    """(bytes, int32 operations) the program needs for these inputs:
+    every input read once (of bw, the columns the pulls' destinations
+    name), every output written once; the operations these inputs need
+    (per bundle key pass ~16 per (node, positive column) and ~4 per node
+    for the two minimums, ``bundle_key_passes``; per pull 1 per node to
+    test its holder bit and ~6 per holder for eff and the maximum)."""
+    if name == "bundles":
+        totals, avail, mask, reqs, valid, strat = arrays
+        (n, r_w), (p, b) = totals.shape, valid.shape
+        passes = bundle_key_passes(*arrays)
+        return (2 * n * r_w * 4 + n + reqs.size * 4 + valid.size + p * 4
+                + p * b * 4 + p + n * r_w * 4,
+                sum(n * (16 * c + 4) for c in passes))
+    loc, bw, dest, sizes, infl = arrays
+    r, n = loc.shape
+    return (loc.size + len(np.unique(dest)) * n * 4 + r * 8 + n * 4
+            + r * 8, r * n + int(loc.sum()) * 6)
+
+
+def dataplane_kernel(name, arrays, dev, plain=True):
+    """One program at one shape: the hand-written kernel on device
+    tensors (one call, counted) == its numpy oracle (and == its plain
+    PyTorch version on the card), exact; kernel ms (CUDA events), plain
+    ms, oracle ms (host clock), CUDA kernels a call, bound."""
+    import torch
+
+    from ray_tpu_torch.ops import bundle_kernel as bk
+    from ray_tpu_torch.ops import pull_kernel as pk
+    from ray_tpu_torch.scheduling.contract import threshold_fp
+    if name == "bundles":
+        totals, avail, mask, reqs, valid, strat = arrays
+        t = [torch.tensor(a, device=dev) for a in (totals, avail, mask,
+                                                   reqs, valid, strat)]
+        thr = threshold_fp(None)
+        fn = bk.schedule_bundle_groups
+
+        def kernel():
+            return fn(*t, thr)
+
+        def plain_fn():
+            return bk.schedule_bundle_groups_plain(*t[:4], valid, strat,
+                                                   thr)
+
+        def oracle():
+            return bk.schedule_bundle_groups_oracle(*arrays)
+    else:
+        t = [torch.tensor(a, device=dev) for a in arrays]
+        fn = pk.choose_sources
+
+        def kernel():
+            return fn(*t)
+
+        def plain_fn():
+            return pk.choose_sources_plain(*t)
+
+        def oracle():
+            with np.errstate(over="ignore", divide="ignore"):
+                return pk.choose_sources_oracle(*arrays)
+    fn.launches = 0
+    got = kernel()
+    torch.cuda.synchronize()
+    launches = fn.launches              # before the timed launches
+    if launches != 1:
+        raise AssertionError(f"{name}: {launches} kernel launches in one "
+                             "call")
+    t0 = time.perf_counter()
+    want = oracle()
+    oracle_ms = (time.perf_counter() - t0) * 1e3
+    if not all(np.array_equal(g.cpu().numpy(), w)
+               for g, w in zip(got, want)):
+        raise AssertionError(f"dataplane {name}: the kernel disagrees with "
+                             "the numpy oracle")
+    out = {"kernel_ms": cuda_ms(kernel), "oracle_ms": oracle_ms,
+           "equals_oracle": True, "launches": launches}
+    if plain:
+        pl = plain_fn()
+        if not all(torch.equal(g, w) for g, w in zip(got, pl)):
+            raise AssertionError(f"dataplane {name}: the kernel disagrees "
+                                 "with its plain version on the card")
+        out["plain_ms"] = cuda_ms(plain_fn, reps=1, warmup=0)
+        out["equals_plain"] = True
+        out["kernels_per_call"] = kernel_launches(kernel)
+        out["bound_ms"], out["bound_by"] = bound(
+            *dataplane_work(name, arrays), PEAK_I32)
         if name == "bundles":
-            out[name]["placed_groups"] = int(got[1].sum())
+            out["placed_groups"] = int(got[1].sum())
+    return out
+
+
+def phase_dataplane(dev):
+    """The bundle and pull programs' kernels (``csrc/bundle.cu``,
+    ``csrc/pull.cu``) on the card against their plain versions there and
+    their numpy oracles, exact, at 1000 nodes x 64 placement groups x 8
+    bundles of every strategy and 4096 pulls over 1000 nodes, and again
+    at 8192 nodes; kernel and oracle ms at the runtime thresholds' sizes;
+    the broadcast program (plain PyTorch) against its oracle at 1000
+    members, fan-out 4."""
+    from ray_tpu_torch.ops import broadcast_kernel as bc
+    today = dataplane_problem()
+    limit = dataplane_problem(n=DP_LIMIT_NODES, seed=1)
+    small = dataplane_problem(groups=DP_THRESHOLD_GROUPS,
+                              pulls=DP_THRESHOLD_PULLS, seed=2)
+    out = {}
+    for name in ("bundles", "pulls"):
+        out[name] = dataplane_kernel(name, today[name], dev)
+        out[f"{name}_{DP_LIMIT_NODES}"] = dataplane_kernel(
+            name, limit[name], dev)
+    thresholds = {
+        f"bundles {DP_THRESHOLD_GROUPS}x{DP_BUNDLES}": dataplane_kernel(
+            "bundles", small["bundles"], dev, plain=False),
+        f"pulls {DP_THRESHOLD_PULLS}": dataplane_kernel(
+            "pulls", small["pulls"], dev, plain=False)}
+    del limit
+    # broadcast stays plain PyTorch (ROADMAP B.2: the next slice)
+    member, bw, infl = today["broadcast"]
+    n = bw.shape[0]
+
+    def run():
+        return bc.plan_fanout_np(member, bw, 0, 4, infl, device=dev)
+
+    t0 = time.perf_counter()
+    got = run()                     # numpy out: the call ends in a sync
+    ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = bc.plan_fanout_oracle(member, bw, 0, 4, infl)
+    oracle_ms = (time.perf_counter() - t0) * 1e3
+    if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("dataplane broadcast: the card disagrees with "
+                             "the numpy oracle")
+    bound_ms, bound_by = bound(n + bw.size * 4 + n * 4 + n * 8,
+                               n * n * n * 8, PEAK_I32)
+    out["broadcast"] = {"ms": ms, "oracle_ms": oracle_ms,
+                        "launches": kernel_launches(run),
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "exact": True}
     result = {"phase": "dataplane", "problems": {
-        "bundles": [n, 64, 8], "pulls": [4096, n], "broadcast": [n, 4]},
-        **out}
+        "bundles": [DP_NODES, DP_GROUPS, DP_BUNDLES],
+        f"bundles_{DP_LIMIT_NODES}": [DP_LIMIT_NODES, DP_GROUPS,
+                                      DP_BUNDLES],
+        "pulls": [DP_PULLS, DP_NODES],
+        f"pulls_{DP_LIMIT_NODES}": [DP_PULLS, DP_LIMIT_NODES],
+        "broadcast": [n, 4]}, **out, "thresholds": thresholds}
     emit(result)
     return result
 
@@ -1976,15 +2234,56 @@ def topk_offsets(dev):
     return out
 
 
-def phase_topk(dev):
-    """Top-k rounds at the beat width (1000 nodes x 8 resources x 64
-    classes x 1,000,000 tasks): the card's result equals the CPU run bit
-    for bit (the draws are made on the host), and holds the top-k
-    properties; ms, kernel launches, bound.  Then a runtime burst with
-    ``scheduler_top_k_fraction`` = 0.5 places through the raylet's top-k
-    rounds."""
+def topk_kernel_case(arrays, dev, k_abs=1, k_frac=0.25, seed=7, rnd=1):
+    """``schedule_grouped_topk`` (the kernel, one counted launch) on device
+    tensors == ``schedule_grouped_topk_plain`` on the card, bit for bit;
+    kernel ms, plain ms, CUDA kernels a call, bound."""
+    from fractions import Fraction
+
     import torch
 
+    from ray_tpu_torch.ops import locality_kernel as lk
+    from ray_tpu_torch.scheduling.contract import threshold_fp
+    totals, avail, mask, reqs, counts, *masks = arrays
+    g = reqs.shape[0]
+    frac = Fraction(k_frac).limit_denominator(1 << 16)
+    t = [torch.tensor(a, device=dev) for a in (totals, avail, mask, reqs,
+                                               counts)]
+    args = (*t, torch.tensor(masks[0], device=dev) if masks else None,
+            threshold_fp(None), k_abs, frac.numerator, frac.denominator,
+            torch.tensor(lk.topk_draws(seed, rnd, g), device=dev))
+    lk.schedule_grouped_topk.launches = 0
+    got = lk.schedule_grouped_topk(*args)
+    torch.cuda.synchronize()
+    launches = lk.schedule_grouped_topk.launches   # before the timed ones
+    if launches != 1:
+        raise AssertionError("top-k: the call did not launch the kernel "
+                             "once")
+    want = lk.schedule_grouped_topk_plain(*args)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("top-k: the kernel disagrees with its plain "
+                             "version on the card")
+    bound_ms, bound_by = bound(*topk_work(totals.shape[0], reqs),
+                               PEAK_I32)
+    return {"kernel_equals_plain": True, "launches": launches,
+            "kernel_ms": cuda_ms(lambda: lk.schedule_grouped_topk(*args)),
+            "plain_ms": cuda_ms(lambda: lk.schedule_grouped_topk_plain(
+                *args), reps=2, warmup=0),
+            "kernels_per_call": kernel_launches(
+                lambda: lk.schedule_grouped_topk(*args)),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_topk(dev):
+    """Top-k rounds: the kernel (``csrc/topk.cu``) against its plain
+    version on the card, bit for bit, at the beat width (1000 nodes x 8
+    resources x 64 classes x 1,000,000 tasks) and at the contract's limit
+    (8192 x 16 x 128, per-class masks, negative avail); the card's
+    result equals the CPU run bit for bit (the draws are made on the
+    host) and holds the top-k properties; the rotation offsets equal the
+    JAX function's; kernel, plain-on-card and CPU ms, launches, bound.
+    Then a runtime burst with ``scheduler_top_k_fraction`` = 0.5 places
+    through the raylet's top-k rounds, which launch the kernel."""
     import ray_tpu_torch as rt
     from ray_tpu_torch.api import _get_runtime
     from ray_tpu_torch.ops import locality_kernel as lk
@@ -1992,10 +2291,18 @@ def phase_topk(dev):
     totals, avail, mask, reqs, counts = build_problem(seed=3)
     k_abs, k_frac = 1, 0.25
     kw = dict(k_abs=k_abs, k_frac=k_frac)
+    cases = {
+        "beat 1000x8x64": topk_kernel_case(
+            (totals, avail, mask, reqs, counts), dev, **kw),
+        "limit 8192x16x128": topk_kernel_case(limit_problem(), dev, **kw)}
     got = lk.schedule_grouped_topk_np(totals, avail, mask, reqs, counts, 7,
                                       1, device=dev, **kw)
     want = lk.schedule_grouped_topk_np(totals, avail, mask, reqs, counts,
                                        7, 1, device="cpu", **kw)
+    t0 = time.perf_counter()
+    lk.schedule_grouped_topk_np(totals, avail, mask, reqs, counts, 7, 1,
+                                device="cpu", **kw)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
     if not all(np.array_equal(a, b) for a, b in zip(got, want)):
         raise AssertionError("top-k: the card disagrees with the CPU")
     jax_offsets = [row[-1] for row in TOPK_JAX_OFFSETS]
@@ -2004,17 +2311,8 @@ def phase_topk(dev):
         raise AssertionError(f"top-k offsets: card {card_offsets}, cpu "
                              f"{cpu_offsets}, JAX {jax_offsets}")
     topk_check(totals, avail, mask, reqs, counts, *got, **kw)
-    run = (lambda: lk.schedule_grouped_topk_np(
-        totals, avail, mask, reqs, counts, 7, 1, device=dev, **kw))
-    ms = cuda_ms(run, reps=5, warmup=1)
-    t0 = time.perf_counter()
-    lk.schedule_grouped_topk_np(totals, avail, mask, reqs, counts, 7, 1,
-                                device="cpu", **kw)
-    cpu_ms = (time.perf_counter() - t0) * 1e3
-    launches = kernel_launches(run)
     n, r = totals.shape
     g = reqs.shape[0]
-    bound_ms, bound_by = bound(*topk_work(n, r, g), PEAK_I32)
 
     # --- the main path: a burst through init/remote/get with top-k on ---
     rt.init(resources={"CPU": 8, "memory": 8}, num_workers=2,
@@ -2027,23 +2325,30 @@ def phase_topk(dev):
         raylets = list(cluster.raylets.values())
         before = sum(x.topk_rounds for x in raylets)
         noop = rt.remote(_noop)
+        lk.schedule_grouped_topk.launches = 0
         t0 = time.perf_counter()
         res = rt.get([noop.remote(i) for i in range(2000)], timeout=300)
         burst_s = time.perf_counter() - t0
+        burst_launches = lk.schedule_grouped_topk.launches
         topk_rounds = sum(x.topk_rounds for x in raylets) - before
         # --- end of the main path ---
-        if res != list(range(2000)) or topk_rounds < 1:
-            raise AssertionError(f"top-k burst: {topk_rounds} top-k rounds")
+        if res != list(range(2000)) or topk_rounds < 1 or \
+                burst_launches < 1:
+            raise AssertionError(f"top-k burst: {topk_rounds} top-k rounds, "
+                                 f"{burst_launches} kernel launches")
     finally:
         rt.shutdown()
+    beat = cases["beat 1000x8x64"]
     result = {"phase": "topk", "entry": "schedule_grouped_topk_np",
               "problem": [n, r, g, int(counts.sum())], "k_abs": k_abs,
               "k_frac": k_frac, "card_equals_cpu": True,
               "offsets_equal_jax": len(jax_offsets),
-              "properties_hold": True, "ms": ms, "cpu_ms": cpu_ms,
-              "launches": launches, "bound_ms": bound_ms,
-              "bound_by": bound_by, "burst_tasks": 2000,
-              "burst_s": burst_s, "topk_rounds": topk_rounds}
+              "properties_hold": True, "cases": cases,
+              "ms": beat["kernel_ms"], "plain_ms": beat["plain_ms"],
+              "cpu_ms": cpu_ms, "launches": beat["launches"],
+              "bound_ms": beat["bound_ms"], "bound_by": beat["bound_by"],
+              "burst_tasks": 2000, "burst_s": burst_s,
+              "topk_rounds": topk_rounds, "burst_launches": burst_launches}
     emit(result)
     return result
 
@@ -3532,7 +3837,7 @@ def shard_wrappers(dev, ranks):
         "schedule_grouped_localized_sharded_np": scan_work(
             reqs, ltotals.shape[0], prefs=True),
         "schedule_grouped_topk_sharded_np": topk_work(
-            *ttotals.shape, treqs.shape[0])}
+            ttotals.shape[0], treqs)}
     cases = {
         "schedule_grouped_sharded_np": (
             lambda: hk.schedule_grouped_np(totals, avail, mask, reqs,
@@ -3565,9 +3870,11 @@ def shard_wrappers(dev, ranks):
         # the sharded call: counts set to 0 just before, read just after
         hk.waterfill_scan.launches = hk.waterfill_scan.localized_launches = 0
         bk.binpack_launch_loop.launches = 0
+        lk.schedule_grouped_topk.launches = 0
         got = sharded()
         wf = hk.waterfill_scan.launches + hk.waterfill_scan.localized_launches
         bp = bk.binpack_launch_loop.launches
+        tk = lk.schedule_grouped_topk.launches
         if len(got) != len(want) or \
                 not all(np.array_equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"{name} on {s} ranks disagrees with the "
@@ -3588,7 +3895,8 @@ def shard_wrappers(dev, ranks):
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "kernels_per_call": kernel_launches(sharded),
                      "waterfill_scan_launches": wf,
-                     "binpack_launch_loop_launches": bp}
+                     "binpack_launch_loop_launches": bp,
+                     "schedule_grouped_topk_launches": tk}
     return out
 
 
@@ -3730,6 +4038,9 @@ def phase_shard(dev, smi):
               "binpack_launch_loop_launches": sum(
                   w["binpack_launch_loop_launches"]
                   for w in wrappers.values()),
+              "schedule_grouped_topk_launches": sum(
+                  w["schedule_grouped_topk_launches"]
+                  for w in wrappers.values()),
               "seconds": time.perf_counter() - t_start}
     emit(result)
     return result
@@ -3760,9 +4071,9 @@ def main() -> int:
     loc = timed("locality", phase_locality, dev)
     run = timed("runtime", phase_runtime, dev)
     srv = timed("serve", phase_serve, dev, run["tasks_per_s"])
-    timed("dataplane", phase_dataplane, dev)
+    dp = timed("dataplane", phase_dataplane, dev)
     asc = timed("autoscaler", phase_autoscaler, dev)
-    timed("topk", phase_topk, dev)
+    tk = timed("topk", phase_topk, dev)
     dmn = timed("daemon", phase_daemon, dev)
     fl = timed("flash_attention", phase_flash, dev)
     timed("data", phase_data, dev)
@@ -3825,6 +4136,47 @@ def main() -> int:
          "ns_per_chain_step": asc["ns_per_chain_step"], "checked": True,
          # and against the plain version on the main path's own tensors
          "checked_on_main_path": asc["main_path"]["loop_vs_plain"]},
+        {"name": "schedule_grouped_topk", "route": "cuda",
+         "source": "ray_tpu_torch/ops/csrc/topk.cu",
+         "replaces": "ray_tpu/ops/locality_kernel.py:79 "
+                     "(schedule_grouped_topk lax.scan :131)",
+         # launches on the top-k burst's path (the raylet's top-k rounds)
+         "launches": tk["burst_launches"],
+         "launches_by_path": {"topk_burst": tk["burst_launches"],
+                              "shard": shd["schedule_grouped_topk_launches"]},
+         "max_abs_err": 0, "ms": tk["ms"], "plain_ms": tk["plain_ms"],
+         "cpu_ms": tk["cpu_ms"], "bound_ms": tk["bound_ms"],
+         "bound_by": tk["bound_by"], "library_ms": None,
+         "limit_ms": tk["cases"]["limit 8192x16x128"]["kernel_ms"],
+         "checked": True},
+        {"name": "schedule_bundle_groups", "route": "cuda",
+         "source": "ray_tpu_torch/ops/csrc/bundle.cu",
+         "replaces": "ray_tpu/ops/bundle_kernel.py:89 "
+                     "(schedule_bundle_groups lax.scan :117; _place_soft "
+                     ":47, _place_strict_pack :77)",
+         # launches on the runtime path's placement-group batch
+         "launches": run["launches"]["schedule_bundle_groups"],
+         "launches_by_path": {
+             "runtime": run["launches"]["schedule_bundle_groups"]},
+         "max_abs_err": 0, "ms": dp["bundles"]["kernel_ms"],
+         "plain_ms": dp["bundles"]["plain_ms"],
+         "oracle_ms": dp["bundles"]["oracle_ms"],
+         "bound_ms": dp["bundles"]["bound_ms"],
+         "bound_by": dp["bundles"]["bound_by"], "library_ms": None,
+         "checked": True},
+        {"name": "choose_sources", "route": "cuda",
+         "source": "ray_tpu_torch/ops/csrc/pull.cu",
+         "replaces": "ray_tpu/ops/pull_kernel.py:45 "
+                     "(choose_sources lax.fori_loop :79)",
+         # launches on the runtime path's pull activation batch
+         "launches": run["launches"]["choose_sources"],
+         "launches_by_path": {"runtime": run["launches"]["choose_sources"]},
+         "max_abs_err": 0, "ms": dp["pulls"]["kernel_ms"],
+         "plain_ms": dp["pulls"]["plain_ms"],
+         "oracle_ms": dp["pulls"]["oracle_ms"],
+         "bound_ms": dp["pulls"]["bound_ms"],
+         "bound_by": dp["pulls"]["bound_by"], "library_ms": None,
+         "checked": True},
         {"name": "flash_attention", "route": "cuda",
          "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
          "replaces": "ray_tpu/ops/flash_attention.py:25",

@@ -8,7 +8,8 @@ wrapper raises when that is not 0 (each library also exports
 ``rt_cuda_error_string`` to name the error).
 
 Libraries go to ``build/ray_tpu_torch/`` at the root of the checkout,
-named by a hash of the source and the flags, and are built at first use
+named by a hash of the source, the ``csrc/*.cuh`` headers it includes
+and the flags, and are built at first use
 — never at import, so the CPU tests (no ``nvcc``) import every module.
 ``build()`` starts one ``nvcc`` per missing source, all at once, and
 waits for all of them.
@@ -19,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -32,7 +34,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = {"waterfill": "waterfill.cu",
            "flash_attention": "flash_attention.cu",
-           "binpack": "binpack.cu"}
+           "binpack": "binpack.cu",
+           "topk": "topk.cu",
+           "bundle": "bundle.cu",
+           "pull": "pull.cu"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +52,14 @@ _SIGNATURES = {
     "binpack": ("rt_binpack_launch_loop",
                 [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                  ctypes.c_longlong, _P]),
+    "topk": ("rt_topk_schedule",
+             [_P, _P, _P, _P, _P, _P, _P, _P,
+              _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
+    "bundle": ("rt_bundle_schedule",
+               [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                _P, _P, _P, _P]),
+    "pull": ("rt_pull_choose",
+             [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P]),
 }
 # further C entry points of a library: {name: {function: argtypes}}
 _EXTRA = {"binpack": {"rt_binpack_plan": [_I, _I, _I, _P]}}
@@ -65,10 +78,29 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def _source_files(path: Path, seen: list[Path]) -> list[Path]:
+    """``path`` and every header it includes with quotes, recursively,
+    each once, in the order met."""
+    if path in seen or not path.exists():
+        return seen
+    seen.append(path)
+    for inc in _INCLUDE.findall(path.read_bytes()):
+        _source_files(path.parent / inc.decode(), seen)
+    return seen
+
+
 def lib_path(name: str) -> Path:
-    src = (_CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """The library of kernel ``name``: named by a hash of its source, the
+    headers it includes (an edited header must not load a stale build)
+    and the flags."""
+    digest = hashlib.sha256()
+    for path in _source_files(_CSRC / SOURCES[name], []):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> dict[str, float]:

@@ -7,12 +7,16 @@ resources, are placed in order, carrying ``avail``; each group is atomic
 (its bundles apply only if every valid bundle found an available node).
 
 The JAX program is two nested ``lax.scan``s that evaluate every strategy
-for every group and select.  Eagerly each tensor op is a launch, so the
-strategies and the validity mask are read on the host once and each
-group runs only its own strategy's ops over its valid bundles (an invalid
-bundle is a no-op in the scan: it places nothing and cannot fail the
-group).  The arithmetic is the JAX program's, bit for bit; there is no
-kernel yet (PERF.md has the times).
+for every group and select.  On a card they are the hand-written CUDA
+kernel ``csrc/bundle.cu``: one launch of one CTA steps the groups and
+their bundles in order, reads the validity mask and the strategies on
+the device, and undoes a failed group from a log of its placed rows.
+Its plain PyTorch version ``schedule_bundle_groups_plain`` (CPU tensors
+take it) reads the strategies and the validity mask on the host once
+and runs each group's own strategy's ops over its valid bundles (an
+invalid bundle is a no-op in the scan: it places nothing and cannot fail
+the group); eagerly that is ~55 launches a bundle.  Both are the JAX
+program's arithmetic, bit for bit.
 
 Width note: a STRICT_PACK group sums its bundle demands; the sum is
 clamped to ``MAX_TOTAL_CU + 1``, which is infeasible on every node and
@@ -90,15 +94,70 @@ def schedule_bundle_groups(totals, avail, node_mask, bundle_reqs,
     """Atomically place P padded placement groups.
 
     totals/avail: (N, R) int32 cu tensors.  node_mask: (N,) bool.
-    bundle_reqs: (P, B, R) int32.  bundle_valid: (P, B) bool (read on
-    the host).  strategies: (P,) PlacementStrategy codes (host ints or a
-    tensor).  thr_fp: int.
+    bundle_reqs: (P, B, R) int32.  bundle_valid: (P, B) bool.
+    strategies: (P,) PlacementStrategy codes (host ints or a tensor).
+    thr_fp: int.
 
     Returns (rows (P, B) int32 node rows, -1 for padded/failed bundles;
     ok (P,) bool per-group success; new_avail (N, R)).  Groups run in
     index order; a failed group leaves ``avail`` untouched.  Bit-identical
     to ``bundles.schedule_bundles`` applied sequentially and to the JAX
-    program."""
+    program.
+
+    CPU tensors take ``schedule_bundle_groups_plain``; CUDA tensors launch
+    the hand-written kernel (``csrc/bundle.cu``; the mask and strategies
+    are copied to the card when given on the host) or raise, and count
+    the launch in ``schedule_bundle_groups.launches``."""
+    if totals.device.type == "cpu":
+        return schedule_bundle_groups_plain(totals, avail, node_mask,
+                                            bundle_reqs, bundle_valid,
+                                            strategies, thr_fp)
+    if totals.device.type != "cuda":
+        raise ValueError(f"schedule_bundle_groups: unsupported device "
+                         f"{totals.device}")
+    from . import _build
+
+    dev = totals.device
+    n, r = totals.shape
+    p_n, b_n = bundle_reqs.shape[:2]
+    valid = torch.as_tensor(bundle_valid, dtype=torch.bool,
+                            device=dev).reshape(p_n, b_n).contiguous()
+    strat = torch.as_tensor(strategies, dtype=_I32,
+                            device=dev).reshape(p_n).contiguous()
+    for name, t, dtype, shape in (
+            ("totals", totals, _I32, (n, r)),
+            ("avail", avail, _I32, (n, r)),
+            ("node_mask", node_mask, torch.bool, (n,)),
+            ("bundle_reqs", bundle_reqs, _I32, (p_n, b_n, r))):
+        if t.device != dev or t.dtype != dtype or \
+                tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"schedule_bundle_groups: {name} must be a contiguous "
+                f"{dtype} tensor of shape {shape} on {dev}; got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if n < 1 or r < 1:
+        raise ValueError(f"schedule_bundle_groups: empty shape N={n} R={r}")
+    rows = torch.empty((p_n, b_n), dtype=_I32, device=dev)
+    ok = torch.empty(p_n, dtype=torch.bool, device=dev)
+    new_avail = torch.empty_like(avail)
+    with torch.cuda.device(dev):
+        err = _build.load("bundle")(
+            totals.data_ptr(), avail.data_ptr(), node_mask.data_ptr(),
+            bundle_reqs.data_ptr(), valid.data_ptr(), strat.data_ptr(),
+            n, r, p_n, b_n, int(thr_fp), rows.data_ptr(), ok.data_ptr(),
+            new_avail.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "bundle")
+    schedule_bundle_groups.launches += 1
+    return rows, ok, new_avail
+
+
+schedule_bundle_groups.launches = 0
+
+
+def schedule_bundle_groups_plain(totals, avail, node_mask, bundle_reqs,
+                                 bundle_valid, strategies, thr_fp):
+    """The plain PyTorch version of ``schedule_bundle_groups``, on either
+    device; ``bundle_valid`` and ``strategies`` are read on the host."""
     dev = totals.device
     p_n, b_n = bundle_reqs.shape[:2]
     strat = torch.as_tensor(strategies).reshape(-1).tolist()

@@ -22,9 +22,13 @@ CPU tensors take it.
 ``schedule_grouped_topk`` is the contention-spread mode
 (``scheduler_top_k_fraction`` > 0): each class's tasks spread EVENLY over
 its k best-keyed feasible nodes, the remainder rotated by one draw per
-(seed, round, group).  Plain PyTorch: a host loop over the classes of a
-few tensor ops each (keys, a stable argsort, the even split, the cap at
-availability), no host sync inside.  The JAX function draws its rotation
+(seed, round, group).  The class loop (a ``lax.scan`` in the JAX
+package) is the hand-written CUDA kernel ``csrc/topk.cu``, one launch of
+one CTA: eagerly it was ~90 launches a class.  Its plain PyTorch version
+``schedule_grouped_topk_plain`` is a host loop over the classes of a few
+tensor ops each (keys, a stable argsort, the even split, the cap at
+availability), no host sync inside; CPU tensors take it.  The JAX
+function draws its rotation
 as ``randint(fold_in(fold_in(PRNGKey(seed), round), g), (), 0, k)``;
 ``jax.random`` is threefry2x32, a pure uint32 function, so the host
 computes the same bits in numpy (``topk_draws``: randint's two words per
@@ -42,6 +46,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..scheduling.contract import MAX_NODES
 from .hybrid_kernel import (_BIG, _I32, _INF_KEY, _floordiv, _keys_one_req,
                             waterfill_scan)
 
@@ -158,7 +163,72 @@ def schedule_grouped_topk(totals, avail, node_mask, group_reqs,
     ``topk_draws``);
     consuming placements are capped by per-node availability (tasks
     beyond capacity queue without consuming).  Returns (counts (G, N+1),
-    new_avail) on the inputs' device; plain PyTorch on either device."""
+    new_avail) on the inputs' device.
+
+    CPU tensors take ``schedule_grouped_topk_plain``; CUDA tensors launch
+    the hand-written kernel (``csrc/topk.cu``, N <= MAX_NODES) or raise,
+    and count the launch in ``schedule_grouped_topk.launches``."""
+    if totals.device.type == "cpu":
+        return schedule_grouped_topk_plain(
+            totals, avail, node_mask, group_reqs, group_counts, group_masks,
+            thr_fp, k_abs, k_frac_num, k_frac_den, draws, extra_mask)
+    if totals.device.type != "cuda":
+        raise ValueError(f"schedule_grouped_topk: unsupported device "
+                         f"{totals.device}")
+    from . import _build
+
+    n, r = totals.shape
+    g = group_reqs.shape[0]
+    for name, t, dtype, shape in (
+            ("totals", totals, _I32, (n, r)),
+            ("avail", avail, _I32, (n, r)),
+            ("node_mask", node_mask, torch.bool, (n,)),
+            ("group_reqs", group_reqs, _I32, (g, r)),
+            ("group_counts", group_counts, _I32, (g,)),
+            ("group_masks", group_masks, torch.bool, (g, n)),
+            ("draws", draws, torch.int64, (g, 2)),
+            ("extra_mask", extra_mask, torch.bool, (n,))):
+        if t is None and name in ("group_masks", "extra_mask"):
+            continue
+        if t.device != totals.device or t.dtype != dtype or \
+                tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"schedule_grouped_topk: {name} must be a contiguous "
+                f"{dtype} tensor of shape {shape} on {totals.device}; got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if n > MAX_NODES or r < 1:
+        raise ValueError(f"schedule_grouped_topk: N={n} R={r} (the kernel "
+                         f"takes 1 <= R and N <= {MAX_NODES})")
+    if int(k_frac_den) < 1:
+        raise ValueError("schedule_grouped_topk: k_frac_den must be >= 1")
+    counts = torch.empty((g, n + 1), dtype=_I32, device=totals.device)
+    new_avail = torch.empty_like(avail)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(totals.device):
+        err = _build.load("topk")(
+            ptr(totals), ptr(avail), ptr(node_mask), ptr(extra_mask),
+            ptr(group_reqs), ptr(group_counts), ptr(group_masks),
+            ptr(draws), n, r, g, int(thr_fp), int(k_abs), int(k_frac_num),
+            int(k_frac_den), ptr(counts), ptr(new_avail),
+            torch.cuda.current_stream(totals.device).cuda_stream)
+    _build.check(err, "topk")
+    schedule_grouped_topk.launches += 1
+    return counts, new_avail
+
+
+schedule_grouped_topk.launches = 0
+
+
+def schedule_grouped_topk_plain(totals, avail, node_mask, group_reqs,
+                                group_counts, group_masks, thr_fp, k_abs,
+                                k_frac_num, k_frac_den, draws,
+                                extra_mask=None):
+    """The plain PyTorch version of ``schedule_grouped_topk``, on either
+    device: the class loop with the JAX program's arithmetic, ~90 small
+    launches a class on a card."""
     if extra_mask is not None:
         node_mask = node_mask & extra_mask
     n, dev = totals.shape[0], totals.device

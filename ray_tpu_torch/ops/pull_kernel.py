@@ -17,7 +17,19 @@ in the JAX package, a Python loop over tensor ops here, with no host
 sync inside): two pulls of one activation round spread across replicas
 instead of piling onto the same source.  All arithmetic is int32 (sizes
 in KB, bandwidth in MB/s, cost in ~ms), bit-identical to the numpy
-oracle below.  There is no kernel yet; PERF.md has the loop's times.
+oracle below.
+
+On a card the loop is the hand-written CUDA kernel ``csrc/pull.cu``: one
+cooperative launch whose CTAs gather every request's bandwidth column,
+then one CTA runs the chain with ``infl`` in registers.  Eagerly it was
+~23 launches a request.  The plain PyTorch version
+``choose_sources_plain`` keeps the loop; CPU tensors take it.
+
+Where ``infl`` has wrapped below zero the divisor ``1 + infl // UNIT``
+can be 0 or negative.  The JAX program's eff is then 1 (``raw // d`` is
+at most -1, and XLA's quotient by 0 is negative too), and so is the
+port's: the plain version divides by a divisor clamped to 1 and selects
+1 there, since torch raises on an integer division by zero.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..scheduling.contract import MAX_NODES
 
 _NO_SOURCE_COST = np.int32(2**31 - 1)
 # in-flight derating unit: one "stream equivalent" per 32 MB already
@@ -48,7 +61,54 @@ def choose_sources(loc, bw, dest, sizes_kb, inflight_kb):
     Returns (src (R,) int32, cost (R,) int32): ``src = -1`` when no node
     holds the object; cost ~ transfer milliseconds (KB // eff-MB/s), used
     for activation ordering.  Deterministic: ties break to the lowest row.
+
+    CPU tensors take ``choose_sources_plain``; CUDA tensors launch the
+    hand-written kernel (``csrc/pull.cu``, 1 <= N <= MAX_NODES, with an
+    (R, N) int32 scratch for the gathered columns) or raise, and count
+    the launch in ``choose_sources.launches``.
     """
+    if bw.device.type == "cpu":
+        return choose_sources_plain(loc, bw, dest, sizes_kb, inflight_kb)
+    if bw.device.type != "cuda":
+        raise ValueError(f"choose_sources: unsupported device {bw.device}")
+    from . import _build
+
+    r, n = loc.shape
+    dev = bw.device
+    for name, t, dtype, shape in (("loc", loc, torch.bool, (r, n)),
+                                  ("bw", bw, _I32, (n, n)),
+                                  ("dest", dest, _I32, (r,)),
+                                  ("sizes_kb", sizes_kb, _I32, (r,)),
+                                  ("inflight_kb", inflight_kb, _I32, (n,))):
+        if t.device != dev or t.dtype != dtype or \
+                tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"choose_sources: {name} must be a contiguous {dtype} "
+                f"tensor of shape {shape} on {dev}; got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    if not 1 <= n <= MAX_NODES:
+        raise ValueError(f"choose_sources: N={n} (the kernel takes 1 <= N "
+                         f"<= {MAX_NODES})")
+    gathered = torch.empty((max(r, 1), n), dtype=_I32, device=dev)
+    src = torch.empty(r, dtype=_I32, device=dev)
+    cost = torch.empty(r, dtype=_I32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.load("pull")(
+            loc.data_ptr(), bw.data_ptr(), dest.data_ptr(),
+            sizes_kb.data_ptr(), inflight_kb.data_ptr(), r, n,
+            gathered.data_ptr(), src.data_ptr(), cost.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "pull")
+    choose_sources.launches += 1
+    return src, cost
+
+
+choose_sources.launches = 0
+
+
+def choose_sources_plain(loc, bw, dest, sizes_kb, inflight_kb):
+    """The plain PyTorch version of ``choose_sources``, on either device:
+    the request loop with the JAX program's arithmetic."""
     r = loc.shape[0]
     dev = bw.device
     bw_to_dest = bw[:, dest.long()].T.contiguous()        # (R, N)
@@ -57,9 +117,11 @@ def choose_sources(loc, bw, dest, sizes_kb, inflight_kb):
     cost = torch.full((r,), int(_NO_SOURCE_COST), dtype=_I32, device=dev)
     for i in range(r):
         raw = bw_to_dest[i]
+        div = 1 + infl // int(_INFLIGHT_UNIT_KB)
         eff = torch.where(
             loc[i] & (raw > 0),
-            torch.clamp_min(raw // (1 + infl // int(_INFLIGHT_UNIT_KB)), 1),
+            torch.where(div > 0, torch.clamp_min(raw // div.clamp_min(1), 1),
+                        1),
             0).to(_I32)
         s = torch.argmax(eff).reshape(1)
         best = eff.gather(0, s)[0]

@@ -507,6 +507,12 @@ class HeadNode:
         if bp is not None:
             launches["binpack_launch_loop"] = \
                 bp.binpack_launch_loop.launches
+        for module, fn in (("locality_kernel", "schedule_grouped_topk"),
+                           ("bundle_kernel", "schedule_bundle_groups"),
+                           ("pull_kernel", "choose_sources")):
+            mod = sys.modules.get(f"ray_tpu_torch.ops.{module}")
+            if mod is not None:
+                launches[fn] = getattr(mod, fn).launches
         asc = cluster.autoscaler
         return {"device": str(cluster.scheduler_device), **rounds,
                 "launches": launches,

@@ -7,13 +7,22 @@ Each test needs a GPU and skips without one; on the GPU machine run
 The kernels are held against their plain PyTorch versions (and the
 scheduler against the JAX reference on the CPU) at small shapes:
 ``waterfill_scan`` bit for bit, ``flash_attention`` within the stated
-tolerances.  ``chip_smoke.py`` repeats this at the main paths' shapes."""
+tolerances.  The top-k, bundle and pull kernels are also held to the JAX
+functions, bit for bit, at every shape and at the edge problems their
+plain versions are pinned to in ``test_torch_topk.py`` and
+``test_torch_dataplane.py``.  ``chip_smoke.py`` repeats this at the main
+paths' shapes."""
 
 import numpy as np
 import pytest
 import torch
 
 from ray_tpu_torch.common.config import Config as PortConfig
+# importing test_torch_topk also switches JAX to its partitionable
+# threefry, whose draws the port's top-k reproduces
+from test_torch_dataplane import (BUNDLE_EDGES, PULL_EDGES, _bundle_edge,
+                                  _pull_edge)
+from test_torch_topk import TOPK_EDGES
 
 pytestmark = pytest.mark.cuda
 
@@ -762,6 +771,212 @@ def test_dataplane_programs_on_card_equal_their_oracles():
     for a, b in zip(bc.plan_fanout_np(member, bw, 3, 4, infl),
                     bc.plan_fanout_oracle(member, bw, 3, 4, infl)):
         np.testing.assert_array_equal(a, b)
+
+
+# -- the top-k, bundle and pull kernels ----------------------------------------
+
+def _topk_args(seed, n, r, g, dev, masks):
+    from fractions import Fraction
+
+    from ray_tpu_torch.ops import locality_kernel as lk
+    totals, avail, mask, reqs, counts, gm = _problem(seed, n, r, g)
+    extra = np.random.default_rng(seed).random(n) > 0.05
+    frac = Fraction(0.3).limit_denominator(1 << 16)
+    arrays = (totals, avail, mask, reqs, counts, gm if masks else None)
+    t = [None if a is None else torch.as_tensor(a, device=dev)
+         for a in arrays]
+    return (*t, SCALE // 2, 2, frac.numerator, frac.denominator,
+            torch.as_tensor(lk.topk_draws(seed, 9, g), device=dev),
+            torch.as_tensor(extra, device=dev) if masks else None)
+
+
+@pytest.mark.parametrize("n,r,g", [(16, 3, 4), (77, 6, 9), (1000, 8, 64),
+                                   (1025, 5, 7), (8192, 16, 128),
+                                   # avail past shared memory (2 MB)
+                                   (8192, 64, 8)])
+@pytest.mark.parametrize("masks", [True, False])
+def test_topk_kernel_bit_exact(n, r, g, masks):
+    """csrc/topk.cu == schedule_grouped_topk_plain on the card and on the
+    CPU, bit for bit (negative avail, dead rows, an all-masked class),
+    one launch a call."""
+    from ray_tpu_torch.ops import locality_kernel as lk
+    args = _topk_args(n + g, n, r, g, "cuda", masks)
+    before = lk.schedule_grouped_topk.launches
+    kc, ka = lk.schedule_grouped_topk(*args)
+    assert lk.schedule_grouped_topk.launches == before + 1
+    pc, pa = lk.schedule_grouped_topk_plain(*args)
+    assert torch.equal(kc, pc) and torch.equal(ka, pa)
+    cc, ca = lk.schedule_grouped_topk(*_topk_args(n + g, n, r, g, "cpu",
+                                                  masks))
+    assert torch.equal(kc.cpu(), cc) and torch.equal(ka.cpu(), ca)
+    assert lk.schedule_grouped_topk.launches == before + 1
+    jc, ja = _topk_jax(n + g, n, r, g, masks)
+    np.testing.assert_array_equal(kc.cpu().numpy(), jc)
+    np.testing.assert_array_equal(ka.cpu().numpy(), ja)
+
+
+def _topk_jax(seed, n, r, g, masks):
+    """The JAX function on ``_topk_args``' problem (seed and round 9)."""
+    from ray_tpu.ops import locality_kernel as ref
+    totals, avail, mask, reqs, counts, gm = _problem(seed, n, r, g)
+    extra = np.random.default_rng(seed).random(n) > 0.05
+    return ref.schedule_grouped_topk_np(
+        totals, avail, mask, reqs, counts, seed, 9,
+        gm if masks else None, thr_fp=SCALE // 2, k_abs=2, k_frac=0.3,
+        extra_mask=extra if masks else None)
+
+
+def _bundle_arrays(seed, n, p, b, r=8):
+    rng = np.random.default_rng(seed)
+    totals = rng.integers(0, 6400, size=(n, r)).astype(np.int32)
+    totals[rng.random(totals.shape) < 0.25] = 0
+    avail = (totals * rng.random(totals.shape)).astype(np.int32)
+    mask = rng.random(n) > 0.02
+    reqs = rng.integers(0, 800, size=(p, b, r)).astype(np.int32)
+    reqs[rng.random(reqs.shape) < 0.5] = 0
+    valid = rng.random((p, b)) < 0.85
+    return totals, avail, mask, reqs, valid, np.arange(p) % 4
+
+
+@pytest.mark.parametrize("n,p,b,r", [(16, 4, 3, 8), (200, 2, 8, 8),
+                                     (1000, 64, 8, 8), (8192, 64, 8, 8),
+                                     # avail past shared memory (2 MB)
+                                     (8192, 16, 4, 64)])
+def test_bundle_kernel_bit_exact(n, p, b, r):
+    """csrc/bundle.cu == schedule_bundle_groups_plain on the card, the
+    JAX function and the numpy oracle, bit for bit, one launch a call."""
+    from ray_tpu.ops import bundle_kernel as ref
+    from ray_tpu_torch.ops import bundle_kernel as bk
+    totals, avail, mask, reqs, valid, strat = _bundle_arrays(n + p, n, p, b,
+                                                             r)
+    dev = [torch.as_tensor(a, device="cuda")
+           for a in (totals, avail, mask, reqs)]
+    before = bk.schedule_bundle_groups.launches
+    got = bk.schedule_bundle_groups(*dev, valid, strat, SCALE // 2)
+    assert bk.schedule_bundle_groups.launches == before + 1
+    plain = bk.schedule_bundle_groups_plain(*dev, valid, strat, SCALE // 2)
+    for x, y in zip(got, plain):
+        assert torch.equal(x, y)
+    want = bk.schedule_bundle_groups_oracle(totals, avail, mask, reqs,
+                                            valid, strat,
+                                            spread_threshold=0.5)
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(x.cpu().numpy(), y)
+    jax_out = ref.schedule_bundle_groups_np(totals, avail, mask, reqs, valid,
+                                            strat, thr_fp=SCALE // 2)
+    for x, y in zip(got, jax_out):
+        np.testing.assert_array_equal(x.cpu().numpy(), y)
+
+
+@pytest.mark.parametrize("n,r", [(4, 3), (200, 300), (1000, 4096),
+                                 (1025, 40), (8192, 512)])
+def test_pull_kernel_bit_exact(n, r):
+    """csrc/pull.cu == choose_sources_plain on the card, the JAX function
+    and the numpy oracle, bit for bit (an object no node holds, in-flight
+    KB near INT_MAX that wraps), one launch a call."""
+    from ray_tpu.ops import pull_kernel as ref
+    from ray_tpu_torch.ops import pull_kernel as pk
+    rng = np.random.default_rng(n + r)
+    loc = rng.random((r, n)) < max(0.01, 2.0 / n)
+    loc[0] = False
+    bw = rng.integers(0, 50_000, size=(n, n)).astype(np.int32)
+    bw[rng.random((n, n)) < 0.05] = 0
+    dest = rng.integers(0, n, size=r).astype(np.int32)
+    sizes = rng.integers(1, 1 << 20, size=r).astype(np.int32)
+    infl = rng.integers(0, 1 << 20, size=n).astype(np.int32)
+    infl[0] = 2**31 - 1000                  # wraps below zero when picked
+    arrays = (loc, bw, dest, sizes, infl)
+    dev = [torch.as_tensor(a, device="cuda") for a in arrays]
+    before = pk.choose_sources.launches
+    got = pk.choose_sources(*dev)
+    assert pk.choose_sources.launches == before + 1
+    for x, y in zip(got, pk.choose_sources_plain(*dev)):
+        assert torch.equal(x, y)
+    with np.errstate(divide="ignore", over="ignore"):
+        want = pk.choose_sources_oracle(*arrays)
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(x.cpu().numpy(), y)
+    for x, y in zip(got, ref.choose_sources_np(*arrays)):
+        np.testing.assert_array_equal(x.cpu().numpy(), y)
+
+
+EDGE_CASES = ([("topk", c) for c in sorted(TOPK_EDGES)]
+              + [("bundles", c) for c in BUNDLE_EDGES]
+              + [("pulls", c) for c in PULL_EDGES])
+
+
+@pytest.mark.parametrize("program,case", EDGE_CASES)
+def test_new_kernels_at_the_edges_equal_the_jax_function(program, case):
+    """Each kernel, one launch, bit for bit against the JAX function on
+    the edge problems its plain version is pinned to on the CPU: the
+    contract's 8192 rows, every class infeasible, k past the feasible
+    count, negative avail; holes in the valid mask, a group undone after
+    a placed bundle, STRICT_PACK's clamp and its int32 wrap; ties, no
+    holder, in-flight bytes across UNITs and past INT_MAX, divisors of 0
+    and below."""
+    from ray_tpu.ops import bundle_kernel as ref_bk
+    from ray_tpu.ops import locality_kernel as ref_lk
+    from ray_tpu.ops import pull_kernel as ref_pk
+    from ray_tpu_torch.ops import bundle_kernel as bk
+    from ray_tpu_torch.ops import locality_kernel as lk
+    from ray_tpu_torch.ops import pull_kernel as pk
+    if program == "topk":
+        make, k_abs, k_frac = TOPK_EDGES[case]
+        p = make()
+        args = (p["totals"], p["avail"], p["mask"], p["reqs"], p["counts"])
+        kw = dict(group_masks=p["group_masks"], extra_mask=p["extra_mask"],
+                  k_abs=k_abs, k_frac=k_frac)
+        counter = lk.schedule_grouped_topk
+        before = counter.launches
+        got = lk.schedule_grouped_topk_np(*args, 5, 77, device="cuda", **kw)
+        want = ref_lk.schedule_grouped_topk_np(*args, seed=5,
+                                               round_index=77, **kw)
+    elif program == "bundles":
+        *prob, _oracle_agrees = _bundle_edge(case)
+        counter = bk.schedule_bundle_groups
+        before = counter.launches
+        got = bk.schedule_bundle_groups_np(*prob, device="cuda")
+        want = ref_bk.schedule_bundle_groups_np(*prob)
+    else:
+        prob = _pull_edge(case)
+        counter = pk.choose_sources
+        before = counter.launches
+        got = pk.choose_sources_np(*prob, device="cuda")
+        want = ref_pk.choose_sources_np(*prob)
+    assert counter.launches == before + 1
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(x, np.asarray(y))
+
+
+def test_new_kernels_raise_when_the_build_fails(monkeypatch):
+    """No fallback: with the build failing, a CUDA call raises and counts
+    no launch (the CPU is never taken for a CUDA tensor)."""
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import bundle_kernel as bk
+    from ray_tpu_torch.ops import locality_kernel as lk
+    from ray_tpu_torch.ops import pull_kernel as pk
+
+    def broken(*_a, **_k):
+        raise RuntimeError("kernel build failed: forced")
+
+    monkeypatch.setattr(_build, "load", broken)
+    counters = (lk.schedule_grouped_topk, bk.schedule_bundle_groups,
+                pk.choose_sources)
+    before = [f.launches for f in counters]
+    with pytest.raises(RuntimeError, match="forced"):
+        lk.schedule_grouped_topk(*_topk_args(1, 50, 3, 4, "cuda", True))
+    totals, avail, mask, reqs, valid, strat = _bundle_arrays(1, 30, 3, 2)
+    with pytest.raises(RuntimeError, match="forced"):
+        bk.schedule_bundle_groups(
+            *[torch.as_tensor(a, device="cuda")
+              for a in (totals, avail, mask, reqs)], valid, strat, 0)
+    loc = torch.ones((3, 5), dtype=torch.bool, device="cuda")
+    i32 = dict(dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="forced"):
+        pk.choose_sources(loc, torch.ones((5, 5), **i32),
+                          torch.zeros(3, **i32), torch.ones(3, **i32),
+                          torch.zeros(5, **i32))
+    assert [f.launches for f in counters] == before
 
 
 # -- the runtime on the card ---------------------------------------------------

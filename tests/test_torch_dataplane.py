@@ -124,3 +124,220 @@ def test_call_sites_take_the_device_program(monkeypatch):
     np.fill_diagonal(bw, 0)
     plan = bplan.build_plan([1, 2, 3, 4, 5], bw, 0, fanout=2, device="cpu")
     assert not calls and len(plan.parent) == 5
+
+
+# -- the plain versions at the edges the kernels' designs meet ---------------
+
+def _same(got, want):
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+
+
+def _bundle_edge(case):
+    """(totals, avail, mask, reqs, valid, strategies, the oracle agrees)"""
+    rng = np.random.default_rng(len(case))
+    n, r = 12, 3
+    totals = np.full((n, r), 1000, np.int32)
+    avail = rng.integers(200, 1000, size=(n, r)).astype(np.int32)
+    mask = np.ones(n, bool)
+    if case == "valid_not_a_prefix":
+        reqs = rng.integers(0, 300, size=(6, 5, r)).astype(np.int32)
+        valid = rng.random((6, 5)) < 0.6
+        valid[:, 0] = False                 # a leading hole in every group
+        valid[0] = [False, True, False, True, False]
+        return totals, avail, mask, reqs, valid, np.arange(6) % 4, True
+    if case == "rollback_after_a_placed_bundle":
+        # each group places its first bundle, then fails on its second
+        # (more than any node has): avail must come back whole, and the
+        # last group, which fits, sees it
+        reqs = np.zeros((5, 3, r), np.int32)
+        reqs[:, 0] = 150
+        reqs[:4, 1, 1] = 5000
+        valid = np.ones((5, 3), bool)
+        valid[:, 2] = False
+        return totals, avail, mask, reqs, valid, [0, 1, 3, 0, 1], True
+    if case == "strict_pack_past_max_total_cu":
+        reqs = np.zeros((3, 4, r), np.int32)
+        reqs[0, :, 0] = 50_000              # 200,000 > MAX_TOTAL_CU
+        reqs[1, :2, 1] = 300                # fits
+        reqs[2, :, 2] = 40_000              # 160,000 > MAX_TOTAL_CU
+        valid = np.ones((3, 4), bool)
+        return totals, avail, mask, reqs, valid, [2, 2, 2], True
+    if case == "strict_pack_sum_wraps":
+        # four bundles of 2**30 cu sum to 2**32: int32 wraps to 0, so the
+        # JAX program places the group (the oracle sums in int64)
+        reqs = np.zeros((2, 4, r), np.int32)
+        reqs[0, :, 0] = 1 << 30
+        reqs[1, :, 1] = 100
+        valid = np.ones((2, 4), bool)
+        return totals, avail, mask, reqs, valid, [2, 2], False
+    if case == "one_group_one_bundle":
+        reqs = np.full((1, 1, r), 100, np.int32)
+        return totals, avail, mask, reqs, np.ones((1, 1), bool), [1], True
+    raise KeyError(case)
+
+
+BUNDLE_EDGES = ["valid_not_a_prefix", "rollback_after_a_placed_bundle",
+                "strict_pack_past_max_total_cu", "strict_pack_sum_wraps",
+                "one_group_one_bundle"]
+
+
+@pytest.mark.parametrize("case", BUNDLE_EDGES)
+def test_bundle_plain_edges_against_jax(case):
+    """``schedule_bundle_groups_plain`` (what CPU tensors take) against
+    the JAX program and the oracle where the kernel's design meets its
+    edges: holes in the valid mask, the undo of a group that failed after
+    placing, STRICT_PACK's clamp and wrapping sum, one group of one."""
+    *prob, oracle_agrees = _bundle_edge(case)
+    got = bk.schedule_bundle_groups_np(*prob, device="cpu")
+    _same(got, ref_bk.schedule_bundle_groups_np(*prob))
+    if oracle_agrees:
+        _same(got, bk.schedule_bundle_groups_oracle(*prob))
+    rows, ok, new_avail = got
+    if case == "rollback_after_a_placed_bundle":
+        assert not ok[:4].any() and ok[4] and (rows[:4] == -1).all()
+        placed = rows[4, 0]
+        want = prob[1].copy()
+        want[placed] -= prob[3][4, 0]
+        np.testing.assert_array_equal(new_avail, want)
+    if case == "strict_pack_past_max_total_cu":
+        assert ok.tolist() == [False, True, False]
+    if case == "strict_pack_sum_wraps":
+        assert ok.all()
+    if case == "valid_not_a_prefix":
+        assert ((rows >= 0) <= prob[4]).all() and ok.any()
+
+
+def _pull_edge(case):
+    """(loc, bw, dest, sizes_kb, inflight_kb)"""
+    unit = int(pk._INFLIGHT_UNIT_KB)
+    n = 9
+    bw = np.full((n, n), 4000, np.int32)
+    dest = np.arange(6, dtype=np.int32) % n
+    if case == "equal_bandwidths":
+        # every row holds every object at the same bandwidth: the lowest
+        # row wins until its in-flight bytes derate it
+        loc = np.ones((6, n), bool)
+        return loc, bw, dest, np.full(6, unit // 4, np.int32), \
+            np.zeros(n, np.int32)
+    if case == "no_holder":
+        loc = np.zeros((6, n), bool)
+        loc[1, 3] = loc[4, 7] = True
+        return loc, bw, dest, np.full(6, 100, np.int32), \
+            np.zeros(n, np.int32)
+    if case == "one_source_crosses_units":
+        # one holder, picked every time: in flight crosses 0, 1, 2 ...
+        # UNITs, so eff and the cost step down
+        loc = np.zeros((12, n), bool)
+        loc[:, 5] = True
+        return loc, bw, np.arange(12, dtype=np.int32) % n, \
+            np.full(12, 20_000, np.int32), np.zeros(n, np.int32)
+    if case == "one_request":
+        loc = np.zeros((1, n), bool)
+        loc[0, [2, 6]] = True
+        bw[6, 4] = 9000
+        return loc, bw, np.array([4], np.int32), \
+            np.array([12345], np.int32), np.zeros(n, np.int32)
+    if case == "divisor_zero_and_negative":
+        # infl // UNIT = -1 (divisor 0) on row 1, -3 (divisor -2) on row 2;
+        # row 3 sits just below INT_MAX, the only holder of requests 2-3,
+        # and its in-flight KB wraps below zero after request 2
+        loc = np.zeros((4, n), bool)
+        loc[:2, 1:4] = True
+        loc[2:, 3] = True
+        infl = np.zeros(n, np.int32)
+        infl[1], infl[2], infl[3] = -unit, -3 * unit, 2**31 - 10
+        bw[1:4] = 0
+        bw[1:4, :4] = 3
+        return loc, bw, np.zeros(4, np.int32), \
+            np.array([100, 7, 20, 9], np.int32), infl
+    raise KeyError(case)
+
+
+PULL_EDGES = ["equal_bandwidths", "no_holder", "one_source_crosses_units",
+              "one_request", "divisor_zero_and_negative"]
+
+
+@pytest.mark.parametrize("case", PULL_EDGES)
+def test_pull_plain_edges_against_jax(case):
+    """``choose_sources_plain`` (what CPU tensors take) against the JAX
+    program and the oracle at the kernel's edges: ties to the lowest row,
+    an object no node holds, one source derated as its in-flight bytes
+    cross several UNITs, one request, and a divisor ``1 + infl // UNIT``
+    of 0 or below (the JAX program's eff is then 1)."""
+    prob = _pull_edge(case)
+    got = pk.choose_sources_np(*prob, device="cpu")
+    _same(got, ref_pk.choose_sources_np(*prob))
+    # numpy warns on x // 0 and on the int32 wrap the program means
+    with np.errstate(divide="ignore", over="ignore"):
+        _same(got, pk.choose_sources_oracle(*prob))
+    src, cost = got
+    if case == "equal_bandwidths":
+        assert src.tolist() == [0, 0, 0, 0, 1, 1]
+    if case == "no_holder":
+        assert (src == -1).sum() == 4 and (cost[src == -1] == 2**31 - 1).all()
+    if case == "one_source_crosses_units":
+        assert (src == 5).all() and len(set(cost.tolist())) >= 3
+    if case == "divisor_zero_and_negative":
+        # every eff is 1 (divisors 0, -2, 65536 and, after the wrap,
+        # -65535): the first max is row 1, and each cost is the size
+        assert src.tolist() == [1, 1, 3, 3] and cost.tolist() == [100, 7,
+                                                                  20, 9]
+
+
+# -- the kernels' builds and launch counters off the card ---------------------
+
+def test_lib_path_follows_the_included_headers(tmp_path, monkeypatch):
+    """A library's name hashes its source AND the headers it includes, so
+    an edited header never loads a stale build; a kernel that does not
+    include the header keeps its name."""
+    import shutil
+
+    from ray_tpu_torch.ops import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build._CSRC, csrc)
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    names = ("topk", "bundle", "pull", "waterfill", "binpack")
+    before = {n: _build.lib_path(n) for n in names}
+    with open(csrc / "contract.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {n: _build.lib_path(n) for n in names}
+    for n in ("topk", "bundle", "pull"):
+        assert after[n] != before[n], n
+    for n in ("waterfill", "binpack"):
+        assert after[n] == before[n], n
+    with open(csrc / "pull.cu", "a") as f:
+        f.write("\n// edited\n")
+    assert _build.lib_path("pull") != after["pull"]
+    assert _build.lib_path("topk") == after["topk"]
+
+
+def test_cpu_tensors_never_load_a_kernel(monkeypatch):
+    """CPU tensors take the plain versions: no build, no load, and the
+    launch counters stay where they were."""
+    import torch
+
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import locality_kernel as lk
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a CPU call reached the kernel build")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(_build, "build", refuse)
+    counters = (lk.schedule_grouped_topk, bk.schedule_bundle_groups,
+                pk.choose_sources)
+    before = [f.launches for f in counters]
+    prob = bundle_problem(0)
+    bk.schedule_bundle_groups_np(*prob, device="cpu")
+    t = [torch.as_tensor(a) for a in prob[:4]]
+    bk.schedule_bundle_groups(*t, prob[4], prob[5], 0)
+    loc, bw, dest, sizes, infl = _pull_edge("one_request")
+    pk.choose_sources_np(loc, bw, dest, sizes, infl, device="cpu")
+    rng = np.random.default_rng(0)
+    totals = rng.integers(100, 1000, size=(20, 3)).astype(np.int32)
+    reqs = rng.integers(0, 50, size=(4, 3)).astype(np.int32)
+    counts = np.full(4, 7, np.int32)
+    lk.schedule_grouped_topk_np(totals, totals, np.ones(20, bool), reqs,
+                                counts, 1, 1, k_frac=0.5, device="cpu")
+    assert [f.launches for f in counters] == before

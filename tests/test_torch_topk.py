@@ -167,3 +167,82 @@ def test_runtime_burst_takes_topk_rounds():
         assert sum(r.delta_rounds for r in cluster.raylets.values()) == 0
     finally:
         rt.shutdown()
+
+
+# -- the plain version at the edges the kernel's design meets ----------------
+
+def _edge(seed, n, r, g, neg=True):
+    """A top-k problem with overcommitted rows (negative avail), dead
+    rows, per-class masks and an extra mask."""
+    rng = np.random.default_rng(seed)
+    totals = rng.integers(400, 1 << 17, size=(n, r)).astype(np.int32)
+    totals[rng.random(totals.shape) < 0.25] = 0
+    avail = totals - (totals * rng.random(totals.shape) * 0.9).astype(
+        np.int32)
+    if neg:
+        rows = rng.random(n) < 0.05
+        avail[rows] = -(totals[rows] * rng.random((int(rows.sum()), r))
+                        ).astype(np.int32)
+    mask = rng.random(n) > 0.02
+    reqs = rng.integers(0, 4000, size=(g, r)).astype(np.int32)
+    reqs[rng.random(reqs.shape) < 0.5] = 0
+    counts = rng.integers(1, 5000, size=g).astype(np.int32)
+    masks = rng.random((g, n)) > 0.1
+    extra = rng.random(n) > 0.05
+    return dict(totals=totals, avail=avail, mask=mask, reqs=reqs,
+                counts=counts, group_masks=masks, extra_mask=extra)
+
+
+def _infeasible(p):
+    p["reqs"][:] = (1 << 17) + 1        # above every total
+    return p
+
+
+def _count_zero(p):
+    p["counts"][::2] = 0
+    return p
+
+
+def _no_masks(p):
+    p["group_masks"] = p["extra_mask"] = None
+    return p
+
+
+# name: (problem, k_abs, k_frac)
+TOPK_EDGES = {
+    "n_8192": (lambda: _edge(1, 8192, 6, 3), 1, 0.25),
+    "n_not_a_multiple_of_32": (lambda: _edge(2, 77, 5, 9), 1, 0.3),
+    "n_past_1024": (lambda: _edge(3, 1025, 4, 6), 2, 0.5),
+    "count_zero": (lambda: _count_zero(_edge(4, 300, 4, 8)), 1, 0.25),
+    "every_class_infeasible": (lambda: _infeasible(_edge(5, 200, 3, 5)),
+                               1, 0.25),
+    "k_abs_past_nf": (lambda: _edge(6, 40, 3, 6), 1000, 0.0),
+    "k_frac_one": (lambda: _edge(7, 500, 4, 6), 1, 1.0),
+    "negative_avail_no_masks": (lambda: _no_masks(_edge(8, 600, 5, 7)),
+                                1, 0.1),
+    "positive_avail": (lambda: _edge(9, 333, 4, 6, neg=False), 3, 0.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TOPK_EDGES))
+def test_plain_edges_against_jax(case):
+    """``schedule_grouped_topk_plain`` (what CPU tensors take) against the
+    JAX function, bit for bit, where the kernel's design is at its edges:
+    the contract's 8192 rows, a row count off the warp and 1024 grids, no
+    placement at all, k clipped at the feasible count, every key placed,
+    overcommitted rows, and the masks absent and given."""
+    make, k_abs, k_frac = TOPK_EDGES[case]
+    p = make()
+    args = (p["totals"], p["avail"], p["mask"], p["reqs"], p["counts"])
+    kw = dict(group_masks=p["group_masks"], extra_mask=p["extra_mask"],
+              k_abs=k_abs, k_frac=k_frac)
+    got = schedule_grouped_topk_np(*args, 5, 77, device="cpu", **kw)
+    want = jax_topk_np(*args, seed=5, round_index=77, **kw)
+    for x, y in zip(got, want):
+        assert np.array_equal(x, np.asarray(y))
+    n = p["totals"].shape[0]
+    if case == "every_class_infeasible":
+        assert np.array_equal(got[0][:, n], p["counts"])
+        assert not got[0][:, :n].any()
+    else:
+        assert got[0][:, :n].any()
