@@ -72,8 +72,19 @@ Phases:
                   bundles and 4096 pulls x 1000 nodes, and at 8192 nodes;
                   kernel, plain and oracle ms, CUDA kernels a call, bound;
                   kernel and oracle ms at the runtime thresholds' sizes (2
-                  groups of 8, 128 pulls); the broadcast program (plain
-                  PyTorch, 1000 members, fan-out 4) == its oracle
+                  groups of 8, 128 pulls); the broadcast kernel
+                  (``csrc/broadcast.cu``) == its plain version on the card
+                  at 1000 members, fan-out 4 (and == its oracle), at 8192
+                  nodes, and with uniform bandwidth at 1000 (its worst
+                  case; == its oracle); kernel, plain and oracle ms,
+                  launches, both bounds
+  broadcast       ``cluster.broadcasts.broadcast`` on a port Cluster of 72
+                  rows serving object-plane endpoints, seeded link rates:
+                  an 8 MiB object in 1 MB chunks reaches all 71 members
+                  bit-exact, no fallback, the plan on the card in one
+                  kernel launch of a 2-CTA cluster; on the plan's
+                  captured inputs the kernel == the plain version on the
+                  card == the oracle == the tree the manager used
   autoscaler      ``autoscale`` (a first-fit water-fill launch, then the
                   ``binpack_launch_loop`` kernel) at 1000 nodes x 64
                   resources x 64 classes x 1,000,000 demands x 16 node
@@ -1725,13 +1736,45 @@ def dataplane_work(name, arrays):
             + r * 8, r * n + int(loc.sum()) * 6)
 
 
-def dataplane_kernel(name, arrays, dev, plain=True):
-    """One program at one shape: the hand-written kernel on device
-    tensors (one call, counted) == its numpy oracle (and == its plain
-    PyTorch version on the card), exact; kernel ms (CUDA events), plain
-    ms, oracle ms (host clock), CUDA kernels a call, bound."""
+DP_FANOUT = 4
+
+
+def broadcast_uniform(n=DP_NODES):
+    """Every member, every link at 1000 MB/s, nothing in flight: every
+    parent's best child is the same node, the broadcast kernel's worst
+    case (each attach takes every row's best)."""
+    bw = np.full((n, n), 1000, np.int32)
+    np.fill_diagonal(bw, 0)
+    return np.ones(n, bool), bw, np.zeros(n, np.int32)
+
+
+def broadcast_bounds(bw, parent):
+    """Two bounds of one plan: the JAX program's work as the earlier
+    rows counted it (N steps over all N^2 pairs, 8 int32 operations a
+    pair: comparable with them, and no floor for a kernel that does not
+    rescan every pair), and the work the function needs on these inputs
+    (bw read once, member and in-flight KB read, parent and order
+    written; eff once a pair and an N-way argmax a step for each attach
+    and the last, empty step)."""
+    n = bw.shape[0]
+    io = n + n * 4 + n * 8
+    steps = int((parent >= 0).sum()) + 1
+    jax = bound(io + bw.size * 4, n * n * n * 8, PEAK_I32)
+    need = bound(io + bw.size * 4, 8 * n * n + steps * n, PEAK_I32)
+    return {"jax_program_bound_ms": jax[0], "jax_program_bound_by": jax[1],
+            "bound_ms": need[0], "bound_by": need[1]}
+
+
+def dataplane_kernel(name, arrays, dev, plain=True, oracle=True):
+    """One program at one shape (the broadcast plan: root 0, fan-out
+    DP_FANOUT): the hand-written kernel on device tensors (one call,
+    counted) == its numpy oracle (and == its plain PyTorch version on the
+    card), exact; kernel ms (CUDA events), plain ms, oracle ms (host
+    clock), CUDA kernels a call, bound (the broadcast's two,
+    ``broadcast_bounds``)."""
     import torch
 
+    from ray_tpu_torch.ops import broadcast_kernel as bc
     from ray_tpu_torch.ops import bundle_kernel as bk
     from ray_tpu_torch.ops import pull_kernel as pk
     from ray_tpu_torch.scheduling.contract import threshold_fp
@@ -1749,8 +1792,22 @@ def dataplane_kernel(name, arrays, dev, plain=True):
             return bk.schedule_bundle_groups_plain(*t[:4], valid, strat,
                                                    thr)
 
-        def oracle():
+        def oracle_fn():
             return bk.schedule_bundle_groups_oracle(*arrays)
+    elif name == "broadcast":
+        member, bw, infl = arrays
+        t = [torch.tensor(a, device=dev) for a in arrays]
+        fn = bc.plan_fanout
+
+        def kernel():
+            return fn(t[0], t[1], 0, DP_FANOUT, t[2])
+
+        def plain_fn():
+            return bc.plan_fanout_plain(t[0], t[1], 0, DP_FANOUT, t[2])
+
+        def oracle_fn():
+            with np.errstate(divide="ignore", over="ignore"):
+                return bc.plan_fanout_oracle(member, bw, 0, DP_FANOUT, infl)
     else:
         t = [torch.tensor(a, device=dev) for a in arrays]
         fn = pk.choose_sources
@@ -1761,7 +1818,7 @@ def dataplane_kernel(name, arrays, dev, plain=True):
         def plain_fn():
             return pk.choose_sources_plain(*t)
 
-        def oracle():
+        def oracle_fn():
             with np.errstate(over="ignore", divide="ignore"):
                 return pk.choose_sources_oracle(*arrays)
     fn.launches = 0
@@ -1771,15 +1828,16 @@ def dataplane_kernel(name, arrays, dev, plain=True):
     if launches != 1:
         raise AssertionError(f"{name}: {launches} kernel launches in one "
                              "call")
-    t0 = time.perf_counter()
-    want = oracle()
-    oracle_ms = (time.perf_counter() - t0) * 1e3
-    if not all(np.array_equal(g.cpu().numpy(), w)
-               for g, w in zip(got, want)):
-        raise AssertionError(f"dataplane {name}: the kernel disagrees with "
-                             "the numpy oracle")
-    out = {"kernel_ms": cuda_ms(kernel), "oracle_ms": oracle_ms,
-           "equals_oracle": True, "launches": launches}
+    out = {"kernel_ms": cuda_ms(kernel), "launches": launches}
+    if oracle:
+        t0 = time.perf_counter()
+        want = oracle_fn()
+        out["oracle_ms"] = (time.perf_counter() - t0) * 1e3
+        if not all(np.array_equal(g.cpu().numpy(), w)
+                   for g, w in zip(got, want)):
+            raise AssertionError(f"dataplane {name}: the kernel disagrees "
+                                 "with the numpy oracle")
+        out["equals_oracle"] = True
     if plain:
         pl = plain_fn()
         if not all(torch.equal(g, w) for g, w in zip(got, pl)):
@@ -1788,22 +1846,29 @@ def dataplane_kernel(name, arrays, dev, plain=True):
         out["plain_ms"] = cuda_ms(plain_fn, reps=1, warmup=0)
         out["equals_plain"] = True
         out["kernels_per_call"] = kernel_launches(kernel)
-        out["bound_ms"], out["bound_by"] = bound(
-            *dataplane_work(name, arrays), PEAK_I32)
+        if name == "broadcast":
+            parent = got[0].cpu().numpy()
+            out.update(broadcast_bounds(arrays[1], parent),
+                       cluster=fn.last_cluster,
+                       attached=int((parent >= 0).sum()),
+                       members=int(arrays[0].sum()))
+        else:
+            out["bound_ms"], out["bound_by"] = bound(
+                *dataplane_work(name, arrays), PEAK_I32)
         if name == "bundles":
             out["placed_groups"] = int(got[1].sum())
     return out
 
 
 def phase_dataplane(dev):
-    """The bundle and pull programs' kernels (``csrc/bundle.cu``,
-    ``csrc/pull.cu``) on the card against their plain versions there and
-    their numpy oracles, exact, at 1000 nodes x 64 placement groups x 8
-    bundles of every strategy and 4096 pulls over 1000 nodes, and again
-    at 8192 nodes; kernel and oracle ms at the runtime thresholds' sizes;
-    the broadcast program (plain PyTorch) against its oracle at 1000
-    members, fan-out 4."""
-    from ray_tpu_torch.ops import broadcast_kernel as bc
+    """The bundle, pull and broadcast programs' kernels
+    (``csrc/bundle.cu``, ``csrc/pull.cu``, ``csrc/broadcast.cu``) on the
+    card against their plain versions there and their numpy oracles,
+    exact, at 1000 nodes x 64 placement groups x 8 bundles of every
+    strategy, 4096 pulls over 1000 nodes and a broadcast to 1000 members
+    at fan-out 4, and again at 8192 nodes (the broadcast without its
+    oracle); the broadcast with uniform bandwidth at 1000; kernel and
+    oracle ms at the runtime thresholds' sizes."""
     today = dataplane_problem()
     limit = dataplane_problem(n=DP_LIMIT_NODES, seed=1)
     small = dataplane_problem(groups=DP_THRESHOLD_GROUPS,
@@ -1818,36 +1883,183 @@ def phase_dataplane(dev):
             "bundles", small["bundles"], dev, plain=False),
         f"pulls {DP_THRESHOLD_PULLS}": dataplane_kernel(
             "pulls", small["pulls"], dev, plain=False)}
+    # the broadcast plan (csrc/broadcast.cu): the cell's problem, the
+    # contract's 8192 nodes (no oracle: ~an hour), uniform bandwidth
+    out["broadcast"] = dataplane_kernel("broadcast", today["broadcast"], dev)
+    out[f"broadcast_{DP_LIMIT_NODES}"] = dataplane_kernel(
+        "broadcast", limit["broadcast"], dev, oracle=False)
     del limit
-    # broadcast stays plain PyTorch (ROADMAP B.2: the next slice)
-    member, bw, infl = today["broadcast"]
-    n = bw.shape[0]
-
-    def run():
-        return bc.plan_fanout_np(member, bw, 0, 4, infl, device=dev)
-
-    t0 = time.perf_counter()
-    got = run()                     # numpy out: the call ends in a sync
-    ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    want = bc.plan_fanout_oracle(member, bw, 0, 4, infl)
-    oracle_ms = (time.perf_counter() - t0) * 1e3
-    if not all(np.array_equal(g, w) for g, w in zip(got, want)):
-        raise AssertionError("dataplane broadcast: the card disagrees with "
-                             "the numpy oracle")
-    bound_ms, bound_by = bound(n + bw.size * 4 + n * 4 + n * 8,
-                               n * n * n * 8, PEAK_I32)
-    out["broadcast"] = {"ms": ms, "oracle_ms": oracle_ms,
-                        "launches": kernel_launches(run),
-                        "bound_ms": bound_ms, "bound_by": bound_by,
-                        "exact": True}
+    out["broadcast_uniform"] = dataplane_kernel(
+        "broadcast", broadcast_uniform(), dev)
     result = {"phase": "dataplane", "problems": {
         "bundles": [DP_NODES, DP_GROUPS, DP_BUNDLES],
         f"bundles_{DP_LIMIT_NODES}": [DP_LIMIT_NODES, DP_GROUPS,
                                       DP_BUNDLES],
         "pulls": [DP_PULLS, DP_NODES],
         f"pulls_{DP_LIMIT_NODES}": [DP_PULLS, DP_LIMIT_NODES],
-        "broadcast": [n, 4]}, **out, "thresholds": thresholds}
+        "broadcast": [DP_NODES, DP_FANOUT],
+        f"broadcast_{DP_LIMIT_NODES}": [DP_LIMIT_NODES, DP_FANOUT],
+        "broadcast_uniform": [DP_NODES, DP_FANOUT]},
+        **out, "thresholds": thresholds}
+    emit(result)
+    return result
+
+
+# -- phase: broadcast (BroadcastManager.broadcast on a port Cluster) ---------
+
+BCAST_ROWS = 72                  # the root and 71 members: 2 CTAs a plan
+BCAST_PAYLOAD = 8 << 20          # 8 chunks of broadcast_chunk_mb
+BCAST_CHUNK_MB = 1
+BCAST_ARENA_MB = 32
+BCAST_LINKS_MBPS = (1_000, 10_000, 25_000, 40_000)
+
+
+def phase_broadcast(dev):
+    """The broadcast through its entry point: a port ``Cluster`` whose 72
+    rows serve standalone object-plane endpoints (the shape of
+    ``tests/test_broadcast.py``'s ``mgr_cluster``, the NodeAgent's
+    without worker processes), a seeded link rate from
+    ``BCAST_LINKS_MBPS`` on every pair of them (ties and deratings both
+    shape the tree), ``broadcast_device_batch_min`` set to the member
+    count so the plan runs on the card, and
+    ``cluster.broadcasts.broadcast(oid, node_rows=...)`` of an 8 MiB
+    object in 1 MB chunks: every member holds the bytes, bit-exact,
+    ``reached`` == members with no fallback, and the plan launched the
+    broadcast kernel exactly once (its count set to 0 just before, read
+    just after) as a cluster of 2 or more CTAs.  The plan's inputs and
+    the tree the manager used are captured at the call; after it the
+    kernel, its plain version on the card and the numpy oracle run on
+    those inputs, and all four trees must be equal, exact."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.common.config import Config
+    from ray_tpu_torch.common.ids import ObjectID
+    from ray_tpu_torch.native import Arena
+    from ray_tpu_torch.ops import broadcast_kernel as bc
+    from ray_tpu_torch.rpc import RpcServer
+    from ray_tpu_torch.runtime.object_plane import ObjectPlane
+    from ray_tpu_torch.runtime.object_store import MemoryStore
+    from ray_tpu_torch.runtime.serialization import serialize
+
+    members = BCAST_ROWS - 1
+    Config.reset({"broadcast_chunk_mb": BCAST_CHUNK_MB,
+                  "broadcast_device_batch_min": members})
+    rng = np.random.default_rng(0)
+    payload = rng.integers(0, 256, size=BCAST_PAYLOAD,
+                           dtype=np.uint8).tobytes()
+    plans = []                  # (the plan's inputs, the tree it returned)
+    plan_np = bc.plan_fanout_np
+
+    def capture(member, bw, root, fanout, inflight_kb=None, device=None):
+        tree = plan_np(member, bw, root, fanout, inflight_kb, device=device)
+        plans.append(((np.array(member, bool), np.array(bw, np.int32),
+                       int(root), int(fanout),
+                       np.zeros(len(member), np.int32) if inflight_kb is None
+                       else np.array(inflight_kb, np.int32)), tree))
+        return tree
+
+    tmp = tempfile.mkdtemp(prefix="rt_broadcast_")
+    cluster = server = None
+    ends = []                                   # (arena, store, plane, rpc)
+    try:
+        cluster = Cluster()
+        if cluster.scheduler_device.type != dev.type:
+            raise AssertionError(f"the cluster's device resolved to "
+                                 f"{cluster.scheduler_device}")
+        server = RpcServer({}).start()
+        cluster.plane.attach(server)
+        for i in range(BCAST_ROWS):
+            arena = Arena(os.path.join(tmp, f"arena_{i}"),
+                          BCAST_ARENA_MB << 20, create=True)
+            store = MemoryStore(arena=arena,
+                                spill_dir=os.path.join(tmp, f"spill_{i}"))
+            plane = ObjectPlane(store)
+            rpc = RpcServer({}).start()
+            plane.attach(rpc)
+            ends.append((arena, store, plane, rpc))
+            cluster.add_node(resources={"CPU": 1}, num_workers=0,
+                             plane_address=rpc.address)
+        row_of = {addr: row for row, addr in cluster.planes.items()}
+        rows = [row_of[e[3].address] for e in ends]
+        for src in rows:
+            for dst in rows:
+                if src != dst:
+                    cluster.set_node_bandwidth(
+                        src, dst, int(rng.choice(BCAST_LINKS_MBPS)),
+                        symmetric=False)
+        oid = ObjectID.from_random()
+        ends[0][1].put_serialized(oid, serialize(payload))
+        kind, sealed = ends[0][1].plasma_info(oid)
+        if kind != "shm":
+            raise AssertionError(f"the root sealed the object as {kind}")
+        cluster.directory.add_location(oid, rows[0])
+        bc.plan_fanout_np = capture
+        try:
+            # --- the main path: the count starts at 0 here, is read after -
+            bc.plan_fanout.launches = 0
+            t0 = time.perf_counter()
+            res = cluster.broadcasts.broadcast(oid, node_rows=rows[1:])
+            seconds = time.perf_counter() - t0
+            launches = bc.plan_fanout.launches
+            ctas = bc.plan_fanout.last_cluster
+            # --- end of the main path ---
+        finally:
+            bc.plan_fanout_np = plan_np
+        exact = sum(e[1].peek(oid) == payload for e in ends[1:])
+        if not (res["ok"] and res["members"] == members
+                and res["reached"] == members and res["fallbacks"] == 0
+                and exact == members and launches == 1
+                and len(plans) == 1):
+            raise AssertionError(f"broadcast: {res}, {exact} of {members} "
+                                 f"members bit-exact, {launches} kernel "
+                                 f"launches, {len(plans)} plans")
+        if dev.type == "cuda" and not ctas >= 2:
+            raise AssertionError(f"broadcast: the plan ran as a cluster of "
+                                 f"{ctas} CTA(s); the phase needs 2 or more")
+        stats = cluster.broadcasts.stats()
+    finally:
+        if cluster is not None:
+            cluster.stop()
+        if server is not None:
+            server.stop()
+        for arena, _store, plane, rpc in ends:
+            plane.shutdown()
+            rpc.stop()
+            arena.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        Config.reset()
+    # the plan's own inputs, again: kernel == plain on the card == oracle
+    # == the tree the manager used (these launches are not the path's)
+    (member, bw, root, fanout, infl), used = plans[0]
+    t = [torch.tensor(a, device=dev) for a in (member, bw, infl)]
+    trees = {"kernel": bc.plan_fanout(t[0], t[1], root, fanout, t[2]),
+             "plain": bc.plan_fanout_plain(t[0], t[1], root, fanout, t[2])}
+    trees = {k: tuple(x.cpu().numpy() for x in v) for k, v in trees.items()}
+    with np.errstate(divide="ignore", over="ignore"):
+        trees["oracle"] = bc.plan_fanout_oracle(member, bw, root, fanout,
+                                                infl)
+    for name, tree in trees.items():
+        if not all(np.array_equal(g, w) for g, w in zip(tree, used)):
+            raise AssertionError(f"broadcast: the {name} tree on the plan's "
+                                 "inputs differs from the tree the manager "
+                                 "used")
+    result = {"phase": "broadcast",
+              "entry": "Cluster.broadcasts.broadcast",
+              "rows": BCAST_ROWS, "members": members,
+              "plan_nodes": int(bw.shape[0]), "plan_fanout": fanout,
+              "payload_bytes": BCAST_PAYLOAD, "sealed_bytes": sealed,
+              "chunks": -(-sealed // (BCAST_CHUNK_MB << 20)),
+              "reached": res["reached"], "fallbacks": res["fallbacks"],
+              "bit_exact_members": exact, "depth": res["depth"],
+              "relay_fanout": res["relay_fanout"], "seconds": seconds,
+              "launches": launches, "cluster": ctas,
+              "plan_equals": sorted(trees), "plan_device": str(dev),
+              "trees_completed": stats.get("bcast_trees_completed")}
     emit(result)
     return result
 
@@ -4072,6 +4284,7 @@ def main() -> int:
     run = timed("runtime", phase_runtime, dev)
     srv = timed("serve", phase_serve, dev, run["tasks_per_s"])
     dp = timed("dataplane", phase_dataplane, dev)
+    bcast = timed("broadcast", phase_broadcast, dev)
     asc = timed("autoscaler", phase_autoscaler, dev)
     tk = timed("topk", phase_topk, dev)
     dmn = timed("daemon", phase_daemon, dev)
@@ -4176,6 +4389,25 @@ def main() -> int:
          "oracle_ms": dp["pulls"]["oracle_ms"],
          "bound_ms": dp["pulls"]["bound_ms"],
          "bound_by": dp["pulls"]["bound_by"], "library_ms": None,
+         "checked": True},
+        {"name": "plan_fanout (broadcast)", "route": "cuda",
+         "source": "ray_tpu_torch/ops/csrc/broadcast.cu",
+         "replaces": "ray_tpu/ops/broadcast_kernel.py:48 "
+                     "(plan_fanout lax.fori_loop :87)",
+         # launches on the broadcast path (BroadcastManager.broadcast)
+         "launches": bcast["launches"],
+         "launches_by_path": {"broadcast": bcast["launches"]},
+         "max_abs_err": 0, "ms": dp["broadcast"]["kernel_ms"],
+         "plain_ms": dp["broadcast"]["plain_ms"],
+         "oracle_ms": dp["broadcast"]["oracle_ms"],
+         # the least time for what the function needs on these inputs;
+         # beside it the JAX program's N^3 work, as earlier rows counted
+         "bound_ms": dp["broadcast"]["bound_ms"],
+         "bound_by": dp["broadcast"]["bound_by"],
+         "jax_program_bound_ms": dp["broadcast"]["jax_program_bound_ms"],
+         "library_ms": None,
+         "limit_ms": dp[f"broadcast_{DP_LIMIT_NODES}"]["kernel_ms"],
+         "uniform_ms": dp["broadcast_uniform"]["kernel_ms"],
          "checked": True},
         {"name": "flash_attention", "route": "cuda",
          "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",

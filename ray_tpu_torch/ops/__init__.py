@@ -1,6 +1,7 @@
 from .binpack_kernel import (autoscale, autoscale_np, autoscale_sharded_np,
                              binpack_launch_loop, launch_loop_plain)
-from .broadcast_kernel import plan_fanout, plan_fanout_np, plan_fanout_oracle
+from .broadcast_kernel import (plan_fanout, plan_fanout_np, plan_fanout_oracle,
+                               plan_fanout_plain)
 from .bundle_kernel import (schedule_bundle_groups, schedule_bundle_groups_np,
                             schedule_bundle_groups_oracle,
                             schedule_bundle_groups_plain)
@@ -35,6 +36,7 @@ __all__ = ["schedule_bundle_groups", "schedule_bundle_groups_np",
            "choose_sources", "choose_sources_np", "choose_sources_oracle",
            "choose_sources_plain",
            "plan_fanout", "plan_fanout_np", "plan_fanout_oracle",
+           "plan_fanout_plain",
            "flash_attention", "flash_attention_plain", "full_attention",
            "ring_attention", "ulysses_attention",
            "build_mesh", "plane_for", "resolve_shards"]

@@ -37,7 +37,8 @@ SOURCES = {"waterfill": "waterfill.cu",
            "binpack": "binpack.cu",
            "topk": "topk.cu",
            "bundle": "bundle.cu",
-           "pull": "pull.cu"}
+           "pull": "pull.cu",
+           "broadcast": "broadcast.cu"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -60,6 +61,8 @@ _SIGNATURES = {
                 _P, _P, _P, _P]),
     "pull": ("rt_pull_choose",
              [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P]),
+    "broadcast": ("rt_plan_fanout",
+                  [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
 }
 # further C entry points of a library: {name: {function: argtypes}}
 _EXTRA = {"binpack": {"rt_binpack_plan": [_I, _I, _I, _P]}}

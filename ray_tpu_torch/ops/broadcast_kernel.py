@@ -6,10 +6,12 @@ matrix, the same input the pull cost model (``ops/pull_kernel.py``)
 scores sources against.  Given the member set, the root, a fan-out cap
 and the current per-node uplink load, it emits a parent assignment plus
 the attach order (an earlier-attached member starts receiving, and
-therefore relaying, sooner).  The N steps run as a Python loop over
-tensor ops on the raylet's device with no host sync inside (a
-``fori_loop`` in the JAX package); there is no kernel yet (PERF.md has
-the loop's times).
+therefore relaying, sooner).  On a card the N steps are the hand-written
+CUDA kernel ``csrc/broadcast.cu``: one launch of a thread-block cluster
+that keeps each parent's best child and rescans only the rows an attach
+changed.  Eagerly it was ~37 launches a step.  The plain PyTorch
+version ``plan_fanout_plain`` keeps the loop (a ``fori_loop`` in the JAX
+package); CPU tensors take it.
 
 Greedy one-attach-per-step construction, all int32:
 
@@ -33,14 +35,23 @@ N-deep chain; with it the same matrix yields a balanced fanout-F tree
 (depth ~log_F N).  Ties break to the lowest (parent, child) pair —
 deterministic on both backends.  The CPU oracle below is bit-identical
 (same discipline as the hybrid/pull programs).
+
+Where ``inflight_kb`` has wrapped below zero the denominator can be 0 or
+negative.  The JAX program's eff is then 1 (``bw // d`` is at most -1,
+and XLA's quotient by 0 is negative too), and so is the port's: the
+plain version divides by a denominator clamped to 1 and selects 1 there,
+since torch raises on an integer division by zero.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..scheduling.contract import MAX_NODES
 
 # same stream-equivalent unit as the pull cost model: every 32 MB in
 # flight on a node's uplink counts as one extra concurrent stream
@@ -61,7 +72,60 @@ def plan_fanout(member, bw, root, fanout, inflight_kb):
     node c relays from (-1 for the root and non-members), ``order[c]``
     the attach step (0-based; -1 for the root and non-members).  A
     member left unattached (unreachable bandwidth row) keeps -1/-1.
+
+    CPU tensors take ``plan_fanout_plain``; CUDA tensors launch the
+    hand-written kernel (``csrc/broadcast.cu``, 1 <= N <= MAX_NODES) or
+    raise, and count the launch in ``plan_fanout.launches``;
+    ``plan_fanout.last_cluster`` is the launch's cluster size.
     """
+    if bw.device.type == "cpu":
+        return plan_fanout_plain(member, bw, root, fanout, inflight_kb)
+    if bw.device.type != "cuda":
+        raise ValueError(f"plan_fanout: unsupported device {bw.device}")
+    from . import _build
+
+    n = member.shape[0]
+    dev = bw.device
+    for name, t, dtype, shape in (("member", member, torch.bool, (n,)),
+                                  ("bw", bw, _I32, (n, n)),
+                                  ("inflight_kb", inflight_kb, _I32, (n,))):
+        if t.device != dev or t.dtype != dtype or \
+                tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"plan_fanout: {name} must be a contiguous {dtype} tensor "
+                f"of shape {shape} on {dev}; got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    if not 1 <= n <= MAX_NODES:
+        raise ValueError(f"plan_fanout: N={n} (the kernel takes 1 <= N <= "
+                         f"{MAX_NODES})")
+    root = int(root)
+    if not -n <= root < n:
+        raise IndexError(f"plan_fanout: root {root} out of range for N={n}")
+    root %= n
+    # children < fanout with 0 <= children < N: any fanout past N is N
+    fanout = min(max(int(fanout), 0), n)
+    parent = torch.empty(n, dtype=_I32, device=dev)
+    order = torch.empty(n, dtype=_I32, device=dev)
+    cluster = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = _build.load("broadcast")(
+            member.data_ptr(), bw.data_ptr(), inflight_kb.data_ptr(), n,
+            root, fanout, parent.data_ptr(), order.data_ptr(),
+            ctypes.addressof(cluster),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "broadcast")
+    plan_fanout.launches += 1
+    plan_fanout.last_cluster = cluster.value
+    return parent, order
+
+
+plan_fanout.launches = 0
+plan_fanout.last_cluster = None
+
+
+def plan_fanout_plain(member, bw, root, fanout, inflight_kb):
+    """The plain PyTorch version of ``plan_fanout``, on either device:
+    the step loop with the JAX program's arithmetic."""
     n = member.shape[0]
     dev = bw.device
     units = inflight_kb.to(_I32) // int(_INFLIGHT_UNIT_KB)
@@ -76,10 +140,12 @@ def plan_fanout(member, bw, root, fanout, inflight_kb):
         # (p, c) eligibility + load- and depth-derated uplink score
         can_parent = covered & (children < fanout)          # (N,)
         want_child = member & ~covered                      # (N,)
-        denom = (1 + children + units) * (1 + depth)        # (N,)
+        denom = ((1 + children + units) * (1 + depth))[:, None]
         eff = torch.where(
             can_parent[:, None] & want_child[None, :] & bw_pos,
-            torch.clamp_min(bw // denom[:, None], 1), 0).reshape(-1)
+            torch.where(denom > 0,
+                        torch.clamp_min(bw // denom.clamp_min(1), 1), 1),
+            0).reshape(-1)
         idx = torch.argmax(eff).reshape(1)
         p, c = idx // n, idx % n
         hit = eff.gather(0, idx)[0] > 0

@@ -88,38 +88,17 @@
 
 #include <algorithm>
 
+#include "contract.cuh"
+
 namespace {
 
-constexpr int kBig = 1 << 30;
-constexpr int kScale = 4096;            // scheduling/contract.py SCALE
-constexpr unsigned kFull = 0xffffffffu;
+using namespace rt;
+
 constexpr int kSlots = 32;              // ring slots when streaming
 constexpr int kSlotEntries = 32;        // entries (16 bytes) a slot
 constexpr int kLenMask = (1 << 30) - 1;
 constexpr int kAllPos = 1 << 30;        // len flag: every column positive
 
-__device__ __forceinline__ int wadd(int a, int b) {
-  return (int)((unsigned)a + (unsigned)b);
-}
-__device__ __forceinline__ int wsub(int a, int b) {
-  return (int)((unsigned)a - (unsigned)b);
-}
-__device__ __forceinline__ int wmul(int a, int b) {
-  return (int)((unsigned)a * (unsigned)b);
-}
-// the divisor d >= 1 as (m, s) for fdiv
-__device__ __forceinline__ uint2 magic(int d) {
-  const unsigned s = 31u + (32u - (unsigned)__clz(d - 1));
-  const unsigned long long m =
-      ((1ull << s) + (unsigned long long)(d - 1)) / (unsigned long long)d;
-  return make_uint2((unsigned)m, s);
-}
-// floor(a / d) for any int32 a, (m, s) = magic(d)
-__device__ __forceinline__ int fdiv(int a, unsigned m, unsigned s) {
-  const unsigned neg = (unsigned)(a >> 31);
-  const unsigned x = (unsigned)a ^ neg;
-  return (int)((unsigned)(((unsigned long long)x * m) >> s) ^ neg);
-}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -806,8 +785,4 @@ extern "C" int rt_binpack_launch_loop(const void* type_caps,
       (int*)scratch, (int*)launches, (int*)remaining_out, (int*)iters,
       (unsigned long long*)steps);
   return (int)cudaGetLastError();
-}
-
-extern "C" const char* rt_cuda_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
 }

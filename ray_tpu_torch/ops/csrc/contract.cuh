@@ -1,11 +1,13 @@
-// Device helpers shared by the one-CTA scheduling kernels (topk.cu,
-// bundle.cu, pull.cu): the int32 scheduling contract of
-// scheduling/contract.py and XLA's integer semantics, written out.
+// Device helpers shared by every scheduling kernel (waterfill.cu,
+// binpack.cu, topk.cu, bundle.cu, pull.cu, broadcast.cu): the int32
+// scheduling contract of scheduling/contract.py and XLA's integer
+// semantics, written out.
 //
 // * int32 add, subtract and multiply wrap as XLA's do: they run in
 //   uint32 and cast back (signed overflow is undefined in C++).
 // * floordiv and floormod floor as numpy, torch and XLA `//` and `%` do
-//   (CUDA `/` and `%` truncate toward zero).
+//   (CUDA `/` and `%` truncate toward zero); fdiv floors by a divisor's
+//   magic multiplier (magic), exact for every int32 dividend.
 // * contract_key is hybrid_kernel._keys for one (request, row): the avail
 //   bit, the effective score and the row packed into an int32, or
 //   INFEASIBLE_KEY.  Only the request's positive columns enter it, as in
@@ -14,8 +16,6 @@
 //   word) makes a first-min or first-max a plain unsigned min: ties go to
 //   the lowest row, and the min over an all-INF row is row 0, as
 //   jnp.argmin gives.
-//
-// waterfill.cu keeps its own copies of these (it predates this header).
 
 #pragma once
 
@@ -52,6 +52,20 @@ __device__ __forceinline__ int floordiv(int a, int b) {
 __device__ __forceinline__ int floormod(int a, int b) {
   const int m = a % b;
   return (m != 0 && ((m < 0) != (b < 0))) ? m + b : m;
+}
+// the divisor d >= 1 as (m, s) for fdiv
+__device__ __forceinline__ uint2 magic(int d) {
+  const unsigned s = 31u + (32u - (unsigned)__clz(d - 1));
+  const unsigned long long m =
+      ((1ull << s) + (unsigned long long)(d - 1)) / (unsigned long long)d;
+  return make_uint2((unsigned)m, s);
+}
+// floor(a / d) for any int32 a, (m, s) = magic(d): a multiply-high and a
+// shift in place of a division (Granlund and Montgomery)
+__device__ __forceinline__ int fdiv(int a, unsigned m, unsigned s) {
+  const unsigned neg = (unsigned)(a >> 31);
+  const unsigned x = (unsigned)a ^ neg;
+  return (int)((unsigned)(((unsigned long long)x * m) >> s) ^ neg);
 }
 
 // (key ^ sign bit) << 32 | row: unsigned order is (signed key, row) order

@@ -94,15 +94,14 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "contract.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kScale = 1 << 12;          // contract.SCALE
-constexpr int kScoreShift = 13;          // contract.SCORE_SHIFT
-constexpr int kAvailShift = 27;          // contract.AVAIL_SHIFT
-constexpr int kBig = 1 << 30;            // hybrid_kernel._BIG
-constexpr int kInfKey = 0x7fffffff;      // contract.INFEASIBLE_KEY
+using namespace rt;
+
 constexpr int kTop = 2 * kScale + 1;     // the search's "no level" answer
 constexpr int kProbes = 7;               // levels per search round
 constexpr int kVals = kProbes + 1;       // ints exchanged per round
@@ -112,24 +111,6 @@ constexpr int kPortableCluster = 8;      // every Hopper card schedules 8
 constexpr int kMaxCluster = 16;          // H100 allows 16 on request
 constexpr int kSpillU1 = 8;              // used*SCALE+1 columns kept on chip
                                          // when the rows spill
-constexpr unsigned kFull = 0xffffffffu;
-constexpr unsigned long long kNoKey = ~0ull;
-
-__device__ __forceinline__ int wadd(int a, int b) {
-  return (int)((unsigned)a + (unsigned)b);
-}
-__device__ __forceinline__ int wsub(int a, int b) {
-  return (int)((unsigned)a - (unsigned)b);
-}
-__device__ __forceinline__ int wmul(int a, int b) {
-  return (int)((unsigned)a * (unsigned)b);
-}
-// numpy/XLA floor division (b > 0 at every call site)
-__device__ __forceinline__ int floordiv(int a, int b) {
-  int q = a / b;
-  if ((a % b != 0) && ((a < 0) != (b < 0))) --q;
-  return q;
-}
 __device__ __forceinline__ int clip(int x, int lo, int hi) {
   return min(max(x, lo), hi);
 }
@@ -159,14 +140,6 @@ struct Shared {
 __device__ __forceinline__ unsigned warp_sum(unsigned x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-__device__ __forceinline__ unsigned long long warp_min(unsigned long long x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const unsigned long long y = __shfl_xor_sync(kFull, x, o);
-    x = y < x ? y : x;
-  }
   return x;
 }
 
@@ -467,7 +440,9 @@ waterfill_cluster_kernel(const int* __restrict__ totals,
   const bool nmask = live && node_mask[row] != 0;
   bool gmask = group_masks == nullptr || !live || g == 0 ||
                group_masks[row] != 0;
-  __syncthreads();
+  // the block's barrier, and every CTA of the cluster has started before
+  // the first class writes into its shared memory
+  cl.sync();
 
   int parity = 0;
   // the last class's allocation and overflow, until its argmin is known
@@ -784,8 +759,4 @@ extern "C" int rt_waterfill_scan(const void* totals, const void* avail,
   }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
-}
-
-extern "C" const char* rt_cuda_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
 }

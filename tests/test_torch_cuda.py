@@ -7,10 +7,10 @@ Each test needs a GPU and skips without one; on the GPU machine run
 The kernels are held against their plain PyTorch versions (and the
 scheduler against the JAX reference on the CPU) at small shapes:
 ``waterfill_scan`` bit for bit, ``flash_attention`` within the stated
-tolerances.  The top-k, bundle and pull kernels are also held to the JAX
-functions, bit for bit, at every shape and at the edge problems their
-plain versions are pinned to in ``test_torch_topk.py`` and
-``test_torch_dataplane.py``.  ``chip_smoke.py`` repeats this at the main
+tolerances.  The top-k, bundle, pull and broadcast kernels are also held
+to the JAX functions, bit for bit, at every shape and at the edge
+problems their plain versions are pinned to in ``test_torch_topk.py``
+and ``test_torch_dataplane.py``.  ``chip_smoke.py`` repeats this at the main
 paths' shapes."""
 
 import numpy as np
@@ -20,8 +20,8 @@ import torch
 from ray_tpu_torch.common.config import Config as PortConfig
 # importing test_torch_topk also switches JAX to its partitionable
 # threefry, whose draws the port's top-k reproduces
-from test_torch_dataplane import (BUNDLE_EDGES, PULL_EDGES, _bundle_edge,
-                                  _pull_edge)
+from test_torch_dataplane import (BROADCAST_EDGES, BUNDLE_EDGES, PULL_EDGES,
+                                  _broadcast_edge, _bundle_edge, _pull_edge)
 from test_torch_topk import TOPK_EDGES
 
 pytestmark = pytest.mark.cuda
@@ -900,9 +900,82 @@ def test_pull_kernel_bit_exact(n, r):
         np.testing.assert_array_equal(x.cpu().numpy(), y)
 
 
+def _fanout_problem(n, fanout, kind, seed=0):
+    """(member, bw, root, fanout, inflight_kb): the dataplane cell's
+    draws (5% dead links, in-flight KB below 2**20) with random or
+    uniform bandwidth; uniform gives every row the same best child, the
+    kernel's worst case."""
+    rng = np.random.default_rng(seed * 100 + n * 10 + fanout)
+    if kind == "uniform":
+        bw = np.full((n, n), 1000, np.int32)
+    else:
+        bw = rng.integers(0, 50_000, size=(n, n)).astype(np.int32)
+        bw[rng.random((n, n)) < 0.05] = 0
+    np.fill_diagonal(bw, 0)
+    member = rng.random(n) < 0.9
+    root = int(rng.integers(0, n))
+    member[root] = True
+    infl = rng.integers(0, 1 << 20, size=n).astype(np.int32)
+    return member, bw, root, fanout, infl
+
+
+@pytest.mark.parametrize("n", [2, 37, 200, 1000])
+@pytest.mark.parametrize("fanout", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("kind", ["random", "uniform"])
+def test_broadcast_kernel_bit_exact(n, fanout, kind):
+    """csrc/broadcast.cu == plan_fanout_plain on the card, bit for bit,
+    one launch a call; == the JAX function too up to 200 nodes."""
+    from ray_tpu.ops import broadcast_kernel as ref
+    from ray_tpu_torch.ops import broadcast_kernel as bc
+    member, bw, root, fanout, infl = _fanout_problem(n, fanout, kind)
+    dev = [torch.as_tensor(a, device="cuda") for a in (member, bw, infl)]
+    before = bc.plan_fanout.launches
+    got = bc.plan_fanout(dev[0], dev[1], root, fanout, dev[2])
+    assert bc.plan_fanout.launches == before + 1
+    for x, y in zip(got, bc.plan_fanout_plain(dev[0], dev[1], root, fanout,
+                                              dev[2])):
+        assert torch.equal(x, y)
+    if kind == "uniform":                           # no dead link
+        assert int((got[0] >= 0).sum()) == member.sum() - 1
+    if n <= 200:
+        for x, y in zip(got, ref.plan_fanout_np(member, bw, root, fanout,
+                                                infl)):
+            np.testing.assert_array_equal(x.cpu().numpy(), np.asarray(y))
+
+
+def test_broadcast_kernel_cluster_rule():
+    """64 rows a CTA up to 16 CTAs: the launch's cluster size."""
+    from ray_tpu_torch.ops import broadcast_kernel as bc
+    for n, cluster in ((1, 1), (64, 1), (65, 2), (1000, 16), (8192, 16)):
+        member, bw, root, fanout, infl = _fanout_problem(n, 4, "random")
+        bc.plan_fanout_np(member, bw, root, fanout, infl, device="cuda")
+        assert bc.plan_fanout.last_cluster == cluster, n
+
+
+def test_broadcast_kernel_rejects_what_it_does_not_take():
+    from ray_tpu_torch.ops import broadcast_kernel as bc
+    i32 = dict(dtype=torch.int32, device="cuda")
+    member = torch.ones(5, dtype=torch.bool, device="cuda")
+    bw = torch.ones((5, 5), **i32)
+    infl = torch.zeros(5, **i32)
+    with pytest.raises(ValueError, match="bw"):
+        bc.plan_fanout(member, bw.to(torch.int64), 0, 2, infl)
+    with pytest.raises(ValueError, match="member"):
+        bc.plan_fanout(member.to(torch.int32), bw, 0, 2, infl)
+    with pytest.raises(ValueError, match="inflight_kb"):
+        bc.plan_fanout(member, bw, 0, 2, infl[:4])
+    with pytest.raises(IndexError):
+        bc.plan_fanout(member, bw, 5, 2, infl)
+    big = torch.zeros(8193, dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError, match="N=8193"):
+        bc.plan_fanout(big, torch.zeros((8193, 8193), **i32), 0, 2,
+                       torch.zeros(8193, **i32))
+
+
 EDGE_CASES = ([("topk", c) for c in sorted(TOPK_EDGES)]
               + [("bundles", c) for c in BUNDLE_EDGES]
-              + [("pulls", c) for c in PULL_EDGES])
+              + [("pulls", c) for c in PULL_EDGES]
+              + [("broadcast", c) for c in BROADCAST_EDGES])
 
 
 @pytest.mark.parametrize("program,case", EDGE_CASES)
@@ -913,12 +986,16 @@ def test_new_kernels_at_the_edges_equal_the_jax_function(program, case):
     count, negative avail; holes in the valid mask, a group undone after
     a placed bundle, STRICT_PACK's clamp and its int32 wrap; ties, no
     holder, in-flight bytes across UNITs and past INT_MAX, divisors of 0
-    and below."""
+    and below; the broadcast plan's denominators of 0 and below, fan-out 0
+    and past N, an unreachable member, uniform bandwidth, one node and a
+    root that is not a member."""
+    from ray_tpu.ops import broadcast_kernel as ref_bc
     from ray_tpu.ops import bundle_kernel as ref_bk
     from ray_tpu.ops import locality_kernel as ref_lk
     from ray_tpu.ops import pull_kernel as ref_pk
     from ray_tpu_torch.ops import bundle_kernel as bk
     from ray_tpu_torch.ops import locality_kernel as lk
+    from ray_tpu_torch.ops import broadcast_kernel as bc
     from ray_tpu_torch.ops import pull_kernel as pk
     if program == "topk":
         make, k_abs, k_frac = TOPK_EDGES[case]
@@ -937,12 +1014,18 @@ def test_new_kernels_at_the_edges_equal_the_jax_function(program, case):
         before = counter.launches
         got = bk.schedule_bundle_groups_np(*prob, device="cuda")
         want = ref_bk.schedule_bundle_groups_np(*prob)
-    else:
+    elif program == "pulls":
         prob = _pull_edge(case)
         counter = pk.choose_sources
         before = counter.launches
         got = pk.choose_sources_np(*prob, device="cuda")
         want = ref_pk.choose_sources_np(*prob)
+    else:
+        prob = _broadcast_edge(case)
+        counter = bc.plan_fanout
+        before = counter.launches
+        got = bc.plan_fanout_np(*prob, device="cuda")
+        want = ref_bc.plan_fanout_np(*prob)
     assert counter.launches == before + 1
     for x, y in zip(got, want):
         np.testing.assert_array_equal(x, np.asarray(y))
@@ -952,6 +1035,7 @@ def test_new_kernels_raise_when_the_build_fails(monkeypatch):
     """No fallback: with the build failing, a CUDA call raises and counts
     no launch (the CPU is never taken for a CUDA tensor)."""
     from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import broadcast_kernel as bc
     from ray_tpu_torch.ops import bundle_kernel as bk
     from ray_tpu_torch.ops import locality_kernel as lk
     from ray_tpu_torch.ops import pull_kernel as pk
@@ -961,7 +1045,7 @@ def test_new_kernels_raise_when_the_build_fails(monkeypatch):
 
     monkeypatch.setattr(_build, "load", broken)
     counters = (lk.schedule_grouped_topk, bk.schedule_bundle_groups,
-                pk.choose_sources)
+                pk.choose_sources, bc.plan_fanout)
     before = [f.launches for f in counters]
     with pytest.raises(RuntimeError, match="forced"):
         lk.schedule_grouped_topk(*_topk_args(1, 50, 3, 4, "cuda", True))
@@ -976,6 +1060,9 @@ def test_new_kernels_raise_when_the_build_fails(monkeypatch):
         pk.choose_sources(loc, torch.ones((5, 5), **i32),
                           torch.zeros(3, **i32), torch.ones(3, **i32),
                           torch.zeros(5, **i32))
+    with pytest.raises(RuntimeError, match="forced"):
+        bc.plan_fanout(loc[0], torch.ones((5, 5), **i32), 0, 2,
+                       torch.zeros(5, **i32))
     assert [f.launches for f in counters] == before
 
 

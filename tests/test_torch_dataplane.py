@@ -285,27 +285,234 @@ def test_pull_plain_edges_against_jax(case):
                                                                   20, 9]
 
 
+def _broadcast_edge(case):
+    """(member, bw, root, fanout, inflight_kb)"""
+    unit = int(bc._INFLIGHT_UNIT_KB)
+    n = 8
+    member = np.ones(n, bool)
+    bw = np.full((n, n), 1000, np.int32)
+    np.fill_diagonal(bw, 0)
+    infl = np.zeros(n, np.int32)
+    if case == "divisor_zero":
+        # infl // UNIT = -1 on the root: its denominator is 0 while it
+        # has no children, so every eff of the root is 1
+        infl[0] = -unit
+        return member, bw, 0, 4, infl
+    if case == "inflight_minus_one":
+        infl[[0, 3, 5]] = -1                # units -1 on three nodes
+        return member, bw, 0, 2, infl
+    if case == "inflight_minus_65536":
+        infl[[0, 2]] = -65536               # units -2: denominators -1, 0
+        return member, bw, 0, 3, infl
+    if case == "inflight_max_deep":
+        # units 65535 everywhere and fan-out 2 over 24 nodes: the tree
+        # goes past depth 2, so both factors of the denominator grow
+        rng = np.random.default_rng(11)
+        n = 24
+        bw = rng.integers(0, 2**31 - 1, size=(n, n)).astype(np.int32)
+        np.fill_diagonal(bw, 0)
+        return np.ones(n, bool), bw, 5, 2, np.full(n, 2**31 - 1, np.int32)
+    if case == "fanout_zero":
+        return member, bw, 0, 0, infl
+    if case == "fanout_past_n":
+        return member, bw, 2, n + 5, infl
+    if case == "member_unreachable":
+        bw[:, 6] = 0                        # nobody can send to node 6
+        return member, bw, 0, 2, infl
+    if case == "uniform":
+        n = 40
+        bw = np.full((n, n), 777, np.int32)
+        np.fill_diagonal(bw, 0)
+        return np.ones(n, bool), bw, 0, 3, np.zeros(n, np.int32)
+    if case == "one_node":
+        return np.ones(1, bool), np.zeros((1, 1), np.int32), 0, 4, \
+            np.zeros(1, np.int32)
+    if case == "root_not_a_member":
+        member[[3, 4]] = False
+        member[0] = False                   # the root relays all the same
+        return member, bw, 0, 2, infl
+    raise KeyError(case)
+
+
+BROADCAST_EDGES = ["divisor_zero", "inflight_minus_one",
+                   "inflight_minus_65536", "inflight_max_deep",
+                   "fanout_zero", "fanout_past_n", "member_unreachable",
+                   "uniform", "one_node", "root_not_a_member"]
+
+
+@pytest.mark.parametrize("case", BROADCAST_EDGES)
+def test_plan_fanout_plain_edges_against_jax(case):
+    """``plan_fanout_plain`` (what CPU tensors take) against the JAX
+    program and the oracle at the kernel's edges: denominators of 0 and
+    below (torch raised at the first before the repair; JAX's eff is 1),
+    in-flight KB at INT_MAX with depth past 2, fan-out 0 and past N, a
+    member nobody reaches, uniform bandwidth, one node, a root that is
+    not a member."""
+    prob = _broadcast_edge(case)
+    got = bc.plan_fanout_np(*prob, device="cpu")
+    _same(got, ref_bc.plan_fanout_np(*prob))
+    with np.errstate(divide="ignore", over="ignore"):
+        _same(got, bc.plan_fanout_oracle(*prob))
+    parent, order = got
+    if case == "divisor_zero":
+        assert parent.tolist() == [-1, 0, 0, 0, 1, 2, 3, 0]
+        assert order.tolist() == [-1, 0, 1, 2, 3, 4, 5, 6]
+    if case == "fanout_zero":
+        assert (parent == -1).all() and (order == -1).all()
+    if case == "fanout_past_n":
+        assert (parent[np.arange(8) != 2] >= 0).all()
+    if case == "member_unreachable":
+        assert parent[6] == -1 and order[6] == -1
+        assert (parent[[1, 2, 3, 4, 5, 7]] >= 0).all()
+    if case == "root_not_a_member":
+        assert parent[0] == -1 and (parent[[3, 4]] == -1).all()
+        assert (parent[[1, 2, 5, 6, 7]] >= 0).all()
+    if case == "uniform":
+        assert (parent[1:] >= 0).all() and sorted(order[1:]) == \
+            list(range(39))
+
+
+_NO_KEY = (1 << 64) - 1
+
+
+def _wrap32(x):
+    return (int(x) + 2**31) % 2**32 - 2**31
+
+
+def kernel_rule(member, bw, root, fanout, inflight_kb, look=256):
+    """A numpy model of ``csrc/broadcast.cu``'s rule (not of its
+    threads): each row keeps the packed key of its first-max child; after
+    an attach (p*, c*) only p* and c* are rescanned in full, and a row
+    whose best child was c* first looks for the same eff in the ``look``
+    columns from its 32-aligned start past the old child, and is
+    rescanned in full only on a miss.  (The kernel skips the look and
+    rescans such rows in full when they are few; a full rescan is the
+    plain argmax of the row, so only the look needs a model.)"""
+    member = np.asarray(member, bool)
+    bw = np.asarray(bw, np.int64)
+    n = len(member)
+    units = (np.asarray(inflight_kb, np.int32) >> 15).astype(np.int64)
+    want = member.copy()
+    want[root] = False
+    children = np.zeros(n, np.int64)
+    depth = np.zeros(n, np.int64)
+    denom = [_wrap32(1 + u) for u in units]
+    best = [_NO_KEY] * n
+    parent = np.full(n, -1, np.int32)
+    order = np.full(n, -1, np.int32)
+
+    def eff(b, den):
+        return max(b // den, 1) if den > 0 else 1
+
+    def key(e, p, c):
+        return ((2**31 - 1 - e) << 32) | (p * n + c)
+
+    def full_scan(p):
+        cand = np.flatnonzero(want & (bw[p] > 0))
+        if not len(cand):
+            return _NO_KEY
+        effs = [eff(int(bw[p, c]), denom[p]) for c in cand]
+        e = max(effs)
+        return key(e, p, int(cand[effs.index(e)]))
+
+    full = [root] if fanout > 0 else []
+    looks = []
+    k = 0
+    while True:
+        for p in looks:
+            e = 2**31 - 1 - (best[p] >> 32)
+            c_old = (best[p] & 0xffffffff) - p * n
+            a = (c_old + 1) & ~31
+            hit = next((c for c in range(c_old + 1, min(a + look, n))
+                        if want[c] and bw[p, c] > 0
+                        and eff(int(bw[p, c]), denom[p]) == e), None)
+            if hit is None:
+                full.append(p)
+            else:
+                best[p] = key(e, p, hit)
+        for p in full:
+            best[p] = full_scan(p)
+        g = min(best)
+        if g == _NO_KEY:
+            return parent, order
+        ps, cs = divmod(g & 0xffffffff, n)
+        full, looks = [], []
+        for p in range(n):
+            if p == ps:
+                children[p] += 1
+                best[p] = _NO_KEY
+                if children[p] < fanout:
+                    denom[p] = _wrap32(_wrap32(1 + children[p] + units[p])
+                                       * (1 + depth[p]))
+                    full.append(p)
+            elif p == cs:
+                depth[p] = depth[ps] + 1
+                denom[p] = _wrap32(_wrap32(1 + units[p]) * (1 + depth[p]))
+                best[p] = _NO_KEY
+                full.append(p)
+                parent[p], order[p] = ps, k
+            elif best[p] != _NO_KEY and (best[p] & 0xffffffff) - p * n == cs:
+                looks.append(p)
+        want[cs] = False
+        k += 1
+
+
+def _rule_case(case):
+    if case in BROADCAST_EDGES:
+        return _broadcast_edge(case)
+    kind, seed = case.split("_")
+    rng = np.random.default_rng(int(seed))
+    n = int(rng.integers(2, 120))
+    member = rng.random(n) < 0.8
+    if kind == "ties":      # few distinct values: ties and merged floors
+        bw = rng.integers(0, 4, size=(n, n)).astype(np.int32) * 1000
+    else:
+        bw = rng.integers(0, 100_000, size=(n, n)).astype(np.int32)
+    np.fill_diagonal(bw, 0)
+    root = int(rng.integers(0, n))
+    member[root] = True
+    infl = rng.integers(-(1 << 17), 1 << 20, size=n).astype(np.int32)
+    return member, bw, root, int(rng.integers(1, 6)), infl
+
+
+@pytest.mark.parametrize("case", BROADCAST_EDGES
+                         + [f"random_{s}" for s in range(6)]
+                         + [f"ties_{s}" for s in range(6)])
+@pytest.mark.parametrize("look", [32, 256])
+def test_kernel_rule_equals_the_full_argmax(case, look):
+    """The kernel's incremental rule (a best child per row, rescans of
+    the rows an attach changed, the short look past a taken best) gives
+    the oracle's tree: random bandwidth, few distinct values (ties, and
+    floors that merge), negative in-flight KB, and the edges above."""
+    prob = _rule_case(case)
+    with np.errstate(divide="ignore", over="ignore"):
+        want = bc.plan_fanout_oracle(*prob)
+    _same(kernel_rule(*prob, look=look), want)
+
+
 # -- the kernels' builds and launch counters off the card ---------------------
 
 def test_lib_path_follows_the_included_headers(tmp_path, monkeypatch):
     """A library's name hashes its source AND the headers it includes, so
-    an edited header never loads a stale build; a kernel that does not
-    include the header keeps its name."""
+    an edited header never loads a stale build: every scheduling kernel
+    includes ``contract.cuh``, and flash attention, which does not,
+    keeps its name."""
     import shutil
 
     from ray_tpu_torch.ops import _build
     csrc = tmp_path / "csrc"
     shutil.copytree(_build._CSRC, csrc)
     monkeypatch.setattr(_build, "_CSRC", csrc)
-    names = ("topk", "bundle", "pull", "waterfill", "binpack")
+    includers = ("topk", "bundle", "pull", "waterfill", "binpack",
+                 "broadcast")
+    names = includers + ("flash_attention",)
     before = {n: _build.lib_path(n) for n in names}
     with open(csrc / "contract.cuh", "a") as f:
         f.write("\n// edited\n")
     after = {n: _build.lib_path(n) for n in names}
-    for n in ("topk", "bundle", "pull"):
+    for n in includers:
         assert after[n] != before[n], n
-    for n in ("waterfill", "binpack"):
-        assert after[n] == before[n], n
+    assert after["flash_attention"] == before["flash_attention"]
     with open(csrc / "pull.cu", "a") as f:
         f.write("\n// edited\n")
     assert _build.lib_path("pull") != after["pull"]
@@ -326,8 +533,9 @@ def test_cpu_tensors_never_load_a_kernel(monkeypatch):
     monkeypatch.setattr(_build, "load", refuse)
     monkeypatch.setattr(_build, "build", refuse)
     counters = (lk.schedule_grouped_topk, bk.schedule_bundle_groups,
-                pk.choose_sources)
+                pk.choose_sources, bc.plan_fanout)
     before = [f.launches for f in counters]
+    bc.plan_fanout_np(*_broadcast_edge("uniform"), device="cpu")
     prob = bundle_problem(0)
     bk.schedule_bundle_groups_np(*prob, device="cpu")
     t = [torch.as_tensor(a) for a in prob[:4]]
