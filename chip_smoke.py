@@ -118,16 +118,22 @@ Phases:
                   scraped over HTTP against its status RPC; only the
                   head (and this script) hold a CUDA context
   flash_attention the ops path: ``ops.flash_attention`` at B=2, T=4096,
-                  H=16, D=128 (bf16 causal, bf16, f16), bf16 causal at
-                  D=64, and f32 at T=1024, D=64, against the plain version
-                  within an elementwise limit (FLASH_TOL) that must also
-                  reject the plain version with its last 64 keys dropped;
-                  kernel/plain/library times, the bound, the share of the
-                  bound reached and the ratio to the library call; then
-                  every head dim of FLASH_HEAD_DIMS (zero-padded, the
-                  D=256 FMA kernel, or past 256 the wide kernel), bf16
-                  and f32, causal and not, each beside the library
-                  call's time and the SDPA backend that ran
+                  H=16, D=128 bf16 causal (the main path), then bf16
+                  causal at the widths of the wgmma kernel past 128
+                  (FLASH_WIDE_PATHS: B=2 T=4096 H=16 D=256, Gemma 7B's
+                  head dim, and H=8 D=512), each driven with the launch
+                  count set to 0; then the cases: D=128 (bf16 causal,
+                  bf16, f16), bf16 causal at D=64, f32 at T=1024, D=64,
+                  and bf16 causal and not at the two full-card widths,
+                  against the plain version within an elementwise limit
+                  (FLASH_TOL) that must also reject the plain version
+                  with its last 64 keys dropped; kernel/plain/library
+                  times, the bound, the share of the bound reached and
+                  the ratio to the library call; then every head dim of
+                  FLASH_HEAD_DIMS (zero-padded; 16-bit on wgmma, f32 on
+                  the FMA or, past 256, the wide FMA kernel), bf16 and
+                  f32, causal and not, each beside its bound and the
+                  library call's time and SDPA backend
   data            ``ray_tpu_torch.data`` feeding the card: ``init`` with a
                   4096 MB object store (bytes spilled: 0), ``from_numpy``
                   of 2**20 rows x 128 float32 features (512 MiB, seed 0)
@@ -291,7 +297,7 @@ def phase_build():
                  for ln in _build.build_log(name).splitlines()
                  if "Function properties for" in ln or "registers" in ln
                  or "spill" in ln or "warning" in ln]
-        ptxas[name] = lines[:60]
+        ptxas[name] = lines[:120]
     emit({"phase": "build", "seconds": round(total, 3),
           "per_kernel_s": {k: round(v, 3) for k, v in per_kernel.items()},
           "ptxas": ptxas, "sass": sass_evidence(_build)})
@@ -2833,6 +2839,27 @@ def drop_last_key_tile(q, k, v, causal, tile=FLASH_KEY_TILE):
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
+def flash_limit(q, k, v, causal):
+    """The plain version's output (f32) on these inputs and the
+    elementwise limit of FLASH_TOL around it."""
+    from ray_tpu_torch import ops
+    atol, rtol, p_u = FLASH_TOL[str(q.dtype).replace("torch.", "")]
+    want = ops.flash_attention_plain(q, k, v, causal=causal).float()
+    pv_abs = ops.flash_attention_plain(q.float(), k.float(),
+                                       v.float().abs(), causal=causal)
+    return want, atol + rtol * want.abs() + p_u * pv_abs
+
+
+def flash_bound(q, causal):
+    """(bound_ms, bound_by, operations) of flash attention on (B, T, H,
+    D) inputs like q: q, k, v read and the output written once, the two
+    products' 4*B*H*T^2*D operations (half of them causal)."""
+    b, t, h, d = q.shape
+    ops = 4.0 * b * h * t * t * d * (0.5 if causal else 1.0)
+    peak = PEAK_F32 if q.element_size() == 4 else PEAK_TC_16BIT
+    return (*bound(4.0 * q.numel() * q.element_size(), ops, peak), ops)
+
+
 def phase_flash(dev):
     import torch
     import torch.nn.functional as F
@@ -2859,23 +2886,38 @@ def phase_flash(dev):
             not bool(torch.isfinite(out.float()).all()):
         raise AssertionError("flash attention output: wrong shape/dtype or "
                              "not finite")
+    # --- the wgmma kernel past 128 (flash_big16_kernel), each width's path
+    # driven alone ---
+    wide_launches = {}
+    for b, t, h, d in FLASH_WIDE_PATHS:
+        q, k, v = qkv(b, t, h, d, torch.bfloat16)
+        ops.flash_attention.launches = 0
+        out = ops.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        wide_launches[d] = ops.flash_attention.launches
+        if wide_launches[d] < 1:
+            raise AssertionError(f"ops.flash_attention at D={d} did not "
+                                 "launch the kernel")
+        if out.shape != q.shape or out.dtype != q.dtype or \
+                not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError(f"flash attention output at D={d}: wrong "
+                                 "shape/dtype or not finite")
+    del q, k, v, out
 
     cases = [("bfloat16", True, 2, 4096, 16, 128),
              ("bfloat16", False, 2, 4096, 16, 128),
              ("float16", False, 2, 4096, 16, 128),
              ("bfloat16", True, 2, 4096, 16, 64),
              ("float32", False, 2, 1024, 16, 64)]
+    cases += [("bfloat16", causal, b, t, h, d)
+              for b, t, h, d in FLASH_WIDE_PATHS for causal in (True, False)]
     rows = []
     for dtype_name, causal, b, t, h, d in cases:
         dtype = getattr(torch, dtype_name)
         q, k, v = qkv(b, t, h, d, dtype)
         got = ops.flash_attention(q, k, v, causal=causal)
-        want = ops.flash_attention_plain(q, k, v, causal=causal).float()
         atol, rtol, p_u = FLASH_TOL[dtype_name]
-        pv_abs = ops.flash_attention_plain(q.float(), k.float(),
-                                           v.float().abs(), causal=causal)
-        limit = atol + rtol * want.abs() + p_u * pv_abs
-        del pv_abs
+        want, limit = flash_limit(q, k, v, causal)
         err = (got.float() - want).abs()
         max_err, ratio = float(err.max()), float((err / limit).max())
         if not ratio <= 1.0:
@@ -2899,10 +2941,7 @@ def phase_flash(dev):
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal))
         backend = sdpa_backend(qt, kt, vt, causal)
-        flops = 4.0 * b * h * t * t * d * (0.5 if causal else 1.0)
-        n_bytes = 4.0 * b * t * h * d * q.element_size()
-        peak = PEAK_F32 if dtype == torch.float32 else PEAK_TC_16BIT
-        bound_ms, bound_by = bound(n_bytes, flops, peak)
+        bound_ms, bound_by, flops = flash_bound(q, causal)
         rows.append({"dtype": dtype_name, "causal": causal,
                      "shape": [b, t, h, d], "max_abs_err": max_err,
                      "atol": atol, "rtol": rtol, "p_u": p_u,
@@ -2916,15 +2955,20 @@ def phase_flash(dev):
                      "vs_library": kernel_ms / library_ms,
                      "tflops": flops / (kernel_ms / 1e3) / 1e12})
     result = {"phase": "flash_attention", "entry": "ops.flash_attention",
-              "main_path_launches": main_launches, "cases": rows,
+              "main_path_launches": main_launches,
+              "wide_path_launches": wide_launches, "cases": rows,
               "head_dims": flash_head_dims(qkv)}
     emit(result)
     return result
 
 
-# head dims the kernel reaches by zero padding (64, 128), at 256 (FMA)
-# and past 256 (the wide kernel, the head dim in chunks of 64)
+# head dims the kernel reaches by zero padding (to 64, 128, 256, 320), at
+# 256 and at 512: 16-bit on wgmma, f32 on the FMA kernels
 FLASH_HEAD_DIMS = (16, 32, 80, 96, 160, 256, 320, 512)
+# (b, t, h, d) of the wgmma kernel's full-card rows past D = 128: Gemma
+# 7B's head dim (256, 16 heads; its config.json), and the widest width
+# (16 (b, h) pairs x 64 query tiles of 64 = 1,024 CTAs)
+FLASH_WIDE_PATHS = ((2, 4096, 16, 256), (2, 4096, 8, 512))
 
 
 def sdpa_backend(q, k, v, causal):
@@ -2941,7 +2985,8 @@ def flash_head_dims(qkv, b=2, t=1024, h=4):
     """Every head dim of FLASH_HEAD_DIMS, causal and not, bf16 and f32,
     at (b, t, h, d): the kernel within FLASH_TOL of the plain version, and
     the limit still rejecting the plain version with its last key tile
-    dropped; beside each kernel time the library call's
+    dropped; beside each kernel time its bound (the function's work at
+    the original d), the library call's time
     (``scaled_dot_product_attention``, timed here and used nowhere in the
     port) and the backend it ran on."""
     import torch
@@ -2954,12 +2999,7 @@ def flash_head_dims(qkv, b=2, t=1024, h=4):
             for causal in (False, True):
                 q, k, v = qkv(b, t, h, d, getattr(torch, dtype_name))
                 got = ops.flash_attention(q, k, v, causal=causal).float()
-                want = ops.flash_attention_plain(q, k, v,
-                                                 causal=causal).float()
-                atol, rtol, p_u = FLASH_TOL[dtype_name]
-                limit = atol + rtol * want.abs() + p_u * \
-                    ops.flash_attention_plain(q.float(), k.float(),
-                                              v.float().abs(), causal=causal)
+                want, limit = flash_limit(q, k, v, causal)
                 ratio = float(((got - want).abs() / limit).max())
                 fault = float(((drop_last_key_tile(q, k, v, causal).float()
                                 - want).abs() / limit).max())
@@ -2972,15 +3012,21 @@ def flash_head_dims(qkv, b=2, t=1024, h=4):
                 def sdpa():
                     return F.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=causal)
+                kernel_ms = cuda_ms(lambda: ops.flash_attention(
+                    q, k, v, causal=causal), reps=5, warmup=1)
+                library_ms = cuda_ms(sdpa, reps=5, warmup=1)
+                bound_ms, bound_by, _ = flash_bound(q, causal)
                 rows.append({"d": d, "dtype": dtype_name, "causal": causal,
                              "max_abs_err": float((got - want).abs().max()),
                              "max_err_over_limit": ratio,
                              "dropped_tile_err_over_limit": fault,
-                             "kernel_ms": cuda_ms(lambda: ops.flash_attention(
-                                 q, k, v, causal=causal), reps=5, warmup=1),
-                             "library_ms": cuda_ms(sdpa, reps=5, warmup=1),
+                             "kernel_ms": kernel_ms,
+                             "library_ms": library_ms,
                              "library_backend": sdpa_backend(qt, kt, vt,
-                                                             causal)})
+                                                             causal),
+                             "bound_ms": bound_ms, "bound_by": bound_by,
+                             "bound_share": bound_ms / kernel_ms,
+                             "vs_library": kernel_ms / library_ms})
     return {"shape": [b, t, h], "cases": rows}
 
 
@@ -4294,6 +4340,8 @@ def main() -> int:
     timed("train", phase_train, dev)
     shd = timed("shard", phase_shard, dev, smi)
     head = fl["cases"][0]
+    wide = next(r for r in fl["cases"] if r["dtype"] == "bfloat16" and
+                r["causal"] and r["shape"] == list(FLASH_WIDE_PATHS[0]))
     lw = loc["problems"]["beat 1000x8x64"]
     emit({"phase": "summary", "phase_seconds": seconds,
           "seconds": time.perf_counter() - t_start})   # build included
@@ -4416,6 +4464,18 @@ def main() -> int:
          "max_abs_err": head["max_abs_err"], "ms": head["kernel_ms"],
          "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
          "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+         "checked": True},
+        {"name": "flash_attention (16-bit, D 256-512)", "route": "cuda",
+         "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
+         "replaces": "ray_tpu/ops/flash_attention.py:25",
+         # flash_big16_kernel: launches on the D=256 path, the D=512 path
+         # beside it; the numbers are the bf16 causal D=256 row's
+         "launches": fl["wide_path_launches"][FLASH_WIDE_PATHS[0][3]],
+         "launches_by_path": {f"d{d}": n for d, n in
+                              fl["wide_path_launches"].items()},
+         "max_abs_err": wide["max_abs_err"], "ms": wide["kernel_ms"],
+         "plain_ms": wide["plain_ms"], "bound_ms": wide["bound_ms"],
+         "bound_by": wide["bound_by"], "library_ms": wide["library_ms"],
          "checked": True},
     ]})
     print(smi, flush=True)

@@ -9,27 +9,36 @@
 // above the H100's ~295 flop/byte ridge at the sizes it is used at, so
 // the tensor cores are the limit, and only wgmma reaches their full rate.
 //
-// 16-bit inputs (f16, bf16): a warp-specialised wgmma + TMA kernel.
-//   * One CTA per (b*h, 128-query tile), on gridDim.x with the query tiles
+// Routes, by dtype and kernel width D (the wrapper pads any other head
+// dim with zeros to the next width: 64, 128, 256, then multiples of 64):
+//
+//   f16, bf16   D = 64, 128     flash_wgmma_kernel  (wgmma + TMA)
+//               D = 256 .. 512  flash_big16_kernel  (wgmma + TMA)
+//               D > 512         refused (shared memory, below)
+//   f32         D = 64 .. 256   flash_f32_kernel    (FMA)
+//               D > 256         flash_wide_kernel   (FMA)
+//
+// 16-bit inputs, both kernels:
+//   * One CTA per (b*h, query tile), on gridDim.x with the query tiles
 //     in reverse order, so under causal masking the heaviest tiles start
-//     first.  Three warpgroups: two consumers of 64 query rows each and a
-//     producer warpgroup of which one thread issues every copy;
-//     setmaxnreg moves registers from the producer (24) to the consumers
-//     (240).
+//     first.  Three warpgroups: two consumers and a producer warpgroup of
+//     which one thread issues every copy; setmaxnreg moves registers from
+//     the producer (24) to the consumers (240).
 //   * Copies: TMA over 4-d tensor maps built on the public (B, T, H, D)
 //     layout itself (dims D, H, T, B), so there is no transpose copy and
 //     the zero fill past T covers a ragged last tile.  A box is 64
 //     elements (128 bytes, the 128-byte swizzle wgmma reads) by 1 by rows
-//     by 1; D = 128 is two boxes.  Q is loaded once; K and V go through a
-//     two-stage ring guarded by mbarriers (full: TMA bytes landed; empty:
-//     all 256 consumer threads done), with separate K and V barriers so
-//     S = Q K^T starts while V is still in flight.
-//   * Products: S = Q K^T is m64n128k16 wgmma with both operands K-major
-//     in shared memory; O += P V is m64nDk16 wgmma with P in registers
-//     (the S accumulator's fragment of m64nNk16, rounded to 16 bits in
-//     place, is the A-register fragment of the next product) and V
-//     (key, d) read MN-major through the transpose flag.  Both accumulate
-//     in f32 registers.
+//     by 1; a width of D takes D/64 boxes.  Q is loaded once; K and V go
+//     through a two-stage ring guarded by mbarriers (full: TMA bytes
+//     landed; empty: all 256 consumer threads done), with separate K and
+//     V barriers so S = Q K^T starts while V is still in flight.  Nothing
+//     is widened to f32 in shared memory.
+//   * Products: S = Q K^T is m64nBNk16 wgmma with both operands K-major
+//     in shared memory; O += P V is wgmma with P in registers (the S
+//     accumulator's fragment, rounded to 16 bits in place, is the
+//     A-register fragment of the next product) and V (key, d) read
+//     MN-major through the transpose flag.  Both accumulate in f32
+//     registers, and S is computed once per (query tile, key tile).
 //   * Softmax on the accumulator registers: a row lives on the four lanes
 //     of a quad, so the row max is two shuffles; m and the per-thread
 //     partial l stay in registers (l is summed over the quad once, at the
@@ -42,24 +51,54 @@
 //     acc / max(l, 1e-30), as the Pallas kernel.  Masking runs only on a
 //     tile that crosses the diagonal or the end of the sequence; tiles
 //     past the diagonal are never loaded.
-//   * Key tiles are 128 for both head dims: at D = 128 a consumer thread
-//     holds 64 S + 64 O accumulators + 32 packed P registers.
+//
+// flash_wgmma_kernel, D = 64 and 128: 128 query rows, 64 a consumer; key
+//   tiles of 128.  At D = 128 a consumer thread holds 64 S + 64 O
+//   accumulators + 32 packed P registers.
+//
+// flash_big16_kernel, D = 256 .. 512.  O takes D/2 f32 registers a
+// thread for 64 rows (128 at D = 256, 256 at 512) against the consumers'
+// 240, so past 256 one warpgroup cannot hold a row's whole O:
+//   * D = 256: as above, 128 query rows, 64 a consumer, each with the
+//     whole of O (128 registers), S (32) and packed P (16) at key tiles of
+//     64.  Shared memory: Q 64 KB, K and V 32 KB a stage, two stages: 192
+//     KB.
+//   * D = 320 .. 512: 64 query rows, shared by both consumers.  O's C =
+//     D/64 column chunks are split: consumer 0 owns chunks [0, ceil(C/2)),
+//     consumer 1 the rest (at most 4 chunks, 128 registers).  S is shared
+//     by summing partials: consumer 0 computes S over head-dim chunks
+//     [0, floor(C/2)), consumer 1 over [floor(C/2), C), each in f32 on
+//     wgmma; each writes its partial (64 x 32 f32, key tiles of 32) to
+//     shared memory, one named barrier over the 256 consumer threads,
+//     and each adds the other's (a + b == b + a, so both hold the same
+//     S bit for bit and run the same softmax).  Every consumer thus
+//     multiplies C chunks a key tile (its S chunks and its O chunks), and
+//     P V multiplies P by its own chunks of V only.  The exchange has two
+//     buffers (key tiles alternate), so one barrier a tile suffices: a
+//     buffer is written again only after both passed the next barrier.
+//     Shared memory at D = 512: Q 64 KB, K and V 32 KB a stage, two
+//     stages, and 32 KB of exchange: 224 KB of the 227.
+//   * What bounds it: the consumers run the softmax between their
+//     products, and past 256 the exchange puts both consumers in step,
+//     so the tensor cores idle while they do; S at key tiles of 32 reads
+//     its Q operand (2 KB) for every 32 keys from shared memory.
+//   * Past 512 the resident Q and a two-stage ring of K and V do not fit
+//     227 KB at 16 keys a tile, so the entry point refuses 16-bit widths
+//     past 512 and the wrapper raises (f32 takes any width).
+//   * ptxas (CUDA 12.8, -O3, sm_90a): every instantiation of both 16-bit
+//     kernels reports 168 registers, the cap of __launch_bounds__(384,
+//     1) that setmaxnreg lifts to 240 for the consumers, and 0 bytes of
+//     spill stores and loads.
 //
 // f32 inputs: plain FMA (f32 wgmma would be TF32 and break the f32
 // tolerance).  One block of 4 warps per (b*h, 64-query tile), S and O in
-// shared memory; later work (ROADMAP).  The same kernel takes every
-// dtype at D = 256 (16-bit inputs widened to f32 as they are loaded, as
-// the JAX kernel computes): a wgmma instantiation there needs its own
-// shared-memory and register budget (128 O accumulators a thread), left
-// for a later PR.  At D = 256 a block holds 32 query rows (2 warps), so
-// the f32 tiles stay inside 227 KB.  Past D = 256 the wide kernel
-// (further down) streams the head dim in chunks of 64 columns, one CTA
-// per output chunk.  Head dims other than 64, 128, 256 and the
-// multiples of 64 past 256 are padded with zeros by the wrapper, which
-// passes the original dim's scale.
+// shared memory; later work (ROADMAP).  At D = 256 a block holds 32 query
+// rows (2 warps), so the f32 tiles stay inside 227 KB.  Past D = 256 the
+// wide kernel (further down) streams the head dim in chunks of 64
+// columns, one CTA per output chunk.
 //
 // Scaling: the JAX kernel scales Q in f32 before the product.  The f32
-// path does exactly that.  On the 16-bit path Q stays in its 16-bit type
+// path does exactly that.  On the 16-bit paths Q stays in its 16-bit type
 // (rounding a scaled Q back to 16 bits would add an error the JAX kernel
 // does not have) and the scale multiplies the f32 product, which equals
 // the JAX order up to f32 rounding.
@@ -77,19 +116,21 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
-// 16-bit path: wgmma + TMA
+// 16-bit paths: wgmma + TMA
 // ---------------------------------------------------------------------------
 
-constexpr int kBQ = 128;            // query rows per CTA
-constexpr int kBN = 128;            // keys per tile
-constexpr int kStages = 2;          // K/V ring depth
-constexpr int kConsumers = 2;       // consumer warpgroups, 64 rows each
+constexpr int kConsumers = 2;       // consumer warpgroups
 constexpr int kThreads16 = (kConsumers + 1) * 128;
 constexpr uint32_t kRowBytes = 128; // one box row: 64 16-bit elements
 constexpr uint32_t kSwAtom = 1024;  // 8 swizzled rows
+constexpr uint32_t kSmemMax = 232448;  // a block's opt-in shared memory
 
+// flash_wgmma_kernel's layout: D = 64 or 128
 template <int D>
 struct Smem16 {
+  static constexpr int kBQ = 128;            // query rows per CTA
+  static constexpr int kBN = 128;            // keys per tile
+  static constexpr int kStages = 2;          // K/V ring depth
   static constexpr int kBoxes = D / 64;
   static constexpr uint32_t kQBox = kBQ * kRowBytes;
   static constexpr uint32_t kKVBox = kBN * kRowBytes;
@@ -101,6 +142,44 @@ struct Smem16 {
   // barriers: q_full, k_full[S], v_full[S], empty[S]; slack to align to
   // 1024 bytes, which the 128-byte swizzle needs
   static constexpr uint32_t kBytes = kBar + 8 * (1 + 3 * kStages) + kSwAtom;
+};
+
+// flash_big16_kernel's layout: D = 256 .. 512, a multiple of 64
+template <int D>
+struct Big16 {
+  static constexpr int kC = D / 64;          // 64-column chunks
+  static constexpr bool kSplit = D > 256;    // consumers split O's columns
+  static constexpr int kBQ = kSplit ? 64 : 128;
+  static constexpr int kBN = kSplit ? 32 : 64;
+  static constexpr int kStages = 2;
+  static constexpr int kBoxes = kC;
+  static constexpr uint32_t kQBox = kBQ * kRowBytes;
+  static constexpr uint32_t kKVBox = kBN * kRowBytes;
+  static constexpr uint32_t kStage = kBoxes * kKVBox;
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kK = kQ + kBoxes * kQBox;
+  static constexpr uint32_t kV = kK + kStages * kStage;
+  static constexpr uint32_t kX = kV + kStages * kStage;
+  // the S exchange: 2 buffers x 2 consumers x a partial S (64 x kBN f32)
+  static constexpr uint32_t kXSlot = 64 * kBN * 4;
+  static constexpr uint32_t kBar = kX + (kSplit ? 4 * kXSlot : 0);
+  static constexpr uint32_t kBytes = kBar + 8 * (1 + 3 * kStages) + kSwAtom;
+  // consumer w's chunks of O, [o_lo, o_hi), and the head-dim chunks it
+  // sums S over, [s_lo, s_hi)
+  __host__ __device__ static constexpr int o_lo(int w) {
+    return kSplit && w ? (kC + 1) / 2 : 0;
+  }
+  __host__ __device__ static constexpr int o_hi(int w) {
+    return kSplit && !w ? (kC + 1) / 2 : kC;
+  }
+  __host__ __device__ static constexpr int s_lo(int w) {
+    return kSplit && w ? kC / 2 : 0;
+  }
+  __host__ __device__ static constexpr int s_hi(int w) {
+    return kSplit && !w ? kC / 2 : kC;
+  }
+  static_assert(D % 64 == 0 && D >= 256 && D <= 512, "kernel width");
+  static_assert(kBytes <= kSmemMax, "shared memory");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -139,6 +218,33 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// the ring's barriers, after q_full at bar_q: k_full[s], v_full[s],
+// empty[s] for the kS stages
+template <int kS>
+__device__ __forceinline__ uint32_t k_full(uint32_t bar_q, int s) {
+  return bar_q + 8u * (1 + s);
+}
+template <int kS>
+__device__ __forceinline__ uint32_t v_full(uint32_t bar_q, int s) {
+  return bar_q + 8u * (1 + kS + s);
+}
+template <int kS>
+__device__ __forceinline__ uint32_t empty_bar(uint32_t bar_q, int s) {
+  return bar_q + 8u * (1 + 2 * kS + s);
+}
+
+template <class L>
+__device__ __forceinline__ void init_barriers(uint32_t bar_q) {
+  mbar_init(bar_q, 1);
+#pragma unroll
+  for (int s = 0; s < L::kStages; ++s) {
+    mbar_init(k_full<L::kStages>(bar_q, s), 1);
+    mbar_init(v_full<L::kStages>(bar_q, s), 1);
+    mbar_init(empty_bar<L::kStages>(bar_q, s), kConsumers * 128);
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1,
                                             int c2, int c3) {
@@ -148,6 +254,37 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(bar)
       : "memory");
+}
+
+// the producer thread: Q once, then K and V of every key tile through
+// the ring of layout L
+template <class L>
+__device__ __forceinline__ void produce(uint32_t base, const CUtensorMap* tm_q,
+                                        const CUtensorMap* tm_k,
+                                        const CUtensorMap* tm_v, int h, int b,
+                                        int q0, int n_kt) {
+  const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
+  const uint32_t bar_q = base + L::kBar;
+  mbar_expect_tx(bar_q, L::kBoxes * L::kQBox);
+#pragma unroll
+  for (int x = 0; x < L::kBoxes; ++x)
+    tma_load_4d(sQ + x * L::kQBox, tm_q, bar_q, x * 64, h, q0, b);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = kt % L::kStages, use = kt / L::kStages;
+    if (use > 0) mbar_wait(empty_bar<L::kStages>(bar_q, s), (use - 1) & 1);
+    const uint32_t kb = k_full<L::kStages>(bar_q, s);
+    const uint32_t vb = v_full<L::kStages>(bar_q, s);
+    mbar_expect_tx(kb, L::kStage);
+#pragma unroll
+    for (int x = 0; x < L::kBoxes; ++x)
+      tma_load_4d(sK + s * L::kStage + x * L::kKVBox, tm_k, kb, x * 64, h,
+                  kt * L::kBN, b);
+    mbar_expect_tx(vb, L::kStage);
+#pragma unroll
+    for (int x = 0; x < L::kBoxes; ++x)
+      tma_load_4d(sV + s * L::kStage + x * L::kKVBox, tm_v, vb, x * 64, h,
+                  kt * L::kBN, b);
+  }
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle.  K-major operands:
@@ -177,9 +314,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-#define RT_R32                                 \
+#define RT_R16                                 \
   "%0, %1, %2, %3, %4, %5, %6, %7, "           \
-  "%8, %9, %10, %11, %12, %13, %14, %15, "     \
+  "%8, %9, %10, %11, %12, %13, %14, %15"
+#define RT_R32                                 \
+  RT_R16 ", "                                  \
   "%16, %17, %18, %19, %20, %21, %22, %23, "   \
   "%24, %25, %26, %27, %28, %29, %30, %31"
 #define RT_R64                                 \
@@ -188,15 +327,17 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   "%40, %41, %42, %43, %44, %45, %46, %47, "   \
   "%48, %49, %50, %51, %52, %53, %54, %55, "   \
   "%56, %57, %58, %59, %60, %61, %62, %63"
-#define RT_O32(d)                                          \
+#define RT_O16(d)                                          \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),          \
   "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),          \
   "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),        \
-  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
-  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),      \
-  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),      \
-  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),      \
-  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define RT_O32(d)                                          \
+  RT_O16(d), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),        \
+  "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]),      \
+  "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),      \
+  "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+  "+f"(d[31])
 #define RT_O64(d)                                          \
   RT_O32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),        \
   "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]),      \
@@ -208,22 +349,38 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),      \
   "+f"(d[63])
 
-// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B K-major in shared
-// memory; scale_d = 0 overwrites D
-#define RT_SS_N128(TY)                                                     \
-  asm volatile(                                                            \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                         \
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" RT_R64 \
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                                   \
-      : RT_O64(d)                                                          \
-      : "l"(da), "l"(db), "r"(scale_d))
+// D[64 x N] (+)= A[64 x 16] B[16 x N], A and B K-major in shared memory;
+// scale_d = 0 overwrites D.  REGS/OUTS name the N/2 accumulators, A, B
+// and P the operand numbers that follow them.
+#define RT_SS(SHAPE, TY, REGS, OUTS, A, B, P)                              \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"             \
+               "wgmma.mma_async.sync.aligned." SHAPE ".f32." TY "." TY     \
+               " {" REGS "}, " A ", " B ", p, 1, 1, 0, 0;\n}\n"            \
+               : OUTS                                                      \
+               : "l"(da), "l"(db), "r"(scale_d))
 template <bool kBF16>
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int scale_d) {
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
   if constexpr (kBF16)
-    RT_SS_N128("bf16");
+    RT_SS("m64n128k16", "bf16", RT_R64, RT_O64(d), "%64", "%65", "%66");
   else
-    RT_SS_N128("f16");
+    RT_SS("m64n128k16", "f16", RT_R64, RT_O64(d), "%64", "%65", "%66");
+}
+template <bool kBF16>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (kBF16)
+    RT_SS("m64n64k16", "bf16", RT_R32, RT_O32(d), "%32", "%33", "%34");
+  else
+    RT_SS("m64n64k16", "f16", RT_R32, RT_O32(d), "%32", "%33", "%34");
+}
+template <bool kBF16>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (kBF16)
+    RT_SS("m64n32k16", "bf16", RT_R16, RT_O16(d), "%16", "%17", "%18");
+  else
+    RT_SS("m64n32k16", "f16", RT_R16, RT_O16(d), "%16", "%17", "%18");
 }
 
 // D[64 x N] += A[64 x 16] B[16 x N], A in registers, B MN-major in
@@ -283,6 +440,66 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return out;
 }
 
+// One key tile's online-softmax step on a consumer warpgroup's S
+// accumulator (64 rows x kN keys; element 4k + 2i + j of the fragment is
+// row r0 + 8i, key k0 + 8k + c_lane + j).  Masks keys past tn and, when
+// causal, past the row, only on a tile that crosses the end or the
+// diagonal (row0: the warpgroup's first row).  Moves the running max m2
+// (log2 units) and this thread's part of l, returns in corr the factor
+// that rescales O, and in pa P = exp(S - m) rounded to 16 bits, already
+// in the A-fragment order of the m64k16 product: slice kk = keys
+// 16kk..16kk+15 is {row r0 keys +0..7, row r0+8 keys +0..7, row r0
+// +8..15, row r0+8 +8..15}.
+template <bool kBF16, int kN>
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[kN / 2], uint32_t (&pa)[kN / 4], float (&m2)[2],
+    float (&lsum)[2], float (&corr)[2], int k0, int row0, int r0, int c_lane,
+    int tn, int causal, float scale_log2) {
+  if (k0 + kN > tn || (causal && k0 + kN - 1 > row0)) {
+#pragma unroll
+    for (int k = 0; k < kN / 8; ++k)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = k0 + 8 * k + c_lane + j;
+          if (col >= tn || (causal && col > r0 + 8 * i))
+            s[4 * k + 2 * i + j] = -INFINITY;
+        }
+  }
+
+  float m_use[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < kN / 8; ++k)
+      mx = fmaxf(mx, fmaxf(s[4 * k + 2 * i], s[4 * k + 2 * i + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+    const float m_new = fmaxf(m2[i], mx * scale_log2);
+    m_use[i] = m_new == -INFINITY ? 0.f : m_new;
+    corr[i] = exp2_approx(m2[i] - m_use[i]);
+    m2[i] = m_new;
+    lsum[i] *= corr[i];
+  }
+
+#pragma unroll
+  for (int k = 0; k < kN / 8; ++k)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float p[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float sv = s[4 * k + 2 * i + j];
+        p[j] = isfinite(sv) ? exp2_approx(fmaf(sv, scale_log2, -m_use[i]))
+                            : 0.f;
+        lsum[i] += p[j];
+      }
+      pa[(k >> 1) * 4 + (k & 1) * 2 + i] = pack2<kBF16>(p[0], p[1]);
+    }
+}
+
 template <bool kBF16, int D>
 __global__ void __launch_bounds__(kThreads16, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -291,57 +508,28 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    uint16_t* __restrict__ o, int tn, int heads, int bh_count,
                    int n_qt, int causal, float scale_log2) {
   using L = Smem16<D>;
+  constexpr int kBN = L::kBN;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + kSwAtom - 1) & ~(kSwAtom - 1);
   const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
   const uint32_t bar_q = base + L::kBar;
-  auto k_full = [&](int s) { return bar_q + 8u * (1 + s); };
-  auto v_full = [&](int s) { return bar_q + 8u * (1 + kStages + s); };
-  auto empty = [&](int s) { return bar_q + 8u * (1 + 2 * kStages + s); };
 
   const int tid = threadIdx.x, wg = tid >> 7;
   const int qt = n_qt - 1 - (int)(blockIdx.x / (unsigned)bh_count);
   const int bh = (int)(blockIdx.x % (unsigned)bh_count);
-  const int b = bh / heads, h = bh % heads, q0 = qt * kBQ;
+  const int b = bh / heads, h = bh % heads, q0 = qt * L::kBQ;
   int n_kt = (tn + kBN - 1) / kBN;
-  if (causal) n_kt = min(n_kt, (min(q0 + kBQ, tn) - 1) / kBN + 1);
+  if (causal) n_kt = min(n_kt, (min(q0 + L::kBQ, tn) - 1) / kBN + 1);
 
-  if (tid == 0) {
-    mbar_init(bar_q, 1);
-#pragma unroll
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(k_full(s), 1);
-      mbar_init(v_full(s), 1);
-      mbar_init(empty(s), kConsumers * 128);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (tid == 0) init_barriers<L>(bar_q);
   __syncthreads();
 
   if (wg == kConsumers) {
     // ---- producer: one thread keeps the ring full ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (tid == kConsumers * 128) {
-      mbar_expect_tx(bar_q, L::kBoxes * L::kQBox);
-#pragma unroll
-      for (int x = 0; x < L::kBoxes; ++x)
-        tma_load_4d(sQ + x * L::kQBox, &tm_q, bar_q, x * 64, h, q0, b);
-      for (int kt = 0; kt < n_kt; ++kt) {
-        const int s = kt % kStages, use = kt / kStages;
-        if (use > 0) mbar_wait(empty(s), (use - 1) & 1);
-        mbar_expect_tx(k_full(s), L::kStage);
-#pragma unroll
-        for (int x = 0; x < L::kBoxes; ++x)
-          tma_load_4d(sK + s * L::kStage + x * L::kKVBox, &tm_k, k_full(s),
-                      x * 64, h, kt * kBN, b);
-        mbar_expect_tx(v_full(s), L::kStage);
-#pragma unroll
-        for (int x = 0; x < L::kBoxes; ++x)
-          tma_load_4d(sV + s * L::kStage + x * L::kKVBox, &tm_v, v_full(s),
-                      x * 64, h, kt * kBN, b);
-      }
-    }
+    if (tid == kConsumers * 128)
+      produce<L>(base, &tm_q, &tm_k, &tm_v, h, b, q0, n_kt);
   } else {
     // ---- consumers: 64 query rows per warpgroup ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
@@ -359,17 +547,17 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     mbar_wait(bar_q, 0);
     for (int kt = 0; kt < n_kt; ++kt) {
-      const int s = kt % kStages;
-      const uint32_t par = (kt / kStages) & 1;
+      const int s = kt % L::kStages;
+      const uint32_t par = (kt / L::kStages) & 1;
       const uint32_t sKs = sK + s * L::kStage, sVs = sV + s * L::kStage;
 
       // S = Q K^T (f32, unscaled)
-      float acc_s[64];
-      mbar_wait(k_full(s), par);
+      float acc_s[kBN / 2];
+      mbar_wait(k_full<L::kStages>(bar_q, s), par);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n128<kBF16>(
+        wgmma_ss<kBF16>(
             acc_s,
             desc_sw128(sQw + (kk >> 2) * L::kQBox + (kk & 3) * 32, 16,
                        kSwAtom),
@@ -380,55 +568,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait0();
       fence_regs(acc_s);
 
-      // accumulator element 4k + 2i + j: row r0 + 8i, key k0 + 8k + c_lane + j
-      const int k0 = kt * kBN;
-      if (k0 + kBN > tn || (causal && k0 + kBN - 1 > wg_row0)) {
-#pragma unroll
-        for (int k = 0; k < kBN / 8; ++k)
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              const int col = k0 + 8 * k + c_lane + j;
-              if (col >= tn || (causal && col > r0 + 8 * i))
-                acc_s[4 * k + 2 * i + j] = -INFINITY;
-            }
-      }
-
-      float corr[2], m_use[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int k = 0; k < kBN / 8; ++k)
-          mx = fmaxf(mx, fmaxf(acc_s[4 * k + 2 * i], acc_s[4 * k + 2 * i + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-        const float m_new = fmaxf(m2[i], mx * scale_log2);
-        m_use[i] = m_new == -INFINITY ? 0.f : m_new;
-        corr[i] = exp2_approx(m2[i] - m_use[i]);
-        m2[i] = m_new;
-        lsum[i] *= corr[i];
-      }
-
-      // P = exp(S - m) in registers, already in the A-fragment order of
-      // the m64k16 product: slice kk = keys 16kk..16kk+15 is
-      // {row r0 keys +0..7, row r0+8 keys +0..7, row r0 +8..15, row r0+8 +8..15}
+      float corr[2];
       uint32_t pa[kBN / 4];
-#pragma unroll
-      for (int k = 0; k < kBN / 8; ++k)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          float p[2];
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const float sv = acc_s[4 * k + 2 * i + j];
-            p[j] = isfinite(sv) ? exp2_approx(fmaf(sv, scale_log2, -m_use[i]))
-                                : 0.f;
-            lsum[i] += p[j];
-          }
-          pa[(k >> 1) * 4 + (k & 1) * 2 + i] = pack2<kBF16>(p[0], p[1]);
-        }
+      softmax_tile<kBF16, kBN>(acc_s, pa, m2, lsum, corr, kt * kBN, wg_row0,
+                               r0, c_lane, tn, causal, scale_log2);
 #pragma unroll
       for (int k = 0; k < D / 8; ++k)
 #pragma unroll
@@ -438,7 +581,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
 
       // O += P V
-      mbar_wait(v_full(s), par);
+      mbar_wait(v_full<L::kStages>(bar_q, s), par);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk) {
@@ -451,7 +594,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_commit();
       wgmma_wait0();
       fence_regs(acc_o);
-      mbar_arrive(empty(s));
+      mbar_arrive(empty_bar<L::kStages>(bar_q, s));
     }
 
 #pragma unroll
@@ -470,6 +613,195 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
               acc_o[4 * k + 2 * i] / den, acc_o[4 * k + 2 * i + 1] / den);
       }
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 16-bit path at widths 256 .. 512
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, float a, float b,
+                                             float c, float d) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "f"(a), "f"(b), "f"(c), "f"(d)
+               : "memory");
+}
+__device__ __forceinline__ float4 ld_shared_v4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+// named barrier 1 over the two consumer warpgroups
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers * 128) : "memory");
+}
+
+// consumer warpgroup W of flash_big16_kernel: its O chunks and (past 256,
+// the partial of) S over its head-dim chunks, for every key tile
+template <bool kBF16, int D, int W>
+__device__ __forceinline__ void big16_consume(uint32_t base,
+                                              uint16_t* __restrict__ o,
+                                              int b, int h, int heads, int q0,
+                                              int tn, int n_kt, int causal,
+                                              float scale_log2) {
+  using L = Big16<D>;
+  constexpr int kBN = L::kBN, kS = L::kStages;
+  constexpr int kOLo = L::o_lo(W), kNO = L::o_hi(W) - kOLo;
+  constexpr int kSLo = L::s_lo(W), kSHi = L::s_hi(W);
+  constexpr int kRow = L::kSplit ? 0 : W * 64;   // first row in the tile
+  const uint32_t bar_q = base + L::kBar;
+  const uint32_t sQw = base + L::kQ + kRow * kRowBytes;
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+  const int row0 = q0 + kRow;
+  const int r0 = row0 + warp * 16 + (lane >> 2);
+  const int c_lane = 2 * (lane & 3);
+
+  float acc_o[kNO][32];
+#pragma unroll
+  for (int j = 0; j < kNO; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc_o[j][i] = 0.f;
+  float m2[2] = {-INFINITY, -INFINITY};   // running max, log2 units
+  float lsum[2] = {0.f, 0.f};             // this thread's part of l
+
+  mbar_wait(bar_q, 0);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = kt % kS;
+    const uint32_t par = (kt / kS) & 1;
+    const uint32_t sKs = base + L::kK + s * L::kStage;
+    const uint32_t sVs = base + L::kV + s * L::kStage;
+
+    // S (or this consumer's partial of it) = Q K^T over chunks
+    // [kSLo, kSHi) of the head dim, f32, unscaled
+    float acc_s[kBN / 2];
+    mbar_wait(k_full<kS>(bar_q, s), par);
+    wgmma_fence();
+#pragma unroll
+    for (int x = kSLo; x < kSHi; ++x)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<kBF16>(
+            acc_s, desc_sw128(sQw + x * L::kQBox + kk * 32, 16, kSwAtom),
+            desc_sw128(sKs + x * L::kKVBox + kk * 32, 16, kSwAtom),
+            x > kSLo || kk > 0);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(acc_s);
+
+    if constexpr (L::kSplit) {
+      // S = own partial + the other consumer's, through shared memory:
+      // thread t's fragment as float4 number v * 128 + t of a slot
+      const uint32_t slot = base + L::kX + (kt & 1) * 2 * L::kXSlot;
+#pragma unroll
+      for (int v = 0; v < kBN / 8; ++v)
+        st_shared_v4(slot + W * L::kXSlot + (v * 128 + t) * 16,
+                     acc_s[4 * v], acc_s[4 * v + 1], acc_s[4 * v + 2],
+                     acc_s[4 * v + 3]);
+      consumers_sync();
+#pragma unroll
+      for (int v = 0; v < kBN / 8; ++v) {
+        const float4 x =
+            ld_shared_v4(slot + (1 - W) * L::kXSlot + (v * 128 + t) * 16);
+        acc_s[4 * v] += x.x;
+        acc_s[4 * v + 1] += x.y;
+        acc_s[4 * v + 2] += x.z;
+        acc_s[4 * v + 3] += x.w;
+      }
+    }
+
+    float corr[2];
+    uint32_t pa[kBN / 4];
+    softmax_tile<kBF16, kBN>(acc_s, pa, m2, lsum, corr, kt * kBN, row0, r0,
+                             c_lane, tn, causal, scale_log2);
+#pragma unroll
+    for (int j = 0; j < kNO; ++j)
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          acc_o[j][4 * k + 2 * i] *= corr[i];
+          acc_o[j][4 * k + 2 * i + 1] *= corr[i];
+        }
+
+    // O[:, own chunks] += P V[:, own chunks], one m64n64k16 a chunk
+    mbar_wait(v_full<kS>(bar_q, s), par);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                             pa[4 * kk + 3]};
+#pragma unroll
+      for (int j = 0; j < kNO; ++j)
+        wgmma_rs<kBF16>(acc_o[j], a,
+                        desc_sw128(sVs + (kOLo + j) * L::kKVBox +
+                                       kk * 16 * kRowBytes,
+                                   L::kKVBox, kSwAtom));
+    }
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int j = 0; j < kNO; ++j) fence_regs(acc_o[j]);
+    mbar_arrive(empty_bar<kS>(bar_q, s));
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = lsum[i];
+    l += __shfl_xor_sync(kFull, l, 1);
+    l += __shfl_xor_sync(kFull, l, 2);
+    const float den = fmaxf(l, 1e-30f);
+    const int row = r0 + 8 * i;
+    if (row < tn) {
+      uint16_t* orow = o + (((size_t)b * tn + row) * heads + h) * D +
+                       kOLo * 64 + c_lane;
+#pragma unroll
+      for (int j = 0; j < kNO; ++j)
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          *reinterpret_cast<uint32_t*>(orow + 64 * j + 8 * k) =
+              pack2<kBF16>(acc_o[j][4 * k + 2 * i] / den,
+                           acc_o[j][4 * k + 2 * i + 1] / den);
+    }
+  }
+}
+
+template <bool kBF16, int D>
+__global__ void __launch_bounds__(kThreads16, 1)
+flash_big16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   uint16_t* __restrict__ o, int tn, int heads, int bh_count,
+                   int n_qt, int causal, float scale_log2) {
+  using L = Big16<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + kSwAtom - 1) & ~(kSwAtom - 1);
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int qt = n_qt - 1 - (int)(blockIdx.x / (unsigned)bh_count);
+  const int bh = (int)(blockIdx.x % (unsigned)bh_count);
+  const int b = bh / heads, h = bh % heads, q0 = qt * L::kBQ;
+  int n_kt = (tn + L::kBN - 1) / L::kBN;
+  if (causal) n_kt = min(n_kt, (min(q0 + L::kBQ, tn) - 1) / L::kBN + 1);
+
+  if (tid == 0) init_barriers<L>(base + L::kBar);
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == kConsumers * 128)
+      produce<L>(base, &tm_q, &tm_k, &tm_v, h, b, q0, n_kt);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    if (wg == 0)
+      big16_consume<kBF16, D, 0>(base, o, b, h, heads, q0, tn, n_kt, causal,
+                                 scale_log2);
+    else
+      big16_consume<kBF16, D, 1>(base, o, b, h, heads, q0, tn, n_kt, causal,
+                                 scale_log2);
   }
 }
 
@@ -521,28 +853,61 @@ bool make_map(CUtensorMap* map, const void* ptr, int b, int t, int h, int d,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool kBF16, int D>
-int launch16(const void* q, const void* k, const void* v, void* o, int b,
-             int tn, int h, int causal, float scale, cudaStream_t stream) {
-  using L = Smem16<D>;
+// one of the 16-bit kernels with layout L: tensor maps, the shared-memory
+// opt-in, the launch; returns the first CUDA error
+template <class L, class Kernel>
+int launch_tma(Kernel kernel, const void* q, const void* k, const void* v,
+               void* o, int b, int tn, int h, int d, bool bf16, int causal,
+               float scale, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q, b, tn, h, D, kBF16, kBQ) ||
-      !make_map(&mk, k, b, tn, h, D, kBF16, kBN) ||
-      !make_map(&mv, v, b, tn, h, D, kBF16, kBN))
+  if (!make_map(&mq, q, b, tn, h, d, bf16, L::kBQ) ||
+      !make_map(&mk, k, b, tn, h, d, bf16, L::kBN) ||
+      !make_map(&mv, v, b, tn, h, d, bf16, L::kBN))
     return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma_kernel<kBF16, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L::kBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
   if (err != cudaSuccess) return (int)err;
-  const int n_qt = (tn + kBQ - 1) / kBQ;
-  flash_wgmma_kernel<kBF16, D><<<n_qt * b * h, kThreads16, L::kBytes, stream>>>(
+  const int n_qt = (tn + L::kBQ - 1) / L::kBQ;
+  kernel<<<n_qt * b * h, kThreads16, L::kBytes, stream>>>(
       mq, mk, mv, (uint16_t*)o, tn, h, b * h, n_qt, causal,
       scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
+template <bool kBF16, int D>
+int launch16(const void* q, const void* k, const void* v, void* o, int b,
+             int tn, int h, int causal, float scale, cudaStream_t stream) {
+  return launch_tma<Smem16<D>>(flash_wgmma_kernel<kBF16, D>, q, k, v, o, b,
+                               tn, h, D, kBF16, causal, scale, stream);
+}
+
+template <bool kBF16, int D>
+int launch_big(const void* q, const void* k, const void* v, void* o, int b,
+               int tn, int h, int causal, float scale, cudaStream_t stream) {
+  return launch_tma<Big16<D>>(flash_big16_kernel<kBF16, D>, q, k, v, o, b,
+                              tn, h, D, kBF16, causal, scale, stream);
+}
+
+// every 16-bit width: 64, 128 (flash_wgmma_kernel), 256 .. 512
+// (flash_big16_kernel); any other width is refused
+template <bool kBF16>
+int launch_any16(const void* q, const void* k, const void* v, void* o, int b,
+                 int t, int h, int d, int causal, float scale,
+                 cudaStream_t st) {
+  switch (d) {
+    case 64: return launch16<kBF16, 64>(q, k, v, o, b, t, h, causal, scale, st);
+    case 128: return launch16<kBF16, 128>(q, k, v, o, b, t, h, causal, scale, st);
+    case 256: return launch_big<kBF16, 256>(q, k, v, o, b, t, h, causal, scale, st);
+    case 320: return launch_big<kBF16, 320>(q, k, v, o, b, t, h, causal, scale, st);
+    case 384: return launch_big<kBF16, 384>(q, k, v, o, b, t, h, causal, scale, st);
+    case 448: return launch_big<kBF16, 448>(q, k, v, o, b, t, h, causal, scale, st);
+    case 512: return launch_big<kBF16, 512>(q, k, v, o, b, t, h, causal, scale, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 // ---------------------------------------------------------------------------
-// FMA path: f32 inputs at every head dim, 16-bit inputs at D = 256
+// FMA path: f32 inputs at D = 64, 128, 256
 // ---------------------------------------------------------------------------
 
 constexpr int kBK32 = 64;       // keys per tile
@@ -573,40 +938,22 @@ struct Smem32 {
   static constexpr size_t kBytes = align128(kO + sizeof(float) * BQ * LDO);
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half_rn(x);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// rows [t0, t0 + ROWS) of a (T, D) slab with row stride `stride`, in f32,
-// times `mul`, zero past T
-template <typename T, int D, int ROWS>
-__device__ void load_tile32(float* dst, const T* __restrict__ src,
+// rows [t0, t0 + ROWS) of a (T, D) slab with row stride `stride`, times
+// `mul`, zero past T
+template <int D, int ROWS>
+__device__ void load_tile32(float* dst, const float* __restrict__ src,
                             size_t stride, int t0, int tn, float mul) {
   for (int i = threadIdx.x; i < ROWS * D; i += Fma<D>::kThreads) {
     const int r = i / D, c = i % D, t = t0 + r;
     dst[r * Smem32<D>::LDT + c] =
-        t < tn ? to_f32(src[(size_t)t * stride + c]) * mul : 0.f;
+        t < tn ? src[(size_t)t * stride + c] * mul : 0.f;
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(Fma<D>::kThreads)
-flash_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int tn,
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int tn,
                  int heads, int bh_count, int causal, float scale) {
   using L = Smem32<D>;
   constexpr int BQ = Fma<D>::kBQ, NT = Fma<D>::kThreads;
@@ -625,7 +972,7 @@ flash_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t base = ((size_t)b * tn * heads + h) * D;
 
   // Q scaled in f32 before the product, as the JAX kernel
-  load_tile32<T, D, BQ>(Qs, q + base, stride, q0, tn, scale);
+  load_tile32<D, BQ>(Qs, q + base, stride, q0, tn, scale);
   for (int i = tid; i < BQ * D; i += NT)
     Os[(i / D) * L::LDO + i % D] = 0.f;
 
@@ -639,8 +986,8 @@ flash_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK32;
     __syncthreads();                    // every warp done with K/V tiles
-    load_tile32<T, D, kBK32>(Ks, k + base, stride, k0, tn, 1.f);
-    load_tile32<T, D, kBK32>(Vs, v + base, stride, k0, tn, 1.f);
+    load_tile32<D, kBK32>(Ks, k + base, stride, k0, tn, 1.f);
+    load_tile32<D, kBK32>(Vs, v + base, stride, k0, tn, 1.f);
     __syncthreads();
     {  // S[warp rows] = Q K^T: lane owns keys lane and lane + 32
       float acc[16][2];
@@ -724,29 +1071,29 @@ flash_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (qpos < tn) {
     const float denom = fmaxf(l_i, 1e-30f);
     const float* orow = Os + my_row * L::LDO + half * (D / 2);
-    T* out = o + base + (size_t)qpos * stride + half * (D / 2);
-    for (int c = 0; c < D / 2; ++c) out[c] = from_f32<T>(orow[c] / denom);
+    float* out = o + base + (size_t)qpos * stride + half * (D / 2);
+    for (int c = 0; c < D / 2; ++c) out[c] = orow[c] / denom;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch32(const void* q, const void* k, const void* v, void* o, int b,
              int tn, int h, int causal, float scale, cudaStream_t stream) {
   using L = Smem32<D>;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)L::kBytes);
   if (err != cudaSuccess) return (int)err;
   const int n_qt = (tn + Fma<D>::kBQ - 1) / Fma<D>::kBQ;
-  flash_f32_kernel<T, D><<<n_qt * b * h, Fma<D>::kThreads, L::kBytes,
-                           stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, tn, h, b * h, causal,
-      scale);
+  flash_f32_kernel<D><<<n_qt * b * h, Fma<D>::kThreads, L::kBytes,
+                        stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, tn, h,
+      b * h, causal, scale);
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// Wide path: every dtype at head dims past 256 (a multiple of 64; the
+// Wide FMA path: f32 inputs at head dims past 256 (a multiple of 64; the
 // wrapper pads others with zeros)
 // ---------------------------------------------------------------------------
 //
@@ -780,22 +1127,20 @@ struct SmemWide {
   static constexpr size_t kBytes = align128(kO + sizeof(float) * kWBQ * LDO);
 };
 
-// rows [t0, t0 + 64) x columns [c0, c0 + 64) of a (T, stride) slab, in
-// f32, times `mul`, zero past T
-template <typename T>
-__device__ void load_chunk(float* dst, const T* __restrict__ src,
+// rows [t0, t0 + 64) x columns [c0, c0 + 64) of a (T, stride) slab,
+// times `mul`, zero past T
+__device__ void load_chunk(float* dst, const float* __restrict__ src,
                            size_t stride, int t0, int tn, int c0, float mul) {
   for (int i = threadIdx.x; i < 64 * kWC; i += kWThreads) {
     const int r = i / kWC, c = i % kWC, t = t0 + r;
     dst[r * SmemWide::LDT + c] =
-        t < tn ? to_f32(src[(size_t)t * stride + c0 + c]) * mul : 0.f;
+        t < tn ? src[(size_t)t * stride + c0 + c] * mul : 0.f;
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kWThreads)
-flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ o, int tn,
+flash_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o, int tn,
                   int heads, int d, int bh_count, int causal, float scale) {
   using L = SmemWide;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -832,9 +1177,9 @@ flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int r = 0; r < 16; ++r) acc[r][0] = acc[r][1] = 0.f;
     for (int c = 0; c < n_chunks; ++c) {
       __syncthreads();                  // every warp done with the tiles
-      load_chunk<T>(Qs, q + base, stride, q0, tn, c * kWC, scale);
-      load_chunk<T>(Ks, k + base, stride, k0, tn, c * kWC, 1.f);
-      if (c == 0) load_chunk<T>(Vs, v + base, stride, k0, tn, oc, 1.f);
+      load_chunk(Qs, q + base, stride, q0, tn, c * kWC, scale);
+      load_chunk(Ks, k + base, stride, k0, tn, c * kWC, 1.f);
+      if (c == 0) load_chunk(Vs, v + base, stride, k0, tn, oc, 1.f);
       __syncthreads();
       const float* qrows = Qs + warp * 16 * L::LDT;
       for (int dd = 0; dd < kWC; ++dd) {
@@ -913,33 +1258,33 @@ flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (qpos < tn) {
     const float denom = fmaxf(l_i, 1e-30f);
     const float* orow = Os + my_row * L::LDO + half * (kWC / 2);
-    T* out = o + base + (size_t)qpos * stride + oc + half * (kWC / 2);
-    for (int c = 0; c < kWC / 2; ++c) out[c] = from_f32<T>(orow[c] / denom);
+    float* out = o + base + (size_t)qpos * stride + oc + half * (kWC / 2);
+    for (int c = 0; c < kWC / 2; ++c) out[c] = orow[c] / denom;
   }
 }
 
-template <typename T>
 int launch_wide(const void* q, const void* k, const void* v, void* o, int b,
                 int tn, int h, int d, int causal, float scale,
                 cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)SmemWide::kBytes);
   if (err != cudaSuccess) return (int)err;
   const int n_qt = (tn + kWBQ - 1) / kWBQ;
   const dim3 grid((unsigned)(n_qt * b * h), (unsigned)(d / kWC));
-  flash_wide_kernel<T><<<grid, kWThreads, SmemWide::kBytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, tn, h, d, b * h, causal,
-      scale);
+  flash_wide_kernel<<<grid, kWThreads, SmemWide::kBytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, tn, h, d,
+      b * h, causal, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16; d in {64, 128, 256} or
-// a multiple of 64 past 256 (the wrapper pads other head dims with zeros
-// and passes the scale of the original one).  Both grids put b*h and the query tile on gridDim.x
-// (at most 2**31 - 1 blocks).
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16.  d: for f32, 64, 128,
+// 256 or a multiple of 64 past 256; for f16/bf16, 64, 128 or a multiple
+// of 64 from 256 to 512 (the wrapper pads other head dims with zeros and
+// passes the scale of the original one).  Every grid puts b*h and the
+// query tile on gridDim.x (at most 2**31 - 1 blocks).
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, int b, int t, int h, int d,
                                   int dtype, int causal, float scale,
@@ -948,22 +1293,16 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
       (long long)b * h * ((t + 31) / 32) > INT_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (d == 64) {
-    if (dtype == 0) return launch32<float, 64>(q, k, v, o, b, t, h, causal, scale, st);
-    if (dtype == 1) return launch16<false, 64>(q, k, v, o, b, t, h, causal, scale, st);
-    if (dtype == 2) return launch16<true, 64>(q, k, v, o, b, t, h, causal, scale, st);
-  } else if (d == 128) {
-    if (dtype == 0) return launch32<float, 128>(q, k, v, o, b, t, h, causal, scale, st);
-    if (dtype == 1) return launch16<false, 128>(q, k, v, o, b, t, h, causal, scale, st);
-    if (dtype == 2) return launch16<true, 128>(q, k, v, o, b, t, h, causal, scale, st);
-  } else if (d == 256) {
-    if (dtype == 0) return launch32<float, 256>(q, k, v, o, b, t, h, causal, scale, st);
-    if (dtype == 1) return launch32<__half, 256>(q, k, v, o, b, t, h, causal, scale, st);
-    if (dtype == 2) return launch32<__nv_bfloat16, 256>(q, k, v, o, b, t, h, causal, scale, st);
-  } else if (d > 256 && d % kWC == 0 && d / kWC <= 65535) {
-    if (dtype == 0) return launch_wide<float>(q, k, v, o, b, t, h, d, causal, scale, st);
-    if (dtype == 1) return launch_wide<__half>(q, k, v, o, b, t, h, d, causal, scale, st);
-    if (dtype == 2) return launch_wide<__nv_bfloat16>(q, k, v, o, b, t, h, d, causal, scale, st);
+  if (dtype == 1)
+    return launch_any16<false>(q, k, v, o, b, t, h, d, causal, scale, st);
+  if (dtype == 2)
+    return launch_any16<true>(q, k, v, o, b, t, h, d, causal, scale, st);
+  if (dtype == 0) {
+    if (d == 64) return launch32<64>(q, k, v, o, b, t, h, causal, scale, st);
+    if (d == 128) return launch32<128>(q, k, v, o, b, t, h, causal, scale, st);
+    if (d == 256) return launch32<256>(q, k, v, o, b, t, h, causal, scale, st);
+    if (d > 256 && d % kWC == 0 && d / kWC <= 65535)
+      return launch_wide(q, k, v, o, b, t, h, d, causal, scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }

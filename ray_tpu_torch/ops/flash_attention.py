@@ -3,17 +3,27 @@
 The port of ``ray_tpu/ops/flash_attention.py`` (a Pallas TPU kernel):
 blocked attention with the online-softmax recurrence, O(T) memory
 instead of the O(T^2) score matrix.  The kernel is
-``csrc/flash_attention.cu`` (wgmma + TMA on Hopper for f16/bf16 at
-D = 64 and 128, FMA for f32 and for every dtype at D = 256, and past 256
-a wide FMA kernel that streams the head dim in chunks of 64 columns, one
-CTA per output chunk); ``flash_attention_plain`` is the dense PyTorch
-version of the same function, which CPU tensors take.
+``csrc/flash_attention.cu``; the route follows dtype and kernel width:
+
+* f16/bf16 at D = 64 and 128: wgmma + TMA, 128 query rows a CTA, key
+  tiles of 128;
+* f16/bf16 at D = 256 to 512: wgmma + TMA as well (both products on the
+  tensor cores, S computed once a key tile); at 256 two warpgroups of
+  64 rows, past 256 two warpgroups that share 64 rows, split O's columns
+  and sum S from their halves of the head dim; 16-bit widths past 512
+  raise (shared memory, see the source note);
+* f32: FMA on the CUDA cores (f32 wgmma would be TF32), at D <= 256 one
+  kernel, past 256 a wide kernel that streams the head dim in chunks of
+  64 columns.
+
+``flash_attention_plain`` is the dense PyTorch version of the same
+function, which CPU tensors take.
 
 Other head dims are padded with zeros to the next kernel width (64, 128
 or 256, and past 256 the next multiple of 64) and the output cut back:
 exact, since zero columns add nothing to QK^T and the extra output
 columns are P 0.  The softmax scale stays 1/sqrt(D) of the original D,
-passed to the kernel as an argument (the 16-bit path multiplies the f32
+passed to the kernel as an argument (the 16-bit paths multiply the f32
 product by it, never a 16-bit Q).
 
 Shapes ``(batch, seq, heads, dim)`` at the public function, as in JAX.
@@ -28,6 +38,7 @@ import torch
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _KERNEL_DIMS = (64, 128, 256)        # the kernel's widths; others pad up
 _WIDE_CHUNK = 64                     # past 256: the next multiple of 64
+_MAX_WIDTH_16 = 512                  # the widest 16-bit kernel width
 
 
 def kernel_width(d: int) -> int:
@@ -57,9 +68,10 @@ def flash_attention(q, k, v, *, causal: bool = False,
 
     Same checks and messages as the JAX function.  ``block_q``/``block_k``
     are validated for parity with its signature; the CUDA kernel tiles by
-    its own (128 x 128 for f16/bf16, 64 x 64 for f32).  CPU tensors take
-    ``flash_attention_plain``; CUDA
-    tensors launch the kernel (f32/f16/bf16, any D) or raise."""
+    its own (f16/bf16: 128 x 128 up to D = 128, 128 x 64 at 256, 64 x 32
+    past it; f32: 64 x 64).  CPU tensors take ``flash_attention_plain``;
+    CUDA tensors launch the kernel (f32 at any D, f16/bf16 at D <= 512)
+    or raise."""
     b, t, h, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("q/k/v must share shape (batch, seq, heads, "
@@ -78,6 +90,9 @@ def flash_attention(q, k, v, *, causal: bool = False,
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"flash_attention: the CUDA kernel takes float32, "
                          f"float16 or bfloat16; got {q.dtype}")
+    if q.dtype != torch.float32 and width > _MAX_WIDTH_16:
+        raise ValueError(f"flash_attention: the CUDA kernel takes {q.dtype} "
+                         f"up to head dim {_MAX_WIDTH_16}; got {d}")
     for name, x in (("k", k), ("v", v)):
         if x.dtype != q.dtype or x.device != q.device:
             raise ValueError(f"flash_attention: {name} is {x.dtype} on "

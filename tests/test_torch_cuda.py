@@ -389,7 +389,8 @@ FLASH_HEAD_DIMS = [16, 32, 80, 96, 160, 256]
 
 @pytest.mark.parametrize("d", FLASH_HEAD_DIMS)
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
 def test_flash_kernel_every_head_dim(d, causal, dtype):
     """Every head dim up to 256, against the plain version within the
     limit, which must still reject a dropped key tile at that dim."""
@@ -413,17 +414,81 @@ def test_flash_kernel_every_head_dim(d, causal, dtype):
     assert _flash_err_over_limit(faulty, q, k, v, causal) > 1.0
 
 
-# head dims past 256: the wide kernel (the head dim in chunks of 64)
+# head dims past 256: 16-bit on wgmma with O's columns split over two
+# warpgroups, f32 on the wide FMA kernel (the head dim in chunks of 64)
 FLASH_WIDE_DIMS = [288, 320, 384, 512]
 
 
 @pytest.mark.parametrize("d", FLASH_WIDE_DIMS)
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
 def test_flash_kernel_wide_head_dims(d, causal, dtype):
-    """Head dims past 256 on the wide kernel, against the plain version
-    within the limit, which must still reject a dropped key tile."""
+    """Head dims past 256, against the plain version within the limit,
+    which must still reject a dropped key tile."""
     test_flash_kernel_every_head_dim(d, causal, dtype)
+
+
+@pytest.mark.parametrize("d", [256, 512])
+@pytest.mark.parametrize("t", [96, 320])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_kernel_ragged_sequence_at_width_256_and_past(d, t, causal,
+                                                           dtype):
+    """T a multiple of neither the query tile (128 at D = 256, 64 past
+    it) nor, at D = 256, the key tile (64): the last tiles are ragged, and
+    TMA fills them with zeros."""
+    import math
+    from ray_tpu_torch.ops import flash_attention
+    shape = (2, t, 3, d)
+    q, k, v = _flash_inputs(dtype, shape)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, block_q=32, block_k=32)
+    assert flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    assert _flash_err_over_limit(got, q, k, v, causal) <= 1.0
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() / math.sqrt(d), k.float())
+    dead = torch.zeros((t, t), dtype=torch.bool, device="cuda")
+    dead[:, t - 64:] = True
+    if causal:
+        dead |= torch.ones_like(dead).triu(1)
+    p = torch.softmax(s.masked_fill(dead, float("-inf")), dim=-1)
+    faulty = torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(dtype)
+    assert _flash_err_over_limit(faulty, q, k, v, causal) > 1.0
+
+
+@pytest.mark.parametrize("d", [256, 512])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_f32_keeps_the_fma_route(d, causal):
+    """f32 at D = 256 and past it stays on the FMA kernels: within f32's
+    limit, which the same function with bf16 operands (what a 16-bit
+    tensor-core route would compute) fails."""
+    from ray_tpu_torch.ops import flash_attention, flash_attention_plain
+    q, k, v = _flash_inputs(torch.float32, (2, 256, 2, d))
+    got = flash_attention(q, k, v, causal=causal)
+    assert got.dtype == torch.float32
+    assert _flash_err_over_limit(got, q, k, v, causal) <= 1.0
+    rounded = flash_attention_plain(
+        *(x.to(torch.bfloat16).float() for x in (q, k, v)), causal=causal)
+    assert _flash_err_over_limit(rounded, q, k, v, causal) > 1.0
+
+
+def test_flash_16bit_refuses_widths_past_512():
+    """16-bit inputs run on wgmma up to kernel width 512 and raise past it
+    (no FMA fallback); the entry point refuses those widths too."""
+    import ctypes
+    from ray_tpu_torch.ops import _build, flash_attention
+    x = torch.zeros((1, 64, 2, 576), device="cuda", dtype=torch.bfloat16)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="up to head dim 512"):
+        flash_attention(x, x, x)
+    assert flash_attention.launches == before
+    fn = _build.load("flash_attention")
+    for dtype_code in (1, 2):
+        err = fn(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                 1, 64, 2, 576, dtype_code, 0, ctypes.c_float(1.0),
+                 torch.cuda.current_stream().cuda_stream)
+        assert err != 0
 
 
 # -- the autoscaler: phase 1 on the water-fill, the launch-loop kernel -------
