@@ -17,8 +17,9 @@ Phases:
   device          the card (nvidia-smi name and power limit), torch, CUDA
   build           seconds to build the kernels, ptxas registers/spills,
                   and the SASS instructions that show the Hopper paths
-                  (HGMMA and UTMALDG in flash attention, cluster barriers
-                  in the water-fill)
+                  (HGMMA and UTMALDG in every instantiation of flash
+                  attention's three tensor-core kernels, cluster
+                  barriers in the water-fill)
   waterfill       ``schedule_grouped`` (kernel ``waterfill_scan``, one
                   launch of a thread-block cluster) at 1000 nodes x 8
                   resources x 64 classes x 1,000,000 tasks: kernel ==
@@ -121,19 +122,23 @@ Phases:
                   H=16, D=128 bf16 causal (the main path), then bf16
                   causal at the widths of the wgmma kernel past 128
                   (FLASH_WIDE_PATHS: B=2 T=4096 H=16 D=256, Gemma 7B's
-                  head dim, and H=8 D=512), each driven with the launch
-                  count set to 0; then the cases: D=128 (bf16 causal,
-                  bf16, f16), bf16 causal at D=64, f32 at T=1024, D=64,
-                  and bf16 causal and not at the two full-card widths,
-                  against the plain version within an elementwise limit
-                  (FLASH_TOL) that must also reject the plain version
-                  with its last 64 keys dropped; kernel/plain/library
-                  times, the bound, the share of the bound reached and
-                  the ratio to the library call; then every head dim of
-                  FLASH_HEAD_DIMS (zero-padded; 16-bit on wgmma, f32 on
-                  the FMA or, past 256, the wide FMA kernel), bf16 and
-                  f32, causal and not, each beside its bound and the
-                  library call's time and SDPA backend
+                  head dim, and H=8 D=512), then f32 causal at D=128
+                  (the split-TF32 kernel's path), each driven with the
+                  launch count set to 0 and the entry point's route
+                  read; then the cases: D=128 (bf16 causal, bf16, f16,
+                  f32 causal and not), bf16 causal at D=64, f32 at
+                  T=1024, D=64, and bf16 and f32 causal and not at the
+                  two full-card widths, against the plain version within
+                  an elementwise limit (FLASH_TOL) that must also reject
+                  the plain version with its last 64 keys dropped (and,
+                  for f32, its last key tile of the split-TF32 kernel);
+                  kernel/plain/library times, the bound (f32: three
+                  TF32 products, the FMA bound beside it), the share of
+                  the bound reached and the ratio to the library call;
+                  then every head dim of FLASH_HEAD_DIMS (zero-padded;
+                  16-bit and f32 on wgmma), bf16 and f32, causal and
+                  not, each beside its bound and the library call's time
+                  and SDPA backend
   data            ``ray_tpu_torch.data`` feeding the card: ``init`` with a
                   4096 MB object store (bytes spilled: 0), ``from_numpy``
                   of 2**20 rows x 128 float32 features (512 MiB, seed 0)
@@ -208,6 +213,9 @@ import numpy as np
 # outside the tensor cores, HBM3.  The card's own power limit is printed
 # beside every number; a card set below 700 W runs slower than these.
 PEAK_TC_16BIT = 989e12
+# TF32 in the tensor cores, dense (NVIDIA data sheet): flash attention's
+# f32 route runs three TF32 products for each f32 one (split TF32)
+PEAK_TC_TF32 = 495e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 # int32 outside the tensor cores: 64 INT32 lanes per SM (a quarter of the
@@ -223,7 +231,9 @@ N_NODES, N_RES, N_CLASSES, N_TASKS = 1000, 8, 64, 1_000_000
 # P V product (relative to the sum of |p v| it feeds, which is larger
 # than |o| where the terms cancel), atol the f32 sums in another order.
 FLASH_TOL = {  # dtype: (atol, rtol, p_u)
-    # p stays f32; blockwise sums and FMA: a few hundred f32 ulps
+    # p stays f32; both products in split TF32 (hi*hi + hi*lo + lo*hi,
+    # each operand within 2**-21 of itself), blockwise sums: a few hundred
+    # f32 ulps
     "float32": (1e-6, 1e-5, 1e-5),
     # output: two f16 ulps (each <= 2**-10 |o|); p to f16: roundoff 2**-11
     "float16": (1e-5, 2.0**-9, 2.0**-11),
@@ -231,7 +241,7 @@ FLASH_TOL = {  # dtype: (atol, rtol, p_u)
     "bfloat16": (1e-5, 2.0**-6, 2.0**-8),
 }
 # the limit must reject a kernel that skips the last 64 keys (half of the
-# 16-bit kernel's 128-key tile, the f32 kernel's whole tile)
+# 16-bit kernel's 128-key tile, the f32 kernel's whole tile at D = 64)
 FLASH_KEY_TILE = 64
 
 
@@ -306,23 +316,39 @@ def phase_build():
 # SASS opcodes that show each kernel's Hopper path was compiled in: wgmma
 # (HGMMA) and TMA loads (UTMALDG) in flash attention, cluster barriers
 # (UCGABAR) in the water-fill
-SASS_REQUIRED = {"flash_attention": ("HGMMA", "UTMALDG"),
-                 "waterfill": ("UCGABAR",)}
+# ({kernel: opcodes}, each required in every instantiation of a kernel
+# whose mangled name holds it; "" the whole library)
+SASS_REQUIRED = {
+    "flash_attention": {k: ("HGMMA", "UTMALDG") for k in (
+        "flash_wgmma_kernel", "flash_big16_kernel", "flash_tf32_kernel")},
+    "waterfill": {"": ("UCGABAR",)}}
 
 
 def sass_evidence(_build):
-    """Counts of those opcodes in each built library (cuobjdump -sass);
-    raises if one is missing."""
+    """Counts of those opcodes in each built library (cuobjdump -sass),
+    by kernel instantiation; raises if one is missing."""
     tool = str(Path(_build._nvcc()).with_name("cuobjdump"))
     found = {}
-    for name, opcodes in SASS_REQUIRED.items():
+    for name, kernels in SASS_REQUIRED.items():
         sass = subprocess.run([tool, "-sass", str(_build.lib_path(name))],
                               capture_output=True, text=True,
                               check=True).stdout
-        found[name] = {op: sass.count(op) for op in opcodes}
-        missing = [op for op, k in found[name].items() if k == 0]
-        if missing:
-            raise AssertionError(f"{name}: no {missing} in its SASS")
+        # "Function : <mangled name>" opens each kernel's code
+        funcs = {part.split(None, 1)[0]: part
+                 for part in sass.split("Function : ")[1:]}
+        for kernel, opcodes in kernels.items():
+            texts = {"library": sass} if not kernel else {
+                f[f.index(kernel):][:40]: text
+                for f, text in funcs.items() if kernel in f}
+            if not texts:
+                raise AssertionError(f"{name}: no {kernel} in its SASS")
+            for fn, text in texts.items():
+                found.setdefault(name, {})[fn] = counts = {
+                    op: text.count(op) for op in opcodes}
+                missing = [op for op, k in counts.items() if k == 0]
+                if missing:
+                    raise AssertionError(f"{name} {fn}: no {missing} in "
+                                         "its SASS")
     return found
 
 
@@ -2853,11 +2879,26 @@ def flash_limit(q, k, v, causal):
 def flash_bound(q, causal):
     """(bound_ms, bound_by, operations) of flash attention on (B, T, H,
     D) inputs like q: q, k, v read and the output written once, the two
-    products' 4*B*H*T^2*D operations (half of them causal)."""
+    products' 4*B*H*T^2*D operations (half of them causal).  f32 runs
+    each product as three TF32 products on the tensor cores (split
+    TF32): its bound is 3 x operations at the TF32 peak."""
     b, t, h, d = q.shape
     ops = 4.0 * b * h * t * t * d * (0.5 if causal else 1.0)
-    peak = PEAK_F32 if q.element_size() == 4 else PEAK_TC_16BIT
-    return (*bound(4.0 * q.numel() * q.element_size(), ops, peak), ops)
+    n_bytes = 4.0 * q.numel() * q.element_size()
+    if q.element_size() == 4:
+        return (*bound(n_bytes, 3 * ops, PEAK_TC_TF32), ops)
+    return (*bound(n_bytes, ops, PEAK_TC_16BIT), ops)
+
+
+def flash_fma_bound_ms(q, causal):
+    """The f32 bound of PRs 3-12 (the operations at the f32 FMA peak),
+    printed beside the split-TF32 bound so earlier shares stay
+    readable; None for 16-bit inputs."""
+    if q.element_size() != 4:
+        return None
+    b, t, h, d = q.shape
+    ops = 4.0 * b * h * t * t * d * (0.5 if causal else 1.0)
+    return bound(4.0 * q.numel() * 4, ops, PEAK_F32)[0]
 
 
 def phase_flash(dev):
@@ -2865,6 +2906,7 @@ def phase_flash(dev):
     import torch.nn.functional as F
 
     from ray_tpu_torch import ops
+    from ray_tpu_torch.ops.flash_attention import kernel_key_tile
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -2873,43 +2915,47 @@ def phase_flash(dev):
                             dtype=torch.float32).to(dtype)
                 for _ in range(3)]
 
-    # --- the main path: the ops entry point at the headline shape ---
-    q, k, v = qkv(2, 4096, 16, 128, torch.bfloat16)
-    ops.flash_attention.launches = 0
-    out = ops.flash_attention(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    main_launches = ops.flash_attention.launches
-    # --- end of the main path ---
-    if main_launches < 1:
-        raise AssertionError("ops.flash_attention did not launch the kernel")
-    if out.shape != q.shape or out.dtype != q.dtype or \
-            not bool(torch.isfinite(out.float()).all()):
-        raise AssertionError("flash attention output: wrong shape/dtype or "
-                             "not finite")
-    # --- the wgmma kernel past 128 (flash_big16_kernel), each width's path
-    # driven alone ---
-    wide_launches = {}
-    for b, t, h, d in FLASH_WIDE_PATHS:
-        q, k, v = qkv(b, t, h, d, torch.bfloat16)
+    def drive(b, t, h, d, dtype, route):
+        """One causal call through the entry point with the launch count
+        set to 0 just before it; the launches it counted (the route it
+        reported must be ``route``)."""
+        q, k, v = qkv(b, t, h, d, dtype)
         ops.flash_attention.launches = 0
         out = ops.flash_attention(q, k, v, causal=True)
         torch.cuda.synchronize()
-        wide_launches[d] = ops.flash_attention.launches
-        if wide_launches[d] < 1:
-            raise AssertionError(f"ops.flash_attention at D={d} did not "
-                                 "launch the kernel")
+        launches = ops.flash_attention.launches
+        if launches < 1 or ops.flash_attention.last_route != route:
+            raise AssertionError(
+                f"ops.flash_attention {dtype} D={d}: {launches} launches "
+                f"on {ops.flash_attention.last_route}, not {route}")
         if out.shape != q.shape or out.dtype != q.dtype or \
                 not bool(torch.isfinite(out.float()).all()):
-            raise AssertionError(f"flash attention output at D={d}: wrong "
-                                 "shape/dtype or not finite")
-    del q, k, v, out
+            raise AssertionError(f"flash attention output {dtype} D={d}: "
+                                 "wrong shape/dtype or not finite")
+        return launches
+
+    # --- the main path: the ops entry point at the headline shape ---
+    main_launches = drive(2, 4096, 16, 128, torch.bfloat16,
+                          "flash_wgmma_kernel")
+    # --- the wgmma kernel past 128 (flash_big16_kernel), each width's path
+    # driven alone ---
+    wide_launches = {d: drive(b, t, h, d, torch.bfloat16,
+                              "flash_big16_kernel")
+                     for b, t, h, d in FLASH_WIDE_PATHS}
+    # --- f32 on the split-TF32 kernel (flash_tf32_kernel) at the headline
+    # shape ---
+    f32_launches = drive(2, 4096, 16, 128, torch.float32,
+                         "flash_tf32_kernel")
 
     cases = [("bfloat16", True, 2, 4096, 16, 128),
              ("bfloat16", False, 2, 4096, 16, 128),
              ("float16", False, 2, 4096, 16, 128),
+             ("float32", True, 2, 4096, 16, 128),
+             ("float32", False, 2, 4096, 16, 128),
              ("bfloat16", True, 2, 4096, 16, 64),
              ("float32", False, 2, 1024, 16, 64)]
-    cases += [("bfloat16", causal, b, t, h, d)
+    cases += [(dtype, causal, b, t, h, d)
+              for dtype in ("bfloat16", "float32")
               for b, t, h, d in FLASH_WIDE_PATHS for causal in (True, False)]
     rows = []
     for dtype_name, causal, b, t, h, d in cases:
@@ -2925,11 +2971,17 @@ def phase_flash(dev):
                                  f"{causal}: error {ratio} x its limit "
                                  f"(max abs err {max_err})")
         # the limit must be tight enough to fail a kernel that skips its
-        # last key tile
-        faulty = drop_last_key_tile(q, k, v, causal).float()
-        fault_ratio = float(((faulty - want).abs() / limit).max())
-        del faulty, err, limit
-        if not fault_ratio > 1.0:
+        # last key tile: 64 keys, and the f32 kernel's own tile
+        tiles = sorted({FLASH_KEY_TILE} | (
+            {kernel_key_tile(d, dtype)} if dtype == torch.float32
+            else set()))
+        fault_ratio = {}
+        for tile in tiles:
+            faulty = drop_last_key_tile(q, k, v, causal, tile).float()
+            fault_ratio[tile] = float(((faulty - want).abs() / limit).max())
+            del faulty
+        del err, limit
+        if not min(fault_ratio.values()) > 1.0:
             raise AssertionError(f"flash attention {dtype_name} causal="
                                  f"{causal}: the limit passes a dropped "
                                  f"key tile ({fault_ratio} x)")
@@ -2942,9 +2994,11 @@ def phase_flash(dev):
             qt, kt, vt, is_causal=causal))
         backend = sdpa_backend(qt, kt, vt, causal)
         bound_ms, bound_by, flops = flash_bound(q, causal)
+        fma_ms = flash_fma_bound_ms(q, causal)
         rows.append({"dtype": dtype_name, "causal": causal,
                      "shape": [b, t, h, d], "max_abs_err": max_err,
                      "atol": atol, "rtol": rtol, "p_u": p_u,
+                     "route": ops.flash_attention.last_route,
                      "max_err_over_limit": ratio,
                      "dropped_tile_err_over_limit": fault_ratio,
                      "kernel_ms": kernel_ms,
@@ -2952,18 +3006,23 @@ def phase_flash(dev):
                      "library_backend": backend,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "bound_share": bound_ms / kernel_ms,
+                     **({} if fma_ms is None else {
+                         "bound_of": "3 TF32 products",
+                         "fma_bound_ms": fma_ms,
+                         "fma_bound_share": fma_ms / kernel_ms}),
                      "vs_library": kernel_ms / library_ms,
                      "tflops": flops / (kernel_ms / 1e3) / 1e12})
     result = {"phase": "flash_attention", "entry": "ops.flash_attention",
               "main_path_launches": main_launches,
-              "wide_path_launches": wide_launches, "cases": rows,
+              "wide_path_launches": wide_launches,
+              "f32_path_launches": f32_launches, "cases": rows,
               "head_dims": flash_head_dims(qkv)}
     emit(result)
     return result
 
 
 # head dims the kernel reaches by zero padding (to 64, 128, 256, 320), at
-# 256 and at 512: 16-bit on wgmma, f32 on the FMA kernels
+# 256 and at 512: 16-bit and f32 on wgmma
 FLASH_HEAD_DIMS = (16, 32, 80, 96, 160, 256, 320, 512)
 # (b, t, h, d) of the wgmma kernel's full-card rows past D = 128: Gemma
 # 7B's head dim (256, 16 heads; its config.json), and the widest width
@@ -2985,24 +3044,31 @@ def flash_head_dims(qkv, b=2, t=1024, h=4):
     """Every head dim of FLASH_HEAD_DIMS, causal and not, bf16 and f32,
     at (b, t, h, d): the kernel within FLASH_TOL of the plain version, and
     the limit still rejecting the plain version with its last key tile
-    dropped; beside each kernel time its bound (the function's work at
-    the original d), the library call's time
+    dropped (64 keys, and f32's own tile); beside each kernel time the
+    route, its bound (the function's work at the original d; f32 with
+    the FMA bound beside it), the library call's time
     (``scaled_dot_product_attention``, timed here and used nowhere in the
     port) and the backend it ran on."""
     import torch
     import torch.nn.functional as F
 
     from ray_tpu_torch import ops
+    from ray_tpu_torch.ops.flash_attention import kernel_key_tile
     rows = []
     for d in FLASH_HEAD_DIMS:
         for dtype_name in ("bfloat16", "float32"):
+            tiles = {FLASH_KEY_TILE} | (
+                {kernel_key_tile(d, torch.float32)}
+                if dtype_name == "float32" else set())
             for causal in (False, True):
                 q, k, v = qkv(b, t, h, d, getattr(torch, dtype_name))
                 got = ops.flash_attention(q, k, v, causal=causal).float()
+                route = ops.flash_attention.last_route
                 want, limit = flash_limit(q, k, v, causal)
                 ratio = float(((got - want).abs() / limit).max())
-                fault = float(((drop_last_key_tile(q, k, v, causal).float()
-                                - want).abs() / limit).max())
+                fault = min(float(((drop_last_key_tile(
+                    q, k, v, causal, tile).float() - want).abs() / limit)
+                    .max()) for tile in tiles)
                 if not (ratio <= 1.0 < fault):
                     raise AssertionError(
                         f"flash attention D={d} {dtype_name} causal={causal}"
@@ -3016,7 +3082,12 @@ def flash_head_dims(qkv, b=2, t=1024, h=4):
                     q, k, v, causal=causal), reps=5, warmup=1)
                 library_ms = cuda_ms(sdpa, reps=5, warmup=1)
                 bound_ms, bound_by, _ = flash_bound(q, causal)
+                fma_ms = flash_fma_bound_ms(q, causal)
                 rows.append({"d": d, "dtype": dtype_name, "causal": causal,
+                             "route": route,
+                             **({} if fma_ms is None else
+                                {"bound_of": "3 TF32 products",
+                                 "fma_bound_ms": fma_ms}),
                              "max_abs_err": float((got - want).abs().max()),
                              "max_err_over_limit": ratio,
                              "dropped_tile_err_over_limit": fault,
@@ -4342,6 +4413,8 @@ def main() -> int:
     head = fl["cases"][0]
     wide = next(r for r in fl["cases"] if r["dtype"] == "bfloat16" and
                 r["causal"] and r["shape"] == list(FLASH_WIDE_PATHS[0]))
+    f32 = next(r for r in fl["cases"] if r["dtype"] == "float32" and
+               r["causal"] and r["shape"] == [2, 4096, 16, 128])
     lw = loc["problems"]["beat 1000x8x64"]
     emit({"phase": "summary", "phase_seconds": seconds,
           "seconds": time.perf_counter() - t_start})   # build included
@@ -4477,6 +4550,18 @@ def main() -> int:
          "plain_ms": wide["plain_ms"], "bound_ms": wide["bound_ms"],
          "bound_by": wide["bound_by"], "library_ms": wide["library_ms"],
          "checked": True},
+        {"name": "flash_attention (f32, D 64-512)", "route": "cuda",
+         "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
+         "replaces": "ray_tpu/ops/flash_attention.py:25",
+         # flash_tf32_kernel: launches on the f32 path; the numbers are
+         # the f32 causal D=128 full-card row's; the bound is three TF32
+         # products, the FMA bound of PRs 3-12 beside it
+         "launches": fl["f32_path_launches"],
+         "max_abs_err": f32["max_abs_err"], "ms": f32["kernel_ms"],
+         "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+         "bound_by": f32["bound_by"], "bound_of": f32["bound_of"],
+         "fma_bound_ms": f32["fma_bound_ms"],
+         "library_ms": f32["library_ms"], "checked": True},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -65,7 +65,9 @@ _SIGNATURES = {
                   [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
 }
 # further C entry points of a library: {name: {function: argtypes}}
-_EXTRA = {"binpack": {"rt_binpack_plan": [_I, _I, _I, _P]}}
+_EXTRA = {"binpack": {"rt_binpack_plan": [_I, _I, _I, _P]},
+          "flash_attention": {"rt_flash_route": [_I, _I],
+                              "rt_flash_key_tile": [_I, _I]}}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 

@@ -7,16 +7,22 @@
 // What bounds it on this card: operations.  softmax(QK^T/sqrt(d)) V does
 // 4*B*H*T^2*D flops (half of that causal) on 4*B*T*H*D elements, far
 // above the H100's ~295 flop/byte ridge at the sizes it is used at, so
-// the tensor cores are the limit, and only wgmma reaches their full rate.
+// the tensor cores are the limit, and only wgmma reaches their full rate:
+// 989 TFLOP/s for 16-bit inputs; f32 runs each product as three TF32
+// products at 495 TFLOP/s, so at most 165 TFLOP/s of f32-accurate work
+// (the f32 FMA units would give 67).
 //
 // Routes, by dtype and kernel width D (the wrapper pads any other head
-// dim with zeros to the next width: 64, 128, 256, then multiples of 64):
+// dim with zeros to the next width: 64, 128, 256, then multiples of 64);
+// rt_flash_route names the route of a (D, dtype), rt_flash_key_tile its
+// key tile:
 //
 //   f16, bf16   D = 64, 128     flash_wgmma_kernel  (wgmma + TMA)
 //               D = 256 .. 512  flash_big16_kernel  (wgmma + TMA)
 //               D > 512         refused (shared memory, below)
-//   f32         D = 64 .. 256   flash_f32_kernel    (FMA)
-//               D > 256         flash_wide_kernel   (FMA)
+//   f32         D = 64 .. 512   flash_tf32_kernel   (split-TF32 wgmma +
+//                                                    TMA)
+//               D > 512         flash_wide_kernel   (FMA)
 //
 // 16-bit inputs, both kernels:
 //   * One CTA per (b*h, query tile), on gridDim.x with the query tiles
@@ -90,15 +96,100 @@
 //     1) that setmaxnreg lifts to 240 for the consumers, and 0 bytes of
 //     spill stores and loads.
 //
-// f32 inputs: plain FMA (f32 wgmma would be TF32 and break the f32
-// tolerance).  One block of 4 warps per (b*h, 64-query tile), S and O in
-// shared memory; later work (ROADMAP).  At D = 256 a block holds 32 query
-// rows (2 warps), so the f32 tiles stay inside 227 KB.  Past D = 256 the
-// wide kernel (further down) streams the head dim in chunks of 64
-// columns, one CTA per output chunk.
+// f32 inputs, flash_tf32_kernel (split TF32, "3xTF32"):
+//   * Arithmetic.  Each operand x of both products is split in two: hi
+//     is x with its low 13 bits cleared (a TF32 value), lo = x - hi (exact
+//     in f32) rounded to TF32 to nearest (cvt.rna.tf32.f32), so that
+//     |x - hi - lo| <= 2**-21 |x|.  A product A B is A_hi B_lo + A_lo B_hi
+//     + A_hi B_hi (lo*lo, about 2**-22 of it, is dropped), each term exact
+//     in the tensor core.  Q is scaled by 1/sqrt(d) in f32 before the
+//     split, as the JAX kernel.  Every operand is masked explicitly, so
+//     nothing rests on how the tensor core reads a raw f32 word.
+//   * Error budget, against f32's limit |kernel - plain| <= 1e-6 + 1e-5
+//     |plain| + 1e-5 softmax(QK^T) |V| (chip_smoke.FLASH_TOL): modelled on
+//     the CPU (tests/test_torch_flash_split32.py run as a script:
+//     standard-normal Q, K, V, D 64-512, T 80 and 128), one TF32 pass
+//     reaches 69-114x the limit, bf16x3 (bf16 hi/lo, three products)
+//     0.41-1.14x, past 1 where causal rows have few live keys, split TF32
+//     0.03-0.06x.
+//   * The tensor core truncates as it sums (it does not round to nearest),
+//     so a long chain of products into one accumulator drifts: a first
+//     build that summed O across all key tiles and S across all k-slices
+//     in the accumulators came close to the limit at the full card (B=2
+//     T=4096 H=16 D=128).  So every chain is short and is added in f32 by
+//     the CUDA cores: S in batches of one 32-column box (12 wgmma, small
+//     products first), O per key tile and 64 or 128 columns (3 x kBN / 8
+//     wgmma), folded as O = O corr + P V by one fma; the full-card rows
+//     then stay within 0.06-0.15 of the limit (chip_smoke.py).
+//   * p = 2**(S log2(e) - m) on ex2.approx.ftz (relative error about
+//     2**-22, far below the limit's 1e-5), as the 16-bit kernels; m, l
+//     and the online softmax in f32; p = 0 where S is not finite; the
+//     output acc / max(l, 1e-30).
+//   * Trap 1: TF32 wgmma has no transpose flag (imm-trans-b is 16-bit
+//     only), so both shared-memory operands must be K-major.  K (keys x
+//     head dim, as TMA lands it) is the B of S = Q K^T as it lies; V, the
+//     B of O += P V, needs V^T (head dim x keys, keys contiguous).  TMA
+//     neither transposes nor splits: 96 threads of the producer warpgroup
+//     (warps 1-3; warp 0's lane 0 issues every TMA copy) build K's hi and
+//     lo planes and V^T's hi and lo planes from the landed tiles, in the
+//     swizzled layout the descriptors read (128-byte swizzle, 64-byte for
+//     V^T rows of 16 keys), fence them for the async proxy and signal
+//     k_ready / v_ready.
+//   * Trap 2: a thread's TF32 A fragment holds columns t and t + 4 of its
+//     quad's 8-key slice, where the f32 accumulator holds 2t and 2t + 1,
+//     so the 16-bit kernels' "accumulator fragment is the A fragment" does
+//     not carry over.  The fragment is taken as it lies ({S[2t], S[2t +
+//     1]} of rows r and r + 8 as A's {t, t + 4}) and the converters write
+//     V^T's keys of each 8-key slice in the matching order (logical 0..7 =
+//     physical 0, 2, 4, 6, 1, 3, 5, 7): free, since the transpose writes
+//     every element once anyway.
+//   * Q from registers: per k8 slice each consumer thread loads its four
+//     Q words from the raw tile in shared memory, scales and splits them;
+//     the 16 words of a 32-column batch stay live until its wgmma finish.
+//     P from registers, split the same way after the softmax.
+//   * Layouts (bytes of shared memory, of the 227 KB a block can take;
+//     key tiles of kBN; rings of kKS raw K and kVS raw V slots let the TMA
+//     run ahead of the converters):
+//       D     CTAs  consumers (rows)  kBN  kKS kVS  Q      plane   bytes
+//       64    1     2 (128)           64   2   2    32 KB  16 KB   230568
+//       128   1     2 (128)           32   0   2    64 KB  16 KB   230568
+//       256   2     2 (128)           16   2   2    64 KB   8 KB   181416
+//       320   2     2 (128)           16   2   2    80 KB  10 KB   222376
+//       384   2     1 (64)            16   2   2    48 KB  12 KB   205992
+//       448   2     1 (64)            16   0   2    56 KB  14 KB   210088
+//       512   2     1 (64)            16   0   1    64 KB  16 KB   222376
+//     A plane is one key tile of one of Khi, Klo, V^T hi, V^T lo; two
+//     stages of the four.  With kKS = 0 K lands in its hi plane and is
+//     split in place (two K slots do not fit; at D = 128 a slot of each
+//     was 9% slower than two V slots, measured).
+//   * Past D = 128 a cluster of two CTAs serves each query tile, each
+//     holding half of the head dim's Q, K and V (the 16-bit kernels' split
+//     of the head dim, one level up): each computes a partial S, stores it
+//     into the other CTA's exchange slot with st.async (the bytes complete
+//     on that CTA's x_full mbarrier, no fence; 11-14% faster than plain
+//     remote stores and a release arrive), waits for the other's and adds
+//     it (f32 addition commutes: both hold the same S, run the same
+//     softmax); each owns half of O's columns and multiplies P by its half
+//     of V^T.  Two slots a consumer: a slot is stored into again only
+//     after all of the other CTA's partial of the next tile has landed,
+//     which it sends after reading the slot.  The cluster's CTAs sync
+//     after barrier init and before they leave.
+//   * Consumers: setmaxnreg moves the producer warpgroup to 56 registers
+//     and two consumers to 224; one consumer (384 threads' cap lifted to
+//     255 with 256 threads) needs none.
+//   * What bounds it: at D <= 128 the two consumers keep the tensor cores
+//     at 0.46-0.52 of the three-product bound at the full card; past 128
+//     the per-tile chain (S in batches, the exchange, the softmax, P V in
+//     chunks) leaves them idle: 0.21-0.33 (PERF.md).  Past 512 Q, two
+//     stages of the planes and the exchange do not fit a pair of CTAs:
+//     flash_wide_kernel (FMA) takes those widths.
+//   * ptxas (CUDA 12.8, -O3, sm_90a): 168 registers at D = 64, 128, 256,
+//     320 (the cap of __launch_bounds__(384, 1), lifted by setmaxnreg),
+//     197 at 384, 213 at 448, 238 at 512; 0 bytes of spill stores and
+//     loads at every width.
 //
 // Scaling: the JAX kernel scales Q in f32 before the product.  The f32
-// path does exactly that.  On the 16-bit paths Q stays in its 16-bit type
+// paths do exactly that.  On the 16-bit paths Q stays in its 16-bit type
 // (rounding a scaled Q back to 16 bits would add an error the JAX kernel
 // does not have) and the scale multiplies the f32 product, which equals
 // the JAX order up to f32 rounding.
@@ -907,208 +998,739 @@ int launch_any16(const void* q, const void* k, const void* v, void* o, int b,
 }
 
 // ---------------------------------------------------------------------------
-// FMA path: f32 inputs at D = 64, 128, 256
+// f32 path: split-TF32 (3xTF32) wgmma + TMA at widths 64 .. 512
 // ---------------------------------------------------------------------------
 
-constexpr int kBK32 = 64;       // keys per tile
+constexpr uint32_t kTf32Mask = 0xffffe000u;  // the bits a TF32 value keeps
+constexpr int kConverters = 96;  // producer warps 1-3 build the planes
 
-// rows per block: 64 (4 warps of 16 rows) where the f32 tiles fit, 32
-// (2 warps) at D = 256, whose 64-row tiles would pass 227 KB
+// flash_tf32_kernel's layout at kernel width D (64, 128, or a multiple of
+// 64 from 256 to 512).  The planes of a key tile, two stages of each: K's
+// hi plane (keys x head dim, boxes of 32 columns, the low 13 bits
+// cleared), K's lo plane in the same layout, and V's hi and lo planes
+// transposed (head dim x keys, keys contiguous, in the permuted order of
+// the P fragment).  TMA lands K and V raw in rings of kKS and kVS slots,
+// and the converters build the planes from them, so the copies run ahead
+// of the consumers; with kKS = 0 (D = 128, 448, 512, where two K slots do
+// not fit) K lands in its hi plane and is split in place.
 template <int D>
-struct Fma {
-  static constexpr int kBQ = D > 128 ? 32 : 64;
-  static constexpr int kThreads = 2 * kBQ;   // two lanes per query row
-};
-
-constexpr size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
-
-template <int D>
-struct Smem32 {
-  static constexpr int BQ = Fma<D>::kBQ;
-  // row strides (floats): one float of padding, so the lanes of a warp
-  // reading one column of 32 K rows hit 32 banks
-  static constexpr int LDT = D + 1;
-  static constexpr int LDS = kBK32 + 4;
-  static constexpr int LDO = D + 4;
-  static constexpr size_t kQ = 0;
-  static constexpr size_t kK = align128(kQ + sizeof(float) * BQ * LDT);
-  static constexpr size_t kV = align128(kK + sizeof(float) * kBK32 * LDT);
-  static constexpr size_t kS = align128(kV + sizeof(float) * kBK32 * LDT);
-  static constexpr size_t kO = align128(kS + sizeof(float) * BQ * LDS);
-  static constexpr size_t kBytes = align128(kO + sizeof(float) * BQ * LDO);
-};
-
-// rows [t0, t0 + ROWS) of a (T, D) slab with row stride `stride`, times
-// `mul`, zero past T
-template <int D, int ROWS>
-__device__ void load_tile32(float* dst, const float* __restrict__ src,
-                            size_t stride, int t0, int tn, float mul) {
-  for (int i = threadIdx.x; i < ROWS * D; i += Fma<D>::kThreads) {
-    const int r = i / D, c = i % D, t = t0 + r;
-    dst[r * Smem32<D>::LDT + c] =
-        t < tn ? src[(size_t)t * stride + c] * mul : 0.f;
+struct Tf32 {
+  static constexpr int kCl = D > 128 ? 2 : 1;        // CTAs a query tile
+  static constexpr int kDH = D / kCl;                // head-dim columns a CTA
+  // consumer warpgroups, 64 query rows each
+  static constexpr int kCons = kCl == 1 || kDH <= 160 ? 2 : 1;
+  static constexpr int kThreads = (kCons + 1) * 128;
+  static constexpr int kBQ = 64 * kCons;             // query rows a CTA
+  static constexpr int kBars = 21;
+  // shared memory at key tiles of bn with ks raw K and vs raw V slots
+  static constexpr uint32_t bytes_for(int bn, int ks, int vs) {
+    return kDH / 32 * kBQ * 128u + (8u + ks + vs) * bn * kDH * 4u +
+           (kCl > 1 ? kCons * 2u * 64u * bn * 4u : 0u) + 8u * kBars +
+           kSwAtom;
   }
+  static constexpr int kBN =
+      D == 64 ? 64 : bytes_for(32, 0, 1) <= kSmemMax ? 32 : 16;
+  static constexpr int kKS = bytes_for(kBN, 2, 2) <= kSmemMax ? 2 : 0;
+  static constexpr int kVS = bytes_for(kBN, kKS, 2) <= kSmemMax ? 2 : 1;
+  static constexpr int kBoxes = kDH / 32;            // 32-column TMA boxes
+  // O columns a wgmma
+  static constexpr int kOC = kDH % 128 == 0 ? 128 : kDH % 64 == 0 ? 64 : 32;
+  static constexpr int kNO = kDH / kOC;
+  static constexpr uint32_t kQBox = kBQ * 128u;
+  static constexpr uint32_t kKBox = kBN * 128u;
+  static constexpr uint32_t kPlane = kBoxes * kKBox;   // one tile of K or V
+  // V^T: rows of up to 32 keys (128-byte swizzle), 16 keys at kBN = 16
+  // (64-byte swizzle); kBN = 64 takes two such boxes
+  static constexpr uint32_t kVtRow = (kBN < 32 ? kBN : 32) * 4u;
+  static constexpr uint32_t kVtBox = kDH * kVtRow;
+  static constexpr uint32_t kXSlot = 64u * kBN * 4u;   // a partial S
+  // two slots a consumer warpgroup
+  static constexpr uint32_t kXBytes = kCl > 1 ? kCons * 2 * kXSlot : 0;
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kKhi = kQ + kBoxes * kQBox;
+  static constexpr uint32_t kKlo = kKhi + 2 * kPlane;
+  static constexpr uint32_t kVthi = kKlo + 2 * kPlane;
+  static constexpr uint32_t kVtlo = kVthi + 2 * kPlane;
+  static constexpr uint32_t kKraw = kVtlo + 2 * kPlane;
+  static constexpr uint32_t kVraw = kKraw + kKS * kPlane;
+  static constexpr uint32_t kX = kVraw + kVS * kPlane;
+  static constexpr uint32_t kBar = kX + kXBytes;
+  static constexpr uint32_t kBytes = kBar + 8 * kBars + kSwAtom;
+  static_assert(D == 64 || D == 128 || (D % 64 == 0 && D >= 256 && D <= 512),
+                "kernel width");
+  static_assert(kBytes <= kSmemMax && kBytes == bytes_for(kBN, kKS, kVS),
+                "shared memory");
+};
+
+// the barriers after Tf32::kBar, 8 bytes each: q_full; per stage s of the
+// planes k_ready (K's planes built), v_ready (V's), k_free (S done with
+// K's planes), vt_free (P V done with V's); per raw slot k_full and v_full
+// (landed; k_full per stage when kKS = 0), kraw_free and vraw_free
+// (read); x_full[2 w + slot], the partial S the other CTA's consumer w
+// wrote here for consumer w
+enum : int {
+  kQFull = 0, kKFull = 1, kKReady = 3, kVReady = 5, kKFree = 7,
+  kVtFree = 9, kVFull = 11, kVRawFree = 13, kKRawFree = 15, kXFull = 17
+};
+__device__ __forceinline__ uint32_t bar32(uint32_t bar0, int which, int i) {
+  return bar0 + 8u * (uint32_t)(which + i);
 }
 
-template <int D>
-__global__ void __launch_bounds__(Fma<D>::kThreads)
-flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int tn,
-                 int heads, int bh_count, int causal, float scale) {
-  using L = Smem32<D>;
-  constexpr int BQ = Fma<D>::kBQ, NT = Fma<D>::kThreads;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem + L::kQ);
-  float* Ks = reinterpret_cast<float*>(smem + L::kK);
-  float* Vs = reinterpret_cast<float*>(smem + L::kV);
-  float* Ss = reinterpret_cast<float*>(smem + L::kS);
-  float* Os = reinterpret_cast<float*>(smem + L::kO);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int bh = (int)(blockIdx.x % (unsigned)bh_count);
-  const int b = bh / heads, h = bh % heads;
-  const int q0 = (int)(blockIdx.x / (unsigned)bh_count) * BQ;
-  const size_t stride = (size_t)heads * D;          // between t and t+1
-  const size_t base = ((size_t)b * tn * heads + h) * D;
-
-  // Q scaled in f32 before the product, as the JAX kernel
-  load_tile32<D, BQ>(Qs, q + base, stride, q0, tn, scale);
-  for (int i = tid; i < BQ * D; i += NT)
-    Os[(i / D) * L::LDO + i % D] = 0.f;
-
-  // two lanes per query row, 32 score columns each
-  const int my_row = warp * 16 + (lane >> 1), half = lane & 1;
-  const int qpos = q0 + my_row;
-  float m_i = -INFINITY, l_i = 0.f;
-
-  int n_kt = (tn + kBK32 - 1) / kBK32;
-  if (causal) n_kt = min(n_kt, (min(q0 + BQ, tn) - 1) / kBK32 + 1);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBK32;
-    __syncthreads();                    // every warp done with K/V tiles
-    load_tile32<D, kBK32>(Ks, k + base, stride, k0, tn, 1.f);
-    load_tile32<D, kBK32>(Vs, v + base, stride, k0, tn, 1.f);
-    __syncthreads();
-    {  // S[warp rows] = Q K^T: lane owns keys lane and lane + 32
-      float acc[16][2];
+template <class L>
+__device__ __forceinline__ void init_tf32_barriers(uint32_t bar0) {
+  mbar_init(bar32(bar0, kQFull, 0), 1);
 #pragma unroll
-      for (int r = 0; r < 16; ++r) acc[r][0] = acc[r][1] = 0.f;
-      const float* qrows = Qs + warp * 16 * L::LDT;
-      for (int d = 0; d < D; ++d) {
-        const float k0v = Ks[lane * L::LDT + d];
-        const float k1v = Ks[(lane + 32) * L::LDT + d];
+  for (int s = 0; s < 2; ++s) {
+    mbar_init(bar32(bar0, kKFull, s), 1);
+    mbar_init(bar32(bar0, kKReady, s), kConverters);
+    mbar_init(bar32(bar0, kVReady, s), kConverters);
+    mbar_init(bar32(bar0, kKFree, s), L::kCons * 128);
+    mbar_init(bar32(bar0, kVtFree, s), L::kCons * 128);
+    mbar_init(bar32(bar0, kVFull, s), 1);
+    mbar_init(bar32(bar0, kVRawFree, s), kConverters);
+    mbar_init(bar32(bar0, kKRawFree, s), kConverters);
+  }
 #pragma unroll
-        for (int r = 0; r < 16; ++r) {
-          const float qv = qrows[r * L::LDT + d];
-          acc[r][0] = fmaf(qv, k0v, acc[r][0]);
-          acc[r][1] = fmaf(qv, k1v, acc[r][1]);
+  for (int x = 0; x < 4; ++x)
+    mbar_init(bar32(bar0, kXFull, x), 1);   // armed by its own consumer
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+// orders this thread's generic-proxy writes to shared memory before
+// later reads by the async proxy (wgmma, TMA)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// the address of the same shared-memory offset in CTA `rank`
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+// 16 bytes into another CTA's shared memory; the store completes its
+// bytes on that CTA's mbarrier (no fence: the barrier's transaction count
+// says when every store of a phase has landed)
+__device__ __forceinline__ void st_async_v4(uint32_t addr, float a, float b,
+                                            float c, float d,
+                                            uint32_t remote_bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "f"(a), "f"(b), "f"(c), "f"(d), "r"(remote_bar)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// x = hi + lo + (|x| 2**-22 at most): hi is x with its low 13 bits
+// cleared, lo the rest (exact in f32) rounded to TF32, ties away
+__device__ __forceinline__ uint32_t tf32_hi(float x) {
+  return __float_as_uint(x) & kTf32Mask;
+}
+__device__ __forceinline__ uint32_t tf32_lo(float x, uint32_t hi) {
+  uint32_t lo;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+  return lo;
+}
+
+// K-major operand in shared memory with a 128-byte (row_bytes 128) or
+// 64-byte (row_bytes 64) swizzle: 8 rows between core-matrix groups
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t saddr,
+                                                uint32_t row_bytes) {
+  return (uint64_t)((saddr & 0x3FFFFu) >> 4) | (1ull << 16) |
+         ((uint64_t)(((8u * row_bytes) >> 4) & 0x3FFFu) << 32) |
+         ((row_bytes == 128 ? 1ull : 2ull) << 62);
+}
+
+#define RT_R8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define RT_O8(d)                                           \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),          \
+  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+// D[64 x N] (+)= A[64 x 8] B[8 x N] in TF32, A in registers (4 words a
+// thread: rows r, r + 8 x columns t, t + 4 of the warp's 16 rows), B
+// K-major in shared memory; scale_d = 0 overwrites D.  TF32 has no
+// transpose flag: both shared-memory operands must be K-major.
+#define RT_RS_TF32(SHAPE, REGS, OUTS, A, B, P)                             \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"             \
+               "wgmma.mma_async.sync.aligned." SHAPE ".f32.tf32.tf32 {"   \
+               REGS "}, {" A "}, " B ", p, 1, 1;\n}\n"                    \
+               : OUTS                                                     \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),     \
+                 "r"(scale_d))
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  RT_RS_TF32("m64n16k8", RT_R8, RT_O8(d), "%8, %9, %10, %11", "%12", "%13");
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  RT_RS_TF32("m64n32k8", RT_R16, RT_O16(d), "%16, %17, %18, %19", "%20",
+             "%21");
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  RT_RS_TF32("m64n64k8", RT_R32, RT_O32(d), "%32, %33, %34, %35", "%36",
+             "%37");
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  RT_RS_TF32("m64n128k8", RT_R64, RT_O64(d), "%64, %65, %66, %67", "%68",
+             "%69");
+}
+
+// One key tile's online-softmax step on an f32 S accumulator (as
+// softmax_tile, S already scaled): p = 2**(S log2(e) - m) replaces S in
+// place, unrounded.
+template <int kN>
+__device__ __forceinline__ void softmax32_tile(float (&s)[kN / 2],
+                                               float (&m2)[2],
+                                               float (&lsum)[2],
+                                               float (&corr)[2], int k0,
+                                               int row0, int r0, int c_lane,
+                                               int tn, int causal) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  if (k0 + kN > tn || (causal && k0 + kN - 1 > row0)) {
+#pragma unroll
+    for (int k = 0; k < kN / 8; ++k)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = k0 + 8 * k + c_lane + j;
+          if (col >= tn || (causal && col > r0 + 8 * i))
+            s[4 * k + 2 * i + j] = -INFINITY;
         }
-      }
+  }
+  float m_use[2];
 #pragma unroll
-      for (int r = 0; r < 16; ++r) {
-        Ss[(warp * 16 + r) * L::LDS + lane] = acc[r][0];
-        Ss[(warp * 16 + r) * L::LDS + lane + 32] = acc[r][1];
-      }
-    }
-    __syncwarp();
-
-    float* srow = Ss + my_row * L::LDS + half * 32;
-    float sv[32];
+  for (int i = 0; i < 2; ++i) {
     float mx = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int kpos = k0 + half * 32 + j;
-      const bool dead = kpos >= tn || (causal && kpos > qpos);
-      sv[j] = dead ? -INFINITY : srow[j];
-      mx = fmaxf(mx, sv[j]);
-    }
+    for (int k = 0; k < kN / 8; ++k)
+      mx = fmaxf(mx, fmaxf(s[4 * k + 2 * i], s[4 * k + 2 * i + 1]));
     mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-    const float m_new = fmaxf(m_i, mx);
-    const float corr = m_i == -INFINITY ? 0.f : expf(m_i - m_new);
-    float psum = 0.f;
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+    const float m_new = fmaxf(m2[i], mx * kLog2e);
+    m_use[i] = m_new == -INFINITY ? 0.f : m_new;
+    corr[i] = exp2_approx(m2[i] - m_use[i]);
+    m2[i] = m_new;
+    lsum[i] *= corr[i];
+  }
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float p = isfinite(sv[j]) ? expf(sv[j] - m_new) : 0.f;
-      psum += p;
-      srow[j] = p;
-    }
-    psum += __shfl_xor_sync(kFull, psum, 1);
-    l_i = l_i * corr + psum;
-    m_i = m_new;
-    float* orow = Os + my_row * L::LDO + half * (D / 2);
-#pragma unroll 8
-    for (int c = 0; c < D / 2; ++c) orow[c] *= corr;
-    __syncwarp();
+  for (int k = 0; k < kN / 8; ++k)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float sv = s[4 * k + 2 * i + j];
+        const float p =
+            isfinite(sv) ? exp2_approx(fmaf(sv, kLog2e, -m_use[i])) : 0.f;
+        lsum[i] += p;
+        s[4 * k + 2 * i + j] = p;
+      }
+}
 
-    {  // O[warp rows] += P V: lane owns columns lane + 32 i
-      constexpr int kCols = D / 32;
-      float acc[16][kCols];
+// the TMA thread: Q once, then per key tile V and K into their raw slots
+template <int D>
+__device__ __forceinline__ void tf32_produce(uint32_t base,
+                                             const CUtensorMap* tm_q,
+                                             const CUtensorMap* tm_k,
+                                             const CUtensorMap* tm_v, int h,
+                                             int b, int q0, int col0,
+                                             int n_kt) {
+  using L = Tf32<D>;
+  const uint32_t bar0 = base + L::kBar;
+  const uint32_t qf = bar32(bar0, kQFull, 0);
+  mbar_expect_tx(qf, L::kBoxes * L::kQBox);
 #pragma unroll
-      for (int r = 0; r < 16; ++r)
+  for (int x = 0; x < L::kBoxes; ++x)
+    tma_load_4d(base + L::kQ + x * L::kQBox, tm_q, qf, col0 + 32 * x, h, q0,
+                b);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = kt & 1, u = kt >> 1;
+    const int vs = kt % L::kVS, vu = kt / L::kVS;
+    if (vu > 0) mbar_wait(bar32(bar0, kVRawFree, vs), (vu - 1) & 1);
+    const uint32_t vf = bar32(bar0, kVFull, vs);
+    mbar_expect_tx(vf, L::kPlane);
 #pragma unroll
-        for (int i = 0; i < kCols; ++i)
-          acc[r][i] = Os[(warp * 16 + r) * L::LDO + lane + 32 * i];
-      for (int j = 0; j < kBK32; ++j) {
-        float vv[kCols];
+    for (int x = 0; x < L::kBoxes; ++x)
+      tma_load_4d(base + L::kVraw + vs * L::kPlane + x * L::kKBox, tm_v, vf,
+                  col0 + 32 * x, h, kt * L::kBN, b);
+    // K: into its raw slot, or with kKS = 0 into the stage's hi plane
+    // once S of tile kt - 2 is done with it
+    uint32_t dst;
+    int ks = s;
+    if constexpr (L::kKS > 0) {
+      ks = kt % L::kKS;
+      const int ku = kt / L::kKS;
+      if (ku > 0) mbar_wait(bar32(bar0, kKRawFree, ks), (ku - 1) & 1);
+      dst = base + L::kKraw + ks * L::kPlane;
+    } else {
+      if (u > 0) mbar_wait(bar32(bar0, kKFree, s), (u - 1) & 1);
+      dst = base + L::kKhi + s * L::kPlane;
+    }
+    const uint32_t kf = bar32(bar0, kKFull, ks);
+    mbar_expect_tx(kf, L::kPlane);
 #pragma unroll
-        for (int i = 0; i < kCols; ++i) vv[i] = Vs[j * L::LDT + lane + 32 * i];
+    for (int x = 0; x < L::kBoxes; ++x)
+      tma_load_4d(dst + x * L::kKBox, tm_k, kf, col0 + 32 * x, h,
+                  kt * L::kBN, b);
+  }
+}
+
+// converter ct (0 .. 95): K's hi and lo planes from its raw slot (or in
+// place); V transposed into its hi and lo planes
+template <int D>
+__device__ __forceinline__ void tf32_convert(uint32_t base, int ct,
+                                             int n_kt) {
+  using L = Tf32<D>;
+  constexpr int kC = L::kBN / 4;          // 4-key chunks of a V^T row
+  const uint32_t bar0 = base + L::kBar;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = kt & 1, u = kt >> 1;
+    const int vs = kt % L::kVS, vu = kt / L::kVS;
+    const uint32_t khi = base + L::kKhi + s * L::kPlane;
+    const uint32_t klo = base + L::kKlo + s * L::kPlane;
+    uint32_t kraw = khi;
+    if constexpr (L::kKS > 0) {
+      const int ks = kt % L::kKS;
+      kraw = base + L::kKraw + ks * L::kPlane;
+      mbar_wait(bar32(bar0, kKFull, ks), (kt / L::kKS) & 1);
+      if (u > 0) mbar_wait(bar32(bar0, kKFree, s), (u - 1) & 1);
+    } else {
+      // k_full implies S of tile kt - 2 is done with both K planes (the
+      // TMA thread waited on k_free before the copy)
+      mbar_wait(bar32(bar0, kKFull, s), u & 1);
+    }
+    for (int i = ct; i < (int)(L::kPlane / 16); i += kConverters) {
+      const float4 x = ld_shared_v4(kraw + 16 * i);
+      const uint32_t h0 = tf32_hi(x.x), h1 = tf32_hi(x.y);
+      const uint32_t h2 = tf32_hi(x.z), h3 = tf32_hi(x.w);
+      st_shared_v4(khi + 16 * i, __uint_as_float(h0), __uint_as_float(h1),
+                   __uint_as_float(h2), __uint_as_float(h3));
+      st_shared_v4(klo + 16 * i, __uint_as_float(tf32_lo(x.x, h0)),
+                   __uint_as_float(tf32_lo(x.y, h1)),
+                   __uint_as_float(tf32_lo(x.z, h2)),
+                   __uint_as_float(tf32_lo(x.w, h3)));
+    }
+    if constexpr (L::kKS > 0)
+      mbar_arrive(bar32(bar0, kKRawFree, kt % L::kKS));
+    fence_async_smem();
+    mbar_arrive(bar32(bar0, kKReady, s));
+
+    const uint32_t vraw = base + L::kVraw + vs * L::kPlane;
+    const uint32_t vthi = base + L::kVthi + s * L::kPlane;
+    const uint32_t vtlo = base + L::kVtlo + s * L::kPlane;
+    mbar_wait(bar32(bar0, kVFull, vs), vu & 1);
+    if (u > 0) mbar_wait(bar32(bar0, kVtFree, s), (u - 1) & 1);
+    // block i: logical keys 4c .. 4c + 3 (c = i % kC) x head-dim rows n ..
+    // n + 3.  Logical key 8q + l holds physical key 8q + 2l (l < 4) or
+    // 8q + 2(l - 4) + 1: the order of the P fragment (see the note)
+    for (int i = ct; i < kC * (L::kDH / 4); i += kConverters) {
+      const int c = i % kC, n = 4 * (i / kC);
+      const int j0 = 8 * (c >> 1) + (c & 1);
+      float m[4][4];
 #pragma unroll
-        for (int r = 0; r < 16; ++r) {
-          const float p = Ss[(warp * 16 + r) * L::LDS + j];
-#pragma unroll
-          for (int i = 0; i < kCols; ++i) acc[r][i] = fmaf(p, vv[i], acc[r][i]);
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + 2 * e;
+        const float4 r = ld_shared_v4(vraw + (n >> 5) * L::kKBox + j * 128 +
+                                      ((((n & 31) >> 2) ^ (j & 7)) << 4));
+        m[e][0] = r.x;
+        m[e][1] = r.y;
+        m[e][2] = r.z;
+        m[e][3] = r.w;
       }
 #pragma unroll
-      for (int r = 0; r < 16; ++r)
+      for (int f = 0; f < 4; ++f) {
+        const int row = n + f;
+        const int swz = L::kVtRow == 128 ? (row & 7) : ((row >> 1) & 3);
+        const uint32_t off = (c >> 3) * L::kVtBox + row * L::kVtRow +
+                             (((c & 7) ^ swz) << 4);
+        uint32_t hi[4];
 #pragma unroll
-        for (int i = 0; i < kCols; ++i)
-          Os[(warp * 16 + r) * L::LDO + lane + 32 * i] = acc[r][i];
+        for (int e = 0; e < 4; ++e) hi[e] = tf32_hi(m[e][f]);
+        st_shared_v4(vthi + off, __uint_as_float(hi[0]),
+                     __uint_as_float(hi[1]), __uint_as_float(hi[2]),
+                     __uint_as_float(hi[3]));
+        st_shared_v4(vtlo + off, __uint_as_float(tf32_lo(m[0][f], hi[0])),
+                     __uint_as_float(tf32_lo(m[1][f], hi[1])),
+                     __uint_as_float(tf32_lo(m[2][f], hi[2])),
+                     __uint_as_float(tf32_lo(m[3][f], hi[3])));
+      }
     }
-    __syncwarp();
+    mbar_arrive(bar32(bar0, kVRawFree, vs));
+    fence_async_smem();
+    mbar_arrive(bar32(bar0, kVReady, s));
+  }
+}
+
+// consumer warpgroup wg: 64 query rows, this CTA's kDH columns of O
+template <int D>
+__device__ __forceinline__ void tf32_consume(uint32_t base,
+                                             float* __restrict__ o, int wg,
+                                             uint32_t rank, int b, int h,
+                                             int heads, int q0, int col0,
+                                             int tn, int n_kt, int causal,
+                                             float scale) {
+  using L = Tf32<D>;
+  constexpr int kBN = L::kBN, kNO = L::kNO, kOC = L::kOC;
+  const uint32_t bar0 = base + L::kBar;
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int row_a = wg * 64 + warp * 16 + g;   // row in the CTA's tile
+  const int row0 = q0 + wg * 64, r0 = q0 + row_a;
+  // row_a's word tq of 16-byte chunk 0 (the swizzle moves chunk c to c ^ g)
+  const uint32_t qa = base + L::kQ + row_a * 128 + tq * 4;
+
+  float acc_o[kNO][kOC / 2];
+#pragma unroll
+  for (int j = 0; j < kNO; ++j)
+#pragma unroll
+    for (int i = 0; i < kOC / 2; ++i) acc_o[j][i] = 0.f;
+  float m2[2] = {-INFINITY, -INFINITY};   // running max, log2 units
+  float lsum[2] = {0.f, 0.f};             // this thread's part of l
+
+  if constexpr (L::kCl > 1) {
+    // arm both exchange slots for tiles 0 and 1
+    if (t == 0) {
+      mbar_expect_tx(bar32(bar0, kXFull, 2 * wg), L::kXSlot);
+      if (n_kt > 1) mbar_expect_tx(bar32(bar0, kXFull, 2 * wg + 1), L::kXSlot);
+    }
+  }
+  mbar_wait(bar32(bar0, kQFull, 0), 0);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = kt & 1;
+    const uint32_t par = (kt >> 1) & 1;
+    const uint32_t khi = base + L::kKhi + s * L::kPlane;
+    const uint32_t klo = base + L::kKlo + s * L::kPlane;
+
+    // S = (Q scale) K^T: per k8 slice Q_hi K_hi + Q_hi K_lo + Q_lo K_hi,
+    // Q split in registers, in batches of one 32-column box (16 words a
+    // thread stay live until the batch's products are done).  A batch
+    // sums into its own accumulator, small products first, and is added
+    // to S in f32 (see the note: the tensor core's sums truncate).  part
+    // is never written before its first product, which reads it with
+    // scale-d 0: safe because one wgmma chain is in flight at a time (the
+    // batch waits for its own before the next starts); several chains in
+    // flight on unwritten accumulators gave wrong sums, so those would
+    // have to be zeroed first
+    float acc_s[kBN / 2], part[kBN / 2];
+    mbar_wait(bar32(bar0, kKReady, s), par);
+#pragma unroll
+    for (int x = 0; x < L::kBoxes; ++x) {
+      uint32_t ah[4][4], al[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // slice 4x + j: chunks 2j (columns tq) and 2j + 1 (tq + 4)
+        const uint32_t p = qa + x * L::kQBox;
+        const float v[4] = {
+            ld_shared_f32(p + (((2 * j) ^ g) << 4)) * scale,
+            ld_shared_f32(p + 1024 + (((2 * j) ^ g) << 4)) * scale,
+            ld_shared_f32(p + (((2 * j + 1) ^ g) << 4)) * scale,
+            ld_shared_f32(p + 1024 + (((2 * j + 1) ^ g) << 4)) * scale};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ah[j][e] = tf32_hi(v[e]);
+          al[j][e] = tf32_lo(v[e], ah[j][e]);
+        }
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t off = x * L::kKBox + j * 32;
+        wgmma_tf32(part, ah[j], desc_kmajor(klo + off, 128), j > 0);
+        wgmma_tf32(part, al[j], desc_kmajor(khi + off, 128), 1);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wgmma_tf32(part, ah[j],
+                   desc_kmajor(khi + x * L::kKBox + j * 32, 128), 1);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(part);
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i)
+        acc_s[i] = x > 0 ? acc_s[i] + part[i] : part[i];
+    }
+    mbar_arrive(bar32(bar0, kKFree, s));
+
+    if constexpr (L::kCl > 1) {
+      // S = own partial + the other CTA's: store ours into its slot (st.async,
+      // counted on its x_full), then read the one it stored here (f32
+      // addition commutes: both CTAs hold the same S).  Two slots: the
+      // other CTA stores into slot kt & 1 again only after all of this
+      // CTA's partial of tile kt + 1 has landed there, which this CTA
+      // sends after reading slot kt & 1; thread 0 arms the slot's next
+      // phase once this one is read.
+      const int xs = 2 * wg + (kt & 1);
+      const uint32_t slot = base + L::kX + xs * L::kXSlot;
+      const uint32_t xbar = bar32(bar0, kXFull, xs);
+      const uint32_t peer = rank ^ 1u;
+      const uint32_t rslot = map_rank(slot, peer);
+      const uint32_t rbar = map_rank(xbar, peer);
+#pragma unroll
+      for (int v = 0; v < kBN / 8; ++v)
+        st_async_v4(rslot + (v * 128 + t) * 16, acc_s[4 * v],
+                    acc_s[4 * v + 1], acc_s[4 * v + 2], acc_s[4 * v + 3],
+                    rbar);
+      mbar_wait_cluster(xbar, (kt >> 1) & 1);
+#pragma unroll
+      for (int v = 0; v < kBN / 8; ++v) {
+        const float4 y = ld_shared_v4(slot + (v * 128 + t) * 16);
+        acc_s[4 * v] += y.x;
+        acc_s[4 * v + 1] += y.y;
+        acc_s[4 * v + 2] += y.z;
+        acc_s[4 * v + 3] += y.w;
+      }
+      if (t == 0 && kt + 2 < n_kt) mbar_expect_tx(xbar, L::kXSlot);
+    }
+
+    float corr[2];
+    softmax32_tile<kBN>(acc_s, m2, lsum, corr, kt * kBN, row0, r0, 2 * tq,
+                        tn, causal);
+
+    // O = O corr + P V: P split in registers.  The accumulator holds keys
+    // 2t and 2t + 1 of each 8-key slice where the A fragment wants t and
+    // t + 4, so the fragment is taken as it lies and V^T's keys are
+    // written in the matching order (logical 0..7 = physical 0, 2, 4, 6,
+    // 1, 3, 5, 7).  Each O chunk's P V sums into its own accumulator,
+    // small products first, folded into O by one f32 fma
+    uint32_t ph[kBN / 2], pl[kBN / 2];
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) {
+      ph[i] = tf32_hi(acc_s[i]);
+      pl[i] = tf32_lo(acc_s[i], ph[i]);
+    }
+    const uint32_t vthi = base + L::kVthi + s * L::kPlane;
+    const uint32_t vtlo = base + L::kVtlo + s * L::kPlane;
+    mbar_wait(bar32(bar0, kVReady, s), par);
+#pragma unroll
+    for (int j = 0; j < kNO; ++j) {
+      float pv[kOC / 2];   // unwritten: first product scale-d 0, as part
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 8; ++kk) {
+        const uint32_t a_hi[4] = {ph[4 * kk], ph[4 * kk + 2], ph[4 * kk + 1],
+                                  ph[4 * kk + 3]};
+        const uint32_t a_lo[4] = {pl[4 * kk], pl[4 * kk + 2], pl[4 * kk + 1],
+                                  pl[4 * kk + 3]};
+        const uint32_t off = (kk >> 2) * L::kVtBox + (kk & 3) * 32 +
+                             j * kOC * L::kVtRow;
+        wgmma_tf32(pv, a_hi, desc_kmajor(vtlo + off, L::kVtRow), kk > 0);
+        wgmma_tf32(pv, a_lo, desc_kmajor(vthi + off, L::kVtRow), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kBN / 8; ++kk) {
+        const uint32_t a_hi[4] = {ph[4 * kk], ph[4 * kk + 2], ph[4 * kk + 1],
+                                  ph[4 * kk + 3]};
+        const uint32_t off = (kk >> 2) * L::kVtBox + (kk & 3) * 32 +
+                             j * kOC * L::kVtRow;
+        wgmma_tf32(pv, a_hi, desc_kmajor(vthi + off, L::kVtRow), 1);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(pv);
+#pragma unroll
+      for (int k = 0; k < kOC / 8; ++k)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            acc_o[j][4 * k + 2 * i + e] =
+                fmaf(acc_o[j][4 * k + 2 * i + e], corr[i],
+                     pv[4 * k + 2 * i + e]);
+    }
+    mbar_arrive(bar32(bar0, kVtFree, s));
   }
 
-  if (qpos < tn) {
-    const float denom = fmaxf(l_i, 1e-30f);
-    const float* orow = Os + my_row * L::LDO + half * (D / 2);
-    float* out = o + base + (size_t)qpos * stride + half * (D / 2);
-    for (int c = 0; c < D / 2; ++c) out[c] = orow[c] / denom;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = lsum[i];
+    l += __shfl_xor_sync(kFull, l, 1);
+    l += __shfl_xor_sync(kFull, l, 2);
+    const float den = fmaxf(l, 1e-30f);
+    const int row = r0 + 8 * i;
+    if (row < tn) {
+      float* orow =
+          o + (((size_t)b * tn + row) * heads + h) * D + col0 + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < kNO; ++j)
+#pragma unroll
+        for (int k = 0; k < kOC / 8; ++k)
+          *reinterpret_cast<float2*>(orow + j * kOC + 8 * k) =
+              make_float2(acc_o[j][4 * k + 2 * i] / den,
+                          acc_o[j][4 * k + 2 * i + 1] / den);
+    }
   }
 }
 
 template <int D>
-int launch32(const void* q, const void* k, const void* v, void* o, int b,
-             int tn, int h, int causal, float scale, cudaStream_t stream) {
-  using L = Smem32<D>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+__global__ void __launch_bounds__(Tf32<D>::kThreads, 1)
+flash_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  float* __restrict__ o, int tn, int heads, int bh_count,
+                  int n_qt, int causal, float scale) {
+  using L = Tf32<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + kSwAtom - 1) & ~(kSwAtom - 1);
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  uint32_t rank = 0;
+  if constexpr (L::kCl > 1) rank = cluster_rank();
+  const int tile = (int)(blockIdx.x / (unsigned)L::kCl);
+  const int qt = n_qt - 1 - tile / bh_count;
+  const int bh = tile % bh_count;
+  const int b = bh / heads, h = bh % heads, q0 = qt * L::kBQ;
+  const int col0 = (int)rank * L::kDH;
+  int n_kt = (tn + L::kBN - 1) / L::kBN;
+  if (causal) n_kt = min(n_kt, (min(q0 + L::kBQ, tn) - 1) / L::kBN + 1);
+
+  if (tid == 0) init_tf32_barriers<L>(base + L::kBar);
+  // the other CTA's barriers are initialised before anyone arrives there
+  if constexpr (L::kCl > 1) cluster_sync();
+  else __syncthreads();
+
+  // one branch a role to the end, so setmaxnreg applies; no CTA of a
+  // cluster leaves while the other may still reach its shared memory
+  if (wg == L::kCons) {
+    if constexpr (L::kCons == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    const int pt = tid - L::kCons * 128;
+    if (pt == 0)
+      tf32_produce<D>(base, &tm_q, &tm_k, &tm_v, h, b, q0, col0, n_kt);
+    else if (pt >= 32)
+      tf32_convert<D>(base, pt - 32, n_kt);
+    if constexpr (L::kCl > 1) cluster_sync();
+  } else {
+    if constexpr (L::kCons == 2)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    tf32_consume<D>(base, o, wg, rank, b, h, heads, q0, col0, tn, n_kt,
+                    causal, scale);
+    if constexpr (L::kCl > 1) cluster_sync();
+  }
+}
+
+// (B, T, H, D) f32 tensor as a 4-d map (dims D, H, T, B), boxes of 32 x 1
+// x rows x 1 (128 bytes wide) with the 128-byte swizzle
+bool make_map32(CUtensorMap* map, const void* ptr, int b, int t, int h,
+                int d, int rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)t,
+                              (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 4, (cuuint64_t)h * d * 4,
+                                 (cuuint64_t)t * h * d * 4};
+  const cuuint32_t box[4] = {32, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr),
+             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_tf32(const void* q, const void* k, const void* v, void* o, int b,
+                int tn, int h, int causal, float scale, cudaStream_t stream) {
+  using L = Tf32<D>;
+  CUtensorMap mq, mk, mv;
+  if (!make_map32(&mq, q, b, tn, h, D, L::kBQ) ||
+      !make_map32(&mk, k, b, tn, h, D, L::kBN) ||
+      !make_map32(&mv, v, b, tn, h, D, L::kBN))
+    return (int)cudaErrorInvalidValue;
+  const int n_qt = (tn + L::kBQ - 1) / L::kBQ;
+  const long long grid = (long long)n_qt * b * h * L::kCl;
+  if (grid > INT_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)L::kBytes);
   if (err != cudaSuccess) return (int)err;
-  const int n_qt = (tn + Fma<D>::kBQ - 1) / Fma<D>::kBQ;
-  flash_f32_kernel<D><<<n_qt * b * h, Fma<D>::kThreads, L::kBytes,
-                        stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, tn, h,
-      b * h, causal, scale);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid, 1, 1);
+  cfg.blockDim = dim3(L::kThreads, 1, 1);
+  cfg.dynamicSmemBytes = L::kBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = L::kCl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = L::kCl > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, flash_tf32_kernel<D>, mq, mk, mv, (float*)o,
+                           tn, h, b * h, n_qt, causal, scale);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+// every f32 width of flash_tf32_kernel; any other width is refused
+int launch_any32(const void* q, const void* k, const void* v, void* o, int b,
+                 int t, int h, int d, int causal, float scale,
+                 cudaStream_t st) {
+  switch (d) {
+    case 64: return launch_tf32<64>(q, k, v, o, b, t, h, causal, scale, st);
+    case 128: return launch_tf32<128>(q, k, v, o, b, t, h, causal, scale, st);
+    case 256: return launch_tf32<256>(q, k, v, o, b, t, h, causal, scale, st);
+    case 320: return launch_tf32<320>(q, k, v, o, b, t, h, causal, scale, st);
+    case 384: return launch_tf32<384>(q, k, v, o, b, t, h, causal, scale, st);
+    case 448: return launch_tf32<448>(q, k, v, o, b, t, h, causal, scale, st);
+    case 512: return launch_tf32<512>(q, k, v, o, b, t, h, causal, scale, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+constexpr size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
+
 // ---------------------------------------------------------------------------
-// Wide FMA path: f32 inputs at head dims past 256 (a multiple of 64; the
+// Wide FMA path: f32 inputs at head dims past 512 (a multiple of 64; the
 // wrapper pads others with zeros)
 // ---------------------------------------------------------------------------
 //
-// At D > 256 no tiling of the whole head dim fits shared memory (the FMA
-// kernel's f32 tiles at 32 query rows already take 206 KB at D = 256), so
-// the head dim is streamed in chunks of 64 columns:
+// Past 512 the split-TF32 kernel's planes do not fit a cluster of two CTAs
+// (see the note), so the head dim is streamed in chunks of 64 columns:
 //   * one CTA per (b*h, 64-query tile, 64-column output chunk): blockIdx.x
 //     is the query tile times b*h, blockIdx.y the output chunk;
 //   * per key tile of 64, S = sum_c Q_c K_c^T builds up in registers as
 //     the 64-column chunks of Q (scaled in f32, as the JAX kernel) and K
-//     pass through shared memory, then the online softmax runs on S as in
-//     the FMA kernel and only the CTA's own chunk of V is multiplied in;
+//     pass through shared memory, then the online softmax runs on S
+//     (two lanes a row, S and O in shared memory) and only the CTA's own
+//     chunk of V is multiplied in;
 //   * so S is computed once per output chunk (D/64 times in all): the
 //     price of holding 84 KB of shared memory at any D.  The sum over the
-//     head dim runs in column order, as in the other paths.
+//     head dim runs in column order.
 
 constexpr int kWBQ = 64;        // query rows per CTA (4 warps x 16)
 constexpr int kWBK = 64;        // keys per tile
@@ -1280,11 +1902,46 @@ int launch_wide(const void* q, const void* k, const void* v, void* o, int b,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16.  d: for f32, 64, 128,
-// 256 or a multiple of 64 past 256; for f16/bf16, 64, 128 or a multiple
-// of 64 from 256 to 512 (the wrapper pads other head dims with zeros and
-// passes the scale of the original one).  Every grid puts b*h and the
-// query tile on gridDim.x (at most 2**31 - 1 blocks).
+// The kernel rt_flash_attention launches for kernel width d and dtype (0 =
+// float32, 1 = float16, 2 = bfloat16): 0 flash_wgmma_kernel, 1
+// flash_big16_kernel, 2 flash_tf32_kernel, 3 flash_wide_kernel; -1 where
+// it refuses the width.
+extern "C" int rt_flash_route(int d, int dtype) {
+  const bool mid = d >= 256 && d <= 512 && d % 64 == 0;
+  if (dtype == 1 || dtype == 2) return d == 64 || d == 128 ? 0 : mid ? 1 : -1;
+  if (dtype == 0) {
+    if (d == 64 || d == 128 || mid) return 2;
+    if (d > 512 && d % kWC == 0 && d / kWC <= 65535) return 3;
+  }
+  return -1;
+}
+
+// Keys a tile of the kernel rt_flash_route names for (d, dtype); -1 where
+// it refuses the width.  The tiles are the layouts' own (Smem16, Big16,
+// Tf32, kWBK), so the card tests read the rule from here.
+extern "C" int rt_flash_key_tile(int d, int dtype) {
+  switch (rt_flash_route(d, dtype)) {
+    case 0: return d == 64 ? Smem16<64>::kBN : Smem16<128>::kBN;
+    case 1: return d == 256 ? Big16<256>::kBN : Big16<320>::kBN;
+    case 2:
+      switch (d) {
+        case 64: return Tf32<64>::kBN;
+        case 128: return Tf32<128>::kBN;
+        case 256: return Tf32<256>::kBN;
+        case 320: return Tf32<320>::kBN;
+        case 384: return Tf32<384>::kBN;
+        case 448: return Tf32<448>::kBN;
+        case 512: return Tf32<512>::kBN;
+      }
+      return -1;
+    case 3: return kWBK;
+  }
+  return -1;
+}
+
+// d: a kernel width rt_flash_route takes (the wrapper pads other head dims
+// with zeros and passes the scale of the original one).  Every grid puts
+// b*h and the query tile on gridDim.x (at most 2**31 - 1 blocks).
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, int b, int t, int h, int d,
                                   int dtype, int causal, float scale,
@@ -1293,16 +1950,15 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
       (long long)b * h * ((t + 31) / 32) > INT_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 1)
-    return launch_any16<false>(q, k, v, o, b, t, h, d, causal, scale, st);
-  if (dtype == 2)
-    return launch_any16<true>(q, k, v, o, b, t, h, d, causal, scale, st);
-  if (dtype == 0) {
-    if (d == 64) return launch32<64>(q, k, v, o, b, t, h, causal, scale, st);
-    if (d == 128) return launch32<128>(q, k, v, o, b, t, h, causal, scale, st);
-    if (d == 256) return launch32<256>(q, k, v, o, b, t, h, causal, scale, st);
-    if (d > 256 && d % kWC == 0 && d / kWC <= 65535)
-      return launch_wide(q, k, v, o, b, t, h, d, causal, scale, st);
+  switch (rt_flash_route(d, dtype)) {
+    case 0:
+    case 1:
+      return dtype == 2 ? launch_any16<true>(q, k, v, o, b, t, h, d, causal,
+                                             scale, st)
+                        : launch_any16<false>(q, k, v, o, b, t, h, d, causal,
+                                              scale, st);
+    case 2: return launch_any32(q, k, v, o, b, t, h, d, causal, scale, st);
+    case 3: return launch_wide(q, k, v, o, b, t, h, d, causal, scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }

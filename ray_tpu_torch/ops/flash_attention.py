@@ -12,9 +12,12 @@ instead of the O(T^2) score matrix.  The kernel is
   64 rows, past 256 two warpgroups that share 64 rows, split O's columns
   and sum S from their halves of the head dim; 16-bit widths past 512
   raise (shared memory, see the source note);
-* f32: FMA on the CUDA cores (f32 wgmma would be TF32), at D <= 256 one
-  kernel, past 256 a wide kernel that streams the head dim in chunks of
-  64 columns.
+* f32 at D = 64 to 512: wgmma + TMA in split TF32 (3xTF32: each operand
+  is a TF32 hi plus a TF32 lo, each product hi*hi + hi*lo + lo*hi in f32,
+  within f32's tolerance); 128 query rows a CTA at 64 and 128, past 128 a
+  cluster of two CTAs per query tile, each holding half of the head dim;
+* f32 past 512: FMA on the CUDA cores, a wide kernel that streams the
+  head dim in chunks of 64 columns.
 
 ``flash_attention_plain`` is the dense PyTorch version of the same
 function, which CPU tensors take.
@@ -39,12 +42,28 @@ _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _KERNEL_DIMS = (64, 128, 256)        # the kernel's widths; others pad up
 _WIDE_CHUNK = 64                     # past 256: the next multiple of 64
 _MAX_WIDTH_16 = 512                  # the widest 16-bit kernel width
+# the kernels of the entry point's routes (rt_flash_route's codes)
+_ROUTES = ("flash_wgmma_kernel", "flash_big16_kernel", "flash_tf32_kernel",
+           "flash_wide_kernel")
 
 
 def kernel_width(d: int) -> int:
     """The head dim the CUDA kernel runs a head dim ``d`` at."""
     return next((w for w in _KERNEL_DIMS if d <= w), None) or \
         -(-d // _WIDE_CHUNK) * _WIDE_CHUNK
+
+
+def kernel_key_tile(d: int, dtype) -> int:
+    """Keys a tile of the CUDA kernel the entry point launches for a head
+    dim ``d`` and ``dtype`` (the library's ``rt_flash_key_tile``, read
+    from the kernels' layouts; builds the library, so it needs nvcc)."""
+    from . import _build
+    tile = _build.load("flash_attention", "rt_flash_key_tile")(
+        kernel_width(d), _DTYPE_CODE[dtype])
+    if tile < 1:
+        raise ValueError(f"flash_attention: no kernel takes {dtype} at "
+                         f"head dim {d}")
+    return tile
 
 
 def flash_attention_plain(q, k, v, causal: bool = False):
@@ -69,9 +88,12 @@ def flash_attention(q, k, v, *, causal: bool = False,
     Same checks and messages as the JAX function.  ``block_q``/``block_k``
     are validated for parity with its signature; the CUDA kernel tiles by
     its own (f16/bf16: 128 x 128 up to D = 128, 128 x 64 at 256, 64 x 32
-    past it; f32: 64 x 64).  CPU tensors take ``flash_attention_plain``;
-    CUDA tensors launch the kernel (f32 at any D, f16/bf16 at D <= 512)
-    or raise."""
+    past it; f32: 128 x 64 at 64, 128 x 32 at 128, 128 x 16 at 256 and
+    320 and 64 x 16 to 512, each over a cluster of two CTAs, 64 x 64 past
+    it).  CPU tensors take ``flash_attention_plain``; CUDA tensors launch
+    the kernel (f32 at any D, f16/bf16 at D <= 512) or raise.
+    ``flash_attention.last_route`` names the kernel the entry point
+    launched last."""
     b, t, h, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("q/k/v must share shape (batch, seq, heads, "
@@ -107,6 +129,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
                else x.clone(memory_format=torch.contiguous_format)
                for x in (q, k, v))
     out = torch.empty_like(q)
+    route = _build.load("flash_attention", "rt_flash_route")(
+        width, _DTYPE_CODE[q.dtype])
     fn = _build.load("flash_attention")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              b, t, h, width, _DTYPE_CODE[q.dtype], int(bool(causal)),
@@ -114,7 +138,9 @@ def flash_attention(q, k, v, *, causal: bool = False,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.last_route = _ROUTES[route]
     return out if width == d else out[..., :d].contiguous()
 
 
 flash_attention.launches = 0
+flash_attention.last_route = None

@@ -312,6 +312,35 @@ def _flash_inputs(dtype, shape):
             for _ in range(3)]
 
 
+def _flash_route(dtype, width):
+    """The kernel the entry point must report for a dtype and width."""
+    if dtype == torch.float32:
+        return "flash_tf32_kernel" if width <= 512 else "flash_wide_kernel"
+    return "flash_wgmma_kernel" if width <= 128 else "flash_big16_kernel"
+
+
+def _key_tiles(dtype, d):
+    """The key tiles the dropped-tile check drops: 64 keys, and in f32
+    the kernel's own tile, as the library reports it."""
+    from ray_tpu_torch.ops.flash_attention import kernel_key_tile
+    return sorted({64} | ({kernel_key_tile(d, dtype)}
+                          if dtype == torch.float32 else set()))
+
+
+def _drop_last_keys(q, k, v, causal, tile):
+    """The plain version without the last ``tile`` keys: what a kernel
+    that skipped its last key tile would return."""
+    import math
+    t, d = q.shape[1], q.shape[3]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() / math.sqrt(d), k.float())
+    dead = torch.zeros((t, t), dtype=torch.bool, device="cuda")
+    dead[:, t - tile:] = True
+    if causal:
+        dead |= torch.ones_like(dead).triu(1)
+    p = torch.softmax(s.masked_fill(dead, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
 def _flash_err_over_limit(got, q, k, v, causal):
     """max over elements of |got - plain| / its limit (<= 1 passes)."""
     from ray_tpu_torch.ops import flash_attention_plain
@@ -331,6 +360,7 @@ def test_flash_kernel_matches_plain(dtype, causal, shape):
     got = flash_attention(q, k, v, causal=causal, block_q=shape[1],
                           block_k=shape[1])
     assert flash_attention.launches == before + 1
+    assert flash_attention.last_route == _flash_route(dtype, shape[3])
     assert got.dtype == dtype and got.shape == q.shape
     ratio = _flash_err_over_limit(got, q, k, v, causal)
     assert ratio <= 1.0, ratio
@@ -338,19 +368,12 @@ def test_flash_kernel_matches_plain(dtype, causal, shape):
 
 @pytest.mark.parametrize("dtype,causal,shape", FLASH_CASES)
 def test_flash_limit_rejects_a_dropped_key_tile(dtype, causal, shape):
-    """The limit above fails a kernel that skips its last 64-key tile."""
-    import math
+    """The limit above fails a kernel that skips its last 64-key tile,
+    and, in f32, its last tile of the split-TF32 kernel."""
     q, k, v = _flash_inputs(dtype, shape)
-    t = shape[1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float() / math.sqrt(shape[3]),
-                     k.float())
-    dead = torch.zeros((t, t), dtype=torch.bool, device="cuda")
-    dead[:, t - 64:] = True
-    if causal:
-        dead |= torch.ones_like(dead).triu(1)
-    p = torch.softmax(s.masked_fill(dead, float("-inf")), dim=-1)
-    faulty = torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(dtype)
-    assert _flash_err_over_limit(faulty, q, k, v, causal) > 1.0
+    for tile in _key_tiles(dtype, shape[3]):
+        faulty = _drop_last_keys(q, k, v, causal, tile)
+        assert _flash_err_over_limit(faulty, q, k, v, causal) > 1.0, tile
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -393,29 +416,27 @@ FLASH_HEAD_DIMS = [16, 32, 80, 96, 160, 256]
                                    torch.float16])
 def test_flash_kernel_every_head_dim(d, causal, dtype):
     """Every head dim up to 256, against the plain version within the
-    limit, which must still reject a dropped key tile at that dim."""
-    import math
+    limit, which must still reject a dropped key tile at that dim (64
+    keys, and in f32 the split-TF32 kernel's tile); the entry point
+    reports the route: f32 on flash_tf32_kernel up to width 512."""
     from ray_tpu_torch.ops import flash_attention
+    from ray_tpu_torch.ops.flash_attention import kernel_width
     shape = (2, 384, 3, d)
     q, k, v = _flash_inputs(dtype, shape)
     before = flash_attention.launches
     got = flash_attention(q, k, v, causal=causal)
     assert flash_attention.launches == before + 1
+    width = kernel_width(d)
+    assert flash_attention.last_route == _flash_route(dtype, width)
     assert got.shape == q.shape and got.dtype == dtype
     assert _flash_err_over_limit(got, q, k, v, causal) <= 1.0
-    t = shape[1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float() / math.sqrt(d), k.float())
-    dead = torch.zeros((t, t), dtype=torch.bool, device="cuda")
-    dead[:, t - 64:] = True
-    if causal:
-        dead |= torch.ones_like(dead).triu(1)
-    p = torch.softmax(s.masked_fill(dead, float("-inf")), dim=-1)
-    faulty = torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(dtype)
-    assert _flash_err_over_limit(faulty, q, k, v, causal) > 1.0
+    for tile in _key_tiles(dtype, d):
+        faulty = _drop_last_keys(q, k, v, causal, tile)
+        assert _flash_err_over_limit(faulty, q, k, v, causal) > 1.0, tile
 
 
 # head dims past 256: 16-bit on wgmma with O's columns split over two
-# warpgroups, f32 on the wide FMA kernel (the head dim in chunks of 64)
+# warpgroups, f32 on wgmma in split TF32 over a cluster of two CTAs
 FLASH_WIDE_DIMS = [288, 320, 384, 512]
 
 
@@ -430,47 +451,89 @@ def test_flash_kernel_wide_head_dims(d, causal, dtype):
 
 
 @pytest.mark.parametrize("d", [256, 512])
-@pytest.mark.parametrize("t", [96, 320])
+@pytest.mark.parametrize("t", [96, 203, 320])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
 def test_flash_kernel_ragged_sequence_at_width_256_and_past(d, t, causal,
                                                            dtype):
-    """T a multiple of neither the query tile (128 at D = 256, 64 past
-    it) nor, at D = 256, the key tile (64): the last tiles are ragged, and
-    TMA fills them with zeros."""
-    import math
+    """T a multiple of neither the query tile (128 at D = 256, 64 at 512,
+    in 16 bits and in f32) nor, at D = 256 in 16 bits, the key tile (64);
+    T = 203 is odd, so the last key tile is ragged at every tile (f32's
+    16 keys too, and the cluster exchanges S of that tile): TMA fills
+    them with zeros."""
     from ray_tpu_torch.ops import flash_attention
     shape = (2, t, 3, d)
     q, k, v = _flash_inputs(dtype, shape)
     before = flash_attention.launches
-    got = flash_attention(q, k, v, causal=causal, block_q=32, block_k=32)
+    got = flash_attention(q, k, v, causal=causal, block_q=t, block_k=t)
     assert flash_attention.launches == before + 1
+    assert flash_attention.last_route == _flash_route(dtype, d)
     assert got.shape == q.shape and got.dtype == dtype
     assert _flash_err_over_limit(got, q, k, v, causal) <= 1.0
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float() / math.sqrt(d), k.float())
-    dead = torch.zeros((t, t), dtype=torch.bool, device="cuda")
-    dead[:, t - 64:] = True
-    if causal:
-        dead |= torch.ones_like(dead).triu(1)
-    p = torch.softmax(s.masked_fill(dead, float("-inf")), dim=-1)
-    faulty = torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(dtype)
-    assert _flash_err_over_limit(faulty, q, k, v, causal) > 1.0
+    for tile in _key_tiles(dtype, d):
+        faulty = _drop_last_keys(q, k, v, causal, tile)
+        assert _flash_err_over_limit(faulty, q, k, v, causal) > 1.0, tile
+
+
+@pytest.mark.parametrize("width", [64, 128, 256, 320, 384, 448, 512])
+def test_flash_split32_model_has_the_kernels_tiles(width):
+    """The CPU model of the f32 arithmetic
+    (``tests/test_torch_flash_split32.py``) tiles the keys and the head
+    dim as flash_tf32_kernel does: its key tile is the one the library
+    reports, so the model's dropped-tile check drops the kernel's tile."""
+    from ray_tpu_torch.ops.flash_attention import kernel_key_tile
+    from test_torch_flash_split32 import kernel_tiles
+    assert kernel_tiles(width)[1] == kernel_key_tile(width, torch.float32)
 
 
 @pytest.mark.parametrize("d", [256, 512])
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_f32_keeps_the_fma_route(d, causal):
-    """f32 at D = 256 and past it stays on the FMA kernels: within f32's
+def test_flash_f32_takes_the_split_tf32_route(d, causal):
+    """f32 at D = 256 and past it runs on flash_tf32_kernel: within f32's
     limit, which the same function with bf16 operands (what a 16-bit
-    tensor-core route would compute) fails."""
+    tensor-core route would compute) fails, and so does one TF32 pass
+    (operands with their low 13 bits cleared)."""
+    import math
     from ray_tpu_torch.ops import flash_attention, flash_attention_plain
     q, k, v = _flash_inputs(torch.float32, (2, 256, 2, d))
     got = flash_attention(q, k, v, causal=causal)
     assert got.dtype == torch.float32
+    assert flash_attention.last_route == "flash_tf32_kernel"
     assert _flash_err_over_limit(got, q, k, v, causal) <= 1.0
     rounded = flash_attention_plain(
         *(x.to(torch.bfloat16).float() for x in (q, k, v)), causal=causal)
     assert _flash_err_over_limit(rounded, q, k, v, causal) > 1.0
+
+    def tf32(x):
+        return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+    # one pass: S from TF32 Q (scaled first, as the kernel) and K, P V
+    # from TF32 p and V
+    s = torch.einsum("bqhd,bkhd->bhqk", tf32(q * (1.0 / math.sqrt(d))),
+                     tf32(k))
+    if causal:
+        t = q.shape[1]
+        s = s.masked_fill(torch.ones((t, t), dtype=torch.bool,
+                                     device="cuda").triu(1), float("-inf"))
+    one_pass = torch.einsum("bhqk,bkhd->bqhd", tf32(torch.softmax(s, -1)),
+                            tf32(v))
+    assert _flash_err_over_limit(one_pass, q, k, v, causal) > 1.0
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_f32_past_512_takes_the_wide_fma_kernel(causal):
+    """Past kernel width 512 f32 runs on flash_wide_kernel (FMA, the head
+    dim in chunks of 64 columns): D = 576 within the limit, which must
+    reject its dropped 64-key tile."""
+    from ray_tpu_torch.ops import flash_attention
+    q, k, v = _flash_inputs(torch.float32, (2, 384, 2, 576))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    assert flash_attention.last_route == "flash_wide_kernel"
+    assert _flash_err_over_limit(got, q, k, v, causal) <= 1.0
+    faulty = _drop_last_keys(q, k, v, causal, 64)
+    assert _flash_err_over_limit(faulty, q, k, v, causal) > 1.0
 
 
 def test_flash_16bit_refuses_widths_past_512():
