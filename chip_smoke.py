@@ -71,7 +71,8 @@ Phases:
                   ``csrc/pull.cu``) == their plain versions on the card ==
                   their numpy oracles, exact, at 1000 x 64 groups x 8
                   bundles and 4096 pulls x 1000 nodes, and at 8192 nodes;
-                  kernel, plain and oracle ms, CUDA kernels a call, bound;
+                  kernel, plain and oracle ms, CUDA kernels a call, bound,
+                  ns a bundle step and the bundle layout, ns a pull;
                   kernel and oracle ms at the runtime thresholds' sizes (2
                   groups of 8, 128 pulls); the broadcast kernel
                   (``csrc/broadcast.cu``) == its plain version on the card
@@ -1803,7 +1804,8 @@ def dataplane_kernel(name, arrays, dev, plain=True, oracle=True):
     counted) == its numpy oracle (and == its plain PyTorch version on the
     card), exact; kernel ms (CUDA events), plain ms, oracle ms (host
     clock), CUDA kernels a call, bound (the broadcast's two,
-    ``broadcast_bounds``)."""
+    ``broadcast_bounds``); ns a bundle step and the bundle kernel's
+    layout, ns a pull."""
     import torch
 
     from ray_tpu_torch.ops import broadcast_kernel as bc
@@ -1861,6 +1863,14 @@ def dataplane_kernel(name, arrays, dev, plain=True, oracle=True):
         raise AssertionError(f"{name}: {launches} kernel launches in one "
                              "call")
     out = {"kernel_ms": cuda_ms(kernel), "launches": launches}
+    # the chain's unit: ns a bundle step (a key pass, in the layout the
+    # shape took) or a pull
+    if name == "bundles":
+        steps = len(bundle_key_passes(*arrays))
+        out.update(layout=fn.last_layout, cluster=fn.last_cluster,
+                   steps=steps, ns_a_step=out["kernel_ms"] * 1e6 / steps)
+    elif name == "pulls":
+        out["ns_a_pull"] = out["kernel_ms"] * 1e6 / arrays[0].shape[0]
     if oracle:
         t0 = time.perf_counter()
         want = oracle_fn()

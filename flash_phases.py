@@ -7,7 +7,7 @@ inserts ``clock64()`` probes into the f32 consumer's key-tile loop
 (thread 0 of every consumer warpgroup: the wait for K's planes, S = Q K^T
 in its batches, the cluster's exchange of partial S, the softmax, the
 split of P and the wait for V's planes, P V; "loop" is the rest), builds
-the copy with the port's nvcc flags into ``build/flash_routes/`` and runs
+the copy with the port's nvcc flags into ``build/variants/`` and runs
 the f32 full-card rows (B=2 T=4096; D=128, 256, 320 at H=16 and D=512
 at H=8, causal and not).  Each row is one JSON line: cycles a key tile
 and consumer warpgroup, summed over every CTA of one call and divided by
@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import ctypes
 import sys
-from pathlib import Path
 
 import chip_smoke as cs
 import flash_routes as fr
@@ -59,7 +58,7 @@ PROBES = [
     ("    mbar_arrive(bar32(bar0, kVtFree, s));\n", "", probe(6) + FLUSH),
 ]
 READER = '''
-extern "C" int rt_flash_phases(unsigned long long* out) {
+extern "C" int rt_phases(unsigned long long* out) {
   const cudaError_t err =
       cudaMemcpyFromSymbol(out, g_phase, sizeof(unsigned long long) * 8);
   const unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
@@ -69,11 +68,13 @@ extern "C" int rt_flash_phases(unsigned long long* out) {
 '''
 
 
-def instrumented(src: str) -> str:
-    """``src`` with the probes and the reader added."""
-    for anchor, before, after in PROBES:
+def instrumented(src: str, probes=PROBES) -> str:
+    """``src`` with ``probes`` (flash attention's by default; each
+    (anchor, text before it, text after it), the probes declaring
+    ``g_phase``) and ``READER`` (``rt_phases``) added."""
+    for anchor, before, after in probes:
         if src.count(anchor) != 1:
-            raise RuntimeError(f"flash_phases: anchor not found once: "
+            raise RuntimeError(f"instrumented: anchor not found once: "
                                f"{anchor!r}")
         src = src.replace(anchor, before + anchor + after)
     return src + READER
@@ -92,9 +93,9 @@ def main() -> int:
     cu = _build.BUILD_DIR.parent / "flash_phases" / "flash_attention.cu"
     cu.parent.mkdir(parents=True, exist_ok=True)
     cu.write_text(instrumented(src))
-    lib_path = fr.build_other(cu)
-    call = fr.caller(fr.entry(lib_path))
-    read = ctypes.CDLL(str(lib_path)).rt_flash_phases
+    lib_path = _build.build_variants([(cu, ())])[0]
+    call = fr.caller(_build.entry(lib_path, "flash_attention"))
+    read = ctypes.CDLL(str(lib_path)).rt_phases
     read.argtypes = [ctypes.c_void_p]
     read.restype = ctypes.c_int
     buf = (ctypes.c_ulonglong * 8)()

@@ -23,10 +23,7 @@ limit.  Needs a GPU and nvcc.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import hashlib
 import math
-import subprocess
 import sys
 from pathlib import Path
 
@@ -44,29 +41,6 @@ ROWS = ([("bfloat16", c, 2, 1024, 4, d) for d in (160, 256, 320, 512)
         + [("float32", c, 2, 4096, 16, 128) for c in (False, True)]
         + [(dtype, c, b, t, h, d) for dtype in ("bfloat16", "float32")
            for b, t, h, d in cs.FLASH_WIDE_PATHS for c in (False, True)])
-
-
-def build_other(cu: Path) -> Path:
-    """``cu`` built with the port's nvcc flags into build/flash_routes/."""
-    from ray_tpu_torch.ops import _build
-    src = cu.read_bytes()
-    tag = hashlib.sha256(src + " ".join(_build.NVCC_FLAGS).encode())
-    out = _build.BUILD_DIR.parent / "flash_routes" / \
-        f"flash-{tag.hexdigest()[:16]}.so"
-    if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
-                        str(cu)], check=True, capture_output=True)
-    return out
-
-
-def entry(lib_path: Path):
-    """The library's rt_flash_attention, typed as ``_build`` types it."""
-    from ray_tpu_torch.ops import _build
-    fn = getattr(ctypes.CDLL(str(lib_path)), "rt_flash_attention")
-    fn.argtypes = _build._SIGNATURES["flash_attention"][1]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def caller(fn):
@@ -134,8 +108,9 @@ def main() -> int:
         return 1
     smi = cs.phase_device()
     _build.build(["flash_attention"])
-    this = caller(entry(_build.lib_path("flash_attention")))
-    other = caller(entry(build_other(args.against))) if args.against \
+    this = caller(_build.load("flash_attention"))
+    other = caller(_build.entry(_build.build_variants(
+        [(args.against, ())])[0], "flash_attention")) if args.against \
         else None
     gen = torch.Generator(device="cuda").manual_seed(0)
     cs.emit({"nvidia_smi": smi, "against": str(args.against)})

@@ -12,7 +12,9 @@ named by a hash of the source, the ``csrc/*.cuh`` headers it includes
 and the flags, and are built at first use
 — never at import, so the CPU tests (no ``nvcc``) import every module.
 ``build()`` starts one ``nvcc`` per missing source, all at once, and
-waits for all of them.
+waits for all of them.  ``build_variants()`` builds other sources or
+flags the same way for the timing scripts (``build/variants/``), and
+``entry()`` types an entry point of any such library.
 """
 
 from __future__ import annotations
@@ -58,7 +60,7 @@ _SIGNATURES = {
               _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
     "bundle": ("rt_bundle_schedule",
                [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                _P, _P, _P, _P]),
+                _P, _P, _P, _P, _P, _P]),
     "pull": ("rt_pull_choose",
              [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P]),
     "broadcast": ("rt_plan_fanout",
@@ -66,6 +68,8 @@ _SIGNATURES = {
 }
 # further C entry points of a library: {name: {function: argtypes}}
 _EXTRA = {"binpack": {"rt_binpack_plan": [_I, _I, _I, _P]},
+          "bundle": {"rt_bundle_plan": [_I, _I, _I, _I, _P]},
+          "pull": {"rt_pull_plan": [_I, _I, _P]},
           "flash_attention": {"rt_flash_route": [_I, _I],
                               "rt_flash_key_tile": [_I, _I]}}
 
@@ -97,52 +101,53 @@ def _source_files(path: Path, seen: list[Path]) -> list[Path]:
     return seen
 
 
-def lib_path(name: str) -> Path:
-    """The library of kernel ``name``: named by a hash of its source, the
-    headers it includes (an edited header must not load a stale build)
-    and the flags."""
+def _digest(source: Path, flags) -> str:
+    """A hash of ``source``, the headers it includes (an edited header
+    must not load a stale build) and the nvcc flags."""
     digest = hashlib.sha256()
-    for path in _source_files(_CSRC / SOURCES[name], []):
+    for path in _source_files(source, []):
         digest.update(path.name.encode() + b"\0" + path.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    digest.update(" ".join(flags).encode())
+    return digest.hexdigest()[:16]
 
 
-def build(names=None) -> dict[str, float]:
-    """Compile every named kernel whose library is missing, all nvcc
-    processes in parallel.  Returns {name: seconds} for those built;
-    raises ``RuntimeError`` with nvcc's output when one fails."""
-    names = list(SOURCES if names is None else names)
-    todo = [n for n in names if not lib_path(n).exists()]
-    if not todo:
+def lib_path(name: str) -> Path:
+    """The library of kernel ``name``, named by ``_digest``."""
+    return BUILD_DIR / \
+        f"{name}-{_digest(_CSRC / SOURCES[name], NVCC_FLAGS)}.so"
+
+
+def _compile(jobs) -> dict[str, float]:
+    """nvcc for every (label, source, library, flags) of ``jobs``, all
+    processes at once, each into a temporary file renamed into place (a
+    reader never sees half a library).  Returns {label: seconds}; raises
+    ``RuntimeError`` with nvcc's output when one fails."""
+    if not jobs:
         return {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    jobs = []                               # (name, process, log, tmp)
+    running = []                        # (label, process, log, tmp, library)
     secs, failed = {}, []
     try:
-        for n in todo:
-            out = lib_path(n)
+        for label, source, out, flags in jobs:
+            out.parent.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             log = open(out.with_suffix(".log"), "w")
-            jobs.append((n, None, log, tmp))
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                   str(_CSRC / SOURCES[n])]
-            jobs[-1] = (n, subprocess.Popen(cmd, stdout=log,
-                                            stderr=subprocess.STDOUT),
-                        log, tmp)
-        for n, proc, log, tmp in jobs:
+            running.append((label, None, log, tmp, out))
+            cmd = [nvcc, *flags, "-o", str(tmp), str(source)]
+            running[-1] = (label, subprocess.Popen(
+                cmd, stdout=log, stderr=subprocess.STDOUT), log, tmp, out)
+        for label, proc, log, tmp, out in running:
             rc = proc.wait()
-            secs[n] = time.perf_counter() - t0
+            secs[label] = time.perf_counter() - t0
             if rc != 0:
                 log.flush()
-                failed.append(f"{n}: nvcc exit {rc}\n"
+                failed.append(f"{label}: nvcc exit {rc}\n"
                               + Path(log.name).read_text()[-4000:])
-            else:   # atomic: a reader never sees half a library
-                os.replace(tmp, lib_path(n))
+            else:
+                os.replace(tmp, out)
     finally:
-        for _n, proc, log, _tmp in jobs:
+        for _label, proc, log, _tmp, _out in running:
             if proc is not None and proc.poll() is None:
                 proc.kill()
                 proc.wait()
@@ -152,9 +157,49 @@ def build(names=None) -> dict[str, float]:
     return secs
 
 
+def build(names=None) -> dict[str, float]:
+    """Compile every named kernel whose library is missing, all nvcc
+    processes in parallel.  Returns {name: seconds} for those built;
+    raises ``RuntimeError`` with nvcc's output when one fails."""
+    names = list(SOURCES if names is None else names)
+    return _compile([(n, _CSRC / SOURCES[n], lib_path(n), NVCC_FLAGS)
+                     for n in names if not lib_path(n).exists()])
+
+
+def build_variants(specs) -> list[Path]:
+    """The libraries of other builds, for timing scripts: each (source,
+    extra nvcc flags) of ``specs`` (another commit's source, a copy with
+    clock probes, a ``-D`` override of a kernel's constant) built with
+    the port's flags into ``build/variants/``, named by ``_digest``, the
+    missing ones all at once."""
+    outs, jobs = [], []
+    for source, flags in specs:
+        source, flags = Path(source), [*NVCC_FLAGS, *flags]
+        out = BUILD_DIR.parent / "variants" / \
+            f"{source.stem}-{_digest(source, flags)}.so"
+        if not out.exists() and out not in outs:
+            jobs.append((f"{source} {' '.join(flags[len(NVCC_FLAGS):])}",
+                         source, out, flags))
+        outs.append(out)
+    _compile(jobs)
+    return outs
+
+
 def build_log(name: str) -> str:
     path = lib_path(name).with_suffix(".log")
     return path.read_text() if path.exists() else ""
+
+
+def entry(library, name: str, fn: str | None = None):
+    """Kernel ``name``'s C entry point (or its further entry point ``fn``)
+    in the library at path ``library``, typed as this module types it."""
+    fn_name, argtypes = _SIGNATURES[name]
+    if fn is not None:
+        fn_name, argtypes = fn, _EXTRA[name][fn]
+    out = getattr(ctypes.CDLL(str(library)), fn_name)
+    out.argtypes = argtypes
+    out.restype = ctypes.c_int
+    return out
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -163,13 +208,11 @@ def _lib(name: str) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(lib_path(name)))
-        fn_name, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        for extra, extra_types in _EXTRA.get(name, {}).items():
-            getattr(lib, extra).argtypes = extra_types
-            getattr(lib, extra).restype = ctypes.c_int
+        for fn in [None, *_EXTRA.get(name, {})]:
+            fn_name, argtypes = (_SIGNATURES[name] if fn is None
+                                 else (fn, _EXTRA[name][fn]))
+            getattr(lib, fn_name).argtypes = argtypes
+            getattr(lib, fn_name).restype = ctypes.c_int
         lib.rt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.rt_cuda_error_string.restype = ctypes.c_char_p
         _LOADED[name] = lib

@@ -8,9 +8,13 @@ resources, are placed in order, carrying ``avail``; each group is atomic
 
 The JAX program is two nested ``lax.scan``s that evaluate every strategy
 for every group and select.  On a card they are the hand-written CUDA
-kernel ``csrc/bundle.cu``: one launch of one CTA steps the groups and
-their bundles in order, reads the validity mask and the strategies on
-the device, and undoes a failed group from a log of its placed rows.
+kernel ``csrc/bundle.cu``: one launch compacts every bundle's request
+(and every STRICT_PACK group's sum) off the chain, keeps the rows'
+totals, reciprocals and avail on chip where they fit (one CTA, or a
+thread-block cluster), steps the groups and their bundles in order with
+one barrier a step, and undoes a failed group from a log of its placed
+rows.  The layout is chosen from the shape before the launch
+(``kernel_plan``) and reported in ``schedule_bundle_groups.last_layout``.
 Its plain PyTorch version ``schedule_bundle_groups_plain`` (CPU tensors
 take it) reads the strategies and the validity mask on the host once
 and runs each group's own strategy's ops over its valid bundles (an
@@ -25,6 +29,8 @@ keeps ``(t - a + req) * SCALE`` inside int32.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -38,6 +44,9 @@ _PACK = PlacementStrategy.PACK.value
 _STRICT_PACK = PlacementStrategy.STRICT_PACK.value
 _STRICT_SPREAD = PlacementStrategy.STRICT_SPREAD.value
 _I32 = torch.int32
+# csrc/bundle.cu's layouts, by the code rt_bundle_plan returns: the rows'
+# arrays on chip in one CTA or in a cluster, or in global memory
+LAYOUTS = ("shared", "cluster", "global")
 
 
 def _avail_keys(totals, avail, req, thr_fp, mask):
@@ -106,8 +115,9 @@ def schedule_bundle_groups(totals, avail, node_mask, bundle_reqs,
 
     CPU tensors take ``schedule_bundle_groups_plain``; CUDA tensors launch
     the hand-written kernel (``csrc/bundle.cu``; the mask and strategies
-    are copied to the card when given on the host) or raise, and count
-    the launch in ``schedule_bundle_groups.launches``."""
+    are copied to the card when given on the host) or raise, count the
+    launch in ``schedule_bundle_groups.launches`` and name its layout in
+    ``.last_layout`` (one of ``LAYOUTS``; its CTAs in ``.last_cluster``)."""
     if totals.device.type == "cpu":
         return schedule_bundle_groups_plain(totals, avail, node_mask,
                                             bundle_reqs, bundle_valid,
@@ -115,8 +125,6 @@ def schedule_bundle_groups(totals, avail, node_mask, bundle_reqs,
     if totals.device.type != "cuda":
         raise ValueError(f"schedule_bundle_groups: unsupported device "
                          f"{totals.device}")
-    from . import _build
-
     dev = totals.device
     n, r = totals.shape
     p_n, b_n = bundle_reqs.shape[:2]
@@ -137,21 +145,52 @@ def schedule_bundle_groups(totals, avail, node_mask, bundle_reqs,
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
     if n < 1 or r < 1:
         raise ValueError(f"schedule_bundle_groups: empty shape N={n} R={r}")
+    from . import _build
+    layout, cluster, _threads, list_ints, col_ints = kernel_plan(
+        n, r, p_n, b_n)
     rows = torch.empty((p_n, b_n), dtype=_I32, device=dev)
     ok = torch.empty(p_n, dtype=torch.bool, device=dev)
     new_avail = torch.empty_like(avail)
+    # one scratch: the group blocks, then the column-major rows (16-byte
+    # aligned: list_ints is a multiple of 4)
+    scratch = torch.empty(list_ints + max(col_ints, 4), dtype=_I32,
+                          device=dev)
     with torch.cuda.device(dev):
         err = _build.load("bundle")(
             totals.data_ptr(), avail.data_ptr(), node_mask.data_ptr(),
             bundle_reqs.data_ptr(), valid.data_ptr(), strat.data_ptr(),
             n, r, p_n, b_n, int(thr_fp), rows.data_ptr(), ok.data_ptr(),
-            new_avail.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            new_avail.data_ptr(), scratch.data_ptr(),
+            scratch.data_ptr() + 4 * list_ints,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "bundle")
     schedule_bundle_groups.launches += 1
+    schedule_bundle_groups.last_layout = layout
+    schedule_bundle_groups.last_cluster = cluster
     return rows, ok, new_avail
 
 
 schedule_bundle_groups.launches = 0
+schedule_bundle_groups.last_layout = None
+schedule_bundle_groups.last_cluster = None
+
+
+@functools.lru_cache(maxsize=256)
+def kernel_plan(n, r, p, b):
+    """``csrc/bundle.cu``'s layout for N rows x R kinds, P groups of B
+    slots: (layout name, CTAs, threads a CTA, list scratch ints, column
+    scratch ints), from the shape alone (the library's
+    ``rt_bundle_plan``; kept per shape)."""
+    import ctypes
+
+    from . import _build
+    out = (ctypes.c_longlong * 5)()
+    err = _build.load("bundle", "rt_bundle_plan")(n, r, p, b, out)
+    if err != 0:
+        raise ValueError(f"schedule_bundle_groups: no layout holds N={n} "
+                         f"R={r} P={p} B={b}")
+    return (LAYOUTS[out[0]], int(out[1]), int(out[2]), int(out[3]),
+            int(out[4]))
 
 
 def schedule_bundle_groups_plain(totals, avail, node_mask, bundle_reqs,

@@ -11,7 +11,8 @@
 // * contract_key is hybrid_kernel._keys for one (request, row): the avail
 //   bit, the effective score and the row packed into an int32, or
 //   INFEASIBLE_KEY.  Only the request's positive columns enter it, as in
-//   the reference's torch.where(req_pos, ..., True/0).
+//   the reference's torch.where(req_pos, ..., True/0).  contract_key_rcp
+//   is the same key with each division by a precomputed magic multiplier.
 // * A packed 64-bit value (key or score in the high word, row in the low
 //   word) makes a first-min or first-max a plain unsigned min: ties go to
 //   the lowest row, and the min over an all-INF row is row 0, as
@@ -80,6 +81,16 @@ __device__ __forceinline__ int packed_row(unsigned long long v) {
   return (int)(unsigned)(v & 0xffffffffu);
 }
 
+// The key from a row's feasibility, availability and score.
+__device__ __forceinline__ int pack_contract_key(bool feas, bool availb,
+                                                 int s, int thr_fp,
+                                                 int row) {
+  if (!feas) return kInfKey;
+  const int eff = (availb && s < thr_fp) ? 0 : s;
+  return (int)(((unsigned)(!availb) << kAvailShift) |
+               ((unsigned)eff << kScoreShift) | (unsigned)row);
+}
+
 // The packed contract key of one row for one request, whose positive
 // columns are col[0..npos) with values q[0..npos); t and a are the row's
 // totals and avail (row-major, 64-bit offsets).  `live` is the row's
@@ -99,10 +110,31 @@ __device__ __forceinline__ int contract_key(const int* __restrict__ t_row,
     const int num = wmul(wadd(wsub(t, a), qc), kScale);
     s = max(s, floordiv(num, max(t, 1)));
   }
-  if (!feas) return kInfKey;
-  const int eff = (availb && s < thr_fp) ? 0 : s;
-  return (int)(((unsigned)(!availb) << kAvailShift) |
-               ((unsigned)eff << kScoreShift) | (unsigned)row);
+  return pack_contract_key(feas, availb, s, thr_fp, row);
+}
+
+// contract_key with the division by max(t, 1) done by that divisor's
+// magic multiplier m = magic(max(t, 1)).x, computed once per (row,
+// column) by the caller (its shift follows from t).  `col(p, t, a, m, q)`
+// gives the p-th positive column's totals, avail, multiplier and
+// request.  The same key, bit for bit: fdiv is floordiv for every int32
+// dividend.
+template <class Col>
+__device__ __forceinline__ int contract_key_rcp(Col col, int npos, bool live,
+                                                int thr_fp, int row) {
+  bool feas = live, availb = true;
+  int s = 0;
+  for (int p = 0; p < npos; ++p) {
+    int t, a, qc;
+    unsigned m;
+    col(p, t, a, m, qc);
+    feas = feas && (t >= qc);
+    availb = availb && (a >= qc);
+    const int num = wmul(wadd(wsub(t, a), qc), kScale);
+    const unsigned sh = 63u - (unsigned)__clz(max(t, 1) - 1);
+    s = max(s, fdiv(num, m, sh));
+  }
+  return pack_contract_key(feas, availb, s, thr_fp, row);
 }
 
 __device__ __forceinline__ unsigned long long warp_min(unsigned long long x) {

@@ -20,8 +20,12 @@ in KB, bandwidth in MB/s, cost in ~ms), bit-identical to the numpy
 oracle below.
 
 On a card the loop is the hand-written CUDA kernel ``csrc/pull.cu``: one
-cooperative launch whose CTAs gather every request's bandwidth column,
-then one CTA runs the chain with ``infl`` in registers.  Eagerly it was
+cooperative launch whose warps compact every request's candidates (the
+holders with a live link to the destination, in column order, at most
+the kernel's list cap a request, ``kernel_plan``), then one warp of one
+CTA runs the chain with ``infl`` in shared memory, the lists streamed
+ahead of it; a request with more candidates is reduced by the rest of
+that CTA.  Eagerly it was
 ~23 launches a request.  The plain PyTorch version
 ``choose_sources_plain`` keeps the loop; CPU tensors take it.
 
@@ -33,6 +37,8 @@ port's: the plain version divides by a divisor clamped to 1 and selects
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -63,16 +69,14 @@ def choose_sources(loc, bw, dest, sizes_kb, inflight_kb):
     for activation ordering.  Deterministic: ties break to the lowest row.
 
     CPU tensors take ``choose_sources_plain``; CUDA tensors launch the
-    hand-written kernel (``csrc/pull.cu``, 1 <= N <= MAX_NODES, with an
-    (R, N) int32 scratch for the gathered columns) or raise, and count
-    the launch in ``choose_sources.launches``.
+    hand-written kernel (``csrc/pull.cu``, 1 <= N <= MAX_NODES, with a
+    scratch of R lists of candidate pairs, ``kernel_plan``) or raise, and
+    count the launch in ``choose_sources.launches``.
     """
     if bw.device.type == "cpu":
         return choose_sources_plain(loc, bw, dest, sizes_kb, inflight_kb)
     if bw.device.type != "cuda":
         raise ValueError(f"choose_sources: unsupported device {bw.device}")
-    from . import _build
-
     r, n = loc.shape
     dev = bw.device
     for name, t, dtype, shape in (("loc", loc, torch.bool, (r, n)),
@@ -89,18 +93,34 @@ def choose_sources(loc, bw, dest, sizes_kb, inflight_kb):
     if not 1 <= n <= MAX_NODES:
         raise ValueError(f"choose_sources: N={n} (the kernel takes 1 <= N "
                          f"<= {MAX_NODES})")
-    gathered = torch.empty((max(r, 1), n), dtype=_I32, device=dev)
-    src = torch.empty(r, dtype=_I32, device=dev)
-    cost = torch.empty(r, dtype=_I32, device=dev)
+    from . import _build
+    _cap, scratch_ints = kernel_plan(r, n)
+    # one scratch (the lists, then the counts) and one output (src, cost)
+    scratch = torch.empty(max(scratch_ints, 1), dtype=_I32, device=dev)
+    src, cost = torch.empty((2, r), dtype=_I32, device=dev)
     with torch.cuda.device(dev):
         err = _build.load("pull")(
             loc.data_ptr(), bw.data_ptr(), dest.data_ptr(),
             sizes_kb.data_ptr(), inflight_kb.data_ptr(), r, n,
-            gathered.data_ptr(), src.data_ptr(), cost.data_ptr(),
+            scratch.data_ptr(), src.data_ptr(), cost.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "pull")
     choose_sources.launches += 1
     return src, cost
+
+
+@functools.lru_cache(maxsize=256)
+def kernel_plan(r, n):
+    """``csrc/pull.cu``'s list cap for N columns and its scratch ints for
+    R requests (the library's ``rt_pull_plan``; kept per shape)."""
+    import ctypes
+
+    from . import _build
+    out = (ctypes.c_longlong * 2)()
+    err = _build.load("pull", "rt_pull_plan")(r, n, out)
+    if err != 0:
+        raise ValueError(f"choose_sources: no plan for R={r} N={n}")
+    return int(out[0]), int(out[1])
 
 
 choose_sources.launches = 0

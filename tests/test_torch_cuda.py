@@ -22,6 +22,8 @@ from ray_tpu_torch.common.config import Config as PortConfig
 # threefry, whose draws the port's top-k reproduces
 from test_torch_dataplane import (BROADCAST_EDGES, BUNDLE_EDGES, PULL_EDGES,
                                   _broadcast_edge, _bundle_edge, _pull_edge)
+from test_torch_dataplane_chain import LAYOUT_RULE, LIST_CAP
+from test_torch_dataplane_chain import plan as bundle_plan_model
 from test_torch_topk import TOPK_EDGES
 
 pytestmark = pytest.mark.cuda
@@ -954,7 +956,7 @@ def _topk_jax(seed, n, r, g, masks):
         extra_mask=extra if masks else None)
 
 
-def _bundle_arrays(seed, n, p, b, r=8):
+def _bundle_arrays(seed, n, p, b, r=8, kind="random"):
     rng = np.random.default_rng(seed)
     totals = rng.integers(0, 6400, size=(n, r)).astype(np.int32)
     totals[rng.random(totals.shape) < 0.25] = 0
@@ -963,25 +965,59 @@ def _bundle_arrays(seed, n, p, b, r=8):
     reqs = rng.integers(0, 800, size=(p, b, r)).astype(np.int32)
     reqs[rng.random(reqs.shape) < 0.5] = 0
     valid = rng.random((p, b)) < 0.85
+    if kind == "homogeneous":
+        reqs[:] = reqs[:, :1]            # gangs of one request, B times
+    if kind == "tie_on_a_cta_boundary":
+        # only the rows around two CTA boundaries (512 rows a CTA at 8192
+        # nodes) can take a bundle, and they tie
+        totals[:] = 3000
+        avail[:] = 0
+        mask[:] = True
+        avail[[2047, 2048, 4095, 4096]] = 3000
+        reqs[:] = np.where(reqs > 0, 700, 0)
+        valid[:, 0] = True
     return totals, avail, mask, reqs, valid, np.arange(p) % 4
 
 
-@pytest.mark.parametrize("n,p,b,r", [(16, 4, 3, 8), (200, 2, 8, 8),
-                                     (1000, 64, 8, 8), (8192, 64, 8, 8),
-                                     # avail past shared memory (2 MB)
-                                     (8192, 16, 4, 64)])
-def test_bundle_kernel_bit_exact(n, p, b, r):
+@pytest.mark.parametrize("n,p,b,r,kind,layout", [
+    (16, 4, 3, 8, "random", "shared"), (100, 16, 8, 8, "random", "shared"),
+    (200, 2, 8, 8, "random", "cluster"),
+    (1000, 64, 8, 8, "random", "cluster"),
+    (8192, 64, 8, 8, "random", "cluster"),
+    # the rows past a cluster's shared memory (6 MB, 12 MB): in global
+    # memory
+    (8192, 16, 4, 64, "random", "global"),
+    (8192, 8, 4, 128, "random", "global"),
+    (1000, 32, 8, 8, "homogeneous", "cluster"),
+    (8192, 16, 8, 8, "homogeneous", "cluster"),
+    # 512 rows a CTA of 16: rows 2047 | 2048 and 4095 | 4096 straddle two
+    (8192, 8, 8, 8, "tie_on_a_cta_boundary", "cluster"),
+    # past MAX_NODES a key no longer names its row: (key, row) pairs are
+    # exchanged instead of atomicMin on keys
+    (9000, 6, 4, 8, "random", "cluster")])
+def test_bundle_kernel_bit_exact(n, p, b, r, kind, layout):
     """csrc/bundle.cu == schedule_bundle_groups_plain on the card, the
-    JAX function and the numpy oracle, bit for bit, one launch a call."""
+    JAX function and the numpy oracle, bit for bit, one launch a call, in
+    the layout the shape asks for (every layout, homogeneous gangs, a
+    first-argmin tie on a CTA boundary), over the CTAs the layout rule
+    gives."""
     from ray_tpu.ops import bundle_kernel as ref
     from ray_tpu_torch.ops import bundle_kernel as bk
     totals, avail, mask, reqs, valid, strat = _bundle_arrays(n + p, n, p, b,
-                                                             r)
+                                                             r, kind)
     dev = [torch.as_tensor(a, device="cuda")
            for a in (totals, avail, mask, reqs)]
     before = bk.schedule_bundle_groups.launches
     got = bk.schedule_bundle_groups(*dev, valid, strat, SCALE // 2)
     assert bk.schedule_bundle_groups.launches == before + 1
+    assert bk.schedule_bundle_groups.last_layout == layout
+    assert bk.schedule_bundle_groups.last_cluster == \
+        bundle_plan_model(n, r, p, b)[1]
+    if kind == "tie_on_a_cta_boundary":
+        placed = got[0].cpu().numpy()
+        assert placed[0][valid[0]][0] == 2047
+        assert set(np.unique(placed[placed >= 0])) <= {2047, 2048, 4095,
+                                                       4096}
     plain = bk.schedule_bundle_groups_plain(*dev, valid, strat, SCALE // 2)
     for x, y in zip(got, plain):
         assert torch.equal(x, y)
@@ -996,9 +1032,17 @@ def test_bundle_kernel_bit_exact(n, p, b, r):
         np.testing.assert_array_equal(x.cpu().numpy(), y)
 
 
-@pytest.mark.parametrize("n,r", [(4, 3), (200, 300), (1000, 4096),
-                                 (1025, 40), (8192, 512)])
-def test_pull_kernel_bit_exact(n, r):
+@pytest.mark.parametrize("n,r,kind", [
+    (4, 3, "random"), (200, 300, "random"), (1000, 4096, "random"),
+    (1025, 40, "random"), (8192, 512, "random"),
+    # every row holds every object: each list passes the cap, and the
+    # CTA's helpers reduce it (every third request sparse, on the warp)
+    (8192, 96, "dense"),
+    # one rate on every link: ties across 32-candidate rounds
+    (300, 200, "equal"),
+    # exactly 32 and 33 candidates (and 0, 1, 31, 64, the cap, cap + 1)
+    (1000, 64, "counts")])
+def test_pull_kernel_bit_exact(n, r, kind):
     """csrc/pull.cu == choose_sources_plain on the card, the JAX function
     and the numpy oracle, bit for bit (an object no node holds, in-flight
     KB near INT_MAX that wraps), one launch a call."""
@@ -1013,6 +1057,21 @@ def test_pull_kernel_bit_exact(n, r):
     sizes = rng.integers(1, 1 << 20, size=r).astype(np.int32)
     infl = rng.integers(0, 1 << 20, size=n).astype(np.int32)
     infl[0] = 2**31 - 1000                  # wraps below zero when picked
+    if kind == "dense":
+        loc[:] = True
+        loc[::3] = rng.random((len(loc[::3]), n)) < 0.01
+    if kind == "equal":
+        loc = rng.random((r, n)) < 0.35
+        bw[:] = 4000
+        infl[:] = 0
+    if kind == "counts":
+        bw[bw == 0] = 1                     # every holder a candidate
+        cap = pk.kernel_plan(r, n)[0]
+        assert cap == LIST_CAP
+        for i in range(r):
+            k = (32, 33, 0, 1, 31, 64, cap, cap + 1)[i % 8]
+            loc[i] = False
+            loc[i, rng.permutation(n)[:k]] = True
     arrays = (loc, bw, dest, sizes, infl)
     dev = [torch.as_tensor(a, device="cuda") for a in arrays]
     before = pk.choose_sources.launches
@@ -1026,6 +1085,41 @@ def test_pull_kernel_bit_exact(n, r):
         np.testing.assert_array_equal(x.cpu().numpy(), y)
     for x, y in zip(got, ref.choose_sources_np(*arrays)):
         np.testing.assert_array_equal(x.cpu().numpy(), y)
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 200, 1000, 8192])
+def test_pull_list_cap_is_the_kernels(n):
+    """The cap the CPU model of pull.cu's chain takes (LIST_CAP, or N
+    rounded up to even where that is less) and the scratch it implies
+    are the library's."""
+    from ray_tpu_torch.ops import pull_kernel as pk
+    cap = min(LIST_CAP, (n + 1) & ~1)
+    assert pk.kernel_plan(5, n) == (cap, 5 * (2 * cap + 1))
+
+
+@pytest.mark.parametrize("n,r,p,b,per_cta,layout,cluster,threads",
+                         LAYOUT_RULE)
+def test_bundle_layout_rule_is_the_kernels(n, r, p, b, per_cta, layout,
+                                           cluster, threads):
+    """The CPU model's layout rule (test_torch_dataplane_chain.plan) is
+    bundle.cu's plan(): each row of its table, in the source's build
+    (kRowsPerCta = 128) or in one with -DRT_ROWS_PER_CTA=per_cta."""
+    import ctypes
+
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import bundle_kernel as bk
+    if per_cta == 128:
+        got = bk.kernel_plan(n, r, p, b)
+    else:
+        lib = _build.build_variants([(
+            _build._CSRC / "bundle.cu",
+            (f"-DRT_ROWS_PER_CTA={per_cta}",))])[0]
+        out = (ctypes.c_longlong * 5)()
+        assert _build.entry(lib, "bundle", "rt_bundle_plan")(
+            n, r, p, b, out) == 0
+        got = (bk.LAYOUTS[out[0]], *[int(x) for x in out[1:]])
+    assert got[:3] == (layout, cluster, threads) == \
+        bundle_plan_model(n, r, p, b, per_cta)
 
 
 def _fanout_problem(n, fanout, kind, seed=0):
