@@ -451,11 +451,13 @@ def beat_rest_work(n_cls, r_w, n_nodes, dirty):
 def topk_work(n, reqs):
     """(bytes, int32 operations) of a top-k round over these requests:
     per class the keys over the request's positive columns (~12 ops per
-    (node, positive column); a zero column leaves a key as it is), a sort
-    of N keys (N log2 N compares), the spread and cap (~8 per node)."""
+    (node, positive column); a zero column leaves a key as it is), the
+    three order statistics the spread needs by a radix select of N keys
+    (4 passes of 8 bits: a digit a key and pass), the spread and cap (~8
+    per node)."""
     g, r = reqs.shape
     n_ops = (float((np.asarray(reqs) > 0).sum()) * n * 12
-             + g * (n * math.log2(n) + n * 8))
+             + g * (n * 4 + n * 8))
     n_bytes = 2 * n * r * 4 + n + g * r * 4 + g * 4 + g * 4 \
         + g * (n + 1) * 4 + n * r * 4
     return n_bytes, n_ops
@@ -1890,10 +1892,12 @@ def dataplane_kernel(name, arrays, dev, plain=True, oracle=True):
         out["kernels_per_call"] = kernel_launches(kernel)
         if name == "broadcast":
             parent = got[0].cpu().numpy()
+            attached = int((parent >= 0).sum())
             out.update(broadcast_bounds(arrays[1], parent),
-                       cluster=fn.last_cluster,
-                       attached=int((parent >= 0).sum()),
-                       members=int(arrays[0].sum()))
+                       cluster=fn.last_cluster, layout=fn.last_layout,
+                       attached=attached, members=int(arrays[0].sum()),
+                       ns_an_attach=out["kernel_ms"] * 1e6
+                       / max(attached, 1))
         else:
             out["bound_ms"], out["bound_by"] = bound(
                 *dataplane_work(name, arrays), PEAK_I32)
@@ -1949,7 +1953,7 @@ def phase_dataplane(dev):
 
 # -- phase: broadcast (BroadcastManager.broadcast on a port Cluster) ---------
 
-BCAST_ROWS = 72                  # the root and 71 members: 2 CTAs a plan
+BCAST_ROWS = 72                  # the root and 71 members: one CTA a plan
 BCAST_PAYLOAD = 8 << 20          # 8 chunks of broadcast_chunk_mb
 BCAST_CHUNK_MB = 1
 BCAST_ARENA_MB = 32
@@ -1968,7 +1972,10 @@ def phase_broadcast(dev):
     object in 1 MB chunks: every member holds the bytes, bit-exact,
     ``reached`` == members with no fallback, and the plan launched the
     broadcast kernel exactly once (its count set to 0 just before, read
-    just after) as a cluster of 2 or more CTAs.  The plan's inputs and
+    just after) in the layout the kernel's rule gives N: one CTA (the
+    rule takes a cluster only past kRowsPerCta = 1024 rows, which this
+    phase's endpoint planes cannot reach; the dataplane phase runs the
+    cluster at 8192).  The plan's inputs and
     the tree the manager used are captured at the call; after it the
     kernel, its plain version on the card and the numpy oracle run on
     those inputs, and all four trees must be equal, exact."""
@@ -2049,6 +2056,7 @@ def phase_broadcast(dev):
             seconds = time.perf_counter() - t0
             launches = bc.plan_fanout.launches
             ctas = bc.plan_fanout.last_cluster
+            layout = bc.plan_fanout.last_layout
             # --- end of the main path ---
         finally:
             bc.plan_fanout_np = plan_np
@@ -2060,9 +2068,12 @@ def phase_broadcast(dev):
             raise AssertionError(f"broadcast: {res}, {exact} of {members} "
                                  f"members bit-exact, {launches} kernel "
                                  f"launches, {len(plans)} plans")
-        if dev.type == "cuda" and not ctas >= 2:
-            raise AssertionError(f"broadcast: the plan ran as a cluster of "
-                                 f"{ctas} CTA(s); the phase needs 2 or more")
+        if dev.type == "cuda" and not (
+                (layout, ctas) == ("cta", 1)
+                == bc.fanout_plan(plans[0][0][1].shape[0])):
+            raise AssertionError(f"broadcast: the plan ran as {layout} "
+                                 f"over {ctas} CTA(s); the rule gives one "
+                                 "CTA at this N")
         stats = cluster.broadcasts.stats()
     finally:
         if cluster is not None:
@@ -2099,7 +2110,7 @@ def phase_broadcast(dev):
               "reached": res["reached"], "fallbacks": res["fallbacks"],
               "bit_exact_members": exact, "depth": res["depth"],
               "relay_fanout": res["relay_fanout"], "seconds": seconds,
-              "launches": launches, "cluster": ctas,
+              "launches": launches, "cluster": ctas, "layout": layout,
               "plan_equals": sorted(trees), "plan_device": str(dev),
               "trees_completed": stats.get("bcast_trees_completed")}
     emit(result)
@@ -2519,8 +2530,11 @@ def topk_kernel_case(arrays, dev, k_abs=1, k_frac=0.25, seed=7, rnd=1):
                              "version on the card")
     bound_ms, bound_by = bound(*topk_work(totals.shape[0], reqs),
                                PEAK_I32)
+    kernel_ms = cuda_ms(lambda: lk.schedule_grouped_topk(*args))
     return {"kernel_equals_plain": True, "launches": launches,
-            "kernel_ms": cuda_ms(lambda: lk.schedule_grouped_topk(*args)),
+            "layout": lk.schedule_grouped_topk.last_layout,
+            "kernel_ms": kernel_ms, "classes": g,
+            "ns_a_class": kernel_ms * 1e6 / g,
             "plain_ms": cuda_ms(lambda: lk.schedule_grouped_topk_plain(
                 *args), reps=2, warmup=0),
             "kernels_per_call": kernel_launches(
@@ -2599,6 +2613,7 @@ def phase_topk(dev):
               "offsets_equal_jax": len(jax_offsets),
               "properties_hold": True, "cases": cases,
               "ms": beat["kernel_ms"], "plain_ms": beat["plain_ms"],
+              "ns_a_class": beat["ns_a_class"], "layout": beat["layout"],
               "cpu_ms": cpu_ms, "launches": beat["launches"],
               "bound_ms": beat["bound_ms"], "bound_by": beat["bound_by"],
               "burst_tasks": 2000, "burst_s": burst_s,
@@ -4492,6 +4507,9 @@ def main() -> int:
          "cpu_ms": tk["cpu_ms"], "bound_ms": tk["bound_ms"],
          "bound_by": tk["bound_by"], "library_ms": None,
          "limit_ms": tk["cases"]["limit 8192x16x128"]["kernel_ms"],
+         "ns_a_class": tk["ns_a_class"], "layout": tk["layout"],
+         "limit_ns_a_class": tk["cases"]["limit 8192x16x128"]["ns_a_class"],
+         "limit_layout": tk["cases"]["limit 8192x16x128"]["layout"],
          "checked": True},
         {"name": "schedule_bundle_groups", "route": "cuda",
          "source": "ray_tpu_torch/ops/csrc/bundle.cu",
@@ -4539,6 +4557,12 @@ def main() -> int:
          "library_ms": None,
          "limit_ms": dp[f"broadcast_{DP_LIMIT_NODES}"]["kernel_ms"],
          "uniform_ms": dp["broadcast_uniform"]["kernel_ms"],
+         "ns_an_attach": dp["broadcast"]["ns_an_attach"],
+         "layout": dp["broadcast"]["layout"],
+         "limit_ns_an_attach":
+             dp[f"broadcast_{DP_LIMIT_NODES}"]["ns_an_attach"],
+         "uniform_ns_an_attach": dp["broadcast_uniform"]["ns_an_attach"],
+         "entry_path_layout": bcast["layout"],
          "checked": True},
         {"name": "flash_attention", "route": "cuda",
          "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",

@@ -57,7 +57,7 @@ _SIGNATURES = {
                  ctypes.c_longlong, _P]),
     "topk": ("rt_topk_schedule",
              [_P, _P, _P, _P, _P, _P, _P, _P,
-              _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
+              _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
     "bundle": ("rt_bundle_schedule",
                [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                 _P, _P, _P, _P, _P, _P]),
@@ -68,8 +68,10 @@ _SIGNATURES = {
 }
 # further C entry points of a library: {name: {function: argtypes}}
 _EXTRA = {"binpack": {"rt_binpack_plan": [_I, _I, _I, _P]},
+          "topk": {"rt_topk_plan": [_I, _I, _I, _P]},
           "bundle": {"rt_bundle_plan": [_I, _I, _I, _I, _P]},
           "pull": {"rt_pull_plan": [_I, _I, _P]},
+          "broadcast": {"rt_fanout_plan": [_I, _P]},
           "flash_attention": {"rt_flash_route": [_I, _I],
                               "rt_flash_key_tile": [_I, _I]}}
 

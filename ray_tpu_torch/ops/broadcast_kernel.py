@@ -7,9 +7,11 @@ scores sources against.  Given the member set, the root, a fan-out cap
 and the current per-node uplink load, it emits a parent assignment plus
 the attach order (an earlier-attached member starts receiving, and
 therefore relaying, sooner).  On a card the N steps are the hand-written
-CUDA kernel ``csrc/broadcast.cu``: one launch of a thread-block cluster
-that keeps each parent's best child and rescans only the rows an attach
-changed.  Eagerly it was ~37 launches a step.  The plain PyTorch
+CUDA kernel ``csrc/broadcast.cu``: one launch of one CTA (or of a
+thread-block cluster) that keeps each parent's best child, rescans only
+the two rows an attach changed, and refreshes a row that lost its best
+child only when its stale key surfaces.  Eagerly it was ~37 launches a
+step.  The plain PyTorch
 version ``plan_fanout_plain`` keeps the loop (a ``fori_loop`` in the JAX
 package); CPU tensors take it.
 
@@ -76,7 +78,8 @@ def plan_fanout(member, bw, root, fanout, inflight_kb):
     CPU tensors take ``plan_fanout_plain``; CUDA tensors launch the
     hand-written kernel (``csrc/broadcast.cu``, 1 <= N <= MAX_NODES) or
     raise, and count the launch in ``plan_fanout.launches``;
-    ``plan_fanout.last_cluster`` is the launch's cluster size.
+    ``plan_fanout.last_cluster`` is the launch's CTAs and
+    ``plan_fanout.last_layout`` its layout (``fanout_plan``).
     """
     if bw.device.type == "cpu":
         return plan_fanout_plain(member, bw, root, fanout, inflight_kb)
@@ -116,11 +119,28 @@ def plan_fanout(member, bw, root, fanout, inflight_kb):
     _build.check(err, "broadcast")
     plan_fanout.launches += 1
     plan_fanout.last_cluster = cluster.value
+    plan_fanout.last_layout = FANOUT_LAYOUTS[int(cluster.value > 1)]
     return parent, order
 
 
 plan_fanout.launches = 0
 plan_fanout.last_cluster = None
+plan_fanout.last_layout = None
+
+FANOUT_LAYOUTS = ("cta", "cluster")
+
+
+def fanout_plan(n):
+    """``csrc/broadcast.cu``'s layout for N rows: (layout name, CTAs),
+    from N alone (the library's ``rt_fanout_plan``): every row in one CTA
+    (``cta``) or the rows over a thread-block cluster (``cluster``)."""
+    from . import _build
+    out = (ctypes.c_longlong * 2)()
+    err = _build.load("broadcast", "rt_fanout_plan")(int(n), out)
+    if err != 0:
+        raise ValueError(f"plan_fanout: N={n} (the kernel takes 1 <= N <= "
+                         f"{MAX_NODES})")
+    return FANOUT_LAYOUTS[out[0]], int(out[1])
 
 
 def plan_fanout_plain(member, bw, root, fanout, inflight_kb):

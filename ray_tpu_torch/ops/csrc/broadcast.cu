@@ -16,42 +16,57 @@
 //   covered[c*] = 1, children[p*] += 1
 //
 // What bounds it on this card: the chain of N dependent argmaxes.  The
-// JAX program rescans all N^2 pairs a step (8 N^3 operations: 0.48 ms of
-// bound at N = 1000, 263 ms at 8192); what the function needs is bw read
-// once and N steps of an N-way argmax (0.0012 ms at 1000, bytes).  In
-// eager PyTorch each step is ~37 launches.  The design:
+// JAX program rescans all N^2 pairs a step; what the function needs is
+// bw read once and N steps of an N-way argmax (0.0012 ms of bound at N =
+// 1000, bytes).  The design keeps a step to the rescan of a few rows and
+// two barriers:
 //
 //   * One best pair per parent, not the whole matrix.  Row p keeps the
-//     packed key (INT_MAX - eff) << 32 | (p * N + c) of its first-max
-//     child (contract.cuh's packed first-min), and a step's pair is the
-//     unsigned min over the rows' keys.
-//   * Only rows whose best can have changed are rescanned.  An attach
-//     (p*, c*) changes p*'s denominator (and perhaps its eligibility at
-//     the fan-out cap), makes c* a parent, and takes c* from every row's
-//     candidates.  Every other row keeps its eff values and loses one
-//     candidate, so its best changes only where it was c*.  The floor in
-//     bw // denom merges values, so a row whose denominator changed is
-//     rescanned in full, never patched.  Rows that only lost their best
-//     are rescanned in full with the others while all of them fit one
-//     round of the CTA's warps (one memory round trip a step).  Past
-//     that (with uniform bandwidth every row's best is the same child)
-//     a row that lost its best (E, c0) first looks for eff == E in the
-//     256 columns from c0 + 1: a candidate before c0 with eff E cannot
-//     exist (c0 was the first), so a hit there is the new best, and only
-//     a miss is rescanned in full.
-//   * Rows over one thread-block cluster (up to 16 CTAs, 64 rows a CTA
-//     below 1024 nodes, at most 512 above).  A CTA keeps its rows' keys,
-//     children, depth, denominators (each with its magic multiplier: a
-//     multiply-high in place of a division) and parent and order in
-//     shared memory, and a replicated bitmask of member & ~covered (1 KB
-//     at 8192); parent and order go out after the last step, so no
-//     global store waits on a step's barrier.  It rescans its dirty
-//     rows with all its warps, 512-column segments of a full row at a
-//     time (rows of bw are contiguous: the reads coalesce) and a 64-bit
-//     shared atomicMin to join them.  Then warp 0 pushes the CTA's least
-//     key and that row's depth into every CTA's shared memory
-//     (distributed shared memory, by step parity), and one
-//     barrier.cluster ends the step: every CTA then reads the same pair.
+//     packed key (INT_MAX - eff) << 32 | (p << 13 | c) << 1 of its
+//     first-max child (contract.cuh's packed first-min: (p, c) order is
+//     p * N + c order); a step's pair is the least key.  Bit 0 marks a
+//     row whose key is being replaced (its rescan is under way).
+//   * Stale keys as lower bounds, refreshed only when they surface.  An
+//     attach (p*, c*) changes p*'s denominator (it may also move from <=
+//     0 to > 0, so its eff can rise) and makes c* a parent: both are
+//     rescanned in full.  Every other row keeps its denominator and loses
+//     one candidate, c*: its true best key can only stay or grow, so the
+//     key it keeps is a lower bound, and it is current while its child
+//     is still wanted.  Each warp owns a run of rows and caches their
+//     least key; where that key's child was taken, the warp refreshes
+//     the row (the first column past the old child, in the next 256,
+//     with the same eff: a column before it with that eff cannot exist;
+//     on a miss the row is rescanned in full in the next round, its
+//     stale key standing in meanwhile) until its least key is current.
+//     A round's least key is the step's pair when it is current; where
+//     it is a stale stand-in, the round attaches nothing and the next
+//     one rescans that row.  With uniform bandwidth (every row's best is
+//     the same child) a step refreshes one row a warp in place of every
+//     row; rows that never surface are never searched again.
+//   * The rows' state on chip: the key (8 B), the denominator, its magic
+//     multiplier (a multiply-high in place of a division), 1 + infl //
+//     UNIT, children and depth: 24 B a row, so 8192 rows fit one CTA.
+//     parent and order go out at the attach (no store waits on a step).
+//   * One CTA for all rows (`cta`) up to kRowsPerCta = 1024, past that
+//     the rows over a thread-block cluster of 1024 rows a CTA (`cluster`:
+//     a row is rescanned by its CTA's warps, and at 8192 one CTA's 16
+//     warps would need several trips to HBM a rescan; dataplane_routes.py's
+//     sweep of -DRT_ROWS_PER_CTA builds).  A round's join is each warp's
+//     (key, depth) written into every CTA's partials (distributed shared
+//     memory, by round parity) and one barrier (barrier.cluster, or
+//     __syncthreads in one CTA); then each CTA's warp 0 reduces them,
+//     folds the round's rescans into the rows' keys and applies the
+//     attach, and one __syncthreads ends the round.  plan() takes the
+//     cluster from N alone.
+//   * A rescan is split into column segments over the CTA's warps (rows
+//     of bw are contiguous: the reads coalesce; a power of two of them a
+//     row, each one chunk of loads where the warps allow), each
+//     segment's least key offered to the
+//     round's join directly and stored in a slot of its own; warp 0 joins
+//     a row's slots by shuffles after the join (no 64-bit shared atomics:
+//     they contend).  A rescanning warp makes the row's magic multiplier
+//     (a double division, corrected) while its first columns load.  A
+//     warp's 64-bit minimum is two redux.sync.
 //
 // Exactness: infl // UNIT is an arithmetic shift by 15 (UNIT = 2**15, so
 // it floors); the denominator is added and multiplied in uint32 and
@@ -73,16 +88,27 @@ namespace {
 
 using namespace rt;
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 512;          // 128 registers a thread: a
+                                       // rescan keeps 16 loads in flight
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerCta = 64;        // the cluster grows while above
 constexpr int kPortableCluster = 8;
 constexpr int kMaxCluster = 16;        // H100 allows 16 on request
-constexpr int kMaxRows = kMaxNodes / kMaxCluster;   // 512 = kThreads
-constexpr int kSegLane = 16;           // a full scan: 512 columns a warp
-constexpr int kSeg = 32 * kSegLane;
-constexpr int kLookLane = 8;           // the look past c0: 256 columns
+#ifndef RT_ROWS_PER_CTA
+#define RT_ROWS_PER_CTA 1024
+#endif
+// rows a CTA holds at most, where 16 CTAs allow it
+constexpr int kRowsPerCta = RT_ROWS_PER_CTA;
+static_assert(kRowsPerCta >= 1, "a row a CTA at least");
+constexpr int kChunkLane = 16;         // a rescan: 512 columns a warp a pass
+constexpr int kChunk = 32 * kChunkLane;
+constexpr int kLookLane = 8;           // the look past the old child: 256
+constexpr int kMaxLooks = 4;           // looks a warp a round
+constexpr int kMaxList = kWarps * kMaxLooks + 2;   // rows rescanned a round
 constexpr int kUnitShift = 15;         // _INFLIGHT_UNIT_KB = 32 * 1024
+constexpr int kMaxShared = 232448 - 8192;   // less the static part
+constexpr unsigned long long kMark = 1ull;  // a key under replacement
+
+enum Layout { kCta = 0, kClusterRows = 1 };
 
 struct Args {
   const uint8_t* member;   // (N,) bool
@@ -93,72 +119,140 @@ struct Args {
   int* order;              // (N,)
 };
 
-struct Shared {
-  unsigned long long best[kMaxRows];   // each row's packed best, or kNoKey
-  int children[kMaxRows];
-  int depth[kMaxRows];
-  int units[kMaxRows];                 // infl // UNIT
-  int denom[kMaxRows];                 // (1 + children + units) * (1 + depth)
-  uint2 mag[kMaxRows];                 // its magic multiplier (denom > 0)
-  int parent[kMaxRows], order[kMaxRows];   // written out after the loop
-  unsigned want[kMaxNodes / 32];       // member & ~covered
-  unsigned long long old[kMaxRows];    // a look row's best before it
-  int full[kMaxRows];                  // rows to rescan in full
-  int look[kMaxRows];                  // rows that lost their best child
-  int miss[kMaxRows];                  // look rows rescanned in full
-  int nfull, nlook, nmiss;
-  // each CTA's least key and its row's depth, by step parity
-  unsigned long long slot_key[2][kMaxCluster];
-  int slot_depth[2][kMaxCluster];
+// a warp's offer to a round's join
+struct Part {
+  unsigned long long key;
+  int depth, pad;
 };
 
-__device__ __forceinline__ int denom_of(int children, int units, int depth) {
-  return wmul(wadd(1 + children, units), 1 + depth);
+// Where everything lives, from N alone.
+struct Plan {
+  int layout, cluster, nloc;
+  int part, best, den, mag, u1, chdep;   // shared offsets
+  int smem;
+};
+
+inline int up16(long long x) { return (int)((x + 15) & ~15LL); }
+
+inline bool place(Plan& pl, int n, int cluster) {
+  pl.cluster = cluster;
+  pl.nloc = (n + cluster - 1) / cluster;
+  long long at = 0;
+  pl.part = (int)at;
+  at += up16(2LL * cluster * kWarps * sizeof(Part));
+  pl.best = (int)at;
+  at += up16(8LL * pl.nloc);
+  pl.den = (int)at;
+  at += up16(4LL * pl.nloc);
+  pl.mag = (int)at;
+  at += up16(4LL * pl.nloc);
+  pl.u1 = (int)at;
+  at += up16(4LL * pl.nloc);
+  pl.chdep = (int)at;
+  at += up16(4LL * pl.nloc);
+  pl.smem = (int)at;
+  pl.layout = cluster == 1 ? kCta : kClusterRows;
+  return at <= kMaxShared;
 }
-__device__ __forceinline__ uint2 magic_of(int den) {
-  return den > 0 ? magic(den) : make_uint2(0u, 0u);
+
+// The cluster rule: kRowsPerCta rows a CTA, up to 16 CTAs, and more
+// where a CTA's rows would not fit its shared memory.
+inline bool plan(Plan& pl, int n) {
+  int c = (n + kRowsPerCta - 1) / kRowsPerCta;
+  c = c < 1 ? 1 : (c > kMaxCluster ? kMaxCluster : c);
+  for (; c <= kMaxCluster; ++c)
+    if (place(pl, n, c)) return true;
+  return false;
+}
+
+__device__ __forceinline__ int denom_of(int children, int u1, int depth) {
+  return wmul(wadd(children, u1), 1 + depth);
+}
+// magic(den).x (contract.cuh) for den > 0, by a double division and an
+// exact correction in place of a 64-bit integer division: the quotient
+// 2**s / den is below 2**32, so the double is within one of its floor.
+__device__ __forceinline__ unsigned magic_of(int den) {
+  if (den <= 0) return 0u;
+  const unsigned s = 63u - (unsigned)__clz(den - 1);
+  const double q =
+      __longlong_as_double((long long)(1023 + s) << 52) / (double)den;
+  unsigned long long m = (unsigned long long)q;
+  long long r = (long long)((1ull << s) - m * (unsigned long long)den);
+  if (r < 0) {
+    --m;
+    r += den;
+  } else if (r >= den) {
+    ++m;
+    r -= den;
+  }
+  return (unsigned)(m + (r != 0 ? 1 : 0));
 }
 // eff of one candidate (b > 0) under a row's denominator and its magic
-__device__ __forceinline__ int eff_of(int b, int den, uint2 mg) {
-  return den > 0 ? max(fdiv(b, mg.x, mg.y), 1) : 1;
+__device__ __forceinline__ int eff_of(int b, int den, unsigned m) {
+  if (den <= 0) return 1;
+  const unsigned sh = 63u - (unsigned)__clz(den - 1);
+  return max(fdiv(b, m, sh), 1);
 }
-__device__ __forceinline__ unsigned long long pair_key(int eff, int idx) {
+__device__ __forceinline__ unsigned long long pair_key(int eff, int p,
+                                                       int c) {
   return ((unsigned long long)(unsigned)(0x7fffffff - eff) << 32) |
-         (unsigned)idx;
+         ((unsigned)((p << 13) | c) << 1);
+}
+__device__ __forceinline__ int key_eff(unsigned long long k) {
+  return 0x7fffffff - (int)(unsigned)(k >> 32);
+}
+__device__ __forceinline__ int key_parent(unsigned long long k) {
+  return (int)((unsigned)k >> 14);
+}
+__device__ __forceinline__ int key_child(unsigned long long k) {
+  return (int)(((unsigned)k >> 1) & kRowMask);
 }
 __device__ __forceinline__ bool wanted(const unsigned* want, int c) {
   return (want[c >> 5] >> (c & 31)) & 1u;
 }
 
-// One warp: the least key of row p over columns [c0, c0 + kSeg), c0 a
-// multiple of 32.
-__device__ __forceinline__ unsigned long long scan_segment(
-    const int* __restrict__ row, int p, int n, int den, uint2 mg,
-    const unsigned* want, int c0) {
+// The least of a warp's 64-bit keys: two redux.sync, the high words then
+// the low words of the lanes that hold the least high word.
+__device__ __forceinline__ unsigned long long warp_min64(
+    unsigned long long x) {
+  const unsigned hi = __reduce_min_sync(kFull, (unsigned)(x >> 32));
+  const unsigned lo = __reduce_min_sync(
+      kFull, (unsigned)(x >> 32) == hi ? (unsigned)x : 0xffffffffu);
+  return ((unsigned long long)hi << 32) | lo;
+}
+
+// One warp: the least key of row p over the columns [c0, c1) of one
+// chunk (c1 - c0 <= kChunk, c0 a multiple of 32), under the row's
+// denominator and multiplier m; with `make`, m = the multiplier, made
+// while the columns load.
+__device__ __forceinline__ unsigned long long scan_chunk(
+    const int* __restrict__ row, int p, int den, unsigned& m, bool make,
+    const unsigned* want, int c0, int c1) {
   const int lane = threadIdx.x & 31;
-  int v[kSegLane];
+  int v[kChunkLane];
 #pragma unroll
-  for (int j = 0; j < kSegLane; ++j) {
+  for (int j = 0; j < kChunkLane; ++j) {
     const int c = c0 + j * 32 + lane;
-    v[j] = c < n ? __ldg(row + c) : 0;
+    v[j] = c < c1 ? __ldg(row + c) : 0;
   }
+  if (make) m = magic_of(den);
   unsigned long long best = kNoKey;
 #pragma unroll
-  for (int j = 0; j < kSegLane; ++j) {
+  for (int j = 0; j < kChunkLane; ++j) {
     const int c = c0 + j * 32 + lane;
-    if (v[j] > 0 && c < n && wanted(want, c)) {
-      const unsigned long long k =
-          pair_key(eff_of(v[j], den, mg), p * n + c);
-      best = k < best ? k : best;
-    }
+    // no branch a column: every lane computes, the candidates select
+    const bool ok = v[j] > 0 && c < c1 && wanted(want, c);
+    const unsigned long long k =
+        pair_key(eff_of(max(v[j], 1), den, m), p, c);
+    best = ok && k < best ? k : best;
   }
-  return warp_min(best);
+  return warp_min64(best);
 }
 
 // One warp: the first column past c_old in the next 256 whose eff is e,
 // or -1.
 __device__ __forceinline__ int look_past(const int* __restrict__ row, int n,
-                                         int den, uint2 mg,
+                                         int den, unsigned m,
                                          const unsigned* want, int c_old,
                                          int e) {
   const int lane = threadIdx.x & 31;
@@ -172,36 +266,73 @@ __device__ __forceinline__ int look_past(const int* __restrict__ row, int n,
 #pragma unroll
   for (int j = 0; j < kLookLane; ++j) {
     const int c = a + j * 32 + lane;
-    const bool hit = v[j] > 0 && c > c_old && c < n && wanted(want, c) &&
-                     eff_of(v[j], den, mg) == e;
+    const bool hit = v[j] > 0 && c > c_old && c < n && wanted(want, c) &
+                     (eff_of(max(v[j], 1), den, m) == e);
     const unsigned b = __ballot_sync(kFull, hit);
     if (b) return a + j * 32 + __ffs(b) - 1;
   }
   return -1;
 }
 
-__global__ void __launch_bounds__(kThreads, 1) fanout_kernel(Args in) {
-  __shared__ Shared sh;
-  cg::cluster_group cl = cg::this_cluster();
+// One warp: the least key of its rows [lo, hi) not under replacement.
+__device__ __forceinline__ unsigned long long own_min(
+    const unsigned long long* best, int lo, int hi) {
+  unsigned long long m = kNoKey;
+  for (int t = lo + (threadIdx.x & 31); t < hi; t += 32) {
+    const unsigned long long k = best[t];
+    if (!(k & kMark) && k < m) m = k;
+  }
+  return warp_min64(m);
+}
+
+// The column segments a round cuts each of its nl rescanned rows of n
+// columns into: enough that a segment is one chunk of loads (kChunk
+// columns), at most one task a warp, and a power of two, so that a warp's
+// lanes join a row's segments by shuffles.
+__device__ __forceinline__ int segs_for(int nl, int n) {
+  if (nl > kWarps) return 1;
+  const int cap = kWarps >> (32 - __clz(nl - 1));
+  const int need = (n + kChunk - 1) / kChunk;
+  return min(cap, need <= 1 ? 1 : 1 << (32 - __clz(need - 1)));
+}
+
+template <bool kCluster>
+__global__ void __launch_bounds__(kThreads, 1) fanout_kernel(Args in,
+                                                             Plan pl) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ unsigned want[kMaxNodes / 32];      // member & ~covered
+  __shared__ int s_list[2][kMaxList];            // rows rescanned a round
+  __shared__ unsigned long long s_seg[2][kMaxList];   // their segments' keys
+  __shared__ int s_n[2];
+  __shared__ int s_dirty[kWarps];                // a warp's rows changed
+  __shared__ bool s_done;                        // the last round's join
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n = in.n, fanout = in.fanout;
-  const int cs = (int)cl.num_blocks(), rank = (int)cl.block_rank();
-  const int per = (n + cs - 1) / cs;
-  const int base = rank * per;
-  const int rows = max(0, min(per, n - base));
-  const int nseg = (n + kSeg - 1) / kSeg;
+  const int cs = pl.cluster;
+  const int rank = kCluster ? (int)cg::this_cluster().block_rank() : 0;
+  const int base = rank * pl.nloc;
+  const int rows = max(0, min(pl.nloc, n - base));
+  Part* part = reinterpret_cast<Part*>(smem + pl.part);
+  unsigned long long* best =
+      reinterpret_cast<unsigned long long*>(smem + pl.best);
+  int* den = reinterpret_cast<int*>(smem + pl.den);
+  unsigned* mag = reinterpret_cast<unsigned*>(smem + pl.mag);
+  int* u1 = reinterpret_cast<int*>(smem + pl.u1);
+  // children | depth << 16
+  int* chdep = reinterpret_cast<int*>(smem + pl.chdep);
+  const int rpw = max(1, (rows + kWarps - 1) / kWarps);
+  const int w_lo = min(rows, warp * rpw), w_hi = min(rows, w_lo + rpw);
 
-  if (tid < rows) {
-    const int p = base + tid;
-    const int u = in.inflight[p] >> kUnitShift;
-    sh.best[tid] = kNoKey;
-    sh.children[tid] = 0;
-    sh.depth[tid] = 0;
-    sh.units[tid] = u;
-    sh.denom[tid] = denom_of(0, u, 0);
-    sh.mag[tid] = magic_of(sh.denom[tid]);
-    sh.parent[tid] = -1;
-    sh.order[tid] = -1;
+  for (int t = tid; t < rows; t += kThreads) {
+    const int p = base + t;
+    const int u = 1 + (in.inflight[p] >> kUnitShift);
+    u1[t] = u;
+    chdep[t] = 0;
+    den[t] = denom_of(0, u, 0);
+    mag[t] = magic_of(den[t]);
+    best[t] = kNoKey;
+    in.parent[p] = -1;
+    in.order[p] = -1;
   }
   for (int w = tid; w < (n + 31) / 32; w += kThreads) {
     unsigned bits = 0;
@@ -209,168 +340,246 @@ __global__ void __launch_bounds__(kThreads, 1) fanout_kernel(Args in) {
       const int c = w * 32 + b;
       if (c < n && c != in.root && in.member[c]) bits |= 1u << b;
     }
-    sh.want[w] = bits;
+    want[w] = bits;
   }
+  if (tid < kWarps) s_dirty[tid] = 1;
   if (tid == 0) {
     const int t = in.root - base;
     const bool mine = t >= 0 && t < rows && fanout > 0;
-    sh.nfull = mine ? 1 : 0;
-    sh.full[0] = t;
-    sh.nlook = 0;
-    sh.nmiss = 0;
+    s_n[0] = mine ? 1 : 0;
+    s_n[1] = 0;
+    s_list[0][0] = t;
+    s_done = false;
   }
   // the block's barrier, and every CTA of the cluster has started before
-  // the first step writes into its shared memory
-  cl.sync();
+  // the first round writes into its shared memory
+  if (kCluster)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
 
-  int parity = 0;
-  for (int k = 0;; ++k) {
-    // Rows that lost their best child: few are rescanned in full at
-    // once, with the rows an attach changed (one memory round trip); many
-    // (the uniform case) first look for the old best's equal past it.
-    const int nfull = sh.nfull, nlook = sh.nlook;
-    const bool direct = (nfull + nlook) * nseg <= kWarps;
-    if (!direct) {
-      for (int i = warp; i < nlook; i += kWarps) {
-        const int t = sh.look[i], p = base + t;
-        const unsigned long long old = sh.old[t];
-        const int e = 0x7fffffff - (int)(unsigned)(old >> 32);
-        const int c_old = (int)(unsigned)old - p * n;
-        const int c = look_past(in.bw + (long long)p * n, n, sh.denom[t],
-                                sh.mag[t], sh.want, c_old, e);
-        if (lane == 0) {
-          if (c >= 0)
-            sh.best[t] = pair_key(e, p * n + c);
-          else
-            sh.miss[atomicAdd(&sh.nmiss, 1)] = t;
+  int par = 0, step = 0;
+  unsigned long long wmin = kNoKey;
+  for (;;) {
+    // -- a round: this round's rescans, in column segments over the warps
+    const int nl = s_n[par];
+    unsigned long long key = kNoKey;
+    int dep = 0;
+    if (nl > 0) {
+      const int segs = segs_for(nl, n), lg = __ffs(segs) - 1;
+      const int span = (((n + segs - 1) >> lg) + 31) & ~31;
+      for (int task = warp; task < nl * segs; task += kWarps) {
+        const int i = task >> lg, sg = task & (segs - 1);
+        const int t = s_list[par][i];
+        const int c0 = sg * span, c1 = min(n, c0 + span);
+        const int* row = in.bw + (long long)(base + t) * n;
+        const int d = den[t];
+        unsigned m = 0;
+        unsigned long long k = kNoKey;
+        for (int a = c0; a < c1; a += kChunk) {
+          const unsigned long long x = scan_chunk(
+              row, base + t, d, m, a == c0, want, a, min(c1, a + kChunk));
+          k = x < k ? x : k;
         }
+        if (lane == 0) {
+          s_seg[par][task] = k;
+          if (sg == 0) mag[t] = m;
+        }
+        if (k < key) {
+          key = k;
+          dep = chdep[t] >> 16;
+        }
+      }
+    }
+    // this warp's least key, refreshed while its child is taken
+    const bool dirty = s_dirty[warp] != 0;
+    __syncwarp();
+    if (dirty) {
+      if (lane == 0) s_dirty[warp] = 0;
+      wmin = own_min(best, w_lo, w_hi);
+    }
+    for (int it = 0; it < kMaxLooks && wmin != kNoKey; ++it) {
+      const int c_old = key_child(wmin);
+      if (wanted(want, c_old)) break;                // current
+      const int p = key_parent(wmin), t = p - base, e = key_eff(wmin);
+      const int hit = look_past(in.bw + (long long)p * n, n, den[t], mag[t],
+                                want, c_old, e);
+      if (hit < 0 && wmin < key) {                   // a stand-in, meanwhile
+        key = wmin;
+        dep = chdep[t] >> 16;
+      }
+      if (lane == 0) {
+        if (hit >= 0) {
+          best[t] = pair_key(e, p, hit);
+        } else {
+          best[t] = wmin | kMark;                    // rescanned next round
+          s_list[par ^ 1][atomicAdd(&s_n[par ^ 1], 1)] = t;
+        }
+      }
+      __syncwarp();
+      wmin = own_min(best, w_lo, w_hi);
+    }
+    if (wmin < key) {                                // current, or past
+      key = wmin;                                    // kMaxLooks: a bound
+      dep = chdep[key_parent(wmin) - base] >> 16;
+    }
+    // the warp's offer into every CTA's partials, then the round's barrier
+    Part* mine = part + par * cs * kWarps + rank * kWarps + warp;
+    if (kCluster) {
+      if (lane < cs) {
+        Part* to = cg::this_cluster().map_shared_rank(mine, lane);
+        to->key = key;
+        to->depth = dep;
+      }
+      cg::this_cluster().sync();
+    } else {
+      if (lane == 0) {
+        mine->key = key;
+        mine->depth = dep;
       }
       __syncthreads();
     }
-    // full rescans, a 512-column segment a warp: the changed rows, then
-    // the look rows (direct) or their misses
-    const int* more = direct ? sh.look : sh.miss;
-    const int nrows = nfull + (direct ? nlook : sh.nmiss);
-    for (int u = warp; u < nrows * nseg; u += kWarps) {
-      const int i = u / nseg;
-      const int t = i < nfull ? sh.full[i] : more[i - nfull];
-      const int p = base + t;
-      const unsigned long long key =
-          scan_segment(in.bw + (long long)p * n, p, n, sh.denom[t],
-                       sh.mag[t], sh.want, (u - i * nseg) * kSeg);
-      if (lane == 0 && key != kNoKey) atomicMin(&sh.best[t], key);
-    }
-    __syncthreads();
-    // this CTA's least key, pushed into every CTA's slot [rank]
+    // -- the join, by warp 0: the least offer and its row's depth; the
+    // other warps learn the end from s_done after the round's barrier
     if (warp == 0) {
-      unsigned long long m = kNoKey;
-      for (int t = lane; t < rows; t += 32) {
-        const unsigned long long x = sh.best[t];
-        m = x < m ? x : m;
-      }
-      m = warp_min(m);
-      const int d =
-          m == kNoKey ? 0 : sh.depth[(int)((unsigned)m / (unsigned)n) - base];
-      if (lane < cs) {
-        *cl.map_shared_rank(&sh.slot_key[parity][rank], lane) = m;
-        *cl.map_shared_rank(&sh.slot_depth[parity][rank], lane) = d;
-      }
-      if (lane == 0) {
-        sh.nfull = 0;
-        sh.nlook = 0;
-        sh.nmiss = 0;
-      }
-    }
-    cl.sync();
-    // every warp: the least of the CTAs' keys, and its row's depth
-    const unsigned long long mine =
-        lane < cs ? sh.slot_key[parity][lane] : kNoKey;
-    const unsigned long long g = warp_min(mine);
-    const int from = __ffs(__ballot_sync(kFull, mine == g)) - 1;
-    const int gd = __shfl_sync(kFull, lane < cs ? sh.slot_depth[parity][lane]
-                                                : 0, from);
-    parity ^= 1;
-    if (g == kNoKey) break;              // the same step in every CTA
-    const int idx = (int)(unsigned)g;
-    const int ps = idx / n, cs_ = idx - ps * n;
-    if (tid < rows) {
-      const int t = tid, p = base + t;
-      if (p == ps) {
-        const int ch = sh.children[t] + 1;
-        sh.children[t] = ch;
-        sh.best[t] = kNoKey;
-        if (ch < fanout) {
-          sh.denom[t] = denom_of(ch, sh.units[t], sh.depth[t]);
-          sh.mag[t] = magic_of(sh.denom[t]);
-          sh.full[atomicAdd(&sh.nfull, 1)] = t;
-        }
-      } else if (p == cs_) {
-        const int d = gd + 1;
-        sh.depth[t] = d;
-        sh.denom[t] = denom_of(0, sh.units[t], d);
-        sh.mag[t] = magic_of(sh.denom[t]);
-        sh.best[t] = kNoKey;
-        sh.full[atomicAdd(&sh.nfull, 1)] = t;   // fanout >= 1: p* attached
-        sh.parent[t] = ps;
-        sh.order[t] = k;
-      } else {
-        const unsigned long long key = sh.best[t];
-        if (key != kNoKey && (int)(unsigned)key - p * n == cs_) {
-          sh.old[t] = key;
-          sh.best[t] = kNoKey;
-          sh.look[atomicAdd(&sh.nlook, 1)] = t;
+      const Part* offers = part + par * cs * kWarps;
+      unsigned long long g = kNoKey;
+      int gd = 0;
+      for (int j = lane; j < cs * kWarps; j += 32) {
+        const Part o = offers[j];
+        if (o.key < g) {
+          g = o.key;
+          gd = o.depth;
         }
       }
+      const unsigned long long least = warp_min64(g);
+      gd = __shfl_sync(kFull, gd,
+                       __ffs(__ballot_sync(kFull, g == least)) - 1);
+      g = least;
+      if (lane == 0) s_done = g == kNoKey;   // the same round in every CTA
+      // fold the round's rescans into the rows' keys: each row's segments
+      // joined by shuffles (segs lanes a row)
+      const int nf = s_n[par];
+      const int segs = nf > 0 ? segs_for(nf, n) : 1, lg = __ffs(segs) - 1;
+      for (int b0 = 0; b0 < nf * segs; b0 += 32) {
+        const int task = b0 + lane;
+        unsigned long long v = task < nf * segs ? s_seg[par][task] : kNoKey;
+        for (int o = 1; o < segs; o <<= 1) {
+          const unsigned long long u = __shfl_xor_sync(kFull, v, o);
+          v = u < v ? u : v;
+        }
+        if (task < nf * segs && (task & (segs - 1)) == 0) {
+          const int t = s_list[par][task >> lg];
+          best[t] = v;
+          s_dirty[t / rpw] = 1;
+        }
+      }
+      __syncwarp();
+      const int ps = key_parent(g), cs_ = key_child(g);
+      // a current least key is the step's pair (a stand-in is not)
+      if (g != kNoKey && wanted(want, cs_)) {
+        if (lane == 0) {
+          const int t = ps - base;
+          if (t >= 0 && t < rows) {
+            const int cd = chdep[t] + 1;
+            const int ch = cd & 0xffff;
+            chdep[t] = cd;
+            best[t] = kNoKey;
+            if (ch < fanout) {              // its multiplier at the rescan
+              den[t] = denom_of(ch, u1[t], cd >> 16);
+              s_list[par ^ 1][atomicAdd(&s_n[par ^ 1], 1)] = t;
+            }
+            s_dirty[t / rpw] = 1;
+          }
+        } else if (lane == 1) {
+          const int t = cs_ - base;
+          if (t >= 0 && t < rows) {
+            const int d = gd + 1;
+            chdep[t] = d << 16;
+            den[t] = denom_of(0, u1[t], d);
+            best[t] = kNoKey;              // fanout >= 1: p* attached
+            s_list[par ^ 1][atomicAdd(&s_n[par ^ 1], 1)] = t;
+            s_dirty[t / rpw] = 1;
+            in.parent[cs_] = ps;
+            in.order[cs_] = step;
+          }
+        }
+        __syncwarp();
+        if (lane == 0) {
+          s_n[par] = 0;
+          want[cs_ >> 5] &= ~(1u << (cs_ & 31));
+        }
+        ++step;
+      } else if (lane == 0) {
+        s_n[par] = 0;
+      }
     }
-    if (tid == 0) sh.want[cs_ >> 5] &= ~(1u << (cs_ & 31));
-    __syncthreads();
-  }
-  if (tid < rows) {
-    in.parent[base + tid] = sh.parent[tid];
-    in.order[base + tid] = sh.order[tid];
+    par ^= 1;
+    __syncthreads();                     // the round's state, for the next
+    if (s_done) break;
   }
 }
 
-// The cluster for n rows, a fixed rule: 64 rows a CTA, up to 16 CTAs.
-int cluster_for(int n) {
-  const int c = (n + kRowsPerCta - 1) / kRowsPerCta;
-  return c < 1 ? 1 : (c > kMaxCluster ? kMaxCluster : c);
-}
-
-}  // namespace
-
-// One launch of one thread-block cluster on `stream`.  1 <= N <= 8192,
-// 0 <= root < N.  Writes parent (N,) and order (N,).  Returns a
-// cudaError_t.
-extern "C" int rt_plan_fanout(const void* member, const void* bw,
-                              const void* inflight, int n, int root,
-                              int fanout, void* parent, void* order,
-                              int* cluster, void* stream) {
-  if (n < 1 || n > kMaxNodes || root < 0 || root >= n)
-    return (int)cudaErrorInvalidValue;
-  const int cs = cluster_for(n);
-  *cluster = cs;
-  cudaError_t err;
-  if (cs > kPortableCluster) {
+template <bool kCluster>
+cudaError_t launch(const Args& in, const Plan& pl, cudaStream_t stream) {
+  auto kernel = fanout_kernel<kCluster>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+  if (err != cudaSuccess) return err;
+  if (!kCluster) {
+    kernel<<<1, kThreads, pl.smem, stream>>>(in, pl);
+    return cudaGetLastError();
+  }
+  if (pl.cluster > kPortableCluster) {
     err = cudaFuncSetAttribute(
-        fanout_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
   }
-  const Args in{(const uint8_t*)member, (const int*)bw, (const int*)inflight,
-                n, root, fanout, (int*)parent, (int*)order};
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs, 1, 1);
+  cfg.gridDim = dim3(pl.cluster, 1, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = (cudaStream_t)stream;
+  cfg.dynamicSmemBytes = pl.smem;
+  cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.x = pl.cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, fanout_kernel, in);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  err = cudaLaunchKernelEx(&cfg, kernel, in, pl);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The launch's layout for N rows: out = [layout (0 cta, 1 cluster),
+// CTAs].  Returns a cudaError_t.
+extern "C" int rt_fanout_plan(int n, long long* out) {
+  Plan pl;
+  if (n < 1 || n > kMaxNodes || !plan(pl, n))
+    return (int)cudaErrorInvalidValue;
+  out[0] = pl.layout;
+  out[1] = pl.cluster;
+  return 0;
+}
+
+// One launch of one CTA or one thread-block cluster on `stream`, as
+// rt_fanout_plan lays it out.  1 <= N <= 8192, 0 <= root < N.  Writes
+// parent (N,) and order (N,), and the launch's CTAs into *cluster.
+// Returns a cudaError_t.
+extern "C" int rt_plan_fanout(const void* member, const void* bw,
+                              const void* inflight, int n, int root,
+                              int fanout, void* parent, void* order,
+                              int* cluster, void* stream) {
+  Plan pl;
+  if (n < 1 || n > kMaxNodes || root < 0 || root >= n || !plan(pl, n))
+    return (int)cudaErrorInvalidValue;
+  *cluster = pl.cluster;
+  const Args in{(const uint8_t*)member, (const int*)bw, (const int*)inflight,
+                n, root, fanout, (int*)parent, (int*)order};
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(pl.cluster > 1 ? launch<true>(in, pl, s)
+                              : launch<false>(in, pl, s));
 }

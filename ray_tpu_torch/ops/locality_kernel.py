@@ -201,25 +201,50 @@ def schedule_grouped_topk(totals, avail, node_mask, group_reqs,
                          f"takes 1 <= R and N <= {MAX_NODES})")
     if int(k_frac_den) < 1:
         raise ValueError("schedule_grouped_topk: k_frac_den must be >= 1")
-    counts = torch.empty((g, n + 1), dtype=_I32, device=totals.device)
+    layout, block_ints, col_ints = topk_plan(n, r, g)
+    dev = totals.device
+    counts = torch.empty((g, n + 1), dtype=_I32, device=dev)
     new_avail = torch.empty_like(avail)
+    blocks = torch.empty(max(block_ints, 1), dtype=_I32, device=dev)
+    cols = torch.empty(max(col_ints, 1), dtype=_I32, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    with torch.cuda.device(totals.device):
+    with torch.cuda.device(dev):
         err = _build.load("topk")(
             ptr(totals), ptr(avail), ptr(node_mask), ptr(extra_mask),
             ptr(group_reqs), ptr(group_counts), ptr(group_masks),
             ptr(draws), n, r, g, int(thr_fp), int(k_abs), int(k_frac_num),
-            int(k_frac_den), ptr(counts), ptr(new_avail),
-            torch.cuda.current_stream(totals.device).cuda_stream)
+            int(k_frac_den), ptr(counts), ptr(new_avail), ptr(blocks),
+            ptr(cols), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "topk")
     schedule_grouped_topk.launches += 1
+    schedule_grouped_topk.last_layout = layout
     return counts, new_avail
 
 
 schedule_grouped_topk.launches = 0
+schedule_grouped_topk.last_layout = None
+
+TOPK_LAYOUTS = ("shared", "global")
+
+
+def topk_plan(n, r, g):
+    """``csrc/topk.cu``'s layout for N rows x R kinds x G classes:
+    (layout name, block scratch ints, column scratch ints), from the
+    shape alone (the library's ``rt_topk_plan``): the rows' totals,
+    multipliers and avail in shared memory (``shared``) while they fit
+    there, else in a global scratch (``global``)."""
+    import ctypes
+
+    from . import _build
+    out = (ctypes.c_longlong * 3)()
+    err = _build.load("topk", "rt_topk_plan")(n, r, g, out)
+    if err != 0:
+        raise ValueError(f"schedule_grouped_topk: no layout holds N={n} "
+                         f"R={r} G={g}")
+    return TOPK_LAYOUTS[out[0]], int(out[1]), int(out[2])
 
 
 def schedule_grouped_topk_plain(totals, avail, node_mask, group_reqs,

@@ -22,9 +22,13 @@ from ray_tpu_torch.common.config import Config as PortConfig
 # threefry, whose draws the port's top-k reproduces
 from test_torch_dataplane import (BROADCAST_EDGES, BUNDLE_EDGES, PULL_EDGES,
                                   _broadcast_edge, _bundle_edge, _pull_edge)
-from test_torch_dataplane_chain import LAYOUT_RULE, LIST_CAP
+from test_torch_dataplane_chain import (FANOUT_RULE, LAYOUT_RULE, LIST_CAP,
+                                        fanout_plan)
 from test_torch_dataplane_chain import plan as bundle_plan_model
 from test_torch_topk import TOPK_EDGES
+from test_torch_topk_select import EDGES as SELECT_EDGES
+from test_torch_topk_select import (TOPK_LAYOUT_RULE, _choose_counts,
+                                    _edge, topk_model, topk_plan)
 
 pytestmark = pytest.mark.cuda
 
@@ -923,7 +927,9 @@ def _topk_args(seed, n, r, g, dev, masks):
 @pytest.mark.parametrize("n,r,g", [(16, 3, 4), (77, 6, 9), (1000, 8, 64),
                                    (1025, 5, 7), (8192, 16, 128),
                                    # avail past shared memory (2 MB)
-                                   (8192, 64, 8)])
+                                   (8192, 64, 8),
+                                   # two and three keys a thread
+                                   (2000, 8, 32), (3000, 6, 16)])
 @pytest.mark.parametrize("masks", [True, False])
 def test_topk_kernel_bit_exact(n, r, g, masks):
     """csrc/topk.cu == schedule_grouped_topk_plain on the card and on the
@@ -934,6 +940,7 @@ def test_topk_kernel_bit_exact(n, r, g, masks):
     before = lk.schedule_grouped_topk.launches
     kc, ka = lk.schedule_grouped_topk(*args)
     assert lk.schedule_grouped_topk.launches == before + 1
+    assert lk.schedule_grouped_topk.last_layout == topk_plan(n, r, g)
     pc, pa = lk.schedule_grouped_topk_plain(*args)
     assert torch.equal(kc, pc) and torch.equal(ka, pa)
     cc, ca = lk.schedule_grouped_topk(*_topk_args(n + g, n, r, g, "cpu",
@@ -943,6 +950,73 @@ def test_topk_kernel_bit_exact(n, r, g, masks):
     jc, ja = _topk_jax(n + g, n, r, g, masks)
     np.testing.assert_array_equal(kc.cpu().numpy(), jc)
     np.testing.assert_array_equal(ka.cpu().numpy(), ja)
+
+
+def _topk_select_case(case):
+    """test_torch_topk_select's edge problems on the card, and two at the
+    ``global`` layout (8192 x 64): counts chosen for a wrapping window,
+    and every key equal but its row bits."""
+    if case == "global_window_wraps":
+        from test_torch_topk_select import _problem
+        p = _choose_counts(_problem(21, 8192, 64, 3), 3, 11, 1, 0.25,
+                           "wrap")
+        return p, 3, 11, 1, 0.25, SCALE // 2
+    if case == "global_one_digit":
+        n, r = 8192, 64
+        totals = np.zeros((n, r), np.int32)
+        totals[:, 0] = 4096
+        reqs = np.zeros((4, r), np.int32)
+        reqs[:, 0] = 1
+        p = dict(totals=totals, avail=totals.copy(), mask=np.ones(n, bool),
+                 extra_mask=np.ones(n, bool), reqs=reqs,
+                 counts=np.array([199, 1000, 3, 77], np.int32),
+                 group_masks=np.ones((4, n), bool))
+        return p, 3, 11, 1, 0.6, SCALE // 2
+    return _edge(case)
+
+
+@pytest.mark.parametrize("case", SELECT_EDGES + ["global_window_wraps",
+                                                 "global_one_digit"])
+def test_topk_kernel_select_edges(case):
+    """The select's edges on the card: extra 0, a window that wraps, a
+    window that ends at k, k == nf, k == 1, every key INF, thousands of
+    keys equal but their row bits, keys past the avail bit, one radix
+    digit shared by every key; at both layouts.  The kernel == its
+    plain version on the card == the numpy model of the select == the
+    JAX function, bit for bit, one launch a call."""
+    from ray_tpu.ops import locality_kernel as ref
+    from ray_tpu_torch.ops import locality_kernel as lk
+    p, seed, rnd, k_abs, k_frac, thr = _topk_select_case(case)
+    args = (p["totals"], p["avail"], p["mask"], p["reqs"], p["counts"])
+    kw = dict(group_masks=p["group_masks"], thr_fp=thr, k_abs=k_abs,
+              k_frac=k_frac, extra_mask=p["extra_mask"])
+    before = lk.schedule_grouped_topk.launches
+    got = lk.schedule_grouped_topk_np(*args, seed, rnd, device="cuda", **kw)
+    assert lk.schedule_grouped_topk.launches == before + 1
+    n, r = p["totals"].shape
+    assert lk.schedule_grouped_topk.last_layout == topk_plan(
+        n, r, p["reqs"].shape[0])
+    if case.startswith("global"):
+        assert lk.schedule_grouped_topk.last_layout == "global"
+    plain = lk.schedule_grouped_topk_np(*args, seed, rnd, device="cpu",
+                                        **kw)
+    model = topk_model(p["totals"], p["avail"], p["mask"], p["reqs"],
+                       p["counts"], seed, rnd, p["group_masks"], thr, k_abs,
+                       k_frac, p["extra_mask"])
+    want = ref.schedule_grouped_topk_np(*args, seed=seed, round_index=rnd,
+                                        **kw)
+    for a, b, c, d in zip(got, plain, model, want):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+        np.testing.assert_array_equal(a, np.asarray(d))
+
+
+@pytest.mark.parametrize("n,r,g,layout", TOPK_LAYOUT_RULE)
+def test_topk_layout_rule_is_the_kernels(n, r, g, layout):
+    """The CPU model's layout rule (test_torch_topk_select.topk_plan) is
+    topk.cu's plan()."""
+    from ray_tpu_torch.ops import locality_kernel as lk
+    assert lk.topk_plan(n, r, g)[0] == layout == topk_plan(n, r, g)
 
 
 def _topk_jax(seed, n, r, g, masks):
@@ -1165,13 +1239,67 @@ def test_broadcast_kernel_bit_exact(n, fanout, kind):
             np.testing.assert_array_equal(x.cpu().numpy(), np.asarray(y))
 
 
-def test_broadcast_kernel_cluster_rule():
-    """64 rows a CTA up to 16 CTAs: the launch's cluster size."""
+def test_broadcast_kernel_uniform_at_8192():
+    """Uniform bandwidth at the contract's 8192 rows (every row's best
+    child taken at every attach): the kernel == its plain version on the
+    card, bit for bit, one launch."""
     from ray_tpu_torch.ops import broadcast_kernel as bc
-    for n, cluster in ((1, 1), (64, 1), (65, 2), (1000, 16), (8192, 16)):
+    member, bw, root, fanout, infl = _fanout_problem(8192, 4, "uniform")
+    dev = [torch.as_tensor(a, device="cuda") for a in (member, bw, infl)]
+    before = bc.plan_fanout.launches
+    got = bc.plan_fanout(dev[0], dev[1], root, fanout, dev[2])
+    assert bc.plan_fanout.launches == before + 1
+    for x, y in zip(got, bc.plan_fanout_plain(dev[0], dev[1], root, fanout,
+                                              dev[2])):
+        assert torch.equal(x, y)
+    assert int((got[0] >= 0).sum()) == member.sum() - 1
+
+
+def test_broadcast_kernel_cluster_rule():
+    """One CTA up to 1024 rows, then 1024 rows a CTA (kRowsPerCta =
+    1024; 8 CTAs at the contract's 8192): the launch's CTAs and layout,
+    as the CPU model's rule (test_torch_dataplane_chain.fanout_plan) gives
+    them."""
+    from ray_tpu_torch.ops import broadcast_kernel as bc
+    for n, layout, cluster in ((1, "cta", 1), (64, "cta", 1),
+                               (65, "cta", 1), (1000, "cta", 1),
+                               (1025, "cluster", 2), (8192, "cluster", 8)):
         member, bw, root, fanout, infl = _fanout_problem(n, 4, "random")
         bc.plan_fanout_np(member, bw, root, fanout, infl, device="cuda")
         assert bc.plan_fanout.last_cluster == cluster, n
+        assert bc.plan_fanout.last_layout == layout, n
+        assert bc.fanout_plan(n) == fanout_plan(n) == (layout, cluster)
+
+
+@pytest.mark.parametrize("n,per_cta,layout,cluster", FANOUT_RULE)
+def test_broadcast_layout_rule_is_the_kernels(n, per_cta, layout, cluster):
+    """broadcast.cu's plan() in the source's build and in builds with
+    -DRT_ROWS_PER_CTA=per_cta, against the CPU model's rule; each such
+    build's plan == its plain version on the card at that N."""
+    import ctypes
+
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import broadcast_kernel as bc
+    flags = () if per_cta == 1024 else (f"-DRT_ROWS_PER_CTA={per_cta}",)
+    lib = _build.build_variants([(_build._CSRC / "broadcast.cu", flags)])[0]
+    out = (ctypes.c_longlong * 2)()
+    assert _build.entry(lib, "broadcast", "rt_fanout_plan")(n, out) == 0
+    assert (bc.FANOUT_LAYOUTS[out[0]], out[1]) == (layout, cluster) == \
+        fanout_plan(n, per_cta)
+    member, bw, root, fanout, infl = _fanout_problem(min(n, 1000), 3,
+                                                     "random")
+    m = len(member)
+    dev = [torch.as_tensor(a, device="cuda") for a in (member, bw, infl)]
+    parent = torch.empty(m, dtype=torch.int32, device="cuda")
+    order = torch.empty(m, dtype=torch.int32, device="cuda")
+    cl = ctypes.c_int(0)
+    err = _build.entry(lib, "broadcast")(
+        dev[0].data_ptr(), dev[1].data_ptr(), dev[2].data_ptr(), m, root,
+        fanout, parent.data_ptr(), order.data_ptr(), ctypes.addressof(cl),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    want = bc.plan_fanout_plain(dev[0], dev[1], root, fanout, dev[2])
+    assert torch.equal(parent, want[0]) and torch.equal(order, want[1])
 
 
 def test_broadcast_kernel_rejects_what_it_does_not_take():

@@ -380,8 +380,9 @@ def _wrap32(x):
 
 
 def kernel_rule(member, bw, root, fanout, inflight_kb, look=256):
-    """A numpy model of ``csrc/broadcast.cu``'s rule (not of its
-    threads): each row keeps the packed key of its first-max child; after
+    """A numpy model of an eager form of ``csrc/broadcast.cu``'s rule (the
+    kernel's lazy form is ``test_torch_dataplane_chain.fanout_model``):
+    each row keeps the packed key of its first-max child; after
     an attach (p*, c*) only p* and c* are rescanned in full, and a row
     whose best child was c* first looks for the same eff in the ``look``
     columns from its 32-aligned start past the old child, and is

@@ -1,5 +1,5 @@
-"""The pull-source and gang-placement kernels' chains, modelled in numpy
-and held to the JAX functions, bit for bit.
+"""The pull-source, gang-placement and broadcast kernels' chains,
+modelled in numpy and held to the JAX functions, bit for bit.
 
 ``ray_tpu_torch/ops/csrc/pull.cu`` compacts each request's candidates
 (holders with a live link, in column order, at most a cap of them) off
@@ -17,9 +17,17 @@ column) divisor's magic multiplier, and cuts the rows into CTA slices
 are joined; a failed group is undone from its log.  ``bundle_model``
 repeats that in numpy, and ``plan`` repeats the kernel's layout rule.
 
-Both models run on seeded inputs against the JAX package's
-``choose_sources_np`` / ``schedule_bundle_groups_np`` (on the CPU, as its
-own tests run them) and against the port's plain versions."""
+``ray_tpu_torch/ops/csrc/broadcast.cu`` keeps each parent row's best key
+and, after an attach, rescans only the two rows it changed; a row whose
+best child was taken keeps its key as a lower bound and is refreshed
+(a look past the old child, or a full rescan after a miss) only when its
+warp's least key is stale.  ``fanout_model`` repeats that in numpy, and
+``fanout_plan`` the kernel's cluster rule.
+
+The models run on seeded inputs against the JAX package's
+``choose_sources_np`` / ``schedule_bundle_groups_np`` /
+``plan_fanout_np`` (on the CPU, as its own tests run them) and against
+the port's plain versions."""
 
 import numpy as np
 import pytest
@@ -516,3 +524,269 @@ def test_bundle_layout_rule(n, r, p, b, per_cta, layout, cluster, threads):
     where that leaves a CTA more than per_cta rows (up to 16); a thread a
     row up to 1024."""
     assert plan(n, r, p, b, per_cta) == (layout, cluster, threads)
+
+
+# -- the broadcast fan-out plan ------------------------------------------------
+
+NO_KEY = (1 << 64) - 1
+MARK = 1                            # broadcast.cu: a key under replacement
+FANOUT_WARPS = 16                   # broadcast.cu: 512 threads a CTA
+LOOK = 256                          # broadcast.cu: 8 x 32 columns
+MAX_LOOKS = 4                       # looks a warp a round
+FANOUT_ROWS_PER_CTA = 1024          # broadcast.cu kRowsPerCta
+
+
+def pair_key(eff, p, c):
+    return ((INT_MAX - eff) << 32) | (((p << 13) | c) << 1)
+
+
+def fanout_plan(n, per_cta=FANOUT_ROWS_PER_CTA):
+    """broadcast.cu's plan(): (layout, CTAs), per_cta rows a CTA up to
+    16 CTAs, and more where a CTA's 24 B a row would pass its shared
+    memory."""
+    c = min(max(-(-n // per_cta), 1), 16)
+    while c < 16:
+        nloc = -(-n // c)
+        part = 2 * c * FANOUT_WARPS * 16
+        up16 = lambda x: (x + 15) & ~15                       # noqa: E731
+        smem = up16(part) + up16(8 * nloc) + 4 * up16(4 * nloc)
+        if smem <= 232448 - 8192:
+            break
+        c += 1
+    return ("cta" if c == 1 else "cluster"), c
+
+
+def fanout_model(member, bw, root, fanout, inflight_kb, cluster=1,
+                 stats=None):
+    """A numpy model of broadcast.cu's rounds: rows cut into ``cluster``
+    CTA slices, each slice's rows in runs over 16 warps; each warp caches
+    its least key (rows under replacement left out) and refreshes it
+    while its child is taken, by a look past the old child or, on a
+    miss, a full rescan in the next round with the stale key standing in
+    meanwhile (at most MAX_LOOKS looks a warp a round); a round's least
+    offer is the step's pair when its child is still wanted; the round's
+    rescans fold into the rows' keys after the join.  Returns (parent,
+    order); ``stats`` counts rounds, looks, misses and stand-in
+    rounds."""
+    member = np.asarray(member, bool)
+    bw = np.asarray(bw, np.int64)
+    n = len(member)
+    fanout = min(max(int(fanout), 0), n)
+    u1 = [1 + (int(x) >> UNIT_SHIFT) for x in np.asarray(inflight_kb,
+                                                         np.int32)]
+    want = member.copy()
+    want[root] = False
+    children, depth = [0] * n, [0] * n
+    den = [int(wrap(u1[p])) for p in range(n)]
+    best = [NO_KEY] * n
+    parent = np.full(n, -1, np.int32)
+    order = np.full(n, -1, np.int32)
+    nloc = -(-n // cluster)
+    slices = [range(r * nloc, min(n, (r + 1) * nloc))
+              for r in range(cluster)]
+    runs = []                          # (slice, warp) -> its rows
+    for rows in slices:
+        rpw = max(1, -(-len(rows) // FANOUT_WARPS))
+        for w in range(FANOUT_WARPS):
+            lo = min(len(rows), w * rpw)
+            runs.append(list(rows[lo:min(len(rows), lo + rpw)]))
+    owner = {p: i for i, run in enumerate(runs) for p in run}
+    wmin = [NO_KEY] * len(runs)
+    dirty = [True] * len(runs)
+    lists = [[root] if fanout > 0 else [], []]
+    st = stats if stats is not None else {}
+    for k in ("rounds", "looks", "misses", "stand_in_rounds"):
+        st.setdefault(k, 0)
+
+    def eff(b, d):
+        return max(b // d, 1) if d > 0 else 1
+
+    def scan(p, lo=0, hi=None):
+        cand = [c for c in range(lo, n if hi is None else hi)
+                if want[c] and bw[p, c] > 0]
+        return min((pair_key(eff(int(bw[p, c]), den[p]), p, c)
+                    for c in cand), default=NO_KEY)
+
+    def own_min(i):
+        return min((best[p] for p in runs[i] if not best[p] & MARK),
+                   default=NO_KEY)
+
+    par, step = 0, 0
+    while True:
+        st["rounds"] += 1
+        offers = []                    # (key, depth)
+        acc = {p: scan(p) for p in lists[par]}
+        offers += [(acc[p], depth[p]) for p in lists[par]]
+        for i in range(len(runs)):
+            if dirty[i]:
+                dirty[i] = False
+                wmin[i] = own_min(i)
+            for _ in range(MAX_LOOKS):
+                if wmin[i] == NO_KEY:
+                    break
+                p, c_old = (wmin[i] & 0xffffffff) >> 14, (wmin[i] >> 1) & 8191
+                if want[c_old]:
+                    break
+                st["looks"] += 1
+                e = INT_MAX - (wmin[i] >> 32)
+                a = (c_old + 1) & ~31
+                hit = next((c for c in range(c_old + 1, min(a + LOOK, n))
+                            if want[c] and bw[p, c] > 0
+                            and eff(int(bw[p, c]), den[p]) == e), None)
+                if hit is None:
+                    st["misses"] += 1
+                    offers.append((wmin[i], depth[p]))
+                    best[p] = wmin[i] | MARK
+                    lists[par ^ 1].append(p)
+                else:
+                    best[p] = pair_key(e, p, hit)
+                wmin[i] = own_min(i)
+            if wmin[i] != NO_KEY:
+                offers.append((wmin[i], depth[(wmin[i] & 0xffffffff)
+                                              >> 14]))
+        g, gd = min(offers, default=(NO_KEY, 0))
+        if g == NO_KEY:
+            return parent, order
+        for p in lists[par]:
+            best[p] = acc[p]
+            dirty[owner[p]] = True
+        lists[par] = []
+        ps, cs = (g & 0xffffffff) >> 14, (g >> 1) & 8191
+        if not want[cs]:
+            st["stand_in_rounds"] += 1
+        else:
+            children[ps] += 1
+            best[ps] = NO_KEY
+            if children[ps] < fanout:
+                den[ps] = int(wrap(wrap(children[ps] + u1[ps])
+                                   * (1 + depth[ps])))
+                lists[par ^ 1].append(ps)
+            dirty[owner[ps]] = True
+            depth[cs] = gd + 1
+            den[cs] = int(wrap(wrap(u1[cs]) * (1 + depth[cs])))
+            best[cs] = NO_KEY
+            lists[par ^ 1].append(cs)
+            dirty[owner[cs]] = True
+            parent[cs], order[cs] = ps, step
+            want[cs] = False
+            step += 1
+        par ^= 1
+
+
+def _fanout_case(case):
+    """(member, bw, root, fanout, inflight_kb, cluster)"""
+    from test_torch_dataplane import BROADCAST_EDGES, _broadcast_edge
+    if case in BROADCAST_EDGES:
+        return (*_broadcast_edge(case), 1)
+    kind, fan, seed = case.split("_")
+    rng = np.random.default_rng(int(seed) * 10 + int(fan))
+    n = int(rng.integers(40, 130))
+    member = rng.random(n) < 0.9
+    if kind == "uniform":
+        bw = np.full((n, n), 1000, np.int32)
+    elif kind == "slices":
+        # few values and a CTA boundary between two rows of one eff: the
+        # join across slices breaks the tie to the lower row
+        bw = (rng.integers(1, 3, size=(n, n)) * 1000).astype(np.int32)
+    else:
+        bw = rng.integers(0, 50_000, size=(n, n)).astype(np.int32)
+        bw[rng.random((n, n)) < 0.05] = 0
+    np.fill_diagonal(bw, 0)
+    root = int(rng.integers(0, n))
+    member[root] = True
+    infl = rng.integers(0, 1 << 20, size=n).astype(np.int32)
+    return member, bw, root, int(fan), infl, 3 if kind == "slices" else 1
+
+
+FANOUT_CASES = (
+    [f"uniform_{f}_0" for f in range(1, 6)]
+    + [f"random_{f}_{s}" for f in range(1, 6) for s in range(2)]
+    + [f"slices_{f}_0" for f in (1, 3, 5)])
+
+
+@pytest.mark.parametrize("case", FANOUT_CASES + ["edge_" + c for c in (
+    "divisor_zero", "inflight_minus_one", "inflight_minus_65536",
+    "inflight_max_deep", "fanout_zero", "fanout_past_n",
+    "member_unreachable", "uniform", "one_node", "root_not_a_member")])
+def test_fanout_model_equals_jax(case):
+    """The lazy refresh == the JAX function == the oracle == the port's
+    plain version, bit for bit: uniform bandwidth (every row's best is
+    the same child; looks hit until the members run out), random
+    bandwidth with 5% dead links (looks miss: rescans and stand-ins),
+    fan-outs 1-5, the ten edges of the plain version, and rows cut into
+    three CTA slices with ties on the boundaries."""
+    import torch
+
+    from ray_tpu.ops import broadcast_kernel as ref_bc
+    from ray_tpu_torch.ops import broadcast_kernel as bc
+    *prob, cluster = _fanout_case(case.removeprefix("edge_"))
+    stats = {}
+    got = fanout_model(*prob, cluster=cluster, stats=stats)
+    _same(got, ref_bc.plan_fanout_np(*prob))
+    with np.errstate(divide="ignore", over="ignore"):
+        _same(got, bc.plan_fanout_oracle(*prob))
+    member, bw, root, fanout, infl = prob
+    t = [torch.as_tensor(np.asarray(a)) for a in (member, bw, infl)]
+    _same(got, [x.numpy() for x in bc.plan_fanout_plain(
+        t[0], t[1], root, fanout, t[2])])
+    if case.startswith(("uniform", "random")) and fanout > 1:
+        # a row's best child taken by another: refreshed by a look, or
+        # (random bandwidth) rescanned after a miss
+        assert stats["looks"] > 0
+        assert stats["misses"] > 0 or case.startswith("uniform")
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 5, 16])
+def test_fanout_model_any_cluster_is_the_same_function(cluster):
+    """The slices only split the rows: the tree never depends on how many
+    CTAs hold them."""
+    *prob, _ = _fanout_case("slices_2_1")
+    with np.errstate(divide="ignore", over="ignore"):
+        want = bc_oracle(*prob)
+    _same(fanout_model(*prob, cluster=cluster), want)
+
+
+def bc_oracle(*prob):
+    from ray_tpu_torch.ops import broadcast_kernel as bc
+    return bc.plan_fanout_oracle(*prob)
+
+
+# (n, per_cta, layout, cluster): broadcast.cu's rule in the source's
+# build (kRowsPerCta = 1024) and in the sweep's -DRT_ROWS_PER_CTA builds
+# (tests/test_torch_cuda.py holds every row to the library)
+FANOUT_RULE = [(1, 1024, "cta", 1), (72, 1024, "cta", 1),
+               (1000, 1024, "cta", 1), (1024, 1024, "cta", 1),
+               (1025, 1024, "cluster", 2), (8192, 1024, "cluster", 8),
+               (8192, 8192, "cta", 1), (72, 64, "cluster", 2),
+               (1000, 64, "cluster", 16), (8192, 512, "cluster", 16),
+               (1000, 512, "cluster", 2), (64, 64, "cta", 1)]
+
+
+@pytest.mark.parametrize("n,per_cta,layout,cluster", FANOUT_RULE)
+def test_fanout_layout_rule(n, per_cta, layout, cluster):
+    assert fanout_plan(n, per_cta) == (layout, cluster)
+
+
+def magic_by_double(d):
+    """broadcast.cu's magic_of: 2**s / d as a double (Python's float is
+    the same IEEE binary64, rounded to nearest), truncated, then made
+    exact by the remainder."""
+    s = 31 + (d - 1).bit_length()
+    m = int(float(2**s) / float(d))
+    r = (1 << s) - m * d
+    if r < 0:
+        m, r = m - 1, r + d
+    elif r >= d:
+        m, r = m + 1, r - d
+    return m + (1 if r else 0)
+
+
+def test_fanout_multiplier_by_double_division_is_magic():
+    """The broadcast kernel's multiplier (a double division, corrected) is
+    contract.cuh's magic multiplier for every divisor tried: the edges,
+    every divisor below 2**16 + 2 and a seeded sample up to INT_MAX."""
+    rng = np.random.default_rng(0)
+    ds = (EDGE_DIVISORS + list(range(1, (1 << 16) + 2))
+          + [int(x) for x in rng.integers(1, INT_MAX, size=20_000)])
+    for d in ds:
+        assert magic_by_double(d) == magic(d)[0], d
