@@ -14,10 +14,10 @@ of ``--reps`` launches, or with ``--back-to-back`` their mean, launched
 with no wait between them, so that no host gap or idle clock enters a
 short row) with CUDA events, beside
 ``scaled_dot_product_attention`` (timed here, used nowhere in the port),
-the backend it ran on and the row's bound (f32: three TF32 products, the
-FMA bound beside it).  ``--dtype`` keeps the rows of one dtype.  Each
-row is one JSON line on stdout, after one with the card's name and power
-limit.  Needs a GPU and nvcc.
+the backend it ran on, the plain PyTorch version's time and the row's
+bound (f32: three TF32 products, the FMA bound beside it).  ``--dtype``
+keeps the rows of one dtype.  Each row is one JSON line on stdout, after
+one with the card's name and power limit.  Needs a GPU and nvcc.
 """
 
 from __future__ import annotations
@@ -30,8 +30,9 @@ from pathlib import Path
 import chip_smoke as cs
 
 # (dtype, causal, b, t, h, d): the per-route sweep (B=2 H=4 T=1024), the
-# f32 routes, the headline, and the full-card rows past D = 128, 16-bit
-# and f32, and f32 at the headline shape
+# f32 routes, the headline, the full-card rows past D = 128, 16-bit
+# and f32, f32 at the headline shape, and f32 past D = 512 (the FMA
+# route, ``flash_wide_kernel``; 16-bit raises there)
 ROWS = ([("bfloat16", c, 2, 1024, 4, d) for d in (160, 256, 320, 512)
          for c in (False, True)]
         + [("float32", c, 2, 1024, 4, d) for d in (256, 320, 512)
@@ -40,7 +41,8 @@ ROWS = ([("bfloat16", c, 2, 1024, 4, d) for d in (160, 256, 320, 512)
         + [("bfloat16", True, 2, 4096, 16, 128)]
         + [("float32", c, 2, 4096, 16, 128) for c in (False, True)]
         + [(dtype, c, b, t, h, d) for dtype in ("bfloat16", "float32")
-           for b, t, h, d in cs.FLASH_WIDE_PATHS for c in (False, True)])
+           for b, t, h, d in cs.FLASH_WIDE_PATHS for c in (False, True)]
+        + [("float32", c, 2, 4096, 8, 576) for c in (False, True)])
 
 
 def caller(fn):
@@ -88,6 +90,7 @@ def main() -> int:
     import torch
     import torch.nn.functional as F
 
+    from ray_tpu_torch import ops
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops.flash_attention import (_DTYPE_CODE, _ROUTES,
                                                    kernel_width)
@@ -145,6 +148,8 @@ def main() -> int:
         row["sdpa_ms"] = cs.cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal), reps=args.reps)
         row["sdpa_backend"] = cs.sdpa_backend(qt, kt, vt, causal)
+        row["plain_ms"] = cs.cuda_ms(lambda: ops.flash_attention_plain(
+            q, k, v, causal=causal), reps=args.reps)
         row["bound_ms"], row["bound_by"], _ = cs.flash_bound(q, causal)
         ms = sum(row["ms"]) / len(row["ms"])
         row["bound_share"] = row["bound_ms"] / ms
