@@ -121,24 +121,31 @@ Phases:
                   head (and this script) hold a CUDA context
   flash_attention the ops path: ``ops.flash_attention`` at B=2, T=4096,
                   H=16, D=128 bf16 causal (the main path), then bf16
-                  causal at the widths of the wgmma kernel past 128
+                  causal at the widths of the wgmma kernels past 128
                   (FLASH_WIDE_PATHS: B=2 T=4096 H=16 D=256, Gemma 7B's
-                  head dim, and H=8 D=512), then f32 causal at D=128
-                  (the split-TF32 kernel's path), each driven with the
-                  launch count set to 0 and the entry point's route
-                  read; then the cases: D=128 (bf16 causal, bf16, f16,
-                  f32 causal and not), bf16 causal at D=64, f32 at
-                  T=1024, D=64, and bf16 and f32 causal and not at the
-                  two full-card widths, against the plain version within
-                  an elementwise limit (FLASH_TOL) that must also reject
-                  the plain version with its last 64 keys dropped (and,
-                  for f32, its last key tile of the split-TF32 kernel);
+                  head dim, H=8 D=512, and H=8 D=576 on the 16-bit
+                  cluster), then f32 causal at D=128 (the split-TF32
+                  kernel's path) and at H=8 D=576 (its cluster), each
+                  driven with the launch count set to 0 and the entry
+                  point's route read; then the cases: D=128 (bf16
+                  causal, bf16, f16, f32 causal and not), bf16 causal at
+                  D=64, f32 at T=1024, D=64, and bf16 and f32 causal and
+                  not at the three full-card widths, against the plain
+                  version within an elementwise limit (FLASH_TOL) that
+                  must also reject the plain version with its last 64
+                  keys dropped (and, for f32 and past D=512, its last
+                  key tile of the route's kernel);
                   kernel/plain/library times, the bound (f32: three
                   TF32 products, the FMA bound beside it), the share of
                   the bound reached and the ratio to the library call;
-                  then every head dim of FLASH_HEAD_DIMS (zero-padded;
-                  16-bit and f32 on wgmma), bf16 and f32, causal and
-                  not, each beside its bound and the library call's time
+                  then bf16 at B=2 T=1024 H=4 D=1088 (widened to f32,
+                  on flash_cluster32_kernel) and f32 at D=1600 (on
+                  flash_wide_kernel), driven the same way; then every
+                  head dim of FLASH_HEAD_DIMS (zero-padded; 16-1024 on
+                  wgmma, 1088 and 1600 past the cluster routes' reach),
+                  bf16 and f32, causal and not, each with the route and
+                  widening the route table gives, beside the plain
+                  version's time, its bound and the library call's time
                   and SDPA backend
   data            ``ray_tpu_torch.data`` feeding the card: ``init`` with a
                   4096 MB object store (bytes spilled: 0), ``from_numpy``
@@ -321,7 +328,8 @@ def phase_build():
 # whose mangled name holds it; "" the whole library)
 SASS_REQUIRED = {
     "flash_attention": {k: ("HGMMA", "UTMALDG") for k in (
-        "flash_wgmma_kernel", "flash_big16_kernel", "flash_tf32_kernel")},
+        "flash_wgmma_kernel", "flash_big16_kernel", "flash_tf32_kernel",
+        "flash_cluster16_kernel", "flash_cluster32_kernel")},
     "waterfill": {"": ("UCGABAR",)}}
 
 
@@ -2940,19 +2948,23 @@ def phase_flash(dev):
                             dtype=torch.float32).to(dtype)
                 for _ in range(3)]
 
-    def drive(b, t, h, d, dtype, route):
+    def drive(b, t, h, d, dtype, route, widened=False):
         """One causal call through the entry point with the launch count
         set to 0 just before it; the launches it counted (the route it
-        reported must be ``route``)."""
+        reported must be ``route``, and it must have widened 16-bit
+        inputs to f32 for it exactly when ``widened``)."""
         q, k, v = qkv(b, t, h, d, dtype)
         ops.flash_attention.launches = 0
         out = ops.flash_attention(q, k, v, causal=True)
         torch.cuda.synchronize()
         launches = ops.flash_attention.launches
-        if launches < 1 or ops.flash_attention.last_route != route:
+        if launches < 1 or ops.flash_attention.last_route != route or \
+                ops.flash_attention.last_widened != widened:
             raise AssertionError(
                 f"ops.flash_attention {dtype} D={d}: {launches} launches "
-                f"on {ops.flash_attention.last_route}, not {route}")
+                f"on {ops.flash_attention.last_route} (widened "
+                f"{ops.flash_attention.last_widened}), not {route} "
+                f"(widened {widened})")
         if out.shape != q.shape or out.dtype != q.dtype or \
                 not bool(torch.isfinite(out.float()).all()):
             raise AssertionError(f"flash attention output {dtype} D={d}: "
@@ -2962,15 +2974,25 @@ def phase_flash(dev):
     # --- the main path: the ops entry point at the headline shape ---
     main_launches = drive(2, 4096, 16, 128, torch.bfloat16,
                           "flash_wgmma_kernel")
-    # --- the wgmma kernel past 128 (flash_big16_kernel), each width's path
-    # driven alone ---
+    # --- the wgmma kernels past 128 (flash_big16_kernel to 512,
+    # flash_cluster16_kernel past it), each width's path driven alone ---
     wide_launches = {d: drive(b, t, h, d, torch.bfloat16,
-                              "flash_big16_kernel")
+                              "flash_big16_kernel" if d <= 512 else
+                              "flash_cluster16_kernel")
                      for b, t, h, d in FLASH_WIDE_PATHS}
     # --- f32 on the split-TF32 kernel (flash_tf32_kernel) at the headline
-    # shape ---
+    # shape, and past 512 on its cluster (flash_cluster32_kernel) ---
     f32_launches = drive(2, 4096, 16, 128, torch.float32,
                          "flash_tf32_kernel")
+    f32_cluster_launches = drive(*FLASH_WIDE_PATHS[-1], torch.float32,
+                                 "flash_cluster32_kernel")
+    # --- past the cluster routes' reach, at FLASH_HEAD_DIMS' shape: bf16
+    # past 1024 widened to f32 (onto flash_cluster32_kernel at 1088), and
+    # f32 past 1536 on flash_wide_kernel ---
+    widened_launches = drive(2, 1024, 4, 1088, torch.bfloat16,
+                             "flash_cluster32_kernel", widened=True)
+    f32_wide_launches = drive(2, 1024, 4, 1600, torch.float32,
+                              "flash_wide_kernel")
 
     cases = [("bfloat16", True, 2, 4096, 16, 128),
              ("bfloat16", False, 2, 4096, 16, 128),
@@ -2996,9 +3018,9 @@ def phase_flash(dev):
                                  f"{causal}: error {ratio} x its limit "
                                  f"(max abs err {max_err})")
         # the limit must be tight enough to fail a kernel that skips its
-        # last key tile: 64 keys, and the f32 kernel's own tile
+        # last key tile: 64 keys, and the f32 and cluster kernels' own
         tiles = sorted({FLASH_KEY_TILE} | (
-            {kernel_key_tile(d, dtype)} if dtype == torch.float32
+            {kernel_key_tile(d, dtype)} if dtype == torch.float32 or d > 512
             else set()))
         fault_ratio = {}
         for tile in tiles:
@@ -3040,19 +3062,47 @@ def phase_flash(dev):
     result = {"phase": "flash_attention", "entry": "ops.flash_attention",
               "main_path_launches": main_launches,
               "wide_path_launches": wide_launches,
-              "f32_path_launches": f32_launches, "cases": rows,
+              "f32_path_launches": f32_launches,
+              "f32_cluster_path_launches": f32_cluster_launches,
+              "widened_path_launches": widened_launches,
+              "f32_wide_path_launches": f32_wide_launches,
+              "cases": rows,
               "head_dims": flash_head_dims(qkv)}
     emit(result)
     return result
 
 
 # head dims the kernel reaches by zero padding (to 64, 128, 256, 320), at
-# 256 and at 512: 16-bit and f32 on wgmma
-FLASH_HEAD_DIMS = (16, 32, 80, 96, 160, 256, 320, 512)
-# (b, t, h, d) of the wgmma kernel's full-card rows past D = 128: Gemma
-# 7B's head dim (256, 16 heads; its config.json), and the widest width
-# (16 (b, h) pairs x 64 query tiles of 64 = 1,024 CTAs)
-FLASH_WIDE_PATHS = ((2, 4096, 16, 256), (2, 4096, 8, 512))
+# 256 and at 512, past 512 on the cluster routes (576, and 1024, the
+# 16-bit cluster's reach), and past the reaches (1088: 16-bit widened to
+# the f32 cluster; 1600: f32 on flash_wide_kernel, 16-bit widened to it)
+FLASH_HEAD_DIMS = (16, 32, 80, 96, 160, 256, 320, 512, 576, 1024, 1088,
+                   1600)
+# the widest D of each cluster route (the route table at the head of
+# flash_attention.cu)
+FLASH_REACH16, FLASH_REACH32 = 1024, 1536
+
+
+def flash_route_of(d, dtype_name):
+    """The kernel ``ops.flash_attention`` must report for head dim ``d``
+    and dtype, and whether it widens 16-bit inputs to f32 for it: by the
+    route table at the head of flash_attention.cu, not read from the
+    library."""
+    widened = dtype_name != "float32" and d > FLASH_REACH16
+    if dtype_name == "float32" or widened:
+        return ("flash_tf32_kernel" if d <= 512 else
+                "flash_cluster32_kernel" if d <= FLASH_REACH32 else
+                "flash_wide_kernel"), widened
+    return ("flash_wgmma_kernel" if d <= 128 else
+            "flash_big16_kernel" if d <= 512 else
+            "flash_cluster16_kernel"), False
+# (b, t, h, d) of the wgmma kernels' full-card rows past D = 128: Gemma
+# 7B's head dim (256, 16 heads; its config.json), the widest width of a
+# CTA (16 (b, h) pairs x 64 query tiles of 64 = 1,024 CTAs), and the
+# cluster routes' at DeepSeek-V3's absorbed MLA width (576: its
+# kv_lora_rank 512 + qk_rope_head_dim 64, config.json)
+FLASH_WIDE_PATHS = ((2, 4096, 16, 256), (2, 4096, 8, 512),
+                    (2, 4096, 8, 576))
 
 
 def sdpa_backend(q, k, v, causal):
@@ -3067,11 +3117,13 @@ def sdpa_backend(q, k, v, causal):
 
 def flash_head_dims(qkv, b=2, t=1024, h=4):
     """Every head dim of FLASH_HEAD_DIMS, causal and not, bf16 and f32,
-    at (b, t, h, d): the kernel within FLASH_TOL of the plain version, and
-    the limit still rejecting the plain version with its last key tile
-    dropped (64 keys, and f32's own tile); beside each kernel time the
-    route, its bound (the function's work at the original d; f32 with
-    the FMA bound beside it), the library call's time
+    at (b, t, h, d): the route the entry point reports (and whether it
+    widened 16-bit inputs) as ``flash_route_of`` gives it, the kernel
+    within FLASH_TOL of the plain version, and the limit still rejecting
+    the plain version with its last key tile dropped (64 keys, and for
+    f32 and past D = 512 the route's own tile); beside each kernel time
+    the plain version's, its bound (the function's work at the original
+    d; f32 with the FMA bound beside it), the library call's time
     (``scaled_dot_product_attention``, timed here and used nowhere in the
     port) and the backend it ran on."""
     import torch
@@ -3083,12 +3135,18 @@ def flash_head_dims(qkv, b=2, t=1024, h=4):
     for d in FLASH_HEAD_DIMS:
         for dtype_name in ("bfloat16", "float32"):
             tiles = {FLASH_KEY_TILE} | (
-                {kernel_key_tile(d, torch.float32)}
-                if dtype_name == "float32" else set())
+                {kernel_key_tile(d, getattr(torch, dtype_name))}
+                if dtype_name == "float32" or d > 512 else set())
             for causal in (False, True):
                 q, k, v = qkv(b, t, h, d, getattr(torch, dtype_name))
                 got = ops.flash_attention(q, k, v, causal=causal).float()
                 route = ops.flash_attention.last_route
+                widened = ops.flash_attention.last_widened
+                if (route, widened) != flash_route_of(d, dtype_name):
+                    raise AssertionError(
+                        f"flash attention D={d} {dtype_name}: route {route}"
+                        f" (widened {widened}), not "
+                        f"{flash_route_of(d, dtype_name)}")
                 want, limit = flash_limit(q, k, v, causal)
                 ratio = float(((got - want).abs() / limit).max())
                 fault = min(float(((drop_last_key_tile(
@@ -3106,17 +3164,19 @@ def flash_head_dims(qkv, b=2, t=1024, h=4):
                 kernel_ms = cuda_ms(lambda: ops.flash_attention(
                     q, k, v, causal=causal), reps=5, warmup=1)
                 library_ms = cuda_ms(sdpa, reps=5, warmup=1)
+                plain_ms = cuda_ms(lambda: ops.flash_attention_plain(
+                    q, k, v, causal=causal), reps=5, warmup=1)
                 bound_ms, bound_by, _ = flash_bound(q, causal)
                 fma_ms = flash_fma_bound_ms(q, causal)
                 rows.append({"d": d, "dtype": dtype_name, "causal": causal,
-                             "route": route,
+                             "route": route, "widened": widened,
                              **({} if fma_ms is None else
                                 {"bound_of": "3 TF32 products",
                                  "fma_bound_ms": fma_ms}),
                              "max_abs_err": float((got - want).abs().max()),
                              "max_err_over_limit": ratio,
                              "dropped_tile_err_over_limit": fault,
-                             "kernel_ms": kernel_ms,
+                             "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                              "library_ms": library_ms,
                              "library_backend": sdpa_backend(qt, kt, vt,
                                                              causal),
@@ -4440,6 +4500,12 @@ def main() -> int:
                 r["causal"] and r["shape"] == list(FLASH_WIDE_PATHS[0]))
     f32 = next(r for r in fl["cases"] if r["dtype"] == "float32" and
                r["causal"] and r["shape"] == [2, 4096, 16, 128])
+    cl16, cl32 = (next(r for r in fl["cases"] if r["dtype"] == dtype and
+                       r["causal"] and
+                       r["shape"] == list(FLASH_WIDE_PATHS[-1]))
+                  for dtype in ("bfloat16", "float32"))
+    fwide = next(r for r in fl["head_dims"]["cases"] if r["d"] == 1600 and
+                 r["dtype"] == "float32" and r["causal"])
     lw = loc["problems"]["beat 1000x8x64"]
     emit({"phase": "summary", "phase_seconds": seconds,
           "seconds": time.perf_counter() - t_start})   # build included
@@ -4579,7 +4645,7 @@ def main() -> int:
          # beside it; the numbers are the bf16 causal D=256 row's
          "launches": fl["wide_path_launches"][FLASH_WIDE_PATHS[0][3]],
          "launches_by_path": {f"d{d}": n for d, n in
-                              fl["wide_path_launches"].items()},
+                              fl["wide_path_launches"].items() if d <= 512},
          "max_abs_err": wide["max_abs_err"], "ms": wide["kernel_ms"],
          "plain_ms": wide["plain_ms"], "bound_ms": wide["bound_ms"],
          "bound_by": wide["bound_by"], "library_ms": wide["library_ms"],
@@ -4596,6 +4662,45 @@ def main() -> int:
          "bound_by": f32["bound_by"], "bound_of": f32["bound_of"],
          "fma_bound_ms": f32["fma_bound_ms"],
          "library_ms": f32["library_ms"], "checked": True},
+        {"name": "flash_attention (16-bit, D 576-1024)", "route": "cuda",
+         "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
+         "replaces": "ray_tpu/ops/flash_attention.py:25",
+         # flash_cluster16_kernel: launches on the D=576 path; the numbers
+         # are the bf16 causal D=576 full-card row's
+         "launches": fl["wide_path_launches"][FLASH_WIDE_PATHS[-1][3]],
+         "max_abs_err": cl16["max_abs_err"], "ms": cl16["kernel_ms"],
+         "plain_ms": cl16["plain_ms"], "bound_ms": cl16["bound_ms"],
+         "bound_by": cl16["bound_by"], "library_ms": cl16["library_ms"],
+         "checked": True},
+        {"name": "flash_attention (f32, D 576-1536)", "route": "cuda",
+         "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
+         "replaces": "ray_tpu/ops/flash_attention.py:25",
+         # flash_cluster32_kernel: launches on the f32 D=576 path, the
+         # widened bf16 D=1088 path beside it; the numbers are the f32
+         # causal D=576 full-card row's, the bound three TF32 products, the
+         # FMA bound beside it
+         "launches": fl["f32_cluster_path_launches"],
+         "launches_by_path": {"f32_d576": fl["f32_cluster_path_launches"],
+                              "bf16_d1088_widened":
+                                  fl["widened_path_launches"]},
+         "max_abs_err": cl32["max_abs_err"], "ms": cl32["kernel_ms"],
+         "plain_ms": cl32["plain_ms"], "bound_ms": cl32["bound_ms"],
+         "bound_by": cl32["bound_by"], "bound_of": cl32["bound_of"],
+         "fma_bound_ms": cl32["fma_bound_ms"],
+         "library_ms": cl32["library_ms"], "checked": True},
+        {"name": "flash_attention (f32, D past 1536)", "route": "cuda",
+         "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
+         "replaces": "ray_tpu/ops/flash_attention.py:25",
+         # flash_wide_kernel (FMA): launches on the f32 D=1600 path at
+         # B=2 T=1024 H=4; the numbers are FLASH_HEAD_DIMS' f32 causal
+         # D=1600 row's, the bound its f32 FMA operations, three TF32
+         # products beside it
+         "launches": fl["f32_wide_path_launches"],
+         "max_abs_err": fwide["max_abs_err"], "ms": fwide["kernel_ms"],
+         "plain_ms": fwide["plain_ms"], "bound_ms": fwide["fma_bound_ms"],
+         "bound_by": "operations", "bound_of": "f32 FMA",
+         "tf32_bound_ms": fwide["bound_ms"],
+         "library_ms": fwide["library_ms"], "checked": True},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,7 +2,7 @@
 
     python3 flash_routes.py [--against PATH/flash_attention.cu] [--reps N]
                             [--turns N] [--dtype bfloat16|float32]
-                            [--back-to-back]
+                            [--back-to-back] [--shape B,T,H,D ...]
 
 Builds this checkout's ``ray_tpu_torch/ops/csrc/flash_attention.cu`` and,
 with ``--against``, a second source of the same C entry point (an older
@@ -16,8 +16,12 @@ short row) with CUDA events, beside
 ``scaled_dot_product_attention`` (timed here, used nowhere in the port),
 the backend it ran on, the plain PyTorch version's time and the row's
 bound (f32: three TF32 products, the FMA bound beside it).  ``--dtype``
-keeps the rows of one dtype.  Each row is one JSON line on stdout, after
-one with the card's name and power limit.  Needs a GPU and nvcc.
+keeps the rows of one dtype; ``--shape`` (repeatable) times those
+shapes, causal and not, in place of ROWS.  A row the older build refuses (16-bit
+inputs past D = 512 before the cluster routes) says so in
+``against_refused`` and is timed on this build alone.  Each row is one
+JSON line on stdout, after one with the card's name and power limit.
+Needs a GPU and nvcc.
 """
 
 from __future__ import annotations
@@ -31,8 +35,9 @@ import chip_smoke as cs
 
 # (dtype, causal, b, t, h, d): the per-route sweep (B=2 H=4 T=1024), the
 # f32 routes, the headline, the full-card rows past D = 128, 16-bit
-# and f32, f32 at the headline shape, and f32 past D = 512 (the FMA
-# route, ``flash_wide_kernel``; 16-bit raises there)
+# and f32, and f32 at the headline shape; the full-card rows take D = 576
+# (the cluster routes; a build older than them ran f32 there on
+# ``flash_wide_kernel`` and refused 16-bit inputs)
 ROWS = ([("bfloat16", c, 2, 1024, 4, d) for d in (160, 256, 320, 512)
          for c in (False, True)]
         + [("float32", c, 2, 1024, 4, d) for d in (256, 320, 512)
@@ -41,8 +46,7 @@ ROWS = ([("bfloat16", c, 2, 1024, 4, d) for d in (160, 256, 320, 512)
         + [("bfloat16", True, 2, 4096, 16, 128)]
         + [("float32", c, 2, 4096, 16, 128) for c in (False, True)]
         + [(dtype, c, b, t, h, d) for dtype in ("bfloat16", "float32")
-           for b, t, h, d in cs.FLASH_WIDE_PATHS for c in (False, True)]
-        + [("float32", c, 2, 4096, 8, 576) for c in (False, True)])
+           for b, t, h, d in cs.FLASH_WIDE_PATHS for c in (False, True)])
 
 
 def caller(fn):
@@ -105,19 +109,29 @@ def main() -> int:
                     help="time only the rows of this dtype")
     ap.add_argument("--back-to-back", action="store_true",
                     help="time each turn's launches as one stretch")
+    ap.add_argument("--shape", action="append", default=None,
+                    metavar="B,T,H,D",
+                    help="time this shape (both dtypes, causal and not) "
+                         "in place of ROWS; repeatable")
     args = ap.parse_args()
+    rows = ROWS if not args.shape else [
+        (dtype, c, *map(int, shape.split(",")))
+        for dtype in ("bfloat16", "float32") for shape in args.shape
+        for c in (False, True)]
     if not torch.cuda.is_available():
         print("flash_routes: needs a GPU", file=sys.stderr)
         return 1
     smi = cs.phase_device()
     _build.build(["flash_attention"])
     this = caller(_build.load("flash_attention"))
-    other = caller(_build.entry(_build.build_variants(
-        [(args.against, ())])[0], "flash_attention")) if args.against \
-        else None
+    other = other_route = None
+    if args.against:
+        lib = _build.build_variants([(args.against, ())])[0]
+        other = caller(_build.entry(lib, "flash_attention"))
+        other_route = _build.entry(lib, "flash_attention", "rt_flash_route")
     gen = torch.Generator(device="cuda").manual_seed(0)
     cs.emit({"nvidia_smi": smi, "against": str(args.against)})
-    for dtype_name, causal, b, t, h, d in ROWS:
+    for dtype_name, causal, b, t, h, d in rows:
         if args.dtype not in (None, dtype_name):
             continue
         dtype = getattr(torch, dtype_name)
@@ -129,16 +143,29 @@ def main() -> int:
                "route": _ROUTES[_build.load("flash_attention",
                                             "rt_flash_route")(
                    kernel_width(d), _DTYPE_CODE[dtype])]}
+        if other_route is not None:
+            code = other_route(kernel_width(d), _DTYPE_CODE[dtype])
+            row["against_route"] = _ROUTES[code] if code >= 0 else None
         want, limit = cs.flash_limit(q, k, v, causal)
+        against = other
         for key, fn in (("err_over_limit", this),
                         ("against_err_over_limit", other)):
-            if fn is not None:
-                row[key] = float(((fn(q, k, v, causal).float() - want)
-                                  .abs() / limit).max())
+            if fn is None:
+                continue
+            try:
+                got = fn(q, k, v, causal)
+            except RuntimeError as err:
+                if fn is this:
+                    raise
+                row["against_refused"] = str(err)   # an older build's
+                against = None
+                continue
+            row[key] = float(((got.float() - want).abs() / limit).max())
+            del got
         del want, limit
-        fns = [("ms", this)] if other is None else [
-            ("against_ms", other), ("ms", this), ("ms", this),
-            ("against_ms", other)]
+        fns = [("ms", this)] if against is None else [
+            ("against_ms", against), ("ms", this), ("ms", this),
+            ("against_ms", against)]
         fns *= args.turns
         timer = back_to_back_ms if args.back_to_back else cs.cuda_ms
         for key, fn in fns:
@@ -159,7 +186,7 @@ def main() -> int:
             row["fma_bound_ms"] = fma_ms
             row["fma_bound_share"] = fma_ms / ms
         row["vs_sdpa"] = ms / row["sdpa_ms"]
-        if other is not None:
+        if against is not None:
             row["speedup"] = (sum(row["against_ms"])
                               / len(row["against_ms"])) / ms
         cs.emit(row)

@@ -17,17 +17,29 @@
 // rt_flash_route names the route of a (D, dtype), rt_flash_key_tile its
 // key tile:
 //
-//   f16, bf16   D = 64, 128     flash_wgmma_kernel  (wgmma + TMA)
-//               D = 256 .. 512  flash_big16_kernel  (wgmma + TMA)
-//               D > 512         refused (shared memory, below)
-//   f32         D = 64 .. 512   flash_tf32_kernel   (split-TF32 wgmma +
-//                                                    TMA)
-//               D > 512         flash_wide_kernel   (FMA)
+//   f16, bf16   D = 64, 128      flash_wgmma_kernel      (wgmma + TMA)
+//               D = 256 .. 512   flash_big16_kernel      (wgmma + TMA)
+//               D = 576 .. 1024  flash_cluster16_kernel  (wgmma + TMA, a
+//                                                         cluster of 3-4)
+//               D > 1024         the f32 route of D, on inputs the
+//                                wrapper widens to f32 (the JAX kernel's
+//                                arithmetic); the entry point refuses
+//   f32         D = 64 .. 512    flash_tf32_kernel       (split-TF32
+//                                                         wgmma + TMA)
+//               D = 576 .. 1536  flash_cluster32_kernel  (split TF32, a
+//                                                         cluster of 3-8)
+//               D > 1536         flash_wide_kernel       (FMA)
 //
-// 16-bit inputs, both kernels:
-//   * One CTA per (b*h, query tile), on gridDim.x with the query tiles
-//     in reverse order, so under causal masking the heaviest tiles start
-//     first.  Three warpgroups: two consumers and a producer warpgroup of
+// The reach of each cluster route is the widest D a portable cluster (at
+// most 8 CTAs, no NonPortableClusterSizeAllowed) holds at its layout:
+// 1024 for 16-bit inputs (4 CTAs of 256 columns; a fifth CTA's exchange
+// slots do not fit 227 KB beside 128 query rows), 1536 for f32 (8 CTAs
+// of 192 columns).
+//
+// 16-bit inputs, all three kernels:
+//   * One CTA (past 512, one cluster of CTAs) per (b*h, query tile), on
+//     gridDim.x with the query tiles in reverse order, so under causal
+//     masking the heaviest tiles start first.  Three warpgroups: two consumers and a producer warpgroup of
 //     which one thread issues every copy; setmaxnreg moves registers from
 //     the producer (24) to the consumers (240).
 //   * Copies: TMA over 4-d tensor maps built on the public (B, T, H, D)
@@ -88,13 +100,44 @@
 //     products, and past 256 the exchange puts both consumers in step,
 //     so the tensor cores idle while they do; S at key tiles of 32 reads
 //     its Q operand (2 KB) for every 32 keys from shared memory.
-//   * Past 512 the resident Q and a two-stage ring of K and V do not fit
-//     227 KB at 16 keys a tile, so the entry point refuses 16-bit widths
-//     past 512 and the wrapper raises (f32 takes any width).
-//   * ptxas (CUDA 12.8, -O3, sm_90a): every instantiation of both 16-bit
-//     kernels reports 168 registers, the cap of __launch_bounds__(384,
-//     1) that setmaxnreg lifts to 240 for the consumers, and 0 bytes of
-//     spill stores and loads.
+//   * Past 512 one CTA's resident Q and two-stage ring of K and V do not
+//     fit 227 KB, so the head dim goes over a cluster (below).
+//
+// flash_cluster16_kernel, D = 576 .. 1024: a cluster of N = ceil(C/4)
+// CTAs a query tile (C = D/64 chunks, the first C % N CTAs one chunk more
+// than the rest: 3 or 4 a CTA), each laid out as D = 256 above over its
+// own chunks (128 query rows, 64 a consumer with its rows' whole slice
+// of O, at most 128 registers) at key tiles of 32:
+//   * S is computed once per (query tile, key tile): each consumer
+//     computes a partial S over its CTA's chunks (f32, wgmma), stores it
+//     with st.async into the same consumer's slot in every other CTA
+//     (its bytes complete on that CTA's x_full mbarrier), waits for the
+//     N - 1 others and adds the N partials in rank order, its own at its
+//     rank.  f32 addition is not associative ((p0 + p1) + p2 != p0 + (p1
+//     + p2)), so an own-first sum would give each CTA its own S, m and
+//     l; in rank order every CTA holds the same S bit for bit, runs the
+//     same softmax and multiplies P by its own chunks of V only.
+//   * Slots: two a consumer for each other CTA (key tiles alternate); a
+//     slot is stored into again only after every other CTA's partial of
+//     the next tile has landed, which each sends after reading its slots
+//     of this one.  The cluster's CTAs sync after barrier init and
+//     before they leave.
+//   * Layout (bytes of the 227 KB; the slots sized for N = 4):
+//       D          CTAs  chunks a CTA  consumers (rows)  kBN  stages  bytes
+//       576        3     3, 3, 3       2 (128)           32   2       230528
+//       640        3     4, 3, 3       2 (128)           32   2       230528
+//       704        3     4, 4, 3       2 (128)           32   2       230528
+//       768        3     4, 4, 4       2 (128)           32   2       230528
+//       832        4     4, 3, 3, 3    2 (128)           32   2       230528
+//       896        4     4, 4, 3, 3    2 (128)           32   2       230528
+//       960        4     4, 4, 4, 3    2 (128)           32   2       230528
+//       1024       4     4, 4, 4, 4    2 (128)           32   2       230528
+//     Q 64 KB, K and V 16 KB a stage, two stages, barriers, and 96 KB of
+//     slots (2 consumers x 2 x 3 partials of 64 x 32 f32).
+//   * ptxas (CUDA 12.8, -O3, sm_90a): every instantiation of the three
+//     16-bit kernels reports 168 registers, the cap of
+//     __launch_bounds__(384, 1) that setmaxnreg lifts to 240 for the
+//     consumers, and 0 bytes of spill stores and loads.
 //
 // f32 inputs, flash_tf32_kernel (split TF32, "3xTF32"):
 //   * Arithmetic.  Each operand x of both products is split in two: hi
@@ -158,35 +201,60 @@
 //       384   2     1 (64)            16   2   2    48 KB  12 KB   205992
 //       448   2     1 (64)            16   0   2    56 KB  14 KB   210088
 //       512   2     1 (64)            16   0   1    64 KB  16 KB   222376
+//       576-  3-8   1 (64)            16   0   2    48 KB  12 KB   230568
+//       1536  (flash_cluster32_kernel, below)
 //     A plane is one key tile of one of Khi, Klo, V^T hi, V^T lo; two
 //     stages of the four.  With kKS = 0 K lands in its hi plane and is
 //     split in place (two K slots do not fit; at D = 128 a slot of each
 //     was 9% slower than two V slots, measured).
-//   * Past D = 128 a cluster of two CTAs serves each query tile, each
-//     holding half of the head dim's Q, K and V (the 16-bit kernels' split
-//     of the head dim, one level up): each computes a partial S, stores it
-//     into the other CTA's exchange slot with st.async (the bytes complete
-//     on that CTA's x_full mbarrier, no fence; 11-14% faster than plain
-//     remote stores and a release arrive), waits for the other's and adds
-//     it (f32 addition commutes: both hold the same S, run the same
-//     softmax); each owns half of O's columns and multiplies P by its half
-//     of V^T.  Two slots a consumer: a slot is stored into again only
-//     after all of the other CTA's partial of the next tile has landed,
-//     which it sends after reading the slot.  The cluster's CTAs sync
-//     after barrier init and before they leave.
+//   * Past D = 128 a cluster of CTAs serves each query tile, each holding
+//     a slice of the head dim's Q, K and V (the 16-bit kernels' split of
+//     the head dim, one level up): each computes a partial S, stores it
+//     into every other CTA's exchange slot with st.async (the bytes
+//     complete on that CTA's x_full mbarrier, no fence; 11-14% faster
+//     than plain remote stores and a release arrive), waits for the
+//     others' and adds the partials in rank order, as
+//     flash_cluster16_kernel does (with two CTAs own + other is that
+//     order on both, added in place); each owns its slice of O's columns
+//     and multiplies P by its slice of V^T.  Two slots a consumer for
+//     each other CTA.  The cluster's CTAs sync after barrier init and
+//     before they leave.
+//   * D = 256 .. 512 (flash_tf32_kernel): two CTAs, each half of D.
+//   * D = 576 .. 1536 (flash_cluster32_kernel): N = ceil(D/192) CTAs,
+//     the D/32 boxes split as evenly as they go (the first (D/32) % N
+//     CTAs one box more): 192 or 160 columns a CTA, one consumer of 64
+//     rows, the layout sized for N = 8 (its 7 x 2 slots of 4 KB, no raw
+//     K ring):
+//       D     CTAs  columns a CTA          D     CTAs  columns a CTA
+//       576   3     192 x 3                1088  6     192 x 4, 160 x 2
+//       640   4     160 x 4                1152  6     192 x 6
+//       704   4     192 x 2, 160 x 2       1216  7     192 x 3, 160 x 4
+//       768   4     192 x 4                1280  7     192 x 5, 160 x 2
+//       832   5     192, 160 x 4           1344  7     192 x 7
+//       896   5     192 x 3, 160 x 2       1408  8     192 x 4, 160 x 4
+//       960   5     192 x 5                1472  8     192 x 6, 160 x 2
+//       1024  6     192 x 2, 160 x 4       1536  8     192 x 8
+//     A CTA's slice is what flash_tf32_kernel's CTA holds at D = 384
+//     (192) or 320 (160), with one consumer.  P V of key tile kt - 1
+//     runs between sending tile kt's partial and waiting for the
+//     others' (P and corr carried over; the same operations on O in the
+//     same order): 1.03x at D = 576 and 1.02x at D = 1024 (PERF.md).
 //   * Consumers: setmaxnreg moves the producer warpgroup to 56 registers
 //     and two consumers to 224; one consumer (384 threads' cap lifted to
 //     255 with 256 threads) needs none.
 //   * What bounds it: at D <= 128 the two consumers keep the tensor cores
 //     at 0.46-0.52 of the three-product bound at the full card; past 128
 //     the per-tile chain (S in batches, the exchange, the softmax, P V in
-//     chunks) leaves them idle: 0.21-0.33 (PERF.md).  Past 512 Q, two
-//     stages of the planes and the exchange do not fit a pair of CTAs:
-//     flash_wide_kernel (FMA) takes those widths.
-//   * ptxas (CUDA 12.8, -O3, sm_90a): 168 registers at D = 64, 128, 256,
-//     320 (the cap of __launch_bounds__(384, 1), lifted by setmaxnreg),
-//     197 at 384, 213 at 448, 238 at 512; 0 bytes of spill stores and
-//     loads at every width.
+//     chunks) leaves them idle: 0.21-0.33, and 0.16 at D = 576, where a
+//     key tile's exchange among 3 CTAs (each thread's two float4 to each
+//     other CTA, and the wait for the slowest) takes ~1,300 cycles of
+//     ~6,200 against ~480 between two (clock probes, PERF.md).
+//   * ptxas (CUDA 12.8, -O3, sm_90a): flash_tf32_kernel 168 registers at
+//     D = 64, 128, 256, 320 (the cap of __launch_bounds__(384, 1), lifted
+//     by setmaxnreg), 197 at 384, 213 at 448, 238 at 512;
+//     flash_cluster32_kernel (both slices in one kernel) 221 (203 before
+//     P V was overlapped with the exchange); 0 bytes of spill stores and
+//     loads in every instantiation.
 //
 // Scaling: the JAX kernel scales Q in f32 before the product.  The f32
 // paths do exactly that.  On the 16-bit paths Q stays in its 16-bit type
@@ -255,23 +323,63 @@ struct Big16 {
   static constexpr uint32_t kXSlot = 64 * kBN * 4;
   static constexpr uint32_t kBar = kX + (kSplit ? 4 * kXSlot : 0);
   static constexpr uint32_t kBytes = kBar + 8 * (1 + 3 * kStages) + kSwAtom;
-  // consumer w's chunks of O, [o_lo, o_hi), and the head-dim chunks it
-  // sums S over, [s_lo, s_hi)
-  __host__ __device__ static constexpr int o_lo(int w) {
-    return kSplit && w ? (kC + 1) / 2 : 0;
-  }
-  __host__ __device__ static constexpr int o_hi(int w) {
-    return kSplit && !w ? (kC + 1) / 2 : kC;
-  }
-  __host__ __device__ static constexpr int s_lo(int w) {
-    return kSplit && w ? kC / 2 : 0;
-  }
-  __host__ __device__ static constexpr int s_hi(int w) {
-    return kSplit && !w ? kC / 2 : kC;
-  }
+  static constexpr bool kCluster = false;
   static_assert(D % 64 == 0 && D >= 256 && D <= 512, "kernel width");
   static_assert(kBytes <= kSmemMax, "shared memory");
 };
+
+// flash_cluster16_kernel's layout: kernel widths 576 .. kReach16, a
+// cluster of ceil(C / 4) CTAs a query tile (C = D/64 chunks, split as
+// evenly as they go: 3 or 4 a CTA), each like Big16<256> over its own
+// chunks (128 query rows, 64 a consumer, each with its rows' whole slice
+// of O) at key tiles of 32, and two exchange slots a consumer for each
+// of the other CTAs' partial S
+constexpr int kCl16 = 4;                   // the most CTAs of a cluster
+constexpr int kReach16 = 64 * 4 * kCl16;   // the widest D: 1024
+struct Cl16 {
+  static constexpr bool kSplit = false;
+  static constexpr bool kCluster = true;
+  static constexpr int kCl = kCl16;
+  static constexpr int kBQ = 128;
+  static constexpr int kBN = 32;
+  static constexpr int kStages = 2;
+  static constexpr int kBoxes = 4;          // the widest CTA's chunks
+  static constexpr uint32_t kQBox = kBQ * kRowBytes;
+  static constexpr uint32_t kKVBox = kBN * kRowBytes;
+  static constexpr uint32_t kStage = kBoxes * kKVBox;
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kK = kQ + kBoxes * kQBox;
+  static constexpr uint32_t kV = kK + kStages * kStage;
+  static constexpr uint32_t kBar = kV + kStages * kStage;
+  // barriers: q_full, k_full[S], v_full[S], empty[S], then x_full[2 w +
+  // slot], armed by consumer w's thread 0 and completed by the other
+  // CTAs' st.async bytes
+  static constexpr int kXFull = 1 + 3 * kStages;
+  static constexpr uint32_t kX = kBar + 128;
+  static constexpr uint32_t kXSlot = 64 * kBN * 4;   // a partial S
+  // consumer w's slots of buffer x: kX + (2 w + x) (kCl - 1) kXSlot
+  static constexpr uint32_t kBytes =
+      kX + kConsumers * 2 * (kCl - 1) * kXSlot + kSwAtom;
+  static_assert(8 * (kXFull + 2 * kConsumers) <= kX - kBar, "barriers");
+  static_assert(kBytes <= kSmemMax, "shared memory");
+};
+
+// consumer w's chunks of O, [o_lo, o_hi), and the head-dim chunks it
+// sums S over, [s_lo, s_hi), of the c chunks a CTA holds; split: the two
+// consumers share 64 rows (Big16 past 256), else each has its own rows
+// and all c chunks
+__host__ __device__ constexpr int o_lo(bool split, int w, int c) {
+  return split && w ? (c + 1) / 2 : 0;
+}
+__host__ __device__ constexpr int o_hi(bool split, int w, int c) {
+  return split && !w ? (c + 1) / 2 : c;
+}
+__host__ __device__ constexpr int s_lo(bool split, int w, int c) {
+  return split && w ? c / 2 : 0;
+}
+__host__ __device__ constexpr int s_hi(bool split, int w, int c) {
+  return split && !w ? c / 2 : c;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -348,33 +456,34 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
 }
 
 // the producer thread: Q once, then K and V of every key tile through
-// the ring of layout L
-template <class L>
+// the ring of layout L; kNB boxes of 64 columns from column col0 (a CTA
+// of a cluster holds a slice of the head dim)
+template <class L, int kNB = L::kBoxes>
 __device__ __forceinline__ void produce(uint32_t base, const CUtensorMap* tm_q,
                                         const CUtensorMap* tm_k,
                                         const CUtensorMap* tm_v, int h, int b,
-                                        int q0, int n_kt) {
+                                        int q0, int n_kt, int col0 = 0) {
   const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
   const uint32_t bar_q = base + L::kBar;
-  mbar_expect_tx(bar_q, L::kBoxes * L::kQBox);
+  mbar_expect_tx(bar_q, kNB * L::kQBox);
 #pragma unroll
-  for (int x = 0; x < L::kBoxes; ++x)
-    tma_load_4d(sQ + x * L::kQBox, tm_q, bar_q, x * 64, h, q0, b);
+  for (int x = 0; x < kNB; ++x)
+    tma_load_4d(sQ + x * L::kQBox, tm_q, bar_q, col0 + x * 64, h, q0, b);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int s = kt % L::kStages, use = kt / L::kStages;
     if (use > 0) mbar_wait(empty_bar<L::kStages>(bar_q, s), (use - 1) & 1);
     const uint32_t kb = k_full<L::kStages>(bar_q, s);
     const uint32_t vb = v_full<L::kStages>(bar_q, s);
-    mbar_expect_tx(kb, L::kStage);
+    mbar_expect_tx(kb, kNB * L::kKVBox);
 #pragma unroll
-    for (int x = 0; x < L::kBoxes; ++x)
-      tma_load_4d(sK + s * L::kStage + x * L::kKVBox, tm_k, kb, x * 64, h,
-                  kt * L::kBN, b);
-    mbar_expect_tx(vb, L::kStage);
+    for (int x = 0; x < kNB; ++x)
+      tma_load_4d(sK + s * L::kStage + x * L::kKVBox, tm_k, kb,
+                  col0 + x * 64, h, kt * L::kBN, b);
+    mbar_expect_tx(vb, kNB * L::kKVBox);
 #pragma unroll
-    for (int x = 0; x < L::kBoxes; ++x)
-      tma_load_4d(sV + s * L::kStage + x * L::kKVBox, tm_v, vb, x * 64, h,
-                  kt * L::kBN, b);
+    for (int x = 0; x < kNB; ++x)
+      tma_load_4d(sV + s * L::kStage + x * L::kKVBox, tm_v, vb,
+                  col0 + x * 64, h, kt * L::kBN, b);
   }
 }
 
@@ -730,18 +839,169 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers * 128) : "memory");
 }
 
-// consumer warpgroup W of flash_big16_kernel: its O chunks and (past 256,
-// the partial of) S over its head-dim chunks, for every key tile
-template <bool kBF16, int D, int W>
-__device__ __forceinline__ void big16_consume(uint32_t base,
-                                              uint16_t* __restrict__ o,
-                                              int b, int h, int heads, int q0,
-                                              int tn, int n_kt, int causal,
-                                              float scale_log2) {
-  using L = Big16<D>;
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// the address of the same shared-memory offset in CTA `rank`
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+// 16 bytes into another CTA's shared memory; the store completes its
+// bytes on that CTA's mbarrier (no fence: the barrier's transaction count
+// says when every store of a phase has landed)
+__device__ __forceinline__ void st_async_v4(uint32_t addr, float a, float b,
+                                            float c, float d,
+                                            uint32_t remote_bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "f"(a), "f"(b), "f"(c), "f"(d), "r"(remote_bar)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// S of a key tile on a CTA of a cluster of ncl CTAs, each holding a
+// partial over its slice of the head dim.  cluster_send_s: this
+// consumer's partial (thread t's float4 v at (v * 128 + t) * 16 of a
+// slot of kN * 512 bytes) goes to the same consumer of every other CTA,
+// into the receiver's slot number rank (less one past the receiver's own
+// rank) of `slots`, its bytes counted on the receiver's x_full `xbar`.
+// cluster_recv_s: once the ncl - 1 others have landed here the ncl
+// partials are added in rank order, this CTA's own at its rank, so that
+// every CTA holds the same S bit for bit: f32 addition is not
+// associative, (p0 + p1) + p2 != p0 + (p1 + p2), and an own-first sum
+// would give each CTA its own S, its own m and l, and normalise its
+// columns of a row differently.  The sum starts from 0 (0 + p0 == p0 up
+// to the sign of a zero).  A slot is stored into again only after every
+// other CTA's partial of the next tile has landed here, which each sends
+// after reading its own slots of this one.  Thread 0 arms xbar's next
+// phase when `rearm`.
+template <int kN>
+__device__ __forceinline__ void cluster_send_s(const float (&acc)[kN],
+                                               uint32_t slots, uint32_t xbar,
+                                               uint32_t rank, uint32_t ncl,
+                                               int t) {
+  constexpr uint32_t kSlot = kN * 128u * 4u;   // a partial: 64 x 2 kN f32
+  for (uint32_t p = 1; p < ncl; ++p) {
+    uint32_t peer = rank + p;
+    if (peer >= ncl) peer -= ncl;
+    const uint32_t at = slots + (rank < peer ? rank : rank - 1) * kSlot;
+    const uint32_t rslot = map_rank(at, peer);
+    const uint32_t rbar = map_rank(xbar, peer);
+#pragma unroll
+    for (int v = 0; v < kN / 4; ++v)
+      st_async_v4(rslot + (v * 128 + t) * 16, acc[4 * v], acc[4 * v + 1],
+                  acc[4 * v + 2], acc[4 * v + 3], rbar);
+  }
+}
+template <int kN>
+__device__ __forceinline__ void cluster_recv_s(float (&acc)[kN],
+                                               uint32_t slots, uint32_t xbar,
+                                               uint32_t parity, uint32_t rank,
+                                               uint32_t ncl, int t,
+                                               bool rearm) {
+  constexpr uint32_t kSlot = kN * 128u * 4u;
+  mbar_wait_cluster(xbar, parity);
+  float sum[kN];
+#pragma unroll
+  for (int i = 0; i < kN; ++i) sum[i] = 0.f;
+  for (uint32_t r = 0; r < ncl; ++r) {
+    if (r == rank) {
+#pragma unroll
+      for (int i = 0; i < kN; ++i) sum[i] += acc[i];
+    } else {
+      const uint32_t at = slots + (r < rank ? r : r - 1) * kSlot;
+#pragma unroll
+      for (int v = 0; v < kN / 4; ++v) {
+        const float4 y = ld_shared_v4(at + (v * 128 + t) * 16);
+        sum[4 * v] += y.x;
+        sum[4 * v + 1] += y.y;
+        sum[4 * v + 2] += y.z;
+        sum[4 * v + 3] += y.w;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kN; ++i) acc[i] = sum[i];
+  if (t == 0 && rearm) mbar_expect_tx(xbar, (ncl - 1) * kSlot);
+}
+// both halves in turn; with at most two CTAs (kClMax) own + other is
+// the rank order on both (a + b == b + a), added in place, with no second
+// accumulator (flash_tf32_kernel at D = 512 uses 238 of 255 registers)
+template <int kClMax, int kN>
+__device__ __forceinline__ void cluster_sum_s(float (&acc)[kN],
+                                              uint32_t slots, uint32_t xbar,
+                                              uint32_t parity, uint32_t rank,
+                                              uint32_t ncl, int t,
+                                              bool rearm) {
+  if constexpr (kClMax == 2) {
+    constexpr uint32_t kSlot = kN * 128u * 4u;
+    const uint32_t rslot = map_rank(slots, rank ^ 1u);
+    const uint32_t rbar = map_rank(xbar, rank ^ 1u);
+#pragma unroll
+    for (int v = 0; v < kN / 4; ++v)
+      st_async_v4(rslot + (v * 128 + t) * 16, acc[4 * v], acc[4 * v + 1],
+                  acc[4 * v + 2], acc[4 * v + 3], rbar);
+    mbar_wait_cluster(xbar, parity);
+#pragma unroll
+    for (int v = 0; v < kN / 4; ++v) {
+      const float4 y = ld_shared_v4(slots + (v * 128 + t) * 16);
+      acc[4 * v] += y.x;
+      acc[4 * v + 1] += y.y;
+      acc[4 * v + 2] += y.z;
+      acc[4 * v + 3] += y.w;
+    }
+    if (t == 0 && rearm) mbar_expect_tx(xbar, kSlot);
+  } else {
+    cluster_send_s(acc, slots, xbar, rank, ncl, t);
+    cluster_recv_s(acc, slots, xbar, parity, rank, ncl, t, rearm);
+  }
+}
+
+// consumer warpgroup W of flash_big16_kernel (layout Big16) or of a CTA of
+// flash_cluster16_kernel (Cl16, whose slice of the head dim is kNC chunks
+// from column col0 of a kernel width d): its O chunks and (past 256, the
+// partial of) S over its head-dim chunks, for every key tile; in a
+// cluster the partial is summed with the other CTAs' (cluster_sum_s)
+template <bool kBF16, class L, int W, int kNC>
+__device__ __forceinline__ void big16_consume(
+    uint32_t base, uint16_t* __restrict__ o, int b, int h, int heads, int q0,
+    int tn, int n_kt, int causal, float scale_log2, int d, int col0,
+    uint32_t rank, uint32_t ncl) {
   constexpr int kBN = L::kBN, kS = L::kStages;
-  constexpr int kOLo = L::o_lo(W), kNO = L::o_hi(W) - kOLo;
-  constexpr int kSLo = L::s_lo(W), kSHi = L::s_hi(W);
+  constexpr int kOLo = o_lo(L::kSplit, W, kNC);
+  constexpr int kNO = o_hi(L::kSplit, W, kNC) - kOLo;
+  constexpr int kSLo = s_lo(L::kSplit, W, kNC);
+  constexpr int kSHi = s_hi(L::kSplit, W, kNC);
   constexpr int kRow = L::kSplit ? 0 : W * 64;   // first row in the tile
   const uint32_t bar_q = base + L::kBar;
   const uint32_t sQw = base + L::kQ + kRow * kRowBytes;
@@ -758,6 +1018,16 @@ __device__ __forceinline__ void big16_consume(uint32_t base,
   float m2[2] = {-INFINITY, -INFINITY};   // running max, log2 units
   float lsum[2] = {0.f, 0.f};             // this thread's part of l
 
+  if constexpr (L::kCluster) {
+    // arm both exchange slots for tiles 0 and 1
+    if (t == 0) {
+      mbar_expect_tx(bar_q + 8u * (L::kXFull + 2 * W),
+                     (ncl - 1) * L::kXSlot);
+      if (n_kt > 1)
+        mbar_expect_tx(bar_q + 8u * (L::kXFull + 2 * W + 1),
+                       (ncl - 1) * L::kXSlot);
+    }
+  }
   mbar_wait(bar_q, 0);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int s = kt % kS;
@@ -801,6 +1071,13 @@ __device__ __forceinline__ void big16_consume(uint32_t base,
         acc_s[4 * v + 2] += x.z;
         acc_s[4 * v + 3] += x.w;
       }
+    }
+    if constexpr (L::kCluster) {
+      const int xs = 2 * W + (kt & 1);
+      cluster_sum_s<L::kCl>(acc_s,
+                            base + L::kX + xs * (L::kCl - 1) * L::kXSlot,
+                            bar_q + 8u * (L::kXFull + xs), (kt >> 1) & 1,
+                            rank, ncl, t, kt + 2 < n_kt);
     }
 
     float corr[2];
@@ -846,7 +1123,7 @@ __device__ __forceinline__ void big16_consume(uint32_t base,
     const float den = fmaxf(l, 1e-30f);
     const int row = r0 + 8 * i;
     if (row < tn) {
-      uint16_t* orow = o + (((size_t)b * tn + row) * heads + h) * D +
+      uint16_t* orow = o + (((size_t)b * tn + row) * heads + h) * d + col0 +
                        kOLo * 64 + c_lane;
 #pragma unroll
       for (int j = 0; j < kNO; ++j)
@@ -856,6 +1133,49 @@ __device__ __forceinline__ void big16_consume(uint32_t base,
               pack2<kBF16>(acc_o[j][4 * k + 2 * i] / den,
                            acc_o[j][4 * k + 2 * i + 1] / den);
     }
+  }
+}
+
+// one CTA of the 16-bit kernels with layout L over kNC chunks of the head
+// dim from column col0 (all of it but in a cluster): barriers, then the
+// producer warpgroup and the two consumers, one branch a role to the end
+// so that setmaxnreg applies; no CTA of a cluster leaves while another
+// may still reach its shared memory
+template <bool kBF16, class L, int kNC>
+__device__ __forceinline__ void big16_cta(
+    uint32_t base, const CUtensorMap* tm_q, const CUtensorMap* tm_k,
+    const CUtensorMap* tm_v, uint16_t* __restrict__ o, int b, int h,
+    int heads, int q0, int tn, int n_kt, int causal, float scale_log2, int d,
+    int col0, uint32_t rank, uint32_t ncl) {
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const uint32_t bar_q = base + L::kBar;
+  if (tid == 0) {
+    init_barriers<L>(bar_q);
+    if constexpr (L::kCluster) {
+#pragma unroll
+      for (int x = 0; x < 2 * kConsumers; ++x)
+        mbar_init(bar_q + 8u * (L::kXFull + x), 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+  }
+  // the other CTAs' barriers are initialised before anyone arrives there
+  if constexpr (L::kCluster) cluster_sync();
+  else __syncthreads();
+
+  if (wg == kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == kConsumers * 128)
+      produce<L, kNC>(base, tm_q, tm_k, tm_v, h, b, q0, n_kt, col0);
+    if constexpr (L::kCluster) cluster_sync();
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    if (wg == 0)
+      big16_consume<kBF16, L, 0, kNC>(base, o, b, h, heads, q0, tn, n_kt,
+                                      causal, scale_log2, d, col0, rank, ncl);
+    else
+      big16_consume<kBF16, L, 1, kNC>(base, o, b, h, heads, q0, tn, n_kt,
+                                      causal, scale_log2, d, col0, rank, ncl);
+    if constexpr (L::kCluster) cluster_sync();
   }
 }
 
@@ -871,29 +1191,50 @@ flash_big16_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + kSwAtom - 1) & ~(kSwAtom - 1);
 
-  const int tid = threadIdx.x, wg = tid >> 7;
   const int qt = n_qt - 1 - (int)(blockIdx.x / (unsigned)bh_count);
   const int bh = (int)(blockIdx.x % (unsigned)bh_count);
   const int b = bh / heads, h = bh % heads, q0 = qt * L::kBQ;
   int n_kt = (tn + L::kBN - 1) / L::kBN;
   if (causal) n_kt = min(n_kt, (min(q0 + L::kBQ, tn) - 1) / L::kBN + 1);
+  big16_cta<kBF16, L, L::kC>(base, &tm_q, &tm_k, &tm_v, o, b, h, heads, q0,
+                             tn, n_kt, causal, scale_log2, D, 0, 0, 1);
+}
 
-  if (tid == 0) init_barriers<L>(base + L::kBar);
-  __syncthreads();
+// kernel widths 576 .. kReach16 (a multiple of 64): a cluster of ncl CTAs
+// a query tile (cudaLaunchKernelEx sets it; consecutive blocks), CTA rank
+// holding chunks [c0, c0 + nc) of the C = d/64 (the first C % ncl CTAs
+// one more than the rest), 3 or 4 of them (the launch takes ncl =
+// ceil(C / 4))
+template <bool kBF16>
+__global__ void __launch_bounds__(kThreads16, 1)
+flash_cluster16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       uint16_t* __restrict__ o, int tn, int heads,
+                       int bh_count, int n_qt, int causal, float scale_log2,
+                       int d) {
+  using L = Cl16;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + kSwAtom - 1) & ~(kSwAtom - 1);
 
-  if (wg == kConsumers) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (tid == kConsumers * 128)
-      produce<L>(base, &tm_q, &tm_k, &tm_v, h, b, q0, n_kt);
-  } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    if (wg == 0)
-      big16_consume<kBF16, D, 0>(base, o, b, h, heads, q0, tn, n_kt, causal,
-                                 scale_log2);
-    else
-      big16_consume<kBF16, D, 1>(base, o, b, h, heads, q0, tn, n_kt, causal,
-                                 scale_log2);
-  }
+  const uint32_t rank = cluster_rank(), ncl = cluster_size();
+  const int tile = (int)(blockIdx.x / ncl);
+  const int qt = n_qt - 1 - tile / bh_count;
+  const int bh = tile % bh_count;
+  const int b = bh / heads, h = bh % heads, q0 = qt * L::kBQ;
+  const int c = d / 64, small = c / (int)ncl, extra = c % (int)ncl;
+  const int col0 = 64 * ((int)rank * small + min((int)rank, extra));
+  int n_kt = (tn + L::kBN - 1) / L::kBN;
+  if (causal) n_kt = min(n_kt, (min(q0 + L::kBQ, tn) - 1) / L::kBN + 1);
+  if (small + ((int)rank < extra) == L::kBoxes)
+    big16_cta<kBF16, L, L::kBoxes>(base, &tm_q, &tm_k, &tm_v, o, b, h, heads,
+                                   q0, tn, n_kt, causal, scale_log2, d, col0,
+                                   rank, ncl);
+  else
+    big16_cta<kBF16, L, L::kBoxes - 1>(base, &tm_q, &tm_k, &tm_v, o, b, h,
+                                       heads, q0, tn, n_kt, causal,
+                                       scale_log2, d, col0, rank, ncl);
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -979,12 +1320,63 @@ int launch_big(const void* q, const void* k, const void* v, void* o, int b,
                               tn, h, D, kBF16, causal, scale, stream);
 }
 
+// a kernel over a thread-block cluster of ncl CTAs a query tile (ncl
+// consecutive blocks of gridDim.x); returns the first CUDA error
+template <class Kernel, class... Args>
+int launch_cluster(Kernel kernel, int n_blocks, int threads, uint32_t smem,
+                   int ncl, cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)n_blocks, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ncl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = ncl > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// CTAs a query tile of flash_cluster16_kernel at kernel width d: the C =
+// d/64 chunks over as few CTAs as hold at most 4 each
+constexpr int cl16_ctas(int d) { return (d / 64 + 3) / 4; }
+
+template <bool kBF16>
+int launch_cl16(const void* q, const void* k, const void* v, void* o, int b,
+                int tn, int h, int d, int causal, float scale,
+                cudaStream_t stream) {
+  using L = Cl16;
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, b, tn, h, d, kBF16, L::kBQ) ||
+      !make_map(&mk, k, b, tn, h, d, kBF16, L::kBN) ||
+      !make_map(&mv, v, b, tn, h, d, kBF16, L::kBN))
+    return (int)cudaErrorInvalidValue;
+  const int n_qt = (tn + L::kBQ - 1) / L::kBQ, ncl = cl16_ctas(d);
+  const long long grid = (long long)n_qt * b * h * ncl;
+  if (grid > INT_MAX) return (int)cudaErrorInvalidValue;
+  return launch_cluster(flash_cluster16_kernel<kBF16>, (int)grid, kThreads16,
+                        L::kBytes, ncl, stream, mq, mk, mv, (uint16_t*)o, tn,
+                        h, b * h, n_qt, causal, scale * 1.4426950408889634f,
+                        d);
+}
+
 // every 16-bit width: 64, 128 (flash_wgmma_kernel), 256 .. 512
-// (flash_big16_kernel); any other width is refused
+// (flash_big16_kernel), 576 .. kReach16 (flash_cluster16_kernel); any
+// other width is refused
 template <bool kBF16>
 int launch_any16(const void* q, const void* k, const void* v, void* o, int b,
                  int t, int h, int d, int causal, float scale,
                  cudaStream_t st) {
+  if (d > 512 && d <= kReach16 && d % 64 == 0)
+    return launch_cl16<kBF16>(q, k, v, o, b, t, h, d, causal, scale, st);
   switch (d) {
     case 64: return launch16<kBF16, 64>(q, k, v, o, b, t, h, causal, scale, st);
     case 128: return launch16<kBF16, 128>(q, k, v, o, b, t, h, causal, scale, st);
@@ -1004,48 +1396,49 @@ int launch_any16(const void* q, const void* k, const void* v, void* o, int b,
 constexpr uint32_t kTf32Mask = 0xffffe000u;  // the bits a TF32 value keeps
 constexpr int kConverters = 96;  // producer warps 1-3 build the planes
 
-// flash_tf32_kernel's layout at kernel width D (64, 128, or a multiple of
-// 64 from 256 to 512).  The planes of a key tile, two stages of each: K's
-// hi plane (keys x head dim, boxes of 32 columns, the low 13 bits
-// cleared), K's lo plane in the same layout, and V's hi and lo planes
-// transposed (head dim x keys, keys contiguous, in the permuted order of
-// the P fragment).  TMA lands K and V raw in rings of kKS and kVS slots,
-// and the converters build the planes from them, so the copies run ahead
-// of the consumers; with kKS = 0 (D = 128, 448, 512, where two K slots do
-// not fit) K lands in its hi plane and is split in place.
-template <int D>
-struct Tf32 {
-  static constexpr int kCl = D > 128 ? 2 : 1;        // CTAs a query tile
-  static constexpr int kDH = D / kCl;                // head-dim columns a CTA
-  // consumer warpgroups, 64 query rows each
-  static constexpr int kCons = kCl == 1 || kDH <= 160 ? 2 : 1;
+// flash_tf32_kernel's and flash_cluster32_kernel's layouts: a CTA holds
+// at most kW head-dim columns (its slice of a cluster of up to kCl_ CTAs a
+// query tile) and kCons_ consumer warpgroups of 64 query rows; key tiles
+// of kBN0 where it is given, else 32 where they fit, else 16.  The planes
+// of a key tile, two stages of each: K's hi plane (keys x head dim, boxes
+// of 32 columns, the low 13 bits cleared), K's lo plane in the same
+// layout, and V's hi and lo planes transposed (head dim x keys, keys
+// contiguous, in the permuted order of the P fragment).  TMA lands K and
+// V raw in rings of kKS and kVS slots, and the converters build the
+// planes from them, so the copies run ahead of the consumers; with kKS =
+// 0 (where two K slots do not fit) K lands in its hi plane and is split
+// in place.  A CTA whose slice is narrower than kW (Tf32Slice) uses the
+// first part of each region.
+template <int kW, int kCl_, int kCons_, int kBN0 = 0>
+struct Tf32L {
+  static constexpr int kCl = kCl_;                   // CTAs a query tile
+  static constexpr int kDH = kW;                     // head-dim columns a CTA
+  static constexpr int kCons = kCons_;
   static constexpr int kThreads = (kCons + 1) * 128;
   static constexpr int kBQ = 64 * kCons;             // query rows a CTA
   static constexpr int kBars = 21;
   // shared memory at key tiles of bn with ks raw K and vs raw V slots
   static constexpr uint32_t bytes_for(int bn, int ks, int vs) {
     return kDH / 32 * kBQ * 128u + (8u + ks + vs) * bn * kDH * 4u +
-           (kCl > 1 ? kCons * 2u * 64u * bn * 4u : 0u) + 8u * kBars +
-           kSwAtom;
+           (kCl > 1 ? kCons * 2u * (kCl - 1) * 64u * bn * 4u : 0u) +
+           8u * kBars + kSwAtom;
   }
   static constexpr int kBN =
-      D == 64 ? 64 : bytes_for(32, 0, 1) <= kSmemMax ? 32 : 16;
+      kBN0 ? kBN0 : bytes_for(32, 0, 1) <= kSmemMax ? 32 : 16;
   static constexpr int kKS = bytes_for(kBN, 2, 2) <= kSmemMax ? 2 : 0;
   static constexpr int kVS = bytes_for(kBN, kKS, 2) <= kSmemMax ? 2 : 1;
   static constexpr int kBoxes = kDH / 32;            // 32-column TMA boxes
-  // O columns a wgmma
-  static constexpr int kOC = kDH % 128 == 0 ? 128 : kDH % 64 == 0 ? 64 : 32;
-  static constexpr int kNO = kDH / kOC;
   static constexpr uint32_t kQBox = kBQ * 128u;
   static constexpr uint32_t kKBox = kBN * 128u;
   static constexpr uint32_t kPlane = kBoxes * kKBox;   // one tile of K or V
   // V^T: rows of up to 32 keys (128-byte swizzle), 16 keys at kBN = 16
   // (64-byte swizzle); kBN = 64 takes two such boxes
   static constexpr uint32_t kVtRow = (kBN < 32 ? kBN : 32) * 4u;
-  static constexpr uint32_t kVtBox = kDH * kVtRow;
   static constexpr uint32_t kXSlot = 64u * kBN * 4u;   // a partial S
-  // two slots a consumer warpgroup
-  static constexpr uint32_t kXBytes = kCl > 1 ? kCons * 2 * kXSlot : 0;
+  // two slots a consumer warpgroup for each other CTA: consumer w's
+  // slots of buffer x at kX + (2 w + x) (kCl - 1) kXSlot
+  static constexpr uint32_t kXBytes =
+      kCl > 1 ? kCons * 2 * (kCl - 1) * kXSlot : 0;
   static constexpr uint32_t kQ = 0;
   static constexpr uint32_t kKhi = kQ + kBoxes * kQBox;
   static constexpr uint32_t kKlo = kKhi + 2 * kPlane;
@@ -1056,17 +1449,42 @@ struct Tf32 {
   static constexpr uint32_t kX = kVraw + kVS * kPlane;
   static constexpr uint32_t kBar = kX + kXBytes;
   static constexpr uint32_t kBytes = kBar + 8 * kBars + kSwAtom;
-  static_assert(D == 64 || D == 128 || (D % 64 == 0 && D >= 256 && D <= 512),
-                "kernel width");
+  static_assert(kDH % 32 == 0 && kCl >= 1 && kCl <= 8, "slice");
   static_assert(kBytes <= kSmemMax && kBytes == bytes_for(kBN, kKS, kVS),
                 "shared memory");
+};
+
+// flash_tf32_kernel at kernel width D (64, 128, or a multiple of 64 from
+// 256 to 512): one CTA up to 128, past it a cluster of two, each half of
+// the head dim; two consumers where a CTA holds at most 160 columns
+template <int D>
+using Tf32 = Tf32L<D <= 128 ? D : D / 2, D <= 128 ? 1 : 2,
+                   D <= 128 || D / 2 <= 160 ? 2 : 1, D == 64 ? 64 : 0>;
+
+// flash_cluster32_kernel, kernel widths 576 .. kReach32: a cluster of
+// ceil(D / 192) CTAs a query tile, each with 160 or 192 columns (the D/32
+// boxes split as evenly as they go), one consumer of 64 rows
+constexpr int kCl32 = 8;                   // the most CTAs of a cluster
+constexpr int kReach32 = 192 * kCl32;      // the widest D: 1536
+using Tf32C = Tf32L<192, kCl32, 1>;
+
+// what a CTA's slice of kDH columns (<= L::kDH) spans of layout L
+template <class L, int kDH>
+struct Tf32Slice {
+  static constexpr int kBoxes = kDH / 32;
+  static constexpr uint32_t kPlane = kBoxes * L::kKBox;   // bytes a tile
+  static constexpr uint32_t kVtBox = kDH * L::kVtRow;
+  // O columns a wgmma
+  static constexpr int kOC = kDH % 128 == 0 ? 128 : kDH % 64 == 0 ? 64 : 32;
+  static constexpr int kNO = kDH / kOC;
+  static_assert(kDH % 32 == 0 && kDH <= L::kDH, "slice");
 };
 
 // the barriers after Tf32::kBar, 8 bytes each: q_full; per stage s of the
 // planes k_ready (K's planes built), v_ready (V's), k_free (S done with
 // K's planes), vt_free (P V done with V's); per raw slot k_full and v_full
 // (landed; k_full per stage when kKS = 0), kraw_free and vraw_free
-// (read); x_full[2 w + slot], the partial S the other CTA's consumer w
+// (read); x_full[2 w + slot], the partials S the other CTAs' consumer w
 // wrote here for consumer w
 enum : int {
   kQFull = 0, kKFull = 1, kKReady = 3, kVReady = 5, kKFree = 7,
@@ -1106,51 +1524,6 @@ __device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release;\n"
-      "barrier.cluster.wait.acquire;\n" ::: "memory");
-}
-// the address of the same shared-memory offset in CTA `rank`
-__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(out)
-               : "r"(addr), "r"(rank));
-  return out;
-}
-// 16 bytes into another CTA's shared memory; the store completes its
-// bytes on that CTA's mbarrier (no fence: the barrier's transaction count
-// says when every store of a phase has landed)
-__device__ __forceinline__ void st_async_v4(uint32_t addr, float a, float b,
-                                            float c, float d,
-                                            uint32_t remote_bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
-      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
-      "f"(a), "f"(b), "f"(c), "f"(d), "r"(remote_bar)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
-                                                  uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
 // x = hi + lo + (|x| 2**-22 at most): hi is x with its low 13 bits
 // cleared, lo the rest (exact in f32) rounded to TF32, ties away
 __device__ __forceinline__ uint32_t tf32_hi(float x) {
@@ -1262,20 +1635,21 @@ __device__ __forceinline__ void softmax32_tile(float (&s)[kN / 2],
       }
 }
 
-// the TMA thread: Q once, then per key tile V and K into their raw slots
-template <int D>
+// the TMA thread: Q once, then per key tile V and K into their raw slots;
+// this CTA's kDH columns from col0
+template <class L, int kDH>
 __device__ __forceinline__ void tf32_produce(uint32_t base,
                                              const CUtensorMap* tm_q,
                                              const CUtensorMap* tm_k,
                                              const CUtensorMap* tm_v, int h,
                                              int b, int q0, int col0,
                                              int n_kt) {
-  using L = Tf32<D>;
+  using Sl = Tf32Slice<L, kDH>;
   const uint32_t bar0 = base + L::kBar;
   const uint32_t qf = bar32(bar0, kQFull, 0);
-  mbar_expect_tx(qf, L::kBoxes * L::kQBox);
+  mbar_expect_tx(qf, Sl::kBoxes * L::kQBox);
 #pragma unroll
-  for (int x = 0; x < L::kBoxes; ++x)
+  for (int x = 0; x < Sl::kBoxes; ++x)
     tma_load_4d(base + L::kQ + x * L::kQBox, tm_q, qf, col0 + 32 * x, h, q0,
                 b);
   for (int kt = 0; kt < n_kt; ++kt) {
@@ -1283,9 +1657,9 @@ __device__ __forceinline__ void tf32_produce(uint32_t base,
     const int vs = kt % L::kVS, vu = kt / L::kVS;
     if (vu > 0) mbar_wait(bar32(bar0, kVRawFree, vs), (vu - 1) & 1);
     const uint32_t vf = bar32(bar0, kVFull, vs);
-    mbar_expect_tx(vf, L::kPlane);
+    mbar_expect_tx(vf, Sl::kPlane);
 #pragma unroll
-    for (int x = 0; x < L::kBoxes; ++x)
+    for (int x = 0; x < Sl::kBoxes; ++x)
       tma_load_4d(base + L::kVraw + vs * L::kPlane + x * L::kKBox, tm_v, vf,
                   col0 + 32 * x, h, kt * L::kBN, b);
     // K: into its raw slot, or with kKS = 0 into the stage's hi plane
@@ -1302,9 +1676,9 @@ __device__ __forceinline__ void tf32_produce(uint32_t base,
       dst = base + L::kKhi + s * L::kPlane;
     }
     const uint32_t kf = bar32(bar0, kKFull, ks);
-    mbar_expect_tx(kf, L::kPlane);
+    mbar_expect_tx(kf, Sl::kPlane);
 #pragma unroll
-    for (int x = 0; x < L::kBoxes; ++x)
+    for (int x = 0; x < Sl::kBoxes; ++x)
       tma_load_4d(dst + x * L::kKBox, tm_k, kf, col0 + 32 * x, h,
                   kt * L::kBN, b);
   }
@@ -1312,10 +1686,10 @@ __device__ __forceinline__ void tf32_produce(uint32_t base,
 
 // converter ct (0 .. 95): K's hi and lo planes from its raw slot (or in
 // place); V transposed into its hi and lo planes
-template <int D>
+template <class L, int kDH>
 __device__ __forceinline__ void tf32_convert(uint32_t base, int ct,
                                              int n_kt) {
-  using L = Tf32<D>;
+  using Sl = Tf32Slice<L, kDH>;
   constexpr int kC = L::kBN / 4;          // 4-key chunks of a V^T row
   const uint32_t bar0 = base + L::kBar;
   for (int kt = 0; kt < n_kt; ++kt) {
@@ -1334,7 +1708,7 @@ __device__ __forceinline__ void tf32_convert(uint32_t base, int ct,
       // TMA thread waited on k_free before the copy)
       mbar_wait(bar32(bar0, kKFull, s), u & 1);
     }
-    for (int i = ct; i < (int)(L::kPlane / 16); i += kConverters) {
+    for (int i = ct; i < (int)(Sl::kPlane / 16); i += kConverters) {
       const float4 x = ld_shared_v4(kraw + 16 * i);
       const uint32_t h0 = tf32_hi(x.x), h1 = tf32_hi(x.y);
       const uint32_t h2 = tf32_hi(x.z), h3 = tf32_hi(x.w);
@@ -1358,7 +1732,7 @@ __device__ __forceinline__ void tf32_convert(uint32_t base, int ct,
     // block i: logical keys 4c .. 4c + 3 (c = i % kC) x head-dim rows n ..
     // n + 3.  Logical key 8q + l holds physical key 8q + 2l (l < 4) or
     // 8q + 2(l - 4) + 1: the order of the P fragment (see the note)
-    for (int i = ct; i < kC * (L::kDH / 4); i += kConverters) {
+    for (int i = ct; i < kC * (kDH / 4); i += kConverters) {
       const int c = i % kC, n = 4 * (i / kC);
       const int j0 = 8 * (c >> 1) + (c & 1);
       float m[4][4];
@@ -1376,7 +1750,7 @@ __device__ __forceinline__ void tf32_convert(uint32_t base, int ct,
       for (int f = 0; f < 4; ++f) {
         const int row = n + f;
         const int swz = L::kVtRow == 128 ? (row & 7) : ((row >> 1) & 3);
-        const uint32_t off = (c >> 3) * L::kVtBox + row * L::kVtRow +
+        const uint32_t off = (c >> 3) * Sl::kVtBox + row * L::kVtRow +
                              (((c & 7) ^ swz) << 4);
         uint32_t hi[4];
 #pragma unroll
@@ -1397,15 +1771,14 @@ __device__ __forceinline__ void tf32_convert(uint32_t base, int ct,
 }
 
 // consumer warpgroup wg: 64 query rows, this CTA's kDH columns of O
-template <int D>
-__device__ __forceinline__ void tf32_consume(uint32_t base,
-                                             float* __restrict__ o, int wg,
-                                             uint32_t rank, int b, int h,
-                                             int heads, int q0, int col0,
-                                             int tn, int n_kt, int causal,
-                                             float scale) {
-  using L = Tf32<D>;
-  constexpr int kBN = L::kBN, kNO = L::kNO, kOC = L::kOC;
+// (kernel width d, its columns from col0), of a cluster of ncl CTAs
+template <class L, int kDH>
+__device__ __forceinline__ void tf32_consume(
+    uint32_t base, float* __restrict__ o, int wg, uint32_t rank,
+    uint32_t ncl, int b, int h, int heads, int q0, int col0, int tn,
+    int n_kt, int causal, float scale, int d) {
+  using Sl = Tf32Slice<L, kDH>;
+  constexpr int kBN = L::kBN, kNO = Sl::kNO, kOC = Sl::kOC;
   const uint32_t bar0 = base + L::kBar;
   const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -1425,10 +1798,69 @@ __device__ __forceinline__ void tf32_consume(uint32_t base,
   if constexpr (L::kCl > 1) {
     // arm both exchange slots for tiles 0 and 1
     if (t == 0) {
-      mbar_expect_tx(bar32(bar0, kXFull, 2 * wg), L::kXSlot);
-      if (n_kt > 1) mbar_expect_tx(bar32(bar0, kXFull, 2 * wg + 1), L::kXSlot);
+      mbar_expect_tx(bar32(bar0, kXFull, 2 * wg), (ncl - 1) * L::kXSlot);
+      if (n_kt > 1)
+        mbar_expect_tx(bar32(bar0, kXFull, 2 * wg + 1),
+                       (ncl - 1) * L::kXSlot);
     }
   }
+  // P of a key tile (the softmax's p split into TF32 hi and lo) and its
+  // corr; past two CTAs (kPipe) they carry over to the next tile, whose
+  // partials' exchange P V of this one overlaps.  flash_tf32_kernel keeps
+  // P V after the softmax: carried over, P and corr would add 18 live
+  // registers where D = 512 uses 238 of 255
+  constexpr bool kPipe = L::kCl > 2;
+  uint32_t ph[kBN / 2], pl[kBN / 2];
+  float corr[2];
+  // O = O corr + P V of key tile j.  The accumulator holds keys 2t and
+  // 2t + 1 of each 8-key slice where the A fragment wants t and t + 4,
+  // so the fragment is taken as it lies and V^T's keys are written in
+  // the matching order (logical 0..7 = physical 0, 2, 4, 6, 1, 3, 5, 7).
+  // Each O chunk's P V sums into its own accumulator, small products
+  // first, folded into O by one f32 fma
+  auto p_v = [&](int j) {
+    const uint32_t vthi = base + L::kVthi + (j & 1) * L::kPlane;
+    const uint32_t vtlo = base + L::kVtlo + (j & 1) * L::kPlane;
+    mbar_wait(bar32(bar0, kVReady, j & 1), (j >> 1) & 1);
+#pragma unroll
+    for (int c = 0; c < kNO; ++c) {
+      float pv[kOC / 2];   // unwritten: first product scale-d 0, as part
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 8; ++kk) {
+        const uint32_t a_hi[4] = {ph[4 * kk], ph[4 * kk + 2], ph[4 * kk + 1],
+                                  ph[4 * kk + 3]};
+        const uint32_t a_lo[4] = {pl[4 * kk], pl[4 * kk + 2], pl[4 * kk + 1],
+                                  pl[4 * kk + 3]};
+        const uint32_t off = (kk >> 2) * Sl::kVtBox + (kk & 3) * 32 +
+                             c * kOC * L::kVtRow;
+        wgmma_tf32(pv, a_hi, desc_kmajor(vtlo + off, L::kVtRow), kk > 0);
+        wgmma_tf32(pv, a_lo, desc_kmajor(vthi + off, L::kVtRow), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kBN / 8; ++kk) {
+        const uint32_t a_hi[4] = {ph[4 * kk], ph[4 * kk + 2], ph[4 * kk + 1],
+                                  ph[4 * kk + 3]};
+        const uint32_t off = (kk >> 2) * Sl::kVtBox + (kk & 3) * 32 +
+                             c * kOC * L::kVtRow;
+        wgmma_tf32(pv, a_hi, desc_kmajor(vthi + off, L::kVtRow), 1);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(pv);
+#pragma unroll
+      for (int k = 0; k < kOC / 8; ++k)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            acc_o[c][4 * k + 2 * i + e] =
+                fmaf(acc_o[c][4 * k + 2 * i + e], corr[i],
+                     pv[4 * k + 2 * i + e]);
+    }
+    mbar_arrive(bar32(bar0, kVtFree, j & 1));
+  };
+
   mbar_wait(bar32(bar0, kQFull, 0), 0);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int s = kt & 1;
@@ -1449,7 +1881,7 @@ __device__ __forceinline__ void tf32_consume(uint32_t base,
     float acc_s[kBN / 2], part[kBN / 2];
     mbar_wait(bar32(bar0, kKReady, s), par);
 #pragma unroll
-    for (int x = 0; x < L::kBoxes; ++x) {
+    for (int x = 0; x < Sl::kBoxes; ++x) {
       uint32_t ah[4][4], al[4][4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -1486,94 +1918,35 @@ __device__ __forceinline__ void tf32_consume(uint32_t base,
     }
     mbar_arrive(bar32(bar0, kKFree, s));
 
-    if constexpr (L::kCl > 1) {
-      // S = own partial + the other CTA's: store ours into its slot (st.async,
-      // counted on its x_full), then read the one it stored here (f32
-      // addition commutes: both CTAs hold the same S).  Two slots: the
-      // other CTA stores into slot kt & 1 again only after all of this
-      // CTA's partial of tile kt + 1 has landed there, which this CTA
-      // sends after reading slot kt & 1; thread 0 arms the slot's next
-      // phase once this one is read.
+    if constexpr (kPipe) {
+      // S = the sum of the cluster's partials in rank order; P V of tile
+      // kt - 1 runs while those of tile kt are in flight
       const int xs = 2 * wg + (kt & 1);
-      const uint32_t slot = base + L::kX + xs * L::kXSlot;
+      const uint32_t slots = base + L::kX + xs * (L::kCl - 1) * L::kXSlot;
       const uint32_t xbar = bar32(bar0, kXFull, xs);
-      const uint32_t peer = rank ^ 1u;
-      const uint32_t rslot = map_rank(slot, peer);
-      const uint32_t rbar = map_rank(xbar, peer);
-#pragma unroll
-      for (int v = 0; v < kBN / 8; ++v)
-        st_async_v4(rslot + (v * 128 + t) * 16, acc_s[4 * v],
-                    acc_s[4 * v + 1], acc_s[4 * v + 2], acc_s[4 * v + 3],
-                    rbar);
-      mbar_wait_cluster(xbar, (kt >> 1) & 1);
-#pragma unroll
-      for (int v = 0; v < kBN / 8; ++v) {
-        const float4 y = ld_shared_v4(slot + (v * 128 + t) * 16);
-        acc_s[4 * v] += y.x;
-        acc_s[4 * v + 1] += y.y;
-        acc_s[4 * v + 2] += y.z;
-        acc_s[4 * v + 3] += y.w;
-      }
-      if (t == 0 && kt + 2 < n_kt) mbar_expect_tx(xbar, L::kXSlot);
+      cluster_send_s(acc_s, slots, xbar, rank, ncl, t);
+      if (kt > 0) p_v(kt - 1);
+      cluster_recv_s(acc_s, slots, xbar, (kt >> 1) & 1, rank, ncl, t,
+                     kt + 2 < n_kt);
+    } else if constexpr (L::kCl > 1) {
+      // S = own partial + the other CTA's
+      const int xs = 2 * wg + (kt & 1);
+      cluster_sum_s<L::kCl>(acc_s,
+                            base + L::kX + xs * (L::kCl - 1) * L::kXSlot,
+                            bar32(bar0, kXFull, xs), (kt >> 1) & 1, rank,
+                            ncl, t, kt + 2 < n_kt);
     }
 
-    float corr[2];
     softmax32_tile<kBN>(acc_s, m2, lsum, corr, kt * kBN, row0, r0, 2 * tq,
                         tn, causal);
-
-    // O = O corr + P V: P split in registers.  The accumulator holds keys
-    // 2t and 2t + 1 of each 8-key slice where the A fragment wants t and
-    // t + 4, so the fragment is taken as it lies and V^T's keys are
-    // written in the matching order (logical 0..7 = physical 0, 2, 4, 6,
-    // 1, 3, 5, 7).  Each O chunk's P V sums into its own accumulator,
-    // small products first, folded into O by one f32 fma
-    uint32_t ph[kBN / 2], pl[kBN / 2];
 #pragma unroll
     for (int i = 0; i < kBN / 2; ++i) {
       ph[i] = tf32_hi(acc_s[i]);
       pl[i] = tf32_lo(acc_s[i], ph[i]);
     }
-    const uint32_t vthi = base + L::kVthi + s * L::kPlane;
-    const uint32_t vtlo = base + L::kVtlo + s * L::kPlane;
-    mbar_wait(bar32(bar0, kVReady, s), par);
-#pragma unroll
-    for (int j = 0; j < kNO; ++j) {
-      float pv[kOC / 2];   // unwritten: first product scale-d 0, as part
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBN / 8; ++kk) {
-        const uint32_t a_hi[4] = {ph[4 * kk], ph[4 * kk + 2], ph[4 * kk + 1],
-                                  ph[4 * kk + 3]};
-        const uint32_t a_lo[4] = {pl[4 * kk], pl[4 * kk + 2], pl[4 * kk + 1],
-                                  pl[4 * kk + 3]};
-        const uint32_t off = (kk >> 2) * L::kVtBox + (kk & 3) * 32 +
-                             j * kOC * L::kVtRow;
-        wgmma_tf32(pv, a_hi, desc_kmajor(vtlo + off, L::kVtRow), kk > 0);
-        wgmma_tf32(pv, a_lo, desc_kmajor(vthi + off, L::kVtRow), 1);
-      }
-#pragma unroll
-      for (int kk = 0; kk < kBN / 8; ++kk) {
-        const uint32_t a_hi[4] = {ph[4 * kk], ph[4 * kk + 2], ph[4 * kk + 1],
-                                  ph[4 * kk + 3]};
-        const uint32_t off = (kk >> 2) * L::kVtBox + (kk & 3) * 32 +
-                             j * kOC * L::kVtRow;
-        wgmma_tf32(pv, a_hi, desc_kmajor(vthi + off, L::kVtRow), 1);
-      }
-      wgmma_commit();
-      wgmma_wait0();
-      fence_regs(pv);
-#pragma unroll
-      for (int k = 0; k < kOC / 8; ++k)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            acc_o[j][4 * k + 2 * i + e] =
-                fmaf(acc_o[j][4 * k + 2 * i + e], corr[i],
-                     pv[4 * k + 2 * i + e]);
-    }
-    mbar_arrive(bar32(bar0, kVtFree, s));
+    if constexpr (!kPipe) p_v(kt);
   }
+  if constexpr (kPipe) p_v(n_kt - 1);
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -1584,7 +1957,7 @@ __device__ __forceinline__ void tf32_consume(uint32_t base,
     const int row = r0 + 8 * i;
     if (row < tn) {
       float* orow =
-          o + (((size_t)b * tn + row) * heads + h) * D + col0 + 2 * tq;
+          o + (((size_t)b * tn + row) * heads + h) * d + col0 + 2 * tq;
 #pragma unroll
       for (int j = 0; j < kNO; ++j)
 #pragma unroll
@@ -1593,6 +1966,40 @@ __device__ __forceinline__ void tf32_consume(uint32_t base,
               make_float2(acc_o[j][4 * k + 2 * i] / den,
                           acc_o[j][4 * k + 2 * i + 1] / den);
     }
+  }
+}
+
+// one CTA of the f32 kernels with layout L over a slice of kDH columns
+// from col0: barriers, then one branch a role to the end, so setmaxnreg
+// applies; no CTA of a cluster leaves while another may still reach its
+// shared memory
+template <class L, int kDH>
+__device__ __forceinline__ void tf32_cta(
+    uint32_t base, const CUtensorMap* tm_q, const CUtensorMap* tm_k,
+    const CUtensorMap* tm_v, float* __restrict__ o, uint32_t rank,
+    uint32_t ncl, int b, int h, int heads, int q0, int col0, int tn,
+    int n_kt, int causal, float scale, int d) {
+  const int tid = threadIdx.x, wg = tid >> 7;
+  if (tid == 0) init_tf32_barriers<L>(base + L::kBar);
+  // the other CTAs' barriers are initialised before anyone arrives there
+  if constexpr (L::kCl > 1) cluster_sync();
+  else __syncthreads();
+
+  if (wg == L::kCons) {
+    if constexpr (L::kCons == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    const int pt = tid - L::kCons * 128;
+    if (pt == 0)
+      tf32_produce<L, kDH>(base, tm_q, tm_k, tm_v, h, b, q0, col0, n_kt);
+    else if (pt >= 32)
+      tf32_convert<L, kDH>(base, pt - 32, n_kt);
+    if constexpr (L::kCl > 1) cluster_sync();
+  } else {
+    if constexpr (L::kCons == 2)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    tf32_consume<L, kDH>(base, o, wg, rank, ncl, b, h, heads, q0, col0, tn,
+                         n_kt, causal, scale, d);
+    if constexpr (L::kCl > 1) cluster_sync();
   }
 }
 
@@ -1608,7 +2015,6 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + kSwAtom - 1) & ~(kSwAtom - 1);
 
-  const int tid = threadIdx.x, wg = tid >> 7;
   uint32_t rank = 0;
   if constexpr (L::kCl > 1) rank = cluster_rank();
   const int tile = (int)(blockIdx.x / (unsigned)L::kCl);
@@ -1618,30 +2024,41 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int col0 = (int)rank * L::kDH;
   int n_kt = (tn + L::kBN - 1) / L::kBN;
   if (causal) n_kt = min(n_kt, (min(q0 + L::kBQ, tn) - 1) / L::kBN + 1);
+  tf32_cta<L, L::kDH>(base, &tm_q, &tm_k, &tm_v, o, rank, L::kCl, b, h,
+                      heads, q0, col0, tn, n_kt, causal, scale, D);
+}
 
-  if (tid == 0) init_tf32_barriers<L>(base + L::kBar);
-  // the other CTA's barriers are initialised before anyone arrives there
-  if constexpr (L::kCl > 1) cluster_sync();
-  else __syncthreads();
+// kernel widths 576 .. kReach32 (a multiple of 64): a cluster of ncl
+// CTAs a query tile (cudaLaunchKernelEx sets it; consecutive blocks), CTA
+// rank holding 32-column boxes [x0, x0 + nx) of the d/32 (the first ones
+// one more than the rest), 5 or 6 of them (the launch takes ncl =
+// ceil(d / 192))
+__global__ void __launch_bounds__(Tf32C::kThreads, 1)
+flash_cluster32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       float* __restrict__ o, int tn, int heads, int bh_count,
+                       int n_qt, int causal, float scale, int d) {
+  using L = Tf32C;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + kSwAtom - 1) & ~(kSwAtom - 1);
 
-  // one branch a role to the end, so setmaxnreg applies; no CTA of a
-  // cluster leaves while the other may still reach its shared memory
-  if (wg == L::kCons) {
-    if constexpr (L::kCons == 2)
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
-    const int pt = tid - L::kCons * 128;
-    if (pt == 0)
-      tf32_produce<D>(base, &tm_q, &tm_k, &tm_v, h, b, q0, col0, n_kt);
-    else if (pt >= 32)
-      tf32_convert<D>(base, pt - 32, n_kt);
-    if constexpr (L::kCl > 1) cluster_sync();
-  } else {
-    if constexpr (L::kCons == 2)
-      asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
-    tf32_consume<D>(base, o, wg, rank, b, h, heads, q0, col0, tn, n_kt,
-                    causal, scale);
-    if constexpr (L::kCl > 1) cluster_sync();
-  }
+  const uint32_t rank = cluster_rank(), ncl = cluster_size();
+  const int tile = (int)(blockIdx.x / ncl);
+  const int qt = n_qt - 1 - tile / bh_count;
+  const int bh = tile % bh_count;
+  const int b = bh / heads, h = bh % heads, q0 = qt * L::kBQ;
+  const int nx = d / 32, small = nx / (int)ncl, extra = nx % (int)ncl;
+  const int col0 = 32 * ((int)rank * small + min((int)rank, extra));
+  int n_kt = (tn + L::kBN - 1) / L::kBN;
+  if (causal) n_kt = min(n_kt, (min(q0 + L::kBQ, tn) - 1) / L::kBN + 1);
+  if (small + ((int)rank < extra) == L::kBoxes)
+    tf32_cta<L, L::kDH>(base, &tm_q, &tm_k, &tm_v, o, rank, ncl, b, h, heads,
+                        q0, col0, tn, n_kt, causal, scale, d);
+  else
+    tf32_cta<L, L::kDH - 32>(base, &tm_q, &tm_k, &tm_v, o, rank, ncl, b, h,
+                             heads, q0, col0, tn, n_kt, causal, scale, d);
 }
 
 // (B, T, H, D) f32 tensor as a 4-d map (dims D, H, T, B), boxes of 32 x 1
@@ -1674,32 +2091,39 @@ int launch_tf32(const void* q, const void* k, const void* v, void* o, int b,
   const int n_qt = (tn + L::kBQ - 1) / L::kBQ;
   const long long grid = (long long)n_qt * b * h * L::kCl;
   if (grid > INT_MAX) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L::kBytes);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)grid, 1, 1);
-  cfg.blockDim = dim3(L::kThreads, 1, 1);
-  cfg.dynamicSmemBytes = L::kBytes;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = L::kCl;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = L::kCl > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, flash_tf32_kernel<D>, mq, mk, mv, (float*)o,
-                           tn, h, b * h, n_qt, causal, scale);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_cluster(flash_tf32_kernel<D>, (int)grid, L::kThreads,
+                        L::kBytes, L::kCl, stream, mq, mk, mv, (float*)o, tn,
+                        h, b * h, n_qt, causal, scale);
 }
 
-// every f32 width of flash_tf32_kernel; any other width is refused
+// CTAs a query tile of flash_cluster32_kernel at kernel width d: the d/32
+// boxes over as few CTAs as hold at most 6 each
+constexpr int cl32_ctas(int d) { return (d / 32 + 5) / 6; }
+
+int launch_cl32(const void* q, const void* k, const void* v, void* o, int b,
+                int tn, int h, int d, int causal, float scale,
+                cudaStream_t stream) {
+  using L = Tf32C;
+  CUtensorMap mq, mk, mv;
+  if (!make_map32(&mq, q, b, tn, h, d, L::kBQ) ||
+      !make_map32(&mk, k, b, tn, h, d, L::kBN) ||
+      !make_map32(&mv, v, b, tn, h, d, L::kBN))
+    return (int)cudaErrorInvalidValue;
+  const int n_qt = (tn + L::kBQ - 1) / L::kBQ, ncl = cl32_ctas(d);
+  const long long grid = (long long)n_qt * b * h * ncl;
+  if (grid > INT_MAX) return (int)cudaErrorInvalidValue;
+  return launch_cluster(flash_cluster32_kernel, (int)grid, L::kThreads,
+                        L::kBytes, ncl, stream, mq, mk, mv, (float*)o, tn, h,
+                        b * h, n_qt, causal, scale, d);
+}
+
+// every f32 width of flash_tf32_kernel (64 .. 512) and of
+// flash_cluster32_kernel (576 .. kReach32); any other width is refused
 int launch_any32(const void* q, const void* k, const void* v, void* o, int b,
                  int t, int h, int d, int causal, float scale,
                  cudaStream_t st) {
+  if (d > 512 && d <= kReach32 && d % 64 == 0)
+    return launch_cl32(q, k, v, o, b, t, h, d, causal, scale, st);
   switch (d) {
     case 64: return launch_tf32<64>(q, k, v, o, b, t, h, causal, scale, st);
     case 128: return launch_tf32<128>(q, k, v, o, b, t, h, causal, scale, st);
@@ -1715,12 +2139,13 @@ int launch_any32(const void* q, const void* k, const void* v, void* o, int b,
 constexpr size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
 
 // ---------------------------------------------------------------------------
-// Wide FMA path: f32 inputs at head dims past 512 (a multiple of 64; the
-// wrapper pads others with zeros)
+// Wide FMA path: f32 inputs at head dims past 1536 (a multiple of 64;
+// the wrapper pads others with zeros)
 // ---------------------------------------------------------------------------
 //
-// Past 512 the split-TF32 kernel's planes do not fit a cluster of two CTAs
-// (see the note), so the head dim is streamed in chunks of 64 columns:
+// Past 1536, the widest D a portable cluster of flash_cluster32_kernel
+// holds (see the note), f32 takes this kernel; it streams the head dim in
+// chunks of 64 columns (any multiple of 64 with at most 65535 chunks):
 //   * one CTA per (b*h, 64-query tile, 64-column output chunk): blockIdx.x
 //     is the query tile times b*h, blockIdx.y the output chunk;
 //   * per key tile of 64, S = sum_c Q_c K_c^T builds up in registers as
@@ -1904,21 +2329,28 @@ int launch_wide(const void* q, const void* k, const void* v, void* o, int b,
 
 // The kernel rt_flash_attention launches for kernel width d and dtype (0 =
 // float32, 1 = float16, 2 = bfloat16): 0 flash_wgmma_kernel, 1
-// flash_big16_kernel, 2 flash_tf32_kernel, 3 flash_wide_kernel; -1 where
-// it refuses the width.
+// flash_big16_kernel, 2 flash_tf32_kernel, 3 flash_wide_kernel, 4
+// flash_cluster16_kernel, 5 flash_cluster32_kernel; 6 for 16-bit widths
+// past kReach16, which the entry point refuses: the caller widens those
+// inputs to f32 and calls the f32 route of the width (the JAX kernel's
+// own arithmetic, every block cast to f32), rounding the output back;
+// -1 where no route takes the width.  Chosen by width and dtype alone.
 extern "C" int rt_flash_route(int d, int dtype) {
-  const bool mid = d >= 256 && d <= 512 && d % 64 == 0;
-  if (dtype == 1 || dtype == 2) return d == 64 || d == 128 ? 0 : mid ? 1 : -1;
+  if (!(d == 64 || d == 128 || (d >= 256 && d % 64 == 0))) return -1;
+  if (dtype == 1 || dtype == 2)
+    return d <= 128 ? 0 : d <= 512 ? 1 : d <= kReach16 ? 4 : 6;
   if (dtype == 0) {
-    if (d == 64 || d == 128 || mid) return 2;
-    if (d > 512 && d % kWC == 0 && d / kWC <= 65535) return 3;
+    if (d <= 512) return 2;
+    if (d <= kReach32) return 5;
+    if (d / kWC <= 65535) return 3;
   }
   return -1;
 }
 
-// Keys a tile of the kernel rt_flash_route names for (d, dtype); -1 where
-// it refuses the width.  The tiles are the layouts' own (Smem16, Big16,
-// Tf32, kWBK), so the card tests read the rule from here.
+// Keys a tile of the kernel rt_flash_route names for (d, dtype) (for a
+// widened 16-bit width, of the f32 route); -1 where no route takes the
+// width.  The tiles are the layouts' own (Smem16, Big16, Tf32, Cl16,
+// Tf32C, kWBK), so the card tests read the rule from here.
 extern "C" int rt_flash_key_tile(int d, int dtype) {
   switch (rt_flash_route(d, dtype)) {
     case 0: return d == 64 ? Smem16<64>::kBN : Smem16<128>::kBN;
@@ -1935,29 +2367,35 @@ extern "C" int rt_flash_key_tile(int d, int dtype) {
       }
       return -1;
     case 3: return kWBK;
+    case 4: return Cl16::kBN;
+    case 5: return Tf32C::kBN;
+    case 6: return rt_flash_key_tile(d, 0);
   }
   return -1;
 }
 
 // d: a kernel width rt_flash_route takes (the wrapper pads other head dims
 // with zeros and passes the scale of the original one).  Every grid puts
-// b*h and the query tile on gridDim.x (at most 2**31 - 1 blocks).
+// b*h, the query tile and the CTAs of a query tile's cluster (at most 8
+// a 64-row tile) on gridDim.x (at most 2**31 - 1 blocks).
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, int b, int t, int h, int d,
                                   int dtype, int causal, float scale,
                                   void* stream) {
   if (b < 1 || t < 1 || h < 1 ||
-      (long long)b * h * ((t + 31) / 32) > INT_MAX)
+      (long long)b * h * ((t + 63) / 64) * kCl32 > INT_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (rt_flash_route(d, dtype)) {
     case 0:
     case 1:
+    case 4:
       return dtype == 2 ? launch_any16<true>(q, k, v, o, b, t, h, d, causal,
                                              scale, st)
                         : launch_any16<false>(q, k, v, o, b, t, h, d, causal,
                                               scale, st);
-    case 2: return launch_any32(q, k, v, o, b, t, h, d, causal, scale, st);
+    case 2:
+    case 5: return launch_any32(q, k, v, o, b, t, h, d, causal, scale, st);
     case 3: return launch_wide(q, k, v, o, b, t, h, d, causal, scale, st);
   }
   return (int)cudaErrorInvalidValue;

@@ -10,14 +10,27 @@ instead of the O(T^2) score matrix.  The kernel is
 * f16/bf16 at D = 256 to 512: wgmma + TMA as well (both products on the
   tensor cores, S computed once a key tile); at 256 two warpgroups of
   64 rows, past 256 two warpgroups that share 64 rows, split O's columns
-  and sum S from their halves of the head dim; 16-bit widths past 512
-  raise (shared memory, see the source note);
+  and sum S from their halves of the head dim;
+* f16/bf16 at D = 576 to 1024: wgmma + TMA over a cluster of 3 or 4 CTAs
+  a query tile, each holding 3 or 4 of the D/64 column chunks; each CTA
+  computes a partial S over its columns, the partials are exchanged
+  through distributed shared memory and summed in rank order (one S in
+  every CTA), and each multiplies P by its own columns of V;
+* f16/bf16 past 1024: widened to f32 here, computed on the f32 route of
+  the width and rounded back (the JAX kernel's own arithmetic: it casts
+  every block to f32 before both products);
 * f32 at D = 64 to 512: wgmma + TMA in split TF32 (3xTF32: each operand
   is a TF32 hi plus a TF32 lo, each product hi*hi + hi*lo + lo*hi in f32,
   within f32's tolerance); 128 query rows a CTA at 64 and 128, past 128 a
   cluster of two CTAs per query tile, each holding half of the head dim;
-* f32 past 512: FMA on the CUDA cores, a wide kernel that streams the
+* f32 at D = 576 to 1536: the same split-TF32 arithmetic over a cluster
+  of ceil(D / 192) CTAs a query tile (160 or 192 columns each), its
+  partial S summed in rank order as on the 16-bit cluster;
+* f32 past 1536: FMA on the CUDA cores, a wide kernel that streams the
   head dim in chunks of 64 columns.
+
+The route is chosen by dtype and width alone (the library's
+``rt_flash_route``); a kernel that fails to build or launch raises.
 
 ``flash_attention_plain`` is the dense PyTorch version of the same
 function, which CPU tensors take.
@@ -41,10 +54,11 @@ import torch
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _KERNEL_DIMS = (64, 128, 256)        # the kernel's widths; others pad up
 _WIDE_CHUNK = 64                     # past 256: the next multiple of 64
-_MAX_WIDTH_16 = 512                  # the widest 16-bit kernel width
-# the kernels of the entry point's routes (rt_flash_route's codes)
+# the kernels of the entry point's routes (rt_flash_route's codes 0-5)
 _ROUTES = ("flash_wgmma_kernel", "flash_big16_kernel", "flash_tf32_kernel",
-           "flash_wide_kernel")
+           "flash_wide_kernel", "flash_cluster16_kernel",
+           "flash_cluster32_kernel")
+_WIDEN = 6       # rt_flash_route's code for 16-bit widths the f32 route runs
 
 
 def kernel_width(d: int) -> int:
@@ -88,12 +102,14 @@ def flash_attention(q, k, v, *, causal: bool = False,
     Same checks and messages as the JAX function.  ``block_q``/``block_k``
     are validated for parity with its signature; the CUDA kernel tiles by
     its own (f16/bf16: 128 x 128 up to D = 128, 128 x 64 at 256, 64 x 32
-    past it; f32: 128 x 64 at 64, 128 x 32 at 128, 128 x 16 at 256 and
-    320 and 64 x 16 to 512, each over a cluster of two CTAs, 64 x 64 past
-    it).  CPU tensors take ``flash_attention_plain``; CUDA tensors launch
-    the kernel (f32 at any D, f16/bf16 at D <= 512) or raise.
+    to 512, 128 x 32 to 1024 over a cluster of 3 or 4 CTAs; f32: 128 x 64
+    at 64, 128 x 32 at 128, 128 x 16 at 256 and 320 and 64 x 16 to 512,
+    each over a cluster of two CTAs, 64 x 16 to 1536 over a cluster of
+    3-8, 64 x 64 past it).  CPU tensors take ``flash_attention_plain``;
+    CUDA tensors launch the kernel at any D or raise.
     ``flash_attention.last_route`` names the kernel the entry point
-    launched last."""
+    launched last, ``flash_attention.last_widened`` whether it widened
+    16-bit inputs to f32 for it."""
     b, t, h, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("q/k/v must share shape (batch, seq, heads, "
@@ -112,9 +128,6 @@ def flash_attention(q, k, v, *, causal: bool = False,
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"flash_attention: the CUDA kernel takes float32, "
                          f"float16 or bfloat16; got {q.dtype}")
-    if q.dtype != torch.float32 and width > _MAX_WIDTH_16:
-        raise ValueError(f"flash_attention: the CUDA kernel takes {q.dtype} "
-                         f"up to head dim {_MAX_WIDTH_16}; got {d}")
     for name, x in (("k", k), ("v", v)):
         if x.dtype != q.dtype or x.device != q.device:
             raise ValueError(f"flash_attention: {name} is {x.dtype} on "
@@ -128,9 +141,14 @@ def flash_attention(q, k, v, *, causal: bool = False,
     q, k, v = (x if x.is_contiguous() and x.data_ptr() % 16 == 0
                else x.clone(memory_format=torch.contiguous_format)
                for x in (q, k, v))
+    dtype = q.dtype
+    route_of = _build.load("flash_attention", "rt_flash_route")
+    route = route_of(width, _DTYPE_CODE[dtype])
+    widened = route == _WIDEN
+    if widened:             # the JAX kernel's f32 blocks (module note)
+        q, k, v = (x.float() for x in (q, k, v))
+        route = route_of(width, _DTYPE_CODE[torch.float32])
     out = torch.empty_like(q)
-    route = _build.load("flash_attention", "rt_flash_route")(
-        width, _DTYPE_CODE[q.dtype])
     fn = _build.load("flash_attention")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              b, t, h, width, _DTYPE_CODE[q.dtype], int(bool(causal)),
@@ -139,8 +157,12 @@ def flash_attention(q, k, v, *, causal: bool = False,
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
     flash_attention.last_route = _ROUTES[route]
+    flash_attention.last_widened = widened
+    if widened:
+        out = out.to(dtype)
     return out if width == d else out[..., :d].contiguous()
 
 
 flash_attention.launches = 0
 flash_attention.last_route = None
+flash_attention.last_widened = False

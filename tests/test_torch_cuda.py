@@ -318,19 +318,30 @@ def _flash_inputs(dtype, shape):
             for _ in range(3)]
 
 
+# the widest kernel width of each cluster route (the source note's reach)
+FLASH_REACH_16, FLASH_REACH_32 = 1024, 1536
+
+
 def _flash_route(dtype, width):
-    """The kernel the entry point must report for a dtype and width."""
+    """The kernel the entry point must report for a dtype and width (16-bit
+    past its reach: the f32 route of the width, on inputs widened to f32)."""
     if dtype == torch.float32:
-        return "flash_tf32_kernel" if width <= 512 else "flash_wide_kernel"
-    return "flash_wgmma_kernel" if width <= 128 else "flash_big16_kernel"
+        return ("flash_tf32_kernel" if width <= 512 else
+                "flash_cluster32_kernel" if width <= FLASH_REACH_32 else
+                "flash_wide_kernel")
+    if width > FLASH_REACH_16:
+        return _flash_route(torch.float32, width)
+    return ("flash_wgmma_kernel" if width <= 128 else
+            "flash_big16_kernel" if width <= 512 else
+            "flash_cluster16_kernel")
 
 
 def _key_tiles(dtype, d):
-    """The key tiles the dropped-tile check drops: 64 keys, and in f32
-    the kernel's own tile, as the library reports it."""
-    from ray_tpu_torch.ops.flash_attention import kernel_key_tile
-    return sorted({64} | ({kernel_key_tile(d, dtype)}
-                          if dtype == torch.float32 else set()))
+    """The key tiles the dropped-tile check drops: 64 keys, and in f32 or
+    past width 512 the kernel's own tile, as the library reports it."""
+    from ray_tpu_torch.ops.flash_attention import kernel_key_tile, kernel_width
+    own = dtype == torch.float32 or kernel_width(d) > 512
+    return sorted({64} | ({kernel_key_tile(d, dtype)} if own else set()))
 
 
 def _drop_last_keys(q, k, v, causal, tile):
@@ -526,38 +537,94 @@ def test_flash_f32_takes_the_split_tf32_route(d, causal):
     assert _flash_err_over_limit(one_pass, q, k, v, causal) > 1.0
 
 
-@pytest.mark.parametrize("causal", [False, True])
-def test_flash_f32_past_512_takes_the_wide_fma_kernel(causal):
-    """Past kernel width 512 f32 runs on flash_wide_kernel (FMA, the head
-    dim in chunks of 64 columns): D = 576 within the limit, which must
-    reject its dropped 64-key tile."""
+def _flash_past_512_case(dtype, causal, d, shape=(2, 384, 2)):
+    """The entry point at head dim d: one launch on the route of
+    ``_flash_route``, within the limit, which rejects the dropped key
+    tiles of ``_key_tiles``."""
     from ray_tpu_torch.ops import flash_attention
-    q, k, v = _flash_inputs(torch.float32, (2, 384, 2, 576))
+    q, k, v = _flash_inputs(dtype, (*shape, d))
     before = flash_attention.launches
-    got = flash_attention(q, k, v, causal=causal)
+    got = flash_attention(q, k, v, causal=causal, block_q=shape[1],
+                          block_k=shape[1])
     assert flash_attention.launches == before + 1
-    assert flash_attention.last_route == "flash_wide_kernel"
-    assert _flash_err_over_limit(got, q, k, v, causal) <= 1.0
-    faulty = _drop_last_keys(q, k, v, causal, 64)
-    assert _flash_err_over_limit(faulty, q, k, v, causal) > 1.0
+    assert flash_attention.last_route == _flash_route(dtype, d), d
+    assert flash_attention.last_widened == (
+        dtype != torch.float32 and d > FLASH_REACH_16)
+    assert got.shape == q.shape and got.dtype == dtype
+    assert _flash_err_over_limit(got, q, k, v, causal) <= 1.0, d
+    for tile in _key_tiles(dtype, d):
+        faulty = _drop_last_keys(q, k, v, causal, tile)
+        assert _flash_err_over_limit(faulty, q, k, v, causal) > 1.0, tile
 
 
-def test_flash_16bit_refuses_widths_past_512():
-    """16-bit inputs run on wgmma up to kernel width 512 and raise past it
-    (no FMA fallback); the entry point refuses those widths too."""
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_f32_past_512_takes_the_cluster_then_wide_kernel(causal):
+    """f32 past kernel width 512 runs on split TF32 over a cluster
+    (flash_cluster32_kernel) up to 1536, within f32's unchanged limit,
+    which rejects its dropped key tiles (64 keys and the route's 16);
+    one width past 1536 takes flash_wide_kernel (FMA, the head dim in
+    chunks of 64 columns) and still computes."""
+    _flash_past_512_case(torch.float32, causal, 576)
+    _flash_past_512_case(torch.float32, causal, FLASH_REACH_32 + 64,
+                         shape=(1, 256, 2))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_16bit_past_512_runs_on_the_cluster_or_widened(dtype, causal):
+    """16-bit inputs past kernel width 512 no longer raise: D = 576 runs on
+    wgmma over a cluster (flash_cluster16_kernel) within the limit, which
+    rejects its dropped key tiles (64 keys and the route's 32).  Past the
+    cluster's reach (1024) the C entry point still refuses 16-bit inputs
+    (rt_flash_route names no 16-bit kernel there): the wrapper widens them
+    to f32, runs the f32 route of the width and rounds the output back."""
     import ctypes
-    from ray_tpu_torch.ops import _build, flash_attention
-    x = torch.zeros((1, 64, 2, 576), device="cuda", dtype=torch.bfloat16)
-    before = flash_attention.launches
-    with pytest.raises(ValueError, match="up to head dim 512"):
-        flash_attention(x, x, x)
-    assert flash_attention.launches == before
-    fn = _build.load("flash_attention")
-    for dtype_code in (1, 2):
-        err = fn(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
-                 1, 64, 2, 576, dtype_code, 0, ctypes.c_float(1.0),
-                 torch.cuda.current_stream().cuda_stream)
-        assert err != 0
+    from ray_tpu_torch.ops import _build
+    _flash_past_512_case(dtype, causal, 576)
+    _flash_past_512_case(dtype, causal, FLASH_REACH_16 + 64,
+                         shape=(1, 256, 2))
+    x = torch.zeros((1, 64, 2, FLASH_REACH_16 + 64), device="cuda",
+                    dtype=dtype)
+    code = 2 if dtype == torch.bfloat16 else 1
+    err = _build.load("flash_attention")(
+        x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(), 1, 64, 2,
+        FLASH_REACH_16 + 64, code, 0, ctypes.c_float(1.0),
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+
+
+FLASH_CLUSTER_WIDTHS = (
+    [(torch.float32, d) for d in range(576, FLASH_REACH_32 + 1, 64)]
+    + [(dtype, d) for dtype in (torch.bfloat16, torch.float16)
+       for d in range(576, FLASH_REACH_16 + 1, 64)])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype,d", FLASH_CLUSTER_WIDTHS,
+                         ids=[f"{str(t)[6:]}-d{d}"
+                              for t, d in FLASH_CLUSTER_WIDTHS])
+def test_flash_cluster_routes_every_width(dtype, d, causal):
+    """Every width of the cluster routes (576 to each one's reach in steps
+    of 64; even and uneven splits of the head dim over 3-8 CTAs): the
+    library's rt_flash_route names the cluster kernel, and the entry
+    point runs on it within the limit at T = 200 (ragged at both query
+    tiles and at the 16-bit key tile)."""
+    from ray_tpu_torch.ops import _build
+    code = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}[dtype]
+    route = _build.load("flash_attention", "rt_flash_route")(d, code)
+    assert route == (5 if dtype == torch.float32 else 4)
+    _flash_past_512_case(dtype, causal, d, shape=(1, 200, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_cluster_model_has_the_kernels_tiles(dtype):
+    """The CPU model of the cluster routes
+    (``tests/test_torch_flash_cluster.py``) tiles the keys as the
+    kernels do: its key tile is the one the library reports."""
+    from ray_tpu_torch.ops.flash_attention import kernel_key_tile
+    from test_torch_flash_cluster import kernel_key_tile as model_tile
+    for d in (576, 1024):
+        assert model_tile(dtype) == kernel_key_tile(d, dtype)
 
 
 # -- the autoscaler: phase 1 on the water-fill, the launch-loop kernel -------

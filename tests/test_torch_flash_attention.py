@@ -52,11 +52,12 @@ def test_matches_jax_kernel(name, t, seed, causal, bq, bk):
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
 
 
-@pytest.mark.parametrize("d", [320, 512])
+@pytest.mark.parametrize("d", [320, 512, 576, 1024])
 @pytest.mark.parametrize("causal", [False, True])
 def test_head_dims_past_256_match_jax_kernel(d, causal):
-    """Past 256 the CUDA kernel streams the head dim in chunks of 64; the
-    function is the JAX kernel's at any D."""
+    """Past 256 the CUDA kernels split the head dim (over two consumer
+    warpgroups, over the CTAs of a cluster past 512); the function is the
+    JAX kernel's at any D."""
     q, k, v = _qkv(b=1, t=64, h=2, d=d, seed=d)
     want = np.asarray(ref_flash(jnp.asarray(q), jnp.asarray(k),
                                 jnp.asarray(v), causal=causal, block_q=32,
