@@ -129,8 +129,10 @@ Phases:
                   driven with the launch count set to 0 and the entry
                   point's route read; then the cases: D=128 (bf16
                   causal, bf16, f16, f32 causal and not), bf16 causal at
-                  D=64, f32 at T=1024, D=64, and bf16 and f32 causal and
-                  not at the three full-card widths, against the plain
+                  D=64, f32 at T=1024, D=64, bf16 and f32 causal and
+                  not at the three full-card widths, and f32 causal and
+                  not at B=2 T=4096 H=8 D=2048 (the two-pass route at
+                  the full card, five chunks of scratch), against the plain
                   version within an elementwise limit (FLASH_TOL) that
                   must also reject the plain version with its last 64
                   keys dropped (and, for f32 and past D=512, its last
@@ -139,8 +141,11 @@ Phases:
                   TF32 products, the FMA bound beside it), the share of
                   the bound reached and the ratio to the library call;
                   then bf16 at B=2 T=1024 H=4 D=1088 (widened to f32,
-                  on flash_cluster32_kernel) and f32 at D=1600 (on
-                  flash_wide_kernel), driven the same way; then every
+                  on flash_cluster32_kernel), f32 at D=1600 (the
+                  two-pass route: flash_scores32_kernel then
+                  flash_values32_kernel) and f32 at B=2 T=4096 H=8
+                  D=2048, driven the same way, with the kernel launches
+                  of each two-pass call (two a chunk); then every
                   head dim of FLASH_HEAD_DIMS (zero-padded; 16-1024 on
                   wgmma, 1088 and 1600 past the cluster routes' reach),
                   bf16 and f32, causal and not, each with the route and
@@ -329,7 +334,8 @@ def phase_build():
 SASS_REQUIRED = {
     "flash_attention": {k: ("HGMMA", "UTMALDG") for k in (
         "flash_wgmma_kernel", "flash_big16_kernel", "flash_tf32_kernel",
-        "flash_cluster16_kernel", "flash_cluster32_kernel")},
+        "flash_cluster16_kernel", "flash_cluster32_kernel",
+        "flash_scores32_kernel", "flash_values32_kernel")},
     "waterfill": {"": ("UCGABAR",)}}
 
 
@@ -2988,11 +2994,20 @@ def phase_flash(dev):
                                  "flash_cluster32_kernel")
     # --- past the cluster routes' reach, at FLASH_HEAD_DIMS' shape: bf16
     # past 1024 widened to f32 (onto flash_cluster32_kernel at 1088), and
-    # f32 past 1536 on flash_wide_kernel ---
+    # f32 past 1536 on the two-pass route, there and at the full card
+    # (B=2 T=4096 H=8 D=2048: five chunks of scratch); beside each
+    # two-pass call the kernel launches it made, as the library counted
+    # them where each launch succeeded (two a chunk) ---
     widened_launches = drive(2, 1024, 4, 1088, torch.bfloat16,
                              "flash_cluster32_kernel", widened=True)
-    f32_wide_launches = drive(2, 1024, 4, 1600, torch.float32,
-                              "flash_wide_kernel")
+    twopass_launches, twopass_kernel_launches = {}, {}
+    for name, shape in FLASH_TWOPASS_PATHS.items():
+        twopass_launches[name] = drive(*shape, torch.float32,
+                                       FLASH_TWOPASS)
+        twopass_kernel_launches[name] = \
+            ops.flash_attention.last_kernel_launches
+    print(f"flash attention two-pass kernel launches a call (2 a chunk): "
+          f"{twopass_kernel_launches}", flush=True)
 
     cases = [("bfloat16", True, 2, 4096, 16, 128),
              ("bfloat16", False, 2, 4096, 16, 128),
@@ -3004,11 +3019,14 @@ def phase_flash(dev):
     cases += [(dtype, causal, b, t, h, d)
               for dtype in ("bfloat16", "float32")
               for b, t, h, d in FLASH_WIDE_PATHS for causal in (True, False)]
+    cases += [("float32", causal, *FLASH_TWOPASS_PATHS["f32_d2048"])
+              for causal in (True, False)]
     rows = []
     for dtype_name, causal, b, t, h, d in cases:
         dtype = getattr(torch, dtype_name)
         q, k, v = qkv(b, t, h, d, dtype)
         got = ops.flash_attention(q, k, v, causal=causal)
+        scratch_bytes = ops.flash_attention.last_scratch_bytes
         atol, rtol, p_u = FLASH_TOL[dtype_name]
         want, limit = flash_limit(q, k, v, causal)
         err = (got.float() - want).abs()
@@ -3044,6 +3062,7 @@ def phase_flash(dev):
         fma_ms = flash_fma_bound_ms(q, causal)
         rows.append({"dtype": dtype_name, "causal": causal,
                      "shape": [b, t, h, d], "max_abs_err": max_err,
+                     "scratch_bytes": scratch_bytes,
                      "atol": atol, "rtol": rtol, "p_u": p_u,
                      "route": ops.flash_attention.last_route,
                      "max_err_over_limit": ratio,
@@ -3065,7 +3084,8 @@ def phase_flash(dev):
               "f32_path_launches": f32_launches,
               "f32_cluster_path_launches": f32_cluster_launches,
               "widened_path_launches": widened_launches,
-              "f32_wide_path_launches": f32_wide_launches,
+              "twopass_path_launches": twopass_launches,
+              "twopass_kernel_launches": twopass_kernel_launches,
               "cases": rows,
               "head_dims": flash_head_dims(qkv)}
     emit(result)
@@ -3075,12 +3095,18 @@ def phase_flash(dev):
 # head dims the kernel reaches by zero padding (to 64, 128, 256, 320), at
 # 256 and at 512, past 512 on the cluster routes (576, and 1024, the
 # 16-bit cluster's reach), and past the reaches (1088: 16-bit widened to
-# the f32 cluster; 1600: f32 on flash_wide_kernel, 16-bit widened to it)
+# the f32 cluster; 1600: f32 on the two-pass route, 16-bit widened to it)
 FLASH_HEAD_DIMS = (16, 32, 80, 96, 160, 256, 320, 512, 576, 1024, 1088,
                    1600)
 # the widest D of each cluster route (the route table at the head of
 # flash_attention.cu)
 FLASH_REACH16, FLASH_REACH32 = 1024, 1536
+# f32 past FLASH_REACH32: the two-pass route's pair of kernels, driven at
+# FLASH_HEAD_DIMS' shape and at the full card (the f32 cluster's full-card
+# batch and heads at the next power of two past its reach)
+FLASH_TWOPASS = "flash_scores32_kernel+flash_values32_kernel"
+FLASH_TWOPASS_PATHS = {"f32_d1600": (2, 1024, 4, 1600),
+                       "f32_d2048": (2, 4096, 8, 2048)}
 
 
 def flash_route_of(d, dtype_name):
@@ -3092,7 +3118,7 @@ def flash_route_of(d, dtype_name):
     if dtype_name == "float32" or widened:
         return ("flash_tf32_kernel" if d <= 512 else
                 "flash_cluster32_kernel" if d <= FLASH_REACH32 else
-                "flash_wide_kernel"), widened
+                FLASH_TWOPASS), widened
     return ("flash_wgmma_kernel" if d <= 128 else
             "flash_big16_kernel" if d <= 512 else
             "flash_cluster16_kernel"), False
@@ -3142,6 +3168,7 @@ def flash_head_dims(qkv, b=2, t=1024, h=4):
                 got = ops.flash_attention(q, k, v, causal=causal).float()
                 route = ops.flash_attention.last_route
                 widened = ops.flash_attention.last_widened
+                scratch_bytes = ops.flash_attention.last_scratch_bytes
                 if (route, widened) != flash_route_of(d, dtype_name):
                     raise AssertionError(
                         f"flash attention D={d} {dtype_name}: route {route}"
@@ -3170,6 +3197,7 @@ def flash_head_dims(qkv, b=2, t=1024, h=4):
                 fma_ms = flash_fma_bound_ms(q, causal)
                 rows.append({"d": d, "dtype": dtype_name, "causal": causal,
                              "route": route, "widened": widened,
+                             "scratch_bytes": scratch_bytes,
                              **({} if fma_ms is None else
                                 {"bound_of": "3 TF32 products",
                                  "fma_bound_ms": fma_ms}),
@@ -4504,8 +4532,12 @@ def main() -> int:
                        r["causal"] and
                        r["shape"] == list(FLASH_WIDE_PATHS[-1]))
                   for dtype in ("bfloat16", "float32"))
-    fwide = next(r for r in fl["head_dims"]["cases"] if r["d"] == 1600 and
-                 r["dtype"] == "float32" and r["causal"])
+    twopass = next(r for r in fl["head_dims"]["cases"] if r["d"] == 1600
+                   and r["dtype"] == "float32" and r["causal"])
+    twopass_card = [next(r for r in fl["cases"] if r["dtype"] == "float32"
+                         and r["causal"] == causal and r["shape"] ==
+                         list(FLASH_TWOPASS_PATHS["f32_d2048"]))
+                    for causal in (True, False)]
     lw = loc["problems"]["beat 1000x8x64"]
     emit({"phase": "summary", "phase_seconds": seconds,
           "seconds": time.perf_counter() - t_start})   # build included
@@ -4691,16 +4723,30 @@ def main() -> int:
         {"name": "flash_attention (f32, D past 1536)", "route": "cuda",
          "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
          "replaces": "ray_tpu/ops/flash_attention.py:25",
-         # flash_wide_kernel (FMA): launches on the f32 D=1600 path at
-         # B=2 T=1024 H=4; the numbers are FLASH_HEAD_DIMS' f32 causal
-         # D=1600 row's, the bound its f32 FMA operations, three TF32
-         # products beside it
-         "launches": fl["f32_wide_path_launches"],
-         "max_abs_err": fwide["max_abs_err"], "ms": fwide["kernel_ms"],
-         "plain_ms": fwide["plain_ms"], "bound_ms": fwide["fma_bound_ms"],
-         "bound_by": "operations", "bound_of": "f32 FMA",
-         "tf32_bound_ms": fwide["bound_ms"],
-         "library_ms": fwide["library_ms"], "checked": True},
+         # the two-pass route (flash_scores32_kernel, then
+         # flash_values32_kernel, once a chunk of scratch): launches of
+         # the entry point on the f32 D=1600 path at B=2 T=1024 H=4, the
+         # full-card D=2048 path beside it, and the kernel launches each
+         # call made (counted by the library at each launch); the numbers
+         # are FLASH_HEAD_DIMS' f32 causal D=1600 row's, the bound three
+         # TF32 products; the full-card rows and the score scratch the
+         # wrapper allocated beside them
+         "kernels": FLASH_TWOPASS.split("+"),
+         "launches": fl["twopass_path_launches"]["f32_d1600"],
+         "launches_by_path": fl["twopass_path_launches"],
+         "kernel_launches_a_call": fl["twopass_kernel_launches"],
+         "max_abs_err": twopass["max_abs_err"], "ms": twopass["kernel_ms"],
+         "plain_ms": twopass["plain_ms"], "bound_ms": twopass["bound_ms"],
+         "bound_by": twopass["bound_by"], "bound_of": twopass["bound_of"],
+         "fma_bound_ms": twopass["fma_bound_ms"],
+         "library_ms": twopass["library_ms"],
+         "library_backend": twopass["library_backend"],
+         "scratch_bytes": twopass["scratch_bytes"],
+         "full_card": [{k: r[k] for k in (
+             "shape", "causal", "kernel_ms", "plain_ms", "library_ms",
+             "library_backend", "bound_ms", "bound_share", "max_abs_err",
+             "max_err_over_limit", "scratch_bytes")} for r in twopass_card],
+         "checked": True},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

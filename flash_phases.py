@@ -104,7 +104,7 @@ def main() -> int:
     cu.parent.mkdir(parents=True, exist_ok=True)
     cu.write_text(instrumented(src))
     lib_path = _build.build_variants([(cu, ())])[0]
-    call = fr.caller(_build.entry(lib_path, "flash_attention"))
+    call = fr.caller(lib_path)
     read = ctypes.CDLL(str(lib_path)).rt_phases
     read.argtypes = [ctypes.c_void_p]
     read.restype = ctypes.c_int

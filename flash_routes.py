@@ -27,6 +27,7 @@ Needs a GPU and nvcc.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import math
 import sys
 from pathlib import Path
@@ -34,13 +35,14 @@ from pathlib import Path
 import chip_smoke as cs
 
 # (dtype, causal, b, t, h, d): the per-route sweep (B=2 H=4 T=1024), the
-# f32 routes, the headline, the full-card rows past D = 128, 16-bit
-# and f32, and f32 at the headline shape; the full-card rows take D = 576
-# (the cluster routes; a build older than them ran f32 there on
+# f32 routes (D = 1600: the two-pass route, ``flash_wide_kernel`` in a
+# build older than it), the headline, the full-card rows past D = 128,
+# 16-bit and f32, and f32 at the headline shape; the full-card rows take
+# D = 576 (the cluster routes; a build older than them ran f32 there on
 # ``flash_wide_kernel`` and refused 16-bit inputs)
 ROWS = ([("bfloat16", c, 2, 1024, 4, d) for d in (160, 256, 320, 512)
          for c in (False, True)]
-        + [("float32", c, 2, 1024, 4, d) for d in (256, 320, 512)
+        + [("float32", c, 2, 1024, 4, d) for d in (256, 320, 512, 1600)
            for c in (False, True)]
         + [("float32", c, 2, 1024, 16, 64) for c in (False, True)]
         + [("bfloat16", True, 2, 4096, 16, 128)]
@@ -49,12 +51,27 @@ ROWS = ([("bfloat16", c, 2, 1024, 4, d) for d in (160, 256, 320, 512)
            for b, t, h, d in cs.FLASH_WIDE_PATHS for c in (False, True)])
 
 
-def caller(fn):
+def caller(library):
     """What ``ops.flash_attention`` does around the launch (pad to the
-    kernel width, the original D's scale, cut back), for entry ``fn``."""
+    kernel width, the original D's scale, the two-pass route's score
+    scratch, cut back), for the flash attention library at path
+    ``library``: this build's, or an older one whose entry point takes no
+    scratch.  That older branch serves only builds from before the
+    two-pass route (they lack ``rt_flash_scratch_bytes`` and ran route 3
+    on ``flash_wide_kernel``), to time that route against the FMA kernel
+    it replaced; every later build takes the scratch."""
     import torch
 
+    from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops.flash_attention import _DTYPE_CODE, kernel_width
+
+    fn = _build.entry(library, "flash_attention")
+    scratch_of = None
+    if hasattr(ctypes.CDLL(str(library)), "rt_flash_scratch_bytes"):
+        scratch_of = _build.entry(library, "flash_attention",
+                                  "rt_flash_scratch_bytes")
+    else:                               # no scratch argument
+        fn.argtypes = fn.argtypes[:-2] + fn.argtypes[-1:]
 
     def call(q, k, v, causal):
         b, t, h, d = q.shape
@@ -63,10 +80,15 @@ def caller(fn):
             q, k, v = (torch.nn.functional.pad(x, (0, width - d))
                        for x in (q, k, v))
         out = torch.empty_like(q)
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, t, h, width, _DTYPE_CODE[q.dtype], int(causal),
-                 1.0 / math.sqrt(d),
-                 torch.cuda.current_stream().cuda_stream)
+        code = _DTYPE_CODE[q.dtype]
+        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                b, t, h, width, code, int(causal), 1.0 / math.sqrt(d)]
+        if scratch_of is not None:
+            n = scratch_of(b, t, h, width, code)
+            scratch = (torch.empty(n, dtype=torch.uint8, device=q.device)
+                       if n > 0 else None)
+            args.append(None if scratch is None else scratch.data_ptr())
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"flash attention: CUDA error {err}")
         return out if width == d else out[..., :d]
@@ -123,12 +145,17 @@ def main() -> int:
         return 1
     smi = cs.phase_device()
     _build.build(["flash_attention"])
-    this = caller(_build.load("flash_attention"))
+    this = caller(_build.lib_path("flash_attention"))
     other = other_route = None
     if args.against:
         lib = _build.build_variants([(args.against, ())])[0]
-        other = caller(_build.entry(lib, "flash_attention"))
+        other = caller(lib)
         other_route = _build.entry(lib, "flash_attention", "rt_flash_route")
+        # an older build's names: code 3 was the FMA kernel before the
+        # two-pass route
+        other_names = list(_ROUTES)
+        if not hasattr(ctypes.CDLL(str(lib)), "rt_flash_scratch_bytes"):
+            other_names[3] = "flash_wide_kernel"
     gen = torch.Generator(device="cuda").manual_seed(0)
     cs.emit({"nvidia_smi": smi, "against": str(args.against)})
     for dtype_name, causal, b, t, h, d in rows:
@@ -145,7 +172,7 @@ def main() -> int:
                    kernel_width(d), _DTYPE_CODE[dtype])]}
         if other_route is not None:
             code = other_route(kernel_width(d), _DTYPE_CODE[dtype])
-            row["against_route"] = _ROUTES[code] if code >= 0 else None
+            row["against_route"] = other_names[code] if code >= 0 else None
         want, limit = cs.flash_limit(q, k, v, causal)
         against = other
         for key, fn in (("err_over_limit", this),

@@ -51,7 +51,7 @@ _SIGNATURES = {
                    _I, _I, _I, _I, _I, _P, _P]),
     "flash_attention": ("rt_flash_attention",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         ctypes.c_float, _P]),
+                         ctypes.c_float, _P, _P]),
     "binpack": ("rt_binpack_launch_loop",
                 [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                  ctypes.c_longlong, _P]),
@@ -73,7 +73,11 @@ _EXTRA = {"binpack": {"rt_binpack_plan": [_I, _I, _I, _P]},
           "pull": {"rt_pull_plan": [_I, _I, _P]},
           "broadcast": {"rt_fanout_plan": [_I, _P]},
           "flash_attention": {"rt_flash_route": [_I, _I],
-                              "rt_flash_key_tile": [_I, _I]}}
+                              "rt_flash_key_tile": [_I, _I],
+                              "rt_flash_scratch_bytes": [_I] * 5,
+                              "rt_flash_last_launches": []}}
+# entry points that return a long long (every other one returns an int)
+_LONG = {"rt_flash_scratch_bytes", "rt_flash_last_launches"}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -200,7 +204,7 @@ def entry(library, name: str, fn: str | None = None):
         fn_name, argtypes = fn, _EXTRA[name][fn]
     out = getattr(ctypes.CDLL(str(library)), fn_name)
     out.argtypes = argtypes
-    out.restype = ctypes.c_int
+    out.restype = ctypes.c_longlong if fn_name in _LONG else ctypes.c_int
     return out
 
 
@@ -214,7 +218,8 @@ def _lib(name: str) -> ctypes.CDLL:
             fn_name, argtypes = (_SIGNATURES[name] if fn is None
                                  else (fn, _EXTRA[name][fn]))
             getattr(lib, fn_name).argtypes = argtypes
-            getattr(lib, fn_name).restype = ctypes.c_int
+            getattr(lib, fn_name).restype = (
+                ctypes.c_longlong if fn_name in _LONG else ctypes.c_int)
         lib.rt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.rt_cuda_error_string.restype = ctypes.c_char_p
         _LOADED[name] = lib

@@ -28,7 +28,17 @@
 //                                                         wgmma + TMA)
 //               D = 576 .. 1536  flash_cluster32_kernel  (split TF32, a
 //                                                         cluster of 3-8)
-//               D > 1536         flash_wide_kernel       (FMA)
+//               D > 1536         flash_scores32_kernel,  (split TF32, two
+//                                then                     passes over a
+//                                flash_values32_kernel    score scratch)
+//
+// Every route but the last keeps S on chip (O(T) memory); past 1536 S
+// goes through a scratch in device memory of at most the larger of
+// kScratchCap (256 MiB) and one 128-row query block's scores (512 T
+// bytes, past the cap only at T past 2**19), whatever B and H are, so
+// still O(T): the wrapper allocates it and the entry point walks the
+// query blocks in chunks whose scores fit it (one block a chunk where
+// one passes the cap).
 //
 // The reach of each cluster route is the widest D a portable cluster (at
 // most 8 CTAs, no NonPortableClusterSizeAllowed) holds at its layout:
@@ -256,6 +266,71 @@
 //     P V was overlapped with the exchange); 0 bytes of spill stores and
 //     loads in every instantiation.
 //
+// f32 past 1536, two passes (flash_scores32_kernel, flash_values32_kernel):
+//   * What it replaces: past 1536 one query tile's O (64 x D f32, 400 KB
+//     at D = 1600) fits no portable cluster (a cluster of 16 would need
+//     120 KB of exchange slots beside Q and the planes), and the FMA
+//     kernel that took these widths computed S once per 64-column chunk
+//     of O, D/64 times, on the CUDA cores (0.01 of its FMA bound at D =
+//     1600).  At these widths S is cheap to keep: S of 64 query rows
+//     (64 x T x 4 bytes) is smaller than their Q (64 x D x 4) wherever T
+//     < D.  So S is computed once, stored to a bounded scratch (mostly
+//     L2), and read back once for each slice of O's columns.
+//   * flash_scores32_kernel: one CTA per (query block of 128 rows, split
+//     of kSplitTiles key tiles of 64); two consumers of 64 rows share
+//     each K tile.  Per key tile it streams the head dim through a ring
+//     of 6 steps, each a 32-column TMA box of Q (128 rows) and of K (64
+//     keys; the converters split K in place into its hi plane beside a
+//     lo plane), and runs flash_tf32_kernel's S arithmetic unchanged
+//     (s_batch: Q scaled in f32, split in registers, 12 TF32 wgmma a
+//     step, small products first, each step's sum added in f32).  It
+//     stores S (f32, keys past the sequence or the diagonal -inf, masked
+//     only on a tile that crosses either) and each row's max of S
+//     log2(e) over the split.  It does not compute l: an online l sums p
+//     taken against a running max, not the p the second pass multiplies
+//     in.  Under causal masking a consumer neither computes nor stores
+//     tiles past its last row, and the splits past the diagonal only
+//     write -inf maxima.  The max is exact in any order, so the key
+//     tiles of a block can be split over CTAs (to fill 132 SMs at T =
+//     1024) and the maxima of the splits joined in the second pass.
+//   * flash_values32_kernel: one CTA per (query block, slice of O: the
+//     D/32 boxes over ceil(D/192) slices as evenly as they go, 192 or
+//     160 columns, each a template instance as flash_cluster32_kernel's
+//     slices); two consumers of 64 rows.  Per key tile of 32 a TMA
+//     thread loads the block's S box (128 rows x 32 keys, the 128-byte
+//     swizzle, so a thread's fragment loads conflict-free) and the
+//     slice's V boxes; the converters build V^T's hi and lo planes
+//     (vt_planes, as flash_tf32_kernel).  Each consumer takes p =
+//     2**(S log2(e) - m) against the final m (the max over the splits)
+//     on ex2.approx.ftz, p = 0 where S is not finite, sums l from those
+//     p in key-tile order (every slice's CTA adds the same numbers in the
+//     same order: one l, the sum of exactly the p multiplied in), splits
+//     P and folds P V into O in f32 (pv_fold, corr 1: m is final, so no
+//     rescale).  O / max(l, 1e-30), as the JAX kernel.
+//   * Chunks: the entry point launches the pair once per chunk of query
+//     blocks whose S (128 x T x 4 bytes a block, T rounded up to 64) and
+//     maxima fit kScratchCap (at least one block a chunk), in stream
+//     order on one scratch, so no chunk's values kernel still reads it
+//     when the next scores kernel writes it; a chunk may split a head.
+//     rt_flash_scratch_bytes gives the bytes; rt_flash_last_launches
+//     reads the kernel launches the calling thread's last call made,
+//     counted where each launch succeeds (2 a chunk here, 1 elsewhere).
+//   * What bounds it: operations, three TF32 products each of S and P V
+//     (the same bound as the cluster route); the score traffic (S written
+//     once, read once a slice, ~0.1 ms at D = 1600, T = 1024 against 0.33
+//     ms of operations) stays below it.  The design does each product
+//     once: S per (query block, key tile), P V per (block, key tile,
+//     slice).
+//   * Layouts: scores 6 steps x (Q 16 KB, K's hi 8 KB, lo 8 KB) = 197,776
+//     bytes; values 2 stages of V^T's hi and lo (24 KB each at 192
+//     columns) and 3 raw stages (S 16 KB, V 24 KB) = 222,288 bytes.  A
+//     raw stage goes back to the TMA thread only after the tile's P V:
+//     released right after the consumers' loads of S, the refill's TMA
+//     writes (async proxy) could land under loads still in flight.
+//   * ptxas (CUDA 12.8, -O3, sm_90a): both kernels 168 registers (the cap
+//     of __launch_bounds__(384, 1), lifted by setmaxnreg for the
+//     consumers), 0 bytes of spill stores and loads.
+//
 // Scaling: the JAX kernel scales Q in f32 before the product.  The f32
 // paths do exactly that.  On the 16-bit paths Q stays in its 16-bit type
 // (rounding a scaled Q back to 16 bits would add an error the JAX kernel
@@ -270,7 +345,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
+
+// kernel launches of the calling thread's current rt_flash_attention
+// call, one added where each launch succeeds (rt_flash_last_launches)
+thread_local long long t_launches = 0;
 
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -1300,10 +1381,13 @@ int launch_tma(Kernel kernel, const void* q, const void* k, const void* v,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
   if (err != cudaSuccess) return (int)err;
   const int n_qt = (tn + L::kBQ - 1) / L::kBQ;
+  if ((long long)n_qt * b * h > INT_MAX) return (int)cudaErrorInvalidValue;
   kernel<<<n_qt * b * h, kThreads16, L::kBytes, stream>>>(
       mq, mk, mv, (uint16_t*)o, tn, h, b * h, n_qt, causal,
       scale * 1.4426950408889634f);
-  return (int)cudaGetLastError();
+  const cudaError_t launched = cudaGetLastError();
+  if (launched == cudaSuccess) ++t_launches;
+  return (int)launched;
 }
 
 template <bool kBF16, int D>
@@ -1342,7 +1426,9 @@ int launch_cluster(Kernel kernel, int n_blocks, int threads, uint32_t smem,
   cfg.numAttrs = ncl > 1 ? 1 : 0;
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++t_launches;
+  return (int)err;
 }
 
 // CTAs a query tile of flash_cluster16_kernel at kernel width d: the C =
@@ -1635,6 +1721,163 @@ __device__ __forceinline__ void softmax32_tile(float (&s)[kN / 2],
       }
 }
 
+// K's hi and lo planes from a raw box of n16 float4 (in place when kraw is
+// khi), converter ct of kConverters
+__device__ __forceinline__ void k_planes(uint32_t kraw, uint32_t khi,
+                                         uint32_t klo, int n16, int ct) {
+  for (int i = ct; i < n16; i += kConverters) {
+    const float4 x = ld_shared_v4(kraw + 16 * i);
+    const uint32_t h0 = tf32_hi(x.x), h1 = tf32_hi(x.y);
+    const uint32_t h2 = tf32_hi(x.z), h3 = tf32_hi(x.w);
+    st_shared_v4(khi + 16 * i, __uint_as_float(h0), __uint_as_float(h1),
+                 __uint_as_float(h2), __uint_as_float(h3));
+    st_shared_v4(klo + 16 * i, __uint_as_float(tf32_lo(x.x, h0)),
+                 __uint_as_float(tf32_lo(x.y, h1)),
+                 __uint_as_float(tf32_lo(x.z, h2)),
+                 __uint_as_float(tf32_lo(x.w, h3)));
+  }
+}
+
+// V of a key tile (raw TMA boxes of layout L, kDH columns) transposed into
+// its hi and lo planes, converter ct.  Block i: logical keys 4c .. 4c + 3
+// (c = i % kC) x head-dim rows n .. n + 3.  Logical key 8q + l holds
+// physical key 8q + 2l (l < 4) or 8q + 2(l - 4) + 1: the order of the P
+// fragment (see the note)
+template <class L, int kDH>
+__device__ __forceinline__ void vt_planes(uint32_t vraw, uint32_t vthi,
+                                          uint32_t vtlo, int ct) {
+  using Sl = Tf32Slice<L, kDH>;
+  constexpr int kC = L::kBN / 4;          // 4-key chunks of a V^T row
+  for (int i = ct; i < kC * (kDH / 4); i += kConverters) {
+    const int c = i % kC, n = 4 * (i / kC);
+    const int j0 = 8 * (c >> 1) + (c & 1);
+    float m[4][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = j0 + 2 * e;
+      const float4 r = ld_shared_v4(vraw + (n >> 5) * L::kKBox + j * 128 +
+                                    ((((n & 31) >> 2) ^ (j & 7)) << 4));
+      m[e][0] = r.x;
+      m[e][1] = r.y;
+      m[e][2] = r.z;
+      m[e][3] = r.w;
+    }
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const int row = n + f;
+      const int swz = L::kVtRow == 128 ? (row & 7) : ((row >> 1) & 3);
+      const uint32_t off = (c >> 3) * Sl::kVtBox + row * L::kVtRow +
+                           (((c & 7) ^ swz) << 4);
+      uint32_t hi[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) hi[e] = tf32_hi(m[e][f]);
+      st_shared_v4(vthi + off, __uint_as_float(hi[0]),
+                   __uint_as_float(hi[1]), __uint_as_float(hi[2]),
+                   __uint_as_float(hi[3]));
+      st_shared_v4(vtlo + off, __uint_as_float(tf32_lo(m[0][f], hi[0])),
+                   __uint_as_float(tf32_lo(m[1][f], hi[1])),
+                   __uint_as_float(tf32_lo(m[2][f], hi[2])),
+                   __uint_as_float(tf32_lo(m[3][f], hi[3])));
+    }
+  }
+}
+
+// One 32-column batch of S = (Q scale) K^T into part (a consumer
+// warpgroup's 64 rows x kN keys): per k8 slice Q_hi K_lo + Q_lo K_hi,
+// then Q_hi K_hi, small products first; Q split in registers (16 words a
+// thread stay live until the batch's products are done).  qa: this
+// thread's row word tq of the batch's Q box (chunk 0; the swizzle moves
+// chunk c to c ^ g); khi, klo: the batch's box of K's planes.  part is
+// never written before its first product, which reads it with scale-d 0:
+// safe because one wgmma chain is in flight at a time (the batch waits
+// for its own); several chains in flight on unwritten accumulators gave
+// wrong sums, so those would have to be zeroed first
+template <int kN>
+__device__ __forceinline__ void s_batch(float (&part)[kN / 2], uint32_t qa,
+                                        uint32_t khi, uint32_t klo,
+                                        float scale, int g) {
+  uint32_t ah[4][4], al[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    // slice j: chunks 2j (columns tq) and 2j + 1 (tq + 4)
+    const float v[4] = {
+        ld_shared_f32(qa + (((2 * j) ^ g) << 4)) * scale,
+        ld_shared_f32(qa + 1024 + (((2 * j) ^ g) << 4)) * scale,
+        ld_shared_f32(qa + (((2 * j + 1) ^ g) << 4)) * scale,
+        ld_shared_f32(qa + 1024 + (((2 * j + 1) ^ g) << 4)) * scale};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      ah[j][e] = tf32_hi(v[e]);
+      al[j][e] = tf32_lo(v[e], ah[j][e]);
+    }
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    wgmma_tf32(part, ah[j], desc_kmajor(klo + j * 32, 128), j > 0);
+    wgmma_tf32(part, al[j], desc_kmajor(khi + j * 32, 128), 1);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    wgmma_tf32(part, ah[j], desc_kmajor(khi + j * 32, 128), 1);
+  wgmma_commit();
+  wgmma_wait0();
+  fence_regs(part);
+}
+
+// O = O corr + P V of one key tile, over a CTA's kDH columns of layout L:
+// P as its TF32 hi and lo words (the S accumulator's fragment as it lies),
+// V^T's planes at vthi, vtlo.  The accumulator holds keys 2t and 2t + 1
+// of each 8-key slice where the A fragment wants t and t + 4, so the
+// fragment is taken as it lies and V^T's keys are written in the matching
+// order (logical 0..7 = physical 0, 2, 4, 6, 1, 3, 5, 7).  Each O chunk's
+// P V sums into its own accumulator, small products first, folded into O
+// by one f32 fma
+template <class L, int kDH>
+__device__ __forceinline__ void pv_fold(
+    float (&acc_o)[Tf32Slice<L, kDH>::kNO][Tf32Slice<L, kDH>::kOC / 2],
+    const uint32_t (&ph)[L::kBN / 2], const uint32_t (&pl)[L::kBN / 2],
+    uint32_t vthi, uint32_t vtlo, const float (&corr)[2]) {
+  using Sl = Tf32Slice<L, kDH>;
+  constexpr int kBN = L::kBN, kNO = Sl::kNO, kOC = Sl::kOC;
+#pragma unroll
+  for (int c = 0; c < kNO; ++c) {
+    float pv[kOC / 2];   // unwritten: first product scale-d 0, as part
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 8; ++kk) {
+      const uint32_t a_hi[4] = {ph[4 * kk], ph[4 * kk + 2], ph[4 * kk + 1],
+                                ph[4 * kk + 3]};
+      const uint32_t a_lo[4] = {pl[4 * kk], pl[4 * kk + 2], pl[4 * kk + 1],
+                                pl[4 * kk + 3]};
+      const uint32_t off = (kk >> 2) * Sl::kVtBox + (kk & 3) * 32 +
+                           c * kOC * L::kVtRow;
+      wgmma_tf32(pv, a_hi, desc_kmajor(vtlo + off, L::kVtRow), kk > 0);
+      wgmma_tf32(pv, a_lo, desc_kmajor(vthi + off, L::kVtRow), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kBN / 8; ++kk) {
+      const uint32_t a_hi[4] = {ph[4 * kk], ph[4 * kk + 2], ph[4 * kk + 1],
+                                ph[4 * kk + 3]};
+      const uint32_t off = (kk >> 2) * Sl::kVtBox + (kk & 3) * 32 +
+                           c * kOC * L::kVtRow;
+      wgmma_tf32(pv, a_hi, desc_kmajor(vthi + off, L::kVtRow), 1);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(pv);
+#pragma unroll
+    for (int k = 0; k < kOC / 8; ++k)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          acc_o[c][4 * k + 2 * i + e] =
+              fmaf(acc_o[c][4 * k + 2 * i + e], corr[i],
+                   pv[4 * k + 2 * i + e]);
+  }
+}
+
 // the TMA thread: Q once, then per key tile V and K into their raw slots;
 // this CTA's kDH columns from col0
 template <class L, int kDH>
@@ -1690,7 +1933,6 @@ template <class L, int kDH>
 __device__ __forceinline__ void tf32_convert(uint32_t base, int ct,
                                              int n_kt) {
   using Sl = Tf32Slice<L, kDH>;
-  constexpr int kC = L::kBN / 4;          // 4-key chunks of a V^T row
   const uint32_t bar0 = base + L::kBar;
   for (int kt = 0; kt < n_kt; ++kt) {
     const int s = kt & 1, u = kt >> 1;
@@ -1708,17 +1950,7 @@ __device__ __forceinline__ void tf32_convert(uint32_t base, int ct,
       // TMA thread waited on k_free before the copy)
       mbar_wait(bar32(bar0, kKFull, s), u & 1);
     }
-    for (int i = ct; i < (int)(Sl::kPlane / 16); i += kConverters) {
-      const float4 x = ld_shared_v4(kraw + 16 * i);
-      const uint32_t h0 = tf32_hi(x.x), h1 = tf32_hi(x.y);
-      const uint32_t h2 = tf32_hi(x.z), h3 = tf32_hi(x.w);
-      st_shared_v4(khi + 16 * i, __uint_as_float(h0), __uint_as_float(h1),
-                   __uint_as_float(h2), __uint_as_float(h3));
-      st_shared_v4(klo + 16 * i, __uint_as_float(tf32_lo(x.x, h0)),
-                   __uint_as_float(tf32_lo(x.y, h1)),
-                   __uint_as_float(tf32_lo(x.z, h2)),
-                   __uint_as_float(tf32_lo(x.w, h3)));
-    }
+    k_planes(kraw, khi, klo, (int)(Sl::kPlane / 16), ct);
     if constexpr (L::kKS > 0)
       mbar_arrive(bar32(bar0, kKRawFree, kt % L::kKS));
     fence_async_smem();
@@ -1729,41 +1961,7 @@ __device__ __forceinline__ void tf32_convert(uint32_t base, int ct,
     const uint32_t vtlo = base + L::kVtlo + s * L::kPlane;
     mbar_wait(bar32(bar0, kVFull, vs), vu & 1);
     if (u > 0) mbar_wait(bar32(bar0, kVtFree, s), (u - 1) & 1);
-    // block i: logical keys 4c .. 4c + 3 (c = i % kC) x head-dim rows n ..
-    // n + 3.  Logical key 8q + l holds physical key 8q + 2l (l < 4) or
-    // 8q + 2(l - 4) + 1: the order of the P fragment (see the note)
-    for (int i = ct; i < kC * (kDH / 4); i += kConverters) {
-      const int c = i % kC, n = 4 * (i / kC);
-      const int j0 = 8 * (c >> 1) + (c & 1);
-      float m[4][4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = j0 + 2 * e;
-        const float4 r = ld_shared_v4(vraw + (n >> 5) * L::kKBox + j * 128 +
-                                      ((((n & 31) >> 2) ^ (j & 7)) << 4));
-        m[e][0] = r.x;
-        m[e][1] = r.y;
-        m[e][2] = r.z;
-        m[e][3] = r.w;
-      }
-#pragma unroll
-      for (int f = 0; f < 4; ++f) {
-        const int row = n + f;
-        const int swz = L::kVtRow == 128 ? (row & 7) : ((row >> 1) & 3);
-        const uint32_t off = (c >> 3) * Sl::kVtBox + row * L::kVtRow +
-                             (((c & 7) ^ swz) << 4);
-        uint32_t hi[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) hi[e] = tf32_hi(m[e][f]);
-        st_shared_v4(vthi + off, __uint_as_float(hi[0]),
-                     __uint_as_float(hi[1]), __uint_as_float(hi[2]),
-                     __uint_as_float(hi[3]));
-        st_shared_v4(vtlo + off, __uint_as_float(tf32_lo(m[0][f], hi[0])),
-                     __uint_as_float(tf32_lo(m[1][f], hi[1])),
-                     __uint_as_float(tf32_lo(m[2][f], hi[2])),
-                     __uint_as_float(tf32_lo(m[3][f], hi[3])));
-      }
-    }
+    vt_planes<L, kDH>(vraw, vthi, vtlo, ct);
     mbar_arrive(bar32(bar0, kVRawFree, vs));
     fence_async_smem();
     mbar_arrive(bar32(bar0, kVReady, s));
@@ -1812,52 +2010,12 @@ __device__ __forceinline__ void tf32_consume(
   constexpr bool kPipe = L::kCl > 2;
   uint32_t ph[kBN / 2], pl[kBN / 2];
   float corr[2];
-  // O = O corr + P V of key tile j.  The accumulator holds keys 2t and
-  // 2t + 1 of each 8-key slice where the A fragment wants t and t + 4,
-  // so the fragment is taken as it lies and V^T's keys are written in
-  // the matching order (logical 0..7 = physical 0, 2, 4, 6, 1, 3, 5, 7).
-  // Each O chunk's P V sums into its own accumulator, small products
-  // first, folded into O by one f32 fma
+  // O = O corr + P V of key tile j
   auto p_v = [&](int j) {
     const uint32_t vthi = base + L::kVthi + (j & 1) * L::kPlane;
     const uint32_t vtlo = base + L::kVtlo + (j & 1) * L::kPlane;
     mbar_wait(bar32(bar0, kVReady, j & 1), (j >> 1) & 1);
-#pragma unroll
-    for (int c = 0; c < kNO; ++c) {
-      float pv[kOC / 2];   // unwritten: first product scale-d 0, as part
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBN / 8; ++kk) {
-        const uint32_t a_hi[4] = {ph[4 * kk], ph[4 * kk + 2], ph[4 * kk + 1],
-                                  ph[4 * kk + 3]};
-        const uint32_t a_lo[4] = {pl[4 * kk], pl[4 * kk + 2], pl[4 * kk + 1],
-                                  pl[4 * kk + 3]};
-        const uint32_t off = (kk >> 2) * Sl::kVtBox + (kk & 3) * 32 +
-                             c * kOC * L::kVtRow;
-        wgmma_tf32(pv, a_hi, desc_kmajor(vtlo + off, L::kVtRow), kk > 0);
-        wgmma_tf32(pv, a_lo, desc_kmajor(vthi + off, L::kVtRow), 1);
-      }
-#pragma unroll
-      for (int kk = 0; kk < kBN / 8; ++kk) {
-        const uint32_t a_hi[4] = {ph[4 * kk], ph[4 * kk + 2], ph[4 * kk + 1],
-                                  ph[4 * kk + 3]};
-        const uint32_t off = (kk >> 2) * Sl::kVtBox + (kk & 3) * 32 +
-                             c * kOC * L::kVtRow;
-        wgmma_tf32(pv, a_hi, desc_kmajor(vthi + off, L::kVtRow), 1);
-      }
-      wgmma_commit();
-      wgmma_wait0();
-      fence_regs(pv);
-#pragma unroll
-      for (int k = 0; k < kOC / 8; ++k)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            acc_o[c][4 * k + 2 * i + e] =
-                fmaf(acc_o[c][4 * k + 2 * i + e], corr[i],
-                     pv[4 * k + 2 * i + e]);
-    }
+    pv_fold<L, kDH>(acc_o, ph, pl, vthi, vtlo, corr);
     mbar_arrive(bar32(bar0, kVtFree, j & 1));
   };
 
@@ -1868,50 +2026,14 @@ __device__ __forceinline__ void tf32_consume(
     const uint32_t khi = base + L::kKhi + s * L::kPlane;
     const uint32_t klo = base + L::kKlo + s * L::kPlane;
 
-    // S = (Q scale) K^T: per k8 slice Q_hi K_hi + Q_hi K_lo + Q_lo K_hi,
-    // Q split in registers, in batches of one 32-column box (16 words a
-    // thread stay live until the batch's products are done).  A batch
-    // sums into its own accumulator, small products first, and is added
-    // to S in f32 (see the note: the tensor core's sums truncate).  part
-    // is never written before its first product, which reads it with
-    // scale-d 0: safe because one wgmma chain is in flight at a time (the
-    // batch waits for its own before the next starts); several chains in
-    // flight on unwritten accumulators gave wrong sums, so those would
-    // have to be zeroed first
+    // S = (Q scale) K^T in batches of one 32-column box (s_batch), each
+    // added to S in f32 (see the note: the tensor core's sums truncate)
     float acc_s[kBN / 2], part[kBN / 2];
     mbar_wait(bar32(bar0, kKReady, s), par);
 #pragma unroll
     for (int x = 0; x < Sl::kBoxes; ++x) {
-      uint32_t ah[4][4], al[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // slice 4x + j: chunks 2j (columns tq) and 2j + 1 (tq + 4)
-        const uint32_t p = qa + x * L::kQBox;
-        const float v[4] = {
-            ld_shared_f32(p + (((2 * j) ^ g) << 4)) * scale,
-            ld_shared_f32(p + 1024 + (((2 * j) ^ g) << 4)) * scale,
-            ld_shared_f32(p + (((2 * j + 1) ^ g) << 4)) * scale,
-            ld_shared_f32(p + 1024 + (((2 * j + 1) ^ g) << 4)) * scale};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          ah[j][e] = tf32_hi(v[e]);
-          al[j][e] = tf32_lo(v[e], ah[j][e]);
-        }
-      }
-      wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint32_t off = x * L::kKBox + j * 32;
-        wgmma_tf32(part, ah[j], desc_kmajor(klo + off, 128), j > 0);
-        wgmma_tf32(part, al[j], desc_kmajor(khi + off, 128), 1);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wgmma_tf32(part, ah[j],
-                   desc_kmajor(khi + x * L::kKBox + j * 32, 128), 1);
-      wgmma_commit();
-      wgmma_wait0();
-      fence_regs(part);
+      s_batch<kBN>(part, qa + x * L::kQBox, khi + x * L::kKBox,
+                   klo + x * L::kKBox, scale, g);
 #pragma unroll
       for (int i = 0; i < kBN / 2; ++i)
         acc_s[i] = x > 0 ? acc_s[i] + part[i] : part[i];
@@ -2136,205 +2258,540 @@ int launch_any32(const void* q, const void* k, const void* v, void* o, int b,
   return (int)cudaErrorInvalidValue;
 }
 
-constexpr size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
-
 // ---------------------------------------------------------------------------
-// Wide FMA path: f32 inputs at head dims past 1536 (a multiple of 64;
-// the wrapper pads others with zeros)
+// f32 past kReach32: two passes, split TF32 (3xTF32) wgmma + TMA
 // ---------------------------------------------------------------------------
 //
-// Past 1536, the widest D a portable cluster of flash_cluster32_kernel
-// holds (see the note), f32 takes this kernel; it streams the head dim in
-// chunks of 64 columns (any multiple of 64 with at most 65535 chunks):
-//   * one CTA per (b*h, 64-query tile, 64-column output chunk): blockIdx.x
-//     is the query tile times b*h, blockIdx.y the output chunk;
-//   * per key tile of 64, S = sum_c Q_c K_c^T builds up in registers as
-//     the 64-column chunks of Q (scaled in f32, as the JAX kernel) and K
-//     pass through shared memory, then the online softmax runs on S
-//     (two lanes a row, S and O in shared memory) and only the CTA's own
-//     chunk of V is multiplied in;
-//   * so S is computed once per output chunk (D/64 times in all): the
-//     price of holding 84 KB of shared memory at any D.  The sum over the
-//     head dim runs in column order.
+// Past 1536 one query tile's O (64 x D f32, 400 KB at D = 1600) fits no
+// portable cluster, so the softmax is split into two kernels joined by a
+// bounded score scratch in device memory (see the note at the head):
+// flash_scores32_kernel computes S = (Q scale) K^T once per (query block,
+// key tile) and the rows' max m; flash_values32_kernel reads S back for
+// each slice of O's columns, takes p against the final m and multiplies
+// P by the slice's V.  A query block is 128 rows (two consumers of 64).
 
-constexpr int kWBQ = 64;        // query rows per CTA (4 warps x 16)
-constexpr int kWBK = 64;        // keys per tile
-constexpr int kWC = 64;         // head-dim columns per chunk
-constexpr int kWThreads = 128;  // two lanes per query row
+constexpr int kSplitTiles = 4;            // key tiles a scores CTA computes
+constexpr size_t kScratchCap = size_t(256) << 20;   // bytes of scores a chunk
 
-struct SmemWide {
-  static constexpr int LDT = kWC + 1;   // Q/K/V chunk rows (floats)
-  static constexpr int LDS = kWBK + 4;
-  static constexpr int LDO = kWC + 4;
-  static constexpr size_t kQ = 0;
-  static constexpr size_t kK = align128(kQ + sizeof(float) * kWBQ * LDT);
-  static constexpr size_t kV = align128(kK + sizeof(float) * kWBK * LDT);
-  static constexpr size_t kS = align128(kV + sizeof(float) * kWBK * LDT);
-  static constexpr size_t kO = align128(kS + sizeof(float) * kWBQ * LDS);
-  static constexpr size_t kBytes = align128(kO + sizeof(float) * kWBQ * LDO);
+// flash_scores32_kernel's layout: 128 query rows (two consumers of 64) x
+// key tiles of 64; a ring of kStages steps, each one 32-column box of Q
+// (128 rows) and of K (64 keys, split in place into its hi plane beside
+// a lo plane)
+struct Sc32 {
+  static constexpr int kCons = 2;
+  static constexpr int kThreads = (kCons + 1) * 128;
+  static constexpr int kBQ = 128;
+  static constexpr int kBN = 64;
+  static constexpr int kStages = 6;
+  static constexpr uint32_t kQBox = kBQ * 128u;
+  static constexpr uint32_t kKBox = kBN * 128u;
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kKhi = kQ + kStages * kQBox;
+  static constexpr uint32_t kKlo = kKhi + kStages * kKBox;
+  static constexpr uint32_t kBar = kKlo + kStages * kKBox;
+  // barriers: full[s] (TMA bytes landed), ready[s] (K's planes built),
+  // free[s] (both consumers done with the step)
+  static constexpr uint32_t kBytes = kBar + 8 * 3 * kStages + kSwAtom;
+  static_assert(kBytes <= kSmemMax, "shared memory");
 };
 
-// rows [t0, t0 + 64) x columns [c0, c0 + 64) of a (T, stride) slab,
-// times `mul`, zero past T
-__device__ void load_chunk(float* dst, const float* __restrict__ src,
-                           size_t stride, int t0, int tn, int c0, float mul) {
-  for (int i = threadIdx.x; i < 64 * kWC; i += kWThreads) {
-    const int r = i / kWC, c = i % kWC, t = t0 + r;
-    dst[r * SmemWide::LDT + c] =
-        t < tn ? src[(size_t)t * stride + c0 + c] * mul : 0.f;
+// flash_values32_kernel's layout: 128 query rows (two consumers of 64) x
+// a slice of at most kDH columns of O, key tiles of 32; a ring of kR raw
+// stages (the block's S box, 128 rows x 32 keys, and V's boxes of the
+// slice) and two stages of V^T's hi and lo planes.  kKBox, kVtRow and
+// kDH are the names Tf32Slice, vt_planes and pv_fold read.
+struct Val32 {
+  static constexpr int kCons = 2;
+  static constexpr int kThreads = (kCons + 1) * 128;
+  static constexpr int kBQ = 128;
+  static constexpr int kBN = 32;
+  static constexpr int kR = 3;
+  static constexpr int kDH = 192;
+  static constexpr uint32_t kKBox = kBN * 128u;      // V: 32 keys x 32 cols
+  static constexpr uint32_t kVtRow = kBN * 4u;
+  static constexpr uint32_t kPlane = kDH / 32 * kKBox;
+  static constexpr uint32_t kSBox = kBQ * 128u;      // S: 128 rows x 32 keys
+  static constexpr uint32_t kVthi = 0;
+  static constexpr uint32_t kVtlo = kVthi + 2 * kPlane;
+  static constexpr uint32_t kS = kVtlo + 2 * kPlane;
+  static constexpr uint32_t kVraw = kS + kR * kSBox;
+  static constexpr uint32_t kBar = kVraw + kR * kPlane;
+  // barriers: full[r], raw_free[r] (converters and consumers done with
+  // raw stage r), ready[p] (V^T's planes built), vt_free[p]
+  static constexpr uint32_t kBytes = kBar + 8 * (2 * kR + 4) + kSwAtom;
+  static_assert(kBytes <= kSmemMax, "shared memory");
+};
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ float2 ld_shared_v2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// (b, h, first query row) of query block blk of b*h x n_qb: the blocks in
+// reverse query order, so under causal masking the heaviest start first
+struct BlockOf {
+  int b, h, q0;
+  __device__ BlockOf(int blk, int heads, int bh_count, int n_qb, int rows) {
+    const int bh = blk % bh_count;
+    b = bh / heads;
+    h = bh % heads;
+    q0 = (n_qb - 1 - blk / bh_count) * rows;
+  }
+};
+
+// One CTA per (query block i0 + blockIdx.x / n_split, split
+// blockIdx.x % n_split of its key tiles, kSplitTiles each): S = (Q scale)
+// K^T over the whole head dim (d / 32 boxes) for each key tile of the
+// split, into the scratch s_out (row local * 128 + r, key k at pitch
+// floats a row), and each row's max of S log2(e) over the split into
+// m_out[(local * n_split + split) * 128 + r].  Under causal masking a
+// consumer skips the key tiles past its last row (they are neither
+// computed nor stored) and masks only a tile that crosses the diagonal
+// or the end of the sequence, to -inf.
+__global__ void __launch_bounds__(Sc32::kThreads, 1)
+flash_scores32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      float* __restrict__ s_out, float* __restrict__ m_out,
+                      int tn, int heads, int bh_count, int n_qb, int i0,
+                      int n_split, int pitch, int d, int causal,
+                      float scale) {
+  using L = Sc32;
+  constexpr int kS = L::kStages;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + kSwAtom - 1) & ~(kSwAtom - 1);
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int local = (int)(blockIdx.x / (unsigned)n_split);
+  const int split = (int)(blockIdx.x % (unsigned)n_split);
+  const BlockOf blk(i0 + local, heads, bh_count, n_qb, L::kBQ);
+  int n_kt = (tn + L::kBN - 1) / L::kBN;
+  if (causal) n_kt = min(n_kt, (min(blk.q0 + L::kBQ, tn) - 1) / L::kBN + 1);
+  const int kt0 = split * kSplitTiles, kt1 = min(n_kt, kt0 + kSplitTiles);
+  float* m_rows = m_out + ((size_t)local * n_split + split) * L::kBQ;
+  if (kt0 >= kt1) {   // every key tile of the split is past the diagonal
+    if (tid < L::kBQ) m_rows[tid] = -INFINITY;
+    return;
+  }
+  const int nbox = d / 32, n_steps = (kt1 - kt0) * nbox;
+  const uint32_t bar0 = base + L::kBar;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(bar32(bar0, 0, s), 1);
+      mbar_init(bar32(bar0, kS, s), kConverters);
+      mbar_init(bar32(bar0, 2 * kS, s), L::kCons * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == L::kCons) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    const int pt = tid - L::kCons * 128;
+    if (pt == 0) {
+      // the TMA thread: per step a box of Q and of K into stage s
+      for (int i = 0; i < n_steps; ++i) {
+        const int s = i % kS, u = i / kS;
+        if (u > 0) mbar_wait(bar32(bar0, 2 * kS, s), (u - 1) & 1);
+        const int kt = kt0 + i / nbox, x = i % nbox;
+        const uint32_t full = bar32(bar0, 0, s);
+        mbar_expect_tx(full, L::kQBox + L::kKBox);
+        tma_load_4d(base + L::kQ + s * L::kQBox, &tm_q, full, 32 * x, blk.h,
+                    blk.q0, blk.b);
+        tma_load_4d(base + L::kKhi + s * L::kKBox, &tm_k, full, 32 * x,
+                    blk.h, kt * L::kBN, blk.b);
+      }
+    } else if (pt >= 32) {
+      // converters: K's box split in place into its hi plane and a lo
+      // plane (full[s] implies both consumers are done with the stage)
+      for (int i = 0; i < n_steps; ++i) {
+        const int s = i % kS;
+        mbar_wait(bar32(bar0, 0, s), (i / kS) & 1);
+        const uint32_t khi = base + L::kKhi + s * L::kKBox;
+        k_planes(khi, khi, base + L::kKlo + s * L::kKBox,
+                 (int)(L::kKBox / 16), pt - 32);
+        fence_async_smem();
+        mbar_arrive(bar32(bar0, kS, s));
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    const int t = tid & 127, warp = t >> 5, lane = t & 31;
+    const int g = lane >> 2, tq = lane & 3;
+    const int row_a = wg * 64 + warp * 16 + g;   // row in the block
+    const int row0 = blk.q0 + wg * 64, r0 = blk.q0 + row_a;
+    const uint32_t qa = base + L::kQ + row_a * 128 + tq * 4;
+    float m2[2] = {-INFINITY, -INFINITY};   // max of S log2(e), this split
+    float acc_s[L::kBN / 2], part[L::kBN / 2];
+    int i = 0;
+    for (int kt = kt0; kt < kt1; ++kt) {
+      const int k0 = kt * L::kBN;
+      const bool live = !causal || k0 <= row0 + 63;
+      for (int x = 0; x < nbox; ++x, ++i) {
+        const int s = i % kS;
+        const uint32_t par = (i / kS) & 1;
+        // ready: K's planes built; full too, for Q's TMA bytes, which this
+        // thread reads with generic loads
+        mbar_wait(bar32(bar0, kS, s), par);
+        mbar_wait(bar32(bar0, 0, s), par);
+        if (live) {
+          s_batch<L::kBN>(part, qa + s * L::kQBox,
+                          base + L::kKhi + s * L::kKBox,
+                          base + L::kKlo + s * L::kKBox, scale, g);
+#pragma unroll
+          for (int e = 0; e < L::kBN / 2; ++e)
+            acc_s[e] = x > 0 ? acc_s[e] + part[e] : part[e];
+        }
+        mbar_arrive(bar32(bar0, 2 * kS, s));
+      }
+      if (!live) continue;
+      // element 4k + 2i + j: row r0 + 8i, key k0 + 8k + 2tq + j
+      if (k0 + L::kBN > tn || (causal && k0 + L::kBN - 1 > row0)) {
+#pragma unroll
+        for (int k = 0; k < L::kBN / 8; ++k)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + 8 * k + 2 * tq + (e & 1);
+            if (col >= tn || (causal && col > r0 + 8 * (e >> 1)))
+              acc_s[4 * k + e] = -INFINITY;
+          }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int k = 0; k < L::kBN / 8; ++k)
+          mx = fmaxf(mx,
+                     fmaxf(acc_s[4 * k + 2 * r], acc_s[4 * k + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+        m2[r] = fmaxf(m2[r], mx * kLog2e);
+        float* srow =
+            s_out + ((size_t)local * L::kBQ + row_a + 8 * r) * pitch + k0 +
+            2 * tq;
+#pragma unroll
+        for (int k = 0; k < L::kBN / 8; ++k)
+          *reinterpret_cast<float2*>(srow + 8 * k) =
+              make_float2(acc_s[4 * k + 2 * r], acc_s[4 * k + 2 * r + 1]);
+      }
+    }
+    if (tq == 0) {
+      m_rows[row_a] = m2[0];
+      m_rows[row_a + 8] = m2[1];
+    }
   }
 }
 
-__global__ void __launch_bounds__(kWThreads)
-flash_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o, int tn,
-                  int heads, int d, int bh_count, int causal, float scale) {
-  using L = SmemWide;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem + L::kQ);
-  float* Ks = reinterpret_cast<float*>(smem + L::kK);
-  float* Vs = reinterpret_cast<float*>(smem + L::kV);
-  float* Ss = reinterpret_cast<float*>(smem + L::kS);
-  float* Os = reinterpret_cast<float*>(smem + L::kO);
+// consumer warpgroup wg of a values CTA: 64 rows of the block, the
+// slice's kDH columns of O from col0
+template <int kDH>
+__device__ __forceinline__ void values_consume(
+    uint32_t base, const float* __restrict__ m_part, float* __restrict__ o,
+    int wg, int local, int n_split, const BlockOf& blk, int heads, int col0,
+    int tn, int n_kt, int causal, int d) {
+  using L = Val32;
+  using Sl = Tf32Slice<L, kDH>;
+  constexpr int kR = L::kR, kNO = Sl::kNO, kOC = Sl::kOC;
+  constexpr float kLog2e = 1.4426950408889634f;
+  const uint32_t bar0 = base + L::kBar;
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int row_a = wg * 64 + warp * 16 + g;   // row in the block
+  const int row0 = blk.q0 + wg * 64, r0 = blk.q0 + row_a;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int bh = (int)(blockIdx.x % (unsigned)bh_count);
-  const int b = bh / heads, h = bh % heads;
-  const int q0 = (int)(blockIdx.x / (unsigned)bh_count) * kWBQ;
-  const int oc = (int)blockIdx.y * kWC;            // this CTA's columns
-  const int n_chunks = d / kWC;
-  const size_t stride = (size_t)heads * d;         // between t and t+1
-  const size_t base = ((size_t)b * tn * heads + h) * d;
-
-  for (int i = tid; i < kWBQ * kWC; i += kWThreads)
-    Os[(i / kWC) * L::LDO + i % kWC] = 0.f;
-
-  const int my_row = warp * 16 + (lane >> 1), half = lane & 1;
-  const int qpos = q0 + my_row;
-  float m_i = -INFINITY, l_i = 0.f;
-
-  int n_kt = (tn + kWBK - 1) / kWBK;
-  if (causal) n_kt = min(n_kt, (min(q0 + kWBQ, tn) - 1) / kWBK + 1);
+  // m: the max of the splits' maxima (a max is exact in any order)
+  float m_use[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float m = -INFINITY;
+    for (int sp = 0; sp < n_split; ++sp)
+      m = fmaxf(m, m_part[((size_t)local * n_split + sp) * L::kBQ + row_a +
+                          8 * r]);
+    m_use[r] = m == -INFINITY ? 0.f : m;
+  }
+  float acc_o[kNO][kOC / 2];
+#pragma unroll
+  for (int j = 0; j < kNO; ++j)
+#pragma unroll
+    for (int e = 0; e < kOC / 2; ++e) acc_o[j][e] = 0.f;
+  float lsum[2] = {0.f, 0.f};             // this thread's part of l
+  const float one[2] = {1.f, 1.f};        // m is final: no rescale of O
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kWBK;
-    // S[warp rows] = sum over chunks of Q_c K_c^T: lane owns keys lane
-    // and lane + 32
-    float acc[16][2];
+    const int r = kt % kR, p = kt & 1;
+    const bool live = !causal || kt * L::kBN <= row0 + 63;
+    const uint32_t sbox = base + L::kS + r * L::kSBox;
+    // this thread's S fragment (element 4k + 2i + j: row r0 + 8i, key
+    // 8k + 2tq + j of the tile) from the 128-byte-swizzled S box
+    float sv[L::kBN / 2];
+    mbar_wait(bar32(bar0, 0, r), (kt / kR) & 1);
+    if (live) {
 #pragma unroll
-    for (int r = 0; r < 16; ++r) acc[r][0] = acc[r][1] = 0.f;
-    for (int c = 0; c < n_chunks; ++c) {
-      __syncthreads();                  // every warp done with the tiles
-      load_chunk(Qs, q + base, stride, q0, tn, c * kWC, scale);
-      load_chunk(Ks, k + base, stride, k0, tn, c * kWC, 1.f);
-      if (c == 0) load_chunk(Vs, v + base, stride, k0, tn, oc, 1.f);
-      __syncthreads();
-      const float* qrows = Qs + warp * 16 * L::LDT;
-      for (int dd = 0; dd < kWC; ++dd) {
-        const float k0v = Ks[lane * L::LDT + dd];
-        const float k1v = Ks[(lane + 32) * L::LDT + dd];
+      for (int k = 0; k < L::kBN / 8; ++k)
 #pragma unroll
-        for (int r = 0; r < 16; ++r) {
-          const float qv = qrows[r * L::LDT + dd];
-          acc[r][0] = fmaf(qv, k0v, acc[r][0]);
-          acc[r][1] = fmaf(qv, k1v, acc[r][1]);
+        for (int i = 0; i < 2; ++i) {
+          const float2 x = ld_shared_v2(
+              sbox + (row_a + 8 * i) * 128 +
+              (((2 * k + (tq >> 1)) ^ g) << 4) + (tq & 1) * 8);
+          sv[4 * k + 2 * i] = x.x;
+          sv[4 * k + 2 * i + 1] = x.y;
         }
+    }
+    // p = 2**(S log2(e) - m) against the final m, 0 where S is not
+    // finite; l sums exactly the p that P V multiplies, in key-tile order
+    uint32_t p_hi[L::kBN / 2], p_lo[L::kBN / 2];
+    if (live) {
+#pragma unroll
+      for (int e = 0; e < L::kBN / 2; ++e) {
+        const float sx = sv[e];
+        const float px =
+            isfinite(sx) ? exp2_approx(fmaf(sx, kLog2e, -m_use[(e >> 1) & 1]))
+                         : 0.f;
+        lsum[(e >> 1) & 1] += px;
+        p_hi[e] = tf32_hi(px);
+        p_lo[e] = tf32_lo(px, p_hi[e]);
       }
     }
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      Ss[(warp * 16 + r) * L::LDS + lane] = acc[r][0];
-      Ss[(warp * 16 + r) * L::LDS + lane + 32] = acc[r][1];
-    }
-    __syncwarp();
-
-    float* srow = Ss + my_row * L::LDS + half * 32;
-    float sv[32];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int kpos = k0 + half * 32 + j;
-      const bool dead = kpos >= tn || (causal && kpos > qpos);
-      sv[j] = dead ? -INFINITY : srow[j];
-      mx = fmaxf(mx, sv[j]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-    const float m_new = fmaxf(m_i, mx);
-    const float corr = m_i == -INFINITY ? 0.f : expf(m_i - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float p = isfinite(sv[j]) ? expf(sv[j] - m_new) : 0.f;
-      psum += p;
-      srow[j] = p;
-    }
-    psum += __shfl_xor_sync(kFull, psum, 1);
-    l_i = l_i * corr + psum;
-    m_i = m_new;
-    float* orow = Os + my_row * L::LDO + half * (kWC / 2);
-#pragma unroll 8
-    for (int c = 0; c < kWC / 2; ++c) orow[c] *= corr;
-    __syncwarp();
-
-    {  // O[warp rows, this chunk] += P V_chunk: lane owns columns lane
-       // and lane + 32
-      float oacc[16][2];
-#pragma unroll
-      for (int r = 0; r < 16; ++r)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          oacc[r][i] = Os[(warp * 16 + r) * L::LDO + lane + 32 * i];
-      for (int j = 0; j < kWBK; ++j) {
-        const float v0 = Vs[j * L::LDT + lane];
-        const float v1 = Vs[j * L::LDT + lane + 32];
-#pragma unroll
-        for (int r = 0; r < 16; ++r) {
-          const float p = Ss[(warp * 16 + r) * L::LDS + j];
-          oacc[r][0] = fmaf(p, v0, oacc[r][0]);
-          oacc[r][1] = fmaf(p, v1, oacc[r][1]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 16; ++r)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          Os[(warp * 16 + r) * L::LDO + lane + 32 * i] = oacc[r][i];
-    }
-    __syncwarp();
+    mbar_wait(bar32(bar0, 2 * kR, p), (kt >> 1) & 1);
+    if (live)
+      pv_fold<L, kDH>(acc_o, p_hi, p_lo, base + L::kVthi + p * L::kPlane,
+                      base + L::kVtlo + p * L::kPlane, one);
+    mbar_arrive(bar32(bar0, 2 * kR + 2, p));
+    // the raw stage goes back only now, after P V (the note: Layouts)
+    mbar_arrive(bar32(bar0, kR, r));
   }
 
-  if (qpos < tn) {
-    const float denom = fmaxf(l_i, 1e-30f);
-    const float* orow = Os + my_row * L::LDO + half * (kWC / 2);
-    float* out = o + base + (size_t)qpos * stride + oc + half * (kWC / 2);
-    for (int c = 0; c < kWC / 2; ++c) out[c] = orow[c] / denom;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = lsum[i];
+    l += __shfl_xor_sync(kFull, l, 1);
+    l += __shfl_xor_sync(kFull, l, 2);
+    const float den = fmaxf(l, 1e-30f);
+    const int row = r0 + 8 * i;
+    if (row < tn) {
+      float* orow = o + (((size_t)blk.b * tn + row) * heads + blk.h) * d +
+                    col0 + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < kNO; ++j)
+#pragma unroll
+        for (int k = 0; k < kOC / 8; ++k)
+          *reinterpret_cast<float2*>(orow + j * kOC + 8 * k) =
+              make_float2(acc_o[j][4 * k + 2 * i] / den,
+                          acc_o[j][4 * k + 2 * i + 1] / den);
+    }
   }
 }
 
-int launch_wide(const void* q, const void* k, const void* v, void* o, int b,
-                int tn, int h, int d, int causal, float scale,
-                cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SmemWide::kBytes);
+// one values CTA over a slice of kDH columns from col0: barriers, then
+// the TMA thread (per key tile the block's S box and the slice's V
+// boxes), the converters (V^T's planes) and the two consumers
+template <int kDH>
+__device__ __forceinline__ void values_cta(
+    uint32_t base, const CUtensorMap* tm_s, const CUtensorMap* tm_v,
+    const float* __restrict__ m_part, float* __restrict__ o, int local,
+    int n_split, const BlockOf& blk, int heads, int col0, int tn, int n_kt,
+    int causal, int d) {
+  using L = Val32;
+  using Sl = Tf32Slice<L, kDH>;
+  constexpr int kR = L::kR;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const uint32_t bar0 = base + L::kBar;
+  if (tid == 0) {
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      mbar_init(bar32(bar0, 0, r), 1);
+      mbar_init(bar32(bar0, kR, r), kConverters + L::kCons * 128);
+    }
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      mbar_init(bar32(bar0, 2 * kR, p), kConverters);
+      mbar_init(bar32(bar0, 2 * kR + 2, p), L::kCons * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == L::kCons) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    const int pt = tid - L::kCons * 128;
+    if (pt == 0) {
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int r = kt % kR, u = kt / kR;
+        if (u > 0) mbar_wait(bar32(bar0, kR, r), (u - 1) & 1);
+        const uint32_t full = bar32(bar0, 0, r);
+        mbar_expect_tx(full, L::kSBox + Sl::kPlane);
+        tma_load_2d(base + L::kS + r * L::kSBox, tm_s, full, kt * L::kBN,
+                    local * L::kBQ);
+#pragma unroll
+        for (int x = 0; x < Sl::kBoxes; ++x)
+          tma_load_4d(base + L::kVraw + r * L::kPlane + x * L::kKBox, tm_v,
+                      full, col0 + 32 * x, blk.h, kt * L::kBN, blk.b);
+      }
+    } else if (pt >= 32) {
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int r = kt % kR, p = kt & 1;
+        mbar_wait(bar32(bar0, 0, r), (kt / kR) & 1);
+        if (kt >= 2)
+          mbar_wait(bar32(bar0, 2 * kR + 2, p), ((kt >> 1) - 1) & 1);
+        vt_planes<L, kDH>(base + L::kVraw + r * L::kPlane,
+                          base + L::kVthi + p * L::kPlane,
+                          base + L::kVtlo + p * L::kPlane, pt - 32);
+        mbar_arrive(bar32(bar0, kR, r));
+        fence_async_smem();
+        mbar_arrive(bar32(bar0, 2 * kR, p));
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    values_consume<kDH>(base, m_part, o, wg, local, n_split, blk, heads,
+                        col0, tn, n_kt, causal, d);
+  }
+}
+
+// One CTA per (query block i0 + blockIdx.x / n_sl, slice blockIdx.x %
+// n_sl of O's columns: the d / 32 boxes over n_sl slices as evenly as
+// they go, the first ones one box more, 5 or 6 boxes each), reading the
+// block's S from the scratch through tm_s and m from m_part
+__global__ void __launch_bounds__(Val32::kThreads, 1)
+flash_values32_kernel(const __grid_constant__ CUtensorMap tm_s,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const float* __restrict__ m_part, float* __restrict__ o,
+                      int tn, int heads, int bh_count, int n_qb, int i0,
+                      int n_split, int n_sl, int d, int causal) {
+  using L = Val32;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + kSwAtom - 1) & ~(kSwAtom - 1);
+  const int local = (int)(blockIdx.x / (unsigned)n_sl);
+  const int sl = (int)(blockIdx.x % (unsigned)n_sl);
+  const BlockOf blk(i0 + local, heads, bh_count, n_qb, L::kBQ);
+  const int nx = d / 32, small = nx / n_sl, extra = nx % n_sl;
+  const int col0 = 32 * (sl * small + min(sl, extra));
+  int n_kt = (tn + L::kBN - 1) / L::kBN;
+  if (causal) n_kt = min(n_kt, (min(blk.q0 + L::kBQ, tn) - 1) / L::kBN + 1);
+  if (small + (sl < extra) == L::kDH / 32)
+    values_cta<L::kDH>(base, &tm_s, &tm_v, m_part, o, local, n_split, blk,
+                       heads, col0, tn, n_kt, causal, d);
+  else
+    values_cta<L::kDH - 32>(base, &tm_s, &tm_v, m_part, o, local, n_split,
+                            blk, heads, col0, tn, n_kt, causal, d);
+}
+
+// The two-pass route's plan for (b, t, h): query blocks of 128 rows in
+// chunks whose scores fit kScratchCap, at least one block a chunk.  A
+// block's scratch: its S (128 rows x pitch keys, pitch = t rounded up to
+// the scores' key tile) and its rows' per-split maxima; the scratch holds
+// one chunk (the first `per_chunk` blocks' S, then their maxima), so it
+// is at most the larger of the cap and one block's scratch.  False where
+// the blocks pass the grid's int index.
+struct TwoPass {
+  long long blocks, per_chunk, bytes;
+  int n_qb, pitch, n_split;
+};
+bool twopass_plan(int b, int t, int h, TwoPass* p) {
+  p->n_qb = (t + Sc32::kBQ - 1) / Sc32::kBQ;
+  const int n_kt = (t + Sc32::kBN - 1) / Sc32::kBN;
+  p->pitch = n_kt * Sc32::kBN;
+  p->n_split = (n_kt + kSplitTiles - 1) / kSplitTiles;
+  p->blocks = (long long)b * h * p->n_qb;
+  const long long block_bytes =
+      4ll * Sc32::kBQ * ((long long)p->pitch + p->n_split);
+  p->per_chunk = std::min<long long>(
+      p->blocks,
+      std::max<long long>(1, (long long)kScratchCap / block_bytes));
+  if (p->blocks > INT_MAX) return false;
+  p->bytes = p->per_chunk * block_bytes;
+  return true;
+}
+
+// the scratch's scores as a 2-d map (dims keys, rows; strides in bytes),
+// boxes of 32 keys x 128 rows with the 128-byte swizzle
+bool make_map_s(CUtensorMap* map, const float* ptr, int pitch,
+                long long rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)pitch, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch * 4};
+  const cuuint32_t box[2] = {32, (cuuint32_t)Val32::kBQ};
+  const cuuint32_t estr[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(ptr),
+             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the pair of kernels once per chunk, in stream order on one scratch (the
+// next chunk's scores kernel starts after this chunk's values kernel has
+// read it); returns the first CUDA error
+int launch_twopass(const void* q, const void* k, const void* v, void* o,
+                   int b, int tn, int h, int d, int causal, float scale,
+                   void* scratch, cudaStream_t stream) {
+  TwoPass p;
+  if (!twopass_plan(b, tn, h, &p) || scratch == nullptr ||
+      reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  float* s_buf = static_cast<float*>(scratch);
+  float* m_buf = s_buf + p.per_chunk * Sc32::kBQ * (long long)p.pitch;
+  CUtensorMap mq, mk, mv, ms;
+  if (!make_map32(&mq, q, b, tn, h, d, Sc32::kBQ) ||
+      !make_map32(&mk, k, b, tn, h, d, Sc32::kBN) ||
+      !make_map32(&mv, v, b, tn, h, d, Val32::kBN) ||
+      !make_map_s(&ms, s_buf, p.pitch, p.per_chunk * Val32::kBQ))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_scores32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Sc32::kBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_values32_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)Val32::kBytes);
   if (err != cudaSuccess) return (int)err;
-  const int n_qt = (tn + kWBQ - 1) / kWBQ;
-  const dim3 grid((unsigned)(n_qt * b * h), (unsigned)(d / kWC));
-  flash_wide_kernel<<<grid, kWThreads, SmemWide::kBytes, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, tn, h, d,
-      b * h, causal, scale);
-  return (int)cudaGetLastError();
+  const int n_sl = (d / 32 + 5) / 6;
+  for (long long i0 = 0; i0 < p.blocks; i0 += p.per_chunk) {
+    const long long n = std::min(p.per_chunk, p.blocks - i0);
+    if (n * p.n_split > INT_MAX || n * n_sl > INT_MAX)
+      return (int)cudaErrorInvalidValue;
+    flash_scores32_kernel<<<(unsigned)(n * p.n_split), Sc32::kThreads,
+                            Sc32::kBytes, stream>>>(
+        mq, mk, s_buf, m_buf, tn, h, b * h, p.n_qb, (int)i0, p.n_split,
+        p.pitch, d, causal, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    ++t_launches;
+    flash_values32_kernel<<<(unsigned)(n * n_sl), Val32::kThreads,
+                            Val32::kBytes, stream>>>(
+        ms, mv, m_buf, (float*)o, tn, h, b * h, p.n_qb, (int)i0, p.n_split,
+        n_sl, d, causal);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    ++t_launches;
+  }
+  return (int)cudaSuccess;
 }
 
 }  // namespace
 
-// The kernel rt_flash_attention launches for kernel width d and dtype (0 =
-// float32, 1 = float16, 2 = bfloat16): 0 flash_wgmma_kernel, 1
-// flash_big16_kernel, 2 flash_tf32_kernel, 3 flash_wide_kernel, 4
-// flash_cluster16_kernel, 5 flash_cluster32_kernel; 6 for 16-bit widths
-// past kReach16, which the entry point refuses: the caller widens those
-// inputs to f32 and calls the f32 route of the width (the JAX kernel's
-// own arithmetic, every block cast to f32), rounding the output back;
-// -1 where no route takes the width.  Chosen by width and dtype alone.
+// The kernels rt_flash_attention launches for kernel width d and dtype (0
+// = float32, 1 = float16, 2 = bfloat16): 0 flash_wgmma_kernel, 1
+// flash_big16_kernel, 2 flash_tf32_kernel, 3 flash_scores32_kernel then
+// flash_values32_kernel (once per chunk), 4 flash_cluster16_kernel, 5
+// flash_cluster32_kernel; 6 for 16-bit widths past kReach16, which the
+// entry point refuses: the caller widens those inputs to f32 and calls
+// the f32 route of the width (the JAX kernel's own arithmetic, every
+// block cast to f32), rounding the output back; -1 where no route takes
+// the width.  Chosen by width and dtype alone.
 extern "C" int rt_flash_route(int d, int dtype) {
   if (!(d == 64 || d == 128 || (d >= 256 && d % 64 == 0))) return -1;
   if (dtype == 1 || dtype == 2)
@@ -2342,15 +2799,16 @@ extern "C" int rt_flash_route(int d, int dtype) {
   if (dtype == 0) {
     if (d <= 512) return 2;
     if (d <= kReach32) return 5;
-    if (d / kWC <= 65535) return 3;
+    if (d / 64 <= 65535) return 3;
   }
   return -1;
 }
 
 // Keys a tile of the kernel rt_flash_route names for (d, dtype) (for a
-// widened 16-bit width, of the f32 route); -1 where no route takes the
+// widened 16-bit width, of the f32 route; for the two-pass route, of the
+// values kernel, whose tiles O sums over); -1 where no route takes the
 // width.  The tiles are the layouts' own (Smem16, Big16, Tf32, Cl16,
-// Tf32C, kWBK), so the card tests read the rule from here.
+// Tf32C, Val32), so the card tests read the rule from here.
 extern "C" int rt_flash_key_tile(int d, int dtype) {
   switch (rt_flash_route(d, dtype)) {
     case 0: return d == 64 ? Smem16<64>::kBN : Smem16<128>::kBN;
@@ -2366,7 +2824,7 @@ extern "C" int rt_flash_key_tile(int d, int dtype) {
         case 512: return Tf32<512>::kBN;
       }
       return -1;
-    case 3: return kWBK;
+    case 3: return Val32::kBN;
     case 4: return Cl16::kBN;
     case 5: return Tf32C::kBN;
     case 6: return rt_flash_key_tile(d, 0);
@@ -2374,17 +2832,37 @@ extern "C" int rt_flash_key_tile(int d, int dtype) {
   return -1;
 }
 
+// Bytes of device scratch rt_flash_attention needs for (b, t, h, d,
+// dtype): the two-pass route's (one chunk's scores and row maxima: at
+// most the larger of kScratchCap and one query block's, whatever b and
+// h are); 0 for every other route; -1 where no route takes the width or
+// the two-pass route's blocks pass its grid.  A widened 16-bit width
+// needs what its f32 route needs.
+extern "C" long long rt_flash_scratch_bytes(int b, int t, int h, int d,
+                                            int dtype) {
+  const int route = rt_flash_route(d, dtype);
+  if (route < 0 || b < 1 || t < 1 || h < 1) return -1;
+  if ((route == 6 ? rt_flash_route(d, 0) : route) != 3) return 0;
+  TwoPass p;
+  return twopass_plan(b, t, h, &p) ? p.bytes : -1;
+}
+
+// The kernel launches the calling thread's last rt_flash_attention call
+// made, counted where each launch succeeded
+extern "C" long long rt_flash_last_launches() { return t_launches; }
+
 // d: a kernel width rt_flash_route takes (the wrapper pads other head dims
-// with zeros and passes the scale of the original one).  Every grid puts
-// b*h, the query tile and the CTAs of a query tile's cluster (at most 8
-// a 64-row tile) on gridDim.x (at most 2**31 - 1 blocks).
+// with zeros and passes the scale of the original one).  scratch: device
+// memory of rt_flash_scratch_bytes(b, t, h, d, dtype) bytes (16-byte
+// aligned), or null where that is 0.  Each route checks its own grid
+// (b*h, the query tiles and a tile's CTAs on gridDim.x, at most 2**31 - 1
+// blocks).
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, int b, int t, int h, int d,
                                   int dtype, int causal, float scale,
-                                  void* stream) {
-  if (b < 1 || t < 1 || h < 1 ||
-      (long long)b * h * ((t + 63) / 64) * kCl32 > INT_MAX)
-    return (int)cudaErrorInvalidValue;
+                                  void* scratch, void* stream) {
+  t_launches = 0;
+  if (b < 1 || t < 1 || h < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (rt_flash_route(d, dtype)) {
     case 0:
@@ -2396,7 +2874,9 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
                                               scale, st);
     case 2:
     case 5: return launch_any32(q, k, v, o, b, t, h, d, causal, scale, st);
-    case 3: return launch_wide(q, k, v, o, b, t, h, d, causal, scale, st);
+    case 3:
+      return launch_twopass(q, k, v, o, b, t, h, d, causal, scale, scratch,
+                            st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -2,7 +2,8 @@
 
 The port of ``ray_tpu/ops/flash_attention.py`` (a Pallas TPU kernel):
 blocked attention with the online-softmax recurrence, O(T) memory
-instead of the O(T^2) score matrix.  The kernel is
+instead of the O(T^2) score matrix (past D = 1536 a score scratch of at
+most the larger of 256 MiB and one query block's scores, below).  The kernel is
 ``csrc/flash_attention.cu``; the route follows dtype and kernel width:
 
 * f16/bf16 at D = 64 and 128: wgmma + TMA, 128 query rows a CTA, key
@@ -26,11 +27,21 @@ instead of the O(T^2) score matrix.  The kernel is
 * f32 at D = 576 to 1536: the same split-TF32 arithmetic over a cluster
   of ceil(D / 192) CTAs a query tile (160 or 192 columns each), its
   partial S summed in rank order as on the 16-bit cluster;
-* f32 past 1536: FMA on the CUDA cores, a wide kernel that streams the
-  head dim in chunks of 64 columns.
+* f32 past 1536 (and 16-bit past 1536, widened): two passes in split
+  TF32 on wgmma + TMA.  A scores kernel computes S = (Q scale) K^T once
+  per (query block, key tile) over the whole head dim and each row's
+  max; a values kernel reads S back for each slice of O's columns, takes
+  p against the final max and multiplies P by the slice's V.  S goes
+  through a score scratch in device memory that this wrapper allocates:
+  bounded by a fixed cap (256 MiB; the call walks its 128-row query
+  blocks in chunks that fit, two kernel launches a chunk) or, where one
+  block's scores pass it (T past 2**19), by that block's (512 T bytes):
+  O(T) whatever B and H are, never O(B*H*T^2).  Every other route keeps
+  no scratch.
 
 The route is chosen by dtype and width alone (the library's
-``rt_flash_route``); a kernel that fails to build or launch raises.
+``rt_flash_route``); a kernel that fails to build or launch, or a
+scratch that cannot be allocated, raises.
 
 ``flash_attention_plain`` is the dense PyTorch version of the same
 function, which CPU tensors take.
@@ -56,8 +67,9 @@ _KERNEL_DIMS = (64, 128, 256)        # the kernel's widths; others pad up
 _WIDE_CHUNK = 64                     # past 256: the next multiple of 64
 # the kernels of the entry point's routes (rt_flash_route's codes 0-5)
 _ROUTES = ("flash_wgmma_kernel", "flash_big16_kernel", "flash_tf32_kernel",
-           "flash_wide_kernel", "flash_cluster16_kernel",
-           "flash_cluster32_kernel")
+           "flash_scores32_kernel+flash_values32_kernel",
+           "flash_cluster16_kernel", "flash_cluster32_kernel")
+_TWOPASS = 3     # rt_flash_route's code for the two-pass route
 _WIDEN = 6       # rt_flash_route's code for 16-bit widths the f32 route runs
 
 
@@ -105,11 +117,16 @@ def flash_attention(q, k, v, *, causal: bool = False,
     to 512, 128 x 32 to 1024 over a cluster of 3 or 4 CTAs; f32: 128 x 64
     at 64, 128 x 32 at 128, 128 x 16 at 256 and 320 and 64 x 16 to 512,
     each over a cluster of two CTAs, 64 x 16 to 1536 over a cluster of
-    3-8, 64 x 64 past it).  CPU tensors take ``flash_attention_plain``;
-    CUDA tensors launch the kernel at any D or raise.
-    ``flash_attention.last_route`` names the kernel the entry point
-    launched last, ``flash_attention.last_widened`` whether it widened
-    16-bit inputs to f32 for it."""
+    3-8, past it 128 x 64 for the scores and 128 x 32 for the values).
+    CPU tensors take ``flash_attention_plain``; CUDA tensors launch the
+    kernel at any D or raise.  ``flash_attention.last_route`` names the
+    kernel(s) the entry point launched last,
+    ``flash_attention.last_widened`` whether it widened 16-bit inputs to
+    f32 for them, ``flash_attention.last_kernel_launches`` how many
+    kernel launches the call made (counted by the library where each
+    launch succeeded: 2 a chunk on the two-pass route, else 1), and
+    ``flash_attention.last_scratch_bytes`` the bytes of score scratch it
+    allocated (0 off the two-pass route)."""
     b, t, h, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("q/k/v must share shape (batch, seq, heads, "
@@ -148,16 +165,31 @@ def flash_attention(q, k, v, *, causal: bool = False,
     if widened:             # the JAX kernel's f32 blocks (module note)
         q, k, v = (x.float() for x in (q, k, v))
         route = route_of(width, _DTYPE_CODE[torch.float32])
+    code = _DTYPE_CODE[q.dtype]
+    scratch = None
+    if route == _TWOPASS:
+        # its score scratch (bounded; module note), on the tensors'
+        # device and stream; a plan the route refuses (-1) fails the launch
+        n_scratch = _build.load("flash_attention", "rt_flash_scratch_bytes")(
+            b, t, h, width, code)
+        if n_scratch > 0:
+            scratch = torch.empty(n_scratch, dtype=torch.uint8,
+                                  device=q.device)
     out = torch.empty_like(q)
     fn = _build.load("flash_attention")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             b, t, h, width, _DTYPE_CODE[q.dtype], int(bool(causal)),
+             b, t, h, width, code, int(bool(causal)),
              1.0 / math.sqrt(d),                  # the original D's scale
+             None if scratch is None else scratch.data_ptr(),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
     flash_attention.last_route = _ROUTES[route]
     flash_attention.last_widened = widened
+    flash_attention.last_kernel_launches = _build.load(
+        "flash_attention", "rt_flash_last_launches")()
+    flash_attention.last_scratch_bytes = (0 if scratch is None
+                                          else scratch.numel())
     if widened:
         out = out.to(dtype)
     return out if width == d else out[..., :d].contiguous()
@@ -166,3 +198,5 @@ def flash_attention(q, k, v, *, causal: bool = False,
 flash_attention.launches = 0
 flash_attention.last_route = None
 flash_attention.last_widened = False
+flash_attention.last_kernel_launches = 0
+flash_attention.last_scratch_bytes = 0

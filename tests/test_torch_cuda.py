@@ -320,6 +320,8 @@ def _flash_inputs(dtype, shape):
 
 # the widest kernel width of each cluster route (the source note's reach)
 FLASH_REACH_16, FLASH_REACH_32 = 1024, 1536
+# f32 past FLASH_REACH_32: the two-pass route's pair of kernels
+FLASH_TWOPASS = "flash_scores32_kernel+flash_values32_kernel"
 
 
 def _flash_route(dtype, width):
@@ -328,7 +330,7 @@ def _flash_route(dtype, width):
     if dtype == torch.float32:
         return ("flash_tf32_kernel" if width <= 512 else
                 "flash_cluster32_kernel" if width <= FLASH_REACH_32 else
-                "flash_wide_kernel")
+                FLASH_TWOPASS)
     if width > FLASH_REACH_16:
         return _flash_route(torch.float32, width)
     return ("flash_wgmma_kernel" if width <= 128 else
@@ -417,7 +419,7 @@ def test_flash_kernel_rejects_other_head_dims():
     fn = _build.load("flash_attention")
     for d in (32, 96, 300):
         err = fn(q.data_ptr(), q.data_ptr(), q.data_ptr(), q.data_ptr(),
-                 1, 64, 2, d, 2, 0, ctypes.c_float(1.0),
+                 1, 64, 2, d, 2, 0, ctypes.c_float(1.0), None,
                  torch.cuda.current_stream().cuda_stream)
         assert err != 0, d
     x = torch.randn((1, 64, 2, 300), device="cuda", dtype=torch.bfloat16)
@@ -558,15 +560,56 @@ def _flash_past_512_case(dtype, causal, d, shape=(2, 384, 2)):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_f32_past_512_takes_the_cluster_then_wide_kernel(causal):
+def test_flash_f32_past_512_takes_the_cluster_then_two_pass_route(causal):
     """f32 past kernel width 512 runs on split TF32 over a cluster
     (flash_cluster32_kernel) up to 1536, within f32's unchanged limit,
-    which rejects its dropped key tiles (64 keys and the route's 16);
-    one width past 1536 takes flash_wide_kernel (FMA, the head dim in
-    chunks of 64 columns) and still computes."""
+    which rejects its dropped key tiles (64 keys and the route's 16).
+    Past 1536 f32 (D = 1600, 2048, 4096) takes the two-pass route (the
+    scores kernel, then the values kernel), and 16-bit inputs at 1600 are
+    widened to it: each within the limit, which rejects the dropped 64
+    keys and the values kernel's tile of 32, with one launch of the entry
+    point and two kernel launches (one chunk of scratch)."""
+    from ray_tpu_torch.ops import flash_attention
     _flash_past_512_case(torch.float32, causal, 576)
-    _flash_past_512_case(torch.float32, causal, FLASH_REACH_32 + 64,
-                         shape=(1, 256, 2))
+    assert flash_attention.last_kernel_launches == 1
+    assert flash_attention.last_scratch_bytes == 0
+    for dtype, d in ((torch.float32, FLASH_REACH_32 + 64),
+                     (torch.float32, 2048), (torch.float32, 4096),
+                     (torch.bfloat16, FLASH_REACH_32 + 64),
+                     (torch.float16, FLASH_REACH_32 + 64)):
+        _flash_past_512_case(dtype, causal, d, shape=(1, 256, 2))
+        assert flash_attention.last_kernel_launches == 2, (dtype, d)
+        assert flash_attention.last_scratch_bytes > 0, (dtype, d)
+
+
+def test_flash_two_pass_scratch_stays_within_its_cap():
+    """The two-pass route's score scratch is bounded: at f32 B=1 T=2048
+    H=17 D=1600 the scores of every query block need just past the cap
+    (17 heads x 16 blocks of 1 MiB and their row maxima; the need of one
+    head times 17), so the scratch holds as many blocks as fit and the
+    call runs in two chunks (four kernel launches, as the library counts
+    them at each launch), within the limit.  Where one query block's
+    scores pass the cap (T = 2**20) the route still plans, one block a
+    chunk: the scratch is that block's, O(T), whatever B and H are."""
+    from ray_tpu_torch.ops import _build, flash_attention
+    scratch = _build.load("flash_attention", "rt_flash_scratch_bytes")
+    b, t, h, d = 1, 2048, 17, FLASH_REACH_32 + 64
+    need = b * h * scratch(1, t, 1, d, 0)        # uncapped: head by head
+    cap = scratch(b, t, h, d, 0)
+    assert 0 < cap < need <= 2 * cap, (cap, need)
+    assert scratch(b, t, h, 512, 0) == 0         # other routes keep none
+    long_t = 2 ** 20
+    block = scratch(1, long_t, 1, d, 0)          # one block of 128 rows
+    assert 256 << 20 < block <= 4 * 128 * 2 * long_t, block
+    assert scratch(2, long_t, 8, d, 0) == block
+    assert scratch(2, long_t, 8, d, 2) == block  # bf16, widened
+    q, k, v = _flash_inputs(torch.float32, (b, t, h, d))
+    for causal in (False, True):
+        got = flash_attention(q, k, v, causal=causal, block_q=t,
+                              block_k=t)
+        assert flash_attention.last_route == FLASH_TWOPASS
+        assert flash_attention.last_kernel_launches == 4
+        assert _flash_err_over_limit(got, q, k, v, causal) <= 1.0
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -588,7 +631,7 @@ def test_flash_16bit_past_512_runs_on_the_cluster_or_widened(dtype, causal):
     code = 2 if dtype == torch.bfloat16 else 1
     err = _build.load("flash_attention")(
         x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(), 1, 64, 2,
-        FLASH_REACH_16 + 64, code, 0, ctypes.c_float(1.0),
+        FLASH_REACH_16 + 64, code, 0, ctypes.c_float(1.0), None,
         torch.cuda.current_stream().cuda_stream)
     assert err != 0
 
