@@ -18,7 +18,7 @@ Phases:
   build           seconds to build the kernels, ptxas registers/spills,
                   and the SASS instructions that show the Hopper paths
                   (HGMMA and UTMALDG in every instantiation of flash
-                  attention's three tensor-core kernels, cluster
+                  attention's seven tensor-core kernels, cluster
                   barriers in the water-fill)
   waterfill       ``schedule_grouped`` (kernel ``waterfill_scan``, one
                   launch of a thread-block cluster) at 1000 nodes x 8
@@ -123,16 +123,19 @@ Phases:
                   H=16, D=128 bf16 causal (the main path), then bf16
                   causal at the widths of the wgmma kernels past 128
                   (FLASH_WIDE_PATHS: B=2 T=4096 H=16 D=256, Gemma 7B's
-                  head dim, H=8 D=512, and H=8 D=576 on the 16-bit
-                  cluster), then f32 causal at D=128 (the split-TF32
-                  kernel's path) and at H=8 D=576 (its cluster), each
-                  driven with the launch count set to 0 and the entry
-                  point's route read; then the cases: D=128 (bf16
+                  head dim, and H=8 D=512), then f32 causal at D=128
+                  (the split-TF32 kernel's path), then the two-pass
+                  routes' paths (FLASH_TWOPASS_PATHS: bf16 and f32 at
+                  B=2 T=4096 H=8 D=576, five chunks of scratch, f32 at
+                  B=2 T=1024 H=4 D=1600, f32 at B=2 T=4096 H=8 D=2048,
+                  and bf16 at B=2 T=1024 H=4 D=1088), each driven with the launch
+                  count set to 0 and the entry point's route read, with
+                  the kernel launches of each two-pass call (two a
+                  chunk); then the cases: D=128 (bf16
                   causal, bf16, f16, f32 causal and not), bf16 causal at
                   D=64, f32 at T=1024, D=64, bf16 and f32 causal and
                   not at the three full-card widths, and f32 causal and
-                  not at B=2 T=4096 H=8 D=2048 (the two-pass route at
-                  the full card, five chunks of scratch), against the plain
+                  not at B=2 T=4096 H=8 D=2048, against the plain
                   version within an elementwise limit (FLASH_TOL) that
                   must also reject the plain version with its last 64
                   keys dropped (and, for f32 and past D=512, its last
@@ -140,16 +143,10 @@ Phases:
                   kernel/plain/library times, the bound (f32: three
                   TF32 products, the FMA bound beside it), the share of
                   the bound reached and the ratio to the library call;
-                  then bf16 at B=2 T=1024 H=4 D=1088 (widened to f32,
-                  on flash_cluster32_kernel), f32 at D=1600 (the
-                  two-pass route: flash_scores32_kernel then
-                  flash_values32_kernel) and f32 at B=2 T=4096 H=8
-                  D=2048, driven the same way, with the kernel launches
-                  of each two-pass call (two a chunk); then every
-                  head dim of FLASH_HEAD_DIMS (zero-padded; 16-1024 on
-                  wgmma, 1088 and 1600 past the cluster routes' reach),
-                  bf16 and f32, causal and not, each with the route and
-                  widening the route table gives, beside the plain
+                  then every head dim of FLASH_HEAD_DIMS (zero-padded;
+                  past 512 on the two-pass pairs of both dtypes), bf16
+                  and f32, causal and not, each on the route the route
+                  table gives, beside the plain
                   version's time, its bound and the library call's time
                   and SDPA backend
   data            ``ray_tpu_torch.data`` feeding the card: ``init`` with a
@@ -334,8 +331,8 @@ def phase_build():
 SASS_REQUIRED = {
     "flash_attention": {k: ("HGMMA", "UTMALDG") for k in (
         "flash_wgmma_kernel", "flash_big16_kernel", "flash_tf32_kernel",
-        "flash_cluster16_kernel", "flash_cluster32_kernel",
-        "flash_scores32_kernel", "flash_values32_kernel")},
+        "flash_scores32_kernel", "flash_values32_kernel",
+        "flash_scores16_kernel", "flash_values16_kernel")},
     "waterfill": {"": ("UCGABAR",)}}
 
 
@@ -2954,23 +2951,19 @@ def phase_flash(dev):
                             dtype=torch.float32).to(dtype)
                 for _ in range(3)]
 
-    def drive(b, t, h, d, dtype, route, widened=False):
+    def drive(b, t, h, d, dtype, route):
         """One causal call through the entry point with the launch count
         set to 0 just before it; the launches it counted (the route it
-        reported must be ``route``, and it must have widened 16-bit
-        inputs to f32 for it exactly when ``widened``)."""
+        reported must be ``route``)."""
         q, k, v = qkv(b, t, h, d, dtype)
         ops.flash_attention.launches = 0
         out = ops.flash_attention(q, k, v, causal=True)
         torch.cuda.synchronize()
         launches = ops.flash_attention.launches
-        if launches < 1 or ops.flash_attention.last_route != route or \
-                ops.flash_attention.last_widened != widened:
+        if launches < 1 or ops.flash_attention.last_route != route:
             raise AssertionError(
                 f"ops.flash_attention {dtype} D={d}: {launches} launches "
-                f"on {ops.flash_attention.last_route} (widened "
-                f"{ops.flash_attention.last_widened}), not {route} "
-                f"(widened {widened})")
+                f"on {ops.flash_attention.last_route}, not {route}")
         if out.shape != q.shape or out.dtype != q.dtype or \
                 not bool(torch.isfinite(out.float()).all()):
             raise AssertionError(f"flash attention output {dtype} D={d}: "
@@ -2980,30 +2973,22 @@ def phase_flash(dev):
     # --- the main path: the ops entry point at the headline shape ---
     main_launches = drive(2, 4096, 16, 128, torch.bfloat16,
                           "flash_wgmma_kernel")
-    # --- the wgmma kernels past 128 (flash_big16_kernel to 512,
-    # flash_cluster16_kernel past it), each width's path driven alone ---
+    # --- flash_big16_kernel past 128, each width's path driven alone ---
     wide_launches = {d: drive(b, t, h, d, torch.bfloat16,
-                              "flash_big16_kernel" if d <= 512 else
-                              "flash_cluster16_kernel")
-                     for b, t, h, d in FLASH_WIDE_PATHS}
+                              "flash_big16_kernel")
+                     for b, t, h, d in FLASH_WIDE_PATHS if d <= FLASH_REACH}
     # --- f32 on the split-TF32 kernel (flash_tf32_kernel) at the headline
-    # shape, and past 512 on its cluster (flash_cluster32_kernel) ---
+    # shape ---
     f32_launches = drive(2, 4096, 16, 128, torch.float32,
                          "flash_tf32_kernel")
-    f32_cluster_launches = drive(*FLASH_WIDE_PATHS[-1], torch.float32,
-                                 "flash_cluster32_kernel")
-    # --- past the cluster routes' reach, at FLASH_HEAD_DIMS' shape: bf16
-    # past 1024 widened to f32 (onto flash_cluster32_kernel at 1088), and
-    # f32 past 1536 on the two-pass route, there and at the full card
-    # (B=2 T=4096 H=8 D=2048: five chunks of scratch); beside each
-    # two-pass call the kernel launches it made, as the library counted
-    # them where each launch succeeded (two a chunk) ---
-    widened_launches = drive(2, 1024, 4, 1088, torch.bfloat16,
-                             "flash_cluster32_kernel", widened=True)
+    # --- past 512 on the two-pass routes (FLASH_TWOPASS_PATHS), beside
+    # each call the kernel launches it made, as the library counted them
+    # where each launch succeeded (two a chunk) ---
     twopass_launches, twopass_kernel_launches = {}, {}
-    for name, shape in FLASH_TWOPASS_PATHS.items():
-        twopass_launches[name] = drive(*shape, torch.float32,
-                                       FLASH_TWOPASS)
+    for name, (dtype_name, shape) in FLASH_TWOPASS_PATHS.items():
+        twopass_launches[name] = drive(
+            *shape, getattr(torch, dtype_name),
+            flash_route_of(shape[3], dtype_name))
         twopass_kernel_launches[name] = \
             ops.flash_attention.last_kernel_launches
     print(f"flash attention two-pass kernel launches a call (2 a chunk): "
@@ -3019,7 +3004,7 @@ def phase_flash(dev):
     cases += [(dtype, causal, b, t, h, d)
               for dtype in ("bfloat16", "float32")
               for b, t, h, d in FLASH_WIDE_PATHS for causal in (True, False)]
-    cases += [("float32", causal, *FLASH_TWOPASS_PATHS["f32_d2048"])
+    cases += [("float32", causal, *FLASH_TWOPASS_PATHS["f32_d2048"][1])
               for causal in (True, False)]
     rows = []
     for dtype_name, causal, b, t, h, d in cases:
@@ -3082,8 +3067,6 @@ def phase_flash(dev):
               "main_path_launches": main_launches,
               "wide_path_launches": wide_launches,
               "f32_path_launches": f32_launches,
-              "f32_cluster_path_launches": f32_cluster_launches,
-              "widened_path_launches": widened_launches,
               "twopass_path_launches": twopass_launches,
               "twopass_kernel_launches": twopass_kernel_launches,
               "cases": rows,
@@ -3093,39 +3076,38 @@ def phase_flash(dev):
 
 
 # head dims the kernel reaches by zero padding (to 64, 128, 256, 320), at
-# 256 and at 512, past 512 on the cluster routes (576, and 1024, the
-# 16-bit cluster's reach), and past the reaches (1088: 16-bit widened to
-# the f32 cluster; 1600: f32 on the two-pass route, 16-bit widened to it)
+# 256 and at 512, and past 512 on the two-pass routes (576, 1024, 1088 and
+# 1600: even and uneven slices of O's columns in both dtypes)
 FLASH_HEAD_DIMS = (16, 32, 80, 96, 160, 256, 320, 512, 576, 1024, 1088,
                    1600)
-# the widest D of each cluster route (the route table at the head of
-# flash_attention.cu)
-FLASH_REACH16, FLASH_REACH32 = 1024, 1536
-# f32 past FLASH_REACH32: the two-pass route's pair of kernels, driven at
-# FLASH_HEAD_DIMS' shape and at the full card (the f32 cluster's full-card
-# batch and heads at the next power of two past its reach)
-FLASH_TWOPASS = "flash_scores32_kernel+flash_values32_kernel"
-FLASH_TWOPASS_PATHS = {"f32_d1600": (2, 1024, 4, 1600),
-                       "f32_d2048": (2, 4096, 8, 2048)}
+# the widest D of the one-pass routes (the route table at the head of
+# flash_attention.cu); past it each dtype's pair of two-pass kernels
+FLASH_REACH = 512
+FLASH_TWOPASS32 = "flash_scores32_kernel+flash_values32_kernel"
+FLASH_TWOPASS16 = "flash_scores16_kernel+flash_values16_kernel"
+# the two-pass routes' paths: both dtypes at DeepSeek-V3's absorbed MLA
+# width at the full card (FLASH_WIDE_PATHS' last; five chunks of
+# scratch), f32 at FLASH_HEAD_DIMS' shape past 1536 and at the full card
+# at 2048, bf16 past 1024 at FLASH_HEAD_DIMS' shape
+FLASH_TWOPASS_PATHS = {"f32_d576": ("float32", (2, 4096, 8, 576)),
+                       "f32_d1600": ("float32", (2, 1024, 4, 1600)),
+                       "f32_d2048": ("float32", (2, 4096, 8, 2048)),
+                       "bf16_d576": ("bfloat16", (2, 4096, 8, 576)),
+                       "bf16_d1088": ("bfloat16", (2, 1024, 4, 1088))}
 
 
 def flash_route_of(d, dtype_name):
     """The kernel ``ops.flash_attention`` must report for head dim ``d``
-    and dtype, and whether it widens 16-bit inputs to f32 for it: by the
-    route table at the head of flash_attention.cu, not read from the
-    library."""
-    widened = dtype_name != "float32" and d > FLASH_REACH16
-    if dtype_name == "float32" or widened:
-        return ("flash_tf32_kernel" if d <= 512 else
-                "flash_cluster32_kernel" if d <= FLASH_REACH32 else
-                FLASH_TWOPASS), widened
+    and dtype: by the route table at the head of flash_attention.cu, not
+    read from the library."""
+    if dtype_name == "float32":
+        return "flash_tf32_kernel" if d <= FLASH_REACH else FLASH_TWOPASS32
     return ("flash_wgmma_kernel" if d <= 128 else
-            "flash_big16_kernel" if d <= 512 else
-            "flash_cluster16_kernel"), False
+            "flash_big16_kernel" if d <= FLASH_REACH else FLASH_TWOPASS16)
 # (b, t, h, d) of the wgmma kernels' full-card rows past D = 128: Gemma
 # 7B's head dim (256, 16 heads; its config.json), the widest width of a
 # CTA (16 (b, h) pairs x 64 query tiles of 64 = 1,024 CTAs), and the
-# cluster routes' at DeepSeek-V3's absorbed MLA width (576: its
+# two-pass routes' at DeepSeek-V3's absorbed MLA width (576: its
 # kv_lora_rank 512 + qk_rope_head_dim 64, config.json)
 FLASH_WIDE_PATHS = ((2, 4096, 16, 256), (2, 4096, 8, 512),
                     (2, 4096, 8, 576))
@@ -3143,8 +3125,8 @@ def sdpa_backend(q, k, v, causal):
 
 def flash_head_dims(qkv, b=2, t=1024, h=4):
     """Every head dim of FLASH_HEAD_DIMS, causal and not, bf16 and f32,
-    at (b, t, h, d): the route the entry point reports (and whether it
-    widened 16-bit inputs) as ``flash_route_of`` gives it, the kernel
+    at (b, t, h, d): the route the entry point reports as
+    ``flash_route_of`` gives it, the kernel
     within FLASH_TOL of the plain version, and the limit still rejecting
     the plain version with its last key tile dropped (64 keys, and for
     f32 and past D = 512 the route's own tile); beside each kernel time
@@ -3167,13 +3149,11 @@ def flash_head_dims(qkv, b=2, t=1024, h=4):
                 q, k, v = qkv(b, t, h, d, getattr(torch, dtype_name))
                 got = ops.flash_attention(q, k, v, causal=causal).float()
                 route = ops.flash_attention.last_route
-                widened = ops.flash_attention.last_widened
                 scratch_bytes = ops.flash_attention.last_scratch_bytes
-                if (route, widened) != flash_route_of(d, dtype_name):
+                if route != flash_route_of(d, dtype_name):
                     raise AssertionError(
                         f"flash attention D={d} {dtype_name}: route {route}"
-                        f" (widened {widened}), not "
-                        f"{flash_route_of(d, dtype_name)}")
+                        f", not {flash_route_of(d, dtype_name)}")
                 want, limit = flash_limit(q, k, v, causal)
                 ratio = float(((got - want).abs() / limit).max())
                 fault = min(float(((drop_last_key_tile(
@@ -3196,7 +3176,7 @@ def flash_head_dims(qkv, b=2, t=1024, h=4):
                 bound_ms, bound_by, _ = flash_bound(q, causal)
                 fma_ms = flash_fma_bound_ms(q, causal)
                 rows.append({"d": d, "dtype": dtype_name, "causal": causal,
-                             "route": route, "widened": widened,
+                             "route": route,
                              "scratch_bytes": scratch_bytes,
                              **({} if fma_ms is None else
                                 {"bound_of": "3 TF32 products",
@@ -4528,16 +4508,24 @@ def main() -> int:
                 r["causal"] and r["shape"] == list(FLASH_WIDE_PATHS[0]))
     f32 = next(r for r in fl["cases"] if r["dtype"] == "float32" and
                r["causal"] and r["shape"] == [2, 4096, 16, 128])
-    cl16, cl32 = (next(r for r in fl["cases"] if r["dtype"] == dtype and
-                       r["causal"] and
-                       r["shape"] == list(FLASH_WIDE_PATHS[-1]))
-                  for dtype in ("bfloat16", "float32"))
-    twopass = next(r for r in fl["head_dims"]["cases"] if r["d"] == 1600
-                   and r["dtype"] == "float32" and r["causal"])
-    twopass_card = [next(r for r in fl["cases"] if r["dtype"] == "float32"
-                         and r["causal"] == causal and r["shape"] ==
-                         list(FLASH_TWOPASS_PATHS["f32_d2048"]))
-                    for causal in (True, False)]
+    # the two-pass pairs' numbers: the full-card D=576 rows, causal; the
+    # other rows of each beside them
+    pair16, pair32 = (next(r for r in fl["cases"] if r["dtype"] == dtype and
+                           r["causal"] and
+                           r["shape"] == list(FLASH_WIDE_PATHS[-1]))
+                      for dtype in ("bfloat16", "float32"))
+    pair_rows = {dtype: [{k: r[k] for k in (
+        "shape", "causal", "kernel_ms", "plain_ms", "library_ms",
+        "library_backend", "bound_ms", "bound_share", "max_abs_err",
+        "max_err_over_limit", "scratch_bytes")} for r in fl["cases"]
+        if r["dtype"] == dtype and r["shape"][3] > FLASH_REACH]
+        for dtype in ("bfloat16", "float32")}
+    pair_head_dims = {dtype: [{k: r[k] for k in (
+        "d", "causal", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_share", "max_abs_err", "max_err_over_limit")}
+        for r in fl["head_dims"]["cases"]
+        if r["dtype"] == dtype and r["d"] > FLASH_REACH]
+        for dtype in ("bfloat16", "float32")}
     lw = loc["problems"]["beat 1000x8x64"]
     emit({"phase": "summary", "phase_seconds": seconds,
           "seconds": time.perf_counter() - t_start})   # build included
@@ -4694,58 +4682,58 @@ def main() -> int:
          "bound_by": f32["bound_by"], "bound_of": f32["bound_of"],
          "fma_bound_ms": f32["fma_bound_ms"],
          "library_ms": f32["library_ms"], "checked": True},
-        {"name": "flash_attention (16-bit, D 576-1024)", "route": "cuda",
+        {"name": "flash_attention (16-bit, D past 512)", "route": "cuda",
          "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
          "replaces": "ray_tpu/ops/flash_attention.py:25",
-         # flash_cluster16_kernel: launches on the D=576 path; the numbers
-         # are the bf16 causal D=576 full-card row's
-         "launches": fl["wide_path_launches"][FLASH_WIDE_PATHS[-1][3]],
-         "max_abs_err": cl16["max_abs_err"], "ms": cl16["kernel_ms"],
-         "plain_ms": cl16["plain_ms"], "bound_ms": cl16["bound_ms"],
-         "bound_by": cl16["bound_by"], "library_ms": cl16["library_ms"],
+         # the 16-bit two-pass pair (flash_scores16_kernel, then
+         # flash_values16_kernel, once a chunk of scratch): launches of the
+         # entry point on the bf16 D=576 full-card path, the D=1088 path
+         # beside it, and the kernel launches each call made; the numbers
+         # are the bf16 causal D=576 full-card row's, the pair's other rows
+         # beside them
+         "kernels": FLASH_TWOPASS16.split("+"),
+         "launches": fl["twopass_path_launches"]["bf16_d576"],
+         "launches_by_path": {k: n for k, n in
+                              fl["twopass_path_launches"].items()
+                              if k.startswith("bf16")},
+         "kernel_launches_a_call": {k: n for k, n in
+                                    fl["twopass_kernel_launches"].items()
+                                    if k.startswith("bf16")},
+         "max_abs_err": pair16["max_abs_err"], "ms": pair16["kernel_ms"],
+         "plain_ms": pair16["plain_ms"], "bound_ms": pair16["bound_ms"],
+         "bound_by": pair16["bound_by"], "library_ms": pair16["library_ms"],
+         "library_backend": pair16["library_backend"],
+         "scratch_bytes": pair16["scratch_bytes"],
+         "full_card": pair_rows["bfloat16"],
+         "head_dims": pair_head_dims["bfloat16"],
          "checked": True},
-        {"name": "flash_attention (f32, D 576-1536)", "route": "cuda",
+        {"name": "flash_attention (f32, D past 512)", "route": "cuda",
          "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
          "replaces": "ray_tpu/ops/flash_attention.py:25",
-         # flash_cluster32_kernel: launches on the f32 D=576 path, the
-         # widened bf16 D=1088 path beside it; the numbers are the f32
-         # causal D=576 full-card row's, the bound three TF32 products, the
-         # FMA bound beside it
-         "launches": fl["f32_cluster_path_launches"],
-         "launches_by_path": {"f32_d576": fl["f32_cluster_path_launches"],
-                              "bf16_d1088_widened":
-                                  fl["widened_path_launches"]},
-         "max_abs_err": cl32["max_abs_err"], "ms": cl32["kernel_ms"],
-         "plain_ms": cl32["plain_ms"], "bound_ms": cl32["bound_ms"],
-         "bound_by": cl32["bound_by"], "bound_of": cl32["bound_of"],
-         "fma_bound_ms": cl32["fma_bound_ms"],
-         "library_ms": cl32["library_ms"], "checked": True},
-        {"name": "flash_attention (f32, D past 1536)", "route": "cuda",
-         "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
-         "replaces": "ray_tpu/ops/flash_attention.py:25",
-         # the two-pass route (flash_scores32_kernel, then
-         # flash_values32_kernel, once a chunk of scratch): launches of
-         # the entry point on the f32 D=1600 path at B=2 T=1024 H=4, the
-         # full-card D=2048 path beside it, and the kernel launches each
+         # the f32 two-pass pair (flash_scores32_kernel, then
+         # flash_values32_kernel, once a chunk of scratch): launches of the
+         # entry point on the f32 D=576 full-card path, the D=1600 and
+         # full-card D=2048 paths beside it, and the kernel launches each
          # call made (counted by the library at each launch); the numbers
-         # are FLASH_HEAD_DIMS' f32 causal D=1600 row's, the bound three
-         # TF32 products; the full-card rows and the score scratch the
-         # wrapper allocated beside them
-         "kernels": FLASH_TWOPASS.split("+"),
-         "launches": fl["twopass_path_launches"]["f32_d1600"],
-         "launches_by_path": fl["twopass_path_launches"],
-         "kernel_launches_a_call": fl["twopass_kernel_launches"],
-         "max_abs_err": twopass["max_abs_err"], "ms": twopass["kernel_ms"],
-         "plain_ms": twopass["plain_ms"], "bound_ms": twopass["bound_ms"],
-         "bound_by": twopass["bound_by"], "bound_of": twopass["bound_of"],
-         "fma_bound_ms": twopass["fma_bound_ms"],
-         "library_ms": twopass["library_ms"],
-         "library_backend": twopass["library_backend"],
-         "scratch_bytes": twopass["scratch_bytes"],
-         "full_card": [{k: r[k] for k in (
-             "shape", "causal", "kernel_ms", "plain_ms", "library_ms",
-             "library_backend", "bound_ms", "bound_share", "max_abs_err",
-             "max_err_over_limit", "scratch_bytes")} for r in twopass_card],
+         # are the f32 causal D=576 full-card row's, the bound three TF32
+         # products, the pair's other rows beside them
+         "kernels": FLASH_TWOPASS32.split("+"),
+         "launches": fl["twopass_path_launches"]["f32_d576"],
+         "launches_by_path": {k: n for k, n in
+                              fl["twopass_path_launches"].items()
+                              if k.startswith("f32")},
+         "kernel_launches_a_call": {k: n for k, n in
+                                    fl["twopass_kernel_launches"].items()
+                                    if k.startswith("f32")},
+         "max_abs_err": pair32["max_abs_err"], "ms": pair32["kernel_ms"],
+         "plain_ms": pair32["plain_ms"], "bound_ms": pair32["bound_ms"],
+         "bound_by": pair32["bound_by"], "bound_of": pair32["bound_of"],
+         "fma_bound_ms": pair32["fma_bound_ms"],
+         "library_ms": pair32["library_ms"],
+         "library_backend": pair32["library_backend"],
+         "scratch_bytes": pair32["scratch_bytes"],
+         "full_card": pair_rows["float32"],
+         "head_dims": pair_head_dims["float32"],
          "checked": True},
     ]})
     print(smi, flush=True)

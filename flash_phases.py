@@ -5,17 +5,12 @@
 Copies this checkout's ``ray_tpu_torch/ops/csrc/flash_attention.cu``,
 inserts ``clock64()`` probes into the f32 consumer's key-tile loop
 (thread 0 of every consumer warpgroup: the wait for K's planes, S = Q K^T
-in its batches, the cluster's exchange of partial S, the softmax, the
-split of P and the wait for V's planes, P V; "loop" is the rest; on
-``flash_cluster32_kernel``, where P V of the previous key tile runs
-between sending the partial and receiving the others', "exchange" is the
-receiving's wait and sum, the sending falls in "split_p_wait_v_ready" and
-the split of P in "loop"), builds
-the copy with the port's nvcc flags into ``build/variants/`` and runs
-the f32 full-card rows (B=2 T=4096; D=128, 256, 320 at H=16 and D=512
-at H=8 on ``flash_tf32_kernel``, D=576 at H=8 on
-``flash_cluster32_kernel``, whose CTAs run the same consumer; causal and
-not).  Each row is one JSON line: cycles a key tile
+in its batches, the two-CTA cluster's exchange of partial S past D =
+128, the softmax, the split of P and the wait for V's planes, P V;
+"loop" is the rest), builds the copy with the port's nvcc flags into
+``build/variants/`` and runs the full-card rows of ``flash_tf32_kernel``
+(B=2 T=4096; D=128, 256, 320 at H=16 and D=512 at H=8; causal and not).
+Each row is one JSON line: cycles a key tile
 and consumer warpgroup, summed over every CTA of one call and divided by
 the key tiles they ran, beside the instrumented call's time (CUDA
 events), after one line with the card's name and power limit.  The
@@ -35,7 +30,7 @@ REPS = 5                     # timed calls a row (instrumented_ms)
 PHASES = ("loop", "wait_k_ready", "s_batches", "exchange", "softmax",
           "split_p_wait_v_ready", "p_v")
 ROWS = [(2, 4096, h, d) for h, d in ((16, 128), (16, 256), (16, 320),
-                                    (8, 512), (8, 576))]
+                                    (8, 512))]
 
 
 def probe(i: int) -> str:
@@ -43,7 +38,7 @@ def probe(i: int) -> str:
             f"prof[{i}] += c - tc; tc = c; }}\n")
 
 
-FLUSH = ("    if (t == 0 && j == n_kt - 1) {\n"
+FLUSH = ("    if (t == 0 && kt == n_kt - 1) {\n"
          "      for (int i = 0; i < 7; ++i)\n"
          "        atomicAdd(&g_phase[i], (unsigned long long)prof[i]);\n"
          "      atomicAdd(&g_phase[7], (unsigned long long)n_kt);\n"
@@ -52,20 +47,17 @@ FLUSH = ("    if (t == 0 && j == n_kt - 1) {\n"
 PROBES = [
     ("constexpr int kConverters = 96;  // producer warps 1-3 build the "
      "planes\n", "", "__device__ unsigned long long g_phase[8];\n"),
-    ("  constexpr bool kPipe = L::kCl > 2;\n",
-     "  long long prof[7] = {0, 0, 0, 0, 0, 0, 0};\n"
-     "  long long tc = clock64();\n", ""),
     ("  mbar_wait(bar32(bar0, kQFull, 0), 0);\n"
-     "  for (int kt = 0; kt < n_kt; ++kt) {\n", "", probe(0)),
+     "  for (int kt = 0; kt < n_kt; ++kt) {\n",
+     "  long long prof[7] = {0, 0, 0, 0, 0, 0, 0};\n"
+     "  long long tc = clock64();\n", probe(0)),
     ("    mbar_wait(bar32(bar0, kKReady, s), par);\n", "", probe(1)),
     ("    mbar_arrive(bar32(bar0, kKFree, s));\n", "", probe(2)),
     ("    softmax32_tile<kBN>(", probe(3), ""),
     ("#pragma unroll\n    for (int i = 0; i < kBN / 2; ++i) {\n"
      "      ph[i] = tf32_hi(acc_s[i]);", probe(4), ""),
-    ("    mbar_wait(bar32(bar0, kVReady, j & 1), (j >> 1) & 1);\n", "",
-     probe(5)),
-    ("    mbar_arrive(bar32(bar0, kVtFree, j & 1));\n", "",
-     probe(6) + FLUSH),
+    ("    mbar_wait(bar32(bar0, kVReady, s), par);\n", "", probe(5)),
+    ("    mbar_arrive(bar32(bar0, kVtFree, s));\n", "", probe(6) + FLUSH),
 ]
 READER = '''
 extern "C" int rt_phases(unsigned long long* out) {

@@ -3,6 +3,7 @@
     python3 flash_routes.py [--against PATH/flash_attention.cu] [--reps N]
                             [--turns N] [--dtype bfloat16|float32]
                             [--back-to-back] [--shape B,T,H,D ...]
+                            [--split]
 
 Builds this checkout's ``ray_tpu_torch/ops/csrc/flash_attention.cu`` and,
 with ``--against``, a second source of the same C entry point (an older
@@ -19,9 +20,13 @@ bound (f32: three TF32 products, the FMA bound beside it).  ``--dtype``
 keeps the rows of one dtype; ``--shape`` (repeatable) times those
 shapes, causal and not, in place of ROWS.  A row the older build refuses (16-bit
 inputs past D = 512 before the cluster routes) says so in
-``against_refused`` and is timed on this build alone.  Each row is one
-JSON line on stdout, after one with the card's name and power limit.
-Needs a GPU and nvcc.
+``against_refused`` and is timed on this build alone; where the older
+build's route table says its caller widened 16-bit inputs to f32 (code
+6), they are widened and the output rounded back, inside the timed call,
+as that build's wrapper did.  ``--split`` adds this build's device ms a
+call by kernel (``torch.profiler``'s trace over three calls; null where
+the trace holds no device events).  Each row is one JSON line on stdout,
+after one with the card's name and power limit.  Needs a GPU and nvcc.
 """
 
 from __future__ import annotations
@@ -29,18 +34,18 @@ from __future__ import annotations
 import argparse
 import ctypes
 import math
+import re
 import sys
 from pathlib import Path
 
 import chip_smoke as cs
 
-# (dtype, causal, b, t, h, d): the per-route sweep (B=2 H=4 T=1024), the
-# f32 routes (D = 1600: the two-pass route, ``flash_wide_kernel`` in a
-# build older than it), the headline, the full-card rows past D = 128,
+# (dtype, causal, b, t, h, d): the per-route sweep (B=2 H=4 T=1024; D =
+# 1088 and 1600: the two-pass routes, ``flash_wide_kernel`` for f32 in a
+# build older than them), the headline, the full-card rows past D = 128,
 # 16-bit and f32, and f32 at the headline shape; the full-card rows take
-# D = 576 (the cluster routes; a build older than them ran f32 there on
-# ``flash_wide_kernel`` and refused 16-bit inputs)
-ROWS = ([("bfloat16", c, 2, 1024, 4, d) for d in (160, 256, 320, 512)
+# D = 576 (the two-pass routes)
+ROWS = ([("bfloat16", c, 2, 1024, 4, d) for d in (160, 256, 320, 512, 1088)
          for c in (False, True)]
         + [("float32", c, 2, 1024, 4, d) for d in (256, 320, 512, 1600)
            for c in (False, True)]
@@ -51,21 +56,33 @@ ROWS = ([("bfloat16", c, 2, 1024, 4, d) for d in (160, 256, 320, 512)
            for b, t, h, d in cs.FLASH_WIDE_PATHS for c in (False, True)])
 
 
+# the kernels of route codes the current library no longer gives (codes
+# are not given again), for an older build's rows: 4 and 5 the cluster
+# routes of 16-bit inputs at 576-1024 and of f32 at 576-1536; 6 16-bit
+# inputs past 1024, widened to f32 by the caller
+RETIRED_ROUTES = {4: "flash_cluster16_kernel", 5: "flash_cluster32_kernel",
+                  6: "widened to f32"}
+WIDEN = 6
+
+
 def caller(library):
     """What ``ops.flash_attention`` does around the launch (pad to the
     kernel width, the original D's scale, the two-pass route's score
     scratch, cut back), for the flash attention library at path
     ``library``: this build's, or an older one whose entry point takes no
-    scratch.  That older branch serves only builds from before the
-    two-pass route (they lack ``rt_flash_scratch_bytes`` and ran route 3
-    on ``flash_wide_kernel``), to time that route against the FMA kernel
-    it replaced; every later build takes the scratch."""
+    scratch, or whose caller widened 16-bit inputs past 1024 to f32 (its
+    route code 6: widened here, rounded back after).  The scratch-less
+    branch serves only builds from before the two-pass route (they lack
+    ``rt_flash_scratch_bytes`` and ran route 3 on ``flash_wide_kernel``),
+    to time that route against the FMA kernel it replaced; every later
+    build takes the scratch."""
     import torch
 
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops.flash_attention import _DTYPE_CODE, kernel_width
 
     fn = _build.entry(library, "flash_attention")
+    route_of = _build.entry(library, "flash_attention", "rt_flash_route")
     scratch_of = None
     if hasattr(ctypes.CDLL(str(library)), "rt_flash_scratch_bytes"):
         scratch_of = _build.entry(library, "flash_attention",
@@ -75,10 +92,13 @@ def caller(library):
 
     def call(q, k, v, causal):
         b, t, h, d = q.shape
+        dtype = q.dtype
         width = kernel_width(d)
         if width != d:
             q, k, v = (torch.nn.functional.pad(x, (0, width - d))
                        for x in (q, k, v))
+        if route_of(width, _DTYPE_CODE[dtype]) == WIDEN:
+            q, k, v = (x.float() for x in (q, k, v))
         out = torch.empty_like(q)
         code = _DTYPE_CODE[q.dtype]
         args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -91,8 +111,30 @@ def caller(library):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"flash attention: CUDA error {err}")
-        return out if width == d else out[..., :d]
+        return (out if width == d else out[..., :d]).to(dtype)
     return call
+
+
+def kernel_split_ms(fn, calls: int = 3):
+    """Device ms a call by kernel name (the name cut at its template
+    arguments) over ``calls`` calls of ``fn`` after one warm-up, from
+    the profiler's raw trace events; None where it holds none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split: dict[str, float] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        found = re.search(r"\w+_kernel", e.name())
+        name = found.group(0) if found else e.name()[:60]
+        split[name] = split.get(name, 0.0) + e.duration_ns() / 1e6 / calls
+    return split or None
 
 
 def back_to_back_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -131,6 +173,8 @@ def main() -> int:
                     help="time only the rows of this dtype")
     ap.add_argument("--back-to-back", action="store_true",
                     help="time each turn's launches as one stretch")
+    ap.add_argument("--split", action="store_true",
+                    help="add this build's device ms by kernel")
     ap.add_argument("--shape", action="append", default=None,
                     metavar="B,T,H,D",
                     help="time this shape (both dtypes, causal and not) "
@@ -151,9 +195,9 @@ def main() -> int:
         lib = _build.build_variants([(args.against, ())])[0]
         other = caller(lib)
         other_route = _build.entry(lib, "flash_attention", "rt_flash_route")
-        # an older build's names: code 3 was the FMA kernel before the
-        # two-pass route
-        other_names = list(_ROUTES)
+        # an older build's names: retired codes, and code 3 was the FMA
+        # kernel before the two-pass route
+        other_names = {**_ROUTES, **RETIRED_ROUTES}
         if not hasattr(ctypes.CDLL(str(lib)), "rt_flash_scratch_bytes"):
             other_names[3] = "flash_wide_kernel"
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -198,6 +242,8 @@ def main() -> int:
         for key, fn in fns:
             row.setdefault(key, []).append(timer(
                 lambda: fn(q, k, v, causal), reps=args.reps))
+        if args.split:
+            row["split_ms"] = kernel_split_ms(lambda: this(q, k, v, causal))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         row["sdpa_ms"] = cs.cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal), reps=args.reps)

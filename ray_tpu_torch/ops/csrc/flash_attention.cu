@@ -19,35 +19,26 @@
 //
 //   f16, bf16   D = 64, 128      flash_wgmma_kernel      (wgmma + TMA)
 //               D = 256 .. 512   flash_big16_kernel      (wgmma + TMA)
-//               D = 576 .. 1024  flash_cluster16_kernel  (wgmma + TMA, a
-//                                                         cluster of 3-4)
-//               D > 1024         the f32 route of D, on inputs the
-//                                wrapper widens to f32 (the JAX kernel's
-//                                arithmetic); the entry point refuses
+//               D > 512          flash_scores16_kernel,  (wgmma + TMA, two
+//                                then                     passes over a
+//                                flash_values16_kernel    score scratch)
 //   f32         D = 64 .. 512    flash_tf32_kernel       (split-TF32
 //                                                         wgmma + TMA)
-//               D = 576 .. 1536  flash_cluster32_kernel  (split TF32, a
-//                                                         cluster of 3-8)
-//               D > 1536         flash_scores32_kernel,  (split TF32, two
+//               D > 512          flash_scores32_kernel,  (split TF32, two
 //                                then                     passes over a
 //                                flash_values32_kernel    score scratch)
 //
-// Every route but the last keeps S on chip (O(T) memory); past 1536 S
+// The one-pass routes keep S on chip (O(T) memory); past 512 (kReach) S
 // goes through a scratch in device memory of at most the larger of
 // kScratchCap (256 MiB) and one 128-row query block's scores (512 T
 // bytes, past the cap only at T past 2**19), whatever B and H are, so
 // still O(T): the wrapper allocates it and the entry point walks the
 // query blocks in chunks whose scores fit it (one block a chunk where
-// one passes the cap).
+// one passes the cap).  Both dtypes share the plan and the scratch's
+// layout (S in f32).
 //
-// The reach of each cluster route is the widest D a portable cluster (at
-// most 8 CTAs, no NonPortableClusterSizeAllowed) holds at its layout:
-// 1024 for 16-bit inputs (4 CTAs of 256 columns; a fifth CTA's exchange
-// slots do not fit 227 KB beside 128 query rows), 1536 for f32 (8 CTAs
-// of 192 columns).
-//
-// 16-bit inputs, all three kernels:
-//   * One CTA (past 512, one cluster of CTAs) per (b*h, query tile), on
+// 16-bit inputs, the one-pass kernels:
+//   * One CTA per (b*h, query tile), on
 //     gridDim.x with the query tiles in reverse order, so under causal
 //     masking the heaviest tiles start first.  Three warpgroups: two consumers and a producer warpgroup of
 //     which one thread issues every copy; setmaxnreg moves registers from
@@ -111,40 +102,9 @@
 //     so the tensor cores idle while they do; S at key tiles of 32 reads
 //     its Q operand (2 KB) for every 32 keys from shared memory.
 //   * Past 512 one CTA's resident Q and two-stage ring of K and V do not
-//     fit 227 KB, so the head dim goes over a cluster (below).
+//     fit 227 KB: the two passes (below).
 //
-// flash_cluster16_kernel, D = 576 .. 1024: a cluster of N = ceil(C/4)
-// CTAs a query tile (C = D/64 chunks, the first C % N CTAs one chunk more
-// than the rest: 3 or 4 a CTA), each laid out as D = 256 above over its
-// own chunks (128 query rows, 64 a consumer with its rows' whole slice
-// of O, at most 128 registers) at key tiles of 32:
-//   * S is computed once per (query tile, key tile): each consumer
-//     computes a partial S over its CTA's chunks (f32, wgmma), stores it
-//     with st.async into the same consumer's slot in every other CTA
-//     (its bytes complete on that CTA's x_full mbarrier), waits for the
-//     N - 1 others and adds the N partials in rank order, its own at its
-//     rank.  f32 addition is not associative ((p0 + p1) + p2 != p0 + (p1
-//     + p2)), so an own-first sum would give each CTA its own S, m and
-//     l; in rank order every CTA holds the same S bit for bit, runs the
-//     same softmax and multiplies P by its own chunks of V only.
-//   * Slots: two a consumer for each other CTA (key tiles alternate); a
-//     slot is stored into again only after every other CTA's partial of
-//     the next tile has landed, which each sends after reading its slots
-//     of this one.  The cluster's CTAs sync after barrier init and
-//     before they leave.
-//   * Layout (bytes of the 227 KB; the slots sized for N = 4):
-//       D          CTAs  chunks a CTA  consumers (rows)  kBN  stages  bytes
-//       576        3     3, 3, 3       2 (128)           32   2       230528
-//       640        3     4, 3, 3       2 (128)           32   2       230528
-//       704        3     4, 4, 3       2 (128)           32   2       230528
-//       768        3     4, 4, 4       2 (128)           32   2       230528
-//       832        4     4, 3, 3, 3    2 (128)           32   2       230528
-//       896        4     4, 4, 3, 3    2 (128)           32   2       230528
-//       960        4     4, 4, 4, 3    2 (128)           32   2       230528
-//       1024       4     4, 4, 4, 4    2 (128)           32   2       230528
-//     Q 64 KB, K and V 16 KB a stage, two stages, barriers, and 96 KB of
-//     slots (2 consumers x 2 x 3 partials of 64 x 32 f32).
-//   * ptxas (CUDA 12.8, -O3, sm_90a): every instantiation of the three
+//   * ptxas (CUDA 12.8, -O3, sm_90a): every instantiation of the four
 //     16-bit kernels reports 168 registers, the cap of
 //     __launch_bounds__(384, 1) that setmaxnreg lifts to 240 for the
 //     consumers, and 0 bytes of spill stores and loads.
@@ -211,71 +171,48 @@
 //       384   2     1 (64)            16   2   2    48 KB  12 KB   205992
 //       448   2     1 (64)            16   0   2    56 KB  14 KB   210088
 //       512   2     1 (64)            16   0   1    64 KB  16 KB   222376
-//       576-  3-8   1 (64)            16   0   2    48 KB  12 KB   230568
-//       1536  (flash_cluster32_kernel, below)
 //     A plane is one key tile of one of Khi, Klo, V^T hi, V^T lo; two
 //     stages of the four.  With kKS = 0 K lands in its hi plane and is
 //     split in place (two K slots do not fit; at D = 128 a slot of each
 //     was 9% slower than two V slots, measured).
-//   * Past D = 128 a cluster of CTAs serves each query tile, each holding
-//     a slice of the head dim's Q, K and V (the 16-bit kernels' split of
-//     the head dim, one level up): each computes a partial S, stores it
-//     into every other CTA's exchange slot with st.async (the bytes
-//     complete on that CTA's x_full mbarrier, no fence; 11-14% faster
-//     than plain remote stores and a release arrive), waits for the
-//     others' and adds the partials in rank order, as
-//     flash_cluster16_kernel does (with two CTAs own + other is that
-//     order on both, added in place); each owns its slice of O's columns
-//     and multiplies P by its slice of V^T.  Two slots a consumer for
-//     each other CTA.  The cluster's CTAs sync after barrier init and
-//     before they leave.
-//   * D = 256 .. 512 (flash_tf32_kernel): two CTAs, each half of D.
-//   * D = 576 .. 1536 (flash_cluster32_kernel): N = ceil(D/192) CTAs,
-//     the D/32 boxes split as evenly as they go (the first (D/32) % N
-//     CTAs one box more): 192 or 160 columns a CTA, one consumer of 64
-//     rows, the layout sized for N = 8 (its 7 x 2 slots of 4 KB, no raw
-//     K ring):
-//       D     CTAs  columns a CTA          D     CTAs  columns a CTA
-//       576   3     192 x 3                1088  6     192 x 4, 160 x 2
-//       640   4     160 x 4                1152  6     192 x 6
-//       704   4     192 x 2, 160 x 2       1216  7     192 x 3, 160 x 4
-//       768   4     192 x 4                1280  7     192 x 5, 160 x 2
-//       832   5     192, 160 x 4           1344  7     192 x 7
-//       896   5     192 x 3, 160 x 2       1408  8     192 x 4, 160 x 4
-//       960   5     192 x 5                1472  8     192 x 6, 160 x 2
-//       1024  6     192 x 2, 160 x 4       1536  8     192 x 8
-//     A CTA's slice is what flash_tf32_kernel's CTA holds at D = 384
-//     (192) or 320 (160), with one consumer.  P V of key tile kt - 1
-//     runs between sending tile kt's partial and waiting for the
-//     others' (P and corr carried over; the same operations on O in the
-//     same order): 1.03x at D = 576 and 1.02x at D = 1024 (PERF.md).
+//   * Past D = 128 (D = 256 .. 512) a cluster of two CTAs serves each
+//     query tile, each holding half of the head dim's Q, K and V (the
+//     16-bit kernels' split of the head dim, one level up): each computes
+//     a partial S, stores it into the other CTA's exchange slot with
+//     st.async (the bytes complete on that CTA's x_full mbarrier, no
+//     fence; 11-14% faster than plain remote stores and a release
+//     arrive), waits for the other's and adds it in place (own + other is
+//     one order on both CTAs, so both hold the same S bit for bit); each
+//     owns its half of O's columns and multiplies P by its half of V^T.
+//     Two slots a consumer.  The cluster's CTAs sync after barrier init
+//     and before they leave.
 //   * Consumers: setmaxnreg moves the producer warpgroup to 56 registers
 //     and two consumers to 224; one consumer (384 threads' cap lifted to
 //     255 with 256 threads) needs none.
 //   * What bounds it: at D <= 128 the two consumers keep the tensor cores
 //     at 0.46-0.52 of the three-product bound at the full card; past 128
-//     the per-tile chain (S in batches, the exchange, the softmax, P V in
-//     chunks) leaves them idle: 0.21-0.33, and 0.16 at D = 576, where a
-//     key tile's exchange among 3 CTAs (each thread's two float4 to each
-//     other CTA, and the wait for the slowest) takes ~1,300 cycles of
-//     ~6,200 against ~480 between two (clock probes, PERF.md).
+//     the per-tile chain (S in batches, the exchange of ~480 cycles a key
+//     tile, the softmax, P V in chunks) leaves them idle: 0.21-0.33 (clock
+//     probes, PERF.md).  The two-pass route below reaches more at 320-512
+//     on a copy of this source (PERF.md); the route has not moved there.
 //   * ptxas (CUDA 12.8, -O3, sm_90a): flash_tf32_kernel 168 registers at
 //     D = 64, 128, 256, 320 (the cap of __launch_bounds__(384, 1), lifted
-//     by setmaxnreg), 197 at 384, 213 at 448, 238 at 512;
-//     flash_cluster32_kernel (both slices in one kernel) 221 (203 before
-//     P V was overlapped with the exchange); 0 bytes of spill stores and
-//     loads in every instantiation.
+//     by setmaxnreg), 197 at 384, 213 at 448, 238 at 512; 0 bytes of
+//     spill stores and loads in every instantiation.
 //
-// f32 past 1536, two passes (flash_scores32_kernel, flash_values32_kernel):
-//   * What it replaces: past 1536 one query tile's O (64 x D f32, 400 KB
-//     at D = 1600) fits no portable cluster (a cluster of 16 would need
-//     120 KB of exchange slots beside Q and the planes), and the FMA
-//     kernel that took these widths computed S once per 64-column chunk
-//     of O, D/64 times, on the CUDA cores (0.01 of its FMA bound at D =
-//     1600).  At these widths S is cheap to keep: S of 64 query rows
-//     (64 x T x 4 bytes) is smaller than their Q (64 x D x 4) wherever T
-//     < D.  So S is computed once, stored to a bounded scratch (mostly
-//     L2), and read back once for each slice of O's columns.
+// Past D = 512, two passes, both dtypes (f32: flash_scores32_kernel,
+// flash_values32_kernel; f16 and bf16: flash_scores16_kernel,
+// flash_values16_kernel):
+//   * Why two passes: past 512 one CTA holds neither a query tile's O and
+//     resident Q nor the rings of K and V.  Splitting the head dim over a
+//     cluster of CTAs (the route before, 3-8 CTAs) computed S in step over
+//     all of them, each key tile waiting for the slowest CTA's partial.
+//     Here S is computed once per (query block, key tile) over the whole
+//     head dim by one CTA, stored to a bounded scratch, and read back once
+//     for each slice of O's columns; the slices of one block run side by
+//     side, so most of those reads come from L2.  On the card this was
+//     2.65-3.72x the f32 cluster and 1.44-1.78x the 16-bit one at every
+//     width they took (PERF.md), so nothing else runs past 512.
 //   * flash_scores32_kernel: one CTA per (query block of 128 rows, split
 //     of kSplitTiles key tiles of 64); two consumers of 64 rows share
 //     each K tile.  Per key tile it streams the head dim through a ring
@@ -295,8 +232,8 @@
 //     1024) and the maxima of the splits joined in the second pass.
 //   * flash_values32_kernel: one CTA per (query block, slice of O: the
 //     D/32 boxes over ceil(D/192) slices as evenly as they go, 192 or
-//     160 columns, each a template instance as flash_cluster32_kernel's
-//     slices); two consumers of 64 rows.  Per key tile of 32 a TMA
+//     160 columns past 512, each a template instance); two consumers of
+//     64 rows.  Per key tile of 32 a TMA
 //     thread loads the block's S box (128 rows x 32 keys, the 128-byte
 //     swizzle, so a thread's fragment loads conflict-free) and the
 //     slice's V boxes; the converters build V^T's hi and lo planes
@@ -315,20 +252,55 @@
 //     rt_flash_scratch_bytes gives the bytes; rt_flash_last_launches
 //     reads the kernel launches the calling thread's last call made,
 //     counted where each launch succeeds (2 a chunk here, 1 elsewhere).
-//   * What bounds it: operations, three TF32 products each of S and P V
-//     (the same bound as the cluster route); the score traffic (S written
-//     once, read once a slice, ~0.1 ms at D = 1600, T = 1024 against 0.33
-//     ms of operations) stays below it.  The design does each product
-//     once: S per (query block, key tile), P V per (block, key tile,
-//     slice).
-//   * Layouts: scores 6 steps x (Q 16 KB, K's hi 8 KB, lo 8 KB) = 197,776
-//     bytes; values 2 stages of V^T's hi and lo (24 KB each at 192
+//   * What bounds the f32 pair: operations, three TF32 products each of
+//     S and P V; it reaches 0.41-0.45 of that bound at 576-1600 (PERF.md).
+//     The design does each product once: S per (query block, key tile),
+//     P V per (block, key tile, slice).
+//   * f32 layouts: scores 6 steps x (Q 16 KB, K's hi 8 KB, lo 8 KB) =
+//     197,776 bytes; values 2 stages of V^T's hi and lo (24 KB each at 192
 //     columns) and 3 raw stages (S 16 KB, V 24 KB) = 222,288 bytes.  A
 //     raw stage goes back to the TMA thread only after the tile's P V:
 //     released right after the consumers' loads of S, the refill's TMA
 //     writes (async proxy) could land under loads still in flight.
-//   * ptxas (CUDA 12.8, -O3, sm_90a): both kernels 168 registers (the cap
-//     of __launch_bounds__(384, 1), lifted by setmaxnreg for the
+//   * flash_scores16_kernel: the grid, the splits, the masking and the
+//     stores of flash_scores32_kernel, on the 16-bit kernels' arithmetic:
+//     S = Q K^T is one chain of m64n64k16 wgmma (both operands K-major in
+//     shared memory, 128-byte swizzle) over the whole head dim into an f32
+//     accumulator, then times the scale in f32 (never a 16-bit Q).  No
+//     hi/lo split, so no converter warps: the producer warpgroup is one
+//     TMA thread (24 registers; the consumers 240).  A split's four key
+//     tiles run side by side (4 accumulators of 64 rows x 64 keys, 128
+//     registers a thread), so each step's Q box is read once for all of
+//     them: a ring of 4 steps, each Q's 64-column box (128 rows, 16 KB)
+//     and the same box of K for each live key tile (64 keys, 8 KB each),
+//     48 KB a step, 197,696 bytes.  The accumulators are zeroed and every
+//     product accumulates (several chains in flight); a step's stage goes
+//     back once its products are done (wgmma.wait_group 1, one step in
+//     flight).  The tensor core truncates as it sums: over a chain of D/16
+//     products the drift stays near 2**-24 of |S| a product, ~0.05 of the
+//     f16 limit's p term at D = 4096 (a CPU model of a truncating sum).
+//   * flash_values16_kernel: one CTA per (query block, slice of O: the
+//     D/64 boxes over ceil(D/256) slices as evenly as they go, 3 or 4
+//     boxes past 512, 192 or 256 columns: 128 f32 registers a consumer
+//     thread at 256, wgmma's widest N); two consumers of 64 rows.  A ring
+//     of 6 stages, each the block's S box (as Val32's, 16 KB) and the
+//     slice's V boxes (32 keys x 64 columns, 4 KB each): 197,728 bytes.
+//     p against the final m and l as the f32 pair (p_of_s_box); P is
+//     rounded to 16 bits into the A fragment (the S fragment's layout is
+//     the A fragment's, as in flash_wgmma_kernel) and O += P V by
+//     m64n64k16 wgmma, V read MN-major through the transpose flag (no V^T
+//     planes).  The p of key tile kt are taken while P V of tile kt - 1 is
+//     in flight; that stage goes back after its wait.  O / max(l, 1e-30),
+//     rounded to the input type.
+//   * What bounds the 16-bit pair: not operations (one product each of S
+//     and P V: 0.25-0.31 of that bound at 576-1600, PERF.md) but the
+//     bytes each SM reads from L2: the scores kernel 48 KB a step for 4.2
+//     MFLOP (87 flop/byte), the values kernel the S box (16 KB) again for
+//     every slice beside 16 KB of V for 2.1 MFLOP, against ~989 TFLOP/s
+//     over 132 SMs; and S's write and read in device memory (1 GiB each
+//     way at B=2 T=4096 H=8, ~0.3 ms apiece).
+//   * ptxas (CUDA 12.8, -O3, sm_90a): all four kernels 168 registers (the
+//     cap of __launch_bounds__(384, 1), lifted by setmaxnreg for the
 //     consumers), 0 bytes of spill stores and loads.
 //
 // Scaling: the JAX kernel scales Q in f32 before the product.  The f32
@@ -404,44 +376,7 @@ struct Big16 {
   static constexpr uint32_t kXSlot = 64 * kBN * 4;
   static constexpr uint32_t kBar = kX + (kSplit ? 4 * kXSlot : 0);
   static constexpr uint32_t kBytes = kBar + 8 * (1 + 3 * kStages) + kSwAtom;
-  static constexpr bool kCluster = false;
   static_assert(D % 64 == 0 && D >= 256 && D <= 512, "kernel width");
-  static_assert(kBytes <= kSmemMax, "shared memory");
-};
-
-// flash_cluster16_kernel's layout: kernel widths 576 .. kReach16, a
-// cluster of ceil(C / 4) CTAs a query tile (C = D/64 chunks, split as
-// evenly as they go: 3 or 4 a CTA), each like Big16<256> over its own
-// chunks (128 query rows, 64 a consumer, each with its rows' whole slice
-// of O) at key tiles of 32, and two exchange slots a consumer for each
-// of the other CTAs' partial S
-constexpr int kCl16 = 4;                   // the most CTAs of a cluster
-constexpr int kReach16 = 64 * 4 * kCl16;   // the widest D: 1024
-struct Cl16 {
-  static constexpr bool kSplit = false;
-  static constexpr bool kCluster = true;
-  static constexpr int kCl = kCl16;
-  static constexpr int kBQ = 128;
-  static constexpr int kBN = 32;
-  static constexpr int kStages = 2;
-  static constexpr int kBoxes = 4;          // the widest CTA's chunks
-  static constexpr uint32_t kQBox = kBQ * kRowBytes;
-  static constexpr uint32_t kKVBox = kBN * kRowBytes;
-  static constexpr uint32_t kStage = kBoxes * kKVBox;
-  static constexpr uint32_t kQ = 0;
-  static constexpr uint32_t kK = kQ + kBoxes * kQBox;
-  static constexpr uint32_t kV = kK + kStages * kStage;
-  static constexpr uint32_t kBar = kV + kStages * kStage;
-  // barriers: q_full, k_full[S], v_full[S], empty[S], then x_full[2 w +
-  // slot], armed by consumer w's thread 0 and completed by the other
-  // CTAs' st.async bytes
-  static constexpr int kXFull = 1 + 3 * kStages;
-  static constexpr uint32_t kX = kBar + 128;
-  static constexpr uint32_t kXSlot = 64 * kBN * 4;   // a partial S
-  // consumer w's slots of buffer x: kX + (2 w + x) (kCl - 1) kXSlot
-  static constexpr uint32_t kBytes =
-      kX + kConsumers * 2 * (kCl - 1) * kXSlot + kSwAtom;
-  static_assert(8 * (kXFull + 2 * kConsumers) <= kX - kBar, "barriers");
   static_assert(kBytes <= kSmemMax, "shared memory");
 };
 
@@ -537,19 +472,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
 }
 
 // the producer thread: Q once, then K and V of every key tile through
-// the ring of layout L; kNB boxes of 64 columns from column col0 (a CTA
-// of a cluster holds a slice of the head dim)
+// the ring of layout L; kNB boxes of 64 columns
 template <class L, int kNB = L::kBoxes>
 __device__ __forceinline__ void produce(uint32_t base, const CUtensorMap* tm_q,
                                         const CUtensorMap* tm_k,
                                         const CUtensorMap* tm_v, int h, int b,
-                                        int q0, int n_kt, int col0 = 0) {
+                                        int q0, int n_kt) {
   const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
   const uint32_t bar_q = base + L::kBar;
   mbar_expect_tx(bar_q, kNB * L::kQBox);
 #pragma unroll
   for (int x = 0; x < kNB; ++x)
-    tma_load_4d(sQ + x * L::kQBox, tm_q, bar_q, col0 + x * 64, h, q0, b);
+    tma_load_4d(sQ + x * L::kQBox, tm_q, bar_q, x * 64, h, q0, b);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int s = kt % L::kStages, use = kt / L::kStages;
     if (use > 0) mbar_wait(empty_bar<L::kStages>(bar_q, s), (use - 1) & 1);
@@ -558,13 +492,13 @@ __device__ __forceinline__ void produce(uint32_t base, const CUtensorMap* tm_q,
     mbar_expect_tx(kb, kNB * L::kKVBox);
 #pragma unroll
     for (int x = 0; x < kNB; ++x)
-      tma_load_4d(sK + s * L::kStage + x * L::kKVBox, tm_k, kb,
-                  col0 + x * 64, h, kt * L::kBN, b);
+      tma_load_4d(sK + s * L::kStage + x * L::kKVBox, tm_k, kb, x * 64, h,
+                  kt * L::kBN, b);
     mbar_expect_tx(vb, kNB * L::kKVBox);
 #pragma unroll
     for (int x = 0; x < kNB; ++x)
-      tma_load_4d(sV + s * L::kStage + x * L::kKVBox, tm_v, vb,
-                  col0 + x * 64, h, kt * L::kBN, b);
+      tma_load_4d(sV + s * L::kStage + x * L::kKVBox, tm_v, vb, x * 64, h,
+                  kt * L::kBN, b);
   }
 }
 
@@ -587,6 +521,10 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// every group but the last committed is done
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 // keeps the compiler from touching accumulators across the async product
 template <int N>
@@ -925,11 +863,6 @@ __device__ __forceinline__ uint32_t cluster_rank() {
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
   return r;
 }
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t n;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
-  return n;
-}
 __device__ __forceinline__ void cluster_sync() {
   asm volatile(
       "barrier.cluster.arrive.release;\n"
@@ -970,115 +903,49 @@ __device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
   } while (!done);
 }
 
-// S of a key tile on a CTA of a cluster of ncl CTAs, each holding a
-// partial over its slice of the head dim.  cluster_send_s: this
-// consumer's partial (thread t's float4 v at (v * 128 + t) * 16 of a
-// slot of kN * 512 bytes) goes to the same consumer of every other CTA,
-// into the receiver's slot number rank (less one past the receiver's own
-// rank) of `slots`, its bytes counted on the receiver's x_full `xbar`.
-// cluster_recv_s: once the ncl - 1 others have landed here the ncl
-// partials are added in rank order, this CTA's own at its rank, so that
-// every CTA holds the same S bit for bit: f32 addition is not
-// associative, (p0 + p1) + p2 != p0 + (p1 + p2), and an own-first sum
-// would give each CTA its own S, its own m and l, and normalise its
-// columns of a row differently.  The sum starts from 0 (0 + p0 == p0 up
-// to the sign of a zero).  A slot is stored into again only after every
-// other CTA's partial of the next tile has landed here, which each sends
-// after reading its own slots of this one.  Thread 0 arms xbar's next
-// phase when `rearm`.
+// S of a key tile on a CTA of a cluster of two, each holding a partial
+// over its half of the head dim: this consumer's partial (thread t's
+// float4 v at (v * 128 + t) * 16 of a slot of kN * 512 bytes) goes to the
+// same consumer of the other CTA, its bytes counted on that CTA's x_full
+// `xbar`, and once the other's has landed here it is added in place.  Own
+// + other is one order on both CTAs (a + b == b + a), so both hold the
+// same S bit for bit and run the same softmax, with no second accumulator
+// (flash_tf32_kernel at D = 512 uses 238 of 255 registers).  A slot is
+// stored into again only after the other CTA's partial of the next tile
+// has landed here, which it sends after reading its own slot of this one.
+// Thread 0 arms xbar's next phase when `rearm`.
 template <int kN>
-__device__ __forceinline__ void cluster_send_s(const float (&acc)[kN],
-                                               uint32_t slots, uint32_t xbar,
-                                               uint32_t rank, uint32_t ncl,
-                                               int t) {
-  constexpr uint32_t kSlot = kN * 128u * 4u;   // a partial: 64 x 2 kN f32
-  for (uint32_t p = 1; p < ncl; ++p) {
-    uint32_t peer = rank + p;
-    if (peer >= ncl) peer -= ncl;
-    const uint32_t at = slots + (rank < peer ? rank : rank - 1) * kSlot;
-    const uint32_t rslot = map_rank(at, peer);
-    const uint32_t rbar = map_rank(xbar, peer);
-#pragma unroll
-    for (int v = 0; v < kN / 4; ++v)
-      st_async_v4(rslot + (v * 128 + t) * 16, acc[4 * v], acc[4 * v + 1],
-                  acc[4 * v + 2], acc[4 * v + 3], rbar);
-  }
-}
-template <int kN>
-__device__ __forceinline__ void cluster_recv_s(float (&acc)[kN],
-                                               uint32_t slots, uint32_t xbar,
-                                               uint32_t parity, uint32_t rank,
-                                               uint32_t ncl, int t,
-                                               bool rearm) {
-  constexpr uint32_t kSlot = kN * 128u * 4u;
-  mbar_wait_cluster(xbar, parity);
-  float sum[kN];
-#pragma unroll
-  for (int i = 0; i < kN; ++i) sum[i] = 0.f;
-  for (uint32_t r = 0; r < ncl; ++r) {
-    if (r == rank) {
-#pragma unroll
-      for (int i = 0; i < kN; ++i) sum[i] += acc[i];
-    } else {
-      const uint32_t at = slots + (r < rank ? r : r - 1) * kSlot;
-#pragma unroll
-      for (int v = 0; v < kN / 4; ++v) {
-        const float4 y = ld_shared_v4(at + (v * 128 + t) * 16);
-        sum[4 * v] += y.x;
-        sum[4 * v + 1] += y.y;
-        sum[4 * v + 2] += y.z;
-        sum[4 * v + 3] += y.w;
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kN; ++i) acc[i] = sum[i];
-  if (t == 0 && rearm) mbar_expect_tx(xbar, (ncl - 1) * kSlot);
-}
-// both halves in turn; with at most two CTAs (kClMax) own + other is
-// the rank order on both (a + b == b + a), added in place, with no second
-// accumulator (flash_tf32_kernel at D = 512 uses 238 of 255 registers)
-template <int kClMax, int kN>
 __device__ __forceinline__ void cluster_sum_s(float (&acc)[kN],
                                               uint32_t slots, uint32_t xbar,
                                               uint32_t parity, uint32_t rank,
-                                              uint32_t ncl, int t,
-                                              bool rearm) {
-  if constexpr (kClMax == 2) {
-    constexpr uint32_t kSlot = kN * 128u * 4u;
-    const uint32_t rslot = map_rank(slots, rank ^ 1u);
-    const uint32_t rbar = map_rank(xbar, rank ^ 1u);
+                                              int t, bool rearm) {
+  constexpr uint32_t kSlot = kN * 128u * 4u;   // a partial: 64 x 2 kN f32
+  const uint32_t rslot = map_rank(slots, rank ^ 1u);
+  const uint32_t rbar = map_rank(xbar, rank ^ 1u);
 #pragma unroll
-    for (int v = 0; v < kN / 4; ++v)
-      st_async_v4(rslot + (v * 128 + t) * 16, acc[4 * v], acc[4 * v + 1],
-                  acc[4 * v + 2], acc[4 * v + 3], rbar);
-    mbar_wait_cluster(xbar, parity);
+  for (int v = 0; v < kN / 4; ++v)
+    st_async_v4(rslot + (v * 128 + t) * 16, acc[4 * v], acc[4 * v + 1],
+                acc[4 * v + 2], acc[4 * v + 3], rbar);
+  mbar_wait_cluster(xbar, parity);
 #pragma unroll
-    for (int v = 0; v < kN / 4; ++v) {
-      const float4 y = ld_shared_v4(slots + (v * 128 + t) * 16);
-      acc[4 * v] += y.x;
-      acc[4 * v + 1] += y.y;
-      acc[4 * v + 2] += y.z;
-      acc[4 * v + 3] += y.w;
-    }
-    if (t == 0 && rearm) mbar_expect_tx(xbar, kSlot);
-  } else {
-    cluster_send_s(acc, slots, xbar, rank, ncl, t);
-    cluster_recv_s(acc, slots, xbar, parity, rank, ncl, t, rearm);
+  for (int v = 0; v < kN / 4; ++v) {
+    const float4 y = ld_shared_v4(slots + (v * 128 + t) * 16);
+    acc[4 * v] += y.x;
+    acc[4 * v + 1] += y.y;
+    acc[4 * v + 2] += y.z;
+    acc[4 * v + 3] += y.w;
   }
+  if (t == 0 && rearm) mbar_expect_tx(xbar, kSlot);
 }
 
-// consumer warpgroup W of flash_big16_kernel (layout Big16) or of a CTA of
-// flash_cluster16_kernel (Cl16, whose slice of the head dim is kNC chunks
-// from column col0 of a kernel width d): its O chunks and (past 256, the
-// partial of) S over its head-dim chunks, for every key tile; in a
-// cluster the partial is summed with the other CTAs' (cluster_sum_s)
-template <bool kBF16, class L, int W, int kNC>
+// consumer warpgroup W of flash_big16_kernel (layout Big16): its O
+// chunks and (past 256, the partial of) S over its head-dim chunks, for
+// every key tile
+template <bool kBF16, class L, int W>
 __device__ __forceinline__ void big16_consume(
     uint32_t base, uint16_t* __restrict__ o, int b, int h, int heads, int q0,
-    int tn, int n_kt, int causal, float scale_log2, int d, int col0,
-    uint32_t rank, uint32_t ncl) {
-  constexpr int kBN = L::kBN, kS = L::kStages;
+    int tn, int n_kt, int causal, float scale_log2) {
+  constexpr int kBN = L::kBN, kS = L::kStages, kNC = L::kC;
   constexpr int kOLo = o_lo(L::kSplit, W, kNC);
   constexpr int kNO = o_hi(L::kSplit, W, kNC) - kOLo;
   constexpr int kSLo = s_lo(L::kSplit, W, kNC);
@@ -1099,16 +966,6 @@ __device__ __forceinline__ void big16_consume(
   float m2[2] = {-INFINITY, -INFINITY};   // running max, log2 units
   float lsum[2] = {0.f, 0.f};             // this thread's part of l
 
-  if constexpr (L::kCluster) {
-    // arm both exchange slots for tiles 0 and 1
-    if (t == 0) {
-      mbar_expect_tx(bar_q + 8u * (L::kXFull + 2 * W),
-                     (ncl - 1) * L::kXSlot);
-      if (n_kt > 1)
-        mbar_expect_tx(bar_q + 8u * (L::kXFull + 2 * W + 1),
-                       (ncl - 1) * L::kXSlot);
-    }
-  }
   mbar_wait(bar_q, 0);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int s = kt % kS;
@@ -1152,13 +1009,6 @@ __device__ __forceinline__ void big16_consume(
         acc_s[4 * v + 2] += x.z;
         acc_s[4 * v + 3] += x.w;
       }
-    }
-    if constexpr (L::kCluster) {
-      const int xs = 2 * W + (kt & 1);
-      cluster_sum_s<L::kCl>(acc_s,
-                            base + L::kX + xs * (L::kCl - 1) * L::kXSlot,
-                            bar_q + 8u * (L::kXFull + xs), (kt >> 1) & 1,
-                            rank, ncl, t, kt + 2 < n_kt);
     }
 
     float corr[2];
@@ -1204,7 +1054,7 @@ __device__ __forceinline__ void big16_consume(
     const float den = fmaxf(l, 1e-30f);
     const int row = r0 + 8 * i;
     if (row < tn) {
-      uint16_t* orow = o + (((size_t)b * tn + row) * heads + h) * d + col0 +
+      uint16_t* orow = o + (((size_t)b * tn + row) * heads + h) * kNC * 64 +
                        kOLo * 64 + c_lane;
 #pragma unroll
       for (int j = 0; j < kNO; ++j)
@@ -1214,49 +1064,6 @@ __device__ __forceinline__ void big16_consume(
               pack2<kBF16>(acc_o[j][4 * k + 2 * i] / den,
                            acc_o[j][4 * k + 2 * i + 1] / den);
     }
-  }
-}
-
-// one CTA of the 16-bit kernels with layout L over kNC chunks of the head
-// dim from column col0 (all of it but in a cluster): barriers, then the
-// producer warpgroup and the two consumers, one branch a role to the end
-// so that setmaxnreg applies; no CTA of a cluster leaves while another
-// may still reach its shared memory
-template <bool kBF16, class L, int kNC>
-__device__ __forceinline__ void big16_cta(
-    uint32_t base, const CUtensorMap* tm_q, const CUtensorMap* tm_k,
-    const CUtensorMap* tm_v, uint16_t* __restrict__ o, int b, int h,
-    int heads, int q0, int tn, int n_kt, int causal, float scale_log2, int d,
-    int col0, uint32_t rank, uint32_t ncl) {
-  const int tid = threadIdx.x, wg = tid >> 7;
-  const uint32_t bar_q = base + L::kBar;
-  if (tid == 0) {
-    init_barriers<L>(bar_q);
-    if constexpr (L::kCluster) {
-#pragma unroll
-      for (int x = 0; x < 2 * kConsumers; ++x)
-        mbar_init(bar_q + 8u * (L::kXFull + x), 1);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
-  }
-  // the other CTAs' barriers are initialised before anyone arrives there
-  if constexpr (L::kCluster) cluster_sync();
-  else __syncthreads();
-
-  if (wg == kConsumers) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (tid == kConsumers * 128)
-      produce<L, kNC>(base, tm_q, tm_k, tm_v, h, b, q0, n_kt, col0);
-    if constexpr (L::kCluster) cluster_sync();
-  } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    if (wg == 0)
-      big16_consume<kBF16, L, 0, kNC>(base, o, b, h, heads, q0, tn, n_kt,
-                                      causal, scale_log2, d, col0, rank, ncl);
-    else
-      big16_consume<kBF16, L, 1, kNC>(base, o, b, h, heads, q0, tn, n_kt,
-                                      causal, scale_log2, d, col0, rank, ncl);
-    if constexpr (L::kCluster) cluster_sync();
   }
 }
 
@@ -1272,50 +1079,30 @@ flash_big16_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + kSwAtom - 1) & ~(kSwAtom - 1);
 
+  const int tid = threadIdx.x, wg = tid >> 7;
   const int qt = n_qt - 1 - (int)(blockIdx.x / (unsigned)bh_count);
   const int bh = (int)(blockIdx.x % (unsigned)bh_count);
   const int b = bh / heads, h = bh % heads, q0 = qt * L::kBQ;
   int n_kt = (tn + L::kBN - 1) / L::kBN;
   if (causal) n_kt = min(n_kt, (min(q0 + L::kBQ, tn) - 1) / L::kBN + 1);
-  big16_cta<kBF16, L, L::kC>(base, &tm_q, &tm_k, &tm_v, o, b, h, heads, q0,
-                             tn, n_kt, causal, scale_log2, D, 0, 0, 1);
-}
+  const uint32_t bar_q = base + L::kBar;
+  if (tid == 0) init_barriers<L>(bar_q);
+  __syncthreads();
 
-// kernel widths 576 .. kReach16 (a multiple of 64): a cluster of ncl CTAs
-// a query tile (cudaLaunchKernelEx sets it; consecutive blocks), CTA rank
-// holding chunks [c0, c0 + nc) of the C = d/64 (the first C % ncl CTAs
-// one more than the rest), 3 or 4 of them (the launch takes ncl =
-// ceil(C / 4))
-template <bool kBF16>
-__global__ void __launch_bounds__(kThreads16, 1)
-flash_cluster16_kernel(const __grid_constant__ CUtensorMap tm_q,
-                       const __grid_constant__ CUtensorMap tm_k,
-                       const __grid_constant__ CUtensorMap tm_v,
-                       uint16_t* __restrict__ o, int tn, int heads,
-                       int bh_count, int n_qt, int causal, float scale_log2,
-                       int d) {
-  using L = Cl16;
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + kSwAtom - 1) & ~(kSwAtom - 1);
-
-  const uint32_t rank = cluster_rank(), ncl = cluster_size();
-  const int tile = (int)(blockIdx.x / ncl);
-  const int qt = n_qt - 1 - tile / bh_count;
-  const int bh = tile % bh_count;
-  const int b = bh / heads, h = bh % heads, q0 = qt * L::kBQ;
-  const int c = d / 64, small = c / (int)ncl, extra = c % (int)ncl;
-  const int col0 = 64 * ((int)rank * small + min((int)rank, extra));
-  int n_kt = (tn + L::kBN - 1) / L::kBN;
-  if (causal) n_kt = min(n_kt, (min(q0 + L::kBQ, tn) - 1) / L::kBN + 1);
-  if (small + ((int)rank < extra) == L::kBoxes)
-    big16_cta<kBF16, L, L::kBoxes>(base, &tm_q, &tm_k, &tm_v, o, b, h, heads,
-                                   q0, tn, n_kt, causal, scale_log2, d, col0,
-                                   rank, ncl);
-  else
-    big16_cta<kBF16, L, L::kBoxes - 1>(base, &tm_q, &tm_k, &tm_v, o, b, h,
-                                       heads, q0, tn, n_kt, causal,
-                                       scale_log2, d, col0, rank, ncl);
+  // one branch a role to the end, so that setmaxnreg applies
+  if (wg == kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == kConsumers * 128)
+      produce<L>(base, &tm_q, &tm_k, &tm_v, h, b, q0, n_kt);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    if (wg == 0)
+      big16_consume<kBF16, L, 0>(base, o, b, h, heads, q0, tn, n_kt, causal,
+                                 scale_log2);
+    else
+      big16_consume<kBF16, L, 1>(base, o, b, h, heads, q0, tn, n_kt, causal,
+                                 scale_log2);
+  }
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -1431,38 +1218,13 @@ int launch_cluster(Kernel kernel, int n_blocks, int threads, uint32_t smem,
   return (int)err;
 }
 
-// CTAs a query tile of flash_cluster16_kernel at kernel width d: the C =
-// d/64 chunks over as few CTAs as hold at most 4 each
-constexpr int cl16_ctas(int d) { return (d / 64 + 3) / 4; }
-
-template <bool kBF16>
-int launch_cl16(const void* q, const void* k, const void* v, void* o, int b,
-                int tn, int h, int d, int causal, float scale,
-                cudaStream_t stream) {
-  using L = Cl16;
-  CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q, b, tn, h, d, kBF16, L::kBQ) ||
-      !make_map(&mk, k, b, tn, h, d, kBF16, L::kBN) ||
-      !make_map(&mv, v, b, tn, h, d, kBF16, L::kBN))
-    return (int)cudaErrorInvalidValue;
-  const int n_qt = (tn + L::kBQ - 1) / L::kBQ, ncl = cl16_ctas(d);
-  const long long grid = (long long)n_qt * b * h * ncl;
-  if (grid > INT_MAX) return (int)cudaErrorInvalidValue;
-  return launch_cluster(flash_cluster16_kernel<kBF16>, (int)grid, kThreads16,
-                        L::kBytes, ncl, stream, mq, mk, mv, (uint16_t*)o, tn,
-                        h, b * h, n_qt, causal, scale * 1.4426950408889634f,
-                        d);
-}
-
-// every 16-bit width: 64, 128 (flash_wgmma_kernel), 256 .. 512
-// (flash_big16_kernel), 576 .. kReach16 (flash_cluster16_kernel); any
-// other width is refused
+// every 16-bit width of the one-pass routes: 64, 128
+// (flash_wgmma_kernel), 256 .. 512 (flash_big16_kernel); any other width
+// is refused
 template <bool kBF16>
 int launch_any16(const void* q, const void* k, const void* v, void* o, int b,
                  int t, int h, int d, int causal, float scale,
                  cudaStream_t st) {
-  if (d > 512 && d <= kReach16 && d % 64 == 0)
-    return launch_cl16<kBF16>(q, k, v, o, b, t, h, d, causal, scale, st);
   switch (d) {
     case 64: return launch16<kBF16, 64>(q, k, v, o, b, t, h, causal, scale, st);
     case 128: return launch16<kBF16, 128>(q, k, v, o, b, t, h, causal, scale, st);
@@ -1482,9 +1244,9 @@ int launch_any16(const void* q, const void* k, const void* v, void* o, int b,
 constexpr uint32_t kTf32Mask = 0xffffe000u;  // the bits a TF32 value keeps
 constexpr int kConverters = 96;  // producer warps 1-3 build the planes
 
-// flash_tf32_kernel's and flash_cluster32_kernel's layouts: a CTA holds
-// at most kW head-dim columns (its slice of a cluster of up to kCl_ CTAs a
-// query tile) and kCons_ consumer warpgroups of 64 query rows; key tiles
+// flash_tf32_kernel's layouts: a CTA holds kW head-dim columns (its half
+// of the head dim where a cluster of kCl_ = 2 CTAs serves a query tile)
+// and kCons_ consumer warpgroups of 64 query rows; key tiles
 // of kBN0 where it is given, else 32 where they fit, else 16.  The planes
 // of a key tile, two stages of each: K's hi plane (keys x head dim, boxes
 // of 32 columns, the low 13 bits cleared), K's lo plane in the same
@@ -1493,8 +1255,7 @@ constexpr int kConverters = 96;  // producer warps 1-3 build the planes
 // V raw in rings of kKS and kVS slots, and the converters build the
 // planes from them, so the copies run ahead of the consumers; with kKS =
 // 0 (where two K slots do not fit) K lands in its hi plane and is split
-// in place.  A CTA whose slice is narrower than kW (Tf32Slice) uses the
-// first part of each region.
+// in place.
 template <int kW, int kCl_, int kCons_, int kBN0 = 0>
 struct Tf32L {
   static constexpr int kCl = kCl_;                   // CTAs a query tile
@@ -1535,7 +1296,7 @@ struct Tf32L {
   static constexpr uint32_t kX = kVraw + kVS * kPlane;
   static constexpr uint32_t kBar = kX + kXBytes;
   static constexpr uint32_t kBytes = kBar + 8 * kBars + kSwAtom;
-  static_assert(kDH % 32 == 0 && kCl >= 1 && kCl <= 8, "slice");
+  static_assert(kDH % 32 == 0 && kCl >= 1 && kCl <= 2, "slice");
   static_assert(kBytes <= kSmemMax && kBytes == bytes_for(kBN, kKS, kVS),
                 "shared memory");
 };
@@ -1546,13 +1307,6 @@ struct Tf32L {
 template <int D>
 using Tf32 = Tf32L<D <= 128 ? D : D / 2, D <= 128 ? 1 : 2,
                    D <= 128 || D / 2 <= 160 ? 2 : 1, D == 64 ? 64 : 0>;
-
-// flash_cluster32_kernel, kernel widths 576 .. kReach32: a cluster of
-// ceil(D / 192) CTAs a query tile, each with 160 or 192 columns (the D/32
-// boxes split as evenly as they go), one consumer of 64 rows
-constexpr int kCl32 = 8;                   // the most CTAs of a cluster
-constexpr int kReach32 = 192 * kCl32;      // the widest D: 1536
-using Tf32C = Tf32L<192, kCl32, 1>;
 
 // what a CTA's slice of kDH columns (<= L::kDH) spans of layout L
 template <class L, int kDH>
@@ -2002,22 +1756,6 @@ __device__ __forceinline__ void tf32_consume(
                        (ncl - 1) * L::kXSlot);
     }
   }
-  // P of a key tile (the softmax's p split into TF32 hi and lo) and its
-  // corr; past two CTAs (kPipe) they carry over to the next tile, whose
-  // partials' exchange P V of this one overlaps.  flash_tf32_kernel keeps
-  // P V after the softmax: carried over, P and corr would add 18 live
-  // registers where D = 512 uses 238 of 255
-  constexpr bool kPipe = L::kCl > 2;
-  uint32_t ph[kBN / 2], pl[kBN / 2];
-  float corr[2];
-  // O = O corr + P V of key tile j
-  auto p_v = [&](int j) {
-    const uint32_t vthi = base + L::kVthi + (j & 1) * L::kPlane;
-    const uint32_t vtlo = base + L::kVtlo + (j & 1) * L::kPlane;
-    mbar_wait(bar32(bar0, kVReady, j & 1), (j >> 1) & 1);
-    pv_fold<L, kDH>(acc_o, ph, pl, vthi, vtlo, corr);
-    mbar_arrive(bar32(bar0, kVtFree, j & 1));
-  };
 
   mbar_wait(bar32(bar0, kQFull, 0), 0);
   for (int kt = 0; kt < n_kt; ++kt) {
@@ -2040,35 +1778,29 @@ __device__ __forceinline__ void tf32_consume(
     }
     mbar_arrive(bar32(bar0, kKFree, s));
 
-    if constexpr (kPipe) {
-      // S = the sum of the cluster's partials in rank order; P V of tile
-      // kt - 1 runs while those of tile kt are in flight
-      const int xs = 2 * wg + (kt & 1);
-      const uint32_t slots = base + L::kX + xs * (L::kCl - 1) * L::kXSlot;
-      const uint32_t xbar = bar32(bar0, kXFull, xs);
-      cluster_send_s(acc_s, slots, xbar, rank, ncl, t);
-      if (kt > 0) p_v(kt - 1);
-      cluster_recv_s(acc_s, slots, xbar, (kt >> 1) & 1, rank, ncl, t,
-                     kt + 2 < n_kt);
-    } else if constexpr (L::kCl > 1) {
+    if constexpr (L::kCl > 1) {
       // S = own partial + the other CTA's
       const int xs = 2 * wg + (kt & 1);
-      cluster_sum_s<L::kCl>(acc_s,
-                            base + L::kX + xs * (L::kCl - 1) * L::kXSlot,
-                            bar32(bar0, kXFull, xs), (kt >> 1) & 1, rank,
-                            ncl, t, kt + 2 < n_kt);
+      cluster_sum_s(acc_s, base + L::kX + xs * (L::kCl - 1) * L::kXSlot,
+                    bar32(bar0, kXFull, xs), (kt >> 1) & 1, rank, t,
+                    kt + 2 < n_kt);
     }
 
+    float corr[2];
     softmax32_tile<kBN>(acc_s, m2, lsum, corr, kt * kBN, row0, r0, 2 * tq,
                         tn, causal);
+    // P split into TF32 hi and lo; O = O corr + P V
+    uint32_t ph[kBN / 2], pl[kBN / 2];
 #pragma unroll
     for (int i = 0; i < kBN / 2; ++i) {
       ph[i] = tf32_hi(acc_s[i]);
       pl[i] = tf32_lo(acc_s[i], ph[i]);
     }
-    if constexpr (!kPipe) p_v(kt);
+    mbar_wait(bar32(bar0, kVReady, s), par);
+    pv_fold<L, kDH>(acc_o, ph, pl, base + L::kVthi + s * L::kPlane,
+                    base + L::kVtlo + s * L::kPlane, corr);
+    mbar_arrive(bar32(bar0, kVtFree, s));
   }
-  if constexpr (kPipe) p_v(n_kt - 1);
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -2150,39 +1882,6 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
                       heads, q0, col0, tn, n_kt, causal, scale, D);
 }
 
-// kernel widths 576 .. kReach32 (a multiple of 64): a cluster of ncl
-// CTAs a query tile (cudaLaunchKernelEx sets it; consecutive blocks), CTA
-// rank holding 32-column boxes [x0, x0 + nx) of the d/32 (the first ones
-// one more than the rest), 5 or 6 of them (the launch takes ncl =
-// ceil(d / 192))
-__global__ void __launch_bounds__(Tf32C::kThreads, 1)
-flash_cluster32_kernel(const __grid_constant__ CUtensorMap tm_q,
-                       const __grid_constant__ CUtensorMap tm_k,
-                       const __grid_constant__ CUtensorMap tm_v,
-                       float* __restrict__ o, int tn, int heads, int bh_count,
-                       int n_qt, int causal, float scale, int d) {
-  using L = Tf32C;
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + kSwAtom - 1) & ~(kSwAtom - 1);
-
-  const uint32_t rank = cluster_rank(), ncl = cluster_size();
-  const int tile = (int)(blockIdx.x / ncl);
-  const int qt = n_qt - 1 - tile / bh_count;
-  const int bh = tile % bh_count;
-  const int b = bh / heads, h = bh % heads, q0 = qt * L::kBQ;
-  const int nx = d / 32, small = nx / (int)ncl, extra = nx % (int)ncl;
-  const int col0 = 32 * ((int)rank * small + min((int)rank, extra));
-  int n_kt = (tn + L::kBN - 1) / L::kBN;
-  if (causal) n_kt = min(n_kt, (min(q0 + L::kBQ, tn) - 1) / L::kBN + 1);
-  if (small + ((int)rank < extra) == L::kBoxes)
-    tf32_cta<L, L::kDH>(base, &tm_q, &tm_k, &tm_v, o, rank, ncl, b, h, heads,
-                        q0, col0, tn, n_kt, causal, scale, d);
-  else
-    tf32_cta<L, L::kDH - 32>(base, &tm_q, &tm_k, &tm_v, o, rank, ncl, b, h,
-                             heads, q0, col0, tn, n_kt, causal, scale, d);
-}
-
 // (B, T, H, D) f32 tensor as a 4-d map (dims D, H, T, B), boxes of 32 x 1
 // x rows x 1 (128 bytes wide) with the 128-byte swizzle
 bool make_map32(CUtensorMap* map, const void* ptr, int b, int t, int h,
@@ -2218,34 +1917,11 @@ int launch_tf32(const void* q, const void* k, const void* v, void* o, int b,
                         h, b * h, n_qt, causal, scale);
 }
 
-// CTAs a query tile of flash_cluster32_kernel at kernel width d: the d/32
-// boxes over as few CTAs as hold at most 6 each
-constexpr int cl32_ctas(int d) { return (d / 32 + 5) / 6; }
-
-int launch_cl32(const void* q, const void* k, const void* v, void* o, int b,
-                int tn, int h, int d, int causal, float scale,
-                cudaStream_t stream) {
-  using L = Tf32C;
-  CUtensorMap mq, mk, mv;
-  if (!make_map32(&mq, q, b, tn, h, d, L::kBQ) ||
-      !make_map32(&mk, k, b, tn, h, d, L::kBN) ||
-      !make_map32(&mv, v, b, tn, h, d, L::kBN))
-    return (int)cudaErrorInvalidValue;
-  const int n_qt = (tn + L::kBQ - 1) / L::kBQ, ncl = cl32_ctas(d);
-  const long long grid = (long long)n_qt * b * h * ncl;
-  if (grid > INT_MAX) return (int)cudaErrorInvalidValue;
-  return launch_cluster(flash_cluster32_kernel, (int)grid, L::kThreads,
-                        L::kBytes, ncl, stream, mq, mk, mv, (float*)o, tn, h,
-                        b * h, n_qt, causal, scale, d);
-}
-
-// every f32 width of flash_tf32_kernel (64 .. 512) and of
-// flash_cluster32_kernel (576 .. kReach32); any other width is refused
+// every f32 width of flash_tf32_kernel (64 .. 512); any other width is
+// refused
 int launch_any32(const void* q, const void* k, const void* v, void* o, int b,
                  int t, int h, int d, int causal, float scale,
                  cudaStream_t st) {
-  if (d > 512 && d <= kReach32 && d % 64 == 0)
-    return launch_cl32(q, k, v, o, b, t, h, d, causal, scale, st);
   switch (d) {
     case 64: return launch_tf32<64>(q, k, v, o, b, t, h, causal, scale, st);
     case 128: return launch_tf32<128>(q, k, v, o, b, t, h, causal, scale, st);
@@ -2259,17 +1935,22 @@ int launch_any32(const void* q, const void* k, const void* v, void* o, int b,
 }
 
 // ---------------------------------------------------------------------------
-// f32 past kReach32: two passes, split TF32 (3xTF32) wgmma + TMA
+// past kernel width 512: two passes on wgmma + TMA, both dtypes
 // ---------------------------------------------------------------------------
 //
-// Past 1536 one query tile's O (64 x D f32, 400 KB at D = 1600) fits no
-// portable cluster, so the softmax is split into two kernels joined by a
-// bounded score scratch in device memory (see the note at the head):
-// flash_scores32_kernel computes S = (Q scale) K^T once per (query block,
-// key tile) and the rows' max m; flash_values32_kernel reads S back for
-// each slice of O's columns, takes p against the final m and multiplies
-// P by the slice's V.  A query block is 128 rows (two consumers of 64).
+// The softmax is split into two kernels joined by a bounded score scratch
+// in device memory (see the note at the head): a scores kernel computes
+// S once per (query block, key tile) and the rows' max m; a values kernel
+// reads S back for each slice of O's columns, takes p against the final m
+// and multiplies P by the slice's V.  A query block is 128 rows (two
+// consumers of 64).  f32 runs the pair in split TF32
+// (flash_scores32_kernel, flash_values32_kernel), 16-bit inputs on their
+// own type (flash_scores16_kernel, flash_values16_kernel); both write and
+// read one scratch layout (f32 S by key tiles of 64, the maxima by split).
 
+// the widest D of the one-pass routes (flash_big16_kernel,
+// flash_tf32_kernel); past it both dtypes take the two passes
+constexpr int kReach = 512;
 constexpr int kSplitTiles = 4;            // key tiles a scores CTA computes
 constexpr size_t kScratchCap = size_t(256) << 20;   // bytes of scores a chunk
 
@@ -2352,6 +2033,51 @@ struct BlockOf {
     q0 = (n_qb - 1 - blk / bh_count) * rows;
   }
 };
+
+// m of this thread's rows (row_a and row_a + 8 of its block): the max of
+// the splits' maxima (a max is exact in any order), 0 where every key of
+// the row is dead
+__device__ __forceinline__ void final_max(const float* __restrict__ m_part,
+                                          int local, int n_split, int row_a,
+                                          float (&m_use)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float m = -INFINITY;
+    for (int sp = 0; sp < n_split; ++sp)
+      m = fmaxf(m, m_part[((size_t)local * n_split + sp) * 128 + row_a +
+                          8 * r]);
+    m_use[r] = m == -INFINITY ? 0.f : m;
+  }
+}
+
+// this thread's S fragment of a key tile of 32 (element 4k + 2i + j: row
+// row_a + 8i, key 8k + 2tq + j) from the 128-byte-swizzled S box (128 rows
+// x 32 keys f32) at sbox, then p = 2**(S log2(e) - m) in place against the
+// final m, 0 where S is not finite; l sums exactly these p, in key-tile
+// order (every slice's CTA adds the same numbers in the same order)
+__device__ __forceinline__ void p_of_s_box(uint32_t sbox, int row_a, int g,
+                                           int tq, const float (&m_use)[2],
+                                           float (&p)[16], float (&lsum)[2]) {
+  constexpr float kLog2e = 1.4426950408889634f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float2 x = ld_shared_v2(sbox + (row_a + 8 * i) * 128 +
+                                    (((2 * k + (tq >> 1)) ^ g) << 4) +
+                                    (tq & 1) * 8);
+      p[4 * k + 2 * i] = x.x;
+      p[4 * k + 2 * i + 1] = x.y;
+    }
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    const float sx = p[e];
+    p[e] = isfinite(sx)
+               ? exp2_approx(fmaf(sx, kLog2e, -m_use[(e >> 1) & 1]))
+               : 0.f;
+    lsum[(e >> 1) & 1] += p[e];
+  }
+}
 
 // One CTA per (query block i0 + blockIdx.x / n_split, split
 // blockIdx.x % n_split of its key tiles, kSplitTiles each): S = (Q scale)
@@ -2506,23 +2232,14 @@ __device__ __forceinline__ void values_consume(
   using L = Val32;
   using Sl = Tf32Slice<L, kDH>;
   constexpr int kR = L::kR, kNO = Sl::kNO, kOC = Sl::kOC;
-  constexpr float kLog2e = 1.4426950408889634f;
   const uint32_t bar0 = base + L::kBar;
   const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int row_a = wg * 64 + warp * 16 + g;   // row in the block
   const int row0 = blk.q0 + wg * 64, r0 = blk.q0 + row_a;
 
-  // m: the max of the splits' maxima (a max is exact in any order)
   float m_use[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float m = -INFINITY;
-    for (int sp = 0; sp < n_split; ++sp)
-      m = fmaxf(m, m_part[((size_t)local * n_split + sp) * L::kBQ + row_a +
-                          8 * r]);
-    m_use[r] = m == -INFINITY ? 0.f : m;
-  }
+  final_max(m_part, local, n_split, row_a, m_use);
   float acc_o[kNO][kOC / 2];
 #pragma unroll
   for (int j = 0; j < kNO; ++j)
@@ -2533,36 +2250,17 @@ __device__ __forceinline__ void values_consume(
   for (int kt = 0; kt < n_kt; ++kt) {
     const int r = kt % kR, p = kt & 1;
     const bool live = !causal || kt * L::kBN <= row0 + 63;
-    const uint32_t sbox = base + L::kS + r * L::kSBox;
-    // this thread's S fragment (element 4k + 2i + j: row r0 + 8i, key
-    // 8k + 2tq + j of the tile) from the 128-byte-swizzled S box
-    float sv[L::kBN / 2];
     mbar_wait(bar32(bar0, 0, r), (kt / kR) & 1);
-    if (live) {
-#pragma unroll
-      for (int k = 0; k < L::kBN / 8; ++k)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float2 x = ld_shared_v2(
-              sbox + (row_a + 8 * i) * 128 +
-              (((2 * k + (tq >> 1)) ^ g) << 4) + (tq & 1) * 8);
-          sv[4 * k + 2 * i] = x.x;
-          sv[4 * k + 2 * i + 1] = x.y;
-        }
-    }
-    // p = 2**(S log2(e) - m) against the final m, 0 where S is not
-    // finite; l sums exactly the p that P V multiplies, in key-tile order
+    // p against the final m, split into TF32 hi and lo
     uint32_t p_hi[L::kBN / 2], p_lo[L::kBN / 2];
     if (live) {
+      float px[L::kBN / 2];
+      p_of_s_box(base + L::kS + r * L::kSBox, row_a, g, tq, m_use, px,
+                 lsum);
 #pragma unroll
       for (int e = 0; e < L::kBN / 2; ++e) {
-        const float sx = sv[e];
-        const float px =
-            isfinite(sx) ? exp2_approx(fmaf(sx, kLog2e, -m_use[(e >> 1) & 1]))
-                         : 0.f;
-        lsum[(e >> 1) & 1] += px;
-        p_hi[e] = tf32_hi(px);
-        p_lo[e] = tf32_lo(px, p_hi[e]);
+        p_hi[e] = tf32_hi(px[e]);
+        p_lo[e] = tf32_lo(px[e], p_hi[e]);
       }
     }
     mbar_wait(bar32(bar0, 2 * kR, p), (kt >> 1) & 1);
@@ -2689,6 +2387,362 @@ flash_values32_kernel(const __grid_constant__ CUtensorMap tm_s,
                             blk, heads, col0, tn, n_kt, causal, d);
 }
 
+// flash_scores16_kernel's layout: 128 query rows (two consumers of 64) x
+// a split's kSplitTiles key tiles of 64 at once; a ring of kStages steps,
+// each one 64-column box of Q (128 rows) and of K for each key tile of the
+// split (64 keys).  The tiles and the block are Sc32's: one scratch layout
+struct Sc16 {
+  static constexpr int kCons = 2;
+  static constexpr int kThreads = (kCons + 1) * 128;
+  static constexpr int kBQ = 128;
+  static constexpr int kBN = 64;
+  static constexpr int kStages = 4;
+  static constexpr uint32_t kQBox = kBQ * kRowBytes;
+  static constexpr uint32_t kKBox = kBN * kRowBytes;
+  static constexpr uint32_t kStage = kQBox + kSplitTiles * kKBox;
+  static constexpr uint32_t kBar = kStages * kStage;
+  // barriers: full[s] (TMA bytes landed), free[s] (both consumers' products
+  // of the step done)
+  static constexpr uint32_t kBytes = kBar + 8 * 2 * kStages + kSwAtom;
+  static_assert(kBQ == Sc32::kBQ && kBN == Sc32::kBN, "scratch layout");
+  static_assert(kBytes <= kSmemMax, "shared memory");
+};
+
+// flash_values16_kernel's layout: 128 query rows (two consumers of 64) x
+// a slice of at most kNB 64-column boxes of O (256 columns: 128 f32
+// registers a consumer thread, wgmma's widest N), key tiles of 32; a ring
+// of kR stages, each the block's S box (128 rows x 32 keys f32, as Val32)
+// and the slice's V boxes (32 keys x 64 columns), read MN-major
+struct Val16 {
+  static constexpr int kCons = 2;
+  static constexpr int kThreads = (kCons + 1) * 128;
+  static constexpr int kBQ = 128;
+  static constexpr int kBN = 32;
+  static constexpr int kNB = 4;
+  static constexpr int kR = 6;
+  static constexpr uint32_t kSBox = kBQ * 128u;
+  static constexpr uint32_t kVBox = kBN * kRowBytes;
+  static constexpr uint32_t kStage = kSBox + kNB * kVBox;
+  static constexpr uint32_t kBar = kR * kStage;
+  // barriers: full[r] (TMA bytes landed), free[r] (both consumers' P V of
+  // the stage done)
+  static constexpr uint32_t kBytes = kBar + 8 * 2 * kR + kSwAtom;
+  static_assert(kBQ == Val32::kBQ && kBN == Val32::kBN, "scratch map");
+  static_assert(kBytes <= kSmemMax, "shared memory");
+};
+
+// One CTA per (query block i0 + blockIdx.x / n_split, split
+// blockIdx.x % n_split of its key tiles, kSplitTiles of 64 each), as
+// flash_scores32_kernel, on 16-bit Q and K: per key tile S = Q K^T over
+// the whole head dim (d / 64 boxes) as one chain of m64n64k16 wgmma into
+// an f32 accumulator (the 16-bit kernels' arithmetic), then times the
+// scale in f32 (never a 16-bit Q); the split's tiles run side by side, so
+// each step's Q box is read once for all of them.  Writes S (scaled) and
+// each row's max of S log2(e) over the split to the scratch, in the f32
+// pair's layout; a consumer skips the key tiles past its last row.
+template <bool kBF16>
+__global__ void __launch_bounds__(Sc16::kThreads, 1)
+flash_scores16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      float* __restrict__ s_out, float* __restrict__ m_out,
+                      int tn, int heads, int bh_count, int n_qb, int i0,
+                      int n_split, int pitch, int d, int causal,
+                      float scale) {
+  using L = Sc16;
+  constexpr int kS = L::kStages, kNT = kSplitTiles;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + kSwAtom - 1) & ~(kSwAtom - 1);
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int local = (int)(blockIdx.x / (unsigned)n_split);
+  const int split = (int)(blockIdx.x % (unsigned)n_split);
+  const BlockOf blk(i0 + local, heads, bh_count, n_qb, L::kBQ);
+  int n_kt = (tn + L::kBN - 1) / L::kBN;
+  if (causal) n_kt = min(n_kt, (min(blk.q0 + L::kBQ, tn) - 1) / L::kBN + 1);
+  const int kt0 = split * kNT, nt = min(n_kt, kt0 + kNT) - kt0;
+  float* m_rows = m_out + ((size_t)local * n_split + split) * L::kBQ;
+  if (nt <= 0) {   // every key tile of the split is past the diagonal
+    if (tid < L::kBQ) m_rows[tid] = -INFINITY;
+    return;
+  }
+  const int nbox = d / 64;
+  const uint32_t bar0 = base + L::kBar;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(bar32(bar0, 0, s), 1);
+      mbar_init(bar32(bar0, kS, s), L::kCons * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == L::kCons) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == L::kCons * 128) {
+      // the TMA thread: per step box x of Q and of each live key tile's K
+      for (int x = 0; x < nbox; ++x) {
+        const int s = x % kS, u = x / kS;
+        if (u > 0) mbar_wait(bar32(bar0, kS, s), (u - 1) & 1);
+        const uint32_t full = bar32(bar0, 0, s), st = base + s * L::kStage;
+        mbar_expect_tx(full, L::kQBox + nt * L::kKBox);
+        tma_load_4d(st, &tm_q, full, 64 * x, blk.h, blk.q0, blk.b);
+        for (int j = 0; j < nt; ++j)
+          tma_load_4d(st + L::kQBox + j * L::kKBox, &tm_k, full, 64 * x,
+                      blk.h, (kt0 + j) * L::kBN, blk.b);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int t = tid & 127, warp = t >> 5, lane = t & 31;
+    const int tq = lane & 3;
+    const int row_a = wg * 64 + warp * 16 + (lane >> 2);   // row in block
+    const int row0 = blk.q0 + wg * 64, r0 = blk.q0 + row_a;
+    // the split's key tiles this consumer's rows reach
+    const int live =
+        causal ? max(0, min(nt, (row0 + 63) / L::kBN - kt0 + 1)) : nt;
+    // several chains in flight: zeroed first, never started on scale-d 0
+    float acc[kNT][L::kBN / 2];
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < L::kBN / 2; ++e) acc[j][e] = 0.f;
+    const uint32_t qw = wg * 64 * kRowBytes;
+    for (int x = 0; x < nbox; ++x) {
+      const int s = x % kS;
+      const uint32_t st = base + s * L::kStage;
+      mbar_wait(bar32(bar0, 0, s), (x / kS) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+        if (j < live)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss<kBF16>(
+                acc[j], desc_sw128(st + qw + kk * 32, 16, kSwAtom),
+                desc_sw128(st + L::kQBox + j * L::kKBox + kk * 32, 16,
+                           kSwAtom),
+                1);
+      wgmma_commit();
+      // the previous step's products are done: its stage goes back
+      wgmma_wait1();
+      if (x > 0) mbar_arrive(bar32(bar0, kS, (x - 1) % kS));
+    }
+    wgmma_wait0();
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) fence_regs(acc[j]);
+
+    float m2[2] = {-INFINITY, -INFINITY};   // max of S log2(e), this split
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      if (j >= live) continue;
+      const int k0 = (kt0 + j) * L::kBN;
+#pragma unroll
+      for (int e = 0; e < L::kBN / 2; ++e) acc[j][e] *= scale;
+      // element 4k + 2i + e: row r0 + 8i, key k0 + 8k + 2tq + e
+      if (k0 + L::kBN > tn || (causal && k0 + L::kBN - 1 > row0)) {
+#pragma unroll
+        for (int k = 0; k < L::kBN / 8; ++k)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + 8 * k + 2 * tq + (e & 1);
+            if (col >= tn || (causal && col > r0 + 8 * (e >> 1)))
+              acc[j][4 * k + e] = -INFINITY;
+          }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int k = 0; k < L::kBN / 8; ++k)
+          mx = fmaxf(mx, fmaxf(acc[j][4 * k + 2 * r],
+                               acc[j][4 * k + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+        m2[r] = fmaxf(m2[r], mx * kLog2e);
+        float* srow =
+            s_out + ((size_t)local * L::kBQ + row_a + 8 * r) * pitch + k0 +
+            2 * tq;
+#pragma unroll
+        for (int k = 0; k < L::kBN / 8; ++k)
+          *reinterpret_cast<float2*>(srow + 8 * k) = make_float2(
+              acc[j][4 * k + 2 * r], acc[j][4 * k + 2 * r + 1]);
+      }
+    }
+    if (tq == 0) {
+      m_rows[row_a] = m2[0];
+      m_rows[row_a + 8] = m2[1];
+    }
+  }
+}
+
+// consumer warpgroup wg of a 16-bit values CTA: 64 rows of the block, the
+// slice's kNB boxes of O from col0.  Per key tile p (f32, against the
+// final m) from the S box, l summed from those p in key-tile order, P
+// rounded to 16 bits in registers (the S fragment is the A fragment, as
+// in flash_wgmma_kernel) and O += P V by wgmma with V read MN-major; the p
+// of tile kt are taken while P V of tile kt - 1 is in flight
+template <bool kBF16, int kNB>
+__device__ __forceinline__ void values16_consume(
+    uint32_t base, const float* __restrict__ m_part,
+    uint16_t* __restrict__ o, int wg, int local, int n_split,
+    const BlockOf& blk, int heads, int col0, int tn, int n_kt, int causal,
+    int d) {
+  using L = Val16;
+  constexpr int kR = L::kR;
+  const uint32_t bar0 = base + L::kBar;
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int row_a = wg * 64 + warp * 16 + g;   // row in the block
+  const int row0 = blk.q0 + wg * 64, r0 = blk.q0 + row_a;
+
+  float m_use[2];
+  final_max(m_part, local, n_split, row_a, m_use);
+  float acc_o[kNB][32];
+#pragma unroll
+  for (int j = 0; j < kNB; ++j)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc_o[j][e] = 0.f;
+  float lsum[2] = {0.f, 0.f};             // this thread's part of l
+  uint32_t pa[L::kBN / 4] = {};           // P, the A fragments of 2 k16
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int r = kt % kR;
+    const bool live = !causal || kt * L::kBN <= row0 + 63;
+    const uint32_t st = base + r * L::kStage;
+    mbar_wait(bar32(bar0, 0, r), (kt / kR) & 1);
+    float p[L::kBN / 2];
+    if (live) p_of_s_box(st, row_a, g, tq, m_use, p, lsum);
+    // P V of tile kt - 1 is done: its stage goes back, P's registers free
+    wgmma_wait0();
+#pragma unroll
+    for (int j = 0; j < kNB; ++j) fence_regs(acc_o[j]);
+#pragma unroll
+    for (int i = 0; i < L::kBN / 4; ++i) asm volatile("" : "+r"(pa[i]));
+    if (kt > 0) mbar_arrive(bar32(bar0, kR, (kt - 1) % kR));
+    if (!live) continue;
+#pragma unroll
+    for (int k = 0; k < L::kBN / 8; ++k)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        pa[(k >> 1) * 4 + (k & 1) * 2 + i] =
+            pack2<kBF16>(p[4 * k + 2 * i], p[4 * k + 2 * i + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < L::kBN / 16; ++kk) {
+      const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                             pa[4 * kk + 3]};
+#pragma unroll
+      for (int j = 0; j < kNB; ++j)
+        wgmma_rs<kBF16>(acc_o[j], a,
+                        desc_sw128(st + L::kSBox + j * L::kVBox +
+                                       kk * 16 * kRowBytes,
+                                   L::kVBox, kSwAtom));
+    }
+    wgmma_commit();
+  }
+  wgmma_wait0();
+#pragma unroll
+  for (int j = 0; j < kNB; ++j) fence_regs(acc_o[j]);
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = lsum[i];
+    l += __shfl_xor_sync(kFull, l, 1);
+    l += __shfl_xor_sync(kFull, l, 2);
+    const float den = fmaxf(l, 1e-30f);
+    const int row = r0 + 8 * i;
+    if (row < tn) {
+      uint16_t* orow = o + (((size_t)blk.b * tn + row) * heads + blk.h) * d +
+                       col0 + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < kNB; ++j)
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          *reinterpret_cast<uint32_t*>(orow + 64 * j + 8 * k) =
+              pack2<kBF16>(acc_o[j][4 * k + 2 * i] / den,
+                           acc_o[j][4 * k + 2 * i + 1] / den);
+    }
+  }
+}
+
+// one 16-bit values CTA over a slice of kNB boxes from col0: barriers,
+// then the TMA thread (per key tile the block's S box and the slice's V
+// boxes) and the two consumers
+template <bool kBF16, int kNB>
+__device__ __forceinline__ void values16_cta(
+    uint32_t base, const CUtensorMap* tm_s, const CUtensorMap* tm_v,
+    const float* __restrict__ m_part, uint16_t* __restrict__ o, int local,
+    int n_split, const BlockOf& blk, int heads, int col0, int tn, int n_kt,
+    int causal, int d) {
+  using L = Val16;
+  constexpr int kR = L::kR;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const uint32_t bar0 = base + L::kBar;
+  if (tid == 0) {
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      mbar_init(bar32(bar0, 0, r), 1);
+      mbar_init(bar32(bar0, kR, r), L::kCons * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == L::kCons) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == L::kCons * 128) {
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int r = kt % kR, u = kt / kR;
+        if (u > 0) mbar_wait(bar32(bar0, kR, r), (u - 1) & 1);
+        const uint32_t full = bar32(bar0, 0, r), st = base + r * L::kStage;
+        mbar_expect_tx(full, L::kSBox + kNB * L::kVBox);
+        tma_load_2d(st, tm_s, full, kt * L::kBN, local * L::kBQ);
+#pragma unroll
+        for (int x = 0; x < kNB; ++x)
+          tma_load_4d(st + L::kSBox + x * L::kVBox, tm_v, full,
+                      col0 + 64 * x, blk.h, kt * L::kBN, blk.b);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    values16_consume<kBF16, kNB>(base, m_part, o, wg, local, n_split, blk,
+                                 heads, col0, tn, n_kt, causal, d);
+  }
+}
+
+// One CTA per (query block i0 + blockIdx.x / n_sl, slice blockIdx.x %
+// n_sl of O's columns: the d / 64 boxes over n_sl = ceil(d / 256) slices
+// as evenly as they go, the first ones one box more; past 512 that is 3
+// or 4 boxes a slice), reading the block's S from the scratch through
+// tm_s and m from m_part
+template <bool kBF16>
+__global__ void __launch_bounds__(Val16::kThreads, 1)
+flash_values16_kernel(const __grid_constant__ CUtensorMap tm_s,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const float* __restrict__ m_part,
+                      uint16_t* __restrict__ o, int tn, int heads,
+                      int bh_count, int n_qb, int i0, int n_split, int n_sl,
+                      int d, int causal) {
+  using L = Val16;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + kSwAtom - 1) & ~(kSwAtom - 1);
+  const int local = (int)(blockIdx.x / (unsigned)n_sl);
+  const int sl = (int)(blockIdx.x % (unsigned)n_sl);
+  const BlockOf blk(i0 + local, heads, bh_count, n_qb, L::kBQ);
+  const int nx = d / 64, small = nx / n_sl, extra = nx % n_sl;
+  const int col0 = 64 * (sl * small + min(sl, extra));
+  int n_kt = (tn + L::kBN - 1) / L::kBN;
+  if (causal) n_kt = min(n_kt, (min(blk.q0 + L::kBQ, tn) - 1) / L::kBN + 1);
+  if (small + (sl < extra) == L::kNB)
+    values16_cta<kBF16, L::kNB>(base, &tm_s, &tm_v, m_part, o, local,
+                                n_split, blk, heads, col0, tn, n_kt, causal,
+                                d);
+  else
+    values16_cta<kBF16, L::kNB - 1>(base, &tm_s, &tm_v, m_part, o, local,
+                                    n_split, blk, heads, col0, tn, n_kt,
+                                    causal, d);
+}
+
 // The two-pass route's plan for (b, t, h): query blocks of 128 rows in
 // chunks whose scores fit kScratchCap, at least one block a chunk.  A
 // block's scratch: its S (128 rows x pitch keys, pitch = t rounded up to
@@ -2732,48 +2786,36 @@ bool make_map_s(CUtensorMap* map, const float* ptr, int pitch,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// the pair of kernels once per chunk, in stream order on one scratch (the
+// a pair of kernels once per chunk, in stream order on one scratch (the
 // next chunk's scores kernel starts after this chunk's values kernel has
-// read it); returns the first CUDA error
-int launch_twopass(const void* q, const void* k, const void* v, void* o,
+// read it), n_sl values CTAs a block; returns the first CUDA error
+template <class Scores, class Values, class Out>
+int twopass_chunks(Scores scores, int sc_threads, uint32_t sc_bytes,
+                   Values values, int va_threads, uint32_t va_bytes,
+                   int n_sl, const TwoPass& p, const CUtensorMap& mq,
+                   const CUtensorMap& mk, const CUtensorMap& mv,
+                   const CUtensorMap& ms, float* s_buf, float* m_buf, Out* o,
                    int b, int tn, int h, int d, int causal, float scale,
-                   void* scratch, cudaStream_t stream) {
-  TwoPass p;
-  if (!twopass_plan(b, tn, h, &p) || scratch == nullptr ||
-      reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  float* s_buf = static_cast<float*>(scratch);
-  float* m_buf = s_buf + p.per_chunk * Sc32::kBQ * (long long)p.pitch;
-  CUtensorMap mq, mk, mv, ms;
-  if (!make_map32(&mq, q, b, tn, h, d, Sc32::kBQ) ||
-      !make_map32(&mk, k, b, tn, h, d, Sc32::kBN) ||
-      !make_map32(&mv, v, b, tn, h, d, Val32::kBN) ||
-      !make_map_s(&ms, s_buf, p.pitch, p.per_chunk * Val32::kBQ))
-    return (int)cudaErrorInvalidValue;
+                   cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_scores32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)Sc32::kBytes);
+      scores, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sc_bytes);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_values32_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)Val32::kBytes);
+    err = cudaFuncSetAttribute(
+        values, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)va_bytes);
   if (err != cudaSuccess) return (int)err;
-  const int n_sl = (d / 32 + 5) / 6;
   for (long long i0 = 0; i0 < p.blocks; i0 += p.per_chunk) {
     const long long n = std::min(p.per_chunk, p.blocks - i0);
     if (n * p.n_split > INT_MAX || n * n_sl > INT_MAX)
       return (int)cudaErrorInvalidValue;
-    flash_scores32_kernel<<<(unsigned)(n * p.n_split), Sc32::kThreads,
-                            Sc32::kBytes, stream>>>(
+    scores<<<(unsigned)(n * p.n_split), sc_threads, sc_bytes, stream>>>(
         mq, mk, s_buf, m_buf, tn, h, b * h, p.n_qb, (int)i0, p.n_split,
         p.pitch, d, causal, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     ++t_launches;
-    flash_values32_kernel<<<(unsigned)(n * n_sl), Val32::kThreads,
-                            Val32::kBytes, stream>>>(
-        ms, mv, m_buf, (float*)o, tn, h, b * h, p.n_qb, (int)i0, p.n_split,
-        n_sl, d, causal);
+    values<<<(unsigned)(n * n_sl), va_threads, va_bytes, stream>>>(
+        ms, mv, m_buf, o, tn, h, b * h, p.n_qb, (int)i0, p.n_split, n_sl, d,
+        causal);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     ++t_launches;
@@ -2781,34 +2823,80 @@ int launch_twopass(const void* q, const void* k, const void* v, void* o,
   return (int)cudaSuccess;
 }
 
+// the two-pass route of a dtype (0 = float32: flash_scores32_kernel and
+// flash_values32_kernel; 1 = float16, 2 = bfloat16: flash_scores16_kernel
+// and flash_values16_kernel) on one plan and one scratch
+int launch_twopass(const void* q, const void* k, const void* v, void* o,
+                   int b, int tn, int h, int d, int dtype, int causal,
+                   float scale, void* scratch, cudaStream_t stream) {
+  TwoPass p;
+  if (!twopass_plan(b, tn, h, &p) || scratch == nullptr ||
+      reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  float* s_buf = static_cast<float*>(scratch);
+  float* m_buf = s_buf + p.per_chunk * Sc32::kBQ * (long long)p.pitch;
+  const bool bf16 = dtype == 2;
+  CUtensorMap mq, mk, mv, ms;
+  const bool mapped =
+      dtype == 0 ? make_map32(&mq, q, b, tn, h, d, Sc32::kBQ) &&
+                       make_map32(&mk, k, b, tn, h, d, Sc32::kBN) &&
+                       make_map32(&mv, v, b, tn, h, d, Val32::kBN)
+                 : make_map(&mq, q, b, tn, h, d, bf16, Sc16::kBQ) &&
+                       make_map(&mk, k, b, tn, h, d, bf16, Sc16::kBN) &&
+                       make_map(&mv, v, b, tn, h, d, bf16, Val16::kBN);
+  if (!mapped || !make_map_s(&ms, s_buf, p.pitch, p.per_chunk * Val32::kBQ))
+    return (int)cudaErrorInvalidValue;
+  // the values kernels' slices: the boxes as evenly as they go over as
+  // few slices as hold at most a slice's instance each, which also has an
+  // instance one box narrower (true past kReach; refused elsewhere)
+  const int box = dtype == 0 ? 32 : 64;
+  const int most = dtype == 0 ? Val32::kDH / 32 : Val16::kNB;
+  const int n_sl = (d / box + most - 1) / most;
+  if (d / box / n_sl < most - 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return twopass_chunks(flash_scores32_kernel, Sc32::kThreads,
+                          Sc32::kBytes, flash_values32_kernel,
+                          Val32::kThreads, Val32::kBytes, n_sl, p, mq, mk,
+                          mv, ms, s_buf, m_buf, (float*)o, b, tn, h, d,
+                          causal, scale, stream);
+  if (bf16)
+    return twopass_chunks(flash_scores16_kernel<true>, Sc16::kThreads,
+                          Sc16::kBytes, flash_values16_kernel<true>,
+                          Val16::kThreads, Val16::kBytes, n_sl, p, mq, mk,
+                          mv, ms, s_buf, m_buf, (uint16_t*)o, b, tn, h, d,
+                          causal, scale, stream);
+  return twopass_chunks(flash_scores16_kernel<false>, Sc16::kThreads,
+                        Sc16::kBytes, flash_values16_kernel<false>,
+                        Val16::kThreads, Val16::kBytes, n_sl, p, mq, mk, mv,
+                        ms, s_buf, m_buf, (uint16_t*)o, b, tn, h, d, causal,
+                        scale, stream);
+}
+
 }  // namespace
 
 // The kernels rt_flash_attention launches for kernel width d and dtype (0
 // = float32, 1 = float16, 2 = bfloat16): 0 flash_wgmma_kernel, 1
 // flash_big16_kernel, 2 flash_tf32_kernel, 3 flash_scores32_kernel then
-// flash_values32_kernel (once per chunk), 4 flash_cluster16_kernel, 5
-// flash_cluster32_kernel; 6 for 16-bit widths past kReach16, which the
-// entry point refuses: the caller widens those inputs to f32 and calls
-// the f32 route of the width (the JAX kernel's own arithmetic, every
-// block cast to f32), rounding the output back; -1 where no route takes
-// the width.  Chosen by width and dtype alone.
+// flash_values32_kernel (once per chunk), 7 flash_scores16_kernel then
+// flash_values16_kernel (once per chunk); -1 where no route takes the
+// width.  Chosen by width and dtype alone.  The codes of deleted routes
+// are not given again (4 and 5: the cluster routes of 16-bit inputs at
+// 576-1024 and of f32 at 576-1536; 6: 16-bit widths past 1024, which the
+// caller widened to f32), so an older build's code still names its own
+// kernel.
 extern "C" int rt_flash_route(int d, int dtype) {
   if (!(d == 64 || d == 128 || (d >= 256 && d % 64 == 0))) return -1;
-  if (dtype == 1 || dtype == 2)
-    return d <= 128 ? 0 : d <= 512 ? 1 : d <= kReach16 ? 4 : 6;
-  if (dtype == 0) {
-    if (d <= 512) return 2;
-    if (d <= kReach32) return 5;
-    if (d / 64 <= 65535) return 3;
-  }
-  return -1;
+  if (dtype < 0 || dtype > 2) return -1;
+  if (d <= kReach) return dtype == 0 ? 2 : d <= 128 ? 0 : 1;
+  if (d / 64 > 65535) return -1;
+  return dtype == 0 ? 3 : 7;
 }
 
-// Keys a tile of the kernel rt_flash_route names for (d, dtype) (for a
-// widened 16-bit width, of the f32 route; for the two-pass route, of the
-// values kernel, whose tiles O sums over); -1 where no route takes the
-// width.  The tiles are the layouts' own (Smem16, Big16, Tf32, Cl16,
-// Tf32C, Val32), so the card tests read the rule from here.
+// Keys a tile of the kernel rt_flash_route names for (d, dtype) (for the
+// two-pass routes, of the values kernel, whose tiles O sums over); -1
+// where no route takes the width.  The tiles are the layouts' own
+// (Smem16, Big16, Tf32, Val32, Val16), so the card tests read the
+// rule from here.
 extern "C" int rt_flash_key_tile(int d, int dtype) {
   switch (rt_flash_route(d, dtype)) {
     case 0: return d == 64 ? Smem16<64>::kBN : Smem16<128>::kBN;
@@ -2825,24 +2913,21 @@ extern "C" int rt_flash_key_tile(int d, int dtype) {
       }
       return -1;
     case 3: return Val32::kBN;
-    case 4: return Cl16::kBN;
-    case 5: return Tf32C::kBN;
-    case 6: return rt_flash_key_tile(d, 0);
+    case 7: return Val16::kBN;
   }
   return -1;
 }
 
 // Bytes of device scratch rt_flash_attention needs for (b, t, h, d,
-// dtype): the two-pass route's (one chunk's scores and row maxima: at
+// dtype): the two-pass routes' (one chunk's scores and row maxima: at
 // most the larger of kScratchCap and one query block's, whatever b and
-// h are); 0 for every other route; -1 where no route takes the width or
-// the two-pass route's blocks pass its grid.  A widened 16-bit width
-// needs what its f32 route needs.
+// h are; one plan for both dtypes); 0 for every other route; -1 where no
+// route takes the width or the two-pass route's blocks pass its grid.
 extern "C" long long rt_flash_scratch_bytes(int b, int t, int h, int d,
                                             int dtype) {
   const int route = rt_flash_route(d, dtype);
   if (route < 0 || b < 1 || t < 1 || h < 1) return -1;
-  if ((route == 6 ? rt_flash_route(d, 0) : route) != 3) return 0;
+  if (route != 3 && route != 7) return 0;
   TwoPass p;
   return twopass_plan(b, t, h, &p) ? p.bytes : -1;
 }
@@ -2867,16 +2952,15 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
   switch (rt_flash_route(d, dtype)) {
     case 0:
     case 1:
-    case 4:
       return dtype == 2 ? launch_any16<true>(q, k, v, o, b, t, h, d, causal,
                                              scale, st)
                         : launch_any16<false>(q, k, v, o, b, t, h, d, causal,
                                               scale, st);
-    case 2:
-    case 5: return launch_any32(q, k, v, o, b, t, h, d, causal, scale, st);
+    case 2: return launch_any32(q, k, v, o, b, t, h, d, causal, scale, st);
     case 3:
-      return launch_twopass(q, k, v, o, b, t, h, d, causal, scale, scratch,
-                            st);
+    case 7:
+      return launch_twopass(q, k, v, o, b, t, h, d, dtype, causal, scale,
+                            scratch, st);
   }
   return (int)cudaErrorInvalidValue;
 }

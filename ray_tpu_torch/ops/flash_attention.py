@@ -2,7 +2,7 @@
 
 The port of ``ray_tpu/ops/flash_attention.py`` (a Pallas TPU kernel):
 blocked attention with the online-softmax recurrence, O(T) memory
-instead of the O(T^2) score matrix (past D = 1536 a score scratch of at
+instead of the O(T^2) score matrix (past D = 512 a score scratch of at
 most the larger of 256 MiB and one query block's scores, below).  The kernel is
 ``csrc/flash_attention.cu``; the route follows dtype and kernel width:
 
@@ -12,32 +12,24 @@ most the larger of 256 MiB and one query block's scores, below).  The kernel is
   tensor cores, S computed once a key tile); at 256 two warpgroups of
   64 rows, past 256 two warpgroups that share 64 rows, split O's columns
   and sum S from their halves of the head dim;
-* f16/bf16 at D = 576 to 1024: wgmma + TMA over a cluster of 3 or 4 CTAs
-  a query tile, each holding 3 or 4 of the D/64 column chunks; each CTA
-  computes a partial S over its columns, the partials are exchanged
-  through distributed shared memory and summed in rank order (one S in
-  every CTA), and each multiplies P by its own columns of V;
-* f16/bf16 past 1024: widened to f32 here, computed on the f32 route of
-  the width and rounded back (the JAX kernel's own arithmetic: it casts
-  every block to f32 before both products);
 * f32 at D = 64 to 512: wgmma + TMA in split TF32 (3xTF32: each operand
   is a TF32 hi plus a TF32 lo, each product hi*hi + hi*lo + lo*hi in f32,
   within f32's tolerance); 128 query rows a CTA at 64 and 128, past 128 a
   cluster of two CTAs per query tile, each holding half of the head dim;
-* f32 at D = 576 to 1536: the same split-TF32 arithmetic over a cluster
-  of ceil(D / 192) CTAs a query tile (160 or 192 columns each), its
-  partial S summed in rank order as on the 16-bit cluster;
-* f32 past 1536 (and 16-bit past 1536, widened): two passes in split
-  TF32 on wgmma + TMA.  A scores kernel computes S = (Q scale) K^T once
-  per (query block, key tile) over the whole head dim and each row's
-  max; a values kernel reads S back for each slice of O's columns, takes
-  p against the final max and multiplies P by the slice's V.  S goes
-  through a score scratch in device memory that this wrapper allocates:
-  bounded by a fixed cap (256 MiB; the call walks its 128-row query
-  blocks in chunks that fit, two kernel launches a chunk) or, where one
-  block's scores pass it (T past 2**19), by that block's (512 T bytes):
-  O(T) whatever B and H are, never O(B*H*T^2).  Every other route keeps
-  no scratch.
+* past D = 512, both dtypes: two passes on wgmma + TMA.  A scores kernel
+  computes S once per (query block, key tile) over the whole head dim
+  and each row's max; a values kernel reads S back for each slice of O's
+  columns, takes p against the final max and multiplies P by the slice's
+  V.  f32 runs both products in split TF32 (``flash_scores32_kernel``,
+  ``flash_values32_kernel``); 16-bit inputs on their own type
+  (``flash_scores16_kernel``, ``flash_values16_kernel``: S one 16-bit
+  product with an f32 sum, times the scale in f32; P rounded to 16 bits
+  for P V), as the other 16-bit routes.  S (f32) goes through a score
+  scratch in device memory that this wrapper allocates: bounded by a
+  fixed cap (256 MiB; the call walks its 128-row query blocks in chunks
+  that fit, two kernel launches a chunk) or, where one block's scores
+  pass it (T past 2**19), by that block's (512 T bytes): O(T) whatever B
+  and H are, never O(B*H*T^2).  Every other route keeps no scratch.
 
 The route is chosen by dtype and width alone (the library's
 ``rt_flash_route``); a kernel that fails to build or launch, or a
@@ -66,11 +58,13 @@ _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _KERNEL_DIMS = (64, 128, 256)        # the kernel's widths; others pad up
 _WIDE_CHUNK = 64                     # past 256: the next multiple of 64
 # the kernels of the entry point's routes (rt_flash_route's codes 0-5)
-_ROUTES = ("flash_wgmma_kernel", "flash_big16_kernel", "flash_tf32_kernel",
-           "flash_scores32_kernel+flash_values32_kernel",
-           "flash_cluster16_kernel", "flash_cluster32_kernel")
-_TWOPASS = 3     # rt_flash_route's code for the two-pass route
-_WIDEN = 6       # rt_flash_route's code for 16-bit widths the f32 route runs
+# the kernels of the entry point's routes, by rt_flash_route's code (the
+# codes of deleted routes are not given again)
+_ROUTES = {0: "flash_wgmma_kernel", 1: "flash_big16_kernel",
+           2: "flash_tf32_kernel",
+           3: "flash_scores32_kernel+flash_values32_kernel",
+           7: "flash_scores16_kernel+flash_values16_kernel"}
+_TWOPASS = (3, 7)   # the two-pass routes' codes (f32, 16-bit)
 
 
 def kernel_width(d: int) -> int:
@@ -114,19 +108,16 @@ def flash_attention(q, k, v, *, causal: bool = False,
     Same checks and messages as the JAX function.  ``block_q``/``block_k``
     are validated for parity with its signature; the CUDA kernel tiles by
     its own (f16/bf16: 128 x 128 up to D = 128, 128 x 64 at 256, 64 x 32
-    to 512, 128 x 32 to 1024 over a cluster of 3 or 4 CTAs; f32: 128 x 64
-    at 64, 128 x 32 at 128, 128 x 16 at 256 and 320 and 64 x 16 to 512,
-    each over a cluster of two CTAs, 64 x 16 to 1536 over a cluster of
-    3-8, past it 128 x 64 for the scores and 128 x 32 for the values).
-    CPU tensors take ``flash_attention_plain``; CUDA tensors launch the
-    kernel at any D or raise.  ``flash_attention.last_route`` names the
-    kernel(s) the entry point launched last,
-    ``flash_attention.last_widened`` whether it widened 16-bit inputs to
-    f32 for them, ``flash_attention.last_kernel_launches`` how many
-    kernel launches the call made (counted by the library where each
-    launch succeeded: 2 a chunk on the two-pass route, else 1), and
+    to 512; f32: 128 x 64 at 64, 128 x 32 at 128, 128 x 16 at 256 and
+    320 and 64 x 16 to 512, each over a cluster of two CTAs; past 512
+    128 x 64 for the scores and 128 x 32 for the values).  CPU tensors
+    take ``flash_attention_plain``; CUDA tensors launch the kernel at any
+    D or raise.  ``flash_attention.last_route`` names the kernel(s) the
+    entry point launched last, ``flash_attention.last_kernel_launches``
+    how many kernel launches the call made (counted by the library where
+    each launch succeeded: 2 a chunk on the two-pass routes, else 1), and
     ``flash_attention.last_scratch_bytes`` the bytes of score scratch it
-    allocated (0 off the two-pass route)."""
+    allocated (0 off the two-pass routes)."""
     b, t, h, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("q/k/v must share shape (batch, seq, heads, "
@@ -158,16 +149,10 @@ def flash_attention(q, k, v, *, causal: bool = False,
     q, k, v = (x if x.is_contiguous() and x.data_ptr() % 16 == 0
                else x.clone(memory_format=torch.contiguous_format)
                for x in (q, k, v))
-    dtype = q.dtype
-    route_of = _build.load("flash_attention", "rt_flash_route")
-    route = route_of(width, _DTYPE_CODE[dtype])
-    widened = route == _WIDEN
-    if widened:             # the JAX kernel's f32 blocks (module note)
-        q, k, v = (x.float() for x in (q, k, v))
-        route = route_of(width, _DTYPE_CODE[torch.float32])
     code = _DTYPE_CODE[q.dtype]
+    route = _build.load("flash_attention", "rt_flash_route")(width, code)
     scratch = None
-    if route == _TWOPASS:
+    if route in _TWOPASS:
         # its score scratch (bounded; module note), on the tensors'
         # device and stream; a plan the route refuses (-1) fails the launch
         n_scratch = _build.load("flash_attention", "rt_flash_scratch_bytes")(
@@ -185,18 +170,14 @@ def flash_attention(q, k, v, *, causal: bool = False,
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
     flash_attention.last_route = _ROUTES[route]
-    flash_attention.last_widened = widened
     flash_attention.last_kernel_launches = _build.load(
         "flash_attention", "rt_flash_last_launches")()
     flash_attention.last_scratch_bytes = (0 if scratch is None
                                           else scratch.numel())
-    if widened:
-        out = out.to(dtype)
     return out if width == d else out[..., :d].contiguous()
 
 
 flash_attention.launches = 0
 flash_attention.last_route = None
-flash_attention.last_widened = False
 flash_attention.last_kernel_launches = 0
 flash_attention.last_scratch_bytes = 0

@@ -318,24 +318,20 @@ def _flash_inputs(dtype, shape):
             for _ in range(3)]
 
 
-# the widest kernel width of each cluster route (the source note's reach)
-FLASH_REACH_16, FLASH_REACH_32 = 1024, 1536
-# f32 past FLASH_REACH_32: the two-pass route's pair of kernels
-FLASH_TWOPASS = "flash_scores32_kernel+flash_values32_kernel"
+# the widest kernel width of the one-pass routes (the source note's);
+# past it each dtype's pair of two-pass kernels
+FLASH_REACH = 512
+FLASH_TWOPASS32 = "flash_scores32_kernel+flash_values32_kernel"
+FLASH_TWOPASS16 = "flash_scores16_kernel+flash_values16_kernel"
 
 
 def _flash_route(dtype, width):
-    """The kernel the entry point must report for a dtype and width (16-bit
-    past its reach: the f32 route of the width, on inputs widened to f32)."""
+    """The kernel the entry point must report for a dtype and width."""
     if dtype == torch.float32:
-        return ("flash_tf32_kernel" if width <= 512 else
-                "flash_cluster32_kernel" if width <= FLASH_REACH_32 else
-                FLASH_TWOPASS)
-    if width > FLASH_REACH_16:
-        return _flash_route(torch.float32, width)
+        return "flash_tf32_kernel" if width <= FLASH_REACH else FLASH_TWOPASS32
     return ("flash_wgmma_kernel" if width <= 128 else
-            "flash_big16_kernel" if width <= 512 else
-            "flash_cluster16_kernel")
+            "flash_big16_kernel" if width <= FLASH_REACH else
+            FLASH_TWOPASS16)
 
 
 def _key_tiles(dtype, d):
@@ -550,8 +546,6 @@ def _flash_past_512_case(dtype, causal, d, shape=(2, 384, 2)):
                           block_k=shape[1])
     assert flash_attention.launches == before + 1
     assert flash_attention.last_route == _flash_route(dtype, d), d
-    assert flash_attention.last_widened == (
-        dtype != torch.float32 and d > FLASH_REACH_16)
     assert got.shape == q.shape and got.dtype == dtype
     assert _flash_err_over_limit(got, q, k, v, causal) <= 1.0, d
     for tile in _key_tiles(dtype, d):
@@ -561,53 +555,51 @@ def _flash_past_512_case(dtype, causal, d, shape=(2, 384, 2)):
 
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_f32_past_512_takes_the_cluster_then_two_pass_route(causal):
-    """f32 past kernel width 512 runs on split TF32 over a cluster
-    (flash_cluster32_kernel) up to 1536, within f32's unchanged limit,
-    which rejects its dropped key tiles (64 keys and the route's 16).
-    Past 1536 f32 (D = 1600, 2048, 4096) takes the two-pass route (the
-    scores kernel, then the values kernel), and 16-bit inputs at 1600 are
-    widened to it: each within the limit, which rejects the dropped 64
-    keys and the values kernel's tile of 32, with one launch of the entry
-    point and two kernel launches (one chunk of scratch)."""
+    """f32 past kernel width 512 (D = 576, 1600, 2048, 4096) takes the
+    two-pass route (the scores kernel, then the values kernel) in split
+    TF32, and 16-bit inputs at 576 and 1600 their own pair: each within
+    the limit (f32's unchanged), which rejects the dropped 64 keys and
+    the values kernel's tile of 32, with one launch of the entry point
+    and two kernel launches (one chunk of scratch)."""
     from ray_tpu_torch.ops import flash_attention
-    _flash_past_512_case(torch.float32, causal, 576)
-    assert flash_attention.last_kernel_launches == 1
-    assert flash_attention.last_scratch_bytes == 0
-    for dtype, d in ((torch.float32, FLASH_REACH_32 + 64),
+    for dtype, d in ((torch.float32, 576), (torch.float32, 1600),
                      (torch.float32, 2048), (torch.float32, 4096),
-                     (torch.bfloat16, FLASH_REACH_32 + 64),
-                     (torch.float16, FLASH_REACH_32 + 64)):
+                     (torch.bfloat16, 576), (torch.float16, 576),
+                     (torch.bfloat16, 1600), (torch.float16, 1600)):
         _flash_past_512_case(dtype, causal, d, shape=(1, 256, 2))
         assert flash_attention.last_kernel_launches == 2, (dtype, d)
         assert flash_attention.last_scratch_bytes > 0, (dtype, d)
 
 
-def test_flash_two_pass_scratch_stays_within_its_cap():
-    """The two-pass route's score scratch is bounded: at f32 B=1 T=2048
-    H=17 D=1600 the scores of every query block need just past the cap
-    (17 heads x 16 blocks of 1 MiB and their row maxima; the need of one
-    head times 17), so the scratch holds as many blocks as fit and the
-    call runs in two chunks (four kernel launches, as the library counts
-    them at each launch), within the limit.  Where one query block's
-    scores pass the cap (T = 2**20) the route still plans, one block a
-    chunk: the scratch is that block's, O(T), whatever B and H are."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_two_pass_scratch_stays_within_its_cap(dtype):
+    """The two-pass routes' score scratch is bounded: at B=1 T=2048 H=17
+    D=1600 the scores of every query block need just past the cap (17
+    heads x 16 blocks of 1 MiB and their row maxima; the need of one head
+    times 17), so the scratch holds as many blocks as fit and the call
+    runs in two chunks (four kernel launches, as the library counts them
+    at each launch), within the limit.  Both dtypes share one plan (S is
+    f32 in both).  Where one query block's scores pass the cap (T = 2**20)
+    the route still plans, one block a chunk: the scratch is that
+    block's, O(T), whatever B and H are."""
     from ray_tpu_torch.ops import _build, flash_attention
     scratch = _build.load("flash_attention", "rt_flash_scratch_bytes")
-    b, t, h, d = 1, 2048, 17, FLASH_REACH_32 + 64
-    need = b * h * scratch(1, t, 1, d, 0)        # uncapped: head by head
-    cap = scratch(b, t, h, d, 0)
+    code = {torch.float32: 0, torch.bfloat16: 2}[dtype]
+    b, t, h, d = 1, 2048, 17, 1600
+    need = b * h * scratch(1, t, 1, d, code)     # uncapped: head by head
+    cap = scratch(b, t, h, d, code)
     assert 0 < cap < need <= 2 * cap, (cap, need)
-    assert scratch(b, t, h, 512, 0) == 0         # other routes keep none
+    assert cap == scratch(b, t, h, d, 0)         # one plan, both dtypes
+    assert scratch(b, t, h, 512, code) == 0      # one-pass routes keep none
     long_t = 2 ** 20
-    block = scratch(1, long_t, 1, d, 0)          # one block of 128 rows
+    block = scratch(1, long_t, 1, d, code)       # one block of 128 rows
     assert 256 << 20 < block <= 4 * 128 * 2 * long_t, block
-    assert scratch(2, long_t, 8, d, 0) == block
-    assert scratch(2, long_t, 8, d, 2) == block  # bf16, widened
-    q, k, v = _flash_inputs(torch.float32, (b, t, h, d))
+    assert scratch(2, long_t, 8, d, code) == block
+    q, k, v = _flash_inputs(dtype, (b, t, h, d))
     for causal in (False, True):
         got = flash_attention(q, k, v, causal=causal, block_q=t,
                               block_k=t)
-        assert flash_attention.last_route == FLASH_TWOPASS
+        assert flash_attention.last_route == _flash_route(dtype, d)
         assert flash_attention.last_kernel_launches == 4
         assert _flash_err_over_limit(got, q, k, v, causal) <= 1.0
 
@@ -615,31 +607,36 @@ def test_flash_two_pass_scratch_stays_within_its_cap():
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_flash_16bit_past_512_runs_on_the_cluster_or_widened(dtype, causal):
-    """16-bit inputs past kernel width 512 no longer raise: D = 576 runs on
-    wgmma over a cluster (flash_cluster16_kernel) within the limit, which
-    rejects its dropped key tiles (64 keys and the route's 32).  Past the
-    cluster's reach (1024) the C entry point still refuses 16-bit inputs
-    (rt_flash_route names no 16-bit kernel there): the wrapper widens them
-    to f32, runs the f32 route of the width and rounds the output back."""
+    """16-bit inputs past kernel width 512 run on their own two-pass pair
+    (flash_scores16_kernel, flash_values16_kernel), unwidened: at D = 576
+    and past 1024 (1088) within the limit, which rejects their dropped
+    key tiles (64 keys and the values kernel's 32), in 16-bit tensors.
+    The C entry point takes 16-bit widths past 1024 itself, and refuses a
+    two-pass call without its score scratch."""
     import ctypes
-    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import _build, flash_attention
     _flash_past_512_case(dtype, causal, 576)
-    _flash_past_512_case(dtype, causal, FLASH_REACH_16 + 64,
-                         shape=(1, 256, 2))
-    x = torch.zeros((1, 64, 2, FLASH_REACH_16 + 64), device="cuda",
-                    dtype=dtype)
+    _flash_past_512_case(dtype, causal, 1088, shape=(1, 256, 2))
+    assert flash_attention.last_kernel_launches == 2
+    x = torch.zeros((1, 64, 2, 1088), device="cuda", dtype=dtype)
+    out = torch.empty_like(x)
     code = 2 if dtype == torch.bfloat16 else 1
-    err = _build.load("flash_attention")(
-        x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(), 1, 64, 2,
-        FLASH_REACH_16 + 64, code, 0, ctypes.c_float(1.0), None,
-        torch.cuda.current_stream().cuda_stream)
-    assert err != 0
+    n = _build.load("flash_attention", "rt_flash_scratch_bytes")(
+        1, 64, 2, 1088, code)
+    scratch = torch.empty(n, dtype=torch.uint8, device="cuda")
+    fn = _build.load("flash_attention")
+    for ptr, ok in ((scratch.data_ptr(), True), (None, False)):
+        err = fn(x.data_ptr(), x.data_ptr(), x.data_ptr(), out.data_ptr(),
+                 1, 64, 2, 1088, code, 0, ctypes.c_float(1.0), ptr,
+                 torch.cuda.current_stream().cuda_stream)
+        assert (err == 0) == ok, (ptr, err)
+    torch.cuda.synchronize()
 
 
 FLASH_CLUSTER_WIDTHS = (
-    [(torch.float32, d) for d in range(576, FLASH_REACH_32 + 1, 64)]
+    [(torch.float32, d) for d in range(576, 1536 + 1, 64)]
     + [(dtype, d) for dtype in (torch.bfloat16, torch.float16)
-       for d in range(576, FLASH_REACH_16 + 1, 64)])
+       for d in range(576, 1024 + 1, 64)])
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -647,27 +644,42 @@ FLASH_CLUSTER_WIDTHS = (
                          ids=[f"{str(t)[6:]}-d{d}"
                               for t, d in FLASH_CLUSTER_WIDTHS])
 def test_flash_cluster_routes_every_width(dtype, d, causal):
-    """Every width of the cluster routes (576 to each one's reach in steps
-    of 64; even and uneven splits of the head dim over 3-8 CTAs): the
-    library's rt_flash_route names the cluster kernel, and the entry
-    point runs on it within the limit at T = 200 (ragged at both query
-    tiles and at the 16-bit key tile)."""
+    """Every width past 512 that a cluster route once took (576 to 1536
+    in f32, to 1024 in 16 bits, in steps of 64: even and uneven slices of
+    O's columns): the library's rt_flash_route names the dtype's
+    two-pass route, and the entry point runs on it within the limit at
+    T = 200 (ragged at the query block and at both key tiles)."""
     from ray_tpu_torch.ops import _build
     code = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}[dtype]
     route = _build.load("flash_attention", "rt_flash_route")(d, code)
-    assert route == (5 if dtype == torch.float32 else 4)
+    assert route == (3 if dtype == torch.float32 else 7)
     _flash_past_512_case(dtype, causal, d, shape=(1, 200, 2))
 
 
+# chip_smoke.FLASH_HEAD_DIMS past 512
+FLASH_PAIR16_DIMS = [576, 1024, 1088, 1600]
+
+
+@pytest.mark.parametrize("d", FLASH_PAIR16_DIMS)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_16bit_pair_every_head_dim_past_512(d, causal, dtype):
+    """The 16-bit pair == the plain version within the limit at every
+    width of chip_smoke.FLASH_HEAD_DIMS past 512, at T = 384 (three query
+    blocks, twelve key tiles of the values kernel a block), with the
+    dropped-tile checks."""
+    _flash_past_512_case(dtype, causal, d, shape=(2, 384, 2))
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_flash_cluster_model_has_the_kernels_tiles(dtype):
-    """The CPU model of the cluster routes
-    (``tests/test_torch_flash_cluster.py``) tiles the keys as the
+def test_flash_twopass_model_has_the_kernels_tiles(dtype):
+    """The CPU model of the two-pass routes
+    (``tests/test_torch_flash_twopass.py``) tiles the keys as the values
     kernels do: its key tile is the one the library reports."""
     from ray_tpu_torch.ops.flash_attention import kernel_key_tile
-    from test_torch_flash_cluster import kernel_key_tile as model_tile
-    for d in (576, 1024):
-        assert model_tile(dtype) == kernel_key_tile(d, dtype)
+    from test_torch_flash_twopass import VALUES_TILE
+    for d in (576, 1088, 1600):
+        assert VALUES_TILE == kernel_key_tile(d, dtype)
 
 
 # -- the autoscaler: phase 1 on the water-fill, the launch-loop kernel -------
