@@ -188,13 +188,19 @@ Phases:
                   the CPU's (1e-6); ms an iteration on each
   shard           the sharded paths on ranks of the card (``["cuda:0"]
                   * S``): ``make_delta_scheduler(crm, n_shards=S,
-                  reduce_mode=mode, devices=...)`` for (2, flat) and (4,
-                  two_level) at the beat cell's width beside the
-                  single-device engine, every beat's counts and budgets
-                  == it and the host twin (2 warm-up, 8 timed beats; p50,
-                  p99, collectives, kernels and idle share a beat); the
-                  four ``*_sharded_np`` wrappers at S = 4 == the
-                  single-device calls (ms, launches); ring and Ulysses
+                  reduce_mode=mode, devices=...)`` for (2, flat), (4,
+                  two_level) and (8, flat) at the beat cell's width beside
+                  the single-device engine, every beat's counts and
+                  budgets == it and the host twin (2 warm-up, 8 timed
+                  beats; p50, p99, transport calls, ``shard_scan``
+                  launches (one a beat), kernels and idle share a beat);
+                  ``shard_scan`` == ``shard_scan_plain`` on a beat's scan
+                  inputs (ms of both, bound, launch); the same beats with
+                  the scan forced onto ``shard_scan_plain`` (the parent's
+                  route; 1 warm-up, 3 timed); the four ``*_sharded_np``
+                  wrappers at S = 4 == the single-device calls (ms,
+                  launches; the kernel == plain on the water-fill's group
+                  masks); ring and Ulysses
                   attention at B=2 T=4096 H=16 D=128 float32 on 4 and 8
                   ranks, causal and not, within RING_ATOL of
                   ``full_attention``, a limit that must reject the ring
@@ -325,7 +331,7 @@ def phase_build():
 
 # SASS opcodes that show each kernel's Hopper path was compiled in: wgmma
 # (HGMMA) and TMA loads (UTMALDG) in flash attention, cluster barriers
-# (UCGABAR) in the water-fill
+# (UCGABAR) in the water-fill and the sharded scan
 # ({kernel: opcodes}, each required in every instantiation of a kernel
 # whose mangled name holds it; "" the whole library)
 SASS_REQUIRED = {
@@ -333,7 +339,8 @@ SASS_REQUIRED = {
         "flash_wgmma_kernel", "flash_big16_kernel", "flash_tf32_kernel",
         "flash_scores32_kernel", "flash_values32_kernel",
         "flash_scores16_kernel", "flash_values16_kernel")},
-    "waterfill": {"": ("UCGABAR",)}}
+    "waterfill": {"": ("UCGABAR",)},
+    "shard_scan": {"": ("UCGABAR",)}}
 
 
 def sass_evidence(_build):
@@ -4087,7 +4094,10 @@ def phase_train(dev, devices=None, rows=TRAIN_ROWS, widths=TRAIN_WIDTHS,
 
 # -- phase: shard (the sharded paths on the card's ranks) --------------------
 
-SHARD_BEATS = ((2, "flat"), (4, "two_level"))
+SHARD_BEATS = ((2, "flat"), (4, "two_level"), (8, "flat"))
+# the parent's route (the scan rank by rank, ``shard_scan_plain``) takes
+# ~0.8-3 s a beat: (warm-up, timed) beats of it beside the kernel's
+SHARD_PLAIN_BEATS = (1, 3)
 SHARD_WRAPPER_RANKS = 4
 RING_SHAPE = (2, 4096, 16, 128)         # the flash cell's headline shape
 RING_RANKS = (4, 8)
@@ -4101,7 +4111,9 @@ def device_busy(step, n):
     of thousands of kernels; ``device_profile``'s per-event objects would
     take minutes): per call, the wall time, the device busy time (the sum
     of kernel and copy durations), the idle share (an upper bound: the
-    profiler's overhead is in the wall time) and the kernels."""
+    profiler's overhead is in the wall time), the kernels, and the
+    commonest kernels and copies by name (the first 100 characters of a
+    name; count and device ms a call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4113,28 +4125,84 @@ def device_busy(step, n):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ns = kernels = 0
+    by_name: dict = {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
         busy_ns += e.duration_ns()
         if "Memcpy" not in e.name() and "Memset" not in e.name():
             kernels += 1
+        tally = by_name.setdefault(e.name()[:100], [0, 0])
+        tally[0] += 1
+        tally[1] += e.duration_ns()
     if not busy_ns:
         return {"wall_ms": wall_ms / n, "device_busy_ms": None,
-                "idle_share": None, "kernels_per_call": None}
+                "idle_share": None, "kernels_per_call": None,
+                "top_kernels": None}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {"wall_ms": wall_ms / n, "device_busy_ms": busy_ns / 1e6 / n,
             "idle_share": 1.0 - busy_ns / 1e6 / wall_ms,
-            "kernels_per_call": kernels / n}
+            "kernels_per_call": kernels / n,
+            "top_kernels": [{"name": k, "per_call": c / n,
+                             "ms_per_call": ns / 1e6 / n}
+                            for k, (c, ns) in top]}
 
 
-def shard_beat(ranks, mode, warmup=2, beats=8, churn=12):
+def scan_kernel_vs_plain(plane, args):
+    """``shard_scan`` held to ``shard_scan_plain`` (the scan rank by rank
+    over the plane's transport) on one ``_scan`` call's inputs ``args``,
+    bit for bit; the kernel's ms (CUDA events around the wrapper: the
+    table's copy, the exchange area's memset and the launch), the plain
+    version's (host clock around a synchronised call), the bound of the
+    water-fill's work at these inputs and the launch.  The comparison's
+    launches are taken off ``shard_scan.launches`` again."""
+    import torch
+
+    from ray_tpu_torch.ops import shard_reduce as sr
+
+    n0 = sr.shard_scan.launches
+    ka, ki, kv = sr.shard_scan(*args)
+    pa, pi, pv = sr.shard_scan_plain(plane.transport, *args)
+    if not (all(torch.equal(x, y) for x, y in zip(ka, pa))
+            and torch.equal(ki, pi)
+            and all(torch.equal(x, y) for x, y in zip(kv, pv))):
+        raise AssertionError(f"shard_scan disagrees with shard_scan_plain "
+                             f"on {len(ka)} ranks")
+    layout = dict(sr.shard_scan.last_layout)
+    ms = cuda_ms(lambda: sr.shard_scan(*args))
+    plain = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sr.shard_scan_plain(plane.transport, *args)
+        torch.cuda.synchronize()
+        plain.append((time.perf_counter() - t0) * 1e3)
+    sr.shard_scan.launches = n0
+    reqs = args[3][0].cpu().numpy()
+    n = len(args[0]) * args[0][0].shape[0]
+    bound_ms, bound_by = bound(*scan_work(reqs, n,
+                                          masks=args[5] is not None),
+                               PEAK_I32)
+    return {"ranks": len(ka), "rows": n, "classes": int(reqs.shape[0]),
+            "group_masks": args[5] is not None, "equal": True, "ms": ms,
+            "plain_ms": float(np.median(plain)), "bound_ms": bound_ms,
+            "bound_by": bound_by, "layout": layout}
+
+
+def shard_beat(ranks, mode, warmup=2, beats=8, churn=12,
+               plain_beats=SHARD_PLAIN_BEATS):
     """``make_delta_scheduler(crm, n_shards=S, reduce_mode=mode,
     devices=ranks)`` beside the single-device engine on the same CRM
     journal (the beat cell): every beat's counts and lease budgets equal
-    to the single-device engine's and the host twin's, bit for bit."""
+    to the single-device engine's and the host twin's, bit for bit.  On
+    ranks of one card the class scan is one ``shard_scan`` launch a beat
+    (checked), the kernel is held to ``shard_scan_plain`` on one beat's
+    scan inputs, and ``plain_beats`` more beats run with the scan forced
+    onto ``shard_scan_plain``, the parent's route, timed the same way."""
     import torch
 
     from ray_tpu_torch.common.resources import ResourceRequest
+    from ray_tpu_torch.ops import shard_reduce as sr
     from ray_tpu_torch.scheduling import (ShardedDeltaScheduler,
                                           make_delta_scheduler)
     from ray_tpu_torch.scheduling.contract import (compute_budgets,
@@ -4163,59 +4231,107 @@ def shard_beat(ranks, mode, warmup=2, beats=8, churn=12):
             eng.stats["shards"] != s or eng.device.type != kind:
         raise AssertionError(f"make_delta_scheduler gave {type(eng)} on "
                              f"{eng.device} for {s} ranks")
-    tp = eng._plane.transport
-    times, calls = [], []
-    for i in range(warmup + beats):
-        mutate()
-        c0 = tp.calls
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        got = eng.beat(vecs, counts)
-        dt = (time.perf_counter() - t0) * 1e3
-        if i >= warmup:
-            times.append(dt)
-            calls.append(tp.calls - c0)
-        one = single.beat(vecs, counts)
-        st = crm.snapshot()
-        want, post = host_twin(st.totals, st.avail, st.node_mask, vecs,
-                               counts, None, thr)
-        budgets = np.stack([eng.budget_row_host(v) for v in vecs])
-        want_b = compute_budgets(st.totals, post, vecs, st.node_mask)
-        if not (np.array_equal(got, one) and np.array_equal(got, want)
-                and np.array_equal(eng.last_budgets(),
-                                   single.last_budgets())
-                and np.array_equal(budgets, want_b)):
-            raise AssertionError(f"sharded beat {i} ({s} ranks, {mode}) "
-                                 "disagrees with the single-device engine "
-                                 "or the host twin")
-    n_beats = warmup + beats
-    if eng.readbacks != n_beats:
-        raise AssertionError(f"{eng.readbacks} readbacks in {n_beats} "
-                             "sharded beats")
+    plane = eng._plane
+    tp = plane.transport
+    one_card = len(set(plane.ranks)) == 1
+
+    def run(n_warm, n_timed, label):
+        times, calls, launches = [], [], []
+        for i in range(n_warm + n_timed):
+            mutate()
+            c0, l0 = tp.calls, sr.shard_scan.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = eng.beat(vecs, counts)
+            dt = (time.perf_counter() - t0) * 1e3
+            if i >= n_warm:
+                times.append(dt)
+                calls.append(tp.calls - c0)
+                launches.append(sr.shard_scan.launches - l0)
+            one = single.beat(vecs, counts)
+            st = crm.snapshot()
+            want, post = host_twin(st.totals, st.avail, st.node_mask, vecs,
+                                   counts, None, thr)
+            budgets = np.stack([eng.budget_row_host(v) for v in vecs])
+            want_b = compute_budgets(st.totals, post, vecs, st.node_mask)
+            if not (np.array_equal(got, one) and np.array_equal(got, want)
+                    and np.array_equal(eng.last_budgets(),
+                                       single.last_budgets())
+                    and np.array_equal(budgets, want_b)):
+                raise AssertionError(
+                    f"sharded beat {i} ({s} ranks, {mode}, {label}) "
+                    "disagrees with the single-device engine or the host "
+                    "twin")
+        return {"beat_p50_ms": float(np.percentile(times, 50)),
+                "beat_p99_ms": float(np.percentile(times, 99)),
+                "transport_calls_per_beat": float(np.mean(calls)),
+                "shard_scan_launches_per_beat": float(np.mean(launches)),
+                "timed_beats": n_timed, "bit_exact_beats": n_warm + n_timed}
 
     def step():
         mutate()
         eng.beat(vecs, counts)
 
+    # --- the main path: the launch count is 0 just before, read just after
+    sr.shard_scan.launches = 0
+    main = run(warmup, beats, "main path")
+    launches = sr.shard_scan.launches
+    # --- end of the main path ---
+    want_route = "shard_scan" if one_card else "nccl"
+    if eng.scan_stats["route"] != want_route or \
+            launches != (warmup + beats if one_card else 0):
+        raise AssertionError(f"{s} ranks ({mode}): the scan took route "
+                             f"{eng.scan_stats['route']} with {launches} "
+                             f"shard_scan launches in {warmup + beats} beats")
     trace = device_busy(step, 2)
+    main.update({"kernels_per_beat": trace["kernels_per_call"],
+                 "idle_share": trace["idle_share"],
+                 "device_busy_ms_per_beat": trace["device_busy_ms"],
+                 "top_kernels": trace["top_kernels"]})
+    out = {"ranks": [str(d) for d in ranks], "reduce_mode": mode,
+           "grid": list(plane.mesh.devices.shape),
+           "transport": "nccl" if tp.nccl else "one device",
+           "scan_route": eng.scan_stats["route"],
+           "shard_scan_launches": launches, "shard_scan": main}
+    if one_card:
+        captured = {}
+
+        def capture(*args):
+            captured["args"] = args
+            return type(plane)._scan(plane, *args)
+
+        plane._scan = capture
+        try:
+            step()
+        finally:
+            del plane._scan
+        out["kernel_vs_plain"] = scan_kernel_vs_plain(plane,
+                                                      captured["args"])
+        # the parent's route: the same beats with the scan rank by rank
+        plane._scan = lambda *args: sr.shard_scan_plain(tp, *args)
+        try:
+            parent = run(*plain_beats, "shard_scan_plain")
+            ptrace = device_busy(step, 1)
+        finally:
+            del plane._scan
+        parent.update({"kernels_per_beat": ptrace["kernels_per_call"],
+                       "idle_share": ptrace["idle_share"],
+                       "device_busy_ms_per_beat": ptrace["device_busy_ms"]})
+        out["shard_scan_plain"] = parent
     # the beat's work at these inputs, as the single-device beat does it:
     # the water-fill over the classes and the rest of a delta beat
     scan_b, scan_o = scan_work(vecs, N_NODES, masks=False)
     rest_b, rest_o = beat_rest_work(*vecs.shape, N_NODES, churn)
     bound_ms, bound_by = bound(scan_b + rest_b, scan_o + rest_o, PEAK_I32)
-    return {"ranks": [str(d) for d in ranks], "reduce_mode": mode,
-            "grid": list(eng._plane.mesh.devices.shape),
-            "transport": "nccl" if tp.nccl else "one device",
-            "beats": n_beats, "timed_beats": beats,
-            "bit_exact_beats": n_beats,
-            "beat_p50_ms": float(np.percentile(times, 50)),
-            "beat_p99_ms": float(np.percentile(times, 99)),
-            "collectives_per_beat": float(np.mean(calls)),
-            "kernels_per_beat": trace["kernels_per_call"],
-            "idle_share": trace["idle_share"],
-            "device_busy_ms_per_beat": trace["device_busy_ms"],
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "stats": eng.stats}
+    # every beat above: the main path's, the two traced, and on one card
+    # the captured one, the parent's and its traced one
+    n_beats = warmup + beats + 2 + (2 + sum(plain_beats) if one_card else 0)
+    if eng.readbacks != n_beats:
+        raise AssertionError(f"{eng.readbacks} readbacks in {n_beats} "
+                             "sharded beats")
+    out.update({"beats": n_beats, "bound_ms": bound_ms, "bound_by": bound_by,
+                "stats": eng.stats, "scan_stats": eng.scan_stats})
+    return out
 
 
 def autoscale_work(problem, fit_counts):
@@ -4247,9 +4363,13 @@ def shard_wrappers(dev, ranks):
     from ray_tpu_torch.ops import binpack_kernel as bk
     from ray_tpu_torch.ops import hybrid_kernel as hk
     from ray_tpu_torch.ops import locality_kernel as lk
+    from ray_tpu_torch.ops import shard_reduce as sr
 
     s = len(ranks)
     totals, avail, mask, reqs, counts = build_problem()
+    # per-class group masks: the kernel's column blocks of them per rank
+    gmasks = np.random.default_rng(9).random(
+        (reqs.shape[0], totals.shape[0])) > 0.1
     ltotals, lavail, lmask, lmasks, prefs = with_prefs(
         5, totals, avail, mask, reqs, None)
     ttotals, tavail, tmask, treqs, tcounts = build_problem(seed=3)
@@ -4263,9 +4383,9 @@ def shard_wrappers(dev, ranks):
     cases = {
         "schedule_grouped_sharded_np": (
             lambda: hk.schedule_grouped_np(totals, avail, mask, reqs,
-                                           counts, device=dev),
+                                           counts, gmasks, device=dev),
             lambda: hk.schedule_grouped_sharded_np(
-                totals, avail, mask, reqs, counts, n_shards=s,
+                totals, avail, mask, reqs, counts, gmasks, n_shards=s,
                 devices=ranks)),
         "schedule_grouped_localized_sharded_np": (
             lambda: lk.schedule_grouped_localized_np(
@@ -4293,14 +4413,35 @@ def shard_wrappers(dev, ranks):
         hk.waterfill_scan.launches = hk.waterfill_scan.localized_launches = 0
         bk.binpack_launch_loop.launches = 0
         lk.schedule_grouped_topk.launches = 0
+        sr.shard_scan.launches = 0
         got = sharded()
         wf = hk.waterfill_scan.launches + hk.waterfill_scan.localized_launches
         bp = bk.binpack_launch_loop.launches
         tk = lk.schedule_grouped_topk.launches
+        ss = sr.shard_scan.launches
         if len(got) != len(want) or \
                 not all(np.array_equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"{name} on {s} ranks disagrees with the "
                                  "single-device call")
+        check = None
+        if name == "schedule_grouped_sharded_np":
+            if ss != 1:
+                raise AssertionError(f"{name}: {ss} shard_scan launches")
+            # the kernel against the plain version on this call's scan
+            # inputs (the group masks' column blocks among them)
+            plane = sr.gspmd_plane(s, "auto", ranks)
+            captured = {}
+
+            def capture(*args):
+                captured["args"] = args
+                return type(plane)._scan(plane, *args)
+
+            plane._scan = capture
+            try:
+                sharded()
+            finally:
+                del plane._scan
+            check = scan_kernel_vs_plain(plane, captured["args"])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sharded()
@@ -4318,7 +4459,10 @@ def shard_wrappers(dev, ranks):
                      "kernels_per_call": kernel_launches(sharded),
                      "waterfill_scan_launches": wf,
                      "binpack_launch_loop_launches": bp,
-                     "schedule_grouped_topk_launches": tk}
+                     "schedule_grouped_topk_launches": tk,
+                     "shard_scan_launches": ss}
+        if check is not None:
+            out[name]["kernel_vs_plain"] = check
     return out
 
 
@@ -4402,6 +4546,14 @@ def shard_attention(dev, rank_sets):
     return out
 
 
+def shard_key(s, mode):
+    return f"{s} ranks of one card {mode}"
+
+
+# the sharded beat whose numbers head the kernels line
+SHARD_HEAD = shard_key(4, "two_level")
+
+
 def phase_shard(dev, smi):
     """The sharded paths on ranks of the card (``["cuda:0"] * S``): the
     sharded beat at the beat cell's width, the four sharded wrappers,
@@ -4416,7 +4568,7 @@ def phase_shard(dev, smi):
     t_start = time.perf_counter()
     card = f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda" \
         else str(dev)
-    beats = {f"{s}x{card} {mode}": shard_beat([card] * s, mode)
+    beats = {shard_key(s, mode): shard_beat([card] * s, mode)
              for s, mode in SHARD_BEATS}
     wrappers = shard_wrappers(dev, [card] * SHARD_WRAPPER_RANKS)
     rank_sets = [[card] * s for s in RING_RANKS]
@@ -4463,6 +4615,12 @@ def phase_shard(dev, smi):
               "schedule_grouped_topk_launches": sum(
                   w["schedule_grouped_topk_launches"]
                   for w in wrappers.values()),
+              # the main path's shard_scan launches: the sharded beats' and
+              # the wrapper's (not the comparisons with the plain version)
+              "shard_scan_launches": {
+                  **{k: b["shard_scan_launches"] for k, b in beats.items()},
+                  "schedule_grouped_sharded_np": sum(
+                      w["shard_scan_launches"] for w in wrappers.values())},
               "seconds": time.perf_counter() - t_start}
     emit(result)
     return result
@@ -4527,6 +4685,12 @@ def main() -> int:
         if r["dtype"] == dtype and r["d"] > FLASH_REACH]
         for dtype in ("bfloat16", "float32")}
     lw = loc["problems"]["beat 1000x8x64"]
+    shard_launches = shd["shard_scan_launches"]
+    shard_checks = {k: b["kernel_vs_plain"] for k, b in shd["beats"].items()
+                    if "kernel_vs_plain" in b}
+    shard_checks["schedule_grouped_sharded_np"] = \
+        shd["wrappers"]["schedule_grouped_sharded_np"]["kernel_vs_plain"]
+    shard_head = shard_checks[SHARD_HEAD]
     emit({"phase": "summary", "phase_seconds": seconds,
           "seconds": time.perf_counter() - t_start})   # build included
     emit({"kernels": [
@@ -4649,6 +4813,26 @@ def main() -> int:
              dp[f"broadcast_{DP_LIMIT_NODES}"]["ns_an_attach"],
          "uniform_ns_an_attach": dp["broadcast_uniform"]["ns_an_attach"],
          "entry_path_layout": bcast["layout"],
+         "checked": True},
+        {"name": "shard_scan", "route": "cuda",
+         "source": "ray_tpu_torch/ops/csrc/shard_scan.cu",
+         "replaces": "ray_tpu/ops/shard_reduce.py:180-252 "
+                     "(_schedule_group_sharded) and :410-419 (fused_beat's "
+                     "class scan; _psum2/_pmin2 :98-110)",
+         # launches on the sharded beat's path (S=4 two-level ranks of the
+         # card), the other paths beside it; the numbers are that beat's
+         # scan inputs', the other meshes' and the wrapper's beside them.
+         # max_abs_err 0: the phase raises unless bit-exact
+         "launches": shard_launches[SHARD_HEAD],
+         "launches_by_path": shard_launches,
+         "max_abs_err": 0, "ms": shard_head["ms"],
+         "plain_ms": shard_head["plain_ms"],
+         "bound_ms": shard_head["bound_ms"],
+         "bound_by": shard_head["bound_by"], "library_ms": None,
+         "layout": shard_head["layout"],
+         "by_path": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
+                                           "layout")}
+                     for k, v in shard_checks.items()},
          "checked": True},
         {"name": "flash_attention", "route": "cuda",
          "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",

@@ -40,7 +40,8 @@ SOURCES = {"waterfill": "waterfill.cu",
            "topk": "topk.cu",
            "bundle": "bundle.cu",
            "pull": "pull.cu",
-           "broadcast": "broadcast.cu"}
+           "broadcast": "broadcast.cu",
+           "shard_scan": "shard_scan.cu"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -65,6 +66,7 @@ _SIGNATURES = {
              [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P]),
     "broadcast": ("rt_plan_fanout",
                   [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
+    "shard_scan": ("rt_shard_scan", [_P, _I, _I, _I, _I, _I, _I, _P, _P]),
 }
 # further C entry points of a library: {name: {function: argtypes}}
 _EXTRA = {"binpack": {"rt_binpack_plan": [_I, _I, _I, _P]},
@@ -72,6 +74,7 @@ _EXTRA = {"binpack": {"rt_binpack_plan": [_I, _I, _I, _P]},
           "bundle": {"rt_bundle_plan": [_I, _I, _I, _I, _P]},
           "pull": {"rt_pull_plan": [_I, _I, _P]},
           "broadcast": {"rt_fanout_plan": [_I, _P]},
+          "shard_scan": {"rt_shard_scan_plan": [_I, _I, _I, _I, _P]},
           "flash_attention": {"rt_flash_route": [_I, _I],
                               "rt_flash_key_tile": [_I, _I],
                               "rt_flash_scratch_bytes": [_I] * 5,

@@ -35,13 +35,21 @@ sanctioned counts readback per beat lives with the caller
 (``scheduling/sharded_delta.py``).
 
 The reference's shard-local programs are XLA ``shard_map`` bodies, not
-Pallas kernels, so here they are plain PyTorch over each rank's tensors,
-run rank by rank between the collectives.  Everything stays int32 under
-the contract, so counts are bit-identical to ``schedule_grouped_oracle``
-at any shard count.
+Pallas kernels.  Their class scan, the water-fill of every class with its
+collectives (``ShardPlane._scan``), is the hand-written CUDA kernel
+``shard_scan`` (``csrc/shard_scan.cu``) for ranks that share one card: one
+launch a scan, the ranks exchanging through global memory inside it.  Its
+plain version ``shard_scan_plain`` runs the scan rank by rank over a
+``_Transport``; CPU ranks take it, and so do ranks on distinct cards, whose
+collectives are NCCL calls between the steps (``ShardPlane.scan_route``
+names the route the mesh chose).  The rest of the plane is plain PyTorch
+over each rank's tensors.  Everything stays int32 under the contract, so
+counts are bit-identical to ``schedule_grouped_oracle`` at any shard count.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -337,6 +345,150 @@ def _schedule_group_sharded(tp, avail, totals, mask, req, count, thr_fp,
     return alloc, inf_count, new_avail
 
 
+def shard_scan_plain(tp, totals, avail, mask, group_reqs, group_counts,
+                     group_masks, thr_fp, require_available):
+    """Plain version of ``shard_scan``: the class scan rank by rank, G
+    water-fills in order carrying avail, every global reduction a
+    collective of the transport ``tp``.  Returns (alloc (G, n_local) per
+    rank, inf (G,) on the first rank, final avail per rank)."""
+    off = [i * totals[0].shape[0] for i in range(len(totals))]
+    av = list(avail)
+    rows: list[list] = [[] for _ in totals]
+    inf = []
+    for gi in range(group_reqs[0].shape[0]):
+        m = mask if group_masks is None else \
+            [mk & gm[gi] for mk, gm in zip(mask, group_masks)]
+        alloc, inf_c, av = _schedule_group_sharded(
+            tp, av, totals, m, [gr[gi] for gr in group_reqs],
+            [gc[gi] for gc in group_counts], thr_fp, off, require_available)
+        for r, a in enumerate(alloc):
+            rows[r].append(a)
+        inf.append(inf_c[0])
+    return [torch.stack(r) for r in rows], torch.stack(inf), av
+
+
+# cudaErrorCooperativeLaunchTooLarge: the card cannot hold every rank at once
+_TOO_LARGE = 720
+_PLANS: dict = {}
+_LAYOUT_KEYS = ("cluster", "threads", "on_chip", "smem_bytes",
+                "resident_ranks", "exchange_ints")
+
+
+def shard_scan_plan(s: int, n_local: int, r: int,
+                    require_available: bool = False, device=None) -> dict:
+    """The launch ``shard_scan`` makes on the card for ``s`` ranks of
+    ``n_local`` rows x ``r`` columns (``csrc/shard_scan.cu`` plan()): CTAs
+    a rank (a thread-block cluster past one), threads a CTA, rows in
+    shared memory or not, its bytes, how many ranks the card holds at once
+    (``resident_ranks``; a larger mesh raises) and the ints of a rank's
+    exchange area.  Asks the library once a shape and card."""
+    from . import _build
+
+    dev = _rank_device("cuda" if device is None else device)
+    key = (dev.index, s, n_local, r, bool(require_available))
+    plan = _PLANS.get(key)
+    if plan is None:
+        layout = (ctypes.c_int * len(_LAYOUT_KEYS))()
+        fn = _build.load("shard_scan", "rt_shard_scan_plan")
+        with torch.cuda.device(dev):
+            err = fn(s, n_local, r, int(bool(require_available)),
+                     ctypes.addressof(layout))
+        if err != 0:
+            raise ValueError(
+                f"shard_scan: no launch for {s} ranks of {n_local} x {r} "
+                f"(CUDA error {err}): S * n_local must be <= {MAX_NODES} "
+                f"and a class's arrays must fit a CTA's shared memory")
+        plan = _PLANS[key] = dict(zip(_LAYOUT_KEYS, layout))
+    return plan
+
+
+def shard_scan(totals, avail, mask, group_reqs, group_counts, group_masks,
+               thr_fp, require_available=False, transport=None):
+    """The class scan of a row-sharded plane: G water-fills in order over
+    the S ranks' rows, carrying avail, each class's sums, prefix and
+    overflow argmin taken over every rank (the reference's
+    ``_schedule_group_sharded``, G times).  Every argument but ``thr_fp``
+    is a list of per-rank tensors in rank order: totals/avail (n_local, R)
+    int32, mask (n_local,) bool, group_reqs (G, R) and group_counts (G,)
+    int32 (each rank's copy), group_masks (G, n_local) bool or None.
+    Returns (alloc (G, n_local) int32 per rank, inf (G,) int32 on the
+    first rank's device, final avail (n_local, R) int32 per rank).
+
+    CPU tensors take ``shard_scan_plain`` over ``transport`` (a flat one
+    over the tensors' ranks when None).  CUDA tensors, all on one card,
+    launch the hand-written kernel (``csrc/shard_scan.cu``), one
+    cooperative launch for every rank, or raise: ``ValueError`` for what
+    the kernel does not take, a mesh the card cannot hold at once
+    included.  ``shard_scan.launches`` counts the launches and
+    ``shard_scan.last_layout`` holds the last one (``shard_scan_plan``)."""
+    s = len(totals)
+    dev = totals[0].device
+    if dev.type == "cpu":
+        if transport is None:
+            transport = _Transport(build_mesh(s, "flat", [dev] * s))
+        return shard_scan_plain(transport, totals, avail, mask, group_reqs,
+                                group_counts, group_masks, thr_fp,
+                                require_available)
+    if dev.type != "cuda":
+        raise ValueError(f"shard_scan: unsupported device {dev}")
+    from . import _build
+
+    n_l, r = totals[0].shape
+    g = group_reqs[0].shape[0]
+    lists = {"totals": (totals, _I32, (n_l, r)),
+             "avail": (avail, _I32, (n_l, r)),
+             "mask": (mask, torch.bool, (n_l,)),
+             "group_reqs": (group_reqs, _I32, (g, r)),
+             "group_counts": (group_counts, _I32, (g,))}
+    if group_masks is not None:
+        lists["group_masks"] = (group_masks, torch.bool, (g, n_l))
+    for name, (ts, dtype, shape) in lists.items():
+        if len(ts) != s:
+            raise ValueError(f"shard_scan: {len(ts)} {name} for {s} ranks")
+        for t in ts:
+            if t.device != dev or t.dtype != dtype or \
+                    tuple(t.shape) != shape or not t.is_contiguous():
+                raise ValueError(
+                    f"shard_scan: {name} must be contiguous {dtype} "
+                    f"tensors of shape {shape} on {dev} (ranks on one "
+                    f"card); got {t.dtype} {tuple(t.shape)} on {t.device}")
+    plan = shard_scan_plan(s, n_l, r, require_available, dev)
+    if plan["resident_ranks"] < s:
+        raise ValueError(
+            f"shard_scan: {s} ranks of {plan['cluster']} CTA(s) cannot all "
+            f"be resident on {dev} (at most {plan['resident_ranks']}); "
+            f"the ranks wait on each other inside the launch")
+    alloc = torch.empty((s, g, n_l), dtype=_I32, device=dev)
+    new_avail = torch.empty((s, n_l, r), dtype=_I32, device=dev)
+    inf = torch.empty((g,), dtype=_I32, device=dev)
+    xchg = torch.zeros((s, plan["exchange_ints"]), dtype=_I32, device=dev)
+    # the kernel's table: one row of pointers a rank (RankPtrs)
+    table = torch.tensor(
+        [[totals[i].data_ptr(), avail[i].data_ptr(), mask[i].data_ptr(),
+          group_reqs[i].data_ptr(), group_counts[i].data_ptr(),
+          0 if group_masks is None else group_masks[i].data_ptr(),
+          alloc[i].data_ptr(), new_avail[i].data_ptr(),
+          inf.data_ptr() if i == 0 else 0, xchg[i].data_ptr()]
+         for i in range(s)], dtype=torch.int64).to(dev, non_blocking=True)
+    layout = (ctypes.c_int * len(_LAYOUT_KEYS))()
+    fn = _build.load("shard_scan")
+    with torch.cuda.device(dev):
+        err = fn(table.data_ptr(), s, n_l, r, g, int(thr_fp),
+                 int(bool(require_available)), ctypes.addressof(layout),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err == _TOO_LARGE:
+        raise ValueError(f"shard_scan: {s} ranks cannot all be resident "
+                         f"on {dev}")
+    _build.check(err, "shard_scan")
+    shard_scan.launches += 1
+    shard_scan.last_layout = dict(zip(_LAYOUT_KEYS, layout))
+    return list(alloc), inf, list(new_avail)
+
+
+shard_scan.launches = 0
+shard_scan.last_layout = None
+
+
 class ShardPlane:
     """The row-sharded programs for one rank mesh.
 
@@ -356,6 +508,16 @@ class ShardPlane:
         self.ranks = mesh.ranks()
         self.n_shards = len(self.ranks)
         self.transport = _Transport(mesh)
+        # the class scan's route, chosen by the mesh: "shard_scan" (the
+        # kernel) for ranks on one card, "nccl" (shard_scan_plain over
+        # NCCL) for distinct cards, "plain" for CPU ranks
+        if self.transport.nccl:
+            self.scan_route = "nccl"
+        elif self.ranks[0].type == "cuda":
+            self.scan_route = "shard_scan"
+        else:
+            self.scan_route = "plain"
+        self.last_scan_route = None
 
     # -- placement (copies: the CRM's host arrays are read-only views) ------
     def shard_rows(self, host, dtype) -> list:
@@ -421,25 +583,17 @@ class ShardPlane:
 
     def _scan(self, totals, avail, mask, group_reqs, group_counts,
               group_masks, thr_fp, require_available):
-        """The class scan: G water-fills in order, carrying avail.
-        Returns (alloc (G, n_local) per rank, inf (G,) on the first
-        rank, final avail per rank)."""
-        off = self._offsets(totals[0].shape[0])
-        av = list(avail)
-        rows: list[list] = [[] for _ in self.ranks]
-        inf = []
-        for gi in range(group_reqs[0].shape[0]):
-            m = mask if group_masks is None else \
-                [mk & gm[gi] for mk, gm in zip(mask, group_masks)]
-            alloc, inf_c, av = _schedule_group_sharded(
-                self.transport, av, totals, m,
-                [gr[gi] for gr in group_reqs],
-                [gc[gi] for gc in group_counts], thr_fp, off,
-                require_available)
-            for r, a in enumerate(alloc):
-                rows[r].append(a)
-            inf.append(inf_c[0])
-        return [torch.stack(r) for r in rows], torch.stack(inf), av
+        """The class scan on the mesh's route (``scan_route``): returns
+        (alloc (G, n_local) per rank, inf (G,) on the first rank, final
+        avail per rank)."""
+        self.last_scan_route = self.scan_route
+        if self.scan_route == "nccl":
+            return shard_scan_plain(self.transport, totals, avail, mask,
+                                    group_reqs, group_counts, group_masks,
+                                    thr_fp, require_available)
+        return shard_scan(totals, avail, mask, group_reqs, group_counts,
+                          group_masks, thr_fp, require_available,
+                          transport=self.transport)
 
     def schedule_grouped(self, totals, avail, node_mask, group_reqs,
                          group_counts, group_masks, thr_fp,

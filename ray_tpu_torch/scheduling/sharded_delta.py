@@ -12,6 +12,8 @@ argmin) are two-level collectives: psum/pmin within a slice, then across
 slices.  The beat still performs exactly ONE readback: a packed buffer
 with the water-fill counts and the per-(class, node) lease budgets each
 rank priced from its own rows' post-beat avail (``ShardPlane.fused_beat``).
+Ranks on one card run the class scan as one ``shard_scan`` launch;
+``scan_stats`` carries its route, launches and the transport's calls.
 
 Ranks are ``torch.device``s: the local CUDA cards by default, or the
 caller's list (``["cpu"] * S`` in the tests, ``["cuda:0"] * S`` for S
@@ -68,6 +70,11 @@ class ShardedDeltaScheduler(DeltaScheduler):
         self._n_shards = sr.resolve_shards(n_shards, len(ranks))
         self._plane = sr.plane_for(self._n_shards, reduce_mode, ranks)
         self.stats["shards"] = self._n_shards
+        # the class scan's route (ShardPlane.scan_route), the shard_scan
+        # launches and the transport's collectives of this engine's beats;
+        # apart from ``stats``, which stays the reference engine's
+        self.scan_stats = {"route": self._plane.scan_route,
+                           "shard_scan_launches": 0, "transport_calls": 0}
 
     def keys_row_host(self, req_vec) -> np.ndarray:
         key = np.ascontiguousarray(
@@ -135,11 +142,19 @@ class ShardedDeltaScheduler(DeltaScheduler):
 
     def _fused_call(self, slots_p, counts_p, em, ov, thr,
                     require_available):
+        from ..ops.shard_reduce import shard_scan
+        pl = self._plane
         slots_d, counts_d = self._replicated(slots_p, counts_p)
-        return self._plane.fused_beat(
+        launches, calls = shard_scan.launches, pl.transport.calls
+        out = pl.fused_beat(
             self._totals, self._avail, self._mask, self._keys,
             self._reqs, slots_d, counts_d, em, ov[0], ov[1], thr,
             require_available=require_available)
+        st = self.scan_stats
+        st["route"] = pl.last_scan_route
+        st["shard_scan_launches"] += shard_scan.launches - launches
+        st["transport_calls"] += pl.transport.calls - calls
+        return out
 
     # -- per-shard staging --------------------------------------------------
     def _shard_buckets(self, rows):

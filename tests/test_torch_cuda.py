@@ -1841,3 +1841,169 @@ def test_dryrun_multichip_on_one_card():
     from ray_tpu_torch import entry
     info = entry.dryrun_multichip(4, device="cuda:0")
     assert info["platform"] == "cuda" and info["cards"] == 1
+
+
+# -- the sharded class scan: one shard_scan launch for ranks on one card ---------
+
+def _shard_scan_case(s, mode, n, r, g, thr, require_available, masks,
+                     seed=0):
+    """``shard_scan`` against ``shard_scan_plain`` (the scan rank by rank
+    over the plane's transport) on the same per-rank tensors of one card:
+    alloc rows, inf and the carried avail bit for bit."""
+    from ray_tpu_torch.ops import shard_reduce as sr
+    totals, avail, mask, reqs, counts, gmasks = _problem(seed + s, n, r, g)
+    plane = sr.plane_for(s, mode, ["cuda:0"] * s)
+    assert plane.scan_route == "shard_scan"
+
+    def rows(a):
+        return [torch.as_tensor(np.ascontiguousarray(b), device="cuda")
+                for b in np.split(a, s)]
+
+    def repl(a):
+        return [torch.as_tensor(a, device="cuda")] * s
+
+    gm = None
+    if masks:
+        gm = [torch.as_tensor(np.ascontiguousarray(b), device="cuda")
+              for b in np.split(gmasks, s, axis=1)]
+    args = (rows(totals), rows(avail), rows(mask), repl(reqs), repl(counts),
+            gm, thr, require_available)
+    before = sr.shard_scan.launches
+    ka, ki, kv = sr.shard_scan(*args)
+    assert sr.shard_scan.launches == before + 1
+    pa, pi, pv = sr.shard_scan_plain(plane.transport, *args)
+    for x, y in zip(ka, pa):
+        assert torch.equal(x, y)
+    assert torch.equal(ki, pi)
+    for x, y in zip(kv, pv):
+        assert torch.equal(x, y)
+    return sr.shard_scan.last_layout, ka
+
+
+@pytest.mark.parametrize("s,mode", [(2, "flat"), (4, "two_level"),
+                                    (4, "flat"), (8, "flat"),
+                                    (8, "two_level")])
+@pytest.mark.parametrize("n,r,g", [(1024, 8, 64), (8192, 16, 128)])
+@pytest.mark.parametrize("thr", [SCALE // 2, 2 * SCALE + 1])
+def test_shard_scan_equals_plain(s, mode, n, r, g, thr):
+    """The beat cell's 1000 x 64 (rows padded to 1024, as the engine
+    pads them) and the contract's 8192 x 16 x 128, where a rank's rows
+    take a thread-block cluster."""
+    lay, alloc = _shard_scan_case(s, mode, n, r, g, thr, False, False)
+    assert lay["cluster"] == max(1, min(8, n // s // 128))
+    assert sum(int(a.sum()) for a in alloc) > 0
+
+
+@pytest.mark.parametrize("s,mode", [(2, "flat"), (4, "two_level"),
+                                    (8, "flat")])
+@pytest.mark.parametrize("require_available", [False, True])
+def test_shard_scan_group_masks_and_require_available(s, mode,
+                                                      require_available):
+    _shard_scan_case(s, mode, 8192, 16, 128, SCALE // 2, require_available,
+                     True, seed=1)
+    _shard_scan_case(s, mode, 1024, 8, 64, SCALE // 2, require_available,
+                     True, seed=2)
+
+
+@pytest.mark.parametrize("s,mode", [(32, "flat"), (64, "two_level")])
+def test_shard_scan_past_32_ranks(s, mode):
+    """More ranks than a warp has lanes: each lane of the reading warp
+    takes several ranks' slots (and the lower ranks' prefix) in turn."""
+    lay, alloc = _shard_scan_case(s, mode, 8192, 16, 8, SCALE // 2, False,
+                                  True, seed=3)
+    assert lay["cluster"] == max(1, 8192 // s // 128)
+    assert sum(int((a > 0).any()) for a in alloc) > s // 2
+
+
+@pytest.mark.parametrize("n,r", [(8192, 128), (4096, 512)])
+def test_shard_scan_rows_off_chip(n, r):
+    """Rows too wide for a cluster of 16 CTAs' shared memory stay in
+    global memory (totals read there, avail carried in new_avail)."""
+    lay, _ = _shard_scan_case(2, "flat", n, r, 8, SCALE // 2, False, True)
+    assert lay["on_chip"] == 0 and lay["cluster"] == 16
+
+
+def test_shard_scan_is_one_launch_a_scan_of_the_sharded_beat():
+    """A sharded beat on ranks of one card: the class scan is one
+    ``shard_scan`` launch a beat and makes no transport call; the beats
+    stay equal to the single-device engine's."""
+    from ray_tpu_torch.common.ids import NodeID
+    from ray_tpu_torch.common.resources import NodeResources, ResourceRequest
+    from ray_tpu_torch.ops import shard_reduce as sr
+    from ray_tpu_torch.scheduling import (ClusterResourceManager,
+                                          DeltaScheduler,
+                                          ShardedDeltaScheduler)
+    rng = np.random.default_rng(21)
+    crm = ClusterResourceManager(capacity=500)
+    for _ in range(500):
+        crm.add_node(NodeID.from_random(), NodeResources(
+            {"CPU": int(rng.integers(2, 64)),
+             "memory": int(rng.integers(1, 256))}))
+    vecs = np.stack([crm.intern_request(ResourceRequest(
+        {"CPU": int(rng.integers(1, 4)),
+         "memory": float(rng.integers(0, 6))})) for _ in range(16)])
+    counts = rng.integers(1, 900, size=16).astype(np.int32)
+    eng = ShardedDeltaScheduler(crm, 4, "two_level", devices=["cuda:0"] * 4)
+    single = DeltaScheduler(crm)
+    scan = sr.ShardPlane._scan
+    calls = []
+
+    def counted(pl, *a):
+        c0 = pl.transport.calls
+        out = scan(pl, *a)
+        calls.append(pl.transport.calls - c0)
+        return out
+
+    sr.ShardPlane._scan = counted
+    try:
+        for _ in range(4):
+            for _ in range(12):
+                crm.force_subtract(int(rng.integers(0, 500)),
+                                   ResourceRequest({"CPU": 1}))
+            np.testing.assert_array_equal(eng.beat(vecs, counts),
+                                          single.beat(vecs, counts))
+    finally:
+        sr.ShardPlane._scan = scan
+    assert calls == [0] * 4
+    assert eng.scan_stats["route"] == "shard_scan"
+    assert eng.scan_stats["shard_scan_launches"] == 4
+
+
+def test_shard_scan_grouped_sharded_np_equals_single_device():
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    from ray_tpu_torch.ops import shard_reduce as sr
+    totals, avail, mask, reqs, counts, masks = _problem(9, 1000, 8, 64,
+                                                        neg=False)
+    want = hk.schedule_grouped_np(totals, avail, mask, reqs, counts, masks)
+    before = sr.shard_scan.launches
+    got = hk.schedule_grouped_sharded_np(totals, avail, mask, reqs, counts,
+                                         masks, n_shards=4,
+                                         devices=["cuda:0"] * 4)
+    assert sr.shard_scan.launches == before + 1
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_shard_scan_mesh_too_large_to_be_resident_raises():
+    """256 ranks of 32 rows x 512 columns: a CTA a rank whose shared
+    memory leaves room for one CTA an SM, so the card cannot hold every
+    rank at once and the ranks would wait forever: ValueError, before any
+    launch."""
+    from ray_tpu_torch.ops import shard_reduce as sr
+    s, n_l, r = 256, 32, 512
+    plan = sr.shard_scan_plan(s, n_l, r)
+    assert plan["cluster"] == 1 and plan["resident_ranks"] < s
+    z = torch.zeros((n_l, r), dtype=torch.int32, device="cuda")
+    m = torch.ones((n_l,), dtype=torch.bool, device="cuda")
+    reqs = torch.ones((2, r), dtype=torch.int32, device="cuda")
+    cnt = torch.ones((2,), dtype=torch.int32, device="cuda")
+    before = sr.shard_scan.launches
+    with pytest.raises(ValueError, match="resident"):
+        sr.shard_scan([z] * s, [z] * s, [m] * s, [reqs] * s, [cnt] * s,
+                      None, SCALE // 2)
+    assert sr.shard_scan.launches == before
+    # the largest mesh the card holds at that shape runs
+    fits = plan["resident_ranks"]
+    sr.shard_scan([z] * fits, [z] * fits, [m] * fits, [reqs] * fits,
+                  [cnt] * fits, None, SCALE // 2)
+    torch.cuda.synchronize()
