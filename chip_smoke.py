@@ -33,8 +33,41 @@ Phases:
                   on the GPU, bench.py's churn cluster at 1000 nodes x 64
                   classes x 1,000,000 tasks per beat, 12 dirty rows of
                   churn between beats; every beat bit-equal to the host
-                  twin (counts and lease budgets); beat p50/p99,
-                  tasks/s, launches, readbacks per beat
+                  twin (counts and lease budgets); a delta beat is one
+                  ``beat_rows``, one ``waterfill_scan`` and one
+                  ``beat_tail`` launch (``csrc/beat.cu``), three kernels
+                  in all (profiler); both beat kernels == their plain
+                  versions on a beat's captured inputs, bit for bit,
+                  with their ms, plain ms and bounds; beat p50/p80/p99,
+                  tasks/s, launches, readbacks per beat, idle share; the
+                  parent's route (the rest of the beat on the plain
+                  versions) timed in the same call, then the kernels'
+                  again
+  shard           the sharded paths on ranks of the card (``["cuda:0"]
+                  * S``): ``make_delta_scheduler(crm, n_shards=S,
+                  reduce_mode=mode, devices=...)`` for (2, flat), (4,
+                  two_level) and (8, flat) at the beat cell's width beside
+                  the single-device engine, every beat's counts and
+                  budgets == it and the host twin (2 warm-up, 8 timed
+                  beats; p50, p80, p99, kernels and idle share a beat);
+                  a delta beat is one ``beat_rows``, one ``shard_scan``
+                  and one ``beat_tail`` launch, three kernels at every S,
+                  and no ``_Transport`` call; ``shard_scan`` ==
+                  ``shard_scan_plain`` on a beat's scan inputs and the two
+                  beat kernels == their plain versions on a beat's inputs
+                  (ms of each, bound, launch); the same beats with the
+                  rest of the beat on its plain versions (the parent's
+                  route; 2 warm-up, 8 timed); the four ``*_sharded_np``
+                  wrappers at S = 4 == the single-device calls (ms,
+                  launches; the kernel == plain on the water-fill's group
+                  masks); ring and Ulysses
+                  attention at B=2 T=4096 H=16 D=128 float32 on 4 and 8
+                  ranks, causal and not, within RING_ATOL of
+                  ``full_attention``, a limit that must reject the ring
+                  missing its last fold (ms beside ``ops.flash_attention``
+                  f32 and SDPA); ``entry()`` == the host twin;
+                  ``dryrun_multichip(4 and 8, device="cuda:0")``; over
+                  distinct cards through NCCL when there are two or more
   locality        ``schedule_grouped_localized`` (the water-fill kernel's
                   localized mode) == plain version == host twin with
                   preferred rows, bit for bit, at the beat cell's width
@@ -186,28 +219,6 @@ Phases:
                   on the bandit and corridor to the reference tests'
                   bars with the update on the card, the first update ==
                   the CPU's (1e-6); ms an iteration on each
-  shard           the sharded paths on ranks of the card (``["cuda:0"]
-                  * S``): ``make_delta_scheduler(crm, n_shards=S,
-                  reduce_mode=mode, devices=...)`` for (2, flat), (4,
-                  two_level) and (8, flat) at the beat cell's width beside
-                  the single-device engine, every beat's counts and
-                  budgets == it and the host twin (2 warm-up, 8 timed
-                  beats; p50, p99, transport calls, ``shard_scan``
-                  launches (one a beat), kernels and idle share a beat);
-                  ``shard_scan`` == ``shard_scan_plain`` on a beat's scan
-                  inputs (ms of both, bound, launch); the same beats with
-                  the scan forced onto ``shard_scan_plain`` (the parent's
-                  route; 1 warm-up, 3 timed); the four ``*_sharded_np``
-                  wrappers at S = 4 == the single-device calls (ms,
-                  launches; the kernel == plain on the water-fill's group
-                  masks); ring and Ulysses
-                  attention at B=2 T=4096 H=16 D=128 float32 on 4 and 8
-                  ranks, causal and not, within RING_ATOL of
-                  ``full_attention``, a limit that must reject the ring
-                  missing its last fold (ms beside ``ops.flash_attention``
-                  f32 and SDPA); ``entry()`` == the host twin;
-                  ``dryrun_multichip(4 and 8, device="cuda:0")``; over
-                  distinct cards through NCCL when there are two or more
 Then the ``kernels`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 
@@ -464,6 +475,120 @@ def beat_rest_work(n_cls, r_w, n_nodes, dirty):
     n_ops = (n_cls * dirty * r_w * 12 + n_cls * n_nodes * r_w * 4
              + n_cls * n_nodes)
     return n_bytes, n_ops
+
+
+def beat_rows_work(st, kw):
+    """(bytes, int32 operations) of one ``beat_rows`` beat call on these
+    inputs: the real dirty rows (read, written into the mirror, their key
+    columns against every class: ~12 ops per (class, row, resource)),
+    the real override rows, avail and the masks read once, avail_eff and
+    mask_eff written once, the class gather (slots and counts read,
+    group_reqs and group_counts written), the exchange areas zeroed."""
+    s = st.n_shards
+    n_l, r = st.totals[0].shape
+    c = st.reqs[0].shape[0]
+    n = s * n_l
+    rows, ov = kw.get("rows"), kw.get("overrides")
+    b = 0 if rows is None else sum(int((i < n_l).sum()) for i in rows[0])
+    bo = 0 if ov is None else sum(int((i < n_l).sum()) for i in ov[0])
+    g = kw["groups"][0][0].shape[0]
+    xchg = 0 if st.xchg is None else s * st.xchg[0].numel()
+    n_bytes = (b * (4 + 2 * r * 4 + 1) * 2 + c * r * 4 + c * b * 4
+               + bo * (4 + r * 4) + 2 * n * r * 4 + 3 * n
+               + s * g * (4 + 4 + r * 4 + 4) + xchg * 4)
+    return n_bytes, c * b * r * 12 + n
+
+
+def beat_tail_work(st, g):
+    """(bytes, int32 operations) of one ``beat_tail`` call: the scan's
+    counts, inf and final avail, totals, mask_eff, the requests and the
+    carried keys read once, the packed (G + C, N + 1) readback and the
+    argmin written once; ~4 ops per (class, node, resource) for a budget
+    and 1 per (class, node) for the argmin."""
+    s = st.n_shards
+    n_l, r = st.totals[0].shape
+    c = st.reqs[0].shape[0]
+    n = s * n_l
+    n_bytes = (g * n * 4 + g * 4 + 2 * n * r * 4 + n + c * r * 4
+               + c * n * 4 + (g + c) * (n + 1) * 4 + c * 4)
+    return n_bytes, c * n * r * 4 + c * n
+
+
+def _max_abs_err(xs, ys):
+    return max((int((x.long() - y.long()).abs().max()) if x.numel() else 0)
+               for x, y in zip(xs, ys))
+
+
+def beat_kernels_vs_plain(step):
+    """``beat_rows`` and ``beat_tail`` held to their plain versions on one
+    beat's inputs, captured from ``step()`` (the engine's own calls on the
+    card): every resident and buffer beat_rows writes, and the packed
+    readback and argmin, bit for bit; then each kernel's ms (CUDA events,
+    p50 of 20 calls) beside its plain version's on the same inputs, and
+    its bound for this beat's work.  A beat call of beat_rows is
+    idempotent on its inputs (the dirty rows land where they landed), so
+    every timed call starts from the same state.  The comparison's
+    launches are taken off the counters again."""
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+
+    real_rows, real_tail = hk.beat_rows, hk.beat_tail
+    seen = {}
+
+    def rows(st, thr, **kw):
+        if kw.get("groups") is not None:
+            seen["rows"] = (st.clone(), thr, kw)
+        return real_rows(st, thr, **kw)
+
+    def tail(st, alloc, inf, av_fin):
+        # copies equally spaced, as the kernel takes them
+        seen["tail"] = (st.clone(), hk.spaced([a.clone() for a in alloc]),
+                        inf.clone(), hk.spaced([a.clone() for a in av_fin]))
+        return real_tail(st, alloc, inf, av_fin)
+
+    rows.launches = tail.launches = 0       # the sharded engine reads them
+    hk.beat_rows, hk.beat_tail = rows, tail
+    try:
+        step()
+    finally:
+        hk.beat_rows, hk.beat_tail = real_rows, real_tail
+    counters = (real_rows.launches, dict(real_rows.launches_by_mode),
+                real_tail.launches)
+    snap, thr, kw = seen["rows"]
+    a, p = snap.clone(), snap.clone()
+    real_rows(a, thr, **kw)
+    hk.beat_rows_plain(p, thr, **kw)
+    fields = ("totals", "avail", "mask", "keys", "reqs", "avail_eff",
+              "mask_eff", "group_reqs", "group_counts")
+    rows_err = max(_max_abs_err(getattr(a, f), getattr(p, f))
+                   for f in fields)
+    rows_ms = cuda_ms(lambda: real_rows(a, thr, **kw))
+    rows_plain_ms = cuda_ms(lambda: hk.beat_rows_plain(p, thr, **kw))
+    st, alloc, inf, av_fin = seen["tail"]
+    got = real_tail(st, alloc, inf, av_fin)
+    want = hk.beat_tail_plain(st, alloc, inf, av_fin)
+    tail_err = _max_abs_err(got, want)
+    tail_ms = cuda_ms(lambda: real_tail(st, alloc, inf, av_fin))
+    tail_plain_ms = cuda_ms(lambda: hk.beat_tail_plain(st, alloc, inf,
+                                                       av_fin))
+    real_rows.launches, real_rows.launches_by_mode, real_tail.launches = \
+        counters
+    if rows_err or tail_err:
+        raise AssertionError(f"beat_rows (max abs err {rows_err}) or "
+                             f"beat_tail ({tail_err}) disagree with their "
+                             f"plain versions on {snap.n_shards} rank(s)")
+    g = alloc[0].shape[0]
+    out = {}
+    for name, ms, plain_ms, work, layout in (
+            ("beat_rows", rows_ms, rows_plain_ms, beat_rows_work(snap, kw),
+             real_rows.last_layout),
+            ("beat_tail", tail_ms, tail_plain_ms, beat_tail_work(st, g),
+             real_tail.last_layout)):
+        bound_ms, bound_by = bound(*work, PEAK_I32)
+        out[name] = {"ranks": snap.n_shards, "max_abs_err": 0, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "bytes": work[0],
+                     "int32_ops": work[1], "layout": layout}
+    return out
 
 
 def topk_work(n, reqs):
@@ -750,7 +875,44 @@ def build_cluster(seed=0, n_nodes=N_NODES, n_classes=N_CLASSES,
     return rng, crm, vecs, counts.astype(np.int32)
 
 
-def phase_beat(dev, warmup=2, beats=50, churn=12):
+def _plain_beat_kernels():
+    """Stand-ins for ``beat_rows``/``beat_tail`` that run their plain
+    versions on the card's tensors: the parent's route (the rest of the
+    beat as eager PyTorch), swapped in by this script only."""
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+
+    def rows(st, thr, **kw):
+        return hk.beat_rows_plain(st, thr, **kw)
+
+    def tail(st, alloc, inf, av_fin):
+        return hk.beat_tail_plain(st, alloc, inf, av_fin)
+
+    rows.launches = tail.launches = 0       # the sharded engine reads them
+    return rows, tail
+
+
+def timed_beats(beat, mutate, agrees, n_warm, n_timed, label):
+    """``n_warm + n_timed`` calls of ``beat()`` after ``mutate()``, each
+    held to ``agrees(got)``; the timed beats' p50/p80/p99 (host clock
+    around a beat, which ends in its readback)."""
+    times = []
+    for i in range(n_warm + n_timed):
+        mutate()
+        t0 = time.perf_counter()
+        got = beat()
+        dt = (time.perf_counter() - t0) * 1e3
+        if i >= n_warm:
+            times.append(dt)
+        if not agrees(got):
+            raise AssertionError(f"a beat of {label} disagrees with the "
+                                 "host twin")
+    return {"beat_p50_ms": float(np.percentile(times, 50)),
+            "beat_p80_ms": float(np.percentile(times, 80)),
+            "beat_p99_ms": float(np.percentile(times, 99)),
+            "timed_beats": n_timed, "bit_exact_beats": n_warm + n_timed}
+
+
+def phase_beat(dev, warmup=2, beats=50, churn=12, parent_beats=(2, 20)):
     from ray_tpu_torch.common.resources import ResourceRequest
     from ray_tpu_torch.ops import hybrid_kernel as hk
     from ray_tpu_torch.scheduling import make_delta_scheduler
@@ -772,28 +934,42 @@ def phase_beat(dev, warmup=2, beats=50, churn=12):
                 crm.force_subtract(row, churn_req)
                 debts.append(row)
 
-    # --- the main path: counts start at 0 here and are read after ---
-    hk.waterfill_scan.launches = 0
-    eng = make_delta_scheduler(crm)
-    if eng.device.type != "cuda":
-        raise AssertionError(f"the heartbeat resolved to {eng.device}")
-    times, mismatches = [], 0
-    for i in range(warmup + beats):
-        mutate()
-        t0 = time.perf_counter()
-        got = eng.beat(vecs, counts)
-        dt = (time.perf_counter() - t0) * 1e3
-        if i >= warmup:
-            times.append(dt)
+    def agrees(got):
         st = crm.snapshot()
         want, post = host_twin(st.totals, st.avail, st.node_mask, vecs,
                                counts, None, thr)
         budgets = np.stack([eng.budget_row_host(v) for v in vecs])
         want_b = compute_budgets(st.totals, post, vecs, st.node_mask)
-        if not (np.array_equal(got, want) and np.array_equal(budgets,
-                                                             want_b)):
+        return np.array_equal(got, want) and np.array_equal(budgets, want_b)
+
+    # --- the main path: counts start at 0 here and are read after ---
+    hk.waterfill_scan.launches = 0
+    hk.beat_rows.launches = hk.beat_tail.launches = 0
+    hk.beat_rows.launches_by_mode = dict.fromkeys(
+        hk.beat_rows.launches_by_mode, 0)
+    eng = make_delta_scheduler(crm)
+    if eng.device.type != "cuda":
+        raise AssertionError(f"the heartbeat resolved to {eng.device}")
+    times, mismatches, per_delta_beat = [], 0, set()
+    for i in range(warmup + beats):
+        mutate()
+        before = (eng.stats["delta_beats"], eng.stats["classes_installed"],
+                  hk.beat_rows.launches, hk.beat_tail.launches)
+        t0 = time.perf_counter()
+        got = eng.beat(vecs, counts)
+        dt = (time.perf_counter() - t0) * 1e3
+        if i >= warmup:
+            times.append(dt)
+        if eng.stats["delta_beats"] > before[0] and \
+                eng.stats["classes_installed"] == before[1]:
+            per_delta_beat.add((hk.beat_rows.launches - before[2],
+                                hk.beat_tail.launches - before[3]))
+        if not agrees(got):
             mismatches += 1
     launches = hk.waterfill_scan.launches
+    beat_launches = {"beat_rows": hk.beat_rows.launches,
+                     "beat_rows_by_call": dict(hk.beat_rows.launches_by_mode),
+                     "beat_tail": hk.beat_tail.launches}
     layout = hk.waterfill_scan.last_layout
     readbacks = eng.readbacks
     # --- end of the main path ---
@@ -801,9 +977,13 @@ def phase_beat(dev, warmup=2, beats=50, churn=12):
     if mismatches:
         raise AssertionError(f"{mismatches}/{n_beats} beats disagree with "
                              "the host twin")
-    if launches != n_beats:
-        raise AssertionError(f"waterfill_scan launched {launches} times in "
+    if launches != n_beats or beat_launches["beat_tail"] != n_beats:
+        raise AssertionError(f"waterfill_scan launched {launches} times and "
+                             f"beat_tail {beat_launches['beat_tail']} in "
                              f"{n_beats} beats")
+    if per_delta_beat != {(1, 1)}:
+        raise AssertionError(f"(beat_rows, beat_tail) launches per delta "
+                             f"beat: {sorted(per_delta_beat)}, not (1, 1)")
     if readbacks != n_beats:
         raise AssertionError(f"{readbacks} readbacks in {n_beats} beats")
 
@@ -812,6 +992,11 @@ def phase_beat(dev, warmup=2, beats=50, churn=12):
         eng.beat(vecs, counts)
 
     trace = device_profile(step, 10)
+    kpc = trace["kernels_per_call"]
+    if kpc is None or kpc > 3:
+        raise AssertionError(f"a steady delta beat ran {kpc} kernels "
+                             "(beat_rows, the water-fill, beat_tail: 3)")
+    kernels = beat_kernels_vs_plain(step)
     # per-layer breakdown: profile mode syncs after every phase, so these
     # beats are slower than the timed ones and are not counted above
     eng.profile = True
@@ -819,15 +1004,36 @@ def phase_beat(dev, warmup=2, beats=50, churn=12):
         eng.phase_ms[k] = 0.0
     n_prof = 10
     for _ in range(n_prof):
-        mutate()
-        eng.beat(vecs, counts)
+        step()
+    eng.profile = False
+
+    # the parent's route in this call: the rest of the beat as the plain
+    # versions (eager PyTorch on the card) around the water-fill kernel;
+    # then the kernels' route again, the two timed back to back
+    def beat():
+        return eng.beat(vecs, counts)
+
+    real = hk.beat_rows, hk.beat_tail
+    hk.beat_rows, hk.beat_tail = _plain_beat_kernels()
+    try:
+        parent = timed_beats(beat, mutate, agrees, *parent_beats,
+                             "the parent's route")
+        ptrace = device_profile(step, 10)
+    finally:
+        hk.beat_rows, hk.beat_tail = real
+    again = timed_beats(beat, mutate, agrees, *parent_beats,
+                        "the kernels' route")
+    atrace = device_profile(step, 10)
+    for r, t in ((parent, ptrace), (again, atrace)):
+        r.update({"kernels_per_beat": t["kernels_per_call"],
+                  "idle_share": t["idle_share"],
+                  "device_busy_ms_per_beat": t["device_busy_ms"],
+                  "wall_ms_per_beat_profiled": t["wall_ms"]})
     p50 = float(np.percentile(times, 50))
-    # the rest of a delta beat (plain PyTorch): its launches are the
-    # beat's kernels less the water-fill, its bound the bytes and int32
-    # operations those ops need at these shapes
+    # the rest of a delta beat: its launches are the beat's kernels less
+    # the water-fill, its bound the bytes and int32 operations it needs
     rest_bound_ms, rest_bound_by = bound(
         *beat_rest_work(*vecs.shape, N_NODES, churn), PEAK_I32)
-    kpc = trace["kernels_per_call"]
     result = {"phase": "beat", "entry": "make_delta_scheduler(crm).beat",
               "nodes": N_NODES, "classes": N_CLASSES,
               "tasks_per_beat": int(counts.sum()),
@@ -841,13 +1047,17 @@ def phase_beat(dev, warmup=2, beats=50, churn=12):
               "hit_rate": eng.hit_rate(),
               "waterfill_launches": launches,
               "waterfill_layout": layout,
+              "beat_kernel_launches": beat_launches,
+              "launches_per_delta_beat": {"beat_rows": 1, "beat_tail": 1},
               "readbacks_per_beat": readbacks / n_beats,
               "phases_ms_per_beat_profiled": {
                   k: v / n_prof for k, v in eng.phase_ms.items()},
               "device_profile": trace, "stats": eng.stats,
+              "kernels": kernels,
               "rest_of_beat": {
-                  "launches_per_beat": None if kpc is None else kpc - 1,
-                  "bound_ms": rest_bound_ms, "bound_by": rest_bound_by}}
+                  "launches_per_beat": kpc - 1,
+                  "bound_ms": rest_bound_ms, "bound_by": rest_bound_by},
+              "parent_route": parent, "kernel_route_again": again}
     emit(result)
     return result
 
@@ -1161,6 +1371,7 @@ def phase_runtime(dev):
         # --- the main path: counts start at 0 here and are read after ---
         hk.waterfill_scan.launches = 0
         hk.waterfill_scan.localized_launches = 0
+        hk.beat_rows.launches = hk.beat_tail.launches = 0
         bdk.schedule_bundle_groups.launches = 0
         pk.choose_sources.launches = 0
         rounds0 = rounds()
@@ -1177,7 +1388,9 @@ def phase_runtime(dev):
         if out != list(range(RUNTIME_TASKS)):
             raise AssertionError("the task burst returned wrong results")
         burst_launches = {"waterfill_scan": hk.waterfill_scan.launches,
-                          "localized": hk.waterfill_scan.localized_launches}
+                          "localized": hk.waterfill_scan.localized_launches,
+                          "beat_rows": hk.beat_rows.launches,
+                          "beat_tail": hk.beat_tail.launches}
         device_rounds, delta_rounds, host_rounds = \
             (int(x) for x in rounds() - rounds0)
         burst_host = {
@@ -1262,12 +1475,17 @@ def phase_runtime(dev):
                                  "results")
         launches = {"waterfill_scan": hk.waterfill_scan.launches,
                     "localized": hk.waterfill_scan.localized_launches,
+                    "beat_rows": hk.beat_rows.launches,
+                    "beat_tail": hk.beat_tail.launches,
                     "schedule_bundle_groups":
                         bdk.schedule_bundle_groups.launches,
                     "choose_sources": pk.choose_sources.launches}
         # --- end of the main path ---
-        # the burst's uniform rounds went through the delta beat
-        if burst_launches["waterfill_scan"] < 1 or delta_rounds < 1:
+        # the burst's uniform rounds went through the delta beat: its
+        # three kernels
+        if min(burst_launches[k] for k in (
+                "waterfill_scan", "beat_rows", "beat_tail")) < 1 or \
+                delta_rounds < 1:
             raise AssertionError(
                 f"the burst made {device_rounds} device rounds, "
                 f"{delta_rounds} through the delta beat, and launched "
@@ -1525,6 +1743,7 @@ def phase_serve(dev, runtime_tasks_per_s=None):
         # --- the main path: counts start at 0 here and are read after ---
         hk.waterfill_scan.launches = 0
         hk.waterfill_scan.localized_launches = 0
+        hk.beat_rows.launches = hk.beat_tail.launches = 0
         rounds0 = rounds()
         threads = [threading.Thread(target=handle_client, args=(k,),
                                     name=f"handle-client-{k}")
@@ -1566,7 +1785,9 @@ def phase_serve(dev, runtime_tasks_per_s=None):
             raise AssertionError("serve: a client, the rollout or the "
                                  "burst did not finish")
         launches = {"waterfill_scan": hk.waterfill_scan.launches,
-                    "localized": hk.waterfill_scan.localized_launches}
+                    "localized": hk.waterfill_scan.localized_launches,
+                    "beat_rows": hk.beat_rows.launches,
+                    "beat_tail": hk.beat_tail.launches}
         device_rounds, delta_rounds, host_rounds = \
             (int(x) for x in rounds() - rounds0)
         # --- end of the main path ---
@@ -1591,7 +1812,8 @@ def phase_serve(dev, runtime_tasks_per_s=None):
             raise AssertionError(f"serve: after the rollout {after[:4]}")
         if not burst.get("ok"):
             raise AssertionError("serve: the burst returned wrong results")
-        if delta_rounds < 1 or launches["waterfill_scan"] < 1:
+        if delta_rounds < 1 or min(launches[k] for k in (
+                "waterfill_scan", "beat_rows", "beat_tail")) < 1:
             raise AssertionError(
                 f"serve: {device_rounds} device rounds, {delta_rounds} "
                 f"through the delta beat, launches {launches}")
@@ -2788,8 +3010,11 @@ def phase_daemon(dev):
                                   "host_rounds", "topk_rounds")}
             launches = {key: n - sched0["launches"].get(key, 0)
                         for key, n in sched["launches"].items()}
+            # delta rounds run the beat's three kernels
+            need = ("waterfill_scan",) + (("beat_rows", "beat_tail")
+                                          if rounds["delta_rounds"] else ())
             if rounds["device_rounds"] < 1 or \
-                    launches.get("waterfill_scan", 0) < 1:
+                    min(launches.get(k, 0) for k in need) < 1:
                 raise AssertionError(f"the head's raylet: {rounds}, "
                                      f"launches {launches}")
             # the head's exporter and dashboard, scraped over HTTP and
@@ -4095,9 +4320,10 @@ def phase_train(dev, devices=None, rows=TRAIN_ROWS, widths=TRAIN_WIDTHS,
 # -- phase: shard (the sharded paths on the card's ranks) --------------------
 
 SHARD_BEATS = ((2, "flat"), (4, "two_level"), (8, "flat"))
-# the parent's route (the scan rank by rank, ``shard_scan_plain``) takes
-# ~0.8-3 s a beat: (warm-up, timed) beats of it beside the kernel's
-SHARD_PLAIN_BEATS = (1, 3)
+# the parent's route (the rest of the beat as eager PyTorch around the
+# shard_scan kernel; ~8-17 ms a beat): (warm-up, timed) beats of it beside
+# the kernels'
+SHARD_PLAIN_BEATS = (2, 8)
 SHARD_WRAPPER_RANKS = 4
 RING_SHAPE = (2, 4096, 16, 128)         # the flash cell's headline shape
 RING_RANKS = (4, 8)
@@ -4152,7 +4378,8 @@ def scan_kernel_vs_plain(plane, args):
     """``shard_scan`` held to ``shard_scan_plain`` (the scan rank by rank
     over the plane's transport) on one ``_scan`` call's inputs ``args``,
     bit for bit; the kernel's ms (CUDA events around the wrapper: the
-    table's copy, the exchange area's memset and the launch), the plain
+    exchange area's memset and the launch; the table of pointers is built
+    once), the plain
     version's (host clock around a synchronised call), the bound of the
     water-fill's work at these inputs and the launch.  The comparison's
     launches are taken off ``shard_scan.launches`` again."""
@@ -4195,13 +4422,17 @@ def shard_beat(ranks, mode, warmup=2, beats=8, churn=12,
     devices=ranks)`` beside the single-device engine on the same CRM
     journal (the beat cell): every beat's counts and lease budgets equal
     to the single-device engine's and the host twin's, bit for bit.  On
-    ranks of one card the class scan is one ``shard_scan`` launch a beat
-    (checked), the kernel is held to ``shard_scan_plain`` on one beat's
-    scan inputs, and ``plain_beats`` more beats run with the scan forced
-    onto ``shard_scan_plain``, the parent's route, timed the same way."""
+    ranks of one card a delta beat is three kernels (checked): one
+    ``beat_rows``, one ``shard_scan`` and one ``beat_tail`` launch, and no
+    transport call; ``shard_scan`` and the two beat kernels are held to
+    their plain versions on one beat's inputs, and ``plain_beats`` more
+    beats run with the rest of the beat on its plain versions (the
+    parent's route: eager PyTorch around the ``shard_scan`` kernel),
+    timed the same way."""
     import torch
 
     from ray_tpu_torch.common.resources import ResourceRequest
+    from ray_tpu_torch.ops import hybrid_kernel as hk
     from ray_tpu_torch.ops import shard_reduce as sr
     from ray_tpu_torch.scheduling import (ShardedDeltaScheduler,
                                           make_delta_scheduler)
@@ -4235,19 +4466,22 @@ def shard_beat(ranks, mode, warmup=2, beats=8, churn=12,
     tp = plane.transport
     one_card = len(set(plane.ranks)) == 1
 
+    def counters():
+        return (tp.calls, sr.shard_scan.launches, hk.beat_rows.launches,
+                hk.beat_tail.launches)
+
     def run(n_warm, n_timed, label):
-        times, calls, launches = [], [], []
+        times, per_beat = [], []
         for i in range(n_warm + n_timed):
             mutate()
-            c0, l0 = tp.calls, sr.shard_scan.launches
+            c0 = counters()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             got = eng.beat(vecs, counts)
             dt = (time.perf_counter() - t0) * 1e3
             if i >= n_warm:
                 times.append(dt)
-                calls.append(tp.calls - c0)
-                launches.append(sr.shard_scan.launches - l0)
+                per_beat.append([b - a for a, b in zip(c0, counters())])
             one = single.beat(vecs, counts)
             st = crm.snapshot()
             want, post = host_twin(st.totals, st.avail, st.node_mask, vecs,
@@ -4262,42 +4496,64 @@ def shard_beat(ranks, mode, warmup=2, beats=8, churn=12,
                     f"sharded beat {i} ({s} ranks, {mode}, {label}) "
                     "disagrees with the single-device engine or the host "
                     "twin")
+        per_beat = np.asarray(per_beat, float).mean(axis=0)
         return {"beat_p50_ms": float(np.percentile(times, 50)),
+                "beat_p80_ms": float(np.percentile(times, 80)),
                 "beat_p99_ms": float(np.percentile(times, 99)),
-                "transport_calls_per_beat": float(np.mean(calls)),
-                "shard_scan_launches_per_beat": float(np.mean(launches)),
+                "transport_calls_per_beat": float(per_beat[0]),
+                "shard_scan_launches_per_beat": float(per_beat[1]),
+                "beat_rows_launches_per_beat": float(per_beat[2]),
+                "beat_tail_launches_per_beat": float(per_beat[3]),
                 "timed_beats": n_timed, "bit_exact_beats": n_warm + n_timed}
 
     def step():
         mutate()
         eng.beat(vecs, counts)
 
-    # --- the main path: the launch count is 0 just before, read just after
+    # --- the main path: the launch counts are 0 just before, read after
+    # (the beat kernels' as the sharded engine counts its own: the
+    # single-device engine beside it launches them too)
     sr.shard_scan.launches = 0
+    hk.beat_rows.launches = hk.beat_tail.launches = 0
+    st0 = dict(eng.scan_stats)
     main = run(warmup, beats, "main path")
     launches = sr.shard_scan.launches
+    beat_launches = {k: eng.scan_stats[f"{k}_launches"] - st0[f"{k}_launches"]
+                     for k in ("beat_rows", "beat_tail")}
     # --- end of the main path ---
     want_route = "shard_scan" if one_card else "nccl"
+    n_main = warmup + beats
     if eng.scan_stats["route"] != want_route or \
-            launches != (warmup + beats if one_card else 0):
+            launches != (n_main if one_card else 0):
         raise AssertionError(f"{s} ranks ({mode}): the scan took route "
                              f"{eng.scan_stats['route']} with {launches} "
-                             f"shard_scan launches in {warmup + beats} beats")
+                             f"shard_scan launches in {n_main} beats")
     trace = device_busy(step, 2)
     main.update({"kernels_per_beat": trace["kernels_per_call"],
                  "idle_share": trace["idle_share"],
                  "device_busy_ms_per_beat": trace["device_busy_ms"],
                  "top_kernels": trace["top_kernels"]})
+    if one_card and not (
+            main["transport_calls_per_beat"] == 0
+            and main["beat_rows_launches_per_beat"] == 1
+            and main["beat_tail_launches_per_beat"] == 1
+            and beat_launches["beat_tail"] == n_main
+            and trace["kernels_per_call"] is not None
+            and trace["kernels_per_call"] <= 3):
+        raise AssertionError(f"{s} ranks of one card ({mode}): a delta beat "
+                             f"is not three kernels and no transport call: "
+                             f"{main}, {beat_launches}")
     out = {"ranks": [str(d) for d in ranks], "reduce_mode": mode,
            "grid": list(plane.mesh.devices.shape),
            "transport": "nccl" if tp.nccl else "one device",
            "scan_route": eng.scan_stats["route"],
-           "shard_scan_launches": launches, "shard_scan": main}
+           "shard_scan_launches": launches,
+           "beat_kernel_launches": beat_launches, "shard_scan": main}
     if one_card:
         captured = {}
 
         def capture(*args):
-            captured["args"] = args
+            captured["args"] = args[:8]
             return type(plane)._scan(plane, *args)
 
         plane._scan = capture
@@ -4307,25 +4563,28 @@ def shard_beat(ranks, mode, warmup=2, beats=8, churn=12,
             del plane._scan
         out["kernel_vs_plain"] = scan_kernel_vs_plain(plane,
                                                       captured["args"])
-        # the parent's route: the same beats with the scan rank by rank
-        plane._scan = lambda *args: sr.shard_scan_plain(tp, *args)
+        out["beat_kernels"] = beat_kernels_vs_plain(step)
+        # the parent's route: the same beats with the rest of the beat on
+        # its plain versions around the shard_scan kernel
+        real = hk.beat_rows, hk.beat_tail
+        hk.beat_rows, hk.beat_tail = _plain_beat_kernels()
         try:
-            parent = run(*plain_beats, "shard_scan_plain")
-            ptrace = device_busy(step, 1)
+            parent = run(*plain_beats, "the parent's route")
+            ptrace = device_busy(step, 2)
         finally:
-            del plane._scan
+            hk.beat_rows, hk.beat_tail = real
         parent.update({"kernels_per_beat": ptrace["kernels_per_call"],
                        "idle_share": ptrace["idle_share"],
                        "device_busy_ms_per_beat": ptrace["device_busy_ms"]})
-        out["shard_scan_plain"] = parent
+        out["parent_route"] = parent
     # the beat's work at these inputs, as the single-device beat does it:
     # the water-fill over the classes and the rest of a delta beat
     scan_b, scan_o = scan_work(vecs, N_NODES, masks=False)
     rest_b, rest_o = beat_rest_work(*vecs.shape, N_NODES, churn)
     bound_ms, bound_by = bound(scan_b + rest_b, scan_o + rest_o, PEAK_I32)
     # every beat above: the main path's, the two traced, and on one card
-    # the captured one, the parent's and its traced one
-    n_beats = warmup + beats + 2 + (2 + sum(plain_beats) if one_card else 0)
+    # the two captured ones, the parent's and its two traced
+    n_beats = n_main + 2 + (4 + sum(plain_beats) if one_card else 0)
     if eng.readbacks != n_beats:
         raise AssertionError(f"{eng.readbacks} readbacks in {n_beats} "
                              "sharded beats")
@@ -4621,6 +4880,10 @@ def phase_shard(dev, smi):
                   **{k: b["shard_scan_launches"] for k, b in beats.items()},
                   "schedule_grouped_sharded_np": sum(
                       w["shard_scan_launches"] for w in wrappers.values())},
+              # the sharded beats' main-path launches of the beat's two
+              # other kernels
+              "beat_kernel_launches": {k: b["beat_kernel_launches"]
+                                       for k, b in beats.items()},
               "seconds": time.perf_counter() - t_start}
     emit(result)
     return result
@@ -4648,6 +4911,10 @@ def main() -> int:
     timed("build", phase_build)
     wf = timed("waterfill", phase_waterfill, dev)
     beat = timed("beat", phase_beat, dev)
+    # the sharded beats right after the single-device one: late in a run,
+    # after the runtime's phases, the profiler's sessions around beats of
+    # ctypes-launched kernels alone have come back without device events
+    shd = timed("shard", phase_shard, dev, smi)
     loc = timed("locality", phase_locality, dev)
     run = timed("runtime", phase_runtime, dev)
     srv = timed("serve", phase_serve, dev, run["tasks_per_s"])
@@ -4660,7 +4927,6 @@ def main() -> int:
     timed("data", phase_data, dev)
     timed("sim", phase_sim)
     timed("train", phase_train, dev)
-    shd = timed("shard", phase_shard, dev, smi)
     head = fl["cases"][0]
     wide = next(r for r in fl["cases"] if r["dtype"] == "bfloat16" and
                 r["causal"] and r["shape"] == list(FLASH_WIDE_PATHS[0]))
@@ -4834,6 +5100,42 @@ def main() -> int:
                                            "layout")}
                      for k, v in shard_checks.items()},
          "checked": True},
+        *[{"name": name, "route": "cuda",
+           "source": "ray_tpu_torch/ops/csrc/beat.cu",
+           "replaces": replaces,
+           # launches on the beat path (make_delta_scheduler(crm).beat),
+           # the other paths beside it (the sharded beats': every mesh of
+           # the card's ranks); the numbers are the beat cell's, the
+           # sharded beats' beside them.  max_abs_err 0: the phases raise
+           # unless bit-exact
+           "launches": beat["beat_kernel_launches"][name],
+           "launches_by_path": {
+               "beat": beat["beat_kernel_launches"][name],
+               "runtime": run["launches"][name],
+               "serve": srv["launches"][name],
+               "daemon_head": dmn["head_launches"].get(name, 0),
+               "shard": sum(b[name] for b in
+                            shd["beat_kernel_launches"].values())},
+           "max_abs_err": 0, "ms": beat["kernels"][name]["ms"],
+           "plain_ms": beat["kernels"][name]["plain_ms"],
+           "bound_ms": beat["kernels"][name]["bound_ms"],
+           "bound_by": beat["kernels"][name]["bound_by"],
+           "library_ms": None, "layout": beat["kernels"][name]["layout"],
+           "by_path": {k: {f: b["beat_kernels"][name][f] for f in (
+               "ms", "plain_ms", "bound_ms")}
+               for k, b in shd["beats"].items() if "beat_kernels" in b},
+           "checked": True}
+          for name, replaces in (
+              ("beat_rows",
+               "ray_tpu/ops/hybrid_kernel.py:348 (apply_dirty_rows), :363 "
+               "(apply_dirty_classes), :318 (full_rescore), :399-401 "
+               "(fused_beat's overrides, mask, gather); ray_tpu/ops/"
+               "shard_reduce.py:290, :311, :350 (ShardPlane's)"),
+              ("beat_tail",
+               "ray_tpu/ops/hybrid_kernel.py:415-427 (fused_beat's "
+               "budgets, packing, argmin); ray_tpu/ops/shard_reduce.py:"
+               "378-469 (ShardPlane.fused_beat's budgets, pmin2, "
+               "gathers)"))],
         {"name": "flash_attention", "route": "cuda",
          "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
          "replaces": "ray_tpu/ops/flash_attention.py:25",

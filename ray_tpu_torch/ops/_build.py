@@ -41,7 +41,8 @@ SOURCES = {"waterfill": "waterfill.cu",
            "bundle": "bundle.cu",
            "pull": "pull.cu",
            "broadcast": "broadcast.cu",
-           "shard_scan": "shard_scan.cu"}
+           "shard_scan": "shard_scan.cu",
+           "beat": "beat.cu"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -67,6 +68,7 @@ _SIGNATURES = {
     "broadcast": ("rt_plan_fanout",
                   [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
     "shard_scan": ("rt_shard_scan", [_P, _I, _I, _I, _I, _I, _I, _P, _P]),
+    "beat": ("rt_beat_rows", [_P, _P, _P, _P]),
 }
 # further C entry points of a library: {name: {function: argtypes}}
 _EXTRA = {"binpack": {"rt_binpack_plan": [_I, _I, _I, _P]},
@@ -75,6 +77,7 @@ _EXTRA = {"binpack": {"rt_binpack_plan": [_I, _I, _I, _P]},
           "pull": {"rt_pull_plan": [_I, _I, _P]},
           "broadcast": {"rt_fanout_plan": [_I, _P]},
           "shard_scan": {"rt_shard_scan_plan": [_I, _I, _I, _I, _P]},
+          "beat": {"rt_beat_tail": [_P, _P, _P, _P]},
           "flash_attention": {"rt_flash_route": [_I, _I],
                               "rt_flash_key_tile": [_I, _I],
                               "rt_flash_scratch_bytes": [_I] * 5,

@@ -17,9 +17,17 @@ CUDA kernel ``waterfill_scan`` (``csrc/waterfill.cu``, one launch of a
 thread-block cluster): eagerly, each class would cost ~45 small
 launches.  Its plain PyTorch version ``waterfill_scan_plain`` repeats
 the arithmetic as tensor ops; the wrapper takes it only for CPU
-tensors.  The rest of the beat (key rescoring, dirty-row scatters,
-budget pricing, the per-class argmin) is a few vectorised tensor ops
-and stays PyTorch.
+tensors.  The rest of the delta beat is two more hand-written kernels
+(``csrc/beat.cu``), for one rank or for S ranks of a row-sharded plane
+on one card: ``beat_rows`` before the scan (dirty-row scatters and
+their key rescoring, the beat's overrides, soft mask and class gather;
+with other index sets a class install or a full rescore) and
+``beat_tail`` after it (the packed counts and lease budgets, the
+per-class argmin).  Their plain versions ``beat_rows_plain`` and
+``beat_tail_plain`` are the functional programs below
+(``apply_dirty_rows``, ``apply_dirty_classes``, ``full_rescore``,
+``_budgets``, ``fused_beat``'s tail), written into the residents; the
+wrappers take them only for CPU tensors.
 
 All arithmetic is int32 and wraps as XLA's does; ``//`` floors on both.
 torch's ``sum``/``cumsum`` widen int32 to int64, so every such result is
@@ -427,41 +435,46 @@ def _drop_set(x, idx, vals, dim=0):
     return padded.narrow(dim, 0, n).contiguous()
 
 
-def full_rescore(totals, avail, mask, reqs, thr_fp):
+def full_rescore(totals, avail, mask, reqs, thr_fp, offset=0):
     """(C, N) carried key tensor: every resident scheduling class scored
-    against every node."""
-    rows = torch.arange(totals.shape[0], dtype=_I32, device=totals.device)
+    against every node.  ``offset`` (0 in the JAX package) is added to
+    the row in the keys' low bits: a rank's first global row."""
+    rows = offset + torch.arange(totals.shape[0], dtype=_I32,
+                                 device=totals.device)
     return _keys(totals, avail, mask, reqs, thr_fp, rows)
 
 
-def _keys_cols(totals, avail, mask, reqs, idx, thr_fp):
+def _keys_cols(totals, avail, mask, reqs, idx, thr_fp, offset=0):
     """Key columns for the B nodes in ``idx`` against all C classes —
     the delta rescore costs (C, B) instead of (C, N).  Padding lanes
     (idx == N) gather the last row, as JAX's clamped gather does; their
     columns are dropped by the caller."""
     g = idx.long().clamp(0, totals.shape[0] - 1)
-    return _keys(totals[g], avail[g], mask[g], reqs, thr_fp, idx)
+    return _keys(totals[g], avail[g], mask[g], reqs, thr_fp,
+                 offset + idx.to(_I32))
 
 
 def apply_dirty_rows(totals, avail, mask, keys, reqs, idx,
-                     row_totals, row_avail, row_mask, thr_fp):
+                     row_totals, row_avail, row_mask, thr_fp, offset=0):
     """Scatter B dirty node rows into the device mirror and re-score ONLY
     the touched key columns.  ``idx`` entries == N are padding lanes.
-    Returns (totals, avail, mask, keys)."""
+    Returns (totals, avail, mask, keys), new tensors (the plain version
+    of ``beat_rows`` with ``rows``)."""
     totals = _drop_set(totals, idx, row_totals)
     avail = _drop_set(avail, idx, row_avail)
     mask = _drop_set(mask, idx, row_mask)
-    cols = _keys_cols(totals, avail, mask, reqs, idx, thr_fp)
+    cols = _keys_cols(totals, avail, mask, reqs, idx, thr_fp, offset)
     keys = _drop_set(keys, idx, cols, dim=1)
     return totals, avail, mask, keys
 
 
 def apply_dirty_classes(totals, avail, mask, keys, reqs, idx, class_reqs,
-                        thr_fp):
+                        thr_fp, offset=0):
     """Install B new/changed scheduling classes (slots ``idx``; padding
-    == C) and re-score their full key rows.  Returns (reqs, keys)."""
+    == C) and re-score their full key rows.  Returns (reqs, keys), new
+    tensors (the plain version of ``beat_rows`` with ``classes``)."""
     reqs = _drop_set(reqs, idx, class_reqs)
-    rows = full_rescore(totals, avail, mask, class_reqs, thr_fp)
+    rows = full_rescore(totals, avail, mask, class_reqs, thr_fp, offset)
     keys = _drop_set(keys, idx, rows)
     return reqs, keys
 
@@ -495,7 +508,21 @@ def fused_beat(totals, avail, mask, keys, reqs, class_slots, group_counts,
     this beat only (padding idx == N; the resident mirror is untouched).
     Returns (packed (G + C, N+1) int32 — rows [:G] the water-fill counts
     with the overflow column, rows [G:] the lease budgets with a zero
-    overflow column — and argmin_rows (C,) int32)."""
+    overflow column — and argmin_rows (C,) int32).
+
+    CPU tensors run the plain programs (the JAX package's, eagerly).
+    CUDA tensors run ``beat_rows`` (the overrides, mask and class
+    gather), ``waterfill_scan`` and ``beat_tail``: three launches."""
+    if totals.device.type != "cpu":
+        st = BeatState([totals], [avail], [mask], [reqs], [keys])
+        beat_rows(st, thr_fp, overrides=([ov_idx], [ov_avail]),
+                  extra_mask=[extra_mask],
+                  groups=([class_slots], [group_counts]))
+        g, n = class_slots.shape[0], totals.shape[0]
+        counts, av_fin = waterfill_scan(
+            totals, st.avail_eff[0], st.mask_eff[0], st.group_reqs[0][:g],
+            st.group_counts[0][:g], None, thr_fp, require_available)
+        return beat_tail(st, [counts[:, :n]], counts[:, n], [av_fin])
     avail_eff = _drop_set(avail, ov_idx, ov_avail)
     mask_eff = mask & extra_mask
     slots = class_slots.long().clamp(0, reqs.shape[0] - 1)
@@ -507,6 +534,487 @@ def fused_beat(totals, avail, mask, keys, reqs, class_slots, group_counts,
         [counts, torch.nn.functional.pad(budgets, (0, 1))], dim=0)
     amin = torch.argmin(keys, dim=1).to(_I32)
     return packed, amin
+
+
+# -- the delta beat's kernels (csrc/beat.cu) ----------------------------------
+#
+# The engines keep their residents in a BeatState and update them in place
+# (the port may, where JAX's arrays are immutable): the kernels write the
+# residents' memory, and the plain versions write their results into it,
+# so the pointers in the kernels' table stay valid from beat to beat.
+
+
+class BeatState:
+    """The residents of a delta heartbeat and its beat buffers, for one
+    rank or the S ranks of a row-sharded plane (rank k's node rows are
+    the global rows [k * n_l, (k + 1) * n_l)).  Every field is a list of
+    per-rank tensors in rank order, on one device:
+
+      totals/avail (n_l, R) int32, mask (n_l,) bool   the CRM mirror
+      reqs (C, R) int32                                the classes (a copy
+                                                       a rank; may be one
+                                                       tensor for all)
+      keys (C, n_l) int32                              the carried keys
+      avail_eff (n_l, R), mask_eff (n_l,)              this beat's, after
+                                                       overrides and the
+                                                       soft mask
+      group_reqs (>= G, R), group_counts (>= G,)       the scan's classes
+      xchg, scan_out                                   shard_scan's
+                                                       exchange areas and
+                                                       outputs (S ranks of
+                                                       one card)
+
+    The beat buffers are allocated stacked (each field's ranks equally
+    spaced) and grow with G; a state whose residents are replaced gets
+    its kernels' table rebuilt (``rank_table``)."""
+
+    def __init__(self, totals, avail, mask, reqs=None, keys=None):
+        self.totals, self.avail, self.mask = list(totals), list(avail), \
+            list(mask)
+        self.reqs = None if reqs is None else list(reqs)
+        self.keys = None if keys is None else list(keys)
+        self.avail_eff = self.mask_eff = None
+        self.group_reqs = self.group_counts = None
+        self.xchg = self.scan_out = None
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.totals)
+
+    @property
+    def n_local(self) -> int:
+        return self.totals[0].shape[0]
+
+    def offsets(self) -> list:
+        """Each rank's first global row."""
+        return [k * self.n_local for k in range(self.n_shards)]
+
+    def _empty(self, shape, dtype):
+        return torch.empty((self.n_shards, *shape), dtype=dtype,
+                           device=self.totals[0].device)
+
+    def alloc_keys(self) -> None:
+        """Fresh (C, n_l) key blocks for a full rescore to fill."""
+        self.keys = list(self._empty((self.reqs[0].shape[0], self.n_local),
+                                     _I32))
+
+    def ensure_beat_buffers(self, g: int) -> None:
+        n_l, r = self.totals[0].shape
+        if self.avail_eff is None or tuple(self.avail_eff[0].shape) != \
+                (n_l, r):
+            self.avail_eff = list(self._empty((n_l, r), _I32))
+            self.mask_eff = list(self._empty((n_l,), torch.bool))
+        if self.group_reqs is None or self.group_reqs[0].shape[0] < g or \
+                self.group_reqs[0].shape[1] != r:
+            cap = max(g, 8)
+            self.group_reqs = list(self._empty((cap, r), _I32))
+            self.group_counts = list(self._empty((cap,), _I32))
+
+    def ensure_scan_buffers(self, g: int, exchange_ints: int) -> None:
+        """shard_scan's outputs and exchange areas for G classes, kept
+        from beat to beat (``beat_rows`` zeroes the exchange areas)."""
+        n_l, r = self.totals[0].shape
+        out = self.scan_out
+        if out is None or out["alloc"].shape[1] < g or \
+                tuple(out["new_avail"].shape[1:]) != (n_l, r) or \
+                out["xchg"].shape[1] < exchange_ints:
+            cap = max(g, 8)
+            xchg = torch.zeros((self.n_shards, exchange_ints), dtype=_I32,
+                               device=self.totals[0].device)
+            self.scan_out = {"alloc": self._empty((cap, n_l), _I32),
+                             "new_avail": self._empty((n_l, r), _I32),
+                             "inf": torch.empty((cap,), dtype=_I32,
+                                                device=xchg.device),
+                             "xchg": xchg}
+            self.xchg = list(xchg)
+
+    def clone(self) -> "BeatState":
+        """A deep copy (the residents and the beat buffers)."""
+        out = BeatState.__new__(BeatState)
+        for name in ("totals", "avail", "mask", "reqs", "keys", "avail_eff",
+                     "mask_eff", "group_reqs", "group_counts", "xchg"):
+            xs = getattr(self, name)
+            setattr(out, name, None if xs is None
+                    else [x.clone() for x in xs])
+        out.scan_out = None if self.scan_out is None else \
+            {k: v.clone() for k, v in self.scan_out.items()}
+        return out
+
+
+_TABLES: dict = {}
+_TABLE_CAP = 16
+
+
+def rank_table(rows, device) -> torch.Tensor:
+    """The kernels' table of per-rank pointers on ``device``: ``rows`` is
+    one list of pointers (ints) a rank.  Built once per distinct table
+    (one host->device copy) and kept; a table whose tensors were
+    reallocated is a new table and is built anew (the oldest of more than
+    ``_TABLE_CAP`` is dropped).  ``rank_table.builds`` counts the
+    builds."""
+    key = (str(device), tuple(tuple(int(p) for p in r) for r in rows))
+    table = _TABLES.pop(key, None)
+    if table is None:
+        table = torch.tensor(rows, dtype=torch.int64).to(device,
+                                                         non_blocking=True)
+        rank_table.builds += 1
+        while len(_TABLES) >= _TABLE_CAP:
+            _TABLES.pop(next(iter(_TABLES)))
+    _TABLES[key] = table
+    return table
+
+
+rank_table.builds = 0
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def resident_table(st: BeatState) -> torch.Tensor:
+    """``rank_table`` of a BeatState's residents and beat buffers, in
+    ``csrc/beat.cu``'s RankRes order."""
+    def each(xs):
+        return [None] * st.n_shards if xs is None else xs
+    rows = [[_ptr(x) for x in per_rank] for per_rank in zip(
+        st.totals, st.avail, st.mask, each(st.keys), each(st.reqs),
+        each(st.avail_eff), each(st.mask_eff), each(st.group_reqs),
+        each(st.group_counts), each(st.xchg))]
+    return rank_table(rows, st.totals[0].device)
+
+
+def spaced(xs) -> list:
+    """Per-rank tensors ``xs`` as the kernels take them, rank k's at rank
+    0's address plus k times one step: ``xs`` itself when it is so (the
+    engines' staged upload, one tensor for every rank), else a stacked
+    copy."""
+    p0 = xs[0].data_ptr()
+    step = xs[1].data_ptr() - p0 if len(xs) > 1 else 0
+    if all(x.is_contiguous() and x.data_ptr() == p0 + k * step
+           for k, x in enumerate(xs)):
+        return list(xs)
+    return list(torch.stack([x.contiguous() for x in xs]))
+
+
+def _rank_step(name, xs, dtype, shape, dev, contiguous=True):
+    """(rank 0's pointer, bytes from one rank's to the next's) of ``xs``;
+    raises ``ValueError`` unless each is a ``dtype`` tensor of ``shape``
+    on ``dev`` (contiguous unless told), equally spaced."""
+    for x in xs:
+        if x.device != dev or x.dtype != dtype or \
+                tuple(x.shape) != tuple(shape) or \
+                (contiguous and not x.is_contiguous()):
+            raise ValueError(
+                f"{name} must be {'contiguous ' if contiguous else ''}"
+                f"{dtype} tensors of shape {tuple(shape)} on {dev}; got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    p0 = xs[0].data_ptr()
+    step = xs[1].data_ptr() - p0 if len(xs) > 1 else 0
+    if any(x.data_ptr() != p0 + k * step for k, x in enumerate(xs)):
+        raise ValueError(f"{name}: the ranks' tensors are not equally "
+                         f"spaced (one staged upload, or ``spaced``)")
+    return p0, step
+
+
+_ROW_FIELDS = ("idx", "rows_totals", "rows_avail", "rows_mask", "ov_idx",
+               "ov_avail", "extra_mask", "slots", "counts", "cls_idx",
+               "cls_reqs")
+_MODES = {"beat": 0, "classes": 1, "rescore": 2}
+_BEAT_LAYOUT = ("ctas", "threads", "tile_rows")
+
+
+class _RowsArgs(ctypes.Structure):
+    _fields_ = [("ptr", ctypes.c_void_p * len(_ROW_FIELDS)),
+                ("step", ctypes.c_longlong * len(_ROW_FIELDS))] + \
+        [(f, ctypes.c_int) for f in ("s", "n_l", "r", "c", "b", "bo", "g",
+                                      "bc", "thr_fp", "xchg_ints", "mode",
+                                      "eff")]
+
+
+class _TailArgs(ctypes.Structure):
+    _fields_ = [("alloc", ctypes.c_void_p), ("alloc_rank", ctypes.c_longlong),
+                ("inf", ctypes.c_void_p), ("av_fin", ctypes.c_void_p),
+                ("av_rank", ctypes.c_longlong), ("packed", ctypes.c_void_p),
+                ("amin", ctypes.c_void_p)] + \
+        [(f, ctypes.c_int) for f in ("alloc_row", "inf_stride", "s", "n_l",
+                                      "r", "c", "g")]
+
+
+def beat_inputs(views) -> dict:
+    """A staged beat's per-rank views (``policy.BeatBlob.views``) as
+    ``beat_rows`` takes them: ``rows``, ``overrides``, ``extra_mask``,
+    ``groups`` and the class install's ``classes``, None where the beat
+    has none."""
+    def pair(*names):
+        return tuple(views[k] for k in names) if names[0] in views else None
+    return {"rows": pair("idx", "rows_totals", "rows_avail", "rows_mask"),
+            "overrides": pair("ov_idx", "ov_avail"),
+            "extra_mask": views.get("extra_mask"),
+            "groups": pair("slots", "counts"),
+            "classes": pair("cls_idx", "cls_reqs")}
+
+
+def _mode_of(classes, rescore) -> str:
+    if rescore and classes is not None:
+        raise ValueError("beat_rows: classes and rescore are two calls")
+    return "rescore" if rescore else \
+        "classes" if classes is not None else "beat"
+
+
+def beat_rows_plain(state, thr_fp, rows=None, overrides=None,
+                    extra_mask=None, groups=None, classes=None,
+                    rescore=False):
+    """Plain version of ``beat_rows``: rank by rank, the functional
+    programs above (``full_rescore``, ``apply_dirty_classes``,
+    ``apply_dirty_rows``; ``fused_beat``'s overrides, mask and gather)
+    with the rank's first global row as the keys' offset, each result
+    written into ``state``'s tensors (and, as the kernel does, the
+    shard_scan exchange areas zeroed for the beat's scan)."""
+    mode = _mode_of(classes, rescore)
+    if groups is not None:
+        state.ensure_beat_buffers(groups[0][0].shape[0])
+    for k, off in enumerate(state.offsets()):
+        t, a, m, rq = state.totals[k], state.avail[k], state.mask[k], \
+            state.reqs[k]
+        if mode == "rescore":
+            state.keys[k].copy_(full_rescore(t, a, m, rq, thr_fp, off))
+            continue
+        if mode == "classes":
+            new_reqs, new_keys = apply_dirty_classes(
+                t, a, m, state.keys[k], rq, classes[0][k], classes[1][k],
+                thr_fp, off)
+            rq.copy_(new_reqs)
+            state.keys[k].copy_(new_keys)
+            continue
+        if rows is not None:
+            for dst, src in zip((t, a, m, state.keys[k]), apply_dirty_rows(
+                    t, a, m, state.keys[k], rq, *(x[k] for x in rows),
+                    thr_fp, off)):
+                dst.copy_(src)
+        if groups is not None:
+            a_eff = a if overrides is None else \
+                _drop_set(a, overrides[0][k], overrides[1][k])
+            state.avail_eff[k].copy_(a_eff)
+            state.mask_eff[k].copy_(m if extra_mask is None
+                                    else m & extra_mask[k])
+            slots, counts = groups[0][k], groups[1][k]
+            g = slots.shape[0]
+            state.group_reqs[k][:g].copy_(
+                rq[slots.long().clamp(0, rq.shape[0] - 1)])
+            state.group_counts[k][:g].copy_(counts)
+            if state.xchg is not None:
+                state.xchg[k].zero_()
+
+
+def beat_rows(state, thr_fp, rows=None, overrides=None, extra_mask=None,
+              groups=None, classes=None, rescore=False):
+    """The delta beat's prologue on ``state`` (a ``BeatState``), in
+    place, for every rank in one call.  Three calls:
+
+    - the beat: ``rows`` = (idx (B,) local rows, padding == n_l; row
+      totals (B, R); row avail (B, R); row mask (B,) bool) scattered into
+      the mirror, their key columns rescored against every class; with
+      ``groups`` = (slots (G,), counts (G,)), also this beat's avail_eff
+      (``overrides`` = (idx (Bo,), avail (Bo, R)) or None) and mask_eff
+      (mask & ``extra_mask`` (n_l,) bool, or mask), and the scan's
+      group_reqs/group_counts (and zeroed shard_scan exchange areas);
+    - ``classes`` = (slots (B,), padding == C; requests (B, R)): the
+      class install, request rows scattered and their key rows rescored;
+    - ``rescore=True``: every class against every node into ``keys``.
+
+    Each per-beat input is a per-rank list (rank k's at rank 0's address
+    plus k steps: ``spaced``).  CPU tensors take ``beat_rows_plain``;
+    CUDA tensors launch the hand-written kernel (``csrc/beat.cu``) once
+    or raise ``ValueError`` for what it does not take.
+    ``beat_rows.launches`` counts the launches (``launches_by_mode`` by
+    call) and ``beat_rows.last_layout`` holds the last one."""
+    dev = state.totals[0].device
+    if dev.type == "cpu":
+        return beat_rows_plain(state, thr_fp, rows, overrides, extra_mask,
+                               groups, classes, rescore)
+    if dev.type != "cuda":
+        raise ValueError(f"beat_rows: unsupported device {dev}")
+    _launch_rows(state, thr_fp, rows, overrides, extra_mask, groups,
+                 classes, rescore)
+
+
+def _launch_rows(state, thr_fp, rows, overrides, extra_mask, groups,
+                 classes, rescore):
+    """``beat_rows``' launch: checks, the arguments, the kernel."""
+    from . import _build
+
+    dev = state.totals[0].device
+    mode = _mode_of(classes, rescore)
+    s = state.n_shards
+    n_l, r = state.totals[0].shape
+    if state.reqs is None or state.keys is None:
+        raise ValueError("beat_rows: the state has no reqs or keys")
+    c = state.reqs[0].shape[0]
+    if not 1 <= s * n_l <= MAX_NODES:
+        raise ValueError(f"beat_rows: {s} x {n_l} nodes outside "
+                         f"[1, {MAX_NODES}]")
+    for name, xs, dtype, shape in (
+            ("totals", state.totals, _I32, (n_l, r)),
+            ("avail", state.avail, _I32, (n_l, r)),
+            ("mask", state.mask, torch.bool, (n_l,)),
+            ("reqs", state.reqs, _I32, (c, r)),
+            ("keys", state.keys, _I32, (c, n_l))):
+        if len(xs) != s:
+            raise ValueError(f"beat_rows: {len(xs)} {name} for {s} ranks")
+        for x in xs:
+            if x.device != dev or x.dtype != dtype or \
+                    tuple(x.shape) != shape or not x.is_contiguous():
+                raise ValueError(
+                    f"beat_rows: {name} must be contiguous {dtype} tensors "
+                    f"of shape {shape} on {dev}; got {x.dtype} "
+                    f"{tuple(x.shape)} on {x.device}")
+    args = _RowsArgs()
+    args.s, args.n_l, args.r, args.c = s, n_l, r, c
+    args.thr_fp, args.mode = int(thr_fp), _MODES[mode]
+    inputs = {}
+    g = 0
+    if mode == "classes":
+        b = classes[0][0].shape[0]
+        inputs.update(cls_idx=(classes[0], _I32, (b,)),
+                      cls_reqs=(classes[1], _I32, (b, r)))
+        args.bc = b
+    elif mode == "beat":
+        if rows is not None:
+            b = rows[0][0].shape[0]
+            inputs.update(idx=(rows[0], _I32, (b,)),
+                          rows_totals=(rows[1], _I32, (b, r)),
+                          rows_avail=(rows[2], _I32, (b, r)),
+                          rows_mask=(rows[3], torch.bool, (b,)))
+            args.b = b
+        if groups is not None:
+            g = groups[0][0].shape[0]
+            state.ensure_beat_buffers(g)
+            inputs.update(slots=(groups[0], _I32, (g,)),
+                          counts=(groups[1], _I32, (g,)))
+            if overrides is not None:
+                bo = overrides[0][0].shape[0]
+                inputs.update(ov_idx=(overrides[0], _I32, (bo,)),
+                              ov_avail=(overrides[1], _I32, (bo, r)))
+                args.bo = bo
+            if extra_mask is not None:
+                inputs["extra_mask"] = (extra_mask, torch.bool, (n_l,))
+            args.g, args.eff = g, 1
+            if state.xchg is not None:
+                args.xchg_ints = state.xchg[0].numel()
+    for name, (xs, dtype, shape) in inputs.items():
+        if len(xs) != s:
+            raise ValueError(f"beat_rows: {len(xs)} {name} for {s} ranks")
+        i = _ROW_FIELDS.index(name)
+        args.ptr[i], args.step[i] = _rank_step(f"beat_rows: {name}", xs,
+                                               dtype, shape, dev)
+    table = resident_table(state)
+    layout = (ctypes.c_int * len(_BEAT_LAYOUT))()
+    fn = _build.load("beat")
+    with torch.cuda.device(dev):
+        err = fn(table.data_ptr(), ctypes.addressof(args),
+                 ctypes.addressof(layout),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "beat")
+    _ROWS.launches += 1
+    _ROWS.launches_by_mode[mode] += 1
+    _ROWS.last_layout = dict(zip(_BEAT_LAYOUT, layout), mode=mode)
+
+
+beat_rows.launches = 0
+beat_rows.launches_by_mode = dict.fromkeys(_MODES, 0)
+beat_rows.last_layout = None
+# the wrappers that own the counters, whatever the module's names are
+# bound to (a timing script may swap in stand-ins)
+_ROWS = beat_rows
+
+
+def beat_tail_plain(state, alloc, inf, av_fin):
+    """Plain version of ``beat_tail``: ``fused_beat``'s tail (``_budgets``
+    rank by rank, the packing, ``torch.argmin`` of the keys) on one rank;
+    on S ranks the sharded reference's, the argmin as the min packed key
+    over the ranks (its low bits the global row; all-INF gives 0)."""
+    budgets = [_budgets(t, a, m, rq) for t, a, m, rq in
+               zip(state.totals, av_fin, state.mask_eff, state.reqs)]
+    counts = torch.cat([*alloc, inf[:, None]], dim=1)
+    packed = torch.cat(
+        [counts, torch.nn.functional.pad(torch.cat(budgets, dim=1),
+                                          (0, 1))], dim=0)
+    if state.n_shards == 1:
+        return packed, torch.argmin(state.keys[0], dim=1).to(_I32)
+    gmin = torch.stack([k.amin(dim=1) for k in state.keys]).amin(dim=0)
+    return packed, torch.where(gmin == _INF_KEY, 0,
+                               gmin & (MAX_NODES - 1)).to(_I32)
+
+
+def beat_tail(state, alloc, inf, av_fin):
+    """The delta beat's tail after the class scan, for every rank in one
+    call: returns (packed (G + C, S * n_l + 1) int32 — rows [:G] the
+    scan's counts, each rank's ``alloc`` (G, n_l) block in its columns
+    and ``inf`` (G,) in the last; rows [G:] the lease budgets of every
+    class slot off ``av_fin`` (n_l, R per rank) and ``state.mask_eff``,
+    a zero last column — and argmin (C,) int32, the first global row of
+    each class's least carried key, 0 where every key is INF).
+
+    ``alloc`` and ``av_fin`` are per-rank lists, equally spaced (rows of
+    ``alloc`` may be strided, as the columns of waterfill_scan's counts
+    are).  CPU tensors take ``beat_tail_plain``; CUDA tensors launch the
+    hand-written kernel (``csrc/beat.cu``) once or raise.
+    ``beat_tail.launches`` counts the launches and
+    ``beat_tail.last_layout`` holds the last one."""
+    dev = state.totals[0].device
+    if dev.type == "cpu":
+        return beat_tail_plain(state, alloc, inf, av_fin)
+    if dev.type != "cuda":
+        raise ValueError(f"beat_tail: unsupported device {dev}")
+    return _launch_tail(state, alloc, inf, av_fin)
+
+
+def _launch_tail(state, alloc, inf, av_fin):
+    """``beat_tail``'s launch: checks, the arguments, the kernel."""
+    from . import _build
+
+    dev = state.totals[0].device
+    s = state.n_shards
+    n_l, r = state.totals[0].shape
+    c = state.reqs[0].shape[0]
+    g = alloc[0].shape[0]
+    if len(alloc) != s or len(av_fin) != s or state.mask_eff is None:
+        raise ValueError(f"beat_tail: {len(alloc)} alloc and {len(av_fin)} "
+                         f"av_fin for {s} ranks (and a beat's mask_eff)")
+    args = _TailArgs()
+    args.alloc, args.alloc_rank = _rank_step(
+        "beat_tail: alloc", alloc, _I32, (g, n_l), dev, contiguous=False)
+    row = alloc[0].stride(0) if g else n_l
+    if any(x.stride(1) != 1 or (g and x.stride(0) != row) for x in alloc):
+        raise ValueError("beat_tail: alloc's rows must be contiguous, "
+                         "equally strided")
+    args.av_fin, args.av_rank = _rank_step("beat_tail: av_fin", av_fin, _I32,
+                                           (n_l, r), dev)
+    if inf.device != dev or inf.dtype != _I32 or tuple(inf.shape) != (g,):
+        raise ValueError(f"beat_tail: inf must be an int32 ({g},) tensor "
+                         f"on {dev}")
+    args.inf = inf.data_ptr()
+    args.alloc_row, args.inf_stride = row, inf.stride(0) if g else 1
+    args.s, args.n_l, args.r, args.c, args.g = s, n_l, r, c, g
+    packed = torch.empty((g + c, s * n_l + 1), dtype=_I32, device=dev)
+    amin = torch.empty((c,), dtype=_I32, device=dev)
+    args.packed, args.amin = packed.data_ptr(), amin.data_ptr()
+    table = resident_table(state)
+    layout = (ctypes.c_int * len(_BEAT_LAYOUT))()
+    fn = _build.load("beat", "rt_beat_tail")
+    with torch.cuda.device(dev):
+        err = fn(table.data_ptr(), ctypes.addressof(args),
+                 ctypes.addressof(layout),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "beat")
+    _TAIL.launches += 1
+    _TAIL.last_layout = dict(zip(_BEAT_LAYOUT, layout))
+    return packed, amin
+
+
+beat_tail.launches = 0
+beat_tail.last_layout = None
+_TAIL = beat_tail
 
 
 def schedule_grouped_np(totals, avail, node_mask, group_reqs, group_counts,

@@ -42,9 +42,15 @@ launch a scan, the ranks exchanging through global memory inside it.  Its
 plain version ``shard_scan_plain`` runs the scan rank by rank over a
 ``_Transport``; CPU ranks take it, and so do ranks on distinct cards, whose
 collectives are NCCL calls between the steps (``ShardPlane.scan_route``
-names the route the mesh chose).  The rest of the plane is plain PyTorch
-over each rank's tensors.  Everything stays int32 under the contract, so
-counts are bit-identical to ``schedule_grouped_oracle`` at any shard count.
+names the route the mesh chose).  On that route the rest of the beat is
+the two kernels of the single-device beat (``hybrid_kernel.beat_rows``
+and ``beat_tail``, ``csrc/beat.cu``), each launched once for every rank:
+the dirty rows, overrides and class gather before the scan, the packed
+counts and budgets and the cross-rank argmin after it, so a beat on one
+card makes no transport call.  CPU ranks and distinct cards run the
+per-rank plain programs with the transport's collectives.  Everything
+stays int32 under the contract, so counts are bit-identical to
+``schedule_grouped_oracle`` at any shard count.
 """
 
 from __future__ import annotations
@@ -233,17 +239,6 @@ def _keys_block(totals_l, avail_l, mask_l, reqs, thr_fp, offset):
     return hk._keys(totals_l, avail_l, mask_l, reqs, thr_fp, rows)
 
 
-def _keys_cols_block(totals_l, avail_l, mask_l, reqs, idx_l, thr_fp,
-                     offset):
-    """Key columns for the B LOCAL node rows in ``idx_l`` against all C
-    classes: (C, B).  Padding lanes (idx_l == n_local) gather the last
-    row, as JAX's clamped gather does, and are dropped by the caller's
-    scatter."""
-    g = idx_l.long().clamp(0, totals_l.shape[0] - 1)
-    return hk._keys(totals_l[g], avail_l[g], mask_l[g], reqs, thr_fp,
-                    offset + idx_l.to(_I32))
-
-
 def _i32sum(x):
     """int32 sum that wraps like XLA's, in one reduction."""
     return x.sum(dtype=_I32)
@@ -403,7 +398,7 @@ def shard_scan_plan(s: int, n_local: int, r: int,
 
 
 def shard_scan(totals, avail, mask, group_reqs, group_counts, group_masks,
-               thr_fp, require_available=False, transport=None):
+               thr_fp, require_available=False, transport=None, out=None):
     """The class scan of a row-sharded plane: G water-fills in order over
     the S ranks' rows, carrying avail, each class's sums, prefix and
     overflow argmin taken over every rank (the reference's
@@ -419,8 +414,15 @@ def shard_scan(totals, avail, mask, group_reqs, group_counts, group_masks,
     launch the hand-written kernel (``csrc/shard_scan.cu``), one
     cooperative launch for every rank, or raise: ``ValueError`` for what
     the kernel does not take, a mesh the card cannot hold at once
-    included.  ``shard_scan.launches`` counts the launches and
-    ``shard_scan.last_layout`` holds the last one (``shard_scan_plan``)."""
+    included.  ``out`` (CUDA only): the outputs and exchange areas to use,
+    kept by the caller from call to call (``BeatState.ensure_scan_buffers``:
+    alloc (S, >= G, n_local), new_avail (S, n_local, R), inf (>= G,) and
+    xchg (S, >= exchange_ints), the exchange areas zeroed by the caller on
+    the stream, as ``beat_rows`` does); else they are allocated and zeroed
+    here.  The table of per-rank pointers is built once per set of
+    pointers (``hybrid_kernel.rank_table``).  ``shard_scan.launches``
+    counts the launches and ``shard_scan.last_layout`` holds the last one
+    (``shard_scan_plan``)."""
     s = len(totals)
     dev = totals[0].device
     if dev.type == "cpu":
@@ -458,18 +460,30 @@ def shard_scan(totals, avail, mask, group_reqs, group_counts, group_masks,
             f"shard_scan: {s} ranks of {plan['cluster']} CTA(s) cannot all "
             f"be resident on {dev} (at most {plan['resident_ranks']}); "
             f"the ranks wait on each other inside the launch")
-    alloc = torch.empty((s, g, n_l), dtype=_I32, device=dev)
-    new_avail = torch.empty((s, n_l, r), dtype=_I32, device=dev)
-    inf = torch.empty((g,), dtype=_I32, device=dev)
-    xchg = torch.zeros((s, plan["exchange_ints"]), dtype=_I32, device=dev)
+    if out is None:
+        alloc = torch.empty((s, g, n_l), dtype=_I32, device=dev)
+        new_avail = torch.empty((s, n_l, r), dtype=_I32, device=dev)
+        inf = torch.empty((g,), dtype=_I32, device=dev)
+        xchg = torch.zeros((s, plan["exchange_ints"]), dtype=_I32,
+                           device=dev)
+    else:
+        alloc, new_avail = out["alloc"], out["new_avail"]
+        inf, xchg = out["inf"], out["xchg"]
+        if alloc.device != dev or tuple(alloc.shape[::2]) != (s, n_l) or \
+                alloc.shape[1] < g or tuple(new_avail.shape) != (s, n_l, r) \
+                or inf.shape[0] < g or xchg.shape[0] != s or \
+                xchg.shape[1] < plan["exchange_ints"]:
+            raise ValueError(f"shard_scan: out does not hold {s} ranks of "
+                             f"{g} classes x {n_l} x {r}")
+        alloc, inf = alloc[:, :g], inf[:g]
     # the kernel's table: one row of pointers a rank (RankPtrs)
-    table = torch.tensor(
+    table = hk.rank_table(
         [[totals[i].data_ptr(), avail[i].data_ptr(), mask[i].data_ptr(),
           group_reqs[i].data_ptr(), group_counts[i].data_ptr(),
           0 if group_masks is None else group_masks[i].data_ptr(),
           alloc[i].data_ptr(), new_avail[i].data_ptr(),
           inf.data_ptr() if i == 0 else 0, xchg[i].data_ptr()]
-         for i in range(s)], dtype=torch.int64).to(dev, non_blocking=True)
+         for i in range(s)], dev)
     layout = (ctypes.c_int * len(_LAYOUT_KEYS))()
     fn = _build.load("shard_scan")
     with torch.cuda.device(dev):
@@ -546,25 +560,44 @@ class ShardPlane:
         return [i * n_local for i in range(self.n_shards)]
 
     # -- the heartbeat's programs ---------------------------------------------
+    #
+    # On ranks of one card (scan_route "shard_scan") each program is the
+    # beat's kernels (hybrid_kernel.beat_rows / beat_tail), one launch for
+    # every rank, and the residents are updated in place and returned; CPU
+    # ranks and distinct cards run the per-rank plain programs, which return
+    # new tensors.
+
+    @property
+    def on_card(self) -> bool:
+        """Every rank on one card: the kernel route."""
+        return self.scan_route == "shard_scan"
+
     def full_rescore(self, totals, avail, mask, reqs, thr_fp) -> list:
         """(C, n_local) key columns of every rank."""
+        if self.on_card:
+            st = hk.BeatState(totals, avail, mask, reqs)
+            st.alloc_keys()
+            hk.beat_rows(st, thr_fp, rescore=True)
+            return st.keys
         off = self._offsets(totals[0].shape[0])
-        return [_keys_block(t, a, m, rq, thr_fp, o)
+        return [hk.full_rescore(t, a, m, rq, thr_fp, o)
                 for t, a, m, rq, o in zip(totals, avail, mask, reqs, off)]
 
     def apply_dirty_rows(self, totals, avail, mask, keys, reqs, idx,
                          row_totals, row_avail, row_mask, thr_fp):
         """Scatter each rank's dirty-row bucket into ITS rows and
         re-score only its touched key columns."""
+        if self.on_card:
+            st = hk.BeatState(totals, avail, mask, reqs, keys)
+            hk.beat_rows(st, thr_fp, rows=tuple(hk.spaced(x) for x in (
+                idx, row_totals, row_avail, row_mask)))
+            return st.totals, st.avail, st.mask, st.keys
         off = self._offsets(totals[0].shape[0])
         out = ([], [], [], [])
         for r, o in enumerate(off):
-            t = hk._drop_set(totals[r], idx[r], row_totals[r])
-            a = hk._drop_set(avail[r], idx[r], row_avail[r])
-            m = hk._drop_set(mask[r], idx[r], row_mask[r])
-            cols = _keys_cols_block(t, a, m, reqs[r], idx[r], thr_fp, o)
-            k = hk._drop_set(keys[r], idx[r], cols, dim=1)
-            for lst, x in zip(out, (t, a, m, k)):
+            for lst, x in zip(out, hk.apply_dirty_rows(
+                    totals[r], avail[r], mask[r], keys[r], reqs[r], idx[r],
+                    row_totals[r], row_avail[r], row_mask[r], thr_fp, o)):
                 lst.append(x)
         return out
 
@@ -572,20 +605,27 @@ class ShardPlane:
                             class_reqs, thr_fp):
         """Install B new classes (replicated reqs scatter) and re-score
         their key rows rank by rank.  Padding idx == C."""
+        if self.on_card:
+            st = hk.BeatState(totals, avail, mask, reqs, keys)
+            hk.beat_rows(st, thr_fp, classes=(hk.spaced(idx),
+                                              hk.spaced(class_reqs)))
+            return st.reqs, st.keys
         off = self._offsets(totals[0].shape[0])
         new_reqs, new_keys = [], []
         for r, o in enumerate(off):
-            new_reqs.append(hk._drop_set(reqs[r], idx[r], class_reqs[r]))
-            rows = _keys_block(totals[r], avail[r], mask[r], class_reqs[r],
-                               thr_fp, o)
-            new_keys.append(hk._drop_set(keys[r], idx[r], rows))
+            rq, k = hk.apply_dirty_classes(
+                totals[r], avail[r], mask[r], keys[r], reqs[r], idx[r],
+                class_reqs[r], thr_fp, o)
+            new_reqs.append(rq)
+            new_keys.append(k)
         return new_reqs, new_keys
 
     def _scan(self, totals, avail, mask, group_reqs, group_counts,
-              group_masks, thr_fp, require_available):
+              group_masks, thr_fp, require_available, out=None):
         """The class scan on the mesh's route (``scan_route``): returns
         (alloc (G, n_local) per rank, inf (G,) on the first rank, final
-        avail per rank)."""
+        avail per rank).  ``out``: the kernel's kept outputs
+        (``shard_scan``)."""
         self.last_scan_route = self.scan_route
         if self.scan_route == "nccl":
             return shard_scan_plain(self.transport, totals, avail, mask,
@@ -593,7 +633,59 @@ class ShardPlane:
                                     thr_fp, require_available)
         return shard_scan(totals, avail, mask, group_reqs, group_counts,
                           group_masks, thr_fp, require_available,
-                          transport=self.transport)
+                          transport=self.transport, out=out)
+
+    def _card_beat(self, st, thr_fp, require_available, rows=None,
+                   overrides=None, extra_mask=None, groups=None,
+                   classes=None):
+        """A beat on ranks of one card: ``beat_rows`` (the class install
+        first, where there is one), the ``shard_scan`` launch on the kept
+        buffers whose exchange areas ``beat_rows`` zeroed, ``beat_tail``."""
+        g = groups[0][0].shape[0]
+        n_l, r = st.totals[0].shape
+        st.ensure_scan_buffers(g, shard_scan_plan(
+            self.n_shards, n_l, r, require_available,
+            st.totals[0].device)["exchange_ints"])
+        if classes is not None:
+            hk.beat_rows(st, thr_fp, classes=classes)
+        hk.beat_rows(st, thr_fp, rows=rows, overrides=overrides,
+                     extra_mask=extra_mask, groups=groups)
+        alloc, inf, av_fin = self._scan(
+            st.totals, st.avail_eff, st.mask_eff,
+            [x[:g] for x in st.group_reqs], [x[:g] for x in st.group_counts],
+            None, thr_fp, require_available, st.scan_out)
+        return hk.beat_tail(st, alloc, inf, av_fin)
+
+    def beat(self, st, inputs, thr_fp, require_available=False):
+        """One heartbeat of ``ShardedDeltaScheduler`` on the residents
+        ``st`` (a ``hybrid_kernel.BeatState``): ``inputs`` holds the
+        per-rank views of the beat's staged upload (``slots``, ``counts``;
+        where the beat has them ``idx``/``rows_totals``/``rows_avail``/
+        ``rows_mask``, ``ov_idx``/``ov_avail``, ``extra_mask`` and the
+        class install's ``cls_idx``/``cls_reqs``).  The residents take the
+        dirty rows and classes.  Returns (packed, amin) on the first rank,
+        as ``fused_beat``."""
+        kw = hk.beat_inputs(inputs)
+        rows, classes, overrides, groups, em = (kw[k] for k in (
+            "rows", "classes", "overrides", "groups", "extra_mask"))
+        if self.on_card:
+            return self._card_beat(st, thr_fp, require_available, rows,
+                                   overrides, em, groups, classes)
+        if classes is not None:
+            st.reqs, st.keys = self.apply_dirty_classes(
+                st.totals, st.avail, st.mask, st.keys, st.reqs, *classes,
+                thr_fp)
+        if rows is not None:
+            st.totals, st.avail, st.mask, st.keys = self.apply_dirty_rows(
+                st.totals, st.avail, st.mask, st.keys, st.reqs, *rows,
+                thr_fp)
+        if overrides is None:
+            overrides = ([x[:0] for x in inputs["counts"]],
+                         [a[:0] for a in st.avail])
+        return self.fused_beat(st.totals, st.avail, st.mask, st.keys,
+                               st.reqs, *groups,
+                               st.mask if em is None else em, *overrides,
+                               thr_fp, require_available)
 
     def schedule_grouped(self, totals, avail, node_mask, group_reqs,
                          group_counts, group_masks, thr_fp,
@@ -647,11 +739,21 @@ class ShardPlane:
         mask, the G-class water-fill scan with two-level collectives,
         each rank's lease budgets priced off its own rows' final avail
         (``contract.compute_budgets``; node-local, so sharding it is
-        exact), and the carried-key argmin via the ici->dcn pmin.
+        exact), and the carried-key argmin via the ici->dcn pmin.  On
+        ranks of one card: ``beat_rows``, ``shard_scan`` and
+        ``beat_tail``, no transport call (the residents are not
+        changed).
 
         Returns (packed (G + C, N+1) int32 on the first rank: rows [:G]
         the counts with the overflow column, rows [G:] the budgets;
         amin (C,) int32 on the first rank)."""
+        if self.on_card:
+            st = hk.BeatState(totals, avail, mask, reqs, keys)
+            return self._card_beat(
+                st, thr_fp, require_available,
+                overrides=(hk.spaced(ov_idx), hk.spaced(ov_avail)),
+                extra_mask=hk.spaced(extra_mask),
+                groups=(hk.spaced(class_slots), hk.spaced(group_counts)))
         a_eff = [hk._drop_set(a, i, v)
                  for a, i, v in zip(avail, ov_idx, ov_avail)]
         m_eff = [m & e for m, e in zip(mask, extra_mask)]

@@ -503,6 +503,8 @@ class HeadNode:
         if hk is not None:
             launches["waterfill_scan"] = hk.waterfill_scan.launches
             launches["localized"] = hk.waterfill_scan.localized_launches
+            launches["beat_rows"] = hk.beat_rows.launches
+            launches["beat_tail"] = hk.beat_tail.launches
         bp = sys.modules.get("ray_tpu_torch.ops.binpack_kernel")
         if bp is not None:
             launches["binpack_launch_loop"] = \

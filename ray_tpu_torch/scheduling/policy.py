@@ -236,6 +236,67 @@ class _StageSlot:
         self.events: list = []
 
 
+# a beat's staged inputs, in section order (name, stored as bytes)
+_BLOB_FIELDS = (("slots", False), ("counts", False), ("cls_idx", False),
+                ("cls_reqs", False), ("idx", False), ("rows_totals", False),
+                ("rows_avail", False), ("ov_idx", False), ("ov_avail", False),
+                ("rows_mask", True), ("extra_mask", True))
+
+
+class BeatBlob:
+    """One beat's staged inputs on the host: a section of int32 words a
+    rank, each field at the same offset in every section (booleans as
+    bytes at a word-aligned offset), sections of a multiple of 16 bytes.
+    The upload is one copy a card, and rank k's view of a field is rank
+    0's plus k sections, as ``hybrid_kernel.beat_rows`` takes them.
+
+    Fields (each a per-rank list of arrays of one shape; absent where the
+    beat has none): ``slots``/``counts`` (G,) the beat's classes (every
+    rank's copy), ``cls_idx`` (B,)/``cls_reqs`` (B, R) a class install,
+    ``idx`` (B,) local rows (padding == n_local)/``rows_totals``/
+    ``rows_avail`` (B, R)/``rows_mask`` (B,) the rank's dirty rows,
+    ``ov_idx``/``ov_avail`` its overrides, ``extra_mask`` (n_local,) its
+    soft mask."""
+
+    def __init__(self, fields: dict):
+        self.layout: dict = {}
+        off = 0
+        for name, as_bytes in _BLOB_FIELDS:
+            parts = fields.get(name)
+            if parts is None:
+                continue
+            shape = tuple(np.shape(parts[0]))
+            n = int(np.prod(shape))
+            self.layout[name] = (off, shape, as_bytes)
+            off += (n + 3) // 4 if as_bytes else n
+        self.words = max(4, -(-off // 4) * 4)
+        self.host = np.zeros((len(fields["slots"]), self.words), np.int32)
+        for name, (o, shape, as_bytes) in self.layout.items():
+            n = int(np.prod(shape))
+            for k, arr in enumerate(fields[name]):
+                if as_bytes:
+                    self.host[k].view(np.uint8)[4 * o:4 * o + n] = \
+                        np.asarray(arr, bool).reshape(-1)
+                else:
+                    self.host[k, o:o + n] = \
+                        np.asarray(arr, np.int32).reshape(-1)
+
+    def views(self, sections) -> dict:
+        """{field: per-rank list of tensors}, views of the uploaded
+        sections (one int32 tensor of ``words`` a rank)."""
+        import torch
+        out = {}
+        for name, (o, shape, as_bytes) in self.layout.items():
+            n = int(np.prod(shape))
+            if as_bytes:
+                out[name] = [sec[o:o + (n + 3) // 4].view(torch.uint8)[:n]
+                             .view(torch.bool).view(shape)
+                             for sec in sections]
+            else:
+                out[name] = [sec[o:o + n].view(shape) for sec in sections]
+        return out
+
+
 class DeltaScheduler:
     """Device-resident delta-scheduling heartbeat engine (torch).
 
@@ -243,31 +304,35 @@ class DeltaScheduler:
     CRM's dense state (totals/avail/placement mask), the interned
     scheduling class request matrix, and a carried (classes x nodes)
     packed-key tensor bit-identical to ``contract.compute_keys`` on the
-    mirror.  Each ``beat``:
+    mirror (an ``ops.hybrid_kernel.BeatState``).  Each ``beat``:
 
     1. asks the CRM what changed since the last synced epoch
-       (``ClusterResourceManager.delta_view``), stages ONLY the dirty
-       rows host->device through one of two pinned staging slots
-       (double buffering: a slot is rewritten only after the CUDA event
-       of its previous copy has fired, so the host never blocks on the
-       copy it just enqueued), and re-scores only the touched key
-       columns (``ops.hybrid_kernel.apply_dirty_rows``);
-    2. falls back to a full re-upload + ``full_rescore`` when the dirty
-       fraction crosses ``scheduler_delta_max_dirty_fraction``, the
-       journal was truncated, array shapes grew, or the spread
-       threshold changed;
-    3. runs the fused water-fill + per-class argmin
-       (``ops.hybrid_kernel.fused_beat``, one ``waterfill_scan`` kernel
-       launch) with this beat's ephemeral avail overrides (planned-load
-       debits) and soft mask (suspect avoidance) — ONE device->host
-       readback per beat, not one per class.  The packed buffer carries
-       the water-fill counts AND the per-(class, node) lease budgets
-       priced off the post-beat avail (``contract.compute_budgets``
-       twin); the lease plane reads them via
-       ``last_budgets``/``budget_row_host`` without another sync.
+       (``ClusterResourceManager.delta_view``) and stages ONLY the dirty
+       rows, with the beat's classes, overrides, soft mask and any fresh
+       class rows, into one host blob (``BeatBlob``), uploaded in ONE
+       copy through one of two pinned staging slots (double buffering: a
+       slot is rewritten only after the CUDA event of its previous copy
+       has fired, so the host never blocks on the copy it just
+       enqueued);
+    2. falls back to a full re-upload + rescore when the dirty fraction
+       crosses ``scheduler_delta_max_dirty_fraction``, the journal was
+       truncated, array shapes grew, or the spread threshold changed;
+    3. runs the beat on the device: ``hybrid_kernel.beat_rows`` (the
+       dirty rows scattered into the mirror and their key columns
+       rescored, this beat's ephemeral avail overrides (planned-load
+       debits) and soft mask (suspect avoidance), the class gather), one
+       ``waterfill_scan`` launch, and ``beat_tail`` (the packed counts,
+       the per-(class, node) lease budgets priced off the post-beat avail
+       (``contract.compute_budgets`` twin) and the per-class argmin) —
+       ONE device->host readback per beat, not one per class.  The lease
+       plane reads the budgets via ``last_budgets``/``budget_row_host``
+       without another sync.
 
-    Placements are advisory exactly like the snapshot path: the CRM
-    stays authoritative, commits happen through ``subtract`` at
+    On the card that is three kernels a steady beat, and the residents
+    are updated in place (the kernels' table of pointers is rebuilt only
+    when a resident is reallocated: a full sync, width growth, a larger
+    class axis).  Placements are advisory exactly like the snapshot path:
+    the CRM stays authoritative, commits happen through ``subtract`` at
     dispatch, which marks the rows dirty for the next beat.  Counts are
     bit-identical to ``schedule_grouped`` on a fresh snapshot.
 
@@ -283,13 +348,7 @@ class DeltaScheduler:
         self._device = resolve_device(device)
         self._version = -2          # pre-first-sync sentinel (< any epoch)
         self._thr: int | None = None
-        # device residents
-        self._totals = None
-        self._avail = None
-        self._mask = None
-        self._keys = None
-        self._reqs = None
-        self._ones = None           # resident all-true extra mask
+        self._st = None             # the device residents (BeatState)
         self._n = 0                 # padded node axis
         self._r = 0                 # padded resource axis
         self._cap_c = 0             # padded class axis
@@ -303,8 +362,9 @@ class DeltaScheduler:
         # double-buffered staging (pinned host slots on CUDA)
         self._stage = [_StageSlot(), _StageSlot()]
         self._parity = 0
-        self._empty_ov = None
         self._last_amin = None
+        # this beat's staged dirty rows and class install (host arrays)
+        self._pending: dict = {}
         # beat-emitted lease budgets: host (C_real, n_real) slice of the
         # packed readback, refreshed every beat; seq lets the publisher
         # tell "new beat" from "same beat re-read"
@@ -345,18 +405,21 @@ class DeltaScheduler:
             self._crm.delta_view(self._version)
         n_real, r_real = totals.shape
         cfg = get_config()
-        resync = (rows is None or self._totals is None
+        resync = (rows is None or self._st is None
                   or thr != self._thr or n_real != self._n_real
                   or r_real != self._r_real)
         if not resync and rows and len(rows) > \
                 cfg.scheduler_delta_max_dirty_fraction * n_real:
             # the fallback knob: 0.0 disables the delta path entirely
             resync = True
+        self._pending = {}
+        t0 = time.perf_counter() if self.profile else 0.0
         if resync:
             self._full_sync(totals, avail, place_mask, thr)
             self.stats["full_rescores"] += 1
+            t0 = time.perf_counter() if self.profile else 0.0
         elif rows:
-            self._delta_sync(sorted(rows), totals, avail, place_mask, thr)
+            self._stage_rows(sorted(rows), totals, avail, place_mask)
             self.stats["delta_beats"] += 1
             self.stats["rows_uploaded"] += len(rows)
         else:
@@ -364,7 +427,6 @@ class DeltaScheduler:
         self._version = v
         self.stats["beats"] += 1
 
-        t0 = time.perf_counter() if self.profile else 0.0
         group_reqs = np.ascontiguousarray(
             np.asarray(group_reqs, np.int32))
         g = group_reqs.shape[0]
@@ -381,25 +443,23 @@ class DeltaScheduler:
         slots_p[:g] = slots
         counts_p = np.zeros((gp,), np.int32)
         counts_p[:g] = np.asarray(group_counts, np.int32)
-
-        ov = self._pack_overrides(overrides)
-        if extra_mask is None:
-            em = self._ones
-        else:
+        fields = dict(self._pending)
+        s = self._n_ranks()
+        fields["slots"] = [slots_p] * s
+        fields["counts"] = [counts_p] * s
+        if overrides:
+            self._stage_overrides(overrides, fields)
+        if extra_mask is not None:
             emp = np.zeros((self._n,), bool)
             emp[:n_real] = np.asarray(extra_mask, bool)[:n_real]
-            em = self._put_extra_mask(emp)
+            fields["extra_mask"] = np.split(emp, s)
+        blob = BeatBlob(fields)
         if self.profile:
             self.phase_ms["densify"] += (time.perf_counter() - t0) * 1e3
-            t0 = time.perf_counter()
 
-        counts_d, amin_d = self._fused_call(
-            slots_p, counts_p, em, ov, thr, require_available)
+        counts_d, amin_d = self._device_beat(blob, thr, require_available)
         self._last_amin = amin_d
-        if self.profile:
-            self._sync()
-            self.phase_ms["argmin"] += (time.perf_counter() - t0) * 1e3
-            t0 = time.perf_counter()
+        t0 = time.perf_counter() if self.profile else 0.0
         # the one sanctioned host<-device readback of the beat: rows
         # [:gp] are the water-fill counts, rows [gp:] the lease budgets
         packed = self._d2h(counts_d)
@@ -434,7 +494,7 @@ class DeltaScheduler:
         readback)."""
         key = np.ascontiguousarray(
             np.asarray(req_vec, np.int32)).tobytes()
-        row = self._d2h(self._keys[self._slot_of[key]])
+        row = self._d2h(self._st.keys[0][self._slot_of[key]])
         return row[:self._n_real].astype(np.int64)
 
     def peek_argmin(self, req_vec) -> int:
@@ -527,46 +587,75 @@ class DeltaScheduler:
         self._parity ^= 1
         return tuple(out)
 
-    # -- device-layout hooks (the sharded engine overrides these) -----------
-    def _put_extra_mask(self, emp):
-        """Device placement of a padded per-beat soft mask."""
-        return self._h2d(emp)[0]
+    def _upload(self, blob: BeatBlob) -> dict:
+        """The beat's one upload a card: the blob's sections to the ranks'
+        device(s); returns its per-rank views."""
+        ranks = self._rank_devices()
+        if len(set(ranks)) == 1:
+            (dev_blob,) = self._h2d(blob.host.reshape(-1),
+                                    devices=ranks[:1])
+            sections = list(dev_blob.view(len(ranks), blob.words))
+        else:
+            sections = list(self._h2d(*blob.host, devices=ranks))
+        return blob.views(sections)
 
-    def _fused_call(self, slots_p, counts_p, em, ov, thr,
-                    require_available):
-        """The fused schedule->argmin device call; returns
-        (packed_device (G+C, n+1), amin_device (C,))."""
+    def _phase(self, name, t0) -> float:
+        """Profile mode: sync, book the time since ``t0`` to phase
+        ``name``, and return a new start."""
+        if not self.profile:
+            return 0.0
+        self._sync()
+        self.phase_ms[name] += (time.perf_counter() - t0) * 1e3
+        return time.perf_counter()
+
+    # -- device-layout hooks (the sharded engine overrides these) -----------
+    def _n_ranks(self) -> int:
+        return 1
+
+    def _rank_devices(self) -> list:
+        return [self._device]
+
+    def _n_local(self) -> int:
+        return self._n
+
+    def _device_beat(self, blob, thr, require_available):
+        """The beat on the device: one upload, ``beat_rows`` (after a
+        class install where there is one), the water-fill, ``beat_tail``.
+        Returns (packed_device (G+C, n+1), amin_device (C,))."""
         from ..ops import hybrid_kernel as hk
-        slots_d, counts_d = self._h2d(slots_p, counts_p)
-        return hk.fused_beat(
-            self._totals, self._avail, self._mask, self._keys, self._reqs,
-            slots_d, counts_d, em, ov[0], ov[1], thr,
-            require_available=require_available)
+        t0 = time.perf_counter() if self.profile else 0.0
+        v = self._upload(blob)
+        t0 = self._phase("h2d", t0)
+        st = self._st
+        kw = hk.beat_inputs(v)
+        classes = kw.pop("classes")
+        if classes is not None:
+            hk.beat_rows(st, thr, classes=classes)
+        hk.beat_rows(st, thr, **kw)
+        t0 = self._phase("score", t0)
+        g, n = v["slots"][0].shape[0], self._n
+        counts, av_fin = hk.waterfill_scan(
+            st.totals[0], st.avail_eff[0], st.mask_eff[0],
+            st.group_reqs[0][:g], st.group_counts[0][:g], None, thr,
+            require_available)
+        out = hk.beat_tail(st, [counts[:, :n]], counts[:, n], [av_fin])
+        self._phase("argmin", t0)
+        return out
 
     def _put_state(self, ht, ha, hm):
-        """Place the padded mirror arrays (+ the resident all-true
-        mask); called by _full_sync after shape bookkeeping."""
-        self._totals = self._put(ht)
-        self._avail = self._put(ha)
-        self._mask = self._put(hm)
-        self._ones = self._put(np.ones(hm.shape, bool))
+        """Place the padded mirror arrays; called by _full_sync after
+        shape bookkeeping."""
+        from ..ops import hybrid_kernel as hk
+        self._st = hk.BeatState([self._put(ht)], [self._put(ha)],
+                                [self._put(hm)])
 
     def _put_reqs(self, hr):
-        self._reqs = self._put(hr)
+        self._st.reqs = [self._put(hr)]
 
     def _full_rescore_call(self, thr):
         from ..ops import hybrid_kernel as hk
-        return hk.full_rescore(self._totals, self._avail, self._mask,
-                               self._reqs, thr)
-
-    def _install_classes(self, idx, vecs, thr):
-        """Install freshly interned class rows (host idx/vec buffers)
-        into the resident request matrix + key tensor."""
-        from ..ops import hybrid_kernel as hk
-        idx_d, vecs_d = self._h2d(idx, vecs)
-        self._reqs, self._keys = hk.apply_dirty_classes(
-            self._totals, self._avail, self._mask, self._keys,
-            self._reqs, idx_d, vecs_d, thr)
+        self._st.alloc_keys()
+        hk.beat_rows(self._st, thr, rescore=True)
 
     def _node_pad(self, n_real: int) -> int:
         """Padded node-axis length (power-of-2 bucket, floor 64)."""
@@ -597,43 +686,58 @@ class DeltaScheduler:
         self._n, self._r = n, r
         self._n_real, self._r_real = n_real, r_real
         self._put_state(ht, ha, hm)
-        self._empty_ov = None
-        if self.profile:
-            self._sync()
-            self.phase_ms["h2d"] += (time.perf_counter() - t0) * 1e3
-            t0 = time.perf_counter()
+        t0 = self._phase("h2d", t0)
         self._rebuild_class_plane(thr, rescore=False)
-        self._keys = self._full_rescore_call(thr)
-        if self.profile:
-            self._sync()
-            self.phase_ms["score"] += (time.perf_counter() - t0) * 1e3
+        self._full_rescore_call(thr)
+        self._phase("score", t0)
         self._thr = thr
 
-    def _delta_sync(self, rows, totals, avail, mask, thr):
-        from ..ops import hybrid_kernel as hk
-        t0 = time.perf_counter() if self.profile else 0.0
-        b = _bucket(len(rows))
-        idx = np.full((b,), self._n, np.int32)   # padding idx -> dropped
-        idx[:len(rows)] = rows
-        rt = np.zeros((b, self._r), np.int32)
-        ra = np.zeros((b, self._r), np.int32)
-        rm = np.zeros((b,), bool)
-        rt[:len(rows), :self._r_real] = totals[rows]
-        ra[:len(rows), :self._r_real] = avail[rows]
-        rm[:len(rows)] = mask[rows]
-        # double-buffered staging: write the free pinned slot, enqueue
-        # the copies; no host block here
-        staged = self._h2d(idx, rt, ra, rm)
-        if self.profile:
-            self._sync()
-            self.phase_ms["h2d"] += (time.perf_counter() - t0) * 1e3
-            t0 = time.perf_counter()
-        self._totals, self._avail, self._mask, self._keys = \
-            hk.apply_dirty_rows(self._totals, self._avail, self._mask,
-                                self._keys, self._reqs, *staged, thr)
-        if self.profile:
-            self._sync()
-            self.phase_ms["score"] += (time.perf_counter() - t0) * 1e3
+    def _shard_buckets(self, rows):
+        """Group global rows into per-rank buckets, padded to a common
+        power-of-2 width so each rank's section holds one fixed-shape
+        (B,)/(B, R) block of ITS rows only."""
+        s = self._n_ranks()
+        n_l = self._n_local()
+        buckets: list[list[int]] = [[] for _ in range(s)]
+        for r in rows:
+            buckets[r // n_l].append(r)
+        b = _bucket(max(max((len(bk) for bk in buckets), default=0), 1))
+        return buckets, b, n_l
+
+    def _stage_rows(self, rows, totals, avail, mask):
+        """This beat's dirty rows into per-rank host buckets (local row
+        indices; padding == n_local, dropped on the device)."""
+        buckets, b, n_l = self._shard_buckets(rows)
+        idx, rt, ra, rm = [], [], [], []
+        for si, bk in enumerate(buckets):
+            i = np.full((b,), n_l, np.int32)
+            t = np.zeros((b, self._r), np.int32)
+            a = np.zeros((b, self._r), np.int32)
+            m = np.zeros((b,), bool)
+            i[:len(bk)] = np.asarray(bk, np.int64) - si * n_l
+            t[:len(bk), :self._r_real] = totals[bk]
+            a[:len(bk), :self._r_real] = avail[bk]
+            m[:len(bk)] = mask[bk]
+            for lst, x in zip((idx, rt, ra, rm), (i, t, a, m)):
+                lst.append(x)
+        self._pending.update(idx=idx, rows_totals=rt, rows_avail=ra,
+                             rows_mask=rm)
+
+    def _stage_overrides(self, overrides, fields):
+        """This beat's overrides into per-rank host buckets."""
+        buckets, b, n_l = self._shard_buckets(sorted(overrides))
+        idx, av = [], []
+        for si, bk in enumerate(buckets):
+            i = np.full((b,), n_l, np.int32)
+            a = np.zeros((b, self._r), np.int32)
+            for j, row in enumerate(bk):
+                vec = np.asarray(overrides[row], np.int32)
+                i[j] = row - si * n_l
+                w = min(self._r, len(vec))
+                a[j, :w] = vec[:w]
+            idx.append(i)
+            av.append(a)
+        fields.update(ov_idx=idx, ov_avail=av)
 
     def _rebuild_class_plane(self, thr, rescore=True):
         cap = _bucket(max(self._next_slot, 1))
@@ -643,7 +747,7 @@ class DeltaScheduler:
         self._cap_c = cap
         self._put_reqs(hr)
         if rescore:
-            self._keys = self._full_rescore_call(thr)
+            self._full_rescore_call(thr)
 
     def _ensure_classes(self, group_reqs, thr) -> np.ndarray:
         slots = np.empty((group_reqs.shape[0],), np.int32)
@@ -665,29 +769,17 @@ class DeltaScheduler:
             if max(s for s, _ in fresh) >= self._cap_c:
                 self._rebuild_class_plane(thr)   # class axis grew
             else:
+                # staged with the beat: beat_rows installs the rows and
+                # rescores them before the beat's own launch
                 b = _bucket(len(fresh))
                 idx = np.full((b,), self._cap_c, np.int32)
                 vecs = np.zeros((b, self._r), np.int32)
                 for j, (slot, vec) in enumerate(fresh):
                     idx[j] = slot
                     vecs[j, :vec.shape[0]] = vec
-                self._install_classes(idx, vecs, thr)
+                s = self._n_ranks()
+                self._pending.update(cls_idx=[idx] * s, cls_reqs=[vecs] * s)
         return slots
-
-    def _pack_overrides(self, overrides):
-        if not overrides:
-            if self._empty_ov is None:
-                self._empty_ov = (
-                    self._put(np.full((8,), self._n, np.int32)),
-                    self._put(np.zeros((8, self._r), np.int32)))
-            return self._empty_ov
-        b = _bucket(len(overrides))
-        idx = np.full((b,), self._n, np.int32)
-        av = np.zeros((b, self._r), np.int32)
-        for j, (row, vec) in enumerate(sorted(overrides.items())):
-            idx[j] = row
-            av[j, :len(vec)] = np.asarray(vec, np.int32)
-        return self._h2d(idx, av)
 
 
 class CompositeSchedulingPolicy(ISchedulingPolicy):

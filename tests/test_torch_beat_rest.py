@@ -1,0 +1,598 @@
+"""The rest of the delta heartbeat: ``beat_rows`` and ``beat_tail``
+(``ray_tpu_torch/ops/csrc/beat.cu``) as a numpy model of the two kernels'
+own decomposition, held bit for bit to the JAX package's programs and to
+the port's plain versions.
+
+The model is the kernels' work written out: ``beat_rows`` a CTA per (node
+tile of 256 rows, rank), each scattering the dirty rows that land in its
+tile into the residents in place, rescoring their key columns (the low
+bits the global row), writing the tile's avail_eff and mask_eff, the first
+tile of each rank gathering the scan's classes; the class install and the
+full rescore the same tiles with other index sets; ``beat_tail`` the packed
+(G + C, N + 1) readback written tile by tile and the per-class argmin as
+the min of packed 64-bit (key, global row) values over every rank.  It is
+held to ``ray_tpu/ops/hybrid_kernel.py`` (``full_rescore``,
+``apply_dirty_rows``, ``apply_dirty_classes``, ``fused_beat``) and to the
+reference's ``ShardPlane`` programs on the 8 virtual CPU devices of
+``tests/conftest.py`` at 1, 2, 4 and 8 ranks, with padding lanes, an
+all-INF key row, negative overrides, an all-false soft mask, padded class
+slots and ``require_available``.  The kernels themselves are held to the
+plain versions on the card by ``tests/test_torch_cuda.py``."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import ray_tpu.ops.hybrid_kernel as ref_hk
+import ray_tpu.ops.shard_reduce as ref_sr
+from ray_tpu.scheduling import DeltaScheduler as RefDelta
+from ray_tpu.scheduling import ShardedDeltaScheduler as RefSharded
+from ray_tpu_torch.common.config import Config as PortConfig
+from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops import hybrid_kernel as hk
+from ray_tpu_torch.scheduling import DeltaScheduler as PortDelta
+from ray_tpu_torch.scheduling import ShardedDeltaScheduler as PortSharded
+from ray_tpu_torch.scheduling.policy import BeatBlob
+from test_torch_delta import Twin, _assert_beat_equal, _specs
+
+SCALE = 1 << 12
+SCORE_SHIFT = 13
+AVAIL_SHIFT = 27
+INF_KEY = 2**31 - 1
+BUDGET_CAP = 1 << 15
+TILE = 256                       # csrc/beat.cu kTile
+MESHES = [(1, "flat"), (2, "two_level"), (4, "flat"), (8, "two_level")]
+
+
+@pytest.fixture(autouse=True)
+def _fresh_port_config():
+    PortConfig.reset()
+    yield
+    PortConfig.reset()
+
+
+# -- the model ------------------------------------------------------------------
+
+def _i32(x):
+    """int32 wrap (the kernels' uint32 arithmetic, cast back)."""
+    return (np.asarray(x, np.int64) + 2**31) % 2**32 - 2**31
+
+
+def model_key(t, a, live, q, thr, rows):
+    """beat.cu key_of over rows: t/a (B, R), live (B,), one request q
+    (R,), rows (B,) global rows.  (B,) int32."""
+    t, a = np.asarray(t, np.int64), np.asarray(a, np.int64)
+    feas = np.asarray(live, bool).copy()
+    availb = np.ones(len(rows), bool)
+    s = np.zeros(len(rows), np.int64)
+    for col in np.flatnonzero(q > 0):
+        qc = int(q[col])
+        feas &= t[:, col] >= qc
+        availb &= a[:, col] >= qc
+        num = _i32(_i32(_i32(t[:, col] - a[:, col]) + qc) * SCALE)
+        s = np.maximum(s, num // np.maximum(t[:, col], 1))
+    eff = np.where(availb & (s < thr), 0, s)
+    key = ((~availb).astype(np.int64) << AVAIL_SHIFT) \
+        | (eff << SCORE_SHIFT) | np.asarray(rows, np.int64)
+    return np.where(feas, _i32(key & 0xffffffff), INF_KEY).astype(np.int32)
+
+
+def model_budget(t, a, live, q):
+    """beat.cu budget_of over rows."""
+    feas = np.asarray(live, bool).copy()
+    fill = np.full(len(t), BUDGET_CAP, np.int64)
+    for col in np.flatnonzero(q > 0):
+        feas &= t[:, col] >= q[col]
+        fill = np.minimum(fill, np.maximum(a[:, col], 0) // int(q[col]))
+    return np.where(feas, fill, 0).astype(np.int32)
+
+
+def model_state(totals, avail, mask, reqs, keys, s):
+    """Per-rank numpy residents (each rank its own copy of reqs)."""
+    def split(x):
+        return [np.array(b) for b in np.split(np.asarray(x), s)]
+    return {"totals": split(totals), "avail": split(avail),
+            "mask": split(mask), "reqs": [np.array(reqs) for _ in range(s)],
+            "keys": [np.array(b) for b in np.split(np.asarray(keys), s,
+                                                   axis=1)]}
+
+
+def model_rows(st, thr, rows=None, overrides=None, extra_mask=None,
+               groups=None, classes=None, rescore=False):
+    """beat_rows, CTA by CTA, in place on ``st``."""
+    s = len(st["totals"])
+    n_l = st["totals"][0].shape[0]
+    c = st["reqs"][0].shape[0]
+    if groups is not None:
+        g = len(groups[0][0])
+        st["avail_eff"] = [np.zeros_like(a) for a in st["avail"]]
+        st["mask_eff"] = [np.zeros_like(m) for m in st["mask"]]
+        st["group_reqs"] = [np.zeros((g, q.shape[1]), np.int32)
+                            for q in st["reqs"]]
+        st["group_counts"] = [np.zeros(g, np.int32) for _ in range(s)]
+    for k in range(s):
+        t, a, m, q, keys = (st[f][k] for f in
+                            ("totals", "avail", "mask", "reqs", "keys"))
+        for lo in range(0, n_l, TILE):
+            hi = min(lo + TILE, n_l)
+            grow = k * n_l + np.arange(lo, hi)
+            if rescore or classes is not None:
+                if classes is not None and lo == 0:
+                    for j, slot in enumerate(classes[0][k]):
+                        if 0 <= slot < c:
+                            q[slot] = classes[1][k][j]
+                lanes = range(c) if rescore else range(len(classes[0][k]))
+                for j in lanes:
+                    slot = j if rescore else int(classes[0][k][j])
+                    if not 0 <= slot < c:           # padding lane
+                        continue
+                    req = q[slot] if rescore else classes[1][k][j]
+                    keys[slot, lo:hi] = model_key(t[lo:hi], a[lo:hi],
+                                                  m[lo:hi], req, thr, grow)
+                continue
+            if rows is not None:
+                idx = rows[0][k]
+                lanes = [j for j in range(len(idx)) if lo <= idx[j] < hi]
+                for j in lanes:
+                    t[idx[j]] = rows[1][k][j]
+                    a[idx[j]] = rows[2][k][j]
+                    m[idx[j]] = rows[3][k][j]
+                rr = np.asarray([idx[j] for j in lanes], np.int64)
+                for slot in range(c):
+                    keys[slot, rr] = model_key(t[rr], a[rr], m[rr], q[slot],
+                                               thr, k * n_l + rr)
+            if groups is None:
+                continue
+            st["avail_eff"][k][lo:hi] = a[lo:hi]
+            em = True if extra_mask is None else extra_mask[k][lo:hi]
+            st["mask_eff"][k][lo:hi] = m[lo:hi] & em
+            if overrides is not None:
+                for j, row in enumerate(overrides[0][k]):
+                    if lo <= row < hi:
+                        st["avail_eff"][k][row] = overrides[1][k][j]
+            if lo == 0:
+                slots = np.clip(groups[0][k], 0, c - 1)
+                st["group_reqs"][k][:] = q[slots]
+                st["group_counts"][k][:] = groups[1][k]
+
+
+def model_tail(st, alloc, inf, av_fin):
+    """beat_tail: the packed readback tile by tile (each cell written
+    once), and each class's argmin as the min packed (key, global row)."""
+    s = len(st["totals"])
+    n_l = st["totals"][0].shape[0]
+    c = st["reqs"][0].shape[0]
+    g = alloc[0].shape[0]
+    n = s * n_l
+    packed = np.full((g + c, n + 1), -7, np.int64)
+    for k in range(s):
+        for lo in range(0, n_l, TILE):
+            hi = min(lo + TILE, n_l)
+            cols = k * n_l + np.arange(lo, hi)
+            assert (packed[:, cols] == -7).all()
+            packed[:g, cols] = alloc[k][:, lo:hi]
+            for cls in range(c):
+                packed[g + cls, cols] = model_budget(
+                    st["totals"][k][lo:hi], av_fin[k][lo:hi],
+                    st["mask_eff"][k][lo:hi], st["reqs"][k][cls])
+    packed[:g, n] = inf
+    packed[g:, n] = 0
+    assert (packed != -7).all()
+    amin = np.zeros(c, np.int32)
+    for cls in range(c):
+        best = None
+        for k in range(s):
+            key = st["keys"][k][cls].astype(np.int64)
+            v = (((key ^ 0x80000000) & 0xffffffff).astype(np.uint64)
+                 << np.uint64(32)) \
+                | (k * n_l + np.arange(n_l)).astype(np.uint64)
+            m = int(v.min())
+            best = m if best is None else min(best, m)
+        amin[cls] = best & 0xffffffff
+    return packed.astype(np.int32), amin
+
+
+def model_scan(st, thr, require_available):
+    """The class scan between the two kernels: the port's plain versions
+    (held to the reference in tests/test_torch_hybrid.py and
+    tests/test_torch_shard_scan.py).  Returns (alloc per rank, inf,
+    av_fin per rank) as numpy."""
+    from ray_tpu_torch.ops import shard_reduce as sr
+    t = [torch.as_tensor(x) for x in st["totals"]]
+    args = ([torch.as_tensor(x) for x in st["avail_eff"]],
+            [torch.as_tensor(x) for x in st["mask_eff"]],
+            [torch.as_tensor(x) for x in st["group_reqs"]],
+            [torch.as_tensor(x) for x in st["group_counts"]])
+    if len(t) == 1:
+        counts, av = hk.waterfill_scan_plain(t[0], *(x[0] for x in args),
+                                             None, thr, require_available)
+        n = t[0].shape[0]
+        return [counts[:, :n].numpy()], counts[:, n].numpy(), [av.numpy()]
+    alloc, inf, av = sr.shard_scan(t, *args, None, thr, require_available)
+    return [x.numpy() for x in alloc], inf.numpy(), [x.numpy() for x in av]
+
+
+# -- cases ----------------------------------------------------------------------
+
+def _case(seed, s, n_l=80, r=5, c=16, n_cls=12, b=8, bo=8, g=16,
+          em="random"):
+    """Residents at N = s * n_l, C = 16 class slots (the last four padded:
+    all-zero requests), class 1 infeasible everywhere (an all-INF key
+    row), per-rank buckets of dirty rows and overrides with padding
+    lanes, a negative override, a class install with padding lanes."""
+    rng = np.random.default_rng(seed)
+    n = s * n_l
+    totals = rng.integers(0, 60, size=(n, r)).astype(np.int32)
+    totals[rng.random(totals.shape) < 0.2] = 0
+    avail = (totals - rng.integers(0, 40, size=(n, r))).astype(np.int32)
+    mask = rng.random(n) > 0.15
+    reqs = np.zeros((c, r), np.int32)
+    reqs[:n_cls] = rng.integers(0, 6, size=(n_cls, r)) * \
+        (rng.random((n_cls, r)) > 0.4)
+    reqs[1, 0] = 1000                       # no row has that much
+    keys = np.array(ref_hk.full_rescore(totals, avail, mask, reqs,
+                                        SCALE // 2))
+    n_dirty = min(b - 2, n_l)
+
+    def per_rank(fn):
+        return [fn(k) for k in range(s)]
+    idx = per_rank(lambda k: np.concatenate(
+        [np.sort(rng.choice(n_l, n_dirty, replace=False)),
+         [n_l] * (b - n_dirty)]).astype(np.int32))
+    rows = (idx,
+            per_rank(lambda k: rng.integers(0, 60, (b, r)).astype(np.int32)),
+            per_rank(lambda k: rng.integers(-30, 60, (b, r)).astype(np.int32)),
+            per_rank(lambda k: rng.random(b) > 0.3))
+    ov_idx = per_rank(lambda k: np.concatenate(
+        [np.sort(rng.choice(n_l, 3, replace=False)),
+         [n_l] * (bo - 3)]).astype(np.int32))
+    ov_av = per_rank(lambda k: rng.integers(-50, 60, (bo, r)).astype(np.int32))
+    for a in ov_av:
+        a[0, :] = -5000                     # planned load past zero
+    if em == "random":
+        extra = per_rank(lambda k: rng.random(n_l) > 0.2)
+    else:
+        extra = per_rank(lambda k: np.zeros(n_l, bool))
+    slots = np.full(g, c, np.int32)         # padding slots == C
+    slots[:n_cls] = rng.permutation(n_cls)
+    counts = np.zeros(g, np.int32)
+    counts[:n_cls] = rng.integers(0, 40, n_cls)
+    cls_idx = np.array([2, c - 3, c, c], np.int32)
+    cls_reqs = rng.integers(0, 5, (4, r)).astype(np.int32)
+    return {"res": (totals, avail, mask, reqs, keys), "rows": rows,
+            "overrides": (ov_idx, ov_av), "extra_mask": extra,
+            "groups": ([slots] * s, [counts] * s),
+            "classes": ([cls_idx] * s, [cls_reqs] * s)}
+
+
+def _port_state(res, s):
+    totals, avail, mask, reqs, keys = res
+    t = torch.as_tensor
+
+    def split(x, axis=0):
+        return [t(np.array(b)) for b in
+                np.split(np.asarray(x), s, axis=axis)]
+    return hk.BeatState(split(totals), split(avail), split(mask),
+                        [t(np.array(reqs)) for _ in range(s)],
+                        split(keys, axis=1))
+
+
+def _torch(xs):
+    return None if xs is None else [torch.as_tensor(np.asarray(x))
+                                    for x in xs]
+
+
+def _port_kw(kw):
+    return {k: (tuple(_torch(x) for x in v) if isinstance(v, tuple)
+                else _torch(v)) for k, v in kw.items()}
+
+
+def _same_state(model, port, fields):
+    for f in fields:
+        for x, y in zip(model[f], getattr(port, f)):
+            np.testing.assert_array_equal(x, y.numpy()[:len(x)])
+
+
+def _cat(xs, axis=0):
+    return np.concatenate([np.asarray(x) for x in xs], axis=axis)
+
+
+# -- one rank: the JAX package's single-device programs ---------------------------
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_model_equals_jax_full_rescore_and_dirty_rows(seed):
+    case = _case(seed, 1, n_l=300)             # two node tiles
+    totals, avail, mask, reqs, keys = case["res"]
+    thr = SCALE // 2
+    st = model_state(*case["res"], 1)
+    model_rows(st, thr, rescore=True)
+    np.testing.assert_array_equal(st["keys"][0], keys)
+    rows = case["rows"]
+    model_rows(st, thr, rows=rows)
+    want = ref_hk.apply_dirty_rows(totals, avail, mask, keys, reqs,
+                                   rows[0][0], rows[1][0], rows[2][0],
+                                   rows[3][0], thr)
+    for f, w in zip(("totals", "avail", "mask", "keys"), want):
+        np.testing.assert_array_equal(st[f][0], np.asarray(w))
+    port = _port_state(case["res"], 1)
+    hk.beat_rows(port, thr, rows=tuple(_torch(x) for x in rows))
+    _same_state(st, port, ("totals", "avail", "mask", "keys"))
+
+
+@pytest.mark.parametrize("seed", [2, 3])
+def test_model_equals_jax_class_install(seed):
+    case = _case(seed, 1)
+    totals, avail, mask, reqs, keys = case["res"]
+    thr = SCALE // 2
+    st = model_state(*case["res"], 1)
+    cls = case["classes"]
+    model_rows(st, thr, classes=cls)
+    want = ref_hk.apply_dirty_classes(totals, avail, mask, keys, reqs,
+                                      cls[0][0], cls[1][0], thr)
+    np.testing.assert_array_equal(st["reqs"][0], np.asarray(want[0]))
+    np.testing.assert_array_equal(st["keys"][0], np.asarray(want[1]))
+    port = _port_state(case["res"], 1)
+    hk.beat_rows(port, thr, classes=tuple(_torch(x) for x in cls))
+    _same_state(st, port, ("reqs", "keys"))
+
+
+@pytest.mark.parametrize("seed,require_available,em",
+                         [(4, False, "random"), (5, True, "random"),
+                          (6, False, "none")])
+def test_model_equals_jax_fused_beat(seed, require_available, em):
+    case = _case(seed, 1, n_l=300, em=em)
+    totals, avail, mask, reqs, keys = case["res"]
+    keys[1] = INF_KEY                          # an all-INF carried row
+    thr = SCALE // 2
+    kw = {k: case[k] for k in ("overrides", "extra_mask", "groups")}
+    st = model_state(totals, avail, mask, reqs, keys, 1)
+    model_rows(st, thr, **kw)
+    alloc, inf, av_fin = model_scan(st, thr, require_available)
+    packed, amin = model_tail(st, alloc, inf, av_fin)
+    ov, groups = kw["overrides"], kw["groups"]
+    want_p, want_a = ref_hk.fused_beat(
+        totals, avail, mask, keys, reqs, groups[0][0], groups[1][0],
+        kw["extra_mask"][0], ov[0][0], ov[1][0], thr,
+        require_available=require_available)
+    np.testing.assert_array_equal(packed, np.asarray(want_p))
+    np.testing.assert_array_equal(amin, np.asarray(want_a))
+    assert amin[1] == 0
+    if em == "none":                           # nothing placeable
+        assert (packed[:len(groups[0][0]), :-1] == 0).all()
+    # the port: the wrappers (plain on the CPU), and fused_beat
+    port = _port_state((totals, avail, mask, reqs, keys), 1)
+    hk.beat_rows(port, thr, **_port_kw(kw))
+    _same_state(st, port, ("avail_eff", "mask_eff", "group_reqs",
+                           "group_counts"))
+    g = len(groups[0][0])
+    counts, av = hk.waterfill_scan(
+        port.totals[0], port.avail_eff[0], port.mask_eff[0],
+        port.group_reqs[0][:g], port.group_counts[0][:g], None, thr,
+        require_available)
+    n = totals.shape[0]
+    got = hk.beat_tail(port, [counts[:, :n]], counts[:, n], [av])
+    np.testing.assert_array_equal(got[0].numpy(), packed)
+    np.testing.assert_array_equal(got[1].numpy(), amin)
+    t = torch.as_tensor
+    fused = hk.fused_beat(t(totals), t(avail), t(mask), t(keys), t(reqs),
+                          t(groups[0][0]), t(groups[1][0]),
+                          t(kw["extra_mask"][0]), t(ov[0][0]), t(ov[1][0]),
+                          thr, require_available)
+    np.testing.assert_array_equal(fused[0].numpy(), packed)
+    np.testing.assert_array_equal(fused[1].numpy(), amin)
+
+
+# -- S ranks: the reference's ShardPlane on the virtual CPU devices ---------------
+
+def _ref_plane(s, mode):
+    pl = ref_sr.plane_for(s, mode)
+    put = jax.device_put
+    return pl, {"rows": lambda x: put(x, pl.sh_rows),
+                "vec": lambda x: put(x, pl.sh_vec),
+                "cols": lambda x: put(x, pl.sh_cols),
+                "repl": lambda x: put(x, pl.sh_repl)}
+
+
+@pytest.mark.parametrize("s,mode", MESHES)
+def test_model_equals_jax_shard_plane(s, mode):
+    """Every program of the reference's ShardPlane against the model and
+    the port's plain versions, at S ranks: the full rescore, the dirty
+    rows, a class install and the fused beat (with and without
+    require_available)."""
+    case = _case(10 + s, s, n_l=64 if s > 2 else 160)
+    totals, avail, mask, reqs, keys = case["res"]
+    thr = SCALE // 2
+    pl, put = _ref_plane(s, mode)
+    st = model_state(*case["res"], s)
+    model_rows(st, thr, rescore=True)
+    want = pl.full_rescore(put["rows"](totals), put["rows"](avail),
+                           put["vec"](mask), put["repl"](reqs), thr)
+    np.testing.assert_array_equal(_cat(st["keys"], 1), np.asarray(want))
+    keys = np.array(want)
+    port = _port_state((totals, avail, mask, reqs, keys), s)
+    hk.beat_rows(port, thr, rescore=True)
+    _same_state(st, port, ("keys",))
+
+    rows = case["rows"]
+    model_rows(st, thr, rows=rows)
+    want = pl.apply_dirty_rows(
+        put["rows"](totals), put["rows"](avail), put["vec"](mask),
+        put["cols"](keys), put["repl"](reqs), put["vec"](_cat(rows[0])),
+        put["rows"](_cat(rows[1])), put["rows"](_cat(rows[2])),
+        put["vec"](_cat(rows[3])), thr)
+    for f, w in zip(("totals", "avail", "mask"), want[:3]):
+        np.testing.assert_array_equal(_cat(st[f]), np.asarray(w))
+    np.testing.assert_array_equal(_cat(st["keys"], 1), np.asarray(want[3]))
+    totals, avail, mask, keys = (np.array(w) for w in want)
+    hk.beat_rows(port, thr, rows=tuple(_torch(x) for x in rows))
+    _same_state(st, port, ("totals", "avail", "mask", "keys"))
+
+    cls = case["classes"]
+    model_rows(st, thr, classes=cls)
+    want = pl.apply_dirty_classes(
+        put["rows"](totals), put["rows"](avail), put["vec"](mask),
+        put["cols"](keys), put["repl"](reqs), put["repl"](cls[0][0]),
+        put["repl"](cls[1][0]), thr)
+    np.testing.assert_array_equal(st["reqs"][0], np.asarray(want[0]))
+    np.testing.assert_array_equal(_cat(st["keys"], 1), np.asarray(want[1]))
+    reqs, keys = np.array(want[0]), np.array(want[1])
+    hk.beat_rows(port, thr, classes=tuple(_torch(x) for x in cls))
+    _same_state(st, port, ("reqs", "keys"))
+
+    keys[1] = INF_KEY                          # an all-INF carried row
+    for k, blk in enumerate(np.split(keys, s, axis=1)):
+        st["keys"][k][:] = blk
+        port.keys[k].copy_(torch.as_tensor(blk))
+    ov, groups, em = case["overrides"], case["groups"], case["extra_mask"]
+    for require_available in (False, True):
+        model_rows(st, thr, overrides=ov, extra_mask=em, groups=groups)
+        alloc, inf, av_fin = model_scan(st, thr, require_available)
+        packed, amin = model_tail(st, alloc, inf, av_fin)
+        want_p, want_a = pl.fused_beat(
+            put["rows"](totals), put["rows"](avail), put["vec"](mask),
+            put["cols"](keys), put["repl"](reqs), put["repl"](groups[0][0]),
+            put["repl"](groups[1][0]), put["vec"](_cat(em)),
+            put["vec"](_cat(ov[0])), put["rows"](_cat(ov[1])), thr,
+            require_available=require_available)
+        np.testing.assert_array_equal(packed, np.asarray(want_p))
+        np.testing.assert_array_equal(amin, np.asarray(want_a))
+        assert amin[1] == 0
+        hk.beat_rows(port, thr, overrides=tuple(_torch(x) for x in ov),
+                     extra_mask=_torch(em),
+                     groups=tuple(_torch(x) for x in groups))
+        _same_state(st, port, ("avail_eff", "mask_eff", "group_reqs",
+                               "group_counts"))
+        got = hk.beat_tail(port, _torch(alloc), torch.as_tensor(inf),
+                           _torch(av_fin))
+        np.testing.assert_array_equal(got[0].numpy(), packed)
+        np.testing.assert_array_equal(got[1].numpy(), amin)
+
+
+def test_model_argmin_ties_and_all_inf_rows():
+    """The packed 64-bit min: an all-INF row gives 0, equal keys go to
+    the lowest row, a key on a later rank wins only when smaller."""
+    st = {"totals": [np.zeros((4, 1), np.int32)] * 2,
+          "reqs": [np.zeros((3, 1), np.int32)] * 2,
+          "mask_eff": [np.ones(4, bool)] * 2,
+          "keys": [np.array([[INF_KEY] * 4, [9, 5, 5, 7], [50] * 4],
+                            np.int32),
+                   np.array([[INF_KEY] * 4, [5, 5, 1, 8], [-3, 50, 9, 9]],
+                            np.int32)]}
+    zero = [np.zeros((0, 4), np.int32)] * 2
+    _, amin = model_tail(st, zero, np.zeros(0, np.int32),
+                         [np.zeros((4, 1), np.int32)] * 2)
+    np.testing.assert_array_equal(amin, [0, 6, 4])
+
+
+# -- the engines: one beat with everything at once --------------------------------
+
+@pytest.mark.parametrize("shards", [1, 4])
+def test_engine_beat_with_rows_overrides_mask_and_a_fresh_class(shards):
+    """A beat that stages dirty rows, overrides, a soft mask and a fresh
+    class in one blob, through the port's single-device and sharded
+    engines on the CPU, equal to the reference's engines."""
+    tw = Twin(8, n_nodes=40, capacity=64)
+    vecs = tw.requests(_specs(tw.rng, 4))
+    counts = tw.rng.integers(1, 20, size=4).astype(np.int32)
+    if shards == 1:
+        ref, eng = RefDelta(tw.ref), PortDelta(tw.port, device="cpu")
+    else:
+        ref = RefSharded(tw.ref, shards, "two_level")
+        eng = PortSharded(tw.port, shards, "two_level",
+                          devices=["cpu"] * shards)
+    _assert_beat_equal(ref, eng, vecs, eng.beat(vecs, counts),
+                       ref.beat(vecs, counts))
+    for _ in range(3):
+        tw.mutate()
+    fresh = tw.requests([{"CPU": 2, "memory": 3.0}])
+    vecs = np.concatenate([vecs, fresh])
+    counts = np.concatenate([counts, [9]]).astype(np.int32)
+    ov = {1: np.array([-700, 5], np.int32), 33: np.array([40, 1], np.int32)}
+    soft = tw.rng.random(tw.ref.arrays()[0].shape[0]) > 0.3
+    kw = dict(overrides=ov, extra_mask=soft, require_available=True)
+    got = eng.beat(vecs, counts, **kw)
+    want = ref.beat(vecs, counts, **kw)
+    assert eng.stats["delta_beats"] == 1
+    assert eng.stats["classes_installed"] == 5
+    _assert_beat_equal(ref, eng, vecs, got, want)
+
+
+def test_blob_views_are_the_staged_fields():
+    """The staged upload: every field at one offset in each rank's
+    section, booleans as bytes at a word-aligned offset, sections of a
+    multiple of 16 bytes; the views hold what was staged."""
+    rng = np.random.default_rng(0)
+    s = 3
+    fields = {"slots": [np.arange(8, dtype=np.int32)] * s,
+              "counts": [rng.integers(0, 9, 8).astype(np.int32)] * s,
+              "idx": [rng.integers(0, 9, 5).astype(np.int32)
+                      for _ in range(s)],
+              "rows_totals": [rng.integers(0, 9, (5, 3)).astype(np.int32)
+                              for _ in range(s)],
+              "rows_mask": [rng.random(5) > 0.5 for _ in range(s)],
+              "extra_mask": [rng.random(7) > 0.5 for _ in range(s)]}
+    blob = BeatBlob(fields)
+    assert blob.words % 4 == 0 and blob.host.shape == (s, blob.words)
+    offsets = [o for o, _, _ in blob.layout.values()]
+    assert offsets == sorted(offsets)
+    dev = torch.from_numpy(blob.host.reshape(-1).copy())
+    views = blob.views(list(dev.view(s, blob.words)))
+    for name, parts in fields.items():
+        for k, (want, got) in enumerate(zip(parts, views[name])):
+            np.testing.assert_array_equal(got.numpy(), want)
+            assert got.data_ptr() == views[name][0].data_ptr() + \
+                k * 4 * blob.words
+            assert got.data_ptr() % 4 == 0
+    # the kernels take such views as they are (equally spaced)
+    assert all(x is y for x, y in zip(hk.spaced(views["idx"]),
+                                      views["idx"]))
+
+
+def test_rank_table_is_rebuilt_only_when_a_resident_is_reallocated():
+    """Delta beats update the residents in place, so the kernels' table
+    of pointers is built once; a full resync reallocates them, and the
+    next table holds the new pointers."""
+    tw = Twin(9)
+    vecs = tw.requests(_specs(tw.rng, 3))
+    counts = np.array([4, 5, 6], np.int32)
+    eng = PortDelta(tw.port, device="cpu")
+    eng.beat(vecs, counts)
+    builds = hk.rank_table.builds
+    first = hk.resident_table(eng._st)
+    assert hk.rank_table.builds == builds + 1
+    ptrs = [t.data_ptr() for t in (*eng._st.totals, *eng._st.keys)]
+    for _ in range(2):
+        tw.mutate()
+        eng.beat(vecs, counts)
+    assert eng.stats["delta_beats"] >= 1
+    assert [t.data_ptr() for t in (*eng._st.totals, *eng._st.keys)] == ptrs
+    assert hk.resident_table(eng._st) is first
+    assert hk.rank_table.builds == builds + 1
+    old = eng._st                  # kept alive: its memory is not reused
+    eng.beat(vecs, counts, spread_threshold=0.9)    # a new threshold
+    assert eng.stats["full_rescores"] == 2 and eng._st is not old
+    table = hk.resident_table(eng._st)
+    assert hk.rank_table.builds == builds + 2
+    st = eng._st
+    assert table.tolist()[0][:5] == [x.data_ptr() for x in (
+        st.totals[0], st.avail[0], st.mask[0], st.keys[0], st.reqs[0])]
+    eng.beat(vecs, counts, spread_threshold=0.9)
+    assert hk.resident_table(eng._st) is table
+
+
+def test_cpu_wrappers_never_load_a_kernel_and_other_devices_raise():
+    case = _case(20, 1)
+    port = _port_state(case["res"], 1)
+    loaded = dict(_build._LOADED)
+    launches = (hk.beat_rows.launches, hk.beat_tail.launches)
+    hk.beat_rows(port, SCALE // 2, rescore=True)
+    assert _build._LOADED == loaded
+    assert (hk.beat_rows.launches, hk.beat_tail.launches) == launches
+    meta = hk.BeatState(*[[x.to("meta") for x in xs] for xs in (
+        port.totals, port.avail, port.mask, port.reqs, port.keys)])
+    with pytest.raises(ValueError, match="unsupported device"):
+        hk.beat_rows(meta, SCALE // 2, rescore=True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        hk.beat_tail(meta, [meta.totals[0][:0, :1]], meta.totals[0][:0, 0],
+                     meta.avail)

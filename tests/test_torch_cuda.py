@@ -290,6 +290,252 @@ def test_delta_scheduler_on_card_matches_reference():
     assert eng.readbacks == 8
 
 
+# -- the rest of the delta beat: beat_rows and beat_tail (csrc/beat.cu) ----------
+
+def _beat_case(s, n, r, c, seed, dirty=12):
+    """Residents of S ranks of the card at N = n nodes (n_l = n / S) x R
+    x C class slots (the last four padded), with one beat's inputs staged
+    as the engines stage them (``BeatBlob``, one upload): dirty rows and
+    overrides with padding lanes (a negative override), a soft mask, the
+    groups, and a class install.  Returns (state, beat kwargs, classes)."""
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    from ray_tpu_torch.scheduling.policy import BeatBlob
+    rng = np.random.default_rng(seed)
+    n_l = n // s
+    totals, avail, mask, reqs, _, _ = _problem(seed, n, r, c)
+    reqs[c - 4:] = 0
+    reqs[1] = 0
+    reqs[1, 0] = (1 << 17) + 1               # an all-INF key row
+
+    def rows(x):
+        return [torch.as_tensor(np.ascontiguousarray(b), device="cuda")
+                for b in np.split(x, s)]
+    st = hk.BeatState(rows(totals), rows(avail), rows(mask),
+                      [torch.as_tensor(reqs, device="cuda")] * s)
+    st.alloc_keys()
+    hk.beat_rows_plain(st, SCALE // 2, rescore=True)
+    b = 16
+    fields = {"slots": [np.concatenate([rng.permutation(c - 4),
+                                        [c] * 4]).astype(np.int32)] * s,
+              "counts": [rng.integers(0, 20000, c).astype(np.int32)] * s,
+              "idx": [], "rows_totals": [], "rows_avail": [],
+              "rows_mask": [], "ov_idx": [], "ov_avail": [],
+              "extra_mask": [rng.random(n_l) > 0.1 for _ in range(s)],
+              "cls_idx": [np.array([2, c - 3, c, c], np.int32)] * s,
+              "cls_reqs": [rng.integers(0, 3000, (4, r)).astype(np.int32)]
+              * s}
+    for _ in range(s):
+        k = min(dirty, n_l)
+        fields["idx"].append(np.concatenate(
+            [np.sort(rng.choice(n_l, k, replace=False)),
+             [n_l] * (b - k)]).astype(np.int32))
+        fields["rows_totals"].append(
+            rng.integers(0, 1 << 17, (b, r)).astype(np.int32))
+        fields["rows_avail"].append(
+            rng.integers(-(1 << 16), 1 << 17, (b, r)).astype(np.int32))
+        fields["rows_mask"].append(rng.random(b) > 0.2)
+        fields["ov_idx"].append(np.array(
+            [*np.sort(rng.choice(n_l, 4, replace=False)), *[n_l] * 4],
+            np.int32))
+        ov = rng.integers(-9000, 9000, (8, r)).astype(np.int32)
+        ov[0] = -(1 << 17)
+        fields["ov_avail"].append(ov)
+    blob = BeatBlob(fields)
+    dev = torch.as_tensor(blob.host.reshape(-1), device="cuda")
+    v = blob.views(list(dev.view(s, blob.words)))
+    kw = {"rows": (v["idx"], v["rows_totals"], v["rows_avail"],
+                   v["rows_mask"]),
+          "overrides": (v["ov_idx"], v["ov_avail"]),
+          "extra_mask": v["extra_mask"], "groups": (v["slots"], v["counts"])}
+    return st, kw, (v["cls_idx"], v["cls_reqs"])
+
+
+def _same_beat_state(a, b):
+    for name in ("totals", "avail", "mask", "keys", "reqs", "avail_eff",
+                 "mask_eff", "group_counts", "group_reqs"):
+        xs, ys = getattr(a, name), getattr(b, name)
+        if xs is not None:
+            for x, y in zip(xs, ys):
+                assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("s,n,r,c", [(1, 1024, 8, 64), (1, 8192, 64, 8),
+                                     (2, 1024, 8, 64), (4, 1024, 8, 64),
+                                     (8, 1024, 8, 64)])
+def test_beat_kernels_equal_plain(s, n, r, c):
+    """``beat_rows`` (the beat, a class install, a full rescore) and
+    ``beat_tail`` against their plain versions on the card, bit for bit:
+    the beat width (1000 -> 1024 x 8 x 64), the node limit with 64
+    resource kinds, and ranks of one card at S = 2 / 4 / 8.  The kernel
+    zeroes the shard_scan exchange areas; each call is one launch."""
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    from ray_tpu_torch.ops import shard_reduce as sr
+    thr = SCALE // 2
+    st, kw, classes = _beat_case(s, n, r, c, seed=s * 7 + r)
+    g = kw["groups"][0][0].shape[0]
+    for call in ({"classes": classes}, {"rescore": True}, kw):
+        a, p = st.clone(), st.clone()
+        if s > 1:
+            a.ensure_scan_buffers(g, 128)
+            a.scan_out["xchg"].fill_(5)
+        before = hk.beat_rows.launches
+        hk.beat_rows(a, thr, **call)
+        assert hk.beat_rows.launches == before + 1
+        hk.beat_rows_plain(p, thr, **call)
+        torch.cuda.synchronize()
+        _same_beat_state(a, p)
+        if s > 1 and call is kw:
+            assert int(a.scan_out["xchg"].abs().sum()) == 0
+    assert int(a.mask_eff[0].sum()) > 0
+    if s == 1:
+        counts, av = hk.waterfill_scan(
+            a.totals[0], a.avail_eff[0], a.mask_eff[0], a.group_reqs[0][:g],
+            a.group_counts[0][:g], None, thr)
+        alloc, inf, av_fin = [counts[:, :n]], counts[:, n], [av]
+    else:
+        alloc, inf, av_fin = sr.shard_scan(
+            a.totals, a.avail_eff, a.mask_eff, [x[:g] for x in a.group_reqs],
+            [x[:g] for x in a.group_counts], None, thr, out=a.scan_out)
+    before = hk.beat_tail.launches
+    got = hk.beat_tail(a, alloc, inf, av_fin)
+    assert hk.beat_tail.launches == before + 1
+    want = hk.beat_tail_plain(a, alloc, inf, av_fin)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1][1]) == 0 and int(got[0][:g, :n].sum()) > 0
+    assert int((got[0][g:, :n] > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4, 8])
+def test_delta_beat_is_three_kernels_and_no_transport_call(shards):
+    """The engines on the card: every delta beat launches ``beat_rows``,
+    the scan and ``beat_tail`` once each, makes no transport call, and
+    builds no table of pointers (it is rebuilt after a full resync only);
+    each beat equal to the plain engine on the CPU."""
+    from ray_tpu_torch.common.ids import NodeID
+    from ray_tpu_torch.common.resources import NodeResources, ResourceRequest
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    from ray_tpu_torch.ops import shard_reduce as sr
+    from ray_tpu_torch.scheduling import (ClusterResourceManager,
+                                          DeltaScheduler,
+                                          ShardedDeltaScheduler)
+    rng = np.random.default_rng(30 + shards)
+    crm = ClusterResourceManager(capacity=1000)
+    for _ in range(1000):
+        crm.add_node(NodeID.from_random(), NodeResources(
+            {"CPU": int(rng.integers(4, 64)),
+             "memory": int(rng.integers(8, 256))}))
+    vecs = np.stack([crm.intern_request(ResourceRequest(
+        {"CPU": int(rng.integers(1, 4)),
+         "memory": float(rng.integers(0, 8))})) for _ in range(64)])
+    counts = rng.multinomial(1_000_000, np.full(64, 1 / 64)).astype(np.int32)
+    if shards == 1:
+        eng = DeltaScheduler(crm)
+        scan = hk.waterfill_scan
+    else:
+        eng = ShardedDeltaScheduler(crm, shards, "flat",
+                                    devices=["cuda:0"] * shards)
+        scan = sr.shard_scan
+    cpu = DeltaScheduler(crm, device="cpu")
+    for i in range(8):
+        if i == 5:                                  # a full resync
+            thr_kw = {"spread_threshold": 0.75}
+        for _ in range(12):
+            crm.force_subtract(int(rng.integers(0, 1000)),
+                               ResourceRequest({"CPU": 1}))
+        kw = thr_kw if i >= 5 else {}
+        ov = {7: np.array([-300, 40], np.int32)} if i % 2 else None
+        before = (hk.beat_rows.launches, scan.launches,
+                  hk.beat_tail.launches, hk.rank_table.builds)
+        calls = eng._plane.transport.calls if shards > 1 else 0
+        got = eng.beat(vecs, counts, overrides=ov, **kw)
+        after = (hk.beat_rows.launches, scan.launches,
+                 hk.beat_tail.launches, hk.rank_table.builds)
+        np.testing.assert_array_equal(got, cpu.beat(vecs, counts,
+                                                    overrides=ov, **kw))
+        np.testing.assert_array_equal(eng.last_budgets(), cpu.last_budgets())
+        if shards > 1:
+            assert eng._plane.transport.calls == calls
+        if i in (2, 3, 4, 6, 7):                    # steady delta beats
+            assert [y - x for x, y in zip(before, after)] == [1, 1, 1, 0]
+        if i == 5:                                  # resync: new tables
+            assert after[3] > before[3]
+    assert eng.stats["full_rescores"] == 2
+    if shards > 1:
+        st = eng.scan_stats
+        assert st["transport_calls"] == 0 and st["route"] == "shard_scan"
+        assert st["beat_tail_launches"] == 8
+
+
+@pytest.mark.parametrize("s,mode", [(2, "flat"), (4, "two_level")])
+def test_shard_plane_programs_on_one_card_equal_cpu_ranks(s, mode):
+    """``ShardPlane``'s programs on ranks of one card (the beat kernels,
+    each launched once for every rank; the residents updated in place)
+    against the same programs on CPU ranks (the per-rank plain programs
+    over the transport): full rescore, dirty rows, a class install and
+    the fused beat, bit for bit; the card's fused beat makes no transport
+    call."""
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    from ray_tpu_torch.ops import shard_reduce as sr
+    thr = SCALE // 2
+    rng = np.random.default_rng(40 + s)
+    n, r, c = 1024, 8, 16
+    totals, avail, mask, reqs, _, _ = _problem(40 + s, n, r, c)
+    n_l = n // s
+    card = sr.plane_for(s, mode, ["cuda:0"] * s)
+    cpu = sr.plane_for(s, mode, ["cpu"] * s)
+    assert card.on_card and not cpu.on_card
+
+    def both(f):
+        return [f(pl) for pl in (card, cpu)]
+
+    def same(xs, ys):
+        for x, y in zip(xs, ys):
+            assert torch.equal(x.cpu(), y.cpu())
+    res = both(lambda pl: [pl.shard_rows(totals, np.int32),
+                           pl.shard_rows(avail, np.int32),
+                           pl.shard_rows(mask, bool),
+                           pl.replicate(reqs, np.int32)])
+    keys = both(lambda pl: pl.full_rescore(*res[pl is cpu], thr))
+    same(*keys)
+    idx = np.concatenate([np.sort(rng.choice(n_l, 6, replace=False)),
+                          [n_l, n_l]]).astype(np.int32)
+    rows = (np.tile(idx, s), rng.integers(0, 1 << 17, (8 * s, r)),
+            rng.integers(-(1 << 16), 1 << 17, (8 * s, r)),
+            rng.random(8 * s) > 0.2)
+    out = both(lambda pl: pl.apply_dirty_rows(
+        *res[pl is cpu][:3], keys[pl is cpu], res[pl is cpu][3],
+        pl.shard_rows(rows[0], np.int32), pl.shard_rows(rows[1], np.int32),
+        pl.shard_rows(rows[2], np.int32), pl.shard_rows(rows[3], bool), thr))
+    for x, y in zip(*out):
+        same(x, y)
+    cls = (np.array([1, 5, c, c], np.int32),
+           rng.integers(0, 3000, (4, r)).astype(np.int32))
+    out2 = both(lambda pl: pl.apply_dirty_classes(
+        *out[pl is cpu][:3], out[pl is cpu][3], res[pl is cpu][3],
+        pl.replicate(cls[0], np.int32), pl.replicate(cls[1], np.int32),
+        thr))
+    for x, y in zip(*out2):
+        same(x, y)
+    slots = np.concatenate([rng.permutation(c - 4), [c] * 4]).astype(np.int32)
+    counts = rng.integers(0, 20000, c).astype(np.int32)
+    ov_idx = np.tile(np.array([3, 9, n_l, n_l], np.int32), s)
+    ov_av = rng.integers(-9000, 9000, (4 * s, r)).astype(np.int32)
+    em = rng.random(n) > 0.1
+    calls = card.transport.calls
+    before = (hk.beat_rows.launches, hk.beat_tail.launches,
+              sr.shard_scan.launches)
+    packed = both(lambda pl: pl.fused_beat(
+        *out[pl is cpu][:3], out2[pl is cpu][1], out2[pl is cpu][0],
+        pl.replicate(slots, np.int32), pl.replicate(counts, np.int32),
+        pl.shard_rows(em, bool), pl.shard_rows(ov_idx, np.int32),
+        pl.shard_rows(ov_av, np.int32), thr))
+    assert card.transport.calls == calls
+    assert (hk.beat_rows.launches, hk.beat_tail.launches,
+            sr.shard_scan.launches) == tuple(b + 1 for b in before)
+    same(*packed)
+    assert int(packed[0][0][:c, :n].sum()) > 0
+
+
 # |kernel - plain| <= atol + rtol * |plain| + p_u * (softmax(QK^T) |V|),
 # elementwise in f32; the reasons stand beside chip_smoke.FLASH_TOL
 FLASH_TOL = {  # dtype: (atol, rtol, p_u)

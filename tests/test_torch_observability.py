@@ -168,9 +168,22 @@ def _layout(name):
         (PortConfig if port else RefConfig).reset()
 
 
+def _reset_user_metrics():
+    """Both packages' user-metric state as a fresh process holds it: the
+    registry and serve's batch-size histogram, which other tests of this
+    worker may have filled (the ``names`` surface lists them)."""
+    for name in PKGS:
+        importlib.import_module(f"{name}.util.metrics")._reset_registry()
+        importlib.import_module(f"{name}.serve.batching")._hist = None
+
+
 @pytest.fixture(scope="module")
 def runs():
-    return {name: _layout(name) for name in PKGS}
+    out = {}
+    for name in PKGS:
+        _reset_user_metrics()
+        out[name] = _layout(name)
+    return out
 
 
 @pytest.mark.parametrize("surface", [
