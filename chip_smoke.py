@@ -570,6 +570,10 @@ def beat_kernels_vs_plain(step):
     tail_ms = cuda_ms(lambda: real_tail(st, alloc, inf, av_fin))
     tail_plain_ms = cuda_ms(lambda: hk.beat_tail_plain(st, alloc, inf,
                                                        av_fin))
+    rows_dev = kernel_device_ms(lambda: real_rows(a, thr, **kw),
+                                "beat_rows_kernel")
+    tail_dev = kernel_device_ms(lambda: real_tail(st, alloc, inf, av_fin),
+                                "beat_tail_kernel")
     real_rows.launches, real_rows.launches_by_mode, real_tail.launches = \
         counters
     if rows_err or tail_err:
@@ -578,13 +582,14 @@ def beat_kernels_vs_plain(step):
                              f"plain versions on {snap.n_shards} rank(s)")
     g = alloc[0].shape[0]
     out = {}
-    for name, ms, plain_ms, work, layout in (
-            ("beat_rows", rows_ms, rows_plain_ms, beat_rows_work(snap, kw),
-             real_rows.last_layout),
-            ("beat_tail", tail_ms, tail_plain_ms, beat_tail_work(st, g),
-             real_tail.last_layout)):
+    for name, ms, dev_ms, plain_ms, work, layout in (
+            ("beat_rows", rows_ms, rows_dev, rows_plain_ms,
+             beat_rows_work(snap, kw), real_rows.last_layout),
+            ("beat_tail", tail_ms, tail_dev, tail_plain_ms,
+             beat_tail_work(st, g), real_tail.last_layout)):
         bound_ms, bound_by = bound(*work, PEAK_I32)
         out[name] = {"ranks": snap.n_shards, "max_abs_err": 0, "ms": ms,
+                     "device_ms": dev_ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "bytes": work[0],
                      "int32_ops": work[1], "layout": layout}
@@ -4325,6 +4330,9 @@ SHARD_BEATS = ((2, "flat"), (4, "two_level"), (8, "flat"))
 # the kernels'
 SHARD_PLAIN_BEATS = (2, 8)
 SHARD_WRAPPER_RANKS = 4
+# shard_scan's global route: the contract's 8192 x 16 x 128 on 4 ranks of
+# the card (32 CTAs: past one thread-block cluster)
+SCAN_GLOBAL_RANKS = 4
 RING_SHAPE = (2, 4096, 16, 128)         # the flash cell's headline shape
 RING_RANKS = (4, 8)
 # tests/test_ring_attention.py's bar, elementwise against full_attention
@@ -4397,6 +4405,8 @@ def scan_kernel_vs_plain(plane, args):
                              f"on {len(ka)} ranks")
     layout = dict(sr.shard_scan.last_layout)
     ms = cuda_ms(lambda: sr.shard_scan(*args))
+    dev_ms = kernel_device_ms(lambda: sr.shard_scan(*args),
+                              "shard_scan_kernel")
     plain = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -4412,8 +4422,65 @@ def scan_kernel_vs_plain(plane, args):
                                PEAK_I32)
     return {"ranks": len(ka), "rows": n, "classes": int(reqs.shape[0]),
             "group_masks": args[5] is not None, "equal": True, "ms": ms,
-            "plain_ms": float(np.median(plain)), "bound_ms": bound_ms,
-            "bound_by": bound_by, "layout": layout}
+            "device_ms": dev_ms, "plain_ms": float(np.median(plain)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "route": layout["route"], "layout": layout}
+
+
+def kernel_device_ms(fn, name, n=10):
+    """Device ms a call of the kernels whose name holds ``name``
+    (``device_busy``'s kineto events over ``n`` calls of ``fn``), or None
+    where the trace held none."""
+    rows = [k for k in device_busy(fn, n)["top_kernels"] or ()
+            if name in k["name"]]
+    return sum(k["ms_per_call"] for k in rows) if rows else None
+
+
+def scan_global_route(card, s=SCAN_GLOBAL_RANKS):
+    """``shard_scan`` on the global route: the contract's 8192 x 16 x
+    128 (group masks, dead and overcommitted rows) on ``s`` ranks of the
+    card, held to ``shard_scan_plain`` bit for bit as on the beat's
+    inputs; the route must be "global"."""
+    import torch
+
+    from ray_tpu_torch.ops import shard_reduce as sr
+    from ray_tpu_torch.scheduling.contract import threshold_fp
+    totals, avail, mask, reqs, counts, masks = limit_problem()
+
+    def rows(a, axis=0):
+        return [torch.as_tensor(np.ascontiguousarray(b), device=card)
+                for b in np.split(a, s, axis=axis)]
+
+    args = (rows(totals), rows(avail), rows(mask),
+            [torch.as_tensor(reqs, device=card)] * s,
+            [torch.as_tensor(counts, device=card)] * s, rows(masks, 1),
+            int(threshold_fp(None)), False)
+    plane = sr.plane_for(s, "flat", [card] * s)
+    out = scan_kernel_vs_plain(plane, args)
+    if out["route"] != "global":
+        raise AssertionError(f"shard_scan at 8192 x 16 x 128 on {s} ranks "
+                             f"took route {out['route']}, not global")
+    return out
+
+
+def waterfill_beside(args):
+    """Device ms of the single-device water-fill (``waterfill_scan``) on
+    the same scan as ``shard_scan``'s arguments ``args``: every rank's
+    rows in rank order on the first rank's device.  Its launches are
+    taken off the counter again."""
+    import torch
+
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    totals, avail, mask, greqs, gcounts, gmasks, thr, req_av = args
+    cat = [torch.cat(list(x)) for x in (totals, avail, mask)]
+    gm = None if gmasks is None else torch.cat(list(gmasks), dim=1)
+    n0 = hk.waterfill_scan.launches
+    try:
+        return kernel_device_ms(
+            lambda: hk.waterfill_scan(*cat, greqs[0], gcounts[0], gm, thr,
+                                      req_av), "waterfill")
+    finally:
+        hk.waterfill_scan.launches = n0
 
 
 def shard_beat(ranks, mode, warmup=2, beats=8, churn=12,
@@ -4563,7 +4630,15 @@ def shard_beat(ranks, mode, warmup=2, beats=8, churn=12,
             del plane._scan
         out["kernel_vs_plain"] = scan_kernel_vs_plain(plane,
                                                       captured["args"])
+        if out["kernel_vs_plain"]["route"] != "cluster":
+            raise AssertionError(f"{s} ranks ({mode}): shard_scan took route "
+                                 f"{out['kernel_vs_plain']['route']} on the "
+                                 f"beat cell, not cluster")
         out["beat_kernels"] = beat_kernels_vs_plain(step)
+        out["device_ms"] = {
+            "shard_scan": out["kernel_vs_plain"]["device_ms"],
+            "beat_tail": out["beat_kernels"]["beat_tail"]["device_ms"],
+            "waterfill_scan": waterfill_beside(captured["args"])}
         # the parent's route: the same beats with the rest of the beat on
         # its plain versions around the shard_scan kernel
         real = hk.beat_rows, hk.beat_tail
@@ -4830,6 +4905,7 @@ def phase_shard(dev, smi):
     beats = {shard_key(s, mode): shard_beat([card] * s, mode)
              for s, mode in SHARD_BEATS}
     wrappers = shard_wrappers(dev, [card] * SHARD_WRAPPER_RANKS)
+    scan_global = scan_global_route(card) if dev.type == "cuda" else None
     rank_sets = [[card] * s for s in RING_RANKS]
     n_cards = torch.cuda.device_count()
     cards = [f"cuda:{i}" for i in range(4 if n_cards >= 4 else 2)] \
@@ -4859,6 +4935,16 @@ def phase_shard(dev, smi):
     dryruns = {n: entry.dryrun_multichip(n, device=card) for n in (4, 8)}
     result = {"phase": "shard", "nvidia_smi": smi, "beats": beats,
               "wrappers": wrappers, "attention": attention,
+              # shard_scan's route and layout on each of its calls here
+              "scan_routes": {
+                  **{k: b["kernel_vs_plain"]["layout"]
+                     for k, b in beats.items() if "kernel_vs_plain" in b},
+                  "schedule_grouped_sharded_np": wrappers[
+                      "schedule_grouped_sharded_np"]["kernel_vs_plain"][
+                      "layout"],
+                  "limit 8192x16x128 global": scan_global and
+                  scan_global["layout"]},
+              "scan_global_route": scan_global,
               "entry": {"counts_equal_host_twin": True,
                         "shape": list(counts.shape)},
               "dryrun_multichip": dryruns,
@@ -5095,10 +5181,18 @@ def main() -> int:
          "plain_ms": shard_head["plain_ms"],
          "bound_ms": shard_head["bound_ms"],
          "bound_by": shard_head["bound_by"], "library_ms": None,
-         "layout": shard_head["layout"],
-         "by_path": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
-                                           "layout")}
+         "layout": shard_head["layout"], "route": shard_head["route"],
+         "device_ms": shard_head["device_ms"],
+         "by_path": {k: {f: v[f] for f in ("ms", "device_ms", "plain_ms",
+                                           "bound_ms", "route", "layout")}
                      for k, v in shard_checks.items()},
+         # the global route (past one cluster), on its own check
+         "global_route": {f: shd["scan_global_route"][f] for f in (
+             "ranks", "rows", "ms", "device_ms", "plain_ms", "bound_ms",
+             "route", "layout")},
+         "waterfill_device_ms_beside": {
+             k: b["device_ms"] for k, b in shd["beats"].items()
+             if "device_ms" in b},
          "checked": True},
         *[{"name": name, "route": "cuda",
            "source": "ray_tpu_torch/ops/csrc/beat.cu",
@@ -5121,8 +5215,9 @@ def main() -> int:
            "bound_ms": beat["kernels"][name]["bound_ms"],
            "bound_by": beat["kernels"][name]["bound_by"],
            "library_ms": None, "layout": beat["kernels"][name]["layout"],
+           "device_ms": beat["kernels"][name].get("device_ms"),
            "by_path": {k: {f: b["beat_kernels"][name][f] for f in (
-               "ms", "plain_ms", "bound_ms")}
+               "ms", "device_ms", "plain_ms", "bound_ms")}
                for k, b in shd["beats"].items() if "beat_kernels" in b},
            "checked": True}
           for name, replaces in (

@@ -4,7 +4,8 @@
                                 [--phases] [--kernels NAME ...]
 
 Builds this checkout's ``ray_tpu_torch/ops/csrc/bundle.cu``, ``pull.cu``,
-``topk.cu`` and ``broadcast.cu`` (through the wrappers) and, with
+``topk.cu``, ``broadcast.cu``, ``shard_scan.cu`` and ``beat.cu``'s
+``beat_tail`` (through the wrappers or their C entry points) and, with
 ``--against``, the sources of an older commit in DIR (its ``csrc``
 directory, unpacked from ``git archive`` into an ignored directory,
 ``contract.cuh`` beside them), built with the same nvcc flags and called
@@ -26,7 +27,15 @@ events):
 * the broadcast plan: 1000 members at fan-out 4, the contract's 8192,
   uniform bandwidth at 1000 and the ``broadcast`` phase's 72 rows at
   fan-out 2, against the plain version on the card, beside ns an attach
-  and the layout.
+  and the layout;
+* ``shard_scan``: a steady sharded beat's scan inputs (the beat cell,
+  captured from the engine at S = 2 / 4 / 8 ranks of the card) and the
+  contract's 8192 x 16 x 128 at S = 2 / 4 / 8, against
+  ``shard_scan_plain``, beside the plan (route, CTAs a rank), profiler
+  device ms and us an exchange;
+* ``beat_tail``: a steady beat's inputs at S = 1 / 2 / 4 / 8, against
+  ``beat_tail_plain``, beside profiler device ms.  Both older builds
+  are called through the same C entry points as this one.
 
 Then constants of the kernels, each from builds that override it with
 ``-D``: bundle.cu's and broadcast.cu's rows a CTA (``RT_ROWS_PER_CTA``,
@@ -36,7 +45,10 @@ request passes the cap of 128 and the CTA reduces it, against a cap of
 8192, where one warp loops over every list.  ``--phases`` builds copies
 of the sources with ``clock64`` probes inserted at anchor lines (as
 ``flash_phases.py`` does for flash attention) and prints cycles by phase
-of thread 0 of CTA 0 at each size.  Each row is one JSON line on stdout,
+of thread 0 of CTA 0 at each size (``shard_scan``: by part of an
+exchange, of rank 0's first CTA; ``beat_tail``: the counts copy, the
+budgets and the argmin CTAs, and the launch's span; with ``--against``,
+the older sources' probes too).  Each row is one JSON line on stdout,
 after one with the card's name and power limit.  Needs a GPU and nvcc.
 """
 
@@ -66,7 +78,8 @@ OLD_SIGNATURES = {
     "broadcast": ("rt_plan_fanout",
                   [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
 }
-KERNELS = ("bundle", "pull", "topk", "broadcast")
+KERNELS = ("bundle", "pull", "topk", "broadcast", "shard_scan", "beat_tail")
+BEAT_KERNELS = ("shard_scan", "beat_tail")
 ROWS_PER_CTA = (1024, 512, 256, 128, 64)    # the sweep; the source's is 128
 FANOUT_ROWS_PER_CTA = (8192, 4096, 1024, 512, 64)  # the source's is 1024
 ONE_WARP_CAP = 8192                         # a list as long as N can be
@@ -220,13 +233,486 @@ PARENT_BROADCAST_PHASES = ("prologue", "looks", "rescans", "push",
                            "steps", "launch")
 
 
-def probed(kernel: str, probes, csrc=None) -> tuple[Path, tuple]:
+# -- the delta beat's kernels: shard_scan and beat_tail -----------------------
+# The sharded beat cell's meshes (chip_smoke.SHARD_BEATS), the ranks
+# beat_tail runs at (1: the single-device engine) and the meshes of the
+# contract's 8192 x 16 x 128 (chip_smoke.limit_problem): 2 ranks fit one
+# thread-block cluster, 4 and 8 take the global route.
+SCAN_MESHES = ((2, "flat"), (4, "two_level"), (8, "flat"))
+TAIL_RANKS = (1, 2, 4, 8)
+SCAN_LIMIT_RANKS = (2, 4, 8)
+BEAT_CHURN = 12                         # dirty rows a beat, as the cell's
+
+_SHARED_PROBE = (
+    "__device__ unsigned long long g_phase[8];\n"
+    "__shared__ long long p_prof[8];\n"
+    "__shared__ long long p_tc;\n"
+    "__shared__ int p_on;\n"
+    "#define RT_PROBE(n) do { if (p_on && threadIdx.x == 0) { "
+    "const long long c_ = clock64(); p_prof[n] += c_ - p_tc; p_tc = c_; } "
+    "} while (0)\n")
+_SCAN_START = ("  if (threadIdx.x == 0) {\n"
+               "    p_on = rank == 0 && cta == 0;\n"
+               "    for (int k = 0; k < 8; ++k) p_prof[k] = 0;\n"
+               "    p_tc = clock64();\n"
+               "  }\n")
+_SCAN_FLUSH = ("  RT_PROBE(0);\n"
+               "  if (p_on && threadIdx.x == 0)\n"
+               "    for (int k = 0; k < 8; ++k)\n"
+               "      atomicAdd(&g_phase[k], (unsigned long long)p_prof[k]);\n")
+_COUNT = "  if (p_on && threadIdx.x == 0) p_prof[7] += 1;\n"
+# cycles of thread 0 of rank 0's first CTA, by part of an exchange; slot 7
+# counts the exchanges
+SCAN_PHASES = ("compute", "cta_reduce", "cluster_push_barrier", "publish",
+               "wait", "slot_reads", "closing_barrier", "exchanges")
+# shard_scan.cu as of dc85228: a CTA reduction, the rank's cluster
+# exchange, then the global round (a release publish by the rank's first
+# CTA, every CTA's warp 0 polling the S counters, the slot reads, a
+# __syncthreads).  The wait is split from the reads by a first loop that
+# only waits (the reads' own waits then return at once).
+PARENT_SCAN_PROBES = [
+    ("constexpr long long kWaitNs = 10000000000LL;\n", "", _SHARED_PROBE),
+    ("  Ctx cx{tab, s, rank, cta, 0u, 0};\n", "", _SCAN_START),
+    ("  unsigned u[NV];\n#pragma unroll\n  for (int v = 0; v < NV; ++v) "
+     "u[v] = warp_sum((unsigned)vals[v]);\n", "  RT_PROBE(0);\n", ""),
+    ("  cross<NV, false, kCluster>(sh, cx, x, xm);\n", "  RT_PROBE(1);\n",
+     ""),
+    ("    slots_at<2>(lv2, m_max, cls, rw, thr_fp, m2);\n", "",
+     "    RT_PROBE(0);\n"),
+    ("    cross<2, true, kCluster>(sh, cx, tot, kNoKey);\n",
+     "    RT_PROBE(1);\n", ""),
+    ("    cx.parity ^= 1;\n  }\n", "", "  RT_PROBE(2);\n"),
+    ("      st_release(own, round);\n    }\n", "", "    RT_PROBE(3);\n"),
+    ("    for (int k = lane; k < cx.s; k += 32) {   "
+     "// lane k reads rank k's slot\n",
+     "    for (int k = lane; k < cx.s; k += 32)\n"
+     "      wait_round(cx.tab[k].xchg, round);\n"
+     "    __syncwarp();\n"
+     "    RT_PROBE(4);\n", ""),
+    ("    m = warp_min(m);\n", "", "    RT_PROBE(5);\n"),
+    ("}\n\n// An exchange of one value vector a row: the CTA's sums, then "
+     "cross().\n", "  RT_PROBE(6);\n" + _COUNT, ""),
+    ("  if constexpr (kCluster) cg::this_cluster().sync();  "
+     "// none leaves while\n", _SCAN_FLUSH, ""),
+]
+_TAIL_DECL = (
+    "__device__ unsigned long long g_phase[8];\n"
+    "__device__ __forceinline__ long long rt_gtimer() {\n"
+    "  long long t;\n"
+    "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
+    "  return t;\n"
+    "}\n")
+_TAIL_START = ("  const long long p_t0 = clock64();\n"
+               "  long long p_tc = p_t0;\n"
+               "  if (threadIdx.x == 0)\n"
+               "    atomicMax(&g_phase[7], (unsigned long long)"
+               "((1LL << 62) - rt_gtimer()));\n")
+
+
+def _tail_sig(slot):
+    return ("    if (threadIdx.x == 0) {\n"
+            "      const long long c_ = clock64();\n"
+            f"      atomicAdd(&g_phase[{slot}], (unsigned long long)"
+            "(c_ - p_tc));\n"
+            "      p_tc = c_;\n"
+            "    }\n")
+
+
+_TAIL_ARGMIN_END = (
+    "    if (threadIdx.x == 0) {\n"
+    "      atomicAdd(&g_phase[3], (unsigned long long)(clock64() - p_t0));\n"
+    "      atomicAdd(&g_phase[4], 1ull);\n"
+    "      atomicMax(&g_phase[6], (unsigned long long)rt_gtimer());\n"
+    "    }\n")
+_TAIL_BUDGET_END = (
+    "  if (threadIdx.x == 0) {\n"
+    "    atomicAdd(&g_phase[2], 1ull);\n"
+    "    atomicMax(&g_phase[5], (unsigned long long)(clock64() - p_t0));\n"
+    "    atomicMax(&g_phase[6], (unsigned long long)rt_gtimer());\n"
+    "  }\n")
+# thread 0 of every CTA: cycles of the counts copy and of the budgets
+# (summed over the budget CTAs, slot 2 counting them), of the argmin CTAs
+# (summed, slot 4 counting them), the longest budget CTA, and the
+# launch's span in ns (%globaltimer: the last CTA's end in slot 6, the
+# first one's start as 2**62 - start in slot 7)
+TAIL_PHASES = ("counts", "budgets", "budget_ctas", "argmin", "argmin_ctas",
+               "longest_budget_cta", "end_ns", "start_ns_complement")
+# beat_tail as of dc85228: a tile CTA's thread copies its row's G
+# counts, then prices its row for every class; one CTA a class argmin
+PARENT_TAIL_PROBES = [
+    ("constexpr int kModeRescore = 2;          "
+     "// every class against every node\n", "", _TAIL_DECL),
+    ("  const long long ld = (long long)a.s * a.n_l + 1;   "
+     "// packed's row length\n", "", _TAIL_START),
+    ("    if (tid == 0) a.amin[cls] = packed_row(m[0]);\n", "",
+     _TAIL_ARGMIN_END),
+    ("      a.packed[gi * ld + col] = alloc[(long long)gi * a.alloc_row + "
+     "row];\n", "", _tail_sig(0)),
+    ("          budget_of(t_row, a_row, res.reqs + cls * r, r, live);\n", "",
+     _tail_sig(1)),
+    ("      a.packed[(a.g + cls) * ld + ld - 1] = 0;\n  }\n", "",
+     _TAIL_BUDGET_END),
+]
+
+
+def beat_captures(s, mode="flat", beats=3, device="cuda:0"):
+    """One steady delta beat of the beat cell (chip_smoke.build_cluster,
+    12 dirty rows a beat) on ``s`` ranks of the card (``s`` = 1: the
+    single-device engine): {"scan": shard_scan's arguments (S > 1),
+    "tail": beat_tail's (state, alloc, inf, av_fin)}, copies taken from
+    the engine's own calls of its last beat."""
+    from ray_tpu_torch.common.resources import ResourceRequest
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    from ray_tpu_torch.scheduling import make_delta_scheduler
+
+    rng, crm, vecs, counts = cs.build_cluster()
+    eng = make_delta_scheduler(crm, device=device) if s == 1 else \
+        make_delta_scheduler(crm, n_shards=s, reduce_mode=mode,
+                             devices=[device] * s)
+    seen = {}
+    real_tail = hk.beat_tail
+
+    def tail(st, alloc, inf, av_fin):
+        seen["tail"] = (st.clone(), hk.spaced([a.clone() for a in alloc]),
+                        inf.clone(), hk.spaced([a.clone() for a in av_fin]))
+        return real_tail(st, alloc, inf, av_fin)
+
+    tail.launches = 0                    # the sharded engine reads it
+    plane = getattr(eng, "_plane", None)
+    if plane is not None:
+        def scan(*args, **kw):
+            seen["scan"] = tuple(
+                [x.clone() for x in a] if isinstance(a, list) else a
+                for a in args[:8])
+            return type(plane)._scan(plane, *args, **kw)
+        plane._scan = scan
+    hk.beat_tail = tail
+    try:
+        for _ in range(beats):
+            for _ in range(BEAT_CHURN):
+                crm.force_subtract(int(rng.integers(0, cs.N_NODES)),
+                                   ResourceRequest({"CPU": 1}))
+            eng.beat(vecs, counts)
+    finally:
+        hk.beat_tail = real_tail
+        if plane is not None:
+            del plane._scan
+    return seen
+
+
+def scan_limit_args(s, device="cuda"):
+    """shard_scan's arguments for the contract's 8192 x 16 x 128 (group
+    masks, dead and overcommitted rows) on ``s`` ranks of the card."""
+    import torch
+
+    from ray_tpu_torch.scheduling.contract import threshold_fp
+    totals, avail, mask, reqs, counts, masks = cs.limit_problem()
+
+    def rows(a, axis=0):
+        return [torch.as_tensor(np.ascontiguousarray(b), device=device)
+                for b in np.split(a, s, axis=axis)]
+
+    def repl(a):
+        return [torch.as_tensor(a, device=device)] * s
+
+    return (rows(totals), rows(avail), rows(mask), repl(reqs), repl(counts),
+            rows(masks, 1), int(threshold_fp(None)), False)
+
+
+def scan_caller(lib, args):
+    """A function of no arguments that runs one ``shard_scan`` launch of
+    the build at path ``lib`` on ``args``, as the wrapper does (outputs
+    and a zeroed exchange area made once, the area zeroed again on the
+    stream before each launch), returning (alloc, inf, new_avail); and
+    the plan its library gives."""
+    import torch
+
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    totals, avail, mask, greqs, gcounts, gmasks, thr, req_av = args
+    s = len(totals)
+    (n_l, r), g = totals[0].shape, greqs[0].shape[0]
+    plan_fn = _build.entry(lib, "shard_scan", "rt_shard_scan_plan")
+    launch = _build.entry(lib, "shard_scan")
+    plan = (ctypes.c_int * 8)()
+    assert plan_fn(s, n_l, r, int(req_av), ctypes.addressof(plan)) == 0
+    dev = totals[0].device
+    alloc = torch.empty((s, g, n_l), dtype=torch.int32, device=dev)
+    new_avail = torch.empty((s, n_l, r), dtype=torch.int32, device=dev)
+    inf = torch.empty((g,), dtype=torch.int32, device=dev)
+    xchg = torch.zeros((s, plan[5]), dtype=torch.int32, device=dev)
+    table = hk.rank_table(
+        [[totals[i].data_ptr(), avail[i].data_ptr(), mask[i].data_ptr(),
+          greqs[i].data_ptr(), gcounts[i].data_ptr(),
+          0 if gmasks is None else gmasks[i].data_ptr(),
+          alloc[i].data_ptr(), new_avail[i].data_ptr(),
+          inf.data_ptr() if i == 0 else 0, xchg[i].data_ptr()]
+         for i in range(s)], dev)
+    layout = (ctypes.c_int * 8)()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def call():
+        xchg.zero_()
+        err = launch(table.data_ptr(), s, n_l, r, g, thr, int(req_av),
+                     ctypes.addressof(layout), stream)
+        assert err == 0, f"shard_scan ({lib.name}): CUDA error {err}"
+        return list(alloc), inf, list(new_avail)
+
+    return call, list(plan)
+
+
+def tail_caller(lib, captured):
+    """A function of no arguments that runs one ``beat_tail`` launch of
+    the build at path ``lib`` on a captured beat, returning (packed,
+    argmin)."""
+    import torch
+
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    table, args, packed, amin = hk.tail_args(*captured)
+    launch = _build.entry(lib, "beat", "rt_beat_tail")
+    layout = (ctypes.c_int * 8)()
+    stream = torch.cuda.current_stream(packed.device).cuda_stream
+
+    def call():
+        err = launch(table.data_ptr(), ctypes.addressof(args),
+                     ctypes.addressof(layout), stream)
+        assert err == 0, f"beat_tail ({lib.name}): CUDA error {err}"
+        return packed, amin
+
+    return call
+
+
+def device_turns(fns, name, n_turns):
+    """{label_device_ms: [ms, ...]}: profiler device ms a call of the
+    kernels named ``name``, in turns (against, this, this, against)."""
+    out = {}
+    for _ in range(n_turns):
+        for label in ("against", "this", "this", "against"):
+            if fns.get(label) is not None:
+                out.setdefault(f"{label}_device_ms", []).append(
+                    cs.kernel_device_ms(fns[label], name, 20))
+    return out
+
+
+def read_phases(lib):
+    read = ctypes.CDLL(str(lib)).rt_phases
+    read.argtypes = [ctypes.c_void_p]
+    read.restype = ctypes.c_int
+    buf = (ctypes.c_ulonglong * 8)()
+    assert read(buf) == 0
+    return list(buf)
+
+
+def probe_row(lib, fn, labels):
+    """The probes' slots after one call of ``fn`` (the warm-up's zeroed)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    read_phases(lib)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(zip(labels, read_phases(lib)))
+
+
+def scan_row(label, args, libs, reps, n_turns, probed=None):
+    """One shard_scan row: each build in ``libs`` ({"this", "against"})
+    equal to ``shard_scan_plain`` bit for bit, its route and layout, its
+    ms in turns (CUDA events around the launch and its memset; profiler
+    device ms beside), us an exchange; with ``probed`` ({tag: library}),
+    cycles by part of an exchange."""
+    import torch
+
+    from ray_tpu_torch.ops import shard_reduce as sr
+    s = len(args[0])
+    tp = sr._Transport(sr.build_mesh(s, "flat", [args[0][0].device] * s))
+    want = sr.shard_scan_plain(tp, *args)
+    calls = {k: scan_caller(lib, args) for k, lib in libs.items()}
+    row = {"program": "shard_scan", "problem": label, "ranks": s,
+           "rows": s * args[0][0].shape[0], "classes":
+           int(args[3][0].shape[0]), "group_masks": args[5] is not None}
+    ok = True
+    for k, (call, plan) in calls.items():
+        got = call()
+        torch.cuda.synchronize()
+        row[f"{k}_equals_plain"] = same_scan(got, want)
+        row[f"{k}_plan"] = plan
+        ok &= row[f"{k}_equals_plain"]
+    fns = {k: c[0] for k, c in calls.items()}
+    row.update(turns(fns, n_turns, reps))
+    row.update(device_turns(fns, "shard_scan_kernel", n_turns))
+    exchanges = 6 * row["classes"] + 1
+    row["exchanges"] = exchanges
+    for k in fns:
+        dms = [x for x in row[f"{k}_device_ms"] if x is not None]
+        best = min(dms) if dms else min(row[k])
+        row[f"{k}_us_an_exchange"] = best * 1e3 / exchanges
+    if "against" in fns:
+        row["speedup"] = float(np.mean(row["against"]) / np.mean(row["this"]))
+    for tag, lib in (probed or {}).items():
+        got, cyc = probe_row(lib, scan_caller(lib, args)[0], SCAN_PHASES)
+        row[f"{tag}probed_equals_plain"] = same_scan(got, want)
+        ok &= row[f"{tag}probed_equals_plain"]
+        n_x = max(cyc["exchanges"], 1)
+        row[f"{tag}cycles_an_exchange"] = {
+            p: cyc[p] / n_x for p in SCAN_PHASES[:-1]}
+        row[f"{tag}probed_exchanges"] = cyc["exchanges"]
+    cs.emit(row)
+    return ok
+
+
+def same_scan(got, want):
+    import torch
+    return (all(torch.equal(x, y) for x, y in zip(got[0], want[0]))
+            and torch.equal(got[1], want[1])
+            and all(torch.equal(x, y) for x, y in zip(got[2], want[2])))
+
+
+def tail_row(s, captured, libs, reps, n_turns, probed=None):
+    """One beat_tail row: each build equal to ``beat_tail_plain`` bit for
+    bit, ms in turns (CUDA events) and profiler device ms; with
+    ``probed``, the probes' split of one call."""
+    import torch
+
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    want = hk.beat_tail_plain(*captured)
+    fns = {k: tail_caller(lib, captured) for k, lib in libs.items()}
+    row = {"program": "beat_tail", "ranks": s,
+           "rows": s * captured[0].n_local,
+           "classes": int(captured[0].reqs[0].shape[0]),
+           "groups": int(captured[1][0].shape[0])}
+    ok = True
+    for k, fn in fns.items():
+        got = fn()
+        torch.cuda.synchronize()
+        row[f"{k}_equals_plain"] = bool(torch.equal(got[0], want[0]) and
+                                        torch.equal(got[1], want[1]))
+        ok &= row[f"{k}_equals_plain"]
+    row.update(turns(fns, n_turns, reps))
+    row.update(device_turns(fns, "beat_tail_kernel", n_turns))
+    for tag, lib in (probed or {}).items():
+        fn = tail_caller(lib, captured)
+        got, cyc = probe_row(lib, fn, TAIL_PHASES)
+        row[f"{tag}probed_equals_plain"] = bool(
+            torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+        ok &= row[f"{tag}probed_equals_plain"]
+        nb, na = max(cyc["budget_ctas"], 1), max(cyc["argmin_ctas"], 1)
+        row[f"{tag}probes"] = {
+            "counts_cycles_a_cta": cyc["counts"] / nb,
+            "budgets_cycles_a_cta": cyc["budgets"] / nb,
+            "budget_ctas": cyc["budget_ctas"],
+            "argmin_cycles_a_cta": cyc["argmin"] / na,
+            "argmin_ctas": cyc["argmin_ctas"],
+            "longest_budget_cta_cycles": cyc["longest_budget_cta"],
+            "span_ns": cyc["end_ns"] - ((1 << 62) -
+                                        cyc["start_ns_complement"])}
+    cs.emit(row)
+    return ok
+
+
+def beat_kernel_rows(kernels, args, against) -> bool:
+    """The shard_scan and beat_tail rows: this build against the older
+    commit's ``csrc`` in DIR (same entry points), on the beat cell's
+    captured inputs (shard_scan at S = 2 / 4 / 8, beat_tail at S = 1 /
+    2 / 4 / 8) and, for shard_scan, the contract's 8192 x 16 x 128 at S
+    = 2 / 4 / 8; with ``--phases``, probed copies of both."""
+    from ray_tpu_torch.ops import _build
+    lib_name = {"shard_scan": "shard_scan", "beat_tail": "beat"}
+    specs, keys = [], []
+    for k in kernels:
+        specs.append((_build._CSRC / _build.SOURCES[lib_name[k]], ()))
+        keys.append((k, "this"))
+        if against is not None:
+            specs.append((against / _build.SOURCES[lib_name[k]], ()))
+            keys.append((k, "against"))
+        if args.phases:
+            for tag, (probes, csrc) in PHASE_SOURCES[k](against).items():
+                specs.append(probed(lib_name[k], probes, csrc, tag))
+                keys.append((k, ("probed", tag)))
+    built = dict(zip(keys, _build.build_variants(specs)))
+    ok = True
+    for k in kernels:
+        libs = {t: built[k, t] for t in ("this", "against")
+                if (k, t) in built}
+        # the probed builds' rows: "" this source's, "against_" the older
+        probes = {f"{t[1]}_" if t[1] else "": lib
+                  for (kk, t), lib in built.items()
+                  if kk == k and isinstance(t, tuple)}
+        if k == "shard_scan":
+            for s, mode in SCAN_MESHES:
+                scan = beat_captures(s, mode)["scan"]
+                ok &= scan_row(f"beat {s} {mode}", scan, libs, args.reps,
+                               args.turns, probes)
+            for s in SCAN_LIMIT_RANKS:
+                ok &= scan_row(f"limit 8192x16x128 {s}", scan_limit_args(s),
+                               libs, args.reps, args.turns, probes)
+        else:
+            for s in TAIL_RANKS:
+                tail = beat_captures(s, SCAN_MESHES[0][1])["tail"]
+                ok &= tail_row(s, tail, libs, args.reps, args.turns, probes)
+    return ok
+
+
+# this shard_scan.cu: the cluster route's exchange is the CTA reduction,
+# the push and barrier.cluster, and every warp's combine (slot reads);
+# the global route's the CTA reduction, the tagged publish, the polls
+# until every slot carries the round (wait), the reduction of the slots
+# and the __syncthreads that hands the result to the CTA
+SCAN_PROBES = [
+    PARENT_SCAN_PROBES[0],
+    ("  Ctx cx{tab, s, rank, cta, cpr, (int)blockIdx.x, 0u, 0};\n", "",
+     _SCAN_START),
+    PARENT_SCAN_PROBES[2],
+    ("  cross<NV, false, kCluster>(sh, cx, x, xm, out);\n",
+     "  RT_PROBE(1);\n", ""),
+    PARENT_SCAN_PROBES[4],
+    ("    cross<2, true, kCluster>(sh, cx, tot, kNoKey, pre);\n",
+     "    RT_PROBE(1);\n", ""),
+    ("  const bool on = lane < nc;\n", "  RT_PROBE(2);\n", ""),
+    ("  out.mn = warp_min64(on ? sh.slot_min[cx.parity][lane] : kNoKey);\n"
+     "  cx.parity ^= 1;\n", "", "  RT_PROBE(5);\n" + _COUNT),
+    ("              tagged(round, (unsigned)mn));\n", "",
+     "    RT_PROBE(3);\n"),
+    ("      m = y < m ? y : m;\n    }\n", "", "    RT_PROBE(4);\n"),
+    ("    m = warp_min64(m);\n", "", "    RT_PROBE(5);\n"),
+    ("  out.mn = sh.res_min;\n", "", "  RT_PROBE(6);\n" + _COUNT),
+    PARENT_SCAN_PROBES[-1],
+]
+# this beat_tail: a budget CTA copies its share of the counts block (and
+# CTA 0 the overflow column), then prices its classes over its rows
+TAIL_PROBES = [
+    PARENT_TAIL_PROBES[0], PARENT_TAIL_PROBES[1], PARENT_TAIL_PROBES[2],
+    ("      a.packed[(a.g + cls) * ld + ld - 1] = 0;\n  }\n", "",
+     _tail_sig(0)),
+    ("    out[row] = budget;\n  }\n", "", _tail_sig(1) + _TAIL_BUDGET_END),
+]
+# the probed copies of each kernel: {tag: (probes, csrc or None for this
+# checkout's)}; tag "" is this checkout's source, "against" the older
+# commit's (the dc85228 probes)
+
+
+def _sources(this, parent):
+    def pick(against):
+        out = {"": (this, None)}
+        if against is not None:
+            out["against"] = (parent, against)
+        return out
+    return pick
+
+
+PHASE_SOURCES = {"shard_scan": _sources(SCAN_PROBES, PARENT_SCAN_PROBES),
+                 "beat_tail": _sources(TAIL_PROBES, PARENT_TAIL_PROBES)}
+
+
+def probed(kernel: str, probes, csrc=None, tag=None) -> tuple[Path, tuple]:
     """A copy of ``kernel``'s source (this checkout's, or the one in
     ``csrc``) with ``probes`` and ``flash_phases.READER``, beside a copy
-    of its header."""
+    of its header (in a directory of its own, named by ``tag`` where
+    given)."""
     from ray_tpu_torch.ops import _build
-    out = _build.BUILD_DIR.parent / ("dataplane_phases" if csrc is None
-                                     else "dataplane_phases_against")
+    out = _build.BUILD_DIR.parent / (
+        f"dataplane_phases_{tag or 'this'}" if tag is not None else
+        "dataplane_phases" if csrc is None else "dataplane_phases_against")
     csrc = _build._CSRC if csrc is None else csrc
     out.mkdir(parents=True, exist_ok=True)
     shutil.copy(csrc / "contract.cuh", out / "contract.cuh")
@@ -602,6 +1088,11 @@ def main() -> int:
     kernels = [k for k in KERNELS if k in args.kernels]
     cs.emit({"nvidia_smi": cs.phase_device(), "against": str(args.against),
              "kernels": kernels})
+    beat = [k for k in kernels if k in BEAT_KERNELS]
+    ok = beat_kernel_rows(beat, args, args.against) if beat else True
+    kernels = [k for k in kernels if k not in BEAT_KERNELS]
+    if not kernels:
+        return 0 if ok else 1
     # every build at once: the port's, the older commit's, the -D sweeps
     # and the probed copies
     _build.build(kernels)
@@ -658,7 +1149,6 @@ def main() -> int:
     if "topk" in kernels:
         programs["topk"] = topk_problems()
     refs = {}
-    ok = True
     for kernel in kernels:
         name = PROGRAMS[kernel]
         for size, arrays in programs[name].items():

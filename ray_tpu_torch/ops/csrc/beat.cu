@@ -46,12 +46,20 @@
 //     scan's counts (each rank's block into its columns, inf into column
 //     N), then the lease budgets of every class slot off the scan's final
 //     avail (clamped >= 0 before the division, capped at BUDGET_CAP, a
-//     zero overflow column).  C more CTAs take the per-class argmin of the
-//     carried keys over every rank as the min of packed 64-bit (key, global
-//     row) values (contract.cuh): ties go to the lowest row and an all-INF
-//     row gives 0, as jnp.argmin and the sharded reference's pmin do.  That
-//     replaces the pmin2 and the two gathers, so a sharded beat on one card
-//     makes no transport call.
+//     zero overflow column).  The budgets are spread over the card: a CTA
+//     takes kClsBlock classes (a warp each) of kTailRows rows of one rank,
+//     so a thread prices one (class, row) at a time instead of one row for
+//     every class.  Each warp first compacts its class's positive request
+//     columns into shared memory, each with its magic multiplier
+//     (contract.cuh magic), so the division by the request is a
+//     multiply-high: the dividend max(avail, 0) >= 0 and the divisor is >=
+//     1, so fdiv floors exactly.  The same CTAs copy the counts block in a
+//     grid-stride loop along the packed rows.  C more CTAs take the
+//     per-class argmin of the carried keys over every rank as the min of
+//     packed 64-bit (key, global row) values (contract.cuh): ties go to the
+//     lowest row and an all-INF row gives 0, as jnp.argmin and the sharded
+//     reference's pmin do.  That replaces the pmin2 and the two gathers,
+//     so a sharded beat on one card makes no transport call.
 //
 // Exactness traps: the keys use the raw (possibly negative) avail and the
 // resident mask, never mask_eff; only the budgets clamp avail and use
@@ -71,8 +79,11 @@ namespace {
 
 using namespace rt;
 
-constexpr int kTile = 256;               // node rows a CTA
+constexpr int kTile = 256;               // node rows a CTA (beat_rows)
 constexpr int kThreads = 256;
+constexpr int kClsBlock = kThreads / 32; // classes a budget CTA, a warp each
+constexpr int kTailRows = 64;            // node rows a budget CTA
+constexpr int kColCap = 32;              // a class's compacted columns on chip
 constexpr int kBudgetCap = 1 << 15;      // contract.BUDGET_CAP
 constexpr int kModeBeat = 0;             // dirty rows; with eff, the beat
 constexpr int kModeClasses = 1;          // install class rows, rescore them
@@ -291,15 +302,25 @@ beat_rows_kernel(const RankRes* __restrict__ tab, const RowsArgs a) {
   }
 }
 
+// One class's positive request columns, compacted by its warp: column,
+// request and the request's magic multiplier and shift
+struct TailCls {
+  int col[kColCap], q[kColCap];
+  unsigned m[kColCap], sh[kColCap];
+};
+
+// CTAs [0, c) take one class's argmin each; the rest are budget CTAs, by
+// (rank, row tile, class block), which also copy the counts block.
 __global__ void __launch_bounds__(kThreads)
 beat_tail_kernel(const RankRes* __restrict__ tab, const TailArgs a) {
   __shared__ unsigned long long part[1][32];
-  const int tiles = (a.n_l + kTile - 1) / kTile;
+  __shared__ TailCls cls_sh[kClsBlock];
   const int tid = threadIdx.x, nt = blockDim.x, r = a.r;
+  const int lane = tid & 31, warp = tid >> 5;
   const long long ld = (long long)a.s * a.n_l + 1;   // packed's row length
 
-  if ((int)blockIdx.x >= a.s * tiles) {    // the argmin of one class
-    const int cls = blockIdx.x - a.s * tiles;
+  if ((int)blockIdx.x < a.c) {             // the argmin of one class
+    const int cls = blockIdx.x;
     unsigned long long m[1] = {kNoKey};
     for (int k = 0; k < a.s; ++k) {
       const int* keys = tab[k].keys + (long long)cls * a.n_l;
@@ -313,27 +334,71 @@ beat_tail_kernel(const RankRes* __restrict__ tab, const TailArgs a) {
     return;
   }
 
-  const int k = blockIdx.x / tiles;
-  const int lo = (blockIdx.x % tiles) * kTile, hi = min(lo + kTile, a.n_l);
-  const RankRes res = tab[k];
-  const int* alloc = at_rank(a.alloc, a.alloc_rank, k);
-  const int* av_fin = at_rank(a.av_fin, a.av_rank, k);
-  for (int row = lo + tid; row < hi; row += nt) {
-    const long long col = (long long)k * a.n_l + row;
-    for (int gi = 0; gi < a.g; ++gi)
-      a.packed[gi * ld + col] = alloc[(long long)gi * a.alloc_row + row];
-    const int* t_row = res.totals + (long long)row * r;
-    const int* a_row = av_fin + (long long)row * r;
-    const bool live = res.mask_eff[row] != 0;
-    for (int cls = 0; cls < a.c; ++cls)
-      a.packed[(a.g + cls) * ld + col] =
-          budget_of(t_row, a_row, res.reqs + cls * r, r, live);
+  // the counts block, along the packed rows: column k * n_l + row of row
+  // gi is rank k's alloc[gi][row]
+  const int b = blockIdx.x - a.c, nb = gridDim.x - a.c;
+  const unsigned n = (unsigned)(a.s * a.n_l), nl = (unsigned)a.n_l;
+  for (unsigned e = (unsigned)(b * nt + tid); e < (unsigned)a.g * n;
+       e += (unsigned)(nb * nt)) {        // the host keeps the packed
+    const unsigned gi = e / n, col = e - gi * n;     // rows below 2**31
+    const unsigned k = col / nl, row = col - k * nl;
+    const int* alloc = at_rank(a.alloc, a.alloc_rank, (int)k);
+    a.packed[gi * ld + col] = alloc[(long long)gi * a.alloc_row + row];
   }
-  if (blockIdx.x == 0) {                   // the overflow column
+  if (b == 0) {                            // the overflow column
     for (int gi = tid; gi < a.g; gi += nt)
       a.packed[gi * ld + ld - 1] = a.inf[(long long)gi * a.inf_stride];
     for (int cls = tid; cls < a.c; cls += nt)
       a.packed[(a.g + cls) * ld + ld - 1] = 0;
+  }
+
+  // the budgets of this warp's class over the CTA's rows of one rank
+  const int tiles = (a.n_l + kTailRows - 1) / kTailRows;
+  const int blocks = (a.c + kClsBlock - 1) / kClsBlock;
+  const int k = b / (tiles * blocks), rest = b % (tiles * blocks);
+  const int lo = (rest / blocks) * kTailRows;
+  const int hi = min(lo + kTailRows, a.n_l);
+  const int cls = (rest % blocks) * kClsBlock + warp;
+  if (cls >= a.c) return;                  // past the last class
+  const RankRes res = tab[k];
+  const int* req = res.reqs + (long long)cls * r;
+  TailCls& cs = cls_sh[warp];
+  int npos = 0;
+  for (int c0 = 0; c0 < r; c0 += 32) {
+    const int c = c0 + lane;
+    const int q = c < r ? req[c] : 0;
+    const unsigned pos = __ballot_sync(kFull, q > 0);
+    const int at = npos + __popc(pos & ((1u << lane) - 1u));
+    if (q > 0 && at < kColCap) {
+      const uint2 mg = magic(q);
+      cs.col[at] = c;
+      cs.q[at] = q;
+      cs.m[at] = mg.x;
+      cs.sh[at] = mg.y;
+    }
+    npos += __popc(pos);
+  }
+  __syncwarp();
+  const int* av_fin = at_rank(a.av_fin, a.av_rank, k);
+  int* out = a.packed + (a.g + cls) * ld + (long long)k * a.n_l;
+  for (int row = lo + lane; row < hi; row += 32) {
+    const int* t_row = res.totals + (long long)row * r;
+    const int* a_row = av_fin + (long long)row * r;
+    const bool live = res.mask_eff[row] != 0;
+    int budget;
+    if (npos <= kColCap) {
+      bool feas = live;
+      int fill = kBudgetCap;
+      for (int p = 0; p < npos; ++p) {
+        const int c = cs.col[p];
+        feas = feas && (t_row[c] >= cs.q[p]);
+        fill = min(fill, fdiv(max(a_row[c], 0), cs.m[p], cs.sh[p]));
+      }
+      budget = feas ? fill : 0;
+    } else {                               // more columns than the cap
+      budget = budget_of(t_row, a_row, req, r, live);
+    }
+    out[row] = budget;
   }
 }
 
@@ -345,8 +410,7 @@ bool rows_args_ok(const RowsArgs& a) {
 
 }  // namespace
 
-// layout[0..2]: CTAs, threads a CTA, node rows a CTA (beat_rows and
-// beat_tail alike)
+// layout[0..2]: CTAs, threads a CTA, node rows a CTA
 extern "C" int rt_beat_rows(const void* table, const void* args, int* layout,
                             void* stream) {
   const RowsArgs& a = *static_cast<const RowsArgs*>(args);
@@ -360,16 +424,25 @@ extern "C" int rt_beat_rows(const void* table, const void* args, int* layout,
   return (int)cudaGetLastError();
 }
 
+// layout[0..4]: CTAs, threads a CTA, node rows a budget CTA, classes a
+// budget CTA, argmin CTAs
 extern "C" int rt_beat_tail(const void* table, const void* args, int* layout,
                             void* stream) {
   const TailArgs& a = *static_cast<const TailArgs*>(args);
   if (a.s < 1 || a.n_l < 1 || a.r < 1 || a.c < 1 || a.g < 0)
     return (int)cudaErrorInvalidValue;
-  const int blocks = a.s * ((a.n_l + kTile - 1) / kTile) + a.c;
-  layout[0] = blocks;
+  const long long blocks =
+      (long long)a.s * ((a.n_l + kTailRows - 1) / kTailRows) *
+          ((a.c + kClsBlock - 1) / kClsBlock) + a.c;
+  if (blocks > 0x7fffffffLL ||
+      (long long)(a.g + a.c) * ((long long)a.s * a.n_l + 1) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  layout[0] = (int)blocks;
   layout[1] = kThreads;
-  layout[2] = kTile;
-  beat_tail_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  layout[2] = kTailRows;
+  layout[3] = kClsBlock;
+  layout[4] = a.c;
+  beat_tail_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const RankRes*>(table), a);
   return (int)cudaGetLastError();
 }

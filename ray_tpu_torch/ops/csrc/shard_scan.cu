@@ -19,8 +19,8 @@
 // launch, so the design makes an exchange short:
 //
 //   * Within a rank, waterfill.cu's layout: one row a thread, the rank's
-//     rows over a thread-block cluster of nc CTAs where they pass one CTA
-//     (plan()); CTA k of the cluster owns the rank's rows [k*nt, (k+1)*nt).
+//     rows over nc CTAs where they pass one CTA (plan()); the rank's CTA k
+//     owns its rows [k*nt, (k+1)*nt).
 //     totals and the carried avail stay in shared memory for the whole scan
 //     (column-major), or, where they cannot, are read from totals and
 //     carried in new_avail (kOnChip false).  A class's positive-request
@@ -33,29 +33,47 @@
 //     and the prefix.  It is exact for the reason given at waterfill.cu:53:
 //     the global m(L) is the sum of the ranks' m(L), so it is non-decreasing
 //     as the single-device sum is.
-//   * An exchange: the CTA's sums (warp shuffles, one __syncthreads), the
-//     rank's (each CTA pushes its sums into every CTA of the cluster by
-//     distributed shared memory, one cluster barrier), then across ranks
-//     through global memory.  The rank's first CTA writes the rank's sums
-//     into its own slot of the exchange buffer (a ring of kRing slots, by
-//     round) and publishes the round in its counter with release
-//     semantics; every CTA of every rank waits with acquire semantics for
-//     all S counters and reduces the S slots itself: sums as wrapping
-//     uint32 (the same bits in any order, so the same as _psum2's ici then
-//     dcn), the min as contract.cuh's packed 64-bit (key, row), and the
-//     exclusive prefix as the sum over the lower ranks.  Slots rather than
-//     one shared cell with atomics: a rank writes only its own memory, as
-//     ranks on distinct cards will over peer-mapped memory; the slots are
-//     found through the table of per-rank pointers.  A rank is never more
-//     than one round ahead of another (it publishes round k+1 only after
-//     reading every rank's round k), so two slots would do.
-//   * Co-residency.  A rank spins until every rank has published, so every
-//     CTA of every rank must be resident at once: one cooperative launch,
-//     with the cluster attribute where a rank takes a cluster.
-//     rt_shard_scan_plan reports how many ranks can be resident and the
-//     wrapper raises before launching a mesh that cannot be; a wait that
-//     lasts 10 s traps, failing the launch instead of hanging the card.
-//
+//   * An exchange takes one of two routes (plan()), both starting with
+//     the CTA's sums (a redux.sync a value, one __syncthreads):
+//     - "cluster", where every rank's CTAs fit one thread-block cluster
+//       (at most kMaxCluster = 16 CTAs; the beat cell's 1024 rows at S =
+//       2 / 4 / 8, 8192 rows at S = 2): one launch of one cluster, rank
+//       k's CTAs a run of consecutive cluster ranks, so cluster order is
+//       global row order.  An exchange is waterfill.cu's: each CTA pushes
+//       its sums and packed min into a parity slot of every CTA by
+//       distributed shared memory, one barrier.cluster, and every warp
+//       combines the slots itself.  The exclusive prefix is the sum of
+//       the lower CTAs' slots: the lower ranks' rows, then this rank's
+//       lower CTAs' (the reference's all-gathered prefix).  No global
+//       memory, no fences, no counters, no cooperative launch.  The
+//       hardware co-schedules a cluster, so no CTA waits on one that has
+//       not started.
+//     - "global", for meshes past one cluster (8192 rows at S = 4 / 8,
+//       32 and 64 ranks): a cooperative launch of every rank's CTAs, no
+//       cluster.  Every CTA publishes its own sums and packed min into its
+//       own slot of its rank's exchange area (a ring of kRing slots, by
+//       round), each 32-bit value in a 64-bit word whose high half is the
+//       round, written and read as volatile 16-byte pairs.  A reader
+//       knows a word is this round's from the word itself, so there is no
+//       release/acquire, no counter and no second read: warp 0 of every
+//       CTA polls every CTA's slot until each of its words carries the
+//       round (a pair's words are single-copy atomic each), sums them
+//       (wrapping uint32, the same bits in any order, so the same as
+//       _psum2's ici then dcn), takes the min and the exclusive prefix
+//       over the lower CTAs, and a __syncthreads hands them to the CTA.
+//       A CTA is never more than one round ahead of another (it publishes
+//       round k+1 only after reading every slot of round k), so the ring
+//       is never overwritten under a reader.  The areas start zeroed (the
+//       wrapper, or beat_rows in the engines), which no round matches.
+//       Slots rather than one shared cell with atomics: a rank writes only
+//       its own memory, as ranks on distinct cards will over peer-mapped
+//       memory; the slots are found through the table of per-rank
+//       pointers.  Every CTA spins on the others, so all must be resident
+//       at once: rt_shard_scan_plan reports how many ranks can be and the
+//       wrapper raises before launching a mesh that cannot be; a wait
+//       that lasts 10 s traps, failing the launch instead of hanging the
+//       card.
+
 // Exactness: as in waterfill.cu (uint32 wrapping, floor division, initial
 // values of the reductions, ties to the lowest row), plus the sharded
 // reference's own traps: keys carry the GLOBAL row (rank * n_l + row); the
@@ -82,14 +100,17 @@ constexpr int kTop = 2 * kScale + 1;     // the search's "no level" answer
 constexpr int kProbes = 7;               // levels per search round
 constexpr int kVals = kProbes + 1;       // sums exchanged per search round
 constexpr int kMaxThreads = 1024;
-constexpr int kRowsPerCta = 128;         // the cluster doubles above this
+constexpr int kRowsPerCta = 128;         // a rank's CTAs double above this
 constexpr int kPortableCluster = 8;
 constexpr int kMaxCluster = 16;
-constexpr int kRing = 4;                 // exchange slots a rank, by round
-constexpr int kSlotInts = 16;            // kVals sums, then the 64-bit min
-constexpr int kHeadInts = 32;            // the round counter's 128-byte line
-constexpr int kRankInts = kHeadInts + kRing * kSlotInts;
+constexpr int kRing = 4;                 // a CTA's exchange slots, by round
+constexpr int kSlotWords = 16;           // kVals sums, the min's two halves
+constexpr int kMinWord = 8;              // (a 128-byte line)
+constexpr int kSlotInts = 2 * kSlotWords;
+constexpr int kCtaInts = kRing * kSlotInts;
 constexpr long long kWaitNs = 10000000000LL;
+constexpr int kRouteGlobal = 0;          // layout[6]
+constexpr int kRouteCluster = 1;
 
 // One rank's arrays, as the wrapper lays out its table (one int64 each)
 struct RankPtrs {
@@ -102,20 +123,21 @@ struct RankPtrs {
   int* alloc;                 // (g, n_l), out
   int* new_avail;             // (n_l, r), out
   int* inf;                   // (g,), out: rank 0's, null on the others
-  unsigned* xchg;             // this rank's exchange area (kRankInts), zeroed
+  unsigned* xchg;             // this rank's exchange area, zeroed: its
+                              // CTAs' slots (global route)
 };
 
 struct Shared {
   int warp_vals[kVals][32];
   unsigned long long warp_min[32];
-  // each CTA pushes its sums into slot [its rank in the cluster] of every
-  // CTA of the cluster, by round parity: after the barrier every read is
-  // local
+  // cluster route: each CTA pushes its sums into slot [its cluster rank]
+  // of every CTA of the cluster, by round parity: after the barrier every
+  // read is local
   int slot[2][kMaxCluster][kVals];
   unsigned long long slot_min[2][kMaxCluster];
   int woff[32];                          // exclusive scan offsets of the warps
-  unsigned res[kVals], res_low[kVals];   // an exchange's result, for the CTA
-  unsigned long long res_min;
+  unsigned res[kVals], res_low[kVals];   // global route: an exchange's
+  unsigned long long res_min;            // result, for the CTA
   int npos[2], count[2];                 // the class's, by class parity
 };
 
@@ -123,23 +145,34 @@ __device__ __forceinline__ int clip(int x, int lo, int hi) {
   return min(max(x, lo), hi);
 }
 
+// A warp's wrapping sum and its first min of packed 64-bit keys, each one
+// redux.sync a 32-bit word (in place of five shuffles each)
 __device__ __forceinline__ unsigned warp_sum(unsigned x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
+  return __reduce_add_sync(kFull, x);
 }
 
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-               : "=r"(v)
-               : "l"(p)
+__device__ __forceinline__ unsigned long long warp_min64(
+    unsigned long long x) {
+  const unsigned hi = __reduce_min_sync(kFull, (unsigned)(x >> 32));
+  const unsigned lo = __reduce_min_sync(
+      kFull, (unsigned)(x >> 32) == hi ? (unsigned)x : 0xffffffffu);
+  return ((unsigned long long)hi << 32) | lo;
+}
+
+__device__ __forceinline__ void st_pair(unsigned long long* p,
+                                        unsigned long long a,
+                                        unsigned long long b) {
+  asm volatile("st.volatile.global.v2.u64 [%0], {%1, %2};" ::"l"(p), "l"(a),
+               "l"(b)
                : "memory");
-  return v;
 }
 
-__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v)
+__device__ __forceinline__ void ld_pair(const unsigned long long* p,
+                                        unsigned long long& a,
+                                        unsigned long long& b) {
+  asm volatile("ld.volatile.global.v2.u64 {%0, %1}, [%2];"
+               : "=l"(a), "=l"(b)
+               : "l"(p)
                : "memory");
 }
 
@@ -149,91 +182,119 @@ __device__ __forceinline__ long long globaltimer() {
   return t;
 }
 
-// Spin until the counter has reached `round`; trap after kWaitNs.
-__device__ __forceinline__ void wait_round(const unsigned* counter,
-                                           unsigned round) {
-  long long t0 = 0;
-  for (int spin = 1;; ++spin) {
-    if ((int)(ld_acquire(counter) - round) >= 0) return;
-    if ((spin & 1023) == 0) {
-      const long long t = globaltimer();
-      if (t0 == 0) t0 = t;
-      else if (t - t0 > kWaitNs) __trap();
-    }
-  }
+__device__ __forceinline__ unsigned long long tagged(unsigned round,
+                                                     unsigned v) {
+  return ((unsigned long long)round << 32) | v;
 }
 
 // This CTA's place in the exchange
 struct Ctx {
   const RankPtrs* tab;
-  int s, rank, cta;
-  unsigned round;                        // exchanges so far
+  int s, rank, cta, cpr;                 // cpr: CTAs a rank
+  int me;                                // rank * cpr + cta: row order
+  unsigned round;                        // exchanges so far (global route)
   int parity;                            // of the cluster's slots
 };
 
-// Warp 0 holds this CTA's sums x[] and min mn (every lane).  Every thread
-// of every CTA of every rank calls it; afterwards sh.res[] holds the
-// wrapping sums over all rows of all ranks, sh.res_low[] (kLow) those over
-// the rows before this CTA's (the lower ranks', then the lower CTAs' of
-// this rank), and sh.res_min the min.
-template <int NV, bool kLow, bool kCluster>
-__device__ void cross(Shared& sh, Ctx& cx, const unsigned (&x)[NV],
-                      unsigned long long mn) {
+// An exchange's result, in every thread
+template <int NV>
+struct Res {
+  unsigned all[NV], low[NV];             // over every row; over the rows
+  unsigned long long mn;                 // before this CTA's (kLow)
+};
+
+// The cluster route.  Warp 0 holds this CTA's sums x[] and min mn (every
+// lane): push them into slot [me] of every CTA, one barrier.cluster, then
+// every warp combines the slots.
+template <int NV, bool kLow>
+__device__ __forceinline__ void cross_cluster(Shared& sh, Ctx& cx,
+                                              const unsigned (&x)[NV],
+                                              unsigned long long mn,
+                                              Res<NV>& out) {
+  cg::cluster_group cl = cg::this_cluster();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  unsigned rk[NV], lowc[NV];             // the rank's; its CTAs' below this
-  unsigned long long rmin = mn;
+  const int nc = (int)cl.num_blocks();
+  if (warp == 0 && lane < nc) {          // lane k writes CTA k's copy
+    int* dst = cl.map_shared_rank(&sh.slot[cx.parity][cx.me][0], lane);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) dst[v] = (int)x[v];
+    *cl.map_shared_rank(&sh.slot_min[cx.parity][cx.me], lane) = mn;
+  }
+  cl.sync();
+  const bool on = lane < nc;
 #pragma unroll
   for (int v = 0; v < NV; ++v) {
-    rk[v] = x[v];
-    lowc[v] = 0u;
+    const unsigned y = on ? (unsigned)sh.slot[cx.parity][lane][v] : 0u;
+    out.all[v] = warp_sum(y);
+    if (kLow) out.low[v] = warp_sum(lane < cx.me ? y : 0u);
   }
-  if constexpr (kCluster) {
-    cg::cluster_group cl = cg::this_cluster();
-    const int nc = (int)cl.num_blocks();
-    if (warp == 0 && lane < nc) {        // lane k writes CTA k's copy
-      int* dst = cl.map_shared_rank(&sh.slot[cx.parity][cx.cta][0], lane);
-#pragma unroll
-      for (int v = 0; v < NV; ++v) dst[v] = (int)x[v];
-      *cl.map_shared_rank(&sh.slot_min[cx.parity][cx.cta], lane) = mn;
-    }
-    cl.sync();
-    if (warp == 0) {
-      const bool on = lane < nc;
-#pragma unroll
-      for (int v = 0; v < NV; ++v) {
-        const unsigned y = on ? (unsigned)sh.slot[cx.parity][lane][v] : 0u;
-        rk[v] = warp_sum(y);
-        if (kLow) lowc[v] = warp_sum(lane < cx.cta ? y : 0u);
-      }
-      rmin = warp_min(on ? sh.slot_min[cx.parity][lane] : kNoKey);
-    }
-    cx.parity ^= 1;
-  }
+  out.mn = warp_min64(on ? sh.slot_min[cx.parity][lane] : kNoKey);
+  cx.parity ^= 1;
+}
+
+// The global route.  Warp 0 holds this CTA's sums x[] and min mn (every
+// lane): publish them tagged with the round in this CTA's slot, read
+// every CTA's slot once all its words carry the round (lane j the slots
+// j, j + 32, ...), reduce, and hand the result to the CTA.
+template <int NV, bool kLow>
+__device__ void cross_global(Shared& sh, Ctx& cx, const unsigned (&x)[NV],
+                             unsigned long long mn, Res<NV>& out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned round = ++cx.round;
+  const int ring = (int)(round % kRing) * kSlotInts;
   if (warp == 0) {
-    const int at = kHeadInts + (int)(round % kRing) * kSlotInts;
-    if (cx.cta == 0 && lane == 0) {      // publish this rank's sums
-      unsigned* own = cx.tab[cx.rank].xchg;
+    unsigned long long* own = reinterpret_cast<unsigned long long*>(
+        cx.tab[cx.rank].xchg + cx.cta * kCtaInts + ring);
+    unsigned lo = 0u, hi = 0u;           // lane j writes words 2j, 2j + 1
 #pragma unroll
-      for (int v = 0; v < NV; ++v) __stcg(own + at + v, rk[v]);
-      __stcg(reinterpret_cast<unsigned long long*>(own + at + kVals), rmin);
-      st_release(own, round);
+    for (int v = 0; v < NV; ++v) {
+      if (v == 2 * lane) lo = x[v];
+      if (v == 2 * lane + 1) hi = x[v];
     }
+    if (2 * lane < NV)
+      st_pair(own + 2 * lane, tagged(round, lo), tagged(round, hi));
+    if (lane == kMinWord / 2)
+      st_pair(own + kMinWord, tagged(round, (unsigned)(mn >> 32)),
+              tagged(round, (unsigned)mn));
     unsigned all[NV], low[NV];
 #pragma unroll
     for (int v = 0; v < NV; ++v) all[v] = low[v] = 0u;
     unsigned long long m = kNoKey;
-    for (int k = lane; k < cx.s; k += 32) {   // lane k reads rank k's slot
-      const unsigned* xk = cx.tab[k].xchg;
-      wait_round(xk, round);
+    const int nslots = cx.s * cx.cpr;
+    for (int j = lane; j < nslots; j += 32) {
+      const int k = j / cx.cpr;
+      const unsigned long long* xs =
+          reinterpret_cast<const unsigned long long*>(
+              cx.tab[k].xchg + (j - k * cx.cpr) * kCtaInts + ring);
+      constexpr int kPairs = (NV + 1) / 2;
+      unsigned long long w[2 * kPairs], w_min[2];
+      long long t0 = 0;
+      for (int spin = 1;; ++spin) {
+        bool ok = true;
+#pragma unroll
+        for (int q = 0; q < kPairs; ++q) {
+          ld_pair(xs + 2 * q, w[2 * q], w[2 * q + 1]);
+          ok = ok && (unsigned)(w[2 * q] >> 32) == round &&
+               (unsigned)(w[2 * q + 1] >> 32) == round;
+        }
+        ld_pair(xs + kMinWord, w_min[0], w_min[1]);
+        ok = ok && (unsigned)(w_min[0] >> 32) == round &&
+             (unsigned)(w_min[1] >> 32) == round;
+        if (ok) break;
+        if ((spin & 1023) == 0) {        // trap after kWaitNs
+          const long long t = globaltimer();
+          if (t0 == 0) t0 = t;
+          else if (t - t0 > kWaitNs) __trap();
+        }
+      }
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
-        const unsigned y = __ldcg(xk + at + v);
+        const unsigned y = (unsigned)w[v];
         all[v] += y;
-        if (kLow && k < cx.rank) low[v] += y;
+        if (kLow && j < cx.me) low[v] += y;
       }
-      const unsigned long long y = __ldcg(
-          reinterpret_cast<const unsigned long long*>(xk + at + kVals));
+      const unsigned long long y =
+          ((unsigned long long)(unsigned)w_min[0] << 32) | (unsigned)w_min[1];
       m = y < m ? y : m;
     }
 #pragma unroll
@@ -241,29 +302,43 @@ __device__ void cross(Shared& sh, Ctx& cx, const unsigned (&x)[NV],
       all[v] = warp_sum(all[v]);
       if (kLow) low[v] = warp_sum(low[v]);
     }
-    m = warp_min(m);
+    m = warp_min64(m);
     if (lane == 0) {
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
         sh.res[v] = all[v];
-        if (kLow) sh.res_low[v] = low[v] + lowc[v];
+        if (kLow) sh.res_low[v] = low[v];
       }
       sh.res_min = m;
     }
   }
   __syncthreads();
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    out.all[v] = sh.res[v];
+    if (kLow) out.low[v] = sh.res_low[v];
+  }
+  out.mn = sh.res_min;
+}
+
+template <int NV, bool kLow, bool kCluster>
+__device__ __forceinline__ void cross(Shared& sh, Ctx& cx,
+                                      const unsigned (&x)[NV],
+                                      unsigned long long mn, Res<NV>& out) {
+  if constexpr (kCluster) cross_cluster<NV, kLow>(sh, cx, x, mn, out);
+  else cross_global<NV, kLow>(sh, cx, x, mn, out);
 }
 
 // An exchange of one value vector a row: the CTA's sums, then cross().
 template <int NV, bool kCluster>
 __device__ void exchange(Shared& sh, Ctx& cx, const int (&vals)[NV],
-                         unsigned long long mn) {
+                         unsigned long long mn, Res<NV>& out) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   unsigned u[NV];
 #pragma unroll
   for (int v = 0; v < NV; ++v) u[v] = warp_sum((unsigned)vals[v]);
-  mn = warp_min(mn);
+  mn = warp_min64(mn);
   if (lane == 0) {
 #pragma unroll
     for (int v = 0; v < NV; ++v) sh.warp_vals[v][warp] = (int)u[v];
@@ -277,8 +352,8 @@ __device__ void exchange(Shared& sh, Ctx& cx, const int (&vals)[NV],
     x[v] = warp == 0 ? warp_sum(lane < nw ? (unsigned)sh.warp_vals[v][lane]
                                           : 0u)
                      : 0u;
-  if (warp == 0) xm = warp_min(lane < nw ? sh.warp_min[lane] : kNoKey);
-  cross<NV, false, kCluster>(sh, cx, x, xm);
+  if (warp == 0) xm = warp_min64(lane < nw ? sh.warp_min[lane] : kNoKey);
+  cross<NV, false, kCluster>(sh, cx, x, xm, out);
 }
 
 // This thread's row: on chip (column-major, stride nt) or, without
@@ -370,8 +445,9 @@ __device__ __forceinline__ void setup_class(Shared& sh, int* s_col, int* s_q,
   }
 }
 
-// kCluster: a rank's rows over a cluster; kOnChip: totals and avail in
-// shared memory; kReqAvail: require_available.
+// kCluster: every rank in one thread-block cluster (the cluster route),
+// else a cooperative grid (the global route); kOnChip: totals and avail
+// in shared memory; kReqAvail: require_available.
 template <bool kCluster, bool kOnChip, bool kReqAvail>
 __global__ void __launch_bounds__(kMaxThreads)
 shard_scan_kernel(const RankPtrs* __restrict__ tab, int s, int n_l, int r,
@@ -380,18 +456,13 @@ shard_scan_kernel(const RankPtrs* __restrict__ tab, int s, int n_l, int r,
   extern __shared__ int dyn[];
   const int nt = blockDim.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
-  int nc = 1, cta = 0;
-  if constexpr (kCluster) {
-    cg::cluster_group cl = cg::this_cluster();
-    nc = (int)cl.num_blocks();
-    cta = (int)cl.block_rank();
-  }
-  const int rank = (int)blockIdx.x / nc;
+  const int cpr = (int)gridDim.x / s;    // CTAs a rank
+  const int rank = (int)blockIdx.x / cpr, cta = (int)blockIdx.x % cpr;
   const RankPtrs p = tab[rank];
   const int row = cta * nt + tid;        // the rank's row
   const bool live = row < n_l;
   const int grow = rank * n_l + row;     // its global traversal index
-  Ctx cx{tab, s, rank, cta, 0u, 0};
+  Ctx cx{tab, s, rank, cta, cpr, (int)blockIdx.x, 0u, 0};
 
   // totals and the carried avail (r columns each, stride nt; none without
   // kOnChip), then the class arrays by class parity ([2][r] each)
@@ -472,20 +543,19 @@ shard_scan_kernel(const RankPtrs* __restrict__ tab, int s, int n_l, int r,
 #pragma unroll
       for (int j = 0; j < kProbes; ++j) vals[j] = sums[j];
       vals[kProbes] = m_max;
-      exchange<kVals, kCluster>(sh, cx, vals, first ? best : kNoKey);
-      unsigned all[kVals];
-#pragma unroll
-      for (int v = 0; v < kVals; ++v) all[v] = sh.res[v];
+      Res<kVals> res;
+      exchange<kVals, kCluster>(sh, cx, vals, first ? best : kNoKey, res);
       if (first) {
-        n_avail = min(count, (int)all[kProbes]);  // placements that consume
-        overflow = wsub(count, n_avail);          // queue on best feasible
-        if (gi > 0) resolve(gi - 1, sh.res_min);
+        n_avail = min(count, (int)res.all[kProbes]);  // placements that
+        overflow = wsub(count, n_avail);  // consume; queue on best feasible
+        if (gi > 0) resolve(gi - 1, res.mn);
         first = false;
       }
       int jstar = kProbes;                   // first ok probe
 #pragma unroll
       for (int j = kProbes - 1; j >= 0; --j)
-        if (lo + (j + 1) * step - 1 >= hi || (int)all[j] >= n_avail) jstar = j;
+        if (lo + (j + 1) * step - 1 >= hi || (int)res.all[j] >= n_avail)
+          jstar = j;
       const int new_hi = jstar < kProbes ? min(lo + (jstar + 1) * step - 1, hi)
                                          : hi;
       lo = jstar > 0 ? lo + jstar * step : lo;
@@ -525,10 +595,11 @@ shard_scan_kernel(const RankPtrs* __restrict__ tab, int s, int n_l, int r,
       tot[1] = warp_sum(lane < nw ? (unsigned)sh.warp_vals[1][lane] : 0u);
       if (gi + 1 < g) setup_class(sh, s_col, s_q, s_m, s_sh, gi + 1, p, r);
     }
-    cross<2, true, kCluster>(sh, cx, tot, kNoKey);
-    const int prefix = (int)(sh.res_low[0] + (unsigned)sh.woff[warp] + incl -
+    Res<2> pre;
+    cross<2, true, kCluster>(sh, cx, tot, kNoKey, pre);
+    const int prefix = (int)(pre.low[0] + (unsigned)sh.woff[warp] + incl -
                              (unsigned)extra);
-    const int rem = wsub(n_avail, (int)sh.res[1]);
+    const int rem = wsub(n_avail, (int)pre.all[1]);
     const int give = min(max(wsub(rem, prefix), 0), extra);
     const int alloc = wadd(base, give);
 
@@ -557,8 +628,9 @@ shard_scan_kernel(const RankPtrs* __restrict__ tab, int s, int n_l, int r,
 
   if (g > 0) {                           // the last class's overflow node
     const int zero[1] = {0};
-    exchange<1, kCluster>(sh, cx, zero, best);
-    resolve(g - 1, sh.res_min);
+    Res<1> res;
+    exchange<1, kCluster>(sh, cx, zero, best, res);
+    resolve(g - 1, res.mn);
   }
   if (kOnChip && live)
     for (int c = 0; c < r; ++c)
@@ -585,13 +657,14 @@ KernelFn kernel_for(bool cluster, bool on_chip, bool req_av) {
 }
 
 // The launch for S ranks of n_l rows x r columns, a fixed rule: a rank's
-// cluster doubles while a CTA would hold more than kRowsPerCta rows (up to
-// the portable 8), and again, to 16, while a CTA's rows (totals and avail)
-// do not fit its shared memory beside the class arrays (8r ints); at 16
-// the rows stay in global memory.  `resident` is how many ranks the card
-// can hold at once at that launch.
+// CTAs double while a CTA would hold more than kRowsPerCta rows (up to
+// 8), and again, to 16, while a CTA's rows (totals and avail) do not fit
+// its shared memory beside the class arrays (8r ints); at 16 the rows
+// stay in global memory.  The route is "cluster" where every rank's CTAs
+// make at most kMaxCluster, else "global".  `resident` is how many ranks
+// the card can hold at once at that launch.
 struct Layout {
-  int cluster, threads, on_chip, resident;
+  int rank_ctas, threads, on_chip, resident, route;
   size_t smem;                           // dynamic shared memory, bytes
 };
 
@@ -622,70 +695,80 @@ cudaError_t plan(int s, int n_l, int r, bool req_av, Layout* lay) {
     if (c == kMaxCluster) break;         // 512 threads at most: n_l <= 8192
     c *= 2;
   }
-  lay->cluster = c;
+  lay->rank_ctas = c;
   lay->threads = threads;
   lay->on_chip = on_chip;
+  lay->route = (long long)s * c <= kMaxCluster ? kRouteCluster : kRouteGlobal;
   lay->smem = sizeof(int) *
               ((on_chip ? 2 * (size_t)r * threads : 0) + (size_t)cls);
-  const KernelFn kernel = kernel_for(c > 1, on_chip != 0, req_av);
+  const bool cluster = lay->route == kRouteCluster;
+  const KernelFn kernel = kernel_for(cluster, on_chip != 0, req_av);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)lay->smem);
-  if (err == cudaSuccess && c > kPortableCluster)
+  if (err == cudaSuccess && cluster && s * c > kPortableCluster)
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
-  if (c > 1) {
+  if (cluster) {                         // the one cluster fits, or none
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(c, 1, 1);
+    cfg.gridDim = dim3(s * c, 1, 1);
     cfg.blockDim = dim3(threads, 1, 1);
     cfg.dynamicSmemBytes = lay->smem;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = c;
+    attr[0].val.clusterDim.x = s * c;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    err = cudaOccupancyMaxActiveClusters(&lay->resident, kernel, &cfg);
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    lay->resident = clusters > 0 ? s : 0;
   } else {
     int per_sm = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                         threads, lay->smem);
-    lay->resident = per_sm * sms;
+    lay->resident = per_sm * sms / c;
   }
   return err;
 }
 
-void write_layout(const Layout& lay, int* layout) {
-  layout[0] = lay.cluster;
+void write_layout(const Layout& lay, int s, int* layout) {
+  const bool cluster = lay.route == kRouteCluster;
+  layout[0] = cluster ? s * lay.rank_ctas : 1;   // CTAs of a cluster
   layout[1] = lay.threads;
   layout[2] = lay.on_chip;
   layout[3] = (int)lay.smem;
   layout[4] = lay.resident;
-  layout[5] = kRankInts;
+  layout[5] = cluster ? 0 : lay.rank_ctas * kCtaInts;  // exchange ints
+  layout[6] = lay.route;
+  layout[7] = lay.rank_ctas;
 }
 
 }  // namespace
 
-// The launch that rt_shard_scan makes for this mesh, into layout[0..5]:
-// CTAs a rank (the cluster), threads a CTA, rows on chip (1) or in global
-// memory (0), dynamic shared memory bytes, ranks the card can hold at once,
-// and the ints of a rank's exchange area.  Returns a cudaError_t.
+// The launch that rt_shard_scan makes for this mesh, into layout[0..7]:
+// CTAs of its thread-block cluster (1 on the global route), threads a
+// CTA, rows on chip (1) or in global memory (0), dynamic shared memory
+// bytes, ranks the card can hold at once, the ints of a rank's exchange
+// area (0 on the cluster route), the route (0 global, 1 cluster) and
+// CTAs a rank.  Returns a cudaError_t.
 extern "C" int rt_shard_scan_plan(int s, int n_l, int r,
                                   int require_available, int* layout) {
   Layout lay;
   const cudaError_t err = plan(s, n_l, r, require_available != 0, &lay);
   if (err != cudaSuccess) return (int)err;
-  write_layout(lay, layout);
+  write_layout(lay, s, layout);
   return (int)cudaSuccess;
 }
 
 // One launch for the G classes of S ranks.  `table` is S RankPtrs on the
-// device (the wrapper's int64 table); each rank's exchange area is
-// kRankInts zeroed ints.  A mesh the card cannot hold at once returns
-// cudaErrorCooperativeLaunchTooLarge before launching.  Writes the launch
-// into layout[0..5] as rt_shard_scan_plan does.  Returns a cudaError_t.
+// device (the wrapper's int64 table); on the global route each rank's
+// exchange area holds layout[5] zeroed ints.  A mesh the card cannot
+// hold at once returns cudaErrorCooperativeLaunchTooLarge before
+// launching.  Writes the launch into layout[0..7] as rt_shard_scan_plan
+// does.  Returns a cudaError_t.
 extern "C" int rt_shard_scan(const void* table, int s, int n_l, int r, int g,
                              int thr_fp, int require_available, int* layout,
                              void* stream) {
@@ -693,24 +776,28 @@ extern "C" int rt_shard_scan(const void* table, int s, int n_l, int r, int g,
   Layout lay;
   cudaError_t err = plan(s, n_l, r, require_available != 0, &lay);
   if (err != cudaSuccess) return (int)err;
-  write_layout(lay, layout);
+  write_layout(lay, s, layout);
   if (lay.resident < s) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const bool cluster = lay.route == kRouteCluster;
   const KernelFn kernel =
-      kernel_for(lay.cluster > 1, lay.on_chip != 0, require_available != 0);
+      kernel_for(cluster, lay.on_chip != 0, require_available != 0);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(s * lay.cluster, 1, 1);
+  cfg.gridDim = dim3(s * lay.rank_ctas, 1, 1);
   cfg.blockDim = dim3(lay.threads, 1, 1);
   cfg.dynamicSmemBytes = lay.smem;
   cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[2];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  attr[1].id = cudaLaunchAttributeClusterDimension;
-  attr[1].val.clusterDim.x = lay.cluster;
-  attr[1].val.clusterDim.y = 1;
-  attr[1].val.clusterDim.z = 1;
+  cudaLaunchAttribute attr[1];
+  if (cluster) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = s * lay.rank_ctas;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+  } else {
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+  }
   cfg.attrs = attr;
-  cfg.numAttrs = lay.cluster > 1 ? 2 : 1;
+  cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, (const RankPtrs*)table, s, n_l, r, g,
                            thr_fp);
   if (err != cudaSuccess) return (int)err;

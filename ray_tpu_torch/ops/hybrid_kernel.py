@@ -721,6 +721,8 @@ _ROW_FIELDS = ("idx", "rows_totals", "rows_avail", "rows_mask", "ov_idx",
                "cls_reqs")
 _MODES = {"beat": 0, "classes": 1, "rescore": 2}
 _BEAT_LAYOUT = ("ctas", "threads", "tile_rows")
+_TAIL_LAYOUT = ("ctas", "threads", "tile_rows", "class_block",
+                "argmin_ctas")
 
 
 class _RowsArgs(ctypes.Structure):
@@ -974,6 +976,24 @@ def _launch_tail(state, alloc, inf, av_fin):
     from . import _build
 
     dev = state.totals[0].device
+    table, args, packed, amin = tail_args(state, alloc, inf, av_fin)
+    layout = (ctypes.c_int * len(_TAIL_LAYOUT))()
+    fn = _build.load("beat", "rt_beat_tail")
+    with torch.cuda.device(dev):
+        err = fn(table.data_ptr(), ctypes.addressof(args),
+                 ctypes.addressof(layout),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "beat")
+    _TAIL.launches += 1
+    _TAIL.last_layout = dict(zip(_TAIL_LAYOUT, layout))
+    return packed, amin
+
+
+def tail_args(state, alloc, inf, av_fin):
+    """``beat_tail``'s checks and C arguments: (the residents' table, the
+    ``TailArgs``, packed, argmin), the outputs allocated here (a timing
+    script calls another build's entry point with them)."""
+    dev = state.totals[0].device
     s = state.n_shards
     n_l, r = state.totals[0].shape
     c = state.reqs[0].shape[0]
@@ -985,7 +1005,7 @@ def _launch_tail(state, alloc, inf, av_fin):
     args.alloc, args.alloc_rank = _rank_step(
         "beat_tail: alloc", alloc, _I32, (g, n_l), dev, contiguous=False)
     row = alloc[0].stride(0) if g else n_l
-    if any(x.stride(1) != 1 or (g and x.stride(0) != row) for x in alloc):
+    if g and any(x.stride(1) != 1 or x.stride(0) != row for x in alloc):
         raise ValueError("beat_tail: alloc's rows must be contiguous, "
                          "equally strided")
     args.av_fin, args.av_rank = _rank_step("beat_tail: av_fin", av_fin, _I32,
@@ -999,17 +1019,7 @@ def _launch_tail(state, alloc, inf, av_fin):
     packed = torch.empty((g + c, s * n_l + 1), dtype=_I32, device=dev)
     amin = torch.empty((c,), dtype=_I32, device=dev)
     args.packed, args.amin = packed.data_ptr(), amin.data_ptr()
-    table = resident_table(state)
-    layout = (ctypes.c_int * len(_BEAT_LAYOUT))()
-    fn = _build.load("beat", "rt_beat_tail")
-    with torch.cuda.device(dev):
-        err = fn(table.data_ptr(), ctypes.addressof(args),
-                 ctypes.addressof(layout),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "beat")
-    _TAIL.launches += 1
-    _TAIL.last_layout = dict(zip(_BEAT_LAYOUT, layout))
-    return packed, amin
+    return resident_table(state), args, packed, amin
 
 
 beat_tail.launches = 0

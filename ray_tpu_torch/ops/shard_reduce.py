@@ -366,17 +366,27 @@ def shard_scan_plain(tp, totals, avail, mask, group_reqs, group_counts,
 _TOO_LARGE = 720
 _PLANS: dict = {}
 _LAYOUT_KEYS = ("cluster", "threads", "on_chip", "smem_bytes",
-                "resident_ranks", "exchange_ints")
+                "resident_ranks", "exchange_ints", "route", "rank_ctas")
+_ROUTES = ("global", "cluster")
+
+
+def _layout(raw) -> dict:
+    out = dict(zip(_LAYOUT_KEYS, raw))
+    out["route"] = _ROUTES[out["route"]]
+    return out
 
 
 def shard_scan_plan(s: int, n_local: int, r: int,
                     require_available: bool = False, device=None) -> dict:
     """The launch ``shard_scan`` makes on the card for ``s`` ranks of
-    ``n_local`` rows x ``r`` columns (``csrc/shard_scan.cu`` plan()): CTAs
-    a rank (a thread-block cluster past one), threads a CTA, rows in
-    shared memory or not, its bytes, how many ranks the card holds at once
-    (``resident_ranks``; a larger mesh raises) and the ints of a rank's
-    exchange area.  Asks the library once a shape and card."""
+    ``n_local`` rows x ``r`` columns (``csrc/shard_scan.cu`` plan()): the
+    ``route`` ("cluster": every rank's CTAs in one thread-block cluster of
+    ``cluster`` CTAs; "global": a cooperative grid, ``cluster`` 1, the
+    ranks exchanging through their exchange areas), CTAs a rank
+    (``rank_ctas``), threads a CTA, rows in shared memory or not, its
+    bytes, how many ranks the card holds at once (``resident_ranks``; a
+    larger mesh raises) and the ints of a rank's exchange area (0 on the
+    cluster route).  Asks the library once a shape and card."""
     from . import _build
 
     dev = _rank_device("cuda" if device is None else device)
@@ -393,7 +403,7 @@ def shard_scan_plan(s: int, n_local: int, r: int,
                 f"shard_scan: no launch for {s} ranks of {n_local} x {r} "
                 f"(CUDA error {err}): S * n_local must be <= {MAX_NODES} "
                 f"and a class's arrays must fit a CTA's shared memory")
-        plan = _PLANS[key] = dict(zip(_LAYOUT_KEYS, layout))
+        plan = _PLANS[key] = _layout(layout)
     return plan
 
 
@@ -411,15 +421,17 @@ def shard_scan(totals, avail, mask, group_reqs, group_counts, group_masks,
 
     CPU tensors take ``shard_scan_plain`` over ``transport`` (a flat one
     over the tensors' ranks when None).  CUDA tensors, all on one card,
-    launch the hand-written kernel (``csrc/shard_scan.cu``), one
-    cooperative launch for every rank, or raise: ``ValueError`` for what
-    the kernel does not take, a mesh the card cannot hold at once
-    included.  ``out`` (CUDA only): the outputs and exchange areas to use,
+    launch the hand-written kernel (``csrc/shard_scan.cu``), one launch
+    for every rank (one thread-block cluster where every rank's CTAs fit
+    one, else a cooperative grid; ``shard_scan_plan``), or raise:
+    ``ValueError`` for what the kernel does not take, a mesh the card
+    cannot hold at once included; a launch that fails raises, on either
+    route.  ``out`` (CUDA only): the outputs and exchange areas to use,
     kept by the caller from call to call (``BeatState.ensure_scan_buffers``:
     alloc (S, >= G, n_local), new_avail (S, n_local, R), inf (>= G,) and
-    xchg (S, >= exchange_ints), the exchange areas zeroed by the caller on
-    the stream, as ``beat_rows`` does); else they are allocated and zeroed
-    here.  The table of per-rank pointers is built once per set of
+    xchg (S, >= exchange_ints, each rank's row 16-byte aligned), the
+    exchange areas zeroed by the caller on the stream, as ``beat_rows``
+    does); else they are allocated and zeroed here.  The table of per-rank pointers is built once per set of
     pointers (``hybrid_kernel.rank_table``).  ``shard_scan.launches``
     counts the launches and ``shard_scan.last_layout`` holds the last one
     (``shard_scan_plan``)."""
@@ -457,7 +469,7 @@ def shard_scan(totals, avail, mask, group_reqs, group_counts, group_masks,
     plan = shard_scan_plan(s, n_l, r, require_available, dev)
     if plan["resident_ranks"] < s:
         raise ValueError(
-            f"shard_scan: {s} ranks of {plan['cluster']} CTA(s) cannot all "
+            f"shard_scan: {s} ranks of {plan['rank_ctas']} CTA(s) cannot all "
             f"be resident on {dev} (at most {plan['resident_ranks']}); "
             f"the ranks wait on each other inside the launch")
     if out is None:
@@ -472,7 +484,9 @@ def shard_scan(totals, avail, mask, group_reqs, group_counts, group_masks,
         if alloc.device != dev or tuple(alloc.shape[::2]) != (s, n_l) or \
                 alloc.shape[1] < g or tuple(new_avail.shape) != (s, n_l, r) \
                 or inf.shape[0] < g or xchg.shape[0] != s or \
-                xchg.shape[1] < plan["exchange_ints"]:
+                xchg.shape[1] < plan["exchange_ints"] or \
+                (plan["exchange_ints"] and
+                 any(x.data_ptr() % 16 for x in xchg)):
             raise ValueError(f"shard_scan: out does not hold {s} ranks of "
                              f"{g} classes x {n_l} x {r}")
         alloc, inf = alloc[:, :g], inf[:g]
@@ -495,7 +509,7 @@ def shard_scan(totals, avail, mask, group_reqs, group_counts, group_masks,
                          f"on {dev}")
     _build.check(err, "shard_scan")
     shard_scan.launches += 1
-    shard_scan.last_layout = dict(zip(_LAYOUT_KEYS, layout))
+    shard_scan.last_layout = _layout(layout)
     return list(alloc), inf, list(new_avail)
 
 

@@ -10,7 +10,11 @@ bits the global row), writing the tile's avail_eff and mask_eff, the first
 tile of each rank gathering the scan's classes; the class install and the
 full rescore the same tiles with other index sets; ``beat_tail`` the packed
 (G + C, N + 1) readback written tile by tile and the per-class argmin as
-the min of packed 64-bit (key, global row) values over every rank.  It is
+the min of packed 64-bit (key, global row) values over every rank.  The
+budgets are priced by (rank, 64-row tile, block of 8 classes) CTAs, a
+warp a class with its positive columns compacted and each request's magic
+multiplier in place of the division (past 32 positive columns, the
+division), and the counts block is copied in a grid-stride loop.  It is
 held to ``ray_tpu/ops/hybrid_kernel.py`` (``full_rescore``,
 ``apply_dirty_rows``, ``apply_dirty_classes``, ``fused_beat``) and to the
 reference's ``ShardPlane`` programs on the 8 virtual CPU devices of
@@ -41,7 +45,10 @@ SCORE_SHIFT = 13
 AVAIL_SHIFT = 27
 INF_KEY = 2**31 - 1
 BUDGET_CAP = 1 << 15
-TILE = 256                       # csrc/beat.cu kTile
+TILE = 256                       # csrc/beat.cu kTile (beat_rows)
+TAIL_ROWS = 64                   # kTailRows: node rows a budget CTA
+CLS_BLOCK = 8                    # kClsBlock: classes a budget CTA
+COL_CAP = 32                     # kColCap: a class's columns on chip
 MESHES = [(1, "flat"), (2, "two_level"), (4, "flat"), (8, "two_level")]
 
 
@@ -78,13 +85,40 @@ def model_key(t, a, live, q, thr, rows):
     return np.where(feas, _i32(key & 0xffffffff), INF_KEY).astype(np.int32)
 
 
+def magic(d):
+    """contract.cuh magic(d) for divisors d >= 1 (int64 array): s = 31 +
+    ceil(log2 d), m = ceil(2**s / d), as uint64."""
+    d = np.asarray(d, np.int64)
+    s = 31 + np.array([int(v - 1).bit_length() for v in d.ravel()],
+                      np.int64).reshape(d.shape)
+    m = (np.left_shift(np.int64(1), s).astype(np.uint64)
+         + (d - 1).astype(np.uint64)) // d.astype(np.uint64)
+    return m, s.astype(np.uint64)
+
+
+def fdiv_nonneg(x, m, s):
+    """contract.cuh fdiv for dividends 0 <= x < 2**31: a multiply-high
+    and a shift."""
+    return ((np.asarray(x, np.int64).astype(np.uint64) * m) >> s) \
+        .astype(np.int64)
+
+
 def model_budget(t, a, live, q):
-    """beat.cu budget_of over rows."""
+    """beat.cu's budget of one class over rows: the positive columns
+    compacted (at most COL_CAP, each with its magic multiplier), the
+    avail clamped >= 0 and divided by a multiply-high; past COL_CAP
+    positive columns, budget_of's division."""
+    cols = np.flatnonzero(q > 0)
     feas = np.asarray(live, bool).copy()
     fill = np.full(len(t), BUDGET_CAP, np.int64)
-    for col in np.flatnonzero(q > 0):
+    for col in cols:
         feas &= t[:, col] >= q[col]
-        fill = np.minimum(fill, np.maximum(a[:, col], 0) // int(q[col]))
+        x = np.maximum(np.asarray(a[:, col], np.int64), 0)
+        if len(cols) <= COL_CAP:
+            m, sh = magic(np.array([q[col]]))
+            fill = np.minimum(fill, fdiv_nonneg(x, m[0], sh[0]))
+        else:
+            fill = np.minimum(fill, x // int(q[col]))
     return np.where(feas, fill, 0).astype(np.int32)
 
 
@@ -158,26 +192,33 @@ def model_rows(st, thr, rows=None, overrides=None, extra_mask=None,
 
 
 def model_tail(st, alloc, inf, av_fin):
-    """beat_tail: the packed readback tile by tile (each cell written
-    once), and each class's argmin as the min packed (key, global row)."""
+    """beat_tail: the counts block copied element by element along the
+    packed rows, the budgets by (rank, row tile, class block) CTAs, a
+    (class, row) each, every cell written once; and each class's argmin
+    as the min packed (key, global row)."""
     s = len(st["totals"])
     n_l = st["totals"][0].shape[0]
     c = st["reqs"][0].shape[0]
     g = alloc[0].shape[0]
     n = s * n_l
     packed = np.full((g + c, n + 1), -7, np.int64)
-    for k in range(s):
-        for lo in range(0, n_l, TILE):
-            hi = min(lo + TILE, n_l)
-            cols = k * n_l + np.arange(lo, hi)
-            assert (packed[:, cols] == -7).all()
-            packed[:g, cols] = alloc[k][:, lo:hi]
-            for cls in range(c):
-                packed[g + cls, cols] = model_budget(
-                    st["totals"][k][lo:hi], av_fin[k][lo:hi],
-                    st["mask_eff"][k][lo:hi], st["reqs"][k][cls])
+    for e in range(g * n):                     # the grid-stride copy
+        gi, col = divmod(e, n)
+        k, row = divmod(col, n_l)
+        assert packed[gi, col] == -7
+        packed[gi, col] = alloc[k][gi, row]
     packed[:g, n] = inf
     packed[g:, n] = 0
+    for k in range(s):
+        for lo in range(0, n_l, TAIL_ROWS):
+            hi = min(lo + TAIL_ROWS, n_l)
+            for c0 in range(0, c, CLS_BLOCK):
+                for cls in range(c0, min(c0 + CLS_BLOCK, c)):
+                    cols = k * n_l + np.arange(lo, hi)
+                    assert (packed[g + cls, cols] == -7).all()
+                    packed[g + cls, cols] = model_budget(
+                        st["totals"][k][lo:hi], av_fin[k][lo:hi],
+                        st["mask_eff"][k][lo:hi], st["reqs"][k][cls])
     assert (packed != -7).all()
     amin = np.zeros(c, np.int32)
     for cls in range(c):
@@ -483,6 +524,72 @@ def test_model_argmin_ties_and_all_inf_rows():
     _, amin = model_tail(st, zero, np.zeros(0, np.int32),
                          [np.zeros((4, 1), np.int32)] * 2)
     np.testing.assert_array_equal(amin, [0, 6, 4])
+
+
+# beat_tail's division: every request 1..2**15 at the int32 edges of the
+# clamped avail
+DIV_EDGES = [0, 1, 2, 3, (1 << 15) - 1, 1 << 15, (1 << 15) + 1, 1 << 16,
+             (1 << 30) - 1, 1 << 30, (1 << 31) - 2, (1 << 31) - 1]
+
+
+def test_budget_division_is_floor_division():
+    """``fdiv(max(avail, 0), magic(q))`` equals ``//`` for every request
+    q in 1..2**15 at the int32 edges of the dividend and at multiples of
+    q around the budget cap, exactly."""
+    rng = np.random.default_rng(22)
+    d = np.arange(1, (1 << 15) + 1, dtype=np.int64)
+    m, sh = magic(d)
+    assert (m < (1 << 32)).all() and (sh <= 46).all()
+    x = np.array(DIV_EDGES + list(rng.integers(0, 1 << 31, 64)), np.int64)
+    got = fdiv_nonneg(x[None, :], m[:, None], sh[:, None])
+    np.testing.assert_array_equal(got, x[None, :] // d[:, None])
+    k = np.array([1, 2, BUDGET_CAP - 1, BUDGET_CAP, BUDGET_CAP + 1],
+                 np.int64)
+    mult = np.concatenate([np.broadcast_to(k, (len(d), len(k))),
+                           ((2**31 - 1) // d)[:, None]], axis=1)
+    y = (d[:, None] * mult)[:, :, None] + np.array([-1, 0, 1])
+    y = np.clip(y, 0, 2**31 - 1).reshape(len(d), -1)
+    got = fdiv_nonneg(y, m[:, None], sh[:, None])
+    np.testing.assert_array_equal(got, y // d[:, None])
+
+
+def test_budget_model_equals_jax_at_the_division_edges():
+    """The model's budgets (the magic multiplier) against the JAX fused
+    beat's and the port's plain version at the division's edges: avail at
+    the int32 edges and negative, requests 1..2**15 including powers of
+    two and their neighbours, a class past COL_CAP positive columns,
+    dead and infeasible rows; exact."""
+    rng = np.random.default_rng(23)
+    n, r = 256, 40
+    avail = rng.choice(np.array(DIV_EDGES + [-1, -(1 << 31), -5000]),
+                       size=(n, r)).astype(np.int32)
+    avail[:, 1] = rng.integers(0, 1 << 31, n)
+    totals = np.full((n, r), (1 << 31) - 1, np.int32)
+    totals[rng.random((n, r)) < 0.03] = 7          # infeasible cells
+    mask = rng.random(n) > 0.1
+    qs = [1, 2, 3, 1 << 14, (1 << 14) + 1, (1 << 15) - 1, 1 << 15,
+          *rng.integers(1, (1 << 15) + 1, 8)]
+    reqs = np.zeros((len(qs) + 3, r), np.int32)
+    for i, q in enumerate(qs):
+        reqs[i, i % 2] = q                          # one or two columns
+        if i % 3 == 0:
+            reqs[i, 2 + i % 5] = qs[-1 - i]
+    reqs[len(qs)] = 0                               # the zero class
+    reqs[len(qs) + 1] = rng.integers(1, 1 << 15, r)  # past COL_CAP
+    reqs[len(qs) + 2, 0] = 1 << 15
+    keys = np.zeros((len(reqs), n), np.int32)
+    packed, _ = ref_hk.fused_beat(
+        totals, avail, mask, keys, reqs, np.zeros(1, np.int32),
+        np.zeros(1, np.int32), np.ones(n, bool), np.array([n], np.int32),
+        np.zeros((1, r), np.int32), SCALE // 2)
+    want = np.asarray(packed)[1:, :-1]
+    got = np.stack([model_budget(totals, avail, mask, q) for q in reqs])
+    np.testing.assert_array_equal(got, want)
+    plain = hk._budgets(torch.as_tensor(totals), torch.as_tensor(avail),
+                        torch.as_tensor(mask), torch.as_tensor(reqs))
+    np.testing.assert_array_equal(plain.numpy(), want)
+    assert (want > 0).any() and (want == BUDGET_CAP).any()
+    assert ((want > 0) & (want < BUDGET_CAP)).any()
 
 
 # -- the engines: one beat with everything at once --------------------------------

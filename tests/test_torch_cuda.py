@@ -405,6 +405,70 @@ def test_beat_kernels_equal_plain(s, n, r, c):
     assert int((got[0][g:, :n] > 0).sum()) > 0
 
 
+def _tail_case(s, n, r, c, g, seed):
+    """``beat_tail``'s inputs on S ranks of the card, made directly: a
+    class count that is not a multiple of the kernel's class block,
+    zero-request columns and an all-zero class, a class with every
+    column positive (past the 32 the kernel compacts where r > 32),
+    negative and int32-edge avail, dead rows in mask_eff, rows short of a
+    request, an all-INF key row, G classes of counts (G may be 0)."""
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    rng = np.random.default_rng(seed)
+    n_l = n // s
+    totals = rng.integers(0, 1 << 17, (n, r)).astype(np.int32)
+    totals[rng.random(totals.shape) < 0.2] = 0
+    av = (totals * rng.random(totals.shape)).astype(np.int32)
+    neg = rng.random(totals.shape) < 0.1
+    av[neg] = -rng.integers(1, 1 << 17, int(neg.sum()))
+    av[rng.random(totals.shape) < 0.02] = (1 << 31) - 1
+    mask_eff = rng.random(n) > 0.1
+    reqs = rng.integers(1, 3000, (c, r)).astype(np.int32)
+    reqs[rng.random(reqs.shape) < 0.5] = 0
+    reqs[0] = 0
+    reqs[1] = rng.integers(1, 3000, r)
+    # contract keys: a score over the global row in the low 13 bits,
+    # ties between rows, an all-INF row
+    keys = ((rng.integers(0, 64, (c, n)) << 13) | np.arange(n)).astype(
+        np.int32)
+    keys[2] = (1 << 31) - 1
+    alloc = rng.integers(0, 1000, (g, n)).astype(np.int32)
+    inf = rng.integers(0, 100, g).astype(np.int32)
+
+    def rows(x, axis=0):
+        return [torch.as_tensor(np.ascontiguousarray(b), device="cuda")
+                for b in np.split(x, s, axis=axis)]
+    st = hk.BeatState(rows(totals), rows(totals), rows(mask_eff),
+                      [torch.as_tensor(reqs, device="cuda")] * s,
+                      rows(keys, axis=1))
+    st.mask_eff = rows(mask_eff)
+    return (st, hk.spaced(rows(alloc, axis=1)),
+            torch.as_tensor(inf, device="cuda"), hk.spaced(rows(av)))
+
+
+@pytest.mark.parametrize("s", [1, 2, 4, 8])
+@pytest.mark.parametrize("n,r,c,g", [(1024, 16, 13, 64), (1024, 40, 32, 0),
+                                     (8192, 8, 20, 7), (512, 3, 9, 128)])
+def test_beat_tail_kernel_edges(s, n, r, c, g):
+    """The budget CTAs over (class block, row tile) against
+    ``beat_tail_plain``, bit for bit: classes past a class block, the
+    magic-multiplier division at negative and int32-edge avail, more
+    positive columns than the kernel compacts, dead and infeasible rows,
+    G = 0; the overflow columns (inf, 0) and the argmin."""
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    args = _tail_case(s, n, r, c, g, seed=s * 31 + c)
+    before = hk.beat_tail.launches
+    got = hk.beat_tail(*args)
+    assert hk.beat_tail.launches == before + 1
+    want = hk.beat_tail_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    lay = hk.beat_tail.last_layout
+    assert lay["argmin_ctas"] == c and lay["ctas"] == c + s * (
+        -(-(n // s) // lay["tile_rows"])) * (-(-c // lay["class_block"]))
+    budgets = got[0][g:, :-1]
+    assert int((budgets > 0).sum()) > 0 and int(got[1][2]) == 0
+    assert int(got[0][g:, -1].abs().sum()) == 0
+
+
 @pytest.mark.parametrize("shards", [1, 2, 4, 8])
 def test_delta_beat_is_three_kernels_and_no_transport_call(shards):
     """The engines on the card: every delta beat launches ``beat_rows``,
@@ -2126,6 +2190,22 @@ def _shard_scan_case(s, mode, n, r, g, thr, require_available, masks,
     return sr.shard_scan.last_layout, ka
 
 
+def _assert_route(lay, s, n):
+    """The plan's route: every rank in one thread-block cluster where
+    their CTAs make at most 16 (the beat cell's 1024 rows at S = 2 / 4 /
+    8; 8192 rows at S = 2), else the global route (no cluster, the
+    exchange areas in global memory)."""
+    ctas = max(1, min(8, n // s // 128))
+    assert lay["rank_ctas"] == ctas
+    if s * ctas <= 16:
+        assert lay["route"] == "cluster" and lay["cluster"] == s * ctas
+        assert lay["exchange_ints"] == 0
+    else:
+        assert lay["route"] == "global" and lay["cluster"] == 1
+        assert lay["exchange_ints"] > 0
+    assert lay["resident_ranks"] >= s
+
+
 @pytest.mark.parametrize("s,mode", [(2, "flat"), (4, "two_level"),
                                     (4, "flat"), (8, "flat"),
                                     (8, "two_level")])
@@ -2133,10 +2213,12 @@ def _shard_scan_case(s, mode, n, r, g, thr, require_available, masks,
 @pytest.mark.parametrize("thr", [SCALE // 2, 2 * SCALE + 1])
 def test_shard_scan_equals_plain(s, mode, n, r, g, thr):
     """The beat cell's 1000 x 64 (rows padded to 1024, as the engine
-    pads them) and the contract's 8192 x 16 x 128, where a rank's rows
-    take a thread-block cluster."""
+    pads them) on the cluster route at every S, and the contract's 8192 x
+    16 x 128: the cluster route at S = 2 (16 CTAs of 512 rows), the
+    global route at S = 4 and 8."""
     lay, alloc = _shard_scan_case(s, mode, n, r, g, thr, False, False)
-    assert lay["cluster"] == max(1, min(8, n // s // 128))
+    _assert_route(lay, s, n)
+    assert lay["route"] == ("cluster" if n == 1024 or s == 2 else "global")
     assert sum(int(a.sum()) for a in alloc) > 0
 
 
@@ -2145,10 +2227,12 @@ def test_shard_scan_equals_plain(s, mode, n, r, g, thr):
 @pytest.mark.parametrize("require_available", [False, True])
 def test_shard_scan_group_masks_and_require_available(s, mode,
                                                       require_available):
-    _shard_scan_case(s, mode, 8192, 16, 128, SCALE // 2, require_available,
-                     True, seed=1)
-    _shard_scan_case(s, mode, 1024, 8, 64, SCALE // 2, require_available,
-                     True, seed=2)
+    lay, _ = _shard_scan_case(s, mode, 8192, 16, 128, SCALE // 2,
+                              require_available, True, seed=1)
+    _assert_route(lay, s, 8192)
+    lay, _ = _shard_scan_case(s, mode, 1024, 8, 64, SCALE // 2,
+                              require_available, True, seed=2)
+    _assert_route(lay, s, 1024)
 
 
 @pytest.mark.parametrize("s,mode", [(32, "flat"), (64, "two_level")])
@@ -2157,16 +2241,19 @@ def test_shard_scan_past_32_ranks(s, mode):
     takes several ranks' slots (and the lower ranks' prefix) in turn."""
     lay, alloc = _shard_scan_case(s, mode, 8192, 16, 8, SCALE // 2, False,
                                   True, seed=3)
-    assert lay["cluster"] == max(1, 8192 // s // 128)
+    assert lay["rank_ctas"] == max(1, 8192 // s // 128)
+    assert lay["route"] == "global" and lay["cluster"] == 1
     assert sum(int((a > 0).any()) for a in alloc) > s // 2
 
 
 @pytest.mark.parametrize("n,r", [(8192, 128), (4096, 512)])
 def test_shard_scan_rows_off_chip(n, r):
-    """Rows too wide for a cluster of 16 CTAs' shared memory stay in
-    global memory (totals read there, avail carried in new_avail)."""
+    """Rows too wide for 16 CTAs' shared memory a rank stay in global
+    memory (totals read there, avail carried in new_avail); 32 CTAs take
+    the global route."""
     lay, _ = _shard_scan_case(2, "flat", n, r, 8, SCALE // 2, False, True)
-    assert lay["on_chip"] == 0 and lay["cluster"] == 16
+    assert lay["on_chip"] == 0 and lay["rank_ctas"] == 16
+    assert lay["route"] == "global"
 
 
 def test_shard_scan_is_one_launch_a_scan_of_the_sharded_beat():
@@ -2239,6 +2326,7 @@ def test_shard_scan_mesh_too_large_to_be_resident_raises():
     s, n_l, r = 256, 32, 512
     plan = sr.shard_scan_plan(s, n_l, r)
     assert plan["cluster"] == 1 and plan["resident_ranks"] < s
+    assert plan["route"] == "global" and plan["rank_ctas"] == 1
     z = torch.zeros((n_l, r), dtype=torch.int32, device="cuda")
     m = torch.ones((n_l,), dtype=torch.bool, device="cuda")
     reqs = torch.ones((2, r), dtype=torch.int32, device="cuda")

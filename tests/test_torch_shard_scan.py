@@ -98,12 +98,29 @@ def _keys(t, a, live, req, thr, rows):
     return np.where(feas, key, INF_KEY)
 
 
+def cta_rows(n_l, ctas):
+    """Each CTA's rows of a rank as plan() lays them out: threads a CTA
+    ceil(n_l / ctas) rounded up to a warp, CTA c the rows [c * threads,
+    (c + 1) * threads) (the last CTAs may hold none)."""
+    nt = -(-(-(-n_l // ctas)) // 32) * 32
+    return [(min(c * nt, n_l), min((c + 1) * nt, n_l)) for c in range(ctas)]
+
+
 def model_scan(totals, avail, mask, reqs, counts, gmasks, thr,
-               require_available):
-    """The kernel's scan over per-rank numpy blocks (rank order).
-    Returns (alloc (G, n_l) per rank, inf (G,), avail per rank, L* (G,),
-    the owner rank of each class's overflow or -1)."""
+               require_available, ctas=1):
+    """The kernel's scan over per-rank numpy blocks (rank order), every
+    exchange over rank-major CTA slots of ``ctas`` CTAs a rank (the
+    cluster route's slots, or the global route's: each CTA's wrapping
+    sums and packed min in its slot; all = the sum of every slot, a CTA's
+    exclusive prefix = the sum of the slots before it plus its own running
+    sum).  Returns (alloc (G, n_l) per rank, inf (G,), avail per rank, L*
+    (G,), the owner rank of each class's overflow or -1)."""
     s, n_l = len(totals), totals[0].shape[0]
+    parts = cta_rows(n_l, ctas)
+
+    def slot_sums(per_rank):
+        """Rank-major slots of per-row values: one wrapping sum a CTA."""
+        return [_sum32(v[lo:hi]) for v in per_rank for lo, hi in parts]
     av = [a.astype(np.int64).copy() for a in avail]
     allocs = [np.zeros((len(reqs), n_l), np.int64) for _ in range(s)]
     inf = np.zeros(len(reqs), np.int64)
@@ -113,11 +130,11 @@ def model_scan(totals, avail, mask, reqs, counts, gmasks, thr,
                 for k in range(s)]
         rk = [_Rank(totals[k], av[k], live[k], req, thr) for k in range(s)]
 
-        def total(level):            # the ranks' partials, in rank order
-            return int(w32(sum(_sum32(x.m(level)) for x in rk)))
+        def total(level):            # the CTAs' slots, in rank order
+            return int(w32(sum(slot_sums([x.m(level) for x in rk]))))
 
-        n_avail = min(int(count), int(w32(sum(_sum32(x.m_max)
-                                              for x in rk))))
+        n_avail = min(int(count), int(w32(sum(slot_sums(
+            [x.m_max for x in rk])))))
         overflow = int(w32(int(count) - n_avail))
         lo, hi = 0, TOP
         while lo < hi:               # seven levels a round
@@ -135,11 +152,16 @@ def model_scan(totals, avail, mask, reqs, counts, gmasks, thr,
         base = [x.m(lo - 1) if lo > 0 else np.zeros(n_l, np.int64)
                 for x in rk]
         extra = [w32(x.m(lo) - b) for x, b in zip(rk, base)]
-        rem = int(w32(n_avail - int(w32(sum(_sum32(b) for b in base)))))
+        rem = int(w32(n_avail - int(w32(sum(slot_sums(base))))))
+        low = np.cumsum([0, *slot_sums(extra)])    # the slots before each
         mins = []
         for k in range(s):
-            before = int(w32(sum(_sum32(e) for e in extra[:k])))
-            prefix = w32(np.cumsum(extra[k]) - extra[k] + before)
+            prefix = np.zeros(n_l, np.int64)
+            for c, (lo_r, hi_r) in enumerate(parts):
+                e = extra[k][lo_r:hi_r]
+                prefix[lo_r:hi_r] = w32(np.cumsum(e) - e
+                                        + int(w32(low[k * ctas + c])))
+            prefix = w32(prefix)
             give = np.minimum(np.maximum(w32(rem - prefix), 0), extra[k])
             alloc = w32(base[k] + give)
             av[k][:, rk[k].cols] = w32(av[k][:, rk[k].cols]
@@ -147,9 +169,12 @@ def model_scan(totals, avail, mask, reqs, counts, gmasks, thr,
             allocs[k][gi] = alloc
             rows = k * n_l + np.arange(n_l)
             key = _keys(totals[k], av[k], live[k], req, thr, rows)
-            # packed (key ^ sign bit) << 32 | row: the min is (key, row)
-            mins.append(min(((int(kk) + 2**31) << 32) | int(rw)
-                            for kk, rw in zip(key, rows)))
+            # packed (key ^ sign bit) << 32 | row: the min is (key, row);
+            # a CTA without rows offers the all-ones word
+            packed = [((int(kk) + 2**31) << 32) | int(rw)
+                      for kk, rw in zip(key, rows)]
+            mins += [min(packed[lo_r:hi_r], default=2**64 - 1)
+                     for lo_r, hi_r in parts]
         okey = (min(mins) >> 32) - 2**31
         queue_ok = okey != INF_KEY
         if require_available:
@@ -272,10 +297,10 @@ def _ref_fused(s, mode, totals, avail, mask, reqs, counts, thr,
     return packed[:len(reqs)], packed[len(reqs):, :-1]
 
 
-def _check_fused(s, mode, arrays, thr, require_available):
+def _check_fused(s, mode, arrays, thr, require_available, ctas=1):
     totals, avail, mask, reqs, counts, _ = arrays
     model = model_scan(_split(totals, s), _split(avail, s), _split(mask, s),
-                       reqs, counts, None, thr, require_available)
+                       reqs, counts, None, thr, require_available, ctas)
     got, post = _gather(model, totals.shape[0])
     want, budgets = _ref_fused(s, mode, totals, avail, mask, reqs, counts,
                                thr, require_available)
@@ -292,11 +317,11 @@ def _check_fused(s, mode, arrays, thr, require_available):
     return model
 
 
-def _check_grouped(s, mode, arrays, thr):
+def _check_grouped(s, mode, arrays, thr, ctas=1):
     totals, avail, mask, reqs, counts, gmask = arrays
     gm = _split(gmask, s, axis=1)
     model = model_scan(_split(totals, s), _split(avail, s), _split(mask, s),
-                       reqs, counts, gm, thr, False)
+                       reqs, counts, gm, thr, False, ctas)
     got, post = _gather(model, totals.shape[0])
     want, want_avail = ref_grouped(totals, avail, mask, reqs, counts, gmask,
                                    thr_fp=thr, n_shards=s, reduce_mode=mode)
@@ -323,6 +348,24 @@ def test_model_equals_the_reference_beat(s, mode, seed):
 @pytest.mark.parametrize("s,mode", MESHES)
 def test_model_equals_the_reference_with_group_masks(s, mode):
     _check_grouped(s, mode, _case(7), SCALE // 2)
+
+
+@pytest.mark.parametrize("s,mode", [(2, "flat"), (4, "two_level"),
+                                    (8, "flat")])
+@pytest.mark.parametrize("ctas", [1, 2, 4, 8])
+def test_cta_slots_equal_the_reference(s, mode, ctas):
+    """The exchange over rank-major CTA slots (``ctas`` CTAs a rank, as
+    the cluster route lays every rank's CTAs out in one cluster, and the
+    global route's slots): the sums over every slot, each CTA's prefix
+    from the slots before it and the min of the slots' packed keys give
+    the reference's counts, budgets and carried avail exactly, at 1024
+    rows (the beat cell's) with and without group masks."""
+    arrays = _case(11, n=1024)
+    model = _check_fused(s, mode, arrays, SCALE // 2, False, ctas)
+    assert sum(int(a.sum()) for a in model[0]) > 0
+    _check_grouped(s, mode, arrays, SCALE // 2, ctas)
+    assert sum(1 for lo, hi in cta_rows(1024 // s, ctas) if hi > lo) == \
+        min(ctas, -(-(1024 // s) // 32))
 
 
 @pytest.mark.parametrize("s,mode", [(2, "flat"), (4, "two_level"),
