@@ -37,8 +37,11 @@ Phases:
                   ``beat_rows``, one ``waterfill_scan`` and one
                   ``beat_tail`` launch (``csrc/beat.cu``), three kernels
                   in all (profiler); both beat kernels == their plain
-                  versions on a beat's captured inputs, bit for bit,
-                  with their ms, plain ms and bounds; beat p50/p80/p99,
+                  versions on a beat's captured inputs, bit for bit, and
+                  ``beat_rows``' class install and full rescore on a
+                  fresh engine's own calls, with their ms, device ms,
+                  plain ms, the wrapper's host ms and bounds; beat
+                  p50/p80/p99,
                   tasks/s, launches, readbacks per beat, idle share; the
                   parent's route (the rest of the beat on the plain
                   versions) timed in the same call, then the kernels'
@@ -55,7 +58,9 @@ Phases:
                   and no ``_Transport`` call; ``shard_scan`` ==
                   ``shard_scan_plain`` on a beat's scan inputs and the two
                   beat kernels == their plain versions on a beat's inputs
-                  (ms of each, bound, launch); the same beats with the
+                  (ms of each, bound, launch; ``beat_rows``' install and
+                  rescore too, from a fresh engine's calls); the same
+                  beats with the
                   rest of the beat on its plain versions (the parent's
                   route; 2 warm-up, 8 timed); the four ``*_sharded_np``
                   wrappers at S = 4 == the single-device calls (ms,
@@ -477,13 +482,20 @@ def beat_rest_work(n_cls, r_w, n_nodes, dirty):
     return n_bytes, n_ops
 
 
+def _positive_cols(reqs) -> int:
+    """The positive request columns of the rows ``reqs`` (a key reads and
+    divides only those)."""
+    return int((reqs > 0).sum())
+
+
 def beat_rows_work(st, kw):
     """(bytes, int32 operations) of one ``beat_rows`` beat call on these
     inputs: the real dirty rows (read, written into the mirror, their key
-    columns against every class: ~12 ops per (class, row, resource)),
-    the real override rows, avail and the masks read once, avail_eff and
-    mask_eff written once, the class gather (slots and counts read,
-    group_reqs and group_counts written), the exchange areas zeroed."""
+    columns against every class: ~12 ops per (class, row, positive
+    request column)), the real override rows, avail and the masks read
+    once, avail_eff and mask_eff written once, the class gather (slots
+    and counts read, group_reqs and group_counts written), the exchange
+    areas zeroed."""
     s = st.n_shards
     n_l, r = st.totals[0].shape
     c = st.reqs[0].shape[0]
@@ -496,7 +508,45 @@ def beat_rows_work(st, kw):
     n_bytes = (b * (4 + 2 * r * 4 + 1) * 2 + c * r * 4 + c * b * 4
                + bo * (4 + r * 4) + 2 * n * r * 4 + 3 * n
                + s * g * (4 + 4 + r * 4 + 4) + xchg * 4)
-    return n_bytes, c * b * r * 12 + n
+    return n_bytes, b * _positive_cols(st.reqs[0]) * 12 + n
+
+
+def beat_keys_work(st, kw):
+    """(bytes, int32 operations) of one ``beat_rows`` class install or full
+    rescore on these inputs: every rank's totals, avail and mask read
+    once, the scored request rows read (and, for an install, written
+    into each rank's reqs), their key rows written; ~12 ops per (class,
+    node, positive request column)."""
+    s = st.n_shards
+    n_l, r = st.totals[0].shape
+    n = s * n_l
+    if kw.get("classes") is not None:
+        idx, reqs = (x[0].cpu().numpy() for x in kw["classes"])
+        real = (idx >= 0) & (idx < st.reqs[0].shape[0])
+        reqs = reqs[real]
+        extra = s * (len(idx) * 4 + len(reqs) * r * 4)   # slots, reqs rows
+    else:
+        reqs = st.reqs[0].cpu().numpy()
+        extra = 0
+    n_bytes = (2 * n * r * 4 + n + s * len(reqs) * r * 4 + extra
+               + len(reqs) * n * 4)
+    return n_bytes, n * _positive_cols(reqs) * 12
+
+
+def host_ms(fn, n=200) -> float:
+    """The host's ms a call of ``fn`` (a wrapper's enqueue: its checks or
+    lookup, its arguments and the launch), the device left to finish
+    after the clock stops."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    return ms
 
 
 def beat_tail_work(st, g):
@@ -519,17 +569,68 @@ def _max_abs_err(xs, ys):
                for x, y in zip(xs, ys))
 
 
-def beat_kernels_vs_plain(step):
+FRESH_CLASSES = 4                # an install's new classes (fits C = 32)
+
+
+def fresh_classes(crm, n=FRESH_CLASSES):
+    """``n`` request vectors no class of ``build_cluster`` has (CPU 4 and
+    up), interned in ``crm``."""
+    from ray_tpu_torch.common.resources import ResourceRequest
+    return np.stack([crm.intern_request(ResourceRequest({"CPU": 4 + i}))
+                     for i in range(n)])
+
+
+def keys_calls(make_engine, vecs, counts, fresh):
+    """``beat_rows``' class install and full rescore as an engine makes
+    them: a fresh engine's first beat (a full sync, so a full rescore)
+    and its next beat, which brings the classes ``fresh`` (an install).
+    Returns {"rescore": (state, thr, kwargs), "classes": ...}, copies
+    taken at each call (the first beat's last rescore: the first one
+    scores an empty class plane, the class axis then grows)."""
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+
+    real = hk.beat_rows
+    seen = {}
+
+    def rows(st, thr, **kw):
+        mode = "rescore" if kw.get("rescore") else \
+            "classes" if kw.get("classes") is not None else None
+        if mode == "rescore" or mode is not None and mode not in seen:
+            seen[mode] = (st.clone(), thr, kw)  # the last rescore: the
+        return real(st, thr, **kw)              # one with every class
+
+    rows.launches = 0                       # the sharded engine reads it
+    hk.beat_rows = rows
+    try:
+        eng = make_engine()
+        eng.beat(vecs, counts)
+        eng.beat(np.concatenate([vecs, fresh]),
+                 np.concatenate([counts, np.full(len(fresh), 7, np.int32)]))
+    finally:
+        hk.beat_rows = real
+    if set(seen) != {"rescore", "classes"}:
+        raise AssertionError(f"the engine made the calls {sorted(seen)}, "
+                             "not a full rescore and a class install")
+    return seen
+
+
+def beat_kernels_vs_plain(step, make_engine=None, vecs=None, counts=None,
+                          fresh=None):
     """``beat_rows`` and ``beat_tail`` held to their plain versions on one
     beat's inputs, captured from ``step()`` (the engine's own calls on the
     card): every resident and buffer beat_rows writes, and the packed
     readback and argmin, bit for bit; then each kernel's ms (CUDA events,
-    p50 of 20 calls) beside its plain version's on the same inputs, and
-    its bound for this beat's work.  A beat call of beat_rows is
-    idempotent on its inputs (the dirty rows land where they landed), so
-    every timed call starts from the same state.  The comparison's
-    launches are taken off the counters again."""
+    p50 of 20 calls) beside its plain version's on the same inputs, its
+    device ms (the profiler), the wrapper's host ms a call, and its bound
+    for this beat's work.  With ``make_engine``, ``beat_rows``' class
+    install and full rescore too, captured from a fresh engine's calls
+    (``keys_calls``), each held and timed the same way (under
+    ``beat_rows_calls``).  Each beat_rows call is idempotent on its
+    inputs (the dirty rows land where they landed, the keys are scored
+    again), so every timed call starts from the same state.  The
+    comparison's launches are taken off the counters again."""
     from ray_tpu_torch.ops import hybrid_kernel as hk
+    from ray_tpu_torch.ops import shard_reduce as sr
 
     real_rows, real_tail = hk.beat_rows, hk.beat_tail
     seen = {}
@@ -552,47 +653,65 @@ def beat_kernels_vs_plain(step):
     finally:
         hk.beat_rows, hk.beat_tail = real_rows, real_tail
     counters = (real_rows.launches, dict(real_rows.launches_by_mode),
-                real_tail.launches)
-    snap, thr, kw = seen["rows"]
-    a, p = snap.clone(), snap.clone()
-    real_rows(a, thr, **kw)
-    hk.beat_rows_plain(p, thr, **kw)
+                real_tail.launches, hk.waterfill_scan.launches,
+                sr.shard_scan.launches)
+    calls = {"beat": seen["rows"]}
+    if make_engine is not None:
+        calls.update(keys_calls(make_engine, vecs, counts, fresh))
     fields = ("totals", "avail", "mask", "keys", "reqs", "avail_eff",
               "mask_eff", "group_reqs", "group_counts")
-    rows_err = max(_max_abs_err(getattr(a, f), getattr(p, f))
-                   for f in fields)
-    rows_ms = cuda_ms(lambda: real_rows(a, thr, **kw))
-    rows_plain_ms = cuda_ms(lambda: hk.beat_rows_plain(p, thr, **kw))
+    by_call = {}
+    for name, (snap, thr, kw) in calls.items():
+        a, p = snap.clone(), snap.clone()
+        real_rows(a, thr, **kw)
+        layout = real_rows.last_layout
+        hk.beat_rows_plain(p, thr, **kw)
+        err = max(_max_abs_err(getattr(a, f), getattr(p, f))
+                  for f in fields if getattr(a, f) is not None)
+        if err:
+            raise AssertionError(f"beat_rows' {name} call (max abs err "
+                                 f"{err}) disagrees with its plain version "
+                                 f"on {snap.n_shards} rank(s)")
+        work = beat_rows_work(snap, kw) if name == "beat" else \
+            beat_keys_work(snap, kw)
+        bound_ms, bound_by = bound(*work, PEAK_I32)
+        by_call[name] = {
+            "max_abs_err": 0, "ms": cuda_ms(lambda: real_rows(a, thr, **kw)),
+            "device_ms": kernel_device_ms(
+                lambda: real_rows(a, thr, **kw),
+                "beat_rows_kernel" if name == "beat"
+                else "beat_rows_keys_kernel"),
+            "plain_ms": cuda_ms(lambda: hk.beat_rows_plain(p, thr, **kw)),
+            "host_ms": host_ms(lambda: real_rows(a, thr, **kw)),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": work[0],
+            "int32_ops": work[1], "layout": layout}
+    snap = calls["beat"][0]
     st, alloc, inf, av_fin = seen["tail"]
     got = real_tail(st, alloc, inf, av_fin)
     want = hk.beat_tail_plain(st, alloc, inf, av_fin)
     tail_err = _max_abs_err(got, want)
-    tail_ms = cuda_ms(lambda: real_tail(st, alloc, inf, av_fin))
-    tail_plain_ms = cuda_ms(lambda: hk.beat_tail_plain(st, alloc, inf,
-                                                       av_fin))
-    rows_dev = kernel_device_ms(lambda: real_rows(a, thr, **kw),
-                                "beat_rows_kernel")
-    tail_dev = kernel_device_ms(lambda: real_tail(st, alloc, inf, av_fin),
-                                "beat_tail_kernel")
-    real_rows.launches, real_rows.launches_by_mode, real_tail.launches = \
-        counters
-    if rows_err or tail_err:
-        raise AssertionError(f"beat_rows (max abs err {rows_err}) or "
-                             f"beat_tail ({tail_err}) disagree with their "
-                             f"plain versions on {snap.n_shards} rank(s)")
+    if tail_err:
+        raise AssertionError(f"beat_tail (max abs err {tail_err}) disagrees "
+                             f"with its plain version on {snap.n_shards} "
+                             f"rank(s)")
     g = alloc[0].shape[0]
-    out = {}
-    for name, ms, dev_ms, plain_ms, work, layout in (
-            ("beat_rows", rows_ms, rows_dev, rows_plain_ms,
-             beat_rows_work(snap, kw), real_rows.last_layout),
-            ("beat_tail", tail_ms, tail_dev, tail_plain_ms,
-             beat_tail_work(st, g), real_tail.last_layout)):
-        bound_ms, bound_by = bound(*work, PEAK_I32)
-        out[name] = {"ranks": snap.n_shards, "max_abs_err": 0, "ms": ms,
-                     "device_ms": dev_ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "bytes": work[0],
-                     "int32_ops": work[1], "layout": layout}
+    work = beat_tail_work(st, g)
+    bound_ms, bound_by = bound(*work, PEAK_I32)
+    tail_row = {
+        "max_abs_err": 0, "ms": cuda_ms(lambda: real_tail(st, alloc, inf,
+                                                          av_fin)),
+        "device_ms": kernel_device_ms(
+            lambda: real_tail(st, alloc, inf, av_fin), "beat_tail_kernel"),
+        "plain_ms": cuda_ms(lambda: hk.beat_tail_plain(st, alloc, inf,
+                                                       av_fin)),
+        "host_ms": host_ms(lambda: real_tail(st, alloc, inf, av_fin)),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": work[0],
+        "int32_ops": work[1], "layout": real_tail.last_layout}
+    real_rows.launches, real_rows.launches_by_mode, real_tail.launches, \
+        hk.waterfill_scan.launches, sr.shard_scan.launches = counters
+    out = {"beat_rows": {"ranks": snap.n_shards, **by_call["beat"],
+                         "beat_rows_calls": by_call},
+           "beat_tail": {"ranks": snap.n_shards, **tail_row}}
     return out
 
 
@@ -1001,7 +1120,8 @@ def phase_beat(dev, warmup=2, beats=50, churn=12, parent_beats=(2, 20)):
     if kpc is None or kpc > 3:
         raise AssertionError(f"a steady delta beat ran {kpc} kernels "
                              "(beat_rows, the water-fill, beat_tail: 3)")
-    kernels = beat_kernels_vs_plain(step)
+    kernels = beat_kernels_vs_plain(step, lambda: make_delta_scheduler(crm),
+                                    vecs, counts, fresh_classes(crm))
     # per-layer breakdown: profile mode syncs after every phase, so these
     # beats are slower than the timed ones and are not counted above
     eng.profile = True
@@ -4634,7 +4754,11 @@ def shard_beat(ranks, mode, warmup=2, beats=8, churn=12,
             raise AssertionError(f"{s} ranks ({mode}): shard_scan took route "
                                  f"{out['kernel_vs_plain']['route']} on the "
                                  f"beat cell, not cluster")
-        out["beat_kernels"] = beat_kernels_vs_plain(step)
+        out["beat_kernels"] = beat_kernels_vs_plain(
+            step, lambda: make_delta_scheduler(crm, n_shards=s,
+                                               reduce_mode=mode,
+                                               devices=ranks),
+            vecs, counts, fresh_classes(crm))
         out["device_ms"] = {
             "shard_scan": out["kernel_vs_plain"]["device_ms"],
             "beat_tail": out["beat_kernels"]["beat_tail"]["device_ms"],
@@ -5216,8 +5340,13 @@ def main() -> int:
            "bound_by": beat["kernels"][name]["bound_by"],
            "library_ms": None, "layout": beat["kernels"][name]["layout"],
            "device_ms": beat["kernels"][name].get("device_ms"),
-           "by_path": {k: {f: b["beat_kernels"][name][f] for f in (
-               "ms", "device_ms", "plain_ms", "bound_ms")}
+           "host_ms": beat["kernels"][name]["host_ms"],
+           # beat_rows: the beat call's numbers above; every call (the
+           # beat, the class install, the full rescore) here
+           "calls": beat["kernels"][name].get("beat_rows_calls"),
+           "by_path": {k: {f: b["beat_kernels"][name].get(f) for f in (
+               "ms", "device_ms", "plain_ms", "bound_ms", "host_ms",
+               "beat_rows_calls")}
                for k, b in shd["beats"].items() if "beat_kernels" in b},
            "checked": True}
           for name, replaces in (

@@ -2,10 +2,12 @@
 
     python3 dataplane_routes.py [--against DIR] [--reps N] [--turns N]
                                 [--phases] [--kernels NAME ...]
+                                [--against-only]
 
 Builds this checkout's ``ray_tpu_torch/ops/csrc/bundle.cu``, ``pull.cu``,
 ``topk.cu``, ``broadcast.cu``, ``shard_scan.cu`` and ``beat.cu``'s
-``beat_tail`` (through the wrappers or their C entry points) and, with
+``beat_tail`` and ``beat_rows`` (through the wrappers or their C entry
+points) and, with
 ``--against``, the sources of an older commit in DIR (its ``csrc``
 directory, unpacked from ``git archive`` into an ignored directory,
 ``contract.cuh`` beside them), built with the same nvcc flags and called
@@ -36,6 +38,17 @@ events):
 * ``beat_tail``: a steady beat's inputs at S = 1 / 2 / 4 / 8, against
   ``beat_tail_plain``, beside profiler device ms.  Both older builds
   are called through the same C entry points as this one.
+* ``beat_rows``: its three calls captured from an engine's own calls at
+  the beat cell (the beat with 12 dirty rows, overrides and a soft mask
+  at S = 1 / 2 / 4 / 8; the class install of 4 fresh classes and the
+  full rescore at S = 1 / 4) and made directly at the contract's 8192 x
+  16 x 128 (install and rescore, S = 1 / 4), against
+  ``beat_rows_plain``, beside profiler device ms, each build's grid and
+  an empty kernel's device ms with that grid (a launch's floor, same
+  stream, same call) and the call's bound; then the wrapper's host ms
+  a steady beat call (this checkout's, and the older tree's in a process
+  of its own where DIR lies in one: ``--wrapper-host --package-root``).
+  ``--against-only`` times DIR's build alone.
 
 Then constants of the kernels, each from builds that override it with
 ``-D``: bundle.cu's and broadcast.cu's rows a CTA (``RT_ROWS_PER_CTA``,
@@ -48,7 +61,9 @@ of the sources with ``clock64`` probes inserted at anchor lines (as
 of thread 0 of CTA 0 at each size (``shard_scan``: by part of an
 exchange, of rank 0's first CTA; ``beat_tail``: the counts copy, the
 budgets and the argmin CTAs, and the launch's span; with ``--against``,
-the older sources' probes too).  Each row is one JSON line on stdout,
+the older sources' probes too; ``beat_rows``: the older source only,
+its beat call by phase and its keys' loop with and without key_of's
+division, from a second copy with the division taken out).  Each row is one JSON line on stdout,
 after one with the card's name and power limit.  Needs a GPU and nvcc.
 """
 
@@ -78,8 +93,9 @@ OLD_SIGNATURES = {
     "broadcast": ("rt_plan_fanout",
                   [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
 }
-KERNELS = ("bundle", "pull", "topk", "broadcast", "shard_scan", "beat_tail")
-BEAT_KERNELS = ("shard_scan", "beat_tail")
+KERNELS = ("bundle", "pull", "topk", "broadcast", "shard_scan", "beat_tail",
+           "beat_rows")
+BEAT_KERNELS = ("shard_scan", "beat_tail", "beat_rows")
 ROWS_PER_CTA = (1024, 512, 256, 128, 64)    # the sweep; the source's is 128
 FANOUT_ROWS_PER_CTA = (8192, 4096, 1024, 512, 64)  # the source's is 1024
 ONE_WARP_CAP = 8192                         # a list as long as N can be
@@ -611,23 +627,27 @@ def tail_row(s, captured, libs, reps, n_turns, probed=None):
 
 
 def beat_kernel_rows(kernels, args, against) -> bool:
-    """The shard_scan and beat_tail rows: this build against the older
-    commit's ``csrc`` in DIR (same entry points), on the beat cell's
+    """The shard_scan, beat_tail and beat_rows rows: this build against the
+    older commit's ``csrc`` in DIR (same entry points), on the beat cell's
     captured inputs (shard_scan at S = 2 / 4 / 8, beat_tail at S = 1 /
-    2 / 4 / 8) and, for shard_scan, the contract's 8192 x 16 x 128 at S
-    = 2 / 4 / 8; with ``--phases``, probed copies of both."""
+    2 / 4 / 8, beat_rows as ``beat_rows_rows`` says) and, for shard_scan,
+    the contract's 8192 x 16 x 128 at S = 2 / 4 / 8; with ``--phases``,
+    probed copies."""
     from ray_tpu_torch.ops import _build
-    lib_name = {"shard_scan": "shard_scan", "beat_tail": "beat"}
+    lib_name = {"shard_scan": "shard_scan", "beat_tail": "beat",
+                "beat_rows": "beat"}
     specs, keys = [], []
     for k in kernels:
-        specs.append((_build._CSRC / _build.SOURCES[lib_name[k]], ()))
-        keys.append((k, "this"))
+        if not args.against_only:
+            specs.append((_build._CSRC / _build.SOURCES[lib_name[k]], ()))
+            keys.append((k, "this"))
         if against is not None:
             specs.append((against / _build.SOURCES[lib_name[k]], ()))
             keys.append((k, "against"))
         if args.phases:
-            for tag, (probes, csrc) in PHASE_SOURCES[k](against).items():
-                specs.append(probed(lib_name[k], probes, csrc, tag))
+            for tag, (probes, csrc, edit) in \
+                    PHASE_SOURCES[k](against).items():
+                specs.append(probed(lib_name[k], probes, csrc, tag, edit))
                 keys.append((k, ("probed", tag)))
     built = dict(zip(keys, _build.build_variants(specs)))
     ok = True
@@ -638,7 +658,11 @@ def beat_kernel_rows(kernels, args, against) -> bool:
         probes = {f"{t[1]}_" if t[1] else "": lib
                   for (kk, t), lib in built.items()
                   if kk == k and isinstance(t, tuple)}
-        if k == "shard_scan":
+        if k == "beat_rows":
+            ok &= beat_rows_rows(libs, args, against, {
+                t.removeprefix("rows_").rstrip("_"): lib
+                for t, lib in probes.items()})
+        elif k == "shard_scan":
             for s, mode in SCAN_MESHES:
                 scan = beat_captures(s, mode)["scan"]
                 ok &= scan_row(f"beat {s} {mode}", scan, libs, args.reps,
@@ -650,6 +674,385 @@ def beat_kernel_rows(kernels, args, against) -> bool:
             for s in TAIL_RANKS:
                 tail = beat_captures(s, SCAN_MESHES[0][1])["tail"]
                 ok &= tail_row(s, tail, libs, args.reps, args.turns, probes)
+    return ok
+
+
+# -- beat_rows: the beat call, the class install and the full rescore --------
+# The beat call at S = 1 / 2 / 4 / 8 of the beat cell; the install and the
+# rescore at S = 1 and 4 of the beat cell and of the contract's 8192 x 16 x
+# 128 (chip_smoke.limit_problem)
+ROWS_RANKS = (1, 2, 4, 8)
+KEYS_RANKS = (1, 4)
+LIMIT_INSTALL = (1, 6, 11, 14)           # the limit install's slots
+ROW_FIELDS = ("totals", "avail", "mask", "keys", "reqs", "avail_eff",
+              "mask_eff", "group_reqs", "group_counts")
+# A kernel that does nothing, launched with a build's grid on the same
+# stream: a launch's floor, measured in the same call
+EMPTY_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int rt_empty(int ctas, int threads, void* stream) {
+  empty_kernel<<<ctas, threads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def _rows_probe(slot):
+    return ("  if (p_on) { const long long c_ = clock64(); "
+            f"atomicAdd(&g_phase[{slot}], (unsigned long long)(c_ - p_tc)); "
+            "p_tc = c_; }\n")
+
+
+# beat_rows as of 099ec69, thread 0 of CTA (tile 0, rank 0): the beat call
+# by phase (the lane search with shared atomics, the scatter into the
+# residents and its barrier, the dirty rows' key columns read back from
+# them, the tile's avail_eff / mask_eff and its barrier, the overrides,
+# tile 0's group gather, counts copy and exchange zeroing), and, in the
+# install and the rescore, the cycles of its row's loop over every class
+ROWS_PHASES = ("lane_search", "scatter", "rescore", "eff", "overrides",
+               "gather", "keys_loop", "keys_calls")
+PARENT_ROWS_PROBES = [
+    ("constexpr int kModeRescore = 2;          "
+     "// every class against every node\n", "", _TAIL_DECL),
+    ("  const int base_row = k * n_l;            "
+     "// the global row of local row 0\n", "",
+     "  const bool p_on = blockIdx.x == 0 && k == 0 && tid == 0;\n"
+     "  long long p_tc = clock64();\n"),
+    ("    const int n_cls = install ? a.bc : a.c;\n", "",
+     "    if (p_on) p_tc = clock64();\n"),
+    ("    return;\n  }\n\n  const int* idx = input<int>(a, kIdx, k);\n",
+     _rows_probe(6) + "    if (p_on) atomicAdd(&g_phase[7], 1ull);\n", ""),
+    ("  const int nl = min(n_lanes, kTile), no = min(n_ov, kTile);\n", "",
+     _rows_probe(0)),
+    ("  // their key columns against every class, off the raw avail and the\n",
+     _rows_probe(1), ""),
+    ("  if (!a.eff) return;\n", _rows_probe(2), ""),
+    ("  {\n    const int* ova = input<int>(a, kOvAvail, k);\n",
+     _rows_probe(3), ""),
+    ("  if (blockIdx.x == 0) {                   // the rank's scan inputs\n",
+     _rows_probe(4), ""),
+    ("      for (int e = tid; e < a.xchg_ints; e += nt) res.xchg[e] = 0u;\n"
+     "  }\n", "", _rows_probe(5)),
+]
+# this beat.cu, thread 0 of every CTA: by kind of CTA the cycles of its
+# first wave (up to its first barrier) and of the rest, summed over the
+# CTAs (slot 5 counts them), and the launch's span (%globaltimer: the last
+# CTA's end in slot 6, the first one's start as 2**62 - start in slot 7).
+# The beat call: the lane CTAs (0, 1), the eff CTAs (2, 3), the gather CTA
+# (4, whole); the install and the rescore: the key CTAs (0, 1).
+THIS_ROWS_PHASES = ("lane_wave", "lane_keys", "eff_wave", "eff_rest",
+                    "gather", "ctas", "end_ns", "start_ns_complement")
+
+
+def _this_sig(slot, end=False):
+    """``_tail_sig``; at a CTA's ``end``, also its count and end time."""
+    return _tail_sig(slot) + (
+        "    if (threadIdx.x == 0) {\n"
+        "      atomicAdd(&g_phase[5], 1ull);\n"
+        "      atomicMax(&g_phase[6], (unsigned long long)rt_gtimer());\n"
+        "    }\n" if end else "")
+
+
+THIS_ROWS_PROBES = [
+    ("constexpr int kModeRescore = 2;          "
+     "// every class against every node\n", "", _TAIL_DECL),
+    ("  const int* idx = input<int>(a, kIdx, k);\n\n"
+     "  if (blockIdx.x == 0) {                   // the rank's scan inputs\n",
+     _TAIL_START, ""),
+    ("      res.group_reqs[e] = q[s * r + e % r];\n    }\n", "",
+     _this_sig(4, end=True)),
+    ("    if (on && lane == 0) res.mask[row] = live;\n    __syncthreads();\n",
+     "", _this_sig(0)),
+    ("      res.keys[(long long)cls * n_l + row] = key;\n    }\n", "",
+     _this_sig(1, end=True)),
+    ("  const bool soft = tid < rows && (em == nullptr || em[lo + tid] != 0);"
+     "\n  __syncthreads();\n", "", _this_sig(2)),
+    ("    res.mask_eff[lo + tid] = (d >= 0 ? (d & 1) != 0 : live) && soft;\n"
+     "  }\n", "", _this_sig(3, end=True)),
+    ("  const RankRes res = tab[k];\n  const bool staged = r <= kRowCols;\n",
+     "", _TAIL_START),
+    ("  __syncthreads();\n  if (lane >= rows) return;\n", "",
+     _this_sig(0)),
+    ("    res.keys[(long long)slot[i] * n_l + row] = key;\n  }\n", "",
+     _this_sig(1, end=True)),
+]
+# the same copy with key_of's division taken out (a shift): the keys'
+# loop without its divisions, so the divisions' share of it
+NO_DIVISION = ("    s = max(s, floordiv(num, max(t, 1)));\n",
+               "    s = max(s, num >> 12);\n")
+
+
+def _rows_recorder(real, seen, keep_beat):
+    """A stand-in for ``beat_rows`` that copies each call's state and
+    arguments into ``seen`` by call (the last of each; the beat call only
+    while ``keep_beat[0]``)."""
+    def rows(st, thr, **kw):
+        mode = "rescore" if kw.get("rescore") else \
+            "classes" if kw.get("classes") is not None else "beat"
+        if mode != "beat" or keep_beat[0]:
+            seen[mode] = (st.clone(), thr, kw)
+        return real(st, thr, **kw)
+    rows.launches = 0                      # the sharded engine reads it
+    return rows
+
+
+def rows_captures(s, mode="flat", device="cuda:0"):
+    """``beat_rows``' three calls as an engine makes them on ``s`` ranks of
+    the card at the beat cell (chip_smoke.build_cluster): {"rescore",
+    "beat", "classes"}: (state copy, thr, kwargs).  The first beat's last
+    full rescore; the third delta beat's call, with 12 dirty rows,
+    overrides (one on a dirty row) and an extra_mask; and the install of
+    a beat that brings chip_smoke.FRESH_CLASSES new classes."""
+    from ray_tpu_torch.common.resources import ResourceRequest
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    from ray_tpu_torch.scheduling import make_delta_scheduler
+
+    rng, crm, vecs, counts = cs.build_cluster()
+    eng = make_delta_scheduler(crm, device=device) if s == 1 else \
+        make_delta_scheduler(crm, n_shards=s, reduce_mode=mode,
+                             devices=[device] * s)
+    fresh = cs.fresh_classes(crm)
+    real, seen, keep = hk.beat_rows, {}, [True]
+    hk.beat_rows = _rows_recorder(real, seen, keep)
+    try:
+        eng.beat(vecs, counts)
+        for _ in range(3):
+            rows = [int(rng.integers(0, cs.N_NODES))
+                    for _ in range(BEAT_CHURN)]
+            for row in rows:
+                crm.force_subtract(row, ResourceRequest({"CPU": 1}))
+            ov = {row: rng.integers(-4, 9, vecs.shape[1]).astype(np.int32)
+                  for row in (rows[0], 3, 500)}
+            eng.beat(vecs, counts, overrides=ov,
+                     extra_mask=rng.random(cs.N_NODES) > 0.1)
+        keep[0] = False
+        eng.beat(np.concatenate([vecs, fresh]),
+                 np.concatenate([counts, np.full(len(fresh), 7, np.int32)]))
+    finally:
+        hk.beat_rows = real
+    return seen
+
+
+def keys_limit(s, device="cuda"):
+    """The install (4 classes, slots ``LIMIT_INSTALL``, staged as an
+    upload) and the full rescore at the contract's 8192 x 16 x 128 on
+    ``s`` ranks of the card: {"rescore", "classes"} as ``rows_captures``."""
+    import torch
+
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    from ray_tpu_torch.scheduling.contract import threshold_fp
+    from ray_tpu_torch.scheduling.policy import BeatBlob
+    totals, avail, mask, reqs, _, _ = cs.limit_problem()
+
+    def rows(a):
+        return [torch.as_tensor(np.ascontiguousarray(b), device=device)
+                for b in np.split(a, s)]
+
+    st = hk.BeatState(rows(totals), rows(avail), rows(mask),
+                      [torch.as_tensor(reqs, device=device)] * s)
+    st.alloc_keys()
+    thr = int(threshold_fp(None))
+    hk.beat_rows(st, thr, rescore=True)
+    rng = np.random.default_rng(3)
+    new = rng.integers(0, 3000, (len(LIMIT_INSTALL), reqs.shape[1]))
+    new[rng.random(new.shape) < 0.5] = 0
+    blob = BeatBlob({"slots": [np.zeros(1, np.int32)] * s,
+                     "cls_idx": [np.array(LIMIT_INSTALL, np.int32)] * s,
+                     "cls_reqs": [new.astype(np.int32)] * s})
+    dev = torch.as_tensor(blob.host.reshape(-1), device=device)
+    v = blob.views(list(dev.view(s, blob.words)))
+    return {"rescore": (st, thr, {"rescore": True}),
+            "classes": (st, thr, {"classes": (v["cls_idx"],
+                                              v["cls_reqs"])})}
+
+
+def empty_caller():
+    """(a function of (CTAs) that launches the empty kernel with 256
+    threads a CTA on the current stream)."""
+    import torch
+
+    from ray_tpu_torch.ops import _build
+    out = _build.BUILD_DIR.parent / "dataplane_empty" / "empty.cu"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(EMPTY_SRC)
+    (lib,) = _build.build_variants([(out, ())])
+    fn = ctypes.CDLL(str(lib)).rt_empty
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(ctas):
+        def call():
+            assert fn(ctas, 256, torch.cuda.current_stream().cuda_stream) == 0
+        return call
+    return launch
+
+
+def rows_caller(lib, captured):
+    """(a function of no arguments that runs one ``beat_rows`` launch of
+    the build at path ``lib`` on a copy of a captured call, the copy, the
+    layout buffer): the C arguments are this checkout's (``rows_call``),
+    which an older build takes as they are."""
+    import torch
+
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    snap, thr, kw = captured
+    a = snap.clone()
+    call = hk.rows_call(a, thr, **kw)
+    launch = _build.entry(lib, "beat")
+    buf = (ctypes.c_int * 8)()
+    stream = torch.cuda.current_stream(a.totals[0].device).cuda_stream
+
+    def run():
+        err = launch(call.ptrs[0], call.ptrs[1], ctypes.addressof(buf),
+                     stream)
+        assert err == 0, f"beat_rows ({lib.name}): CUDA error {err}"
+        return a
+    return run, a, buf
+
+
+def same_rows(got, want) -> bool:
+    import torch
+    return all(torch.equal(x, y)
+               for f in ROW_FIELDS if getattr(want, f) is not None
+               for x, y in zip(getattr(got, f), getattr(want, f)))
+
+
+def rows_row(problem, name, s, captured, libs, reps, n_turns, empty,
+             probes=None):
+    """One beat_rows row: each build in ``libs`` equal to
+    ``beat_rows_plain`` bit for bit on a copy of the captured call, its
+    grid, its ms in turns (CUDA events) and profiler device ms, beside the
+    empty kernel's device ms with the same grid and the call's bound; with
+    ``probes`` ({tag: library} of the older source's probed copies), the
+    older beat call's cycles by phase, or its keys loop's cycles with and
+    without the division."""
+    import torch
+
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    snap, thr, kw = captured
+    want = snap.clone()
+    hk.beat_rows_plain(want, thr, **kw)
+    work = cs.beat_rows_work(snap, kw) if name == "beat" else \
+        cs.beat_keys_work(snap, kw)
+    bound_ms, bound_by = cs.bound(*work, cs.PEAK_I32)
+    row = {"program": "beat_rows", "call": name, "problem": problem,
+           "ranks": s, "rows": s * snap.n_local,
+           "classes": int(snap.reqs[0].shape[0]),
+           "resources": int(snap.totals[0].shape[1]), "bound_ms": bound_ms,
+           "bound_by": bound_by}
+    fns, ok = {}, True
+    for tag, lib in libs.items():
+        fn, a, buf = rows_caller(lib, captured)
+        fn()
+        torch.cuda.synchronize()
+        row[f"{tag}_equals_plain"] = same_rows(a, want)
+        row[f"{tag}_grid"] = list(buf)
+        ok &= row[f"{tag}_equals_plain"]
+        fns[tag] = fn
+    row.update(turns(fns, n_turns, reps))
+    row.update(device_turns(fns, "beat_rows", n_turns))
+    for tag in fns:
+        row[f"empty_{tag}_device_ms"] = cs.kernel_device_ms(
+            empty(row[f"{tag}_grid"][0]), "empty_kernel", 20)
+    for tag, lib in (probes or {}).items():
+        fn, a, _ = rows_caller(lib, captured)
+        if tag == "this":
+            _, cyc = probe_row(lib, fn, THIS_ROWS_PHASES)
+            row["this_probed_equals_plain"] = same_rows(a, want)
+            ok &= row["this_probed_equals_plain"]
+            n = max(cyc["ctas"], 1)
+            parts = THIS_ROWS_PHASES[:5] if name == "beat" else \
+                ("lane_wave", "lane_keys")
+            row["this_cycles"] = {
+                ("keys_wave", "keys_rest")[i] if name != "beat" else p:
+                cyc[p] for i, p in enumerate(parts)}
+            row["this_probed_ctas"] = cyc["ctas"]
+            row["this_span_ns"] = cyc["end_ns"] - ((1 << 62) -
+                                                  cyc["start_ns_complement"])
+            continue
+        _, cyc = probe_row(lib, fn, ROWS_PHASES)
+        if name == "beat":
+            row[f"{tag}_cycles"] = {p: cyc[p] for p in ROWS_PHASES[:6]}
+        else:
+            row[f"{tag}_keys_loop_cycles"] = cyc["keys_loop"]
+    if "against_keys_loop_cycles" in row and \
+            "against_nodiv_keys_loop_cycles" in row:
+        full = row["against_keys_loop_cycles"]
+        row["against_division_share"] = \
+            (full - row["against_nodiv_keys_loop_cycles"]) / max(full, 1)
+    cs.emit(row)
+    return ok
+
+
+def wrapper_host(ranks=ROWS_RANKS, turns_=2):
+    """The host's ms a steady beat's ``beat_rows`` call takes through the
+    wrapper of the ``ray_tpu_torch`` that is imported (``cs.host_ms``:
+    the checks or the layout's lookup, the arguments, the launch), on
+    ``rows_captures``' beat call at each S."""
+    import torch
+
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    out = {}
+    for s in ranks:
+        snap, thr, kw = rows_captures(s)["beat"]
+        a = snap.clone()
+        out[s] = [cs.host_ms(lambda: hk.beat_rows(a, thr, **kw))
+                  for _ in range(turns_)]
+        torch.cuda.synchronize()
+    return out
+
+
+def parent_wrapper_host(root: Path, n_turns):
+    """``wrapper_host`` of the package under ``root`` (an older commit's
+    tree), in a process of its own."""
+    import json
+    import subprocess
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--wrapper-host",
+         "--package-root", str(root), "--turns", str(n_turns)],
+        capture_output=True, text=True, check=True)
+    return {int(k): v for k, v in
+            json.loads(proc.stdout.strip().splitlines()[-1])["host_ms"]
+            .items()}
+
+
+def beat_rows_rows(libs, args, against, probes) -> bool:
+    """Every beat_rows row: the beat call at ``ROWS_RANKS``, the install
+    and the rescore at ``KEYS_RANKS`` of the beat cell and of the limit;
+    then the wrapper's host ms, this checkout's beside the older tree's
+    (where DIR sits in one) in turns."""
+    import torch
+    ok = True
+    empty = empty_caller()
+    for s in ROWS_RANKS:
+        calls = rows_captures(s)
+        for name in ("beat", "classes", "rescore"):
+            if name == "beat" or s in KEYS_RANKS:
+                ok &= rows_row("beat", name, s, calls[name], libs, args.reps,
+                               args.turns, empty, probes)
+        del calls
+        torch.cuda.synchronize()
+    for s in KEYS_RANKS:
+        calls = keys_limit(s)
+        for name in ("classes", "rescore"):
+            ok &= rows_row("limit 8192x16x128", name, s, calls[name], libs,
+                           args.reps, args.turns, empty, probes)
+        del calls
+    root = None if against is None else against.resolve().parents[2]
+    row = {"program": "beat_rows_wrapper_host"}
+    for turn in range(args.turns):
+        if root is not None and (root / "ray_tpu_torch").is_dir():
+            for s, ms in parent_wrapper_host(root, 1).items():
+                row.setdefault(f"against_host_ms_s{s}", []).extend(ms)
+        for s, ms in ({} if args.against_only else
+                      wrapper_host(turns_=2)).items():
+            row.setdefault(f"this_host_ms_s{s}", []).extend(ms)
+        if root is not None and (root / "ray_tpu_torch").is_dir():
+            for s, ms in parent_wrapper_host(root, 1).items():
+                row.setdefault(f"against_host_ms_s{s}", []).extend(ms)
+    cs.emit(row)
     return ok
 
 
@@ -693,22 +1096,35 @@ TAIL_PROBES = [
 
 def _sources(this, parent):
     def pick(against):
-        out = {"": (this, None)}
+        out = {"": (this, None, None)}
         if against is not None:
-            out["against"] = (parent, against)
+            out["against"] = (parent, against, None)
         return out
     return pick
 
 
+def _rows_sources(against):
+    """beat_rows: this source's probed copy; with ``--against``, the older
+    source's and the same without key_of's division."""
+    out = {"rows_this": (THIS_ROWS_PROBES, None, None)}
+    if against is not None:
+        out.update(rows_against=(PARENT_ROWS_PROBES, against, None),
+                   rows_against_nodiv=(PARENT_ROWS_PROBES, against,
+                                       NO_DIVISION))
+    return out
+
+
 PHASE_SOURCES = {"shard_scan": _sources(SCAN_PROBES, PARENT_SCAN_PROBES),
-                 "beat_tail": _sources(TAIL_PROBES, PARENT_TAIL_PROBES)}
+                 "beat_tail": _sources(TAIL_PROBES, PARENT_TAIL_PROBES),
+                 "beat_rows": _rows_sources}
 
 
-def probed(kernel: str, probes, csrc=None, tag=None) -> tuple[Path, tuple]:
+def probed(kernel: str, probes, csrc=None, tag=None,
+           edit=None) -> tuple[Path, tuple]:
     """A copy of ``kernel``'s source (this checkout's, or the one in
     ``csrc``) with ``probes`` and ``flash_phases.READER``, beside a copy
     of its header (in a directory of its own, named by ``tag`` where
-    given)."""
+    given); ``edit`` = (text, replacement), once, before the probes."""
     from ray_tpu_torch.ops import _build
     out = _build.BUILD_DIR.parent / (
         f"dataplane_phases_{tag or 'this'}" if tag is not None else
@@ -717,8 +1133,12 @@ def probed(kernel: str, probes, csrc=None, tag=None) -> tuple[Path, tuple]:
     out.mkdir(parents=True, exist_ok=True)
     shutil.copy(csrc / "contract.cuh", out / "contract.cuh")
     cu = out / _build.SOURCES[kernel]
-    cu.write_text(fp.instrumented(
-        (csrc / _build.SOURCES[kernel]).read_text(), probes))
+    text = (csrc / _build.SOURCES[kernel]).read_text()
+    if edit is not None:
+        if text.count(edit[0]) != 1:
+            raise RuntimeError(f"probed: {edit[0]!r} not found once")
+        text = text.replace(*edit)
+    cu.write_text(fp.instrumented(text, probes))
     return cu, ()
 
 
@@ -1075,8 +1495,26 @@ def main() -> int:
                     help="cycles by phase from copies with clock probes")
     ap.add_argument("--kernels", nargs="+", choices=KERNELS,
                     default=list(KERNELS), help="the kernels to time")
+    ap.add_argument("--wrapper-host", action="store_true",
+                    help="only the host ms of a steady beat's beat_rows "
+                         "call through the wrapper (one JSON line)")
+    ap.add_argument("--package-root", type=Path, default=None,
+                    help="import ray_tpu_torch from this tree")
+    ap.add_argument("--against-only", action="store_true",
+                    help="the beat kernels: time DIR's build alone")
     args = ap.parse_args()
+    if args.package_root is not None:
+        sys.path.insert(0, str(args.package_root.resolve()))
     import torch
+    if args.wrapper_host:
+        if not torch.cuda.is_available():
+            print("dataplane_routes.py: no CUDA device", file=sys.stderr)
+            return 1
+        import ray_tpu_torch
+        cs.emit({"program": "beat_rows_wrapper_host",
+                 "package": str(Path(ray_tpu_torch.__file__).parent),
+                 "host_ms": wrapper_host(turns_=args.turns)})
+        return 0
 
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import broadcast_kernel as bc

@@ -19,29 +19,52 @@
 //     its gathers).
 //
 // What bounds it on this card: at the beat cell (1000 -> 1024 nodes x 8
-// resources x 64 classes, 12 dirty rows) the two kernels move ~0.9 MB
+// resources x 32 class slots, 12 dirty rows) the two kernels move ~0.9 MB
 // (the budgets' (C, N+1) rows, the keys read once for the argmin, avail
 // copied into avail_eff) and do ~2.2 M int32 operations
 // (chip_smoke.py beat_rest_work): a bound of a few tenths of a
 // microsecond.  The time is the launches and their latency, not the work.
 // Eager PyTorch spends ~85 launches on it; the design is to make it two
-// launches whatever S is, with no grid-wide barrier and no host sync:
+// launches whatever S is, with no grid-wide barrier and no host sync, and
+// to spread each launch over the card so that no CTA runs a chain of
+// dependent phases:
 //
 //   * Every step is node-local except the group gather and the argmin.
-//     beat_rows runs a CTA per (node tile, rank): it scatters the beat's
-//     dirty rows that land in its tile into the resident totals / avail /
-//     mask in place, then rescores those rows' key columns against every
-//     class in place (the low bits the global row, rank * n_l + row), then
-//     writes the tile's avail_eff (avail with this beat's overrides) and
-//     mask_eff = mask & extra_mask.  The first tile of each rank gathers
-//     group_reqs = reqs[clamp(slots)], copies the group counts, and zeroes
-//     the rank's shard_scan exchange area, so the scan's table of pointers
-//     stays valid from beat to beat and no memset is launched.
-//   * The same kernel with other index sets covers the rare calls: a class
-//     install scatters B request rows into every rank's copy of reqs and
-//     rescores those key rows over every node (reading the new rows from
-//     the staged inputs, so no CTA waits for the scatter), and a full
-//     rescore scores every class against every node.
+//     The beat call of beat_rows (beat_rows_kernel) runs three kinds of
+//     CTA side by side, none waiting on another's stores: a gather CTA a
+//     rank (group_reqs = reqs[clamp(slots)], the group counts, the rank's
+//     shard_scan exchange area zeroed, so the scan's table of pointers
+//     stays valid from beat to beat and no memset is launched); lane CTAs
+//     of kLanes dirty lanes (a warp each) that store the dirty row into
+//     the resident totals / avail / mask and score its key column against
+//     every class (a lane a class; the low bits the global row, rank * n_l
+//     + row) from the staged row, never from the residents they write;
+//     and eff CTAs of kEffRows rows that write avail_eff (this beat's
+//     override where the row has one, else the dirty row's new avail, else
+//     the resident's: a per-tile lookup built in shared memory) and
+//     mask_eff = (new or resident mask) & extra_mask.  The host's dirty
+//     rows are unique, as its overrides are, so no two lanes write one row.
+//   * The class install and the full rescore (beat_rows_keys_kernel) run
+//     a CTA per (rank, tile of kKeyRows rows, block of classes): a warp a
+//     class, or pw classes a warp where one class a warp would take more
+//     than a wave of the card (keys_per_warp: the contract's 8192 rows x
+//     128 classes is 4,096 such CTAs, 512 with pw = 8).  A CTA stages its
+//     rows' totals and avail on chip with each column's divisor as a magic
+//     multiplier (magic_of: one per (row, column), not one division per
+//     (class, row, column)), compacts each class's positive request
+//     columns (a warp its classes, from columns it loaded up front), and
+//     scores a (class, row) a thread with contract_key_rcp, writing the
+//     keys along rows (coalesced).  A row wider than kRowCols columns is
+//     not staged: its keys take the division in the same kernel.  The
+//     install scatters its B request rows into each rank's copy of reqs
+//     (the row tile 0 CTAs) and scores those slots from the staged
+//     requests, so no CTA waits for the scatter; padding slots (>= C) are
+//     dropped.
+//   * What is left at the beat cell is latency: each of these CTAs reads
+//     its rank's pointers from the table, then its data, in two dependent
+//     trips to memory, and then writes; a call takes ~3.3 us of device
+//     time beside an empty kernel's ~0.8 (PERF.md).  At 8192 x 16
+//     x 128 the rescore is bound by the key arithmetic's instructions.
 //   * beat_tail writes the packed (G + C, N + 1) readback directly: the
 //     scan's counts (each rank's block into its columns, inf into column
 //     N), then the lease budgets of every class slot off the scan's final
@@ -62,8 +85,9 @@
 //     so a sharded beat on one card makes no transport call.
 //
 // Exactness traps: the keys use the raw (possibly negative) avail and the
-// resident mask, never mask_eff; only the budgets clamp avail and use
-// mask_eff.  Padding lanes (row index outside [0, n_l), class index
+// resident mask (the dirty row's new one), never the eff buffers; only
+// the budgets clamp avail and use mask_eff.  Overrides apply after the
+// dirty rows.  Padding lanes (row index outside [0, n_l), class index
 // outside [0, C)) are dropped, never wrapped and never written.  Rank k's
 // per-beat inputs are at rank 0's address plus k times a step (the staged
 // upload holds one section a rank, so every input steps by the section);
@@ -79,8 +103,23 @@ namespace {
 
 using namespace rt;
 
-constexpr int kTile = 256;               // node rows a CTA (beat_rows)
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// beat_rows' beat call: dirty lanes a lane CTA (a warp each), node rows an
+// eff CTA; the install and the rescore: node rows and classes a CTA (a
+// lane a row, a warp a class), resource columns staged on chip a row
+constexpr int kLanes = kWarps;
+constexpr int kEffRows = 64;
+constexpr int kKeyRows = 32;
+constexpr int kKeyCls = kWarps;
+constexpr int kRowCols = 128;
+constexpr int kKeyPitch = kKeyRows + 1;  // a staged column's words
+constexpr int kReqCap = 4096;            // requests (C x R) staged on chip
+constexpr int kPre = 4;                  // elements a thread loads up front
+constexpr int kMaxPerWarp = 8;           // classes a warp of a key CTA
+constexpr int kKeyWave = 4 * 132;        // key CTAs in one wave: 4 an SM
+                                         // (their registers), 132 SMs
+constexpr int kKeySmemCap = 96 * 1024;   // a key CTA's dynamic shared memory
 constexpr int kClsBlock = kThreads / 32; // classes a budget CTA, a warp each
 constexpr int kTailRows = 64;            // node rows a budget CTA
 constexpr int kColCap = 32;              // a class's compacted columns on chip
@@ -186,119 +225,338 @@ __device__ __forceinline__ int budget_of(const int* t_row, const int* a_row,
   return feas ? fill : 0;
 }
 
+// magic(d).x for a divisor d >= 1 (contract.cuh), from a double
+// quotient corrected in integers: 2**s / d < 2**32 with s = 31 +
+// ceil(log2 d), so the correctly rounded quotient floors to q or q + 1
+// of the true floor q; one 64-bit product finds which.  The same word,
+// with no 64-bit division (tests/test_torch_beat_rest.py holds the two
+// equal at every divisor's edges).
+__device__ __forceinline__ unsigned magic_of(int d) {
+  const unsigned s = 63u - (unsigned)__clz(d - 1);
+  const unsigned long long p = 1ull << s;
+  unsigned long long q =
+      __double2ull_rz(__ull2double_rn(p) / (double)d);
+  if (q * (unsigned long long)d > p) --q;
+  return (unsigned)(q + (q * (unsigned long long)d != p));
+}
+
+// key_of with each division by a magic multiplier, over a row's columns
+// staged at t[c * pitch], a[c * pitch], m[c * pitch]
+__device__ __forceinline__ int key_rcp(const int* t, const int* a,
+                                       const unsigned* m, int pitch,
+                                       const int* col, const int* q,
+                                       int npos, bool live, int thr_fp,
+                                       int row) {
+  return contract_key_rcp(
+      [&](int p, int& tc, int& ac, unsigned& mc, int& qc) {
+        const int c = col[p] * pitch;
+        tc = t[c];
+        ac = a[c];
+        mc = m[c];
+        qc = q[p];
+      },
+      npos, live, thr_fp, row);
+}
+
+// The beat call: CTA 0 of a rank gathers the scan's classes, the next
+// ceil(b / kLanes) take kLanes dirty lanes each, the rest (with eff) write
+// kEffRows rows of avail_eff and mask_eff each.  blockIdx.y is the rank.
+// Each CTA issues the loads it needs in one wave before its first use
+// (the requests staged on chip where C x R fits kReqCap, the first kPre
+// elements of a thread in registers), so its chain is one round trip to
+// memory, not one a phase.
 __global__ void __launch_bounds__(kThreads)
 beat_rows_kernel(const RankRes* __restrict__ tab, const RowsArgs a) {
-  __shared__ int lanes[kTile], ov_lanes[kTile];
-  __shared__ int n_lanes, n_ov;
+  __shared__ int req_sh[kReqCap];
+  __shared__ int st_t[kWarps][kRowCols], st_a[kWarps][kRowCols];
+  __shared__ unsigned st_m[kWarps][kRowCols];
+  __shared__ int dirty_of[kEffRows], ov_of[kEffRows];
   const int k = blockIdx.y, tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
   const RankRes res = tab[k];
   const int r = a.r, n_l = a.n_l;
-  const int lo = blockIdx.x * kTile, hi = min(lo + kTile, n_l);
-  const int base_row = k * n_l;            // the global row of local row 0
+  const int lane_ctas = (a.b + kLanes - 1) / kLanes;
+  const bool reqs_on_chip = a.c * r <= kReqCap;
+  const int* idx = input<int>(a, kIdx, k);
 
-  if (a.mode != kModeBeat) {
-    const bool install = a.mode == kModeClasses;
-    const int* cls_idx = input<int>(a, kClsIdx, k);
-    const int* cls_reqs = input<int>(a, kClsReqs, k);
-    if (install && blockIdx.x == 0) {      // this rank's copy of reqs
-      for (int e = tid; e < a.bc * r; e += nt) {
-        const int j = e / r, slot = cls_idx[j];
-        if (slot >= 0 && slot < a.c) res.reqs[slot * r + e % r] = cls_reqs[e];
-      }
+  if (blockIdx.x == 0) {                   // the rank's scan inputs
+    if (!a.eff) return;
+    const int* slots = input<int>(a, kSlots, k);
+    const int* counts = input<int>(a, kCounts, k);
+    const int n = a.g * r;
+    int slot[kPre];
+#pragma unroll
+    for (int i = 0; i < kPre; ++i) {
+      const int e = tid + i * kThreads;
+      slot[i] = e < n ? min(max(slots[e / r], 0), a.c - 1) : 0;
     }
-    const int n_cls = install ? a.bc : a.c;
-    for (int row = lo + tid; row < hi; row += nt) {
-      const int* t_row = res.totals + (long long)row * r;
-      const int* a_row = res.avail + (long long)row * r;
-      const bool live = res.mask[row] != 0;
-      for (int j = 0; j < n_cls; ++j) {
-        const int slot = install ? cls_idx[j] : j;
-        if (slot < 0 || slot >= a.c) continue;          // padding lane
-        const int* q = install ? cls_reqs + j * r : res.reqs + slot * r;
-        res.keys[(long long)slot * n_l + row] =
-            key_of(t_row, a_row, q, r, live, a.thr_fp, base_row + row);
-      }
+    if (reqs_on_chip)
+      for (int e = tid; e < a.c * r; e += nt) req_sh[e] = res.reqs[e];
+    for (int gi = tid; gi < a.g; gi += nt) res.group_counts[gi] = counts[gi];
+    if (res.xchg != nullptr)
+      for (int e = tid; e < a.xchg_ints; e += nt) res.xchg[e] = 0u;
+    __syncthreads();
+    const int* q = reqs_on_chip ? req_sh : res.reqs;
+#pragma unroll
+    for (int i = 0; i < kPre; ++i) {
+      const int e = tid + i * kThreads;
+      if (e < n) res.group_reqs[e] = q[slot[i] * r + e % r];
+    }
+    for (int e = tid + kPre * kThreads; e < n; e += nt) {
+      const int s = min(max(slots[e / r], 0), a.c - 1);
+      res.group_reqs[e] = q[s * r + e % r];
     }
     return;
   }
 
-  const int* idx = input<int>(a, kIdx, k);
-  const int* ov_idx = input<int>(a, kOvIdx, k);
-  if (tid == 0) n_lanes = n_ov = 0;
-  __syncthreads();
-  for (int j = tid; j < a.b; j += nt) {    // the dirty lanes in this tile
-    const int row = idx[j];
-    if (row >= lo && row < hi) {
-      const int p = atomicAdd(&n_lanes, 1);
-      if (p < kTile) lanes[p] = j;
-    }
-  }
-  if (a.eff) {
-    for (int j = tid; j < a.bo; j += nt) {
-      const int row = ov_idx[j];
-      if (row >= lo && row < hi) {
-        const int p = atomicAdd(&n_ov, 1);
-        if (p < kTile) ov_lanes[p] = j;
+  if ((int)blockIdx.x <= lane_ctas) {      // kLanes dirty lanes, a warp each
+    const int j = (blockIdx.x - 1) * kLanes + warp;
+    const bool mine = j < a.b;
+    const int* rt = input<int>(a, kRowsTotals, k) + (long long)j * r;
+    const int* ra = input<int>(a, kRowsAvail, k) + (long long)j * r;
+    const int row = mine ? idx[j] : -1;
+    const bool live = mine && input<uint8_t>(a, kRowsMask, k)[j] != 0;
+    const int t0 = mine && lane < r ? rt[lane] : 0;   // the first 32
+    const int a0 = mine && lane < r ? ra[lane] : 0;   // columns, up front
+    const bool staged = r <= kRowCols;
+    if (reqs_on_chip)
+      for (int e = tid; e < a.c * r; e += nt) req_sh[e] = res.reqs[e];
+    const bool on = mine && row >= 0 && row < n_l;    // else a padding lane
+    for (int col = lane; mine && col < r; col += 32) {
+      const int t = col < 32 ? t0 : rt[col], av = col < 32 ? a0 : ra[col];
+      if (on) {
+        res.totals[(long long)row * r + col] = t;
+        res.avail[(long long)row * r + col] = av;
+      }
+      if (staged) {
+        st_t[warp][col] = t;
+        st_a[warp][col] = av;
+        st_m[warp][col] = magic_of(max(t, 1));
       }
     }
-  }
-  __syncthreads();
-  const int nl = min(n_lanes, kTile), no = min(n_ov, kTile);
-
-  // the dirty rows into the resident mirror, in place
-  {
-    const int* rt = input<int>(a, kRowsTotals, k);
-    const int* ra = input<int>(a, kRowsAvail, k);
-    const uint8_t* rm = input<uint8_t>(a, kRowsMask, k);
-    for (int e = tid; e < nl * r; e += nt) {
-      const int j = lanes[e / r], col = e % r;
-      const long long at = (long long)idx[j] * r + col;
-      res.totals[at] = rt[j * r + col];
-      res.avail[at] = ra[j * r + col];
+    if (on && lane == 0) res.mask[row] = live;
+    __syncthreads();
+    if (!on) return;
+    // the row's key column against every class, from the staged row: the
+    // raw avail and the new mask
+    for (int cls = lane; cls < a.c; cls += 32) {
+      const int* q = (reqs_on_chip ? req_sh : res.reqs) + cls * r;
+      int key;
+      if (staged) {
+        bool feas = live, availb = true;
+        int s = 0;
+        for (int col = 0; col < r; ++col) {
+          const int qc = q[col];
+          if (qc <= 0) continue;
+          const int t = st_t[warp][col], av = st_a[warp][col];
+          feas = feas && (t >= qc);
+          availb = availb && (av >= qc);
+          const int num = wmul(wadd(wsub(t, av), qc), kScale);
+          const unsigned sh = 63u - (unsigned)__clz(max(t, 1) - 1);
+          s = max(s, fdiv(num, st_m[warp][col], sh));
+        }
+        key = pack_contract_key(feas, availb, s, a.thr_fp, k * n_l + row);
+      } else {
+        key = key_of(rt, ra, q, r, live, a.thr_fp, k * n_l + row);
+      }
+      res.keys[(long long)cls * n_l + row] = key;
     }
-    for (int e = tid; e < nl; e += nt) {
-      const int j = lanes[e];
-      res.mask[idx[j]] = rm[j] != 0;
-    }
+    return;
   }
-  __syncthreads();
 
-  // their key columns against every class, off the raw avail and the
-  // resident mask
-  for (int e = tid; e < a.c * nl; e += nt) {
-    const int slot = e / nl, row = idx[lanes[e % nl]];
-    res.keys[(long long)slot * n_l + row] =
-        key_of(res.totals + (long long)row * r, res.avail + (long long)row * r,
-               res.reqs + slot * r, r, res.mask[row] != 0, a.thr_fp,
-               base_row + row);
-  }
-  if (!a.eff) return;
-
-  // this beat's avail_eff and mask_eff for the tile
+  // kEffRows rows of avail_eff and mask_eff: the override, else the dirty
+  // row's new avail, else the resident's (rows no lane CTA writes).  The
+  // rank's dirty and override rows come on chip with the first wave where
+  // they fit kReqCap (req_sh: this CTA stages no requests).
+  const int lo = (blockIdx.x - 1 - lane_ctas) * kEffRows;
+  const int rows = min(kEffRows, n_l - lo), n = rows * r;
+  const int* ov_idx = input<int>(a, kOvIdx, k);
+  const uint8_t* rm = input<uint8_t>(a, kRowsMask, k);
   const uint8_t* em = input<uint8_t>(a, kExtraMask, k);
-  for (long long e = (long long)lo * r + tid; e < (long long)hi * r; e += nt)
-    res.avail_eff[e] = res.avail[e];
-  for (int row = lo + tid; row < hi; row += nt)
-    res.mask_eff[row] = res.mask[row] != 0 && (em == nullptr || em[row] != 0);
+  const int* ra = input<int>(a, kRowsAvail, k);
+  const int* ova = input<int>(a, kOvAvail, k);
+  if ((a.b + a.bo) * r <= kReqCap) {
+    for (int e = tid; e < a.b * r; e += nt) req_sh[e] = ra[e];
+    for (int e = tid; e < a.bo * r; e += nt) req_sh[a.b * r + e] = ova[e];
+    ra = req_sh;
+    ova = req_sh + a.b * r;
+  }
+  const int* av_tile = res.avail + (long long)lo * r;
+  int* eff_tile = res.avail_eff + (long long)lo * r;
+  if (tid < kEffRows) dirty_of[tid] = ov_of[tid] = -1;
+  const int drow = tid < a.b ? idx[tid] : -1;
+  const int orow = tid < a.bo ? ov_idx[tid] : -1;
+  const bool dlive = tid < a.b && rm[tid] != 0;
+  int pre[kPre];
+#pragma unroll
+  for (int i = 0; i < kPre; ++i) {
+    const int e = tid + i * kThreads;
+    pre[i] = e < n ? av_tile[e] : 0;
+  }
+  const bool live = tid < rows && res.mask[lo + tid] != 0;
+  const bool soft = tid < rows && (em == nullptr || em[lo + tid] != 0);
   __syncthreads();
-  {
-    const int* ova = input<int>(a, kOvAvail, k);
-    for (int e = tid; e < no * r; e += nt) {
-      const int j = ov_lanes[e / r], col = e % r;
-      res.avail_eff[(long long)ov_idx[j] * r + col] = ova[j * r + col];
+  for (int j = tid; j < max(a.b, a.bo); j += nt) {
+    const int row = j == tid ? drow : j < a.b ? idx[j] : -1;
+    const int orw = j == tid ? orow : j < a.bo ? ov_idx[j] : -1;
+    if (row >= lo && row < lo + rows) {          // the lane and its mask
+      dirty_of[row - lo] = 2 * j + (j == tid ? dlive : rm[j] != 0);
     }
+    if (orw >= lo && orw < lo + rows) ov_of[orw - lo] = j;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kPre; ++i) {
+    const int e = tid + i * kThreads;
+    if (e >= n) break;
+    const int rl = e / r, col = e - rl * r;
+    const int o = ov_of[rl], d = dirty_of[rl] >> 1;
+    eff_tile[e] = o >= 0 ? ova[(long long)o * r + col]
+                : d >= 0 ? ra[(long long)d * r + col] : pre[i];
+  }
+  for (int e = tid + kPre * kThreads; e < n; e += nt) {
+    const int rl = e / r, col = e - rl * r;
+    const int o = ov_of[rl], d = dirty_of[rl] >> 1;
+    eff_tile[e] = o >= 0 ? ova[(long long)o * r + col]
+                : d >= 0 ? ra[(long long)d * r + col] : av_tile[e];
+  }
+  if (tid < rows) {
+    const int d = dirty_of[tid];
+    res.mask_eff[lo + tid] = (d >= 0 ? (d & 1) != 0 : live) && soft;
+  }
+}
+
+// Classes a warp of a key CTA takes: one while one CTA a (rank, row tile,
+// block of kKeyCls classes) fits one wave (kKeyWave CTAs), else as many as
+// bring the grid to a wave (at most kMaxPerWarp, and the CTA's shared
+// memory under kKeySmemCap).  The kernel and its launch both call it.
+__host__ __device__ inline int keys_per_warp(int s, int n_l, int n_cls,
+                                             int r) {
+  const long long base = (long long)s * ((n_l + kKeyRows - 1) / kKeyRows) *
+                         ((n_cls + kKeyCls - 1) / kKeyCls);
+  int pw = (int)((base + kKeyWave - 1) / kKeyWave);
+  pw = pw < 1 ? 1 : pw > kMaxPerWarp ? kMaxPerWarp : pw;
+  const int cols = r <= kRowCols ? r : 0;
+  while (pw > 1 && (3 * kKeyPitch + 2 * kKeyCls * pw) * cols *
+                           (int)sizeof(int) > kKeySmemCap)
+    --pw;
+  return pw;
+}
+
+// The class install and the full rescore: CTA (rank, row tile, block of
+// kKeyCls * pw classes), block fastest; warp w takes classes w, w + kKeyCls,
+// ... of its block.  Shared memory: the tile's staged columns (t, a, magic
+// multiplier; kKeyPitch words a column) when r <= kRowCols, then each
+// (warp, class) list of positive columns.  One wave of loads: the rows'
+// columns and the first 32 request columns of each class, before any use.
+// kPW bounds pw at compile time (1, 2, 4 or 8: the launch takes the least
+// that holds it), so a warp of one class carries no registers for eight.
+template <int kPW>
+__global__ void __launch_bounds__(kThreads)
+beat_rows_keys_kernel(const RankRes* __restrict__ tab, const RowsArgs a) {
+  extern __shared__ int smem[];
+  __shared__ int npos_sh[kKeyCls][kPW];
+  __shared__ bool live_sh[kKeyRows];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r = a.r, n_l = a.n_l;
+  const bool install = a.mode == kModeClasses;
+  const int n_cls = install ? a.bc : a.c;
+  const int pw = keys_per_warp(a.s, n_l, n_cls, r);
+  const int per_cta = kKeyCls * pw;
+  const int blocks = (n_cls + per_cta - 1) / per_cta;
+  const int tiles = (n_l + kKeyRows - 1) / kKeyRows;
+  const int k = blockIdx.x / (tiles * blocks);
+  const int rest = blockIdx.x - k * tiles * blocks;
+  const int tile = rest / blocks, j0 = (rest - tile * blocks) * per_cta;
+  const int lo = tile * kKeyRows, rows = min(kKeyRows, n_l - lo);
+  const RankRes res = tab[k];
+  const bool staged = r <= kRowCols;
+  const int cols = staged ? r : 0;
+  int* st_t = smem;
+  int* st_a = st_t + cols * kKeyPitch;
+  unsigned* st_m = reinterpret_cast<unsigned*>(st_a + cols * kKeyPitch);
+  int* lists = reinterpret_cast<int*>(st_m + cols * kKeyPitch) +
+               warp * pw * 2 * cols;                 // (col, q) a class
+
+  // this warp's classes: slots and request rows (the install reads the
+  // staged rows, never the reqs it scatters into) and their first 32
+  // columns, loaded up front
+  const int* cls_idx = input<int>(a, kClsIdx, k);
+  const int* cls_reqs = input<int>(a, kClsReqs, k);
+  int slot[kPW], v0[kPW];
+#pragma unroll
+  for (int i = 0; i < kPW; ++i) {
+    const int j = j0 + warp + i * kKeyCls;
+    slot[i] = -1;
+    v0[i] = 0;
+    if (i < pw && j < n_cls) {                     // both loads at once
+      slot[i] = install ? cls_idx[j] : j;
+      if (lane < r)
+        v0[i] = install ? cls_reqs[(long long)j * r + lane]
+                        : res.reqs[(long long)j * r + lane];
+    }
+    if (slot[i] >= a.c) slot[i] = -1;              // a padding lane
   }
 
-  if (blockIdx.x == 0) {                   // the rank's scan inputs
-    const int* slots = input<int>(a, kSlots, k);
-    const int* counts = input<int>(a, kCounts, k);
-    for (int e = tid; e < a.g * r; e += nt) {
-      const int gi = e / r, slot = min(max(slots[gi], 0), a.c - 1);
-      res.group_reqs[e] = res.reqs[slot * r + e % r];
+  // the tile's rows on chip, a magic multiplier a (row, column)
+  for (int e = tid; e < rows * cols; e += kThreads) {
+    const int rl = e / cols, col = e - rl * cols;
+    const long long at = (long long)(lo + rl) * r + col;
+    const int t = res.totals[at];
+    st_t[col * kKeyPitch + rl] = t;
+    st_a[col * kKeyPitch + rl] = res.avail[at];
+    st_m[col * kKeyPitch + rl] = magic_of(max(t, 1));
+  }
+  if (tid < rows) live_sh[tid] = res.mask[lo + tid] != 0;
+
+  // each class's positive columns, compacted by its warp; the install's
+  // rows into this rank's reqs from the row tile 0 CTAs
+#pragma unroll
+  for (int i = 0; i < kPW; ++i) {
+    if (slot[i] < 0) continue;                     // warp-uniform
+    const int j = j0 + warp + i * kKeyCls;
+    const int* q = install ? cls_reqs + (long long)j * r
+                           : res.reqs + (long long)slot[i] * r;
+    if (install && tile == 0)
+      for (int col = lane; col < r; col += 32)
+        res.reqs[slot[i] * r + col] = col < 32 ? v0[i] : q[col];
+    if (!staged) continue;
+    int* lc = lists + i * 2 * cols;
+    int np = 0;
+    for (int c0 = 0; c0 < r; c0 += 32) {
+      const int c = c0 + lane;
+      const int v = c0 == 0 ? v0[i] : c < r ? q[c] : 0;
+      const unsigned pos = __ballot_sync(kFull, v > 0);
+      if (v > 0) {
+        const int at = np + __popc(pos & ((1u << lane) - 1u));
+        lc[at] = c;
+        lc[cols + at] = v;
+      }
+      np += __popc(pos);
     }
-    for (int gi = tid; gi < a.g; gi += nt) res.group_counts[gi] = counts[gi];
-    if (res.xchg != nullptr)
-      for (int e = tid; e < a.xchg_ints; e += nt) res.xchg[e] = 0u;
+    if (lane == 0) npos_sh[warp][i] = np;
+  }
+  __syncthreads();
+  if (lane >= rows) return;
+  const int row = lo + lane, grow = k * n_l + row;
+#pragma unroll
+  for (int i = 0; i < kPW; ++i) {
+    if (slot[i] < 0) continue;
+    int key;
+    if (staged) {
+      const int* lc = lists + i * 2 * cols;
+      key = key_rcp(st_t + lane, st_a + lane, st_m + lane, kKeyPitch, lc,
+                    lc + cols, npos_sh[warp][i], live_sh[lane], a.thr_fp,
+                    grow);
+    } else {
+      const int j = j0 + warp + i * kKeyCls;
+      const int* q = install ? cls_reqs + (long long)j * r
+                             : res.reqs + (long long)slot[i] * r;
+      key = key_of(res.totals + (long long)row * r,
+                   res.avail + (long long)row * r, q, r, live_sh[lane],
+                   a.thr_fp, grow);
+    }
+    res.keys[(long long)slot[i] * n_l + row] = key;
   }
 }
 
@@ -408,19 +666,60 @@ bool rows_args_ok(const RowsArgs& a) {
          a.mode >= kModeBeat && a.mode <= kModeRescore && a.s <= 65535;
 }
 
+// The shared memory of a beat_rows_keys_kernel CTA past its static part
+size_t keys_smem(int r, int pw) {
+  const int cols = r <= kRowCols ? r : 0;
+  return (size_t)cols * (3 * kKeyPitch + 2 * kKeyCls * pw) * sizeof(int);
+}
+
 }  // namespace
 
-// layout[0..2]: CTAs, threads a CTA, node rows a CTA
+// layout[0..7]: CTAs, threads a CTA, node rows a tile (an eff CTA's, or a
+// key CTA's), classes a key CTA, gather CTAs, lane CTAs, tile CTAs,
+// resource columns staged a row (0: the keys take the division)
 extern "C" int rt_beat_rows(const void* table, const void* args, int* layout,
                             void* stream) {
   const RowsArgs& a = *static_cast<const RowsArgs*>(args);
   if (!rows_args_ok(a)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((a.n_l + kTile - 1) / kTile, a.s, 1);
-  layout[0] = (int)(grid.x * grid.y);
+  const RankRes* tab = static_cast<const RankRes*>(table);
+  cudaStream_t st = (cudaStream_t)stream;
+  for (int i = 0; i < 8; ++i) layout[i] = 0;
   layout[1] = kThreads;
-  layout[2] = kTile;
-  beat_rows_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const RankRes*>(table), a);
+  layout[7] = a.r <= kRowCols ? a.r : 0;
+  if (a.mode == kModeBeat) {
+    const int lanes = (a.b + kLanes - 1) / kLanes;
+    const int tiles = a.eff ? (a.n_l + kEffRows - 1) / kEffRows : 0;
+    const dim3 grid(1 + lanes + tiles, a.s, 1);
+    layout[0] = (int)(grid.x * grid.y);
+    layout[2] = kEffRows;
+    layout[4] = a.s;
+    layout[5] = lanes * a.s;
+    layout[6] = tiles * a.s;
+    beat_rows_kernel<<<grid, kThreads, 0, st>>>(tab, a);
+    return (int)cudaGetLastError();
+  }
+  const int n_cls = a.mode == kModeClasses ? a.bc : a.c;
+  const int pw = keys_per_warp(a.s, a.n_l, n_cls, a.r);
+  const long long blocks =
+      (long long)a.s * ((a.n_l + kKeyRows - 1) / kKeyRows) *
+      ((n_cls + kKeyCls * pw - 1) / (kKeyCls * pw));
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  layout[0] = (int)blocks;
+  layout[2] = kKeyRows;
+  layout[3] = kKeyCls * pw;
+  layout[6] = (int)blocks;
+  if (blocks == 0) return (int)cudaSuccess;  // an install of no classes
+  const size_t smem = keys_smem(a.r, pw);
+  auto kernel = pw <= 1 ? beat_rows_keys_kernel<1>
+              : pw <= 2 ? beat_rows_keys_kernel<2>
+              : pw <= 4 ? beat_rows_keys_kernel<4>
+                        : beat_rows_keys_kernel<kMaxPerWarp>;
+  if (smem > 48 * 1024) {                  // past 48 KB needs the opt-in
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(unsigned)blocks, kThreads, smem, st>>>(tab, a);
   return (int)cudaGetLastError();
 }
 

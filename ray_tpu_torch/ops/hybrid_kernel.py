@@ -21,7 +21,8 @@ tensors.  The rest of the delta beat is two more hand-written kernels
 (``csrc/beat.cu``), for one rank or for S ranks of a row-sharded plane
 on one card: ``beat_rows`` before the scan (dirty-row scatters and
 their key rescoring, the beat's overrides, soft mask and class gather;
-with other index sets a class install or a full rescore) and
+a class install or a full rescore, spread over (row tile, class block)
+CTAs with per-row magic divisors) and
 ``beat_tail`` after it (the packed counts and lease budgets, the
 per-class argmin).  Their plain versions ``beat_rows_plain`` and
 ``beat_tail_plain`` are the functional programs below
@@ -37,6 +38,8 @@ cast back to int32 (the wrap is the same modulo 2**32).
 from __future__ import annotations
 
 import ctypes
+import itertools
+import operator
 
 import numpy as np
 import torch
@@ -720,7 +723,8 @@ _ROW_FIELDS = ("idx", "rows_totals", "rows_avail", "rows_mask", "ov_idx",
                "ov_avail", "extra_mask", "slots", "counts", "cls_idx",
                "cls_reqs")
 _MODES = {"beat": 0, "classes": 1, "rescore": 2}
-_BEAT_LAYOUT = ("ctas", "threads", "tile_rows")
+_BEAT_LAYOUT = ("ctas", "threads", "tile_rows", "class_block",
+                "gather_ctas", "lane_ctas", "tile_ctas", "staged_cols")
 _TAIL_LAYOUT = ("ctas", "threads", "tile_rows", "class_block",
                 "argmin_ctas")
 
@@ -827,9 +831,13 @@ def beat_rows(state, thr_fp, rows=None, overrides=None, extra_mask=None,
     Each per-beat input is a per-rank list (rank k's at rank 0's address
     plus k steps: ``spaced``).  CPU tensors take ``beat_rows_plain``;
     CUDA tensors launch the hand-written kernel (``csrc/beat.cu``) once
-    or raise ``ValueError`` for what it does not take.
-    ``beat_rows.launches`` counts the launches (``launches_by_mode`` by
-    call) and ``beat_rows.last_layout`` holds the last one."""
+    or raise ``ValueError`` for what it does not take.  The checks, the
+    table of residents and the C arguments are made once per layout
+    (``rows_call``); a steady beat's call looks its layout up and makes
+    the one ctypes call.  ``beat_rows.launches`` counts the launches
+    (``launches_by_mode`` by call) and ``beat_rows.last_layout`` holds
+    the last one (its grid: CTAs, gather / lane / tile CTAs, rows a tile,
+    classes a key CTA, resource columns staged on chip)."""
     dev = state.totals[0].device
     if dev.type == "cpu":
         return beat_rows_plain(state, thr_fp, rows, overrides, extra_mask,
@@ -840,17 +848,92 @@ def beat_rows(state, thr_fp, rows=None, overrides=None, extra_mask=None,
                  classes, rescore)
 
 
-def _launch_rows(state, thr_fp, rows, overrides, extra_mask, groups,
-                 classes, rescore):
-    """``beat_rows``' launch: checks, the arguments, the kernel."""
-    from . import _build
+def _rows_inputs(mode, rows, overrides, extra_mask, groups, classes):
+    """The call's per-rank inputs in ``_ROW_FIELDS`` order, None where the
+    call has none (the overrides and the soft mask only with ``groups``)."""
+    if mode == "classes":
+        return (None,) * 9 + tuple(classes)
+    if mode == "rescore":
+        return (None,) * 11
+    rows = (None,) * 4 if rows is None else tuple(rows)
+    if groups is None:
+        return rows + (None,) * 7
+    ov = (None, None) if overrides is None else tuple(overrides)
+    return rows + ov + (extra_mask, *groups, None, None)
 
-    dev = state.totals[0].device
+
+def _residents(st):
+    """A state's per-rank lists in ``csrc/beat.cu``'s RankRes order."""
+    return (st.totals, st.avail, st.mask, st.keys, st.reqs, st.avail_eff,
+            st.mask_eff, st.group_reqs, st.group_counts, st.xchg)
+
+
+_PTR = torch.Tensor.data_ptr
+_META = operator.attrgetter("shape", "dtype")
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_ROW_CALLS: dict = {}
+_ROW_CALLS_CAP = 16
+
+
+def _rows_key(mode, thr_fp, lists) -> tuple:
+    """The cache key of a ``beat_rows`` call: what its checks read, every
+    tensor's data pointer (so the rank steps), shape and dtype, and each
+    list's length; a new key runs the checks.  A CPU tensor's address is
+    never a CUDA allocation's (one virtual address space), so a CPU/CUDA
+    mix is a new key.  Strides are not read: a non-contiguous view at the
+    address, shape and dtype of a checked tensor (a transposed square
+    block) would pass."""
+    flat = list(itertools.chain.from_iterable(
+        xs for xs in lists if xs is not None))
+    return (mode, int(thr_fp),
+            tuple(None if xs is None else len(xs) for xs in lists),
+            tuple(map(_PTR, flat)), tuple(map(_META, flat)))
+
+
+class _RowsCall:
+    """One layout's checked launch: the table, the C arguments and the
+    layout buffer, kept while the layout is."""
+
+    __slots__ = ("table", "args", "buf", "ptrs", "device", "mode",
+                 "layout")
+
+    def __init__(self, table, args, mode, device):
+        self.table, self.args, self.mode, self.device = table, args, mode, \
+            device
+        self.buf = (ctypes.c_int * len(_BEAT_LAYOUT))()
+        self.ptrs = (table.data_ptr(), ctypes.addressof(args),
+                     ctypes.addressof(self.buf))
+        self.layout = None
+
+
+def rows_call(state, thr_fp, rows=None, overrides=None, extra_mask=None,
+              groups=None, classes=None, rescore=False) -> _RowsCall:
+    """``beat_rows``' checked launch for this call's layout (its table of
+    residents, ``RowsArgs`` and layout buffer), made and checked once per
+    layout and kept; raises ``ValueError`` for what the kernel does not
+    take.  A timing script calls another build's entry point with it."""
     mode = _mode_of(classes, rescore)
-    s = state.n_shards
-    n_l, r = state.totals[0].shape
+    if mode == "beat" and groups is not None:
+        state.ensure_beat_buffers(groups[0][0].shape[0])
     if state.reqs is None or state.keys is None:
         raise ValueError("beat_rows: the state has no reqs or keys")
+    inputs = _rows_inputs(mode, rows, overrides, extra_mask, groups,
+                          classes)
+    key = _rows_key(mode, thr_fp, _residents(state) + inputs)
+    call = _ROW_CALLS.pop(key, None)
+    if call is None:
+        call = _check_rows(state, thr_fp, mode, inputs)
+        while len(_ROW_CALLS) >= _ROW_CALLS_CAP:
+            _ROW_CALLS.pop(next(iter(_ROW_CALLS)))
+    _ROW_CALLS[key] = call
+    return call
+
+
+def _check_rows(state, thr_fp, mode, inputs) -> _RowsCall:
+    """The checks and C arguments of a new layout."""
+    dev = state.totals[0].device
+    s = state.n_shards
+    n_l, r = state.totals[0].shape
     c = state.reqs[0].shape[0]
     if not 1 <= s * n_l <= MAX_NODES:
         raise ValueError(f"beat_rows: {s} x {n_l} nodes outside "
@@ -873,53 +956,58 @@ def _launch_rows(state, thr_fp, rows, overrides, extra_mask, groups,
     args = _RowsArgs()
     args.s, args.n_l, args.r, args.c = s, n_l, r, c
     args.thr_fp, args.mode = int(thr_fp), _MODES[mode]
-    inputs = {}
-    g = 0
-    if mode == "classes":
-        b = classes[0][0].shape[0]
-        inputs.update(cls_idx=(classes[0], _I32, (b,)),
-                      cls_reqs=(classes[1], _I32, (b, r)))
-        args.bc = b
-    elif mode == "beat":
-        if rows is not None:
-            b = rows[0][0].shape[0]
-            inputs.update(idx=(rows[0], _I32, (b,)),
-                          rows_totals=(rows[1], _I32, (b, r)),
-                          rows_avail=(rows[2], _I32, (b, r)),
-                          rows_mask=(rows[3], torch.bool, (b,)))
-            args.b = b
-        if groups is not None:
-            g = groups[0][0].shape[0]
-            state.ensure_beat_buffers(g)
-            inputs.update(slots=(groups[0], _I32, (g,)),
-                          counts=(groups[1], _I32, (g,)))
-            if overrides is not None:
-                bo = overrides[0][0].shape[0]
-                inputs.update(ov_idx=(overrides[0], _I32, (bo,)),
-                              ov_avail=(overrides[1], _I32, (bo, r)))
-                args.bo = bo
-            if extra_mask is not None:
-                inputs["extra_mask"] = (extra_mask, torch.bool, (n_l,))
-            args.g, args.eff = g, 1
-            if state.xchg is not None:
-                args.xchg_ints = state.xchg[0].numel()
-    for name, (xs, dtype, shape) in inputs.items():
+    f = dict(zip(_ROW_FIELDS, inputs))
+    b = 0 if f["idx"] is None else f["idx"][0].shape[0]
+    bo = 0 if f["ov_idx"] is None else f["ov_idx"][0].shape[0]
+    g = 0 if f["slots"] is None else f["slots"][0].shape[0]
+    bc = 0 if f["cls_idx"] is None else f["cls_idx"][0].shape[0]
+    want = {"idx": (_I32, (b,)), "rows_totals": (_I32, (b, r)),
+            "rows_avail": (_I32, (b, r)), "rows_mask": (torch.bool, (b,)),
+            "ov_idx": (_I32, (bo,)), "ov_avail": (_I32, (bo, r)),
+            "extra_mask": (torch.bool, (n_l,)), "slots": (_I32, (g,)),
+            "counts": (_I32, (g,)), "cls_idx": (_I32, (bc,)),
+            "cls_reqs": (_I32, (bc, r))}
+    for i, name in enumerate(_ROW_FIELDS):
+        xs = f[name]
+        if xs is None:
+            continue
         if len(xs) != s:
             raise ValueError(f"beat_rows: {len(xs)} {name} for {s} ranks")
-        i = _ROW_FIELDS.index(name)
         args.ptr[i], args.step[i] = _rank_step(f"beat_rows: {name}", xs,
-                                               dtype, shape, dev)
-    table = resident_table(state)
-    layout = (ctypes.c_int * len(_BEAT_LAYOUT))()
+                                               *want[name], dev)
+    args.b, args.bo, args.bc = b, bo, bc
+    if mode == "beat" and f["slots"] is not None:
+        args.g, args.eff = g, 1
+        if state.xchg is not None:
+            args.xchg_ints = state.xchg[0].numel()
+    return _RowsCall(resident_table(state), args, mode, dev)
+
+
+def _launch_rows(state, thr_fp, rows, overrides, extra_mask, groups,
+                 classes, rescore):
+    """``beat_rows``' launch: the checked call of this layout, its one
+    ctypes call on the current stream."""
+    from . import _build
+
+    call = rows_call(state, thr_fp, rows, overrides, extra_mask, groups,
+                     classes, rescore)
     fn = _build.load("beat")
-    with torch.cuda.device(dev):
-        err = fn(table.data_ptr(), ctypes.addressof(args),
-                 ctypes.addressof(layout),
-                 torch.cuda.current_stream(dev).cuda_stream)
+    index = call.device.index
+    if torch.cuda.current_device() == index:
+        stream = _RAW_STREAM(index) if _RAW_STREAM is not None else \
+            torch.cuda.current_stream(call.device).cuda_stream
+        err = fn(*call.ptrs, stream)
+    else:
+        with torch.cuda.device(call.device):
+            err = fn(*call.ptrs,
+                     torch.cuda.current_stream(call.device).cuda_stream)
     _build.check(err, "beat")
-    _ROWS.launches += 1
-    _ROWS.launches_by_mode[mode] += 1
-    _ROWS.last_layout = dict(zip(_BEAT_LAYOUT, layout), mode=mode)
+    if call.layout is None:
+        call.layout = dict(zip(_BEAT_LAYOUT, call.buf), mode=call.mode)
+    if call.layout["ctas"]:                # an install of no classes: none
+        _ROWS.launches += 1
+        _ROWS.launches_by_mode[call.mode] += 1
+    _ROWS.last_layout = dict(call.layout)
 
 
 beat_rows.launches = 0

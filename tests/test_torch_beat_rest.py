@@ -3,25 +3,34 @@
 own decomposition, held bit for bit to the JAX package's programs and to
 the port's plain versions.
 
-The model is the kernels' work written out: ``beat_rows`` a CTA per (node
-tile of 256 rows, rank), each scattering the dirty rows that land in its
-tile into the residents in place, rescoring their key columns (the low
-bits the global row), writing the tile's avail_eff and mask_eff, the first
-tile of each rank gathering the scan's classes; the class install and the
-full rescore the same tiles with other index sets; ``beat_tail`` the packed
-(G + C, N + 1) readback written tile by tile and the per-class argmin as
-the min of packed 64-bit (key, global row) values over every rank.  The
-budgets are priced by (rank, 64-row tile, block of 8 classes) CTAs, a
-warp a class with its positive columns compacted and each request's magic
-multiplier in place of the division (past 32 positive columns, the
-division), and the counts block is copied in a grid-stride loop.  It is
-held to ``ray_tpu/ops/hybrid_kernel.py`` (``full_rescore``,
-``apply_dirty_rows``, ``apply_dirty_classes``, ``fused_beat``) and to the
-reference's ``ShardPlane`` programs on the 8 virtual CPU devices of
-``tests/conftest.py`` at 1, 2, 4 and 8 ranks, with padding lanes, an
-all-INF key row, negative overrides, an all-false soft mask, padded class
-slots and ``require_available``.  The kernels themselves are held to the
-plain versions on the card by ``tests/test_torch_cuda.py``."""
+The model is the kernels' work written out.  ``beat_rows``' beat call is
+three kinds of CTA a rank, none reading what another writes: a gather CTA
+(the scan's classes, clamped slots), lane CTAs of 8 dirty lanes (a warp a
+lane: the staged row stored into the residents and its key column scored
+against every class from the staged values, the low bits the global row)
+and eff CTAs of 64 rows (avail_eff from a per-tile lookup: this beat's
+override, else the dirty row's new avail, else the resident's as it was
+before the call; mask_eff the new or resident mask & extra_mask).  The
+class install and the full rescore are (rank, 32-row tile, block of 8
+classes) CTAs: the tile's columns staged with a magic multiplier a (row,
+column) (``magic_of``: a double quotient corrected in integers) and every
+key's division a multiply-high (``fdiv``), each key written once; rows
+wider than 128 columns take the division; the install scatters its rows
+into reqs from the tile-0 CTAs and scores its slots from the staged rows.
+``beat_tail`` writes the packed (G + C, N + 1) readback tile by tile and
+the per-class argmin as the min of packed 64-bit (key, global row) values
+over every rank.  The budgets are priced by (rank, 64-row tile, block of
+8 classes) CTAs, a warp a class with its positive columns compacted and
+each request's magic multiplier in place of the division (past 32
+positive columns, the division), and the counts block is copied in a
+grid-stride loop.  It is held to ``ray_tpu/ops/hybrid_kernel.py``
+(``full_rescore``, ``apply_dirty_rows``, ``apply_dirty_classes``,
+``fused_beat``) and to the reference's ``ShardPlane`` programs on the 8
+virtual CPU devices of ``tests/conftest.py`` at 1, 2, 4 and 8 ranks, with
+padding lanes, an all-INF key row, negative overrides, an override on a
+dirty row, an all-false soft mask, padded class slots and
+``require_available``.  The kernels themselves are held to the plain
+versions on the card by ``tests/test_torch_cuda.py``."""
 
 import numpy as np
 import pytest
@@ -45,7 +54,13 @@ SCORE_SHIFT = 13
 AVAIL_SHIFT = 27
 INF_KEY = 2**31 - 1
 BUDGET_CAP = 1 << 15
-TILE = 256                       # csrc/beat.cu kTile (beat_rows)
+LANES = 8                        # csrc/beat.cu kLanes: dirty lanes a CTA
+EFF_ROWS = 64                    # kEffRows: node rows an eff CTA
+KEY_ROWS = 32                    # kKeyRows: node rows a key CTA
+KEY_CLS = 8                      # kKeyCls: classes a key CTA
+ROW_COLS = 128                   # kRowCols: a row's columns staged on chip
+KEY_WAVE = 4 * 132               # kKeyWave: key CTAs in one wave
+MAX_PER_WARP = 8                 # kMaxPerWarp: classes a warp at most
 TAIL_ROWS = 64                   # kTailRows: node rows a budget CTA
 CLS_BLOCK = 8                    # kClsBlock: classes a budget CTA
 COL_CAP = 32                     # kColCap: a class's columns on chip
@@ -66,9 +81,11 @@ def _i32(x):
     return (np.asarray(x, np.int64) + 2**31) % 2**32 - 2**31
 
 
-def model_key(t, a, live, q, thr, rows):
-    """beat.cu key_of over rows: t/a (B, R), live (B,), one request q
-    (R,), rows (B,) global rows.  (B,) int32."""
+def model_key(t, a, live, q, thr, rows, staged=False):
+    """beat.cu's key of one request q (R,) over rows: t/a (B, R), live
+    (B,), rows (B,) global rows.  ``staged``: each division by the row's
+    magic multiplier (``magic_of(max(t, 1))``, ``fdiv``), as the kernels
+    score the rows they stage; else key_of's division.  (B,) int32."""
     t, a = np.asarray(t, np.int64), np.asarray(a, np.int64)
     feas = np.asarray(live, bool).copy()
     availb = np.ones(len(rows), bool)
@@ -78,11 +95,50 @@ def model_key(t, a, live, q, thr, rows):
         feas &= t[:, col] >= qc
         availb &= a[:, col] >= qc
         num = _i32(_i32(_i32(t[:, col] - a[:, col]) + qc) * SCALE)
-        s = np.maximum(s, num // np.maximum(t[:, col], 1))
+        d = np.maximum(t[:, col], 1)
+        if staged:
+            m, sh = magic_of(d), 31 + _ceil_log2(d)
+            s = np.maximum(s, fdiv(num, m, sh))
+        else:
+            s = np.maximum(s, num // d)
     eff = np.where(availb & (s < thr), 0, s)
     key = ((~availb).astype(np.int64) << AVAIL_SHIFT) \
         | (eff << SCORE_SHIFT) | np.asarray(rows, np.int64)
     return np.where(feas, _i32(key & 0xffffffff), INF_KEY).astype(np.int32)
+
+
+def _ceil_log2(d):
+    """ceil(log2 d) for d >= 1: the bit length of d - 1 (frexp's exponent,
+    exact below 2**53)."""
+    return np.frexp((np.asarray(d, np.int64) - 1).astype(np.float64))[1] \
+        .astype(np.int64)
+
+
+def magic_of(d):
+    """beat.cu magic_of for divisors d >= 1: q = the double quotient
+    2**s / d truncated (IEEE division, correctly rounded), one down where
+    q d passes 2**s, plus one unless q d is 2**s: ceil(2**s / d), s = 31 +
+    ceil(log2 d), as uint64."""
+    d = np.asarray(d, np.int64)
+    s = (31 + _ceil_log2(d)).astype(np.uint64)
+    p = np.left_shift(np.uint64(1), s)
+    du = d.astype(np.uint64)
+    q = np.trunc(np.ldexp(1.0, s.astype(np.int64)) / d.astype(np.float64)
+                 ).astype(np.uint64)
+    q = np.where(q * du > p, q - np.uint64(1), q)
+    return q + (q * du != p).astype(np.uint64)
+
+
+def fdiv(x, m, s):
+    """contract.cuh fdiv for any int32 dividend x: a negative one through
+    its complement (floor(x / d) = ~floor(~x / d)), a multiply-high and a
+    shift."""
+    x = np.asarray(x, np.int64)
+    neg = x < 0
+    xx = np.where(neg, ~x, x).astype(np.uint64)
+    q = ((xx * np.asarray(m, np.uint64)) >> np.asarray(s, np.uint64)) \
+        .astype(np.int64)
+    return np.where(neg, ~q, q)
 
 
 def magic(d):
@@ -133,62 +189,115 @@ def model_state(totals, avail, mask, reqs, keys, s):
 
 
 def model_rows(st, thr, rows=None, overrides=None, extra_mask=None,
-               groups=None, classes=None, rescore=False):
-    """beat_rows, CTA by CTA, in place on ``st``."""
+               groups=None, classes=None, rescore=False, wave=KEY_WAVE):
+    """beat_rows, CTA by CTA, in place on ``st`` (``wave``: the key CTAs'
+    wave, smaller to put several classes on a warp at a small size)."""
+    if rescore or classes is not None:
+        return _model_keys(st, thr, classes, wave)
     s = len(st["totals"])
-    n_l = st["totals"][0].shape[0]
+    n_l, r = st["totals"][0].shape
     c = st["reqs"][0].shape[0]
+    before = {f: [np.array(x) for x in st[f]] for f in ("avail", "mask")}
     if groups is not None:
         g = len(groups[0][0])
-        st["avail_eff"] = [np.zeros_like(a) for a in st["avail"]]
-        st["mask_eff"] = [np.zeros_like(m) for m in st["mask"]]
-        st["group_reqs"] = [np.zeros((g, q.shape[1]), np.int32)
-                            for q in st["reqs"]]
-        st["group_counts"] = [np.zeros(g, np.int32) for _ in range(s)]
+        for f, shape, dtype in (("avail_eff", (n_l, r), np.int32),
+                                ("mask_eff", (n_l,), bool),
+                                ("group_reqs", (g, r), np.int32),
+                                ("group_counts", (g,), np.int32)):
+            st[f] = [np.zeros(shape, dtype) for _ in range(s)]
     for k in range(s):
         t, a, m, q, keys = (st[f][k] for f in
                             ("totals", "avail", "mask", "reqs", "keys"))
-        for lo in range(0, n_l, TILE):
-            hi = min(lo + TILE, n_l)
+        if groups is not None:                  # the gather CTA
+            st["group_reqs"][k][:] = q[np.clip(groups[0][k], 0, c - 1)]
+            st["group_counts"][k][:] = groups[1][k]
+        idx = np.asarray([] if rows is None else rows[0][k], np.int64)
+        assert len(set(i for i in idx if i < n_l)) == \
+            int((idx < n_l).sum())              # the host's rows are unique
+        for j0 in range(0, len(idx), LANES):     # the lane CTAs
+            for j in range(j0, min(j0 + LANES, len(idx))):
+                row = int(idx[j])
+                if not 0 <= row < n_l:          # a padding lane
+                    continue
+                rt, ra = rows[1][k][j][None], rows[2][k][j][None]
+                live = np.asarray([rows[3][k][j]], bool)
+                t[row], a[row], m[row] = rt[0], ra[0], live[0]
+                for cls in range(c):            # from the staged row
+                    keys[cls, row] = model_key(rt, ra, live, q[cls], thr,
+                                               [k * n_l + row],
+                                               staged=r <= ROW_COLS)[0]
+        if groups is None:
+            continue
+        ov = [] if overrides is None else overrides[0][k]
+        em = np.ones(n_l, bool) if extra_mask is None else extra_mask[k]
+        for lo in range(0, n_l, EFF_ROWS):       # the eff CTAs
+            hi = min(lo + EFF_ROWS, n_l)
+            dirty = {int(row): j for j, row in enumerate(idx)
+                     if lo <= row < hi}
+            over = {int(row): j for j, row in enumerate(ov)
+                    if lo <= row < hi}
+            for row in range(lo, hi):
+                if row in over:                 # overrides win
+                    st["avail_eff"][k][row] = overrides[1][k][over[row]]
+                elif row in dirty:
+                    st["avail_eff"][k][row] = rows[2][k][dirty[row]]
+                else:
+                    st["avail_eff"][k][row] = before["avail"][k][row]
+                live = rows[3][k][dirty[row]] if row in dirty \
+                    else before["mask"][k][row]
+                st["mask_eff"][k][row] = live and em[row]
+
+
+def keys_per_warp(s, n_l, n_cls, r, wave=KEY_WAVE):
+    """beat.cu keys_per_warp: one class a warp of a key CTA while the CTAs
+    fit one wave, else as many as bring them to a wave (at most 8, the
+    CTA's shared memory under 96 KB)."""
+    def cdiv(x, y):
+        return -(-x // y)
+    base = s * cdiv(n_l, KEY_ROWS) * cdiv(n_cls, KEY_CLS)
+    pw = min(max(cdiv(base, wave), 1), MAX_PER_WARP)
+    cols = r if r <= ROW_COLS else 0
+    while pw > 1 and (3 * (KEY_ROWS + 1) + 2 * KEY_CLS * pw) * cols * 4 \
+            > 96 * 1024:
+        pw -= 1
+    return pw
+
+
+def _model_keys(st, thr, classes, wave=KEY_WAVE):
+    """The install (``classes``) or the full rescore: (rank, row tile,
+    class block) CTAs, a block of 8 x ``keys_per_warp`` classes (warp w
+    its classes w, w + 8, ...), every (slot, row) key written once."""
+    s = len(st["totals"])
+    n_l, r = st["totals"][0].shape
+    c = st["reqs"][0].shape[0]
+    n_cls = c if classes is None else len(classes[0][0])
+    block = KEY_CLS * keys_per_warp(s, n_l, n_cls, r, wave)
+    for k in range(s):
+        t, a, m, q, keys = (st[f][k] for f in
+                            ("totals", "avail", "mask", "reqs", "keys"))
+        written = np.zeros(keys.shape, bool)
+        new_q = np.array(q)
+        for lo in range(0, n_l, KEY_ROWS):
+            hi = min(lo + KEY_ROWS, n_l)
             grow = k * n_l + np.arange(lo, hi)
-            if rescore or classes is not None:
-                if classes is not None and lo == 0:
-                    for j, slot in enumerate(classes[0][k]):
-                        if 0 <= slot < c:
-                            q[slot] = classes[1][k][j]
-                lanes = range(c) if rescore else range(len(classes[0][k]))
-                for j in lanes:
-                    slot = j if rescore else int(classes[0][k][j])
-                    if not 0 <= slot < c:           # padding lane
+            for c0 in range(0, n_cls, block):
+                for j in (c0 + w + i * KEY_CLS for w in range(KEY_CLS)
+                          for i in range(block // KEY_CLS)
+                          if c0 + w + i * KEY_CLS < n_cls):
+                    slot = j if classes is None else int(classes[0][k][j])
+                    if not 0 <= slot < c:       # a padding lane
                         continue
-                    req = q[slot] if rescore else classes[1][k][j]
-                    keys[slot, lo:hi] = model_key(t[lo:hi], a[lo:hi],
-                                                  m[lo:hi], req, thr, grow)
-                continue
-            if rows is not None:
-                idx = rows[0][k]
-                lanes = [j for j in range(len(idx)) if lo <= idx[j] < hi]
-                for j in lanes:
-                    t[idx[j]] = rows[1][k][j]
-                    a[idx[j]] = rows[2][k][j]
-                    m[idx[j]] = rows[3][k][j]
-                rr = np.asarray([idx[j] for j in lanes], np.int64)
-                for slot in range(c):
-                    keys[slot, rr] = model_key(t[rr], a[rr], m[rr], q[slot],
-                                               thr, k * n_l + rr)
-            if groups is None:
-                continue
-            st["avail_eff"][k][lo:hi] = a[lo:hi]
-            em = True if extra_mask is None else extra_mask[k][lo:hi]
-            st["mask_eff"][k][lo:hi] = m[lo:hi] & em
-            if overrides is not None:
-                for j, row in enumerate(overrides[0][k]):
-                    if lo <= row < hi:
-                        st["avail_eff"][k][row] = overrides[1][k][j]
-            if lo == 0:
-                slots = np.clip(groups[0][k], 0, c - 1)
-                st["group_reqs"][k][:] = q[slots]
-                st["group_counts"][k][:] = groups[1][k]
+                    req = q[slot] if classes is None else classes[1][k][j]
+                    if classes is not None and lo == 0:
+                        new_q[slot] = req
+                    assert not written[slot, lo:hi].any()
+                    written[slot, lo:hi] = True
+                    keys[slot, lo:hi] = model_key(
+                        t[lo:hi], a[lo:hi], m[lo:hi], req, thr, grow,
+                        staged=r <= ROW_COLS)
+        q[:] = new_q
+        if classes is None:
+            assert written.all()
 
 
 def model_tail(st, alloc, inf, av_fin):
@@ -261,7 +370,8 @@ def _case(seed, s, n_l=80, r=5, c=16, n_cls=12, b=8, bo=8, g=16,
     """Residents at N = s * n_l, C = 16 class slots (the last four padded:
     all-zero requests), class 1 infeasible everywhere (an all-INF key
     row), per-rank buckets of dirty rows and overrides with padding
-    lanes, a negative override, a class install with padding lanes."""
+    lanes, a negative override, an override on a dirty row, a class
+    install with padding lanes."""
     rng = np.random.default_rng(seed)
     n = s * n_l
     totals = rng.integers(0, 60, size=(n, r)).astype(np.int32)
@@ -288,6 +398,9 @@ def _case(seed, s, n_l=80, r=5, c=16, n_cls=12, b=8, bo=8, g=16,
     ov_idx = per_rank(lambda k: np.concatenate(
         [np.sort(rng.choice(n_l, 3, replace=False)),
          [n_l] * (bo - 3)]).astype(np.int32))
+    for i, o in zip(idx, ov_idx):           # an override on a dirty row
+        if i[0] not in o[:3]:
+            o[1] = i[0]
     ov_av = per_rank(lambda k: rng.integers(-50, 60, (bo, r)).astype(np.int32))
     for a in ov_av:
         a[0, :] = -5000                     # planned load past zero
@@ -424,6 +537,42 @@ def test_model_equals_jax_fused_beat(seed, require_available, em):
     np.testing.assert_array_equal(fused[1].numpy(), amin)
 
 
+@pytest.mark.parametrize("r", [ROW_COLS, ROW_COLS + 3])
+def test_model_equals_jax_at_the_staged_width(r):
+    """Rows of exactly the columns the key CTAs stage (magic multipliers)
+    and rows wider (the division), 11 class slots (not a multiple of the
+    class block): the full rescore, the dirty rows and a class install of
+    the model against the JAX programs and the port's plain versions."""
+    case = _case(30 + r, 1, n_l=70, r=r, c=11, n_cls=9)
+    totals, avail, mask, reqs, keys = case["res"]
+    thr = SCALE // 2
+    st = model_state(*case["res"], 1)
+    model_rows(st, thr, rescore=True)
+    np.testing.assert_array_equal(st["keys"][0], keys)
+    assert (np.count_nonzero(reqs > 0, axis=1) > 32).any()
+    assert keys_per_warp(1, 70, 11, r, wave=2) > 1      # warps of classes
+    several = model_state(*case["res"], 1)
+    model_rows(several, thr, rescore=True, wave=2)
+    np.testing.assert_array_equal(several["keys"][0], keys)
+    rows, cls = case["rows"], case["classes"]
+    cls = ([np.array([2, 10, 11, 11], np.int32)], cls[1][:1])
+    model_rows(st, thr, rows=rows)
+    want = ref_hk.apply_dirty_rows(totals, avail, mask, keys, reqs,
+                                   rows[0][0], rows[1][0], rows[2][0],
+                                   rows[3][0], thr)
+    for f, w in zip(("totals", "avail", "mask", "keys"), want):
+        np.testing.assert_array_equal(st[f][0], np.asarray(w))
+    model_rows(st, thr, classes=cls, wave=1)
+    want = ref_hk.apply_dirty_classes(*(np.asarray(w) for w in want),
+                                      reqs, cls[0][0], cls[1][0], thr)
+    np.testing.assert_array_equal(st["reqs"][0], np.asarray(want[0]))
+    np.testing.assert_array_equal(st["keys"][0], np.asarray(want[1]))
+    port = _port_state(case["res"], 1)
+    hk.beat_rows(port, thr, rows=tuple(_torch(x) for x in rows))
+    hk.beat_rows(port, thr, classes=tuple(_torch(x) for x in cls))
+    _same_state(st, port, ("totals", "avail", "mask", "keys", "reqs"))
+
+
 # -- S ranks: the reference's ShardPlane on the virtual CPU devices ---------------
 
 def _ref_plane(s, mode):
@@ -532,11 +681,42 @@ DIV_EDGES = [0, 1, 2, 3, (1 << 15) - 1, 1 << 15, (1 << 15) + 1, 1 << 16,
              (1 << 30) - 1, 1 << 30, (1 << 31) - 2, (1 << 31) - 1]
 
 
-def test_budget_division_is_floor_division():
-    """``fdiv(max(avail, 0), magic(q))`` equals ``//`` for every request
-    q in 1..2**15 at the int32 edges of the dividend and at multiples of
-    q around the budget cap, exactly."""
+# the keys' division: the dividend (t - a + q) * SCALE wraps to any int32,
+# the divisor is max(t, 1) of a row
+KEY_DIVIDENDS = [-(1 << 31), -(1 << 31) + 1, -(1 << 30), -SCALE - 1, -SCALE,
+                 -2, -1, 0, 1, 2, SCALE - 1, SCALE, (1 << 30) - 1,
+                 (1 << 31) - 2, (1 << 31) - 1]
+KEY_DIVISORS = [1, 2, 3, 1 << 15, (1 << 15) + 1, (1 << 31) - 1,
+                *[(1 << p) + o for p in range(1, 31) for o in (-1, 0, 1)]]
+
+
+@pytest.mark.parametrize("kind", ["budget", "key"])
+def test_budget_division_is_floor_division(kind):
+    """``budget``: ``fdiv(max(avail, 0), magic(q))`` equals ``//`` for
+    every request q in 1..2**15 at the int32 edges of the dividend and at
+    multiples of q around the budget cap, exactly.  ``key``: each row's
+    divisor max(t, 1) as ``magic_of`` makes it (a double quotient,
+    corrected) equals ``magic``, and ``fdiv`` of every int32 dividend
+    (negative and wrapped ones, INT_MIN and INT_MAX) by it equals ``//``:
+    divisors 1, 2, the powers of two and their neighbours, 2**15 and
+    INT_MAX, with random ones."""
     rng = np.random.default_rng(22)
+    if kind == "key":
+        d = np.array(KEY_DIVISORS + list(rng.integers(1, 1 << 31, 2000)),
+                     np.int64)
+        m = magic_of(d)
+        want_m, sh = magic(d)
+        np.testing.assert_array_equal(m, want_m)
+        assert (m < (1 << 32)).all()
+        num = _i32(rng.integers(-(1 << 40), 1 << 40, 64) * SCALE)
+        x = np.array(KEY_DIVIDENDS + list(num), np.int64)
+        y = np.concatenate([x[None, :].repeat(len(d), 0),
+                            d[:, None] * np.array([-2, -1, 1, 2])
+                            + np.array([-1, 0, 0, 1])], axis=1)
+        y = np.clip(y, -(1 << 31), (1 << 31) - 1)
+        got = fdiv(y, m[:, None], sh[:, None].astype(np.int64))
+        np.testing.assert_array_equal(got, y // d[:, None])
+        return
     d = np.arange(1, (1 << 15) + 1, dtype=np.int64)
     m, sh = magic(d)
     assert (m < (1 << 32)).all() and (sh <= 46).all()
@@ -686,6 +866,62 @@ def test_rank_table_is_rebuilt_only_when_a_resident_is_reallocated():
         st.totals[0], st.avail[0], st.mask[0], st.keys[0], st.reqs[0])]
     eng.beat(vecs, counts, spread_threshold=0.9)
     assert hk.resident_table(eng._st) is table
+
+
+def test_wrapper_checks_once_a_layout_and_raises_on_a_new_one():
+    """``rows_call``, the checks and C arguments of a launch, on a staged
+    beat's views: a second call of the same layout is the same checked
+    call (no check, no table); a changed shape or dtype, ranks that are
+    not equally spaced, a rank on another device and a resident of
+    another shape are new layouts, and their checks raise."""
+    s, thr = 4, SCALE // 2
+    case = _case(21, s)
+    port = _port_state(case["res"], s)
+    fields = {"slots": case["groups"][0], "counts": case["groups"][1],
+              "idx": case["rows"][0], "rows_totals": case["rows"][1],
+              "rows_avail": case["rows"][2], "rows_mask": case["rows"][3],
+              "ov_idx": case["overrides"][0],
+              "ov_avail": case["overrides"][1],
+              "extra_mask": case["extra_mask"]}
+
+    def staged(f, dev=None):
+        blob = BeatBlob(f)
+        if dev is None:
+            dev = torch.from_numpy(blob.host.reshape(-1).copy())
+        kw = hk.beat_inputs(blob.views(list(dev.view(s, blob.words))))
+        kw.pop("classes")
+        return kw, dev
+    kw, upload = staged(fields)
+    hk._ROW_CALLS.clear()
+    first = hk.rows_call(port, thr, **kw)
+    builds = hk.rank_table.builds
+    assert hk.rows_call(port, thr, **kw) is first
+    again, _ = staged(fields, upload)           # new views, one layout
+    assert all(x is not y for x, y in zip(again["rows"][0], kw["rows"][0]))
+    assert hk.rows_call(port, thr, **again) is first
+    assert hk.rows_call(port, thr, rescore=True) is not first
+    assert hk.rank_table.builds == builds and len(hk._ROW_CALLS) == 2
+    wider = dict(fields, idx=[np.concatenate([i, [80] * 8]).astype(np.int32)
+                              for i in fields["idx"]])
+    with pytest.raises(ValueError, match="rows_totals must be"):
+        hk.rows_call(port, thr, **dict(staged(wider)[0],
+                                       rows=(staged(wider)[0]["rows"][0],
+                                             *kw["rows"][1:])))
+    rows = list(kw["rows"])
+    rows[2] = [x.float() for x in rows[2]]
+    with pytest.raises(ValueError, match="rows_avail must be"):
+        hk.rows_call(port, thr, **dict(kw, rows=tuple(rows)))
+    rows = list(kw["rows"])
+    rows[1] = [x.clone() for x in rows[1]]
+    with pytest.raises(ValueError, match="not equally spaced"):
+        hk.rows_call(port, thr, **dict(kw, rows=tuple(rows)))
+    em = list(kw["extra_mask"])
+    em[-1] = em[-1].to("meta")
+    with pytest.raises(ValueError, match="extra_mask must be"):
+        hk.rows_call(port, thr, **dict(kw, extra_mask=em))
+    port.keys[1] = port.keys[1][:8]
+    with pytest.raises(ValueError, match="keys must be"):
+        hk.rows_call(port, thr, **kw)
 
 
 def test_cpu_wrappers_never_load_a_kernel_and_other_devices_raise():

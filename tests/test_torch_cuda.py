@@ -25,6 +25,10 @@ from test_torch_dataplane import (BROADCAST_EDGES, BUNDLE_EDGES, PULL_EDGES,
 from test_torch_dataplane_chain import (FANOUT_RULE, LAYOUT_RULE, LIST_CAP,
                                         fanout_plan)
 from test_torch_dataplane_chain import plan as bundle_plan_model
+# csrc/beat.cu's beat_rows grid: dirty lanes a lane CTA, rows an eff CTA,
+# rows and classes a key CTA, a row's columns staged on chip
+from test_torch_beat_rest import (EFF_ROWS, KEY_CLS, KEY_ROWS, LANES,
+                                  ROW_COLS, keys_per_warp)
 from test_torch_topk import TOPK_EDGES
 from test_torch_topk_select import EDGES as SELECT_EDGES
 from test_torch_topk_select import (TOPK_LAYOUT_RULE, _choose_counts,
@@ -294,18 +298,28 @@ def test_delta_scheduler_on_card_matches_reference():
 
 def _beat_case(s, n, r, c, seed, dirty=12):
     """Residents of S ranks of the card at N = n nodes (n_l = n / S) x R
-    x C class slots (the last four padded), with one beat's inputs staged
-    as the engines stage them (``BeatBlob``, one upload): dirty rows and
-    overrides with padding lanes (a negative override), a soft mask, the
-    groups, and a class install.  Returns (state, beat kwargs, classes)."""
+    x C class slots (the last four padded), negative avail, dead rows and
+    int32-edge totals, with one beat's inputs staged as the engines stage
+    them (``BeatBlob``, one upload): dirty rows and overrides with padding
+    lanes (a negative override, an override on a dirty row and on clean
+    ones), a soft mask, the groups, and a class install with a padding
+    slot.  Where R > ``ROW_COLS`` class 2 requests every column.
+    Returns (state, the staged fields, a function of fields that stages
+    them and returns the beat's kwargs and the install)."""
     from ray_tpu_torch.ops import hybrid_kernel as hk
     from ray_tpu_torch.scheduling.policy import BeatBlob
     rng = np.random.default_rng(seed)
     n_l = n // s
     totals, avail, mask, reqs, _, _ = _problem(seed, n, r, c)
+    edge = rng.random(n) < 0.02               # not class 1's column
+    totals[edge, r - 1] = (1 << 31) - 1
+    avail[edge, r - 1] = rng.integers(-(1 << 31), (1 << 31) - 1,
+                                      int(edge.sum()))
     reqs[c - 4:] = 0
     reqs[1] = 0
     reqs[1, 0] = (1 << 17) + 1               # an all-INF key row
+    if r > ROW_COLS:
+        reqs[2] = rng.integers(1, 3000, r)
 
     def rows(x):
         return [torch.as_tensor(np.ascontiguousarray(b), device="cuda")
@@ -326,67 +340,127 @@ def _beat_case(s, n, r, c, seed, dirty=12):
               * s}
     for _ in range(s):
         k = min(dirty, n_l)
+        idx = np.sort(rng.choice(n_l, k, replace=False))
         fields["idx"].append(np.concatenate(
-            [np.sort(rng.choice(n_l, k, replace=False)),
-             [n_l] * (b - k)]).astype(np.int32))
+            [idx, [n_l] * (b - k)]).astype(np.int32))
         fields["rows_totals"].append(
             rng.integers(0, 1 << 17, (b, r)).astype(np.int32))
         fields["rows_avail"].append(
             rng.integers(-(1 << 16), 1 << 17, (b, r)).astype(np.int32))
         fields["rows_mask"].append(rng.random(b) > 0.2)
-        fields["ov_idx"].append(np.array(
-            [*np.sort(rng.choice(n_l, 4, replace=False)), *[n_l] * 4],
-            np.int32))
+        clean = np.setdiff1d(np.arange(n_l), idx)
+        fields["ov_idx"].append(np.array(          # a dirty row, then clean
+            [idx[0], *np.sort(rng.choice(clean, 3, replace=False)),
+             *[n_l] * 4], np.int32))
         ov = rng.integers(-9000, 9000, (8, r)).astype(np.int32)
         ov[0] = -(1 << 17)
         fields["ov_avail"].append(ov)
-    blob = BeatBlob(fields)
-    dev = torch.as_tensor(blob.host.reshape(-1), device="cuda")
-    v = blob.views(list(dev.view(s, blob.words)))
-    kw = {"rows": (v["idx"], v["rows_totals"], v["rows_avail"],
-                   v["rows_mask"]),
-          "overrides": (v["ov_idx"], v["ov_avail"]),
-          "extra_mask": v["extra_mask"], "groups": (v["slots"], v["counts"])}
-    return st, kw, (v["cls_idx"], v["cls_reqs"])
+
+    def stage(f):
+        blob = BeatBlob(f)
+        dev = torch.as_tensor(blob.host.reshape(-1), device="cuda")
+        v = blob.views(list(dev.view(s, blob.words)))
+        kw = {"rows": (v["idx"], v["rows_totals"], v["rows_avail"],
+                       v["rows_mask"]),
+              "overrides": (v["ov_idx"], v["ov_avail"]),
+              "extra_mask": v["extra_mask"],
+              "groups": (v["slots"], v["counts"])}
+        return kw, (v["cls_idx"], v["cls_reqs"])
+    return st, fields, stage
 
 
-def _same_beat_state(a, b):
+def _same_beat_state(a, b, g=None):
+    """Every resident and beat buffer equal; the group buffers' first
+    ``g`` rows (the rest is never written)."""
     for name in ("totals", "avail", "mask", "keys", "reqs", "avail_eff",
                  "mask_eff", "group_counts", "group_reqs"):
         xs, ys = getattr(a, name), getattr(b, name)
         if xs is not None:
             for x, y in zip(xs, ys):
+                if name.startswith("group") and g is not None:
+                    x, y = x[:g], y[:g]
                 assert torch.equal(x, y), name
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _beat_rows_layout(call, s, n_l, r, c, kw):
+    """The grid beat_rows must report for a call."""
+    staged = r if r <= ROW_COLS else 0
+    if "groups" in kw or "rows" in kw:
+        b = kw["rows"][0][0].shape[0] if "rows" in kw else 0
+        tiles = _cdiv(n_l, EFF_ROWS) if "groups" in kw else 0
+        lanes = _cdiv(b, LANES)
+        return {"ctas": s * (1 + lanes + tiles), "threads": 256,
+                "tile_rows": EFF_ROWS, "class_block": 0,
+                "gather_ctas": s, "lane_ctas": s * lanes,
+                "tile_ctas": s * tiles, "staged_cols": staged,
+                "mode": "beat"}
+    n_cls = kw["classes"][0][0].shape[0] if "classes" in kw else c
+    block = KEY_CLS * keys_per_warp(s, n_l, n_cls, r)
+    ctas = s * _cdiv(n_l, KEY_ROWS) * _cdiv(n_cls, block)
+    return {"ctas": ctas, "threads": 256, "tile_rows": KEY_ROWS,
+            "class_block": block, "gather_ctas": 0, "lane_ctas": 0,
+            "tile_ctas": ctas, "staged_cols": staged, "mode": call}
 
 
 @pytest.mark.parametrize("s,n,r,c", [(1, 1024, 8, 64), (1, 8192, 64, 8),
                                      (2, 1024, 8, 64), (4, 1024, 8, 64),
-                                     (8, 1024, 8, 64)])
+                                     (8, 1024, 8, 64), (1, 8192, 16, 128),
+                                     (2, 8192, 16, 128), (4, 8192, 16, 128),
+                                     (8, 8192, 16, 128), (2, 8192, 128, 16),
+                                     (1, 1024, 8, 20), (4, 1024, 160, 12)])
 def test_beat_kernels_equal_plain(s, n, r, c):
-    """``beat_rows`` (the beat, a class install, a full rescore) and
-    ``beat_tail`` against their plain versions on the card, bit for bit:
-    the beat width (1000 -> 1024 x 8 x 64), the node limit with 64
-    resource kinds, and ranks of one card at S = 2 / 4 / 8.  The kernel
-    zeroes the shard_scan exchange areas; each call is one launch."""
+    """``beat_rows`` (a class install with a padding slot, a full rescore,
+    the beat, the beat under an all-false soft mask, a beat of G = 0 and
+    the dirty rows alone) and ``beat_tail`` against their plain versions
+    on the card, bit for bit: the beat width (1000 -> 1024 x 8 x 64), the
+    node limit with 64 resource kinds, the contract's 8192 x 16 x 128,
+    ranks of one card at S = 2 / 4 / 8, rows of exactly the columns staged
+    on chip (128), classes that are not a multiple of the class block, and
+    rows wider than the columns staged (a class requesting every one).
+    The kernel zeroes the shard_scan exchange areas; each call is one
+    launch, its grid as the layout rule says."""
     from ray_tpu_torch.ops import hybrid_kernel as hk
     from ray_tpu_torch.ops import shard_reduce as sr
     thr = SCALE // 2
-    st, kw, classes = _beat_case(s, n, r, c, seed=s * 7 + r)
+    st, fields, stage = _beat_case(s, n, r, c, seed=s * 7 + r)
+    kw, classes = stage(fields)
+    dark, _ = stage(dict(fields, extra_mask=[np.zeros_like(x) for x in
+                                             fields["extra_mask"]]))
+    no_groups, _ = stage(dict(fields, slots=[np.zeros(0, np.int32)] * s,
+                              counts=[np.zeros(0, np.int32)] * s))
     g = kw["groups"][0][0].shape[0]
-    for call in ({"classes": classes}, {"rescore": True}, kw):
+    n_l = n // s
+    calls = [("classes", {"classes": classes}), ("rescore", {"rescore": True}),
+             ("dark", dark), ("no_groups", no_groups),
+             ("rows", {"rows": kw["rows"]}), ("beat", kw)]
+    xchg = max(128, sr.shard_scan_plan(s, n_l, r, False,
+                                       st.totals[0].device)["exchange_ints"])
+    for name, call in calls:
         a, p = st.clone(), st.clone()
         if s > 1:
-            a.ensure_scan_buffers(g, 128)
+            a.ensure_scan_buffers(g, xchg)
             a.scan_out["xchg"].fill_(5)
         before = hk.beat_rows.launches
         hk.beat_rows(a, thr, **call)
-        assert hk.beat_rows.launches == before + 1
+        assert hk.beat_rows.launches == before + 1, name
         hk.beat_rows_plain(p, thr, **call)
         torch.cuda.synchronize()
-        _same_beat_state(a, p)
-        if s > 1 and call is kw:
+        _same_beat_state(a, p, call["groups"][0][0].shape[0]
+                         if "groups" in call else None)
+        assert hk.beat_rows.last_layout == _beat_rows_layout(
+            name if name in ("classes", "rescore") else "beat", s, n_l, r, c,
+            call), name
+        if s > 1 and "groups" in call:
             assert int(a.scan_out["xchg"].abs().sum()) == 0
+        if name == "dark":
+            assert int(a.mask_eff[0].sum()) == 0
     assert int(a.mask_eff[0].sum()) > 0
+    ov0 = kw["overrides"][0][0][0].item()      # an override on a dirty row
+    assert torch.equal(a.avail_eff[0][ov0], kw["overrides"][1][0][0])
     if s == 1:
         counts, av = hk.waterfill_scan(
             a.totals[0], a.avail_eff[0], a.mask_eff[0], a.group_reqs[0][:g],
@@ -403,6 +477,36 @@ def test_beat_kernels_equal_plain(s, n, r, c):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert int(got[1][1]) == 0 and int(got[0][:g, :n].sum()) > 0
     assert int((got[0][g:, :n] > 0).sum()) > 0
+
+
+def test_beat_rows_wrapper_checks_once_a_layout():
+    """A steady beat's ``beat_rows`` call on the card reuses its layout's
+    checked call (no checks, no table) and still launches once; a changed
+    shape, ranks not equally spaced and a CPU/CUDA mix raise
+    ``ValueError`` before any launch."""
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    st, fields, stage = _beat_case(4, 1024, 8, 64, seed=5)
+    kw, _ = stage(fields)
+    thr = SCALE // 2
+    hk.beat_rows(st, thr, **kw)
+    n_calls, builds = len(hk._ROW_CALLS), hk.rank_table.builds
+    call = hk.rows_call(st, thr, **kw)
+    before = hk.beat_rows.launches
+    for _ in range(3):
+        hk.beat_rows(st, thr, **kw)
+    assert hk.beat_rows.launches == before + 3
+    assert hk.rows_call(st, thr, **kw) is call
+    assert (len(hk._ROW_CALLS), hk.rank_table.builds) == (n_calls, builds)
+    rows = list(kw["rows"])
+    apart = torch.stack([rows[1][0]] * 8)       # ranks 0, 1, 3 and 6 of 8
+    bad = {"shape": [x[:8] for x in rows[1]],
+           "spacing": [apart[k] for k in (0, 1, 3, 6)],
+           "device": [*rows[1][:-1], rows[1][-1].cpu()]}
+    for what, xs in bad.items():
+        with pytest.raises(ValueError):
+            hk.beat_rows(st, thr, **dict(kw, rows=(rows[0], xs, *rows[2:])))
+    assert hk.beat_rows.launches == before + 3
+    torch.cuda.synchronize()
 
 
 def _tail_case(s, n, r, c, g, seed):
