@@ -15,6 +15,9 @@ phase prints one JSON line; any failure raises and exits non-zero.
 
 Phases:
   device          the card (nvidia-smi name and power limit), torch, CUDA
+  lint            ``python -m ray_tpu_torch lint --format=json`` (the
+                  port's rtlint; run beside the build): exit 0, findings
+                  by rule, baselined and new
   build           seconds to build the kernels, ptxas registers/spills,
                   and the SASS instructions that show the Hopper paths
                   (HGMMA and UTMALDG in every instantiation of flash
@@ -45,7 +48,14 @@ Phases:
                   tasks/s, launches, readbacks per beat, idle share; the
                   parent's route (the rest of the beat on the plain
                   versions) timed in the same call, then the kernels'
-                  again
+                  again; every host<->device sync of 10 steady beats (a
+                  child process's engine) put on a line of the package
+                  (torch's sync debug mode and the profiler's runtime
+                  calls) and held to rtlint's W6 (each a pragma'd or
+                  baselined site), syncs per steady beat; the beat with
+                  the parent's staging fence (an event wait every
+                  upload) timed against this one, 50 beats a block in
+                  the order parent, this, this, parent
   shard           the sharded paths on ranks of the card (``["cuda:0"]
                   * S``): ``make_delta_scheduler(crm, n_shards=S,
                   reduce_mode=mode, devices=...)`` for (2, flat), (4,
@@ -323,6 +333,40 @@ def phase_device():
           "cuda": torch.version.cuda,
           "capability": list(torch.cuda.get_device_capability(0))})
     return smi
+
+
+# -- phase: lint -------------------------------------------------------------
+
+def start_lint():
+    """``python -m ray_tpu_torch lint --format=json`` from the checkout,
+    in a subprocess: host work, run beside the kernels' build."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch", "lint", "--format=json"],
+        cwd=str(Path(__file__).resolve().parent), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def phase_lint(proc):
+    """The port's rtlint over the checkout: exit 0 (every finding
+    baselined), its findings by rule, baselined and new."""
+    out, err = proc.communicate(timeout=600)
+    report = json.loads(out) if out.strip() else {}
+    by_rule: dict[str, dict] = {}
+    for key in ("baselined", "new"):
+        for f in report.get(key, ()):
+            by_rule.setdefault(f["rule"], {"baselined": 0, "new": 0})
+            by_rule[f["rule"]][key] += 1
+    result = {"phase": "lint",
+              "command": "python -m ray_tpu_torch lint --format=json",
+              "rc": proc.returncode, "counts": report.get("counts"),
+              "by_rule": dict(sorted(by_rule.items()))}
+    emit(result)
+    if proc.returncode != 0:
+        new = [f"{f['path']}:{f['line']}: {f['rule']} {f['message']}"
+               for f in report.get("new", ())]
+        raise AssertionError(f"lint exited {proc.returncode}: "
+                             f"{new or err[-2000:]}")
+    return result
 
 
 # -- phase: build ------------------------------------------------------------
@@ -1036,20 +1080,22 @@ def timed_beats(beat, mutate, agrees, n_warm, n_timed, label):
             "timed_beats": n_timed, "bit_exact_beats": n_warm + n_timed}
 
 
-def phase_beat(dev, warmup=2, beats=50, churn=12, parent_beats=(2, 20)):
-    from ray_tpu_torch.common.resources import ResourceRequest
-    from ray_tpu_torch.ops import hybrid_kernel as hk
-    from ray_tpu_torch.scheduling import make_delta_scheduler
-    from ray_tpu_torch.scheduling.contract import (compute_budgets,
-                                                   threshold_fp)
+def parent_fence(slot):
+    """The parent's staging fence: a host wait on each of a slot's
+    events at every upload, done or not (``DeltaScheduler._wait_slot``
+    asks first)."""
+    for ev in slot.events:
+        ev.synchronize()
 
-    rng, crm, vecs, counts = build_cluster()
-    thr = threshold_fp(None)
+
+def churner(rng, crm, churn):
+    """bench.py's delta churn between beats: ``churn`` rows a call, each
+    a force_subtract of one CPU or the add_back of an earlier one."""
+    from ray_tpu_torch.common.resources import ResourceRequest
     churn_req = ResourceRequest({"CPU": 1})
     debts: list[int] = []
 
     def mutate():
-        # bench.py's delta churn: force_subtract / add_back
         for _ in range(churn):
             if debts and rng.random() < 0.5:
                 crm.add_back(debts.pop(), churn_req)
@@ -1057,6 +1103,90 @@ def phase_beat(dev, warmup=2, beats=50, churn=12, parent_beats=(2, 20)):
                 row = int(rng.integers(0, N_NODES))
                 crm.force_subtract(row, churn_req)
                 debts.append(row)
+
+    return mutate
+
+
+FENCE_BEATS = (2, 50)                # warm-up, timed
+
+
+def fence_p50(mutate, beat, beats):
+    """p50 ms of ``beats[1]`` beats after ``beats[0]`` warm-up ones, each
+    after ``mutate()`` (host clock around a beat, which ends in its
+    readback)."""
+    times = []
+    for i in range(sum(beats)):
+        mutate()
+        t0 = time.perf_counter()
+        beat()
+        if i >= beats[0]:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(times, 50))
+
+
+SYNC_BEATS = 10
+
+
+def steady_syncs_child(churn=12):
+    """Every host<->device sync of ``SYNC_BEATS`` steady delta beats of
+    the beat cell's engine (after 3 that place the mirror and its
+    classes), put on a line of the package and held to W6
+    (``card_syncs``); prints the report as JSON, and raises where a sync
+    is not sanctioned or W6 does not see it.  ``phase_beat`` runs it in
+    a process of its own, so the profiler session it needs (Python
+    stacks, sync debug mode) leaves the run's other sessions as they
+    were."""
+    from ray_tpu_torch.scheduling import make_delta_scheduler
+    from ray_tpu_torch.tools.rtlint import card_syncs
+
+    rng, crm, vecs, counts = build_cluster()
+    mutate = churner(rng, crm, churn)
+    eng = make_delta_scheduler(crm)
+
+    def step():
+        mutate()
+        eng.beat(vecs, counts)
+
+    for _ in range(3):
+        step()
+    before = (eng.stats["delta_beats"], eng.stats["classes_installed"],
+              eng.readbacks)
+    report = card_syncs.hold(card_syncs.observe(step, SYNC_BEATS))
+    after = (eng.stats["delta_beats"], eng.stats["classes_installed"],
+             eng.readbacks)
+    if (after[0] - before[0], after[1] - before[1]) != (SYNC_BEATS, 0):
+        raise AssertionError(f"the observed beats were not {SYNC_BEATS} "
+                             f"steady delta beats: {before} -> {after}")
+    report["readbacks_per_call"] = (after[2] - before[2]) / SYNC_BEATS
+    if not report["ok"]:
+        raise AssertionError("steady beats' syncs not held to W6: "
+                             + json.dumps(report))
+    emit(report)
+
+
+def steady_syncs_subprocess():
+    """``steady_syncs_child`` in a fresh process from the checkout; its
+    report, or an error with the child's last output."""
+    r = subprocess.run(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke.steady_syncs_child()"],
+        cwd=str(Path(__file__).resolve().parent), capture_output=True,
+        text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"steady beats' syncs (exit {r.returncode}): "
+                             f"{r.stdout[-3000:]} {r.stderr[-3000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def phase_beat(dev, warmup=2, beats=50, churn=12, parent_beats=(2, 20)):
+    from ray_tpu_torch.ops import hybrid_kernel as hk
+    from ray_tpu_torch.scheduling import make_delta_scheduler
+    from ray_tpu_torch.scheduling.contract import (compute_budgets,
+                                                   threshold_fp)
+
+    rng, crm, vecs, counts = build_cluster()
+    thr = threshold_fp(None)
+    mutate = churner(rng, crm, churn)
 
     def agrees(got):
         st = crm.snapshot()
@@ -1115,6 +1245,9 @@ def phase_beat(dev, warmup=2, beats=50, churn=12, parent_beats=(2, 20)):
         mutate()
         eng.beat(vecs, counts)
 
+    # every sync of the beat cell's steady beats held to W6, early in the
+    # run (PERF.md section 7), in a process of its own
+    syncs = steady_syncs_subprocess()
     trace = device_profile(step, 10)
     kpc = trace["kernels_per_call"]
     if kpc is None or kpc > 3:
@@ -1149,6 +1282,18 @@ def phase_beat(dev, warmup=2, beats=50, churn=12, parent_beats=(2, 20)):
     again = timed_beats(beat, mutate, agrees, *parent_beats,
                         "the kernels' route")
     atrace = device_profile(step, 10)
+    # the staging fence: the parent's wait on every upload against this
+    # tree's query-first wait, in the order parent, this, this, parent
+    # (timing only: a wait cannot change a beat's counts, which every
+    # beat above held to the host twin)
+    fence = {"parent": [], "this": []}
+    for who in ("parent", "this", "this", "parent"):
+        if who == "parent":
+            eng._wait_slot = parent_fence
+        try:
+            fence[who].append(fence_p50(mutate, beat, FENCE_BEATS))
+        finally:
+            eng.__dict__.pop("_wait_slot", None)
     for r, t in ((parent, ptrace), (again, atrace)):
         r.update({"kernels_per_beat": t["kernels_per_call"],
                   "idle_share": t["idle_share"],
@@ -1175,6 +1320,13 @@ def phase_beat(dev, warmup=2, beats=50, churn=12, parent_beats=(2, 20)):
               "beat_kernel_launches": beat_launches,
               "launches_per_delta_beat": {"beat_rows": 1, "beat_tail": 1},
               "readbacks_per_beat": readbacks / n_beats,
+              # W6 held against the card: every sync of steady beats on
+              # a sanctioned line (torch's sync debug mode, the profiler)
+              "syncs_per_steady_beat": syncs["syncs_per_call"],
+              "readbacks_per_steady_beat": syncs["readbacks_per_call"],
+              "steady_syncs": {k: syncs[k] for k in (
+                  "by_call", "by_site", "warned", "runtime_calls_seen")},
+              "fence_p50_ms": fence,
               "phases_ms_per_beat_profiled": {
                   k: v / n_prof for k, v in eng.phase_ms.items()},
               "device_profile": trace, "stats": eng.stats,
@@ -5118,7 +5270,14 @@ def main() -> int:
         return out
 
     smi = timed("device", phase_device)
-    timed("build", phase_build)
+    lint = start_lint()
+    try:
+        timed("build", phase_build)
+    except BaseException:
+        lint.kill()
+        lint.wait()
+        raise
+    timed("lint", phase_lint, lint)
     wf = timed("waterfill", phase_waterfill, dev)
     beat = timed("beat", phase_beat, dev)
     # the sharded beats right after the single-device one: late in a run,

@@ -30,6 +30,7 @@ installed, zero (``track`` only records the class in a registry).
 
 from __future__ import annotations
 
+import itertools
 import threading
 
 _registry: list[tuple[type, tuple[str, ...]]] = []
@@ -37,6 +38,7 @@ _originals: dict[type, tuple] = {}
 _installed = False
 _state_lock = threading.Lock()
 _tls = threading.local()
+_thread_ids = itertools.count(1)
 
 # born instances: sampled only after __init__ returned.  Keyed by id()
 # (some tracked classes may not be weakref-able); entries are dropped
@@ -48,6 +50,17 @@ _born: set[int] = set()
 _access: dict[tuple[int, str], dict] = {}
 _violations: list[str] = []
 _violated: set[tuple[str, str]] = set()     # (cls_name, attr) dedup
+
+
+def _thread_id() -> int:
+    """The current thread's id for the recorder.  Unlike
+    ``threading.get_ident()`` it is never handed to a later thread: an
+    ident is recycled once its thread exits, so two threads that ran one
+    after the other would count as one writer."""
+    tid = getattr(_tls, "tid", None)
+    if tid is None:
+        tid = _tls.tid = next(_thread_ids)
+    return tid
 
 
 def _held() -> dict:
@@ -120,7 +133,7 @@ def _is_lockish(v) -> bool:
 def _sample_write(obj, attr) -> None:
     key = (id(obj), attr)
     held = frozenset(_held())
-    tid = threading.get_ident()
+    tid = _thread_id()
     cls_name = type(obj).__name__
     with _state_lock:
         st = _access.get(key)

@@ -235,4 +235,5 @@ def plan_fanout_np(member, bw, root: int, fanout: int, inflight_kb=None,
 
     parent, order = plan_fanout(put(member, bool), put(bw, np.int32),
                                 int(root), int(fanout), put(infl, np.int32))
-    return parent.cpu().numpy(), order.cpu().numpy()
+    # the host wrapper's result: its one deliberate readback
+    return parent.cpu().numpy(), order.cpu().numpy()  # rtlint: disable=W6

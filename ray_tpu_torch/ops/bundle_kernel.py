@@ -199,8 +199,12 @@ def schedule_bundle_groups_plain(totals, avail, node_mask, bundle_reqs,
     device; ``bundle_valid`` and ``strategies`` are read on the host."""
     dev = totals.device
     p_n, b_n = bundle_reqs.shape[:2]
-    strat = torch.as_tensor(strategies).reshape(-1).tolist()
-    valid = torch.as_tensor(bundle_valid).reshape(p_n, b_n).cpu().numpy()
+    # the plain version's loop bounds, read on the host (off the main
+    # path: the kernel takes them as host arrays)
+    strat = torch.as_tensor(strategies).reshape(-1)
+    strat = strat.tolist()  # rtlint: disable=W6
+    valid = torch.as_tensor(bundle_valid).reshape(p_n, b_n)
+    valid = valid.cpu().numpy()  # rtlint: disable=W6
     rows = torch.full((p_n, b_n), -1, dtype=_I32, device=dev)
     oks = []
     for p in range(p_n):
@@ -243,7 +247,9 @@ def schedule_bundle_groups_np(totals, avail, node_mask, bundle_reqs,
         put(totals, np.int32), put(avail, np.int32), put(node_mask, bool),
         put(bundle_reqs, np.int32), np.asarray(bundle_valid, bool), strat,
         int(thr_fp))
-    return rows.cpu().numpy(), ok.cpu().numpy(), new_avail.cpu().numpy()
+    # the host wrapper's result: its one deliberate readback
+    return (rows.cpu().numpy(), ok.cpu().numpy(),  # rtlint: disable=W6
+            new_avail.cpu().numpy())  # rtlint: disable=W6
 
 
 def schedule_bundle_groups_oracle(totals, avail, node_mask, bundle_reqs,

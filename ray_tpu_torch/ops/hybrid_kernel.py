@@ -1135,7 +1135,8 @@ def schedule_grouped_np(totals, avail, node_mask, group_reqs, group_counts,
         put(totals, np.int32), put(avail, np.int32), put(node_mask, bool),
         put(group_reqs, np.int32), put(group_counts, np.int32),
         put(group_masks, bool), int(thr_fp))
-    return counts.cpu().numpy(), new_avail.cpu().numpy()
+    # the host wrapper's result: its one deliberate readback
+    return counts.cpu().numpy(), new_avail.cpu().numpy()  # rtlint: disable=W6
 
 
 def schedule_grouped_sharded_np(totals, avail, node_mask, group_reqs,

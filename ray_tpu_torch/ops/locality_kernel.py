@@ -92,7 +92,8 @@ def schedule_grouped_localized_np(totals, avail, node_mask, group_reqs,
         put(group_reqs, np.int32), put(group_counts, np.int32),
         put(group_masks, bool), put(pref_rows, np.int32), int(thr_fp),
         None if extra_mask is None else put(extra_mask, bool))
-    return counts.cpu().numpy(), new_avail.cpu().numpy()
+    # the host wrapper's result: its one deliberate readback
+    return counts.cpu().numpy(), new_avail.cpu().numpy()  # rtlint: disable=W6
 
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -318,7 +319,8 @@ def schedule_grouped_topk_np(totals, avail, node_mask, group_reqs,
         max(int(frac.denominator), 1),
         put(topk_draws(seed, round_index, g), np.int64),
         None if extra_mask is None else put(extra_mask, bool))
-    return counts.cpu().numpy(), new_avail.cpu().numpy()
+    # the host wrapper's result: its one deliberate readback
+    return counts.cpu().numpy(), new_avail.cpu().numpy()  # rtlint: disable=W6
 
 
 def _sharded_call(fn, pl, pad, args, n):
@@ -329,8 +331,10 @@ def _sharded_call(fn, pl, pad, args, n):
     their node axes padded by ``pad`` mask-False rows; the padding is
     cut from the host results."""
     (counts,), new_avail = pl.call_gathered(fn, *args)
-    counts = counts.cpu().numpy()
-    new_avail = np.concatenate([a.cpu().numpy() for a in new_avail])
+    # the host wrappers' results: their deliberate readbacks
+    counts = counts.cpu().numpy()  # rtlint: disable=W6
+    new_avail = np.concatenate(
+        [a.cpu().numpy() for a in new_avail])  # rtlint: disable=W6
     if pad:
         counts = np.concatenate([counts[:, :n], counts[:, -1:]], axis=1)
         new_avail = new_avail[:n]

@@ -206,4 +206,5 @@ def choose_sources_np(loc, bw, dest, sizes_kb, inflight_kb=None,
     src, cost = choose_sources(put(loc, bool), put(bw, np.int32),
                                put(dest, np.int32), put(sizes_kb, np.int32),
                                put(infl, np.int32))
-    return src.cpu().numpy(), cost.cpu().numpy()
+    # the host wrapper's result: its one deliberate readback
+    return src.cpu().numpy(), cost.cpu().numpy()  # rtlint: disable=W6

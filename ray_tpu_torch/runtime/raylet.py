@@ -728,7 +728,10 @@ class Raylet:
                         schedule_grouped_localized
                     counts_dev, _ = schedule_grouped_localized(
                         *args, put(pref_arr, np.int32), threshold_fp(None))
-                counts_host = counts_dev[:G].cpu().numpy()
+                # the round's one readback (snapshot and locality
+                # rounds; delta rounds read back in the beat)
+                counts_dev = counts_dev[:G]
+                counts_host = counts_dev.cpu().numpy()  # rtlint: disable=W6
         # expand (G, N+1) counts into per-task rows, class-internal order
         # node-row-ascending (tasks within a class are interchangeable)
         slots = [np.repeat(

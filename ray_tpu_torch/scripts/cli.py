@@ -703,12 +703,20 @@ def cmd_hunt(args) -> int:
 
 
 def cmd_lint(args) -> int:
-    """Not ported: exits non-zero and names the ROADMAP entry that says
-    why."""
-    print("ray_tpu_torch lint: not ported: ROADMAP.md, section A, \"Not "
-          "to port\" (rtlint's rules are scoped to the JAX package's "
-          "paths)", file=sys.stderr)
-    return 2
+    """Run rtlint (``ray_tpu_torch/tools/rtlint``) — the project-native
+    concurrency & invariant analyzer — over the package.  Exit 0 when
+    every finding is baselined; non-zero otherwise, so it can gate PRs."""
+    from ..tools.rtlint.__main__ import main as rtlint_main
+    forward = []
+    if args.format != "text":
+        forward.append(f"--format={args.format}")
+    if args.update_baseline:
+        forward.append("--update-baseline")
+    if args.no_baseline:
+        forward.append("--no-baseline")
+    if args.rules:
+        forward.append(f"--rules={args.rules}")
+    return rtlint_main(forward)
 
 
 def cmd_microbenchmark(args) -> int:
@@ -1008,8 +1016,9 @@ def build_parser() -> argparse.ArgumentParser:
         "lint",
         help="concurrency & invariant analyzer (rtlint): blocking-"
              "under-lock, lock-order cycles, config-knob discipline, "
-             "thread lifecycle, lockset races, replay determinism; "
-             "non-zero exit on non-baselined findings")
+             "thread lifecycle, clock seams, host<->device syncs, "
+             "lockset races, replay determinism; non-zero exit on "
+             "non-baselined findings")
     plint.add_argument("--format", choices=("text", "json", "sarif"),
                        default="text")
     plint.add_argument("--rules", default=None,
@@ -1017,7 +1026,7 @@ def build_parser() -> argparse.ArgumentParser:
                             "W1,W2,W3,W4,W5,W6,W7,W8")
     plint.add_argument("--update-baseline", action="store_true",
                        help="accept current findings into "
-                            "tools/rtlint/baseline.json")
+                            "ray_tpu_torch/tools/rtlint/baseline.json")
     plint.add_argument("--no-baseline", action="store_true",
                        help="report every finding, ignore the baseline")
     plint.set_defaults(fn=cmd_lint)

@@ -634,6 +634,52 @@ def test_delta_beat_is_three_kernels_and_no_transport_call(shards):
         assert st["beat_tail_launches"] == 8
 
 
+@pytest.mark.parametrize("shards", [1, 4])
+def test_steady_beat_syncs_fall_on_w6_sanctioned_lines(shards):
+    """The host<->device syncs of a few steady delta beats at a small
+    width, each put on a line of the package as ``chip_smoke.py``'s beat
+    phase does (``tools/rtlint/card_syncs.py``): every one falls on a
+    W6-sanctioned site, and the only one is the beat's readback."""
+    from ray_tpu_torch.common.ids import NodeID
+    from ray_tpu_torch.common.resources import NodeResources, ResourceRequest
+    from ray_tpu_torch.scheduling import (ClusterResourceManager,
+                                          DeltaScheduler,
+                                          ShardedDeltaScheduler)
+    from ray_tpu_torch.tools.rtlint import card_syncs
+    rng = np.random.default_rng(40 + shards)
+    crm = ClusterResourceManager(capacity=256)
+    for _ in range(200):
+        crm.add_node(NodeID.from_random(), NodeResources(
+            {"CPU": int(rng.integers(4, 64)),
+             "memory": int(rng.integers(8, 256))}))
+    vecs = np.stack([crm.intern_request(ResourceRequest(
+        {"CPU": int(rng.integers(1, 4)),
+         "memory": float(rng.integers(0, 8))})) for _ in range(16)])
+    counts = rng.multinomial(50_000, np.full(16, 1 / 16)).astype(np.int32)
+    eng = DeltaScheduler(crm) if shards == 1 else ShardedDeltaScheduler(
+        crm, shards, "flat", devices=["cuda:0"] * shards)
+
+    def step():
+        for _ in range(6):
+            crm.force_subtract(int(rng.integers(0, 200)),
+                               ResourceRequest({"CPU": 1}))
+        eng.beat(vecs, counts)
+
+    for _ in range(3):                  # the full sync and installs first
+        step()
+    delta, installed = eng.stats["delta_beats"], \
+        eng.stats["classes_installed"]
+    sites = card_syncs.w6_sites()
+    rep = card_syncs.hold(card_syncs.observe(step, 4), sites)
+    assert rep["ok"], rep
+    assert (eng.stats["delta_beats"] - delta,
+            eng.stats["classes_installed"] - installed) == (4, 0)
+    (d2h,) = [s for s in sites if s["symbol"] == "DeltaScheduler._d2h"]
+    assert rep["by_site"] == {f"{d2h['path']}:{d2h['line']}":
+                              {"count": 4, "how": "pragma"}}, rep
+    assert rep["syncs_per_call"] == 1.0, rep
+
+
 @pytest.mark.parametrize("s,mode", [(2, "flat"), (4, "two_level")])
 def test_shard_plane_programs_on_one_card_equal_cpu_ranks(s, mode):
     """``ShardPlane``'s programs on ranks of one card (the beat kernels,

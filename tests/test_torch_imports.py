@@ -205,3 +205,48 @@ def test_training_modules_import_no_torch_until_used():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr[-2000:]
+
+
+# the port's rtlint (the analyzer behind ``python -m ray_tpu_torch lint``)
+RTLINT_FILES = sorted((PORT / "tools").rglob("*.py"))
+
+
+def test_rtlint_files_are_walked():
+    names = {str(p.relative_to(PORT)) for p in RTLINT_FILES}
+    for must in ("tools/__init__.py", "tools/rtlint/analyzer.py",
+                 "tools/rtlint/rules_device.py", "tools/rtlint/scopes.py",
+                 "tools/rtlint/card_syncs.py"):
+        assert must in names, must
+        assert PORT / must in FILES
+
+
+@pytest.mark.parametrize("path", RTLINT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_rtlint_imports_neither_tools_nor_the_reference(path):
+    """Nothing under ``ray_tpu_torch/tools/`` imports ``tools`` (the
+    reference's rtlint), ``ray_tpu`` or JAX: the port keeps its own
+    copy."""
+    bad = [f"{path.name}:{lineno}: import {absolute}"
+           for lineno, absolute, _level, _mod, _names in _imports(path)
+           if absolute is not None and absolute.split(".")[0] in
+           ("tools", "ray_tpu", "jax", "jaxlib")]
+    assert not bad, bad
+
+
+def test_rtlint_loads_no_torch_jax_or_reference():
+    """Importing the port's rtlint (its CLI, every rule, the card's sync
+    attribution) loads no torch, no JAX, no ``tools`` and nothing of the
+    JAX package: ``lint`` is host work."""
+    import subprocess
+    import sys
+    mods = [f"ray_tpu_torch.{str(p.relative_to(PORT))[:-3]}"
+            .replace("/", ".").replace(".__init__", "")
+            for p in RTLINT_FILES]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'ray_tpu', 'tools', 'torch'))\n"
+            "print(bad)\nassert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr[-2000:]

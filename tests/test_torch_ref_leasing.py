@@ -32,6 +32,15 @@ from torch_ref_fixtures import _port_device_module, _port_state  # noqa: F401
 #   for the module before any module-scoped fixture starts a runtime:
 #   the port's device programs run on the GPU unless asked for the CPU
 #   (subprocesses inherit the variable).
+# - ``JOB_SCRIPT``'s tasks sleep 1.0 s, not 0.5 s.  The live promotion
+#   test kills the head 2.5 s after the first task starts and asserts
+#   the job is still running.  Eight tasks of 0.5 s on two one-worker
+#   agents can end 2.0 s after the first starts, and they do whenever
+#   the head places them evenly (4/4).  The reference's head is still
+#   running then only because its first placement round is slow (a jit
+#   compile), which leaves a 6/2 split.  At 1.0 s any split runs at
+#   least 4.0 s, so the kill lands mid-job whatever the rounds are; the
+#   2.5 s wait and every assertion are the reference's.
 
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -265,7 +274,7 @@ ray_tpu_torch.init(address="auto")
 def work(i):
     with open({start!r}, "w") as f:   # signals "mid-job" to the test
         f.write("x")
-    time.sleep(0.5)
+    time.sleep(1.0)
     return i * 2
 
 out = sorted(ray_tpu_torch.get([work.remote(i) for i in range(8)],
