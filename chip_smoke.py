@@ -4602,6 +4602,7 @@ SHARD_BEATS = ((2, "flat"), (4, "two_level"), (8, "flat"))
 # the kernels'
 SHARD_PLAIN_BEATS = (2, 8)
 SHARD_WRAPPER_RANKS = 4
+SHARD_WRAPPER_CALLS = 10                # a wrapper's ms: the median of these
 # shard_scan's global route: the contract's 8192 x 16 x 128 on 4 ranks of
 # the card (32 CTAs: past one thread-block cluster)
 SCAN_GLOBAL_RANKS = 4
@@ -4963,13 +4964,27 @@ def autoscale_work(problem, fit_counts):
     return scan_b + loop_b, scan_o + loop_o
 
 
+def host_ms(fn, n=SHARD_WRAPPER_CALLS):
+    """Median host ms of ``n`` synchronised calls of ``fn``."""
+    import torch
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
 def shard_wrappers(dev, ranks):
     """The four ``*_sharded_np`` wrappers at the beat width on ``ranks``,
-    each equal to the single-device call bit for bit; ms (host clock
-    around a synchronised call), kernel launches a call, and the bound
-    of the single-device function's work at these inputs."""
-    import torch
-
+    each equal to the single-device call bit for bit; ms (the median of
+    ``SHARD_WRAPPER_CALLS`` synchronised calls, host clock) beside the
+    single-device call's, in this process; kernel launches a call, each
+    wrapper's held to its route (the plain wrapper's one ``shard_scan``,
+    the host wrappers' single-device kernels on the first rank), and the
+    bound of the single-device function's work at these inputs."""
     from ray_tpu_torch.ops import binpack_kernel as bk
     from ray_tpu_torch.ops import hybrid_kernel as hk
     from ray_tpu_torch.ops import locality_kernel as lk
@@ -5016,6 +5031,12 @@ def shard_wrappers(dev, ranks):
             lambda: bk.autoscale_sharded_np(*auto, n_shards=s,
                                             devices=ranks)),
     }
+    # launches the sharded call must make: (shard_scan, waterfill_scan,
+    # binpack_launch_loop, schedule_grouped_topk)
+    expect = {"schedule_grouped_sharded_np": (1, 0, 0, 0),
+              "schedule_grouped_localized_sharded_np": (0, 1, 0, 0),
+              "schedule_grouped_topk_sharded_np": (0, 0, 0, 1),
+              "autoscale_sharded_np": (0, 1, 1, 0)}
     out = {}
     for name, (single, sharded) in cases.items():
         want = single()
@@ -5033,10 +5054,13 @@ def shard_wrappers(dev, ranks):
                 not all(np.array_equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"{name} on {s} ranks disagrees with the "
                                  "single-device call")
+        if (ss, wf, bp, tk) != expect[name]:
+            raise AssertionError(
+                f"{name}: {ss} shard_scan, {wf} waterfill_scan, {bp} "
+                f"binpack_launch_loop and {tk} schedule_grouped_topk "
+                f"launches, not {expect[name]}")
         check = None
         if name == "schedule_grouped_sharded_np":
-            if ss != 1:
-                raise AssertionError(f"{name}: {ss} shard_scan launches")
             # the kernel against the plain version on this call's scan
             # inputs (the group masks' column blocks among them)
             plane = sr.gspmd_plane(s, "auto", ranks)
@@ -5052,19 +5076,13 @@ def shard_wrappers(dev, ranks):
             finally:
                 del plane._scan
             check = scan_kernel_vs_plain(plane, captured["args"])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sharded()
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        single()
-        torch.cuda.synchronize()
-        single_ms = (time.perf_counter() - t0) * 1e3
+        ms = host_ms(sharded)
+        single_ms = host_ms(single)
         if name == "autoscale_sharded_np":
             work[name] = autoscale_work(auto, want[1])
         bound_ms, bound_by = bound(*work[name], PEAK_I32)
         out[name] = {"ms": ms, "single_device_ms": single_ms,
+                     "calls_timed": SHARD_WRAPPER_CALLS,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "kernels_per_call": kernel_launches(sharded),
                      "waterfill_scan_launches": wf,

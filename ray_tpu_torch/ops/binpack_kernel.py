@@ -233,7 +233,8 @@ def autoscale_sharded_np(totals, avail, node_mask, demand_reqs,
     cards).  ``autoscale`` runs on the first rank over every row (on a
     card: the first-fit water-fill and ``binpack_launch_loop``), and
     new_avail goes back to the ranks; the launch loop's (K, R) state is
-    tiny and stays there.  A shard-local first-fit pass is later work.
+    tiny and stays there (``ShardPlane.call_gathered`` says why the
+    host wrappers gather).
     Bit-identical to the single-device call."""
     from .shard_reduce import gspmd_plane, pad_node_rows
     if (np.asarray(type_caps) > MAX_TOTAL_CU).any():

@@ -362,8 +362,11 @@ def schedule_grouped_localized_sharded_np(totals, avail, node_mask,
     """Row-sharded twin of ``schedule_grouped_localized_np`` (node rows
     over the ranks of ``ops.shard_reduce``).  The single-device
     function runs on the first rank over every row, and new_avail goes
-    back to the ranks; a shard-local localized water-fill is later
-    work.  Bit-identical."""
+    back to the ranks (``ShardPlane.call_gathered``, whose docstring
+    says why these host wrappers gather).  Bit-identical to the
+    reference's sharded wrapper: rows pad before the call and
+    ``pref_rows`` do not, so a row past N clips to a mask-False padded
+    row."""
     from ..scheduling.contract import threshold_fp
     from .shard_reduce import gspmd_plane, pad_node_rows
     if thr_fp is None:
@@ -393,8 +396,8 @@ def schedule_grouped_topk_sharded_np(totals, avail, node_mask, group_reqs,
                                      reduce_mode: str = "auto",
                                      devices=None):
     """Row-sharded twin of ``schedule_grouped_topk_np`` (the same
-    first-rank route and padding as the localized variant; a shard-local
-    top-k is later work).  Bit-identical."""
+    first-rank route and padding as the localized variant).
+    Bit-identical."""
     from fractions import Fraction
 
     from ..scheduling.contract import threshold_fp

@@ -794,9 +794,17 @@ class ShardPlane:
         rank's rows, the way GSPMD runs an op it cannot partition: each
         ``(host, dtype)`` argument is uploaded whole to the first rank
         (other arguments pass as they are), and ``fn``'s last output,
-        new_avail, is split back to the ranks by rows.  A shard-local
-        version is later work.  Returns (outputs but the last, new_avail
-        blocks per rank)."""
+        new_avail, is split back to the ranks by rows.  The localized,
+        top-k and autoscale host wrappers take it: their rows arrive as
+        host arrays and leave as host arrays, so placing them on the
+        ranks moves the same bytes to the cards as this upload does, and
+        the reference's saving (rows that stay sharded on the devices
+        are never all-gathered) does not arise.  On ranks of one card
+        the single-device kernel beats a shard-local scan's per-rank
+        staging, and on distinct cards it beats the plain scan's
+        per-class collectives.  A shard-local form waits for a caller
+        that keeps node rows on the ranks.  Returns (outputs but the
+        last, new_avail blocks per rank)."""
         home = self.ranks[0]
 
         def put(a):
